@@ -1,0 +1,115 @@
+"""Registry and shared helpers (counterpart of `cflearn_tpu/modules/common.py`).
+
+A minimal copy: a name -> class registry with prefixed views, and
+`zero_module`.
+"""
+
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+module_registry: Dict[str, type] = {}
+
+
+def register_module(name: str, *, allow_duplicate: bool = False) -> Callable[[type], type]:
+    def wrap(cls: type) -> type:
+        if name in module_registry and not allow_duplicate and module_registry[name] is not cls:
+            raise ValueError(f"module '{name}' is already registered")
+        module_registry[name] = cls
+        return cls
+
+    return wrap
+
+
+class PrefixModules:
+    """Namespaced registry view."""
+
+    def __init__(self, prefix: str) -> None:
+        self._prefix = prefix
+
+    @property
+    def all(self) -> List[str]:
+        prefix = f"{self._prefix}."
+        return [k[len(prefix):] for k in module_registry if k.startswith(prefix)]
+
+    def has(self, name: str) -> bool:
+        return f"{self._prefix}.{name}" in module_registry
+
+    def register(self, name: str, **kwargs: Any) -> Callable[[type], type]:
+        return register_module(f"{self._prefix}.{name}", **kwargs)
+
+    def get(self, name: str) -> Optional[type]:
+        return module_registry.get(f"{self._prefix}.{name}")
+
+    def build(self, name: str, *args: Any, **kwargs: Any) -> nn.Module:
+        cls = self.get(name)
+        if cls is None:
+            raise ValueError(f"'{name}' is not registered under '{self._prefix}' (available: {self.all})")
+        return cls(*args, **kwargs)
+
+
+def zero_module(module: nn.Module) -> nn.Module:
+    """Zero all parameters of a module (diffusion output layers). The module
+    is marked, so that `init_parameters` zeroes it again after a fresh draw."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.zero_()
+    module.zero_init = True
+    return module
+
+
+def cast_parameters(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast floating parameters only; buffers (the f32 noise schedule) keep
+    their dtype, as the JAX package casts `nnx.Param`s only."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return module
+
+
+def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init of every parameter, drawn on the parameter's own
+    device by one explicit `torch.Generator`, in `named_parameters` order:
+    weights of rank >= 2 ~ N(0, 1 / fan_in), 1-D norm scales = 1, other 1-D
+    tensors (biases) = 0, embeddings ~ N(0, 0.02^2) and the positional table
+    ~ N(0, 0.01^2). Modules marked by `zero_module` are zeroed."""
+    params = list(module.named_parameters())
+    device = params[0][1].device if params else torch.device("cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in params:
+            leaf = name.rsplit(".", 1)[-1]
+            if p.ndim >= 2:
+                std = 0.01 if leaf == "positional_embedding" else (
+                    0.02 if "embedding" in name else p[0].numel() ** -0.5
+                )
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * std)
+            elif leaf == "weight":
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        for m in module.modules():
+            if getattr(m, "zero_init", False):
+                for p in m.parameters():
+                    p.zero_()
+    return module
+
+
+def redraw_zero_init(module: nn.Module, seed: int, scale: float = 0.1) -> int:
+    """Give the modules marked by `zero_module` small seeded weights, N(0,
+    scale^2 / fan_in) (1-D tensors N(0, scale^2)), so that a randomly
+    initialised diffusion model's conditioning reaches its output. Returns
+    the number of modules redrawn."""
+    params = list(module.parameters())
+    device = params[0].device if params else torch.device("cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = 0
+    with torch.no_grad():
+        for m in module.modules():
+            if getattr(m, "zero_init", False):
+                for p in m.parameters():
+                    std = scale * (p[0].numel() ** -0.5 if p.ndim > 1 else 1.0)
+                    p.copy_((torch.randn(p.shape, generator=gen, device=device) * std).to(p.dtype))
+                n += 1
+    return n

@@ -1,0 +1,89 @@
+"""The SD UNet's transformer stack (counterpart of the plain branch of
+`cflearn_tpu/modules/core/mixed_stacks.py`: no hooks, ToMe ratio 0)."""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ...ops.group_norm import gn_call
+from ..layers import Conv, GroupNorm, LayerNorm, Linear
+from .activations import GEGLU
+from .attentions import CrossAttention
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (the `activation="geglu"` branch)."""
+
+    def __init__(self, in_dim: int, latent_dim: int) -> None:
+        super().__init__()
+        self.net1 = GEGLU(in_dim=in_dim, out_dim=latent_dim)
+        self.linear2 = Linear(latent_dim, in_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(self.net1(x))
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attn -> cross-attn -> GEGLU FF, all pre-norm residual. The
+    LayerNorms keep flax's default epsilon 1e-6."""
+
+    def __init__(self, query_dim: int, num_heads: int, head_dim: int, *, context_dim: Optional[int] = None) -> None:
+        super().__init__()
+        self.norm1 = LayerNorm(query_dim)
+        self.attn1 = CrossAttention(query_dim=query_dim, heads=num_heads, dim_head=head_dim)
+        self.norm2 = LayerNorm(query_dim)
+        self.attn2 = CrossAttention(
+            query_dim=query_dim, context_dim=context_dim, heads=num_heads, dim_head=head_dim
+        )
+        self.norm3 = LayerNorm(query_dim)
+        self.ff = FeedForward(query_dim, query_dim * 4)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context=context)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """GroupNorm -> proj-in -> transformer blocks -> proj-out + skip."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        num_heads: int,
+        head_dim: int,
+        *,
+        num_layers: int = 1,
+        context_dim: Optional[int] = None,
+        use_linear: bool = False,
+    ) -> None:
+        super().__init__()
+        inner_dim = num_heads * head_dim
+        self.norm = GroupNorm(in_channels, num_groups=32, eps=1e-6)
+        self.use_linear = use_linear
+        if use_linear:
+            self.proj_in = Linear(in_channels, inner_dim)
+            self.proj_out = Linear(inner_dim, in_channels)
+        else:
+            self.proj_in = Conv(in_channels, inner_dim, (1, 1))
+            self.proj_out = Conv(inner_dim, in_channels, (1, 1))
+        self.blocks = nn.ModuleList(
+            BasicTransformerBlock(inner_dim, num_heads, head_dim, context_dim=context_dim)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, h, w, c = x.shape
+        net = gn_call(self.norm, x)
+        if self.use_linear:
+            net = self.proj_in(net.reshape(b, h * w, c))
+        else:
+            net = self.proj_in(net).reshape(b, h * w, -1)
+        for block in self.blocks:
+            net = block(net, context=context)
+        if self.use_linear:
+            net = self.proj_out(net).reshape(b, h, w, c)
+        else:
+            net = self.proj_out(net.reshape(b, h, w, -1))
+        return x + net

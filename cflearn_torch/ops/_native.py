@@ -1,0 +1,124 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source under `cflearn_torch/csrc/` is compiled by `nvcc` for `sm_90a`
+into a shared library with a plain C interface and loaded with `ctypes`.
+Libraries are built at first use into `cflearn_torch/_build/` (ignored by
+git), named by a hash of the sources and flags so that an edited source is
+rebuilt. `build()` starts one `nvcc` per source, all at once.
+
+Nothing here runs at import: the CPU tests import every module, and there is
+no `nvcc` there.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = {"flash_attention": "flash_attention.cu", "conv3x3": "conv3x3.cu"}
+_HEADERS = ("mma_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "flash_attention": (
+        "cflearn_flash_attention_fwd",
+        [_I, _P, _P, _P, _P] + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P],
+    ),
+    "conv3x3": ("cflearn_conv3x3_fwd", [_I, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for fname in (SOURCES[name],) + _HEADERS:
+        h.update((CSRC / fname).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named kernels (default: all) that are not built yet, one
+    `nvcc` process per source, all started together. Returns the seconds
+    each build took (0.0 for a library already on disk)."""
+    names = list(names or SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    seconds: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            out,
+        )
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log[-4000:]}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def library(name: str):
+    """The C entry point of kernel `name`, built on first use, with its
+    argument types declared."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+    symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

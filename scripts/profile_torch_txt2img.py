@@ -1,0 +1,109 @@
+"""Where the time of the port's SD-1.5 txt2img goes on one CUDA card.
+
+    python scripts/profile_torch_txt2img.py [--steps 5] [--out chiprun_out/profile_torch_txt2img.json]
+
+Builds full-width SD-1.5 v1 in bf16 from seeded random weights, runs one
+warm-up txt2img at 512px (batch 1, CFG batch 2), then one txt2img under
+`torch.profiler`. Prints the wall time, the summed device time of all
+kernels and the device's idle share over the wall, the device time by
+kernel group and the top kernels. Writes the same as JSON to `--out`.
+Imports no JAX.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+GROUPS = [
+    ("flash_attention (port kernel)", ("flash_fwd_kernel",)),
+    ("conv3x3 (port kernel)", ("conv3x3_kernel",)),
+    ("cuDNN / library conv", ("conv", "implicit_gemm", "xmma_fprop", "fprop")),
+    ("GEMM (Linear)", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
+    ("library attention (SDPA)", ("fmha", "flash", "attention", "efficient")),
+    ("reductions (norm statistics)", ("reduce", "norm")),
+    ("elementwise / copies", ("elementwise", "vectorized", "copy", "cat", "index", "fill")),
+]
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "other"
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile_torch_txt2img.json"))
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import cflearn_torch
+    from cflearn_torch.modules.common import redraw_zero_init
+
+    model = cflearn_torch.build_sd("v1", device="cuda", dtype=torch.bfloat16, seed=0)
+    redraw_zero_init(model, seed=1)
+    tokens = np.random.RandomState(0).randint(0, 49000, (1, 77))
+    uncond = np.zeros((1, 77), dtype=np.int64)
+    z = torch.randn((1, 64, 64, 4), generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+    def run():
+        out = cflearn_torch.txt2img(model, tokens, uncond, num_steps=args.steps, guidance_scale=7.5, z=z)
+        torch.cuda.synchronize()
+        return out
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0.0) or 0.0
+        if dev_us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = (dev_us / 1e3, evt.count)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    groups = {}
+    for name, (ms, count) in kernels.items():
+        g = groups.setdefault(group_of(name), [0.0, 0])
+        g[0] += ms
+        g[1] += count
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    report = {
+        "device": torch.cuda.get_device_name(0),
+        "steps": args.steps,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "kernel_launches": sum(c for _, c in kernels.values()),
+        "groups": {k: {"ms": v[0], "launches": v[1]} for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])},
+        "top": [{"name": n[:160], "ms": ms, "launches": c} for n, (ms, c) in top],
+    }
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share {report['device_idle_share']:.3f}, "
+          f"{report['kernel_launches']} kernel launches ({args.steps} steps)")
+    for k, v in report["groups"].items():
+        print(f"  {k:32s} {v['ms']:9.2f} ms  {v['launches']:6d} launches")
+    for row in report["top"]:
+        print(f"  {row['ms']:9.2f} ms {row['launches']:6d}  {row['name'][:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
