@@ -15,7 +15,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .device import resolve_device  # noqa: E402
-from .modules.multimodal.diffusion.ldm import LDM, StableDiffusion, build, build_sd  # noqa: E402
-from .pipeline import txt2img  # noqa: E402
+from .modules.multimodal.diffusion.ddpm import DDPM  # noqa: E402
+from .modules.multimodal.diffusion.ldm import LDM, StableDiffusion, build, build_sd, sd_unet_config  # noqa: E402
+from .pipeline import finetune_unet, txt2img  # noqa: E402
 
-__all__ = ["LDM", "StableDiffusion", "build", "build_sd", "resolve_device", "txt2img"]
+__all__ = [
+    "DDPM", "LDM", "StableDiffusion", "build", "build_sd", "finetune_unet", "resolve_device",
+    "sd_unet_config", "txt2img",
+]

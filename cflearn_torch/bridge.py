@@ -16,9 +16,15 @@ other way):
 The bridge is strict: every JAX leaf maps to exactly one port tensor of the
 same shape, and every port parameter is covered. The noise-schedule buffers
 are not parameters: the port recomputes them from the schedule spec.
+
+Any tree shaped like the parameters goes the same way: `tree_from_nnx`
+carries the JAX gradients or updated parameters (flattened to the same
+dotted paths) into the port's names and layouts, in f32, so that a test can
+compare them leaf by leaf. `names` restricts the port side to the parameters
+that tree covers (the trained ones); a leaf outside it still raises.
 """
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +47,19 @@ def port_name(path: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
     return path, None
 
 
-def map_names(shapes: Mapping[str, Tuple[int, ...]], module: nn.Module) -> Dict[str, Tuple[str, Any]]:
+def map_names(
+    shapes: Mapping[str, Tuple[int, ...]], module: nn.Module, names: Optional[Iterable[str]] = None
+) -> Dict[str, Tuple[str, Any]]:
     """JAX path -> (port name, transpose), checked one to one with equal
-    shapes against `module`'s parameters (which may live on "meta")."""
+    shapes against `module`'s parameters (which may live on "meta"), or
+    against those of them listed in `names`."""
     targets = {k: tuple(p.shape) for k, p in module.named_parameters()}
+    if names is not None:
+        names = set(names)
+        missing = sorted(names - set(targets))
+        if missing:
+            raise ValueError(f"not parameters of the module: {missing[:10]}")
+        targets = {k: v for k, v in targets.items() if k in names}
     mapping: Dict[str, Tuple[str, Any]] = {}
     seen: Dict[str, str] = {}
     errors = []
@@ -66,19 +81,28 @@ def map_names(shapes: Mapping[str, Tuple[int, ...]], module: nn.Module) -> Dict[
     return mapping
 
 
-def state_dict_from_nnx(flat: Mapping[str, np.ndarray], module: nn.Module) -> Dict[str, torch.Tensor]:
-    """Convert `flat` for `module` (strict); tensors take each port
-    parameter's dtype."""
+def tree_from_nnx(
+    flat: Mapping[str, np.ndarray], module: nn.Module, names: Optional[Iterable[str]] = None
+) -> Dict[str, torch.Tensor]:
+    """Convert `flat` (parameters, gradients, updated parameters: any tree
+    with the parameters' paths and shapes) to {port name: f32 tensor in the
+    port's layout} (strict)."""
     arrays = {k: np.asarray(v) for k, v in flat.items()}
-    mapping = map_names({k: v.shape for k, v in arrays.items()}, module)
-    dtypes = {k: p.dtype for k, p in module.named_parameters()}
+    mapping = map_names({k: v.shape for k, v in arrays.items()}, module, names)
     out: Dict[str, torch.Tensor] = {}
     for path, (name, perm) in mapping.items():
         arr = np.array(arrays[path], dtype=np.float32)
         if perm:
             arr = np.transpose(arr, perm)
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dtypes[name])
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def state_dict_from_nnx(flat: Mapping[str, np.ndarray], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert `flat` for `module` (strict); tensors take each port
+    parameter's dtype."""
+    dtypes = {k: p.dtype for k, p in module.named_parameters()}
+    return {name: t.to(dtypes[name]) for name, t in tree_from_nnx(flat, module).items()}
 
 
 def load_nnx_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Module:

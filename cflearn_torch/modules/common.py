@@ -1,7 +1,7 @@
 """Registry and shared helpers (counterpart of `cflearn_tpu/modules/common.py`).
 
-A minimal copy: a name -> class registry with prefixed views, and
-`zero_module`.
+A minimal copy: a name -> class registry with prefixed views, `zero_module`,
+the seeded initialisers and `EMA`.
 """
 
 from typing import Any, Callable, Dict, List, Optional
@@ -113,3 +113,50 @@ def redraw_zero_init(module: nn.Module, seed: int, scale: float = 0.1) -> int:
                     p.copy_((torch.randn(p.shape, generator=gen, device=device) * std).to(p.dtype))
                 n += 1
     return n
+
+
+class EMA(nn.Module):
+    """Exponential moving average of a module's parameters. The shadows are
+    buffers (never parameters, so no optimizer sees them), one per parameter
+    of `module`, named by the parameter's path with "." written as "__".
+    `update()` runs in place under `torch.no_grad()`."""
+
+    def __init__(self, decay: float, module: nn.Module) -> None:
+        super().__init__()
+        self.decay = decay
+        self.register_buffer("num_updates", torch.zeros((), dtype=torch.int32))
+        self._names = [name for name, _ in module.named_parameters()]
+        for name, p in module.named_parameters():
+            self.register_buffer(self._key(name), p.detach().clone())
+
+    @staticmethod
+    def _key(name: str) -> str:
+        return "shadow__" + name.replace(".", "__")
+
+    def shadow(self) -> Dict[str, torch.Tensor]:
+        """{parameter path: shadow tensor}."""
+        return {name: getattr(self, self._key(name)) for name in self._names}
+
+    @torch.no_grad()
+    def update(self, module: nn.Module) -> None:
+        self.num_updates += 1
+        n = float(self.num_updates)
+        decay = min(self.decay, (1.0 + n) / (10.0 + n))
+        params = dict(module.named_parameters())
+        for name, s in self.shadow().items():
+            s.mul_(decay).add_(params[name].detach().to(s.dtype), alpha=1.0 - decay)
+
+    @torch.no_grad()
+    def copy_to(self, module: nn.Module) -> None:
+        params = dict(module.named_parameters())
+        for name, s in self.shadow().items():
+            params[name].copy_(s)
+
+    @torch.no_grad()
+    def store(self, module: nn.Module) -> Dict[str, torch.Tensor]:
+        return {name: p.detach().clone() for name, p in module.named_parameters()}
+
+    @torch.no_grad()
+    def restore(self, module: nn.Module, stored: Dict[str, torch.Tensor]) -> None:
+        for name, p in module.named_parameters():
+            p.copy_(stored[name])

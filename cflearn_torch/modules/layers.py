@@ -86,7 +86,10 @@ class Conv(nn.Module):
 
     def kernel_weight(self) -> torch.Tensor:
         """The weight in the conv kernel's (Co, 3, 3, C) layout, rearranged
-        once and cached until the parameter changes."""
+        once and cached until the parameter changes. Where the weight carries
+        a gradient the rearrangement stays on the graph and is not cached."""
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return kernel_weight(self.weight)
         key = (self.weight.data_ptr(), self.weight._version, self.weight.dtype, self.weight.device)
         if self._kernel_cache is None or self._kernel_cache[0] != key:
             self._kernel_cache = (key, kernel_weight(self.weight.detach()))

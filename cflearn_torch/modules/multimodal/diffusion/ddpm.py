@@ -1,5 +1,5 @@
-"""DDPM: noise schedule buffers, condition dispatch and the eps/v/x0
-parameterizations (counterpart of
+"""DDPM: noise schedule buffers, condition dispatch, the eps/v/x0
+parameterizations and the forward process (counterpart of
 `cflearn_tpu/modules/multimodal/diffusion/ddpm.py`, cross-attention
 conditioning only)."""
 
@@ -58,10 +58,14 @@ class DDPM(nn.Module):
         linear_start: float = 1e-4,
         linear_end: float = 2e-2,
         cosine_s: float = 8e-3,
+        learn_log_var: bool = False,
+        log_var_init: float = 0.0,
         parameterization: str = "eps",
         condition_type: str = CROSS_ATTN_TYPE,
         condition_model: Optional[nn.Module] = None,
+        condition_learnable: bool = False,
         unet_config: Optional[Dict[str, Any]] = None,
+        v_posterior: float = 0.0,
     ) -> None:
         super().__init__()
         if condition_type != CROSS_ATTN_TYPE:
@@ -73,6 +77,14 @@ class DDPM(nn.Module):
         self.parameterization = parameterization
         self.condition_type = condition_type
         self.condition_model = condition_model
+        self.condition_learnable = condition_learnable
+        self.v_posterior = v_posterior
+        # per-timestep log-variance of the simple loss: a parameter when
+        # learned (the "gamma" objective), else a constant buffer
+        self.learn_log_var = learn_log_var
+        self.log_var_init = float(log_var_init)
+        if learn_log_var:
+            self.log_var = nn.Parameter(torch.full((num_timesteps,), self.log_var_init))
         unet_config = dict(unet_config or {})
         unet_config.setdefault("in_channels", in_channels)
         unet_config.setdefault("out_channels", out_channels)
@@ -94,11 +106,34 @@ class DDPM(nn.Module):
             info["schedule"], info["num_timesteps"], linear_start=info["linear_start"],
             linear_end=info["linear_end"], cosine_s=info["cosine_s"],
         )
-        acp = np.cumprod(1.0 - betas)
+        alphas = 1.0 - betas
+        acp = np.cumprod(alphas)
+        acp_prev = np.append(1.0, acp[:-1])
+        posterior_variance = (1 - self.v_posterior) * betas * (1.0 - acp_prev) / (1.0 - acp) + self.v_posterior * betas
+        # VLB per-timestep weights
+        if self.parameterization == "eps":
+            with np.errstate(divide="ignore"):
+                lvlb = 0.5 * betas**2 / (posterior_variance * alphas * (1.0 - acp))
+        elif self.parameterization == "x0":
+            lvlb = 0.25 * np.sqrt(acp) / (1.0 - acp)
+        else:  # v
+            lvlb = np.ones_like(betas)
+        lvlb[0] = lvlb[1]
         device = next(self.parameters()).device
+        if self.learn_log_var:
+            with torch.no_grad():  # `init_parameters` zeroes 1-D tensors
+                self.log_var.fill_(self.log_var_init)
+        else:
+            self.register_buffer(
+                "log_var",
+                torch.full((info["num_timesteps"],), self.log_var_init, dtype=torch.float32, device=device),
+                persistent=False,
+            )
         for name, value in (
             ("betas", betas),
             ("alphas_cumprod", acp),
+            ("posterior_variance", posterior_variance),
+            ("lvlb_weights", lvlb),
             ("sqrt_alphas_cumprod", np.sqrt(acp)),
             ("sqrt_one_minus_alphas_cumprod", np.sqrt(1.0 - acp)),
             ("sqrt_recip_alphas_cumprod", np.sqrt(1.0 / acp)),
@@ -110,6 +145,18 @@ class DDPM(nn.Module):
 
     def _coef(self, buf: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return buf[t].reshape(-1, 1, 1, 1)
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(acp_t) x0 + sqrt(1 - acp_t) noise."""
+        return self._coef(self.sqrt_alphas_cumprod, t) * x0 + self._coef(
+            self.sqrt_one_minus_alphas_cumprod, t
+        ) * noise
+
+    def get_v(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The v-parameterization's target."""
+        return self._coef(self.sqrt_alphas_cumprod, t) * noise - self._coef(
+            self.sqrt_one_minus_alphas_cumprod, t
+        ) * x0
 
     def predict_eps_from(self, x_t: torch.Tensor, t: torch.Tensor, model_out: torch.Tensor) -> torch.Tensor:
         """Model output -> eps under the configured parameterization."""

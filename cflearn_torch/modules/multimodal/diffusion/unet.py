@@ -3,11 +3,12 @@
 ControlNet, no DeepCache). Channel-last NHWC."""
 
 import math
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...common import register_module, zero_module
 from ...core.convs import Downsample, ResidualBlockWithTimeEmbedding, UpsampleConv2d
@@ -69,8 +70,15 @@ class UNetDiffuser(nn.Module):
         context_dim: Optional[int] = 768,
         use_linear_in_transformer: bool = False,
         use_scale_shift_norm: bool = False,
+        use_checkpoint: Union[bool, str] = False,
     ) -> None:
         super().__init__()
+        if isinstance(use_checkpoint, str):
+            raise NotImplementedError(
+                f"use_checkpoint='{use_checkpoint}': the selective policies choose XLA residuals "
+                "and are not ported; pass True to recompute each block in the backward"
+            )
+        self.use_checkpoint = use_checkpoint
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.start_channels = start_channels
@@ -143,6 +151,14 @@ class UNetDiffuser(nn.Module):
         emb = timestep_embedding(timesteps, self.start_channels).to(self.param_dtype)
         return self.time_fc2(F.silu(self.time_fc1(emb)))
 
+    def _run_block(self, block: nn.Module, *args: Any) -> torch.Tensor:
+        """With `use_checkpoint`, an input / output block keeps only its
+        inputs and is computed again in the backward (the mid block is not
+        checkpointed, as in the JAX module)."""
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(
         self, net: torch.Tensor, timesteps: torch.Tensor, context: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
@@ -154,9 +170,9 @@ class UNetDiffuser(nn.Module):
         net = self.conv_in(net)
         hs = [net]
         for block in self.input_blocks:
-            net = block(net, time_embed, context)
+            net = self._run_block(block, net, time_embed, context)
             hs.append(net)
         net = self.mid(net, time_embed, context)
         for block in self.output_blocks:
-            net = block(torch.cat([net, hs.pop()], dim=-1), time_embed, context)
+            net = self._run_block(block, torch.cat([net, hs.pop()], dim=-1), time_embed, context)
         return self.conv_out(F.silu(self.norm_out(net)))

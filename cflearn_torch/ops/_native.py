@@ -23,8 +23,15 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"flash_attention": "flash_attention.cu", "conv3x3": "conv3x3.cu"}
-_HEADERS = ("mma_common.cuh",)
+SOURCES = {
+    "flash_attention": "flash_attention.cu",
+    "conv3x3": "conv3x3.cu",
+    "flash_fwd_lse": "flash_fwd_lse.cu",
+    "flash_bwd_fused": "flash_bwd_fused.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_bwd_dkv": "flash_bwd_dkv.cu",
+}
+_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -35,12 +42,17 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# forward: dtype, q, k, v, o, lse, 12 strides, batch, heads, q_len, kv_len, d, causal, scale, stream
+_FWD = [_I] + [_P] * 5 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P]
+# backward: dtype, q, k, v, dO, lse, delta, dq, dk, dv, then as the forward
+_BWD = [_I] + [_P] * 9 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P]
 _SIGNATURES = {
-    "flash_attention": (
-        "cflearn_flash_attention_fwd",
-        [_I, _P, _P, _P, _P] + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P],
-    ),
+    "flash_attention": ("cflearn_flash_attention_fwd", _FWD),
     "conv3x3": ("cflearn_conv3x3_fwd", [_I, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+    "flash_fwd_lse": ("cflearn_flash_fwd_lse", _FWD),
+    "flash_bwd_fused": ("cflearn_flash_bwd_fused", _BWD),
+    "flash_bwd_dq": ("cflearn_flash_bwd_dq", _BWD),
+    "flash_bwd_dkv": ("cflearn_flash_bwd_dkv", _BWD),
 }
 
 _lock = threading.Lock()

@@ -12,8 +12,8 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   Co >= 64, and H*W >= 128^2 or the pinned (64, 64, 512, 512) shape. Every
   other conv runs through `F.conv2d`, as the JAX package leaves it to XLA.
 
-Tensors are NHWC; weights are the port's OIHW. W8A8, weight-grad and the
-dj-fold variant belong to later slices.
+Tensors are NHWC; weights are the port's OIHW. The conv VJP, W8A8,
+weight-grad and the dj-fold variant belong to later slices.
 """
 
 from typing import Any, Optional, Tuple, Union
@@ -54,16 +54,28 @@ def conv3x3_plain(
     return acc.reshape(b, h, w, -1).to(x.dtype)
 
 
+def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def conv3x3(
     x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """3x3 stride-1 SAME conv. x: (B, H, W, C), w: (Co, 3, 3, C), bias:
     (Co,) -> (B, H, W, Co). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16 / fp16, C % 8 == 0, Co % 8 == 0) or raise."""
+    launch the kernel (bf16 / fp16, C % 8 == 0, Co % 8 == 0) or raise. The
+    kernel is forward only: on the card it refuses tensors that need a
+    gradient, so that no graph silently loses what lies upstream."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w_ohwi, bias)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3x3: no kernel for device {x.device}")
+    if _needs_grad(x, w_ohwi, bias):
+        raise RuntimeError(
+            "conv3x3: the CUDA kernel has no backward yet (the conv VJP, dx through the forward "
+            "kernel with flipped weights and the weight-gradient kernel, is not ported); "
+            "call it under torch.no_grad() or on tensors that need no gradient"
+        )
     bsz, h, w, c = x.shape
     co = w_ohwi.shape[0]
     if x.dtype not in _DTYPES or w_ohwi.dtype != x.dtype or (bias is not None and bias.dtype != x.dtype):

@@ -1,13 +1,21 @@
-"""Where the time of the port's SD-1.5 txt2img goes on one CUDA card.
+"""Where the time of the port's main paths goes on one CUDA card.
 
     python scripts/profile_torch_txt2img.py [--steps 5] [--out chiprun_out/profile_torch_txt2img.json]
+    python scripts/profile_torch_txt2img.py --path finetune [--steps 2] [--checkpoint]
 
-Builds full-width SD-1.5 v1 in bf16 from seeded random weights, runs one
-warm-up txt2img at 512px (batch 1, CFG batch 2), then one txt2img under
-`torch.profiler`. Prints the wall time, the summed device time of all
-kernels and the device's idle share over the wall, the device time by
-kernel group and the top kernels. Writes the same as JSON to `--out`.
-Imports no JAX.
+`--path txt2img` (default): builds full-width SD-1.5 v1 in bf16 from seeded
+random weights, runs one warm-up txt2img at 512px (batch 1, CFG batch 2),
+then one txt2img of `--steps` DDIM steps under `torch.profiler`.
+
+`--path finetune`: builds the full-width SD-1.5 UNet with f32 master
+parameters, runs one warm-up `finetune_unet` step at batch 8 (64x64x4
+latents, a 77x768 condition, bf16 compute, AdamW 1e-5), then `--steps` steps
+under `torch.profiler`. Writes to `chiprun_out/profile_torch_finetune.json`
+unless `--out` says otherwise.
+
+Prints the wall time, the summed device time of all kernels and the
+device's idle share over the wall, the device time by kernel group and the
+top kernels. Writes the same as JSON to `--out`. Imports no JAX.
 """
 
 import argparse
@@ -19,9 +27,11 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GROUPS = [
-    ("flash_attention (port kernel)", ("flash_fwd_kernel",)),
+    ("flash backward (port kernels)", ("flash_bwd_kernel",)),
+    ("flash_attention (port kernel)", ("flash_fwd_kernel", "flash_fwd_chunked_kernel")),
     ("conv3x3 (port kernel)", ("conv3x3_kernel",)),
-    ("cuDNN / library conv", ("conv", "implicit_gemm", "xmma_fprop", "fprop")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("cuDNN / library conv", ("conv", "implicit_gemm", "xmma_fprop", "fprop", "dgrad", "wgrad")),
     ("GEMM (Linear)", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
     ("library attention (SDPA)", ("fmha", "flash", "attention", "efficient")),
     ("reductions (norm statistics)", ("reduce", "norm")),
@@ -39,9 +49,15 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--steps", type=int, default=5)
-    parser.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile_torch_txt2img.json"))
+    parser.add_argument("--path", choices=("txt2img", "finetune"), default="txt2img")
+    parser.add_argument("--steps", type=int, default=None, help="DDIM steps (default 5) or train steps (default 2)")
+    parser.add_argument("--checkpoint", action="store_true", help="finetune: recompute each UNet block in the backward")
+    parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    if args.steps is None:
+        args.steps = 5 if args.path == "txt2img" else 2
+    if args.out is None:
+        args.out = os.path.join(ROOT, "chiprun_out", f"profile_torch_{args.path}.json")
 
     import numpy as np
     import torch
@@ -54,18 +70,41 @@ def main() -> int:
     import cflearn_torch
     from cflearn_torch.modules.common import redraw_zero_init
 
-    model = cflearn_torch.build_sd("v1", device="cuda", dtype=torch.bfloat16, seed=0)
-    redraw_zero_init(model, seed=1)
-    tokens = np.random.RandomState(0).randint(0, 49000, (1, 77))
-    uncond = np.zeros((1, 77), dtype=np.int64)
-    z = torch.randn((1, 64, 64, 4), generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.path == "txt2img":
+        model = cflearn_torch.build_sd("v1", device="cuda", dtype=torch.bfloat16, seed=0)
+        redraw_zero_init(model, seed=1)
+        tokens = np.random.RandomState(0).randint(0, 49000, (1, 77))
+        uncond = np.zeros((1, 77), dtype=np.int64)
+        z = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
 
-    def run():
-        out = cflearn_torch.txt2img(model, tokens, uncond, num_steps=args.steps, guidance_scale=7.5, z=z)
-        torch.cuda.synchronize()
-        return out
+        def run(steps=args.steps):
+            out = cflearn_torch.txt2img(model, tokens, uncond, num_steps=steps, guidance_scale=7.5, z=z)
+            torch.cuda.synchronize()
+            return out
 
-    run()
+        run()
+    else:
+        from cflearn_torch.models.cv.diffusion import DDPMModel
+
+        model = DDPMModel(cflearn_torch.build(
+            cflearn_torch.DDPM, device="cuda", dtype=torch.float32, seed=0, img_size=64,
+            unet_config=cflearn_torch.sd_unet_config("v1"), linear_start=0.00085, linear_end=0.012,
+        ))
+        redraw_zero_init(model, seed=1)
+        x0 = torch.randn((8, 64, 64, 4), generator=gen, device="cuda")
+        ctx = torch.randn((8, 77, 768), generator=gen, device="cuda")
+
+        def run(steps=args.steps):
+            out = cflearn_torch.finetune_unet(
+                model, x0, ctx, num_steps=steps, lr=1e-5, compute_dtype=torch.bfloat16,
+                use_checkpoint=args.checkpoint, generator=gen,
+            )["losses"]
+            torch.cuda.synchronize()
+            return out
+
+        run(1)
+        run(1)  # the first step also allocates the moments
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -85,6 +124,8 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     report = {
         "device": torch.cuda.get_device_name(0),
+        "path": args.path,
+        "use_checkpoint": bool(args.checkpoint),
         "steps": args.steps,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -97,7 +138,7 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share {report['device_idle_share']:.3f}, "
-          f"{report['kernel_launches']} kernel launches ({args.steps} steps)")
+          f"{report['kernel_launches']} kernel launches ({args.path}, {args.steps} steps)")
     for k, v in report["groups"].items():
         print(f"  {k:32s} {v['ms']:9.2f} ms  {v['launches']:6d} launches")
     for row in report["top"]:

@@ -14,7 +14,10 @@ from cflearn_torch.modules.multimodal.diffusion.cond_models import CLIPTextCondi
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cflearn_tpu")
-PORT_FILES = sorted((ROOT / "cflearn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the package's sources; `_build/` holds build outputs only and is not part of it
+PORT_FILES = sorted(
+    p for p in (ROOT / "cflearn_torch").rglob("*.py") if "_build" not in p.relative_to(ROOT).parts
+) + [ROOT / "chip_smoke.py"]
 
 
 def _imported(path: Path):
@@ -88,3 +91,34 @@ def test_kernel_wrappers_refuse_other_devices() -> None:
     x = torch.empty((1, 8, 8, 64), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         conv.conv3x3(x, torch.empty((64, 3, 3, 64), device="meta"))
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_lse", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_training_kernel_wrappers_refuse_other_devices(name) -> None:
+    """Only a CPU tensor takes a plain version; any other device launches the
+    kernel or raises, and a refused call counts no launch."""
+    from cflearn_torch.ops import attention
+
+    fn = getattr(attention, name)
+    q = torch.empty((1, 1, 256, 64), device="meta")
+    lse = torch.empty((1, 1, 256), device="meta")
+    args = (q, q, q) if name == "flash_fwd_lse" else (q, q, q, q, lse, q)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_finetune_unet_raises_without_cuda(monkeypatch) -> None:
+    _no_cuda(monkeypatch)
+    model = cflearn_torch.build(
+        cflearn_torch.DDPM, device="cpu", img_size=8, num_timesteps=50,
+        unet_config=dict(start_channels=32, num_res_blocks=1, channel_multipliers=(1, 2),
+                         attention_downsample_rates=(1,), num_heads=4, context_dim=32),
+    )
+    x0 = np.random.RandomState(0).randn(1, 8, 8, 4).astype(np.float32)
+    cond = np.random.RandomState(1).randn(1, 5, 32).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cflearn_torch.finetune_unet(model, x0, cond)
+    out = cflearn_torch.finetune_unet(model, x0, cond, num_steps=1, device="cpu")
+    assert torch.isfinite(out["losses"]).all()
