@@ -15,11 +15,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .device import resolve_device  # noqa: E402
+from .models.cv.ae import AEModel, build_ae  # noqa: E402
 from .modules.multimodal.diffusion.ddpm import DDPM  # noqa: E402
 from .modules.multimodal.diffusion.ldm import LDM, StableDiffusion, build, build_sd, sd_unet_config  # noqa: E402
-from .pipeline import finetune_unet, txt2img  # noqa: E402
+from .pipeline import finetune_unet, train_autoencoder, txt2img  # noqa: E402
 
 __all__ = [
-    "DDPM", "LDM", "StableDiffusion", "build", "build_sd", "finetune_unet", "resolve_device",
-    "sd_unet_config", "txt2img",
+    "AEModel", "DDPM", "LDM", "StableDiffusion", "build", "build_ae", "build_sd", "finetune_unet",
+    "resolve_device", "sd_unet_config", "train_autoencoder", "txt2img",
 ]

@@ -17,6 +17,12 @@ The bridge is strict: every JAX leaf maps to exactly one port tensor of the
 same shape, and every port parameter is covered. The noise-schedule buffers
 are not parameters: the port recomputes them from the schedule spec.
 
+`nnx.BatchStat` leaves (BatchNorm's running `mean` and `var`) go across as
+buffers of the same name: `load_nnx_batch_stats` is strict in the same way
+over the module's BatchNorm layers. An `AEModel` needs no mapping of its own:
+the port keeps the JAX model's attribute names (`m.*`, `discriminator.*`,
+`log_var`), so its paths map like any other.
+
 Any tree shaped like the parameters goes the same way: `tree_from_nnx`
 carries the JAX gradients or updated parameters (flattened to the same
 dotted paths) into the port's names and layouts, in f32, so that a test can
@@ -106,8 +112,42 @@ def state_dict_from_nnx(flat: Mapping[str, np.ndarray], module: nn.Module) -> Di
 
 
 def load_nnx_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Module:
-    """Load JAX parameters into `module` in place (strict)."""
+    """Load JAX parameters into `module` in place (strict over the
+    parameters; buffers are not parameters and keep their values)."""
     sd = state_dict_from_nnx(flat, module)
     device = next(module.parameters()).device
-    module.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True)
+    result = module.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=False)
+    buffers = {name for name, _ in module.named_buffers()}
+    missing = [k for k in result.missing_keys if k not in buffers]
+    if missing or result.unexpected_keys:
+        raise ValueError(f"missing parameters {missing[:10]}, unexpected {result.unexpected_keys[:10]}")
+    return module
+
+
+def batch_stat_names(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """{buffer name: shape} of the running statistics of `module`'s
+    `BatchNorm` layers (the counterparts of `nnx.BatchStat`)."""
+    from .modules.layers import BatchNorm
+
+    out: Dict[str, Tuple[int, ...]] = {}
+    for prefix, sub in module.named_modules():
+        if isinstance(sub, BatchNorm):
+            for leaf in ("mean", "var"):
+                out[f"{prefix}.{leaf}" if prefix else leaf] = tuple(getattr(sub, leaf).shape)
+    return out
+
+
+def load_nnx_batch_stats(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Module:
+    """Load the JAX model's `nnx.BatchStat` leaves (`nnx.state(model,
+    nnx.BatchStat)` flattened to dotted paths) into the buffers of the same
+    paths, in place (strict: the two sides cover each other with equal shapes)."""
+    targets = batch_stat_names(module)
+    shapes = {k: tuple(np.shape(v)) for k, v in flat.items()}
+    if shapes != targets:
+        odd = sorted(set(shapes.items()) ^ set(targets.items()))
+        raise ValueError(f"BatchStat leaves and BatchNorm buffers differ, e.g. {odd[:6]}")
+    buffers = dict(module.named_buffers())
+    with torch.no_grad():
+        for name, value in flat.items():
+            buffers[name].copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
     return module

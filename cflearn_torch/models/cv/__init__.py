@@ -1,5 +1,7 @@
 """Vision models (counterpart of `cflearn_tpu/models/cv/`)."""
 
+from .ae import AEDiscriminatorStep, AEGeneratorStep, AEModel
 from .diffusion import DDPMModel, DDPMStep
+from .gan import gan_loss
 
-__all__ = ["DDPMModel", "DDPMStep"]
+__all__ = ["AEDiscriminatorStep", "AEGeneratorStep", "AEModel", "DDPMModel", "DDPMStep", "gan_loss"]

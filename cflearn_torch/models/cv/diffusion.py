@@ -125,6 +125,12 @@ class DDPMModel(nn.Module):
             out.append((name, p))
         return out
 
+    def run(self, batch: Dict[str, Any], *, training: bool = False, **kwargs: Any) -> None:
+        """The JAX model's `run` is a forward for monitoring (a one-step
+        denoise at a fixed timestep) that the p-loss never reads; it is not
+        ported, so the forward results are None."""
+        return None
+
     def post_step_update(self) -> None:
         if self.ema is not None:
             self.ema.update(self.m)

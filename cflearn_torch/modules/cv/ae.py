@@ -1,10 +1,9 @@
 """The SD first-stage KL autoencoder (counterpart of
 `cflearn_tpu/modules/cv/ae.py`: `AttnEncoder`, `AttnDecoder`,
-`AutoEncoderKL`). This slice runs `decode`; the encoder's modules exist so
-that the parameters map one to one, and `encode` (the Gaussian posterior)
-is a later slice."""
+`AutoEncoderKL`): `encode` to the Gaussian posterior, `decode`, and the
+training forward that samples the posterior in between."""
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -14,6 +13,7 @@ from ..common import register_module
 from ..core.attentions import SpatialAttention
 from ..core.convs import Downsample, ResidualBlock, UpsampleConv2d
 from ..layers import Conv, GroupNorm
+from .common import GaussianDistribution
 
 
 class AttnEncoder(nn.Module):
@@ -138,8 +138,27 @@ class AutoEncoderKL(nn.Module):
         self.to_embedding = Conv(2 * z_channels, 2 * embedding_channels, (1, 1))
         self.from_embedding = Conv(embedding_channels, z_channels, (1, 1))
 
+    def encode(self, x: torch.Tensor, *, deterministic: bool = False) -> GaussianDistribution:
+        return GaussianDistribution(self.to_embedding(self.encoder(x)), deterministic=deterministic)
+
     def decode(self, z: torch.Tensor, *, apply_tanh: Optional[bool] = None) -> torch.Tensor:
         net = self.decoder(self.from_embedding(z))
         if self.apply_tanh if apply_tanh is None else apply_tanh:
             net = torch.tanh(net)
         return net
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        sample: bool = True,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Dict[str, Any]:
+        """Encode, sample the posterior (its mode with `sample=False`) and
+        decode. The JAX module draws the posterior noise from its own key
+        stream; here it comes from `generator`, or the caller hands over
+        `noise` (the latent's shape)."""
+        dist = self.encode(x)
+        z = dist.sample(generator, noise=noise) if sample else dist.mode()
+        return {"predictions": self.decode(z), "distribution": dist, "z": z}

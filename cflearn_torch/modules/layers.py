@@ -1,7 +1,7 @@
 """Channel-last layers with flax `nnx` semantics.
 
 The port's counterparts of `nnx.Linear`, `nnx.Conv`, `nnx.LayerNorm`,
-`nnx.GroupNorm` and `nnx.Embed`. Parameters carry PyTorch's names and
+`nnx.GroupNorm`, `nnx.BatchNorm` and `nnx.Embed`. Parameters carry PyTorch's names and
 layouts (`weight` (out, in) for Linear, OIHW for Conv); `cflearn_torch.bridge`
 maps the JAX package's parameters onto them. Like flax, each layer computes
 in the promoted dtype of its input and parameters (an f32 input meets bf16
@@ -15,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import kernel_weight
-from ..ops.group_norm import group_norm
+from ..ops.group_norm import module_call as group_norm_call
 
 _Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -120,7 +120,47 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps)
+        return group_norm_call(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps)
+
+
+class BatchNorm(nn.Module):
+    """`nnx.BatchNorm` over the last axis of a channel-last input.
+
+    It differs from `torch.nn.BatchNorm2d` where flax does: the running
+    statistics move by `momentum` = 0.99 as ra = momentum * ra + (1 -
+    momentum) * batch (PyTorch: 0.1, weighted the other way round), the
+    running variance averages the **biased** batch variance (PyTorch: the
+    unbiased one), eps is 1e-5 and the variance is E[x^2] - E[x]^2 clipped at
+    0. Statistics are taken in at least f32. Like flax, the layer computes in
+    the promoted dtype of the input, the running statistics and the
+    parameters: with f32 running statistics a bf16 input leaves as f32.
+    `mean` and `var` are buffers (flax `BatchStat`), updated in place in
+    training mode."""
+
+    def __init__(self, num_features: int, *, momentum: float = 0.99, eps: float = 1e-5) -> None:
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = _promote(x, self.mean, self.var, self.weight, self.bias)
+        x = x.to(dtype)
+        if self.training:
+            xs = x.to(torch.promote_types(dtype, torch.float32))
+            axes = tuple(range(x.ndim - 1))
+            mean = xs.mean(dim=axes)
+            var = (xs.square().mean(dim=axes) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(mean.to(self.mean.dtype), alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(var.to(self.var.dtype), alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.mean.to(dtype), self.var.to(dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dtype)
+        return (x - mean.to(dtype)) * mul.to(dtype) + self.bias.to(dtype)
 
 
 class Embed(nn.Embedding):

@@ -30,6 +30,8 @@ SOURCES = {
     "flash_bwd_fused": "flash_bwd_fused.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
+    "conv3x3_wgrad": "conv3x3_wgrad.cu",
+    "group_norm": "group_norm.cu",
 }
 _HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh")
 NVCC_FLAGS = (
@@ -53,6 +55,14 @@ _SIGNATURES = {
     "flash_bwd_fused": ("cflearn_flash_bwd_fused", _BWD),
     "flash_bwd_dq": ("cflearn_flash_bwd_dq", _BWD),
     "flash_bwd_dkv": ("cflearn_flash_bwd_dkv", _BWD),
+    # dtype, x, dy, workspace, out, B, H, W, C, Co, splits, stream
+    "conv3x3_wgrad": ("cflearn_conv3x3_wgrad", [_I, _P, _P, _P, _P] + [_I] * 6 + [_P]),
+    # x dtype, parameter dtype, x, w, bias, y, partial sums, stats, B, S, C, G, eps, silu, vec,
+    # slabs, rows per slab, stream
+    "group_norm": (
+        "cflearn_group_norm",
+        [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, ctypes.c_float, _I, _I, _L, _P],
+    ),
 }
 
 _lock = threading.Lock()

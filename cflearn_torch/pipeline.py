@@ -7,6 +7,10 @@ first-stage decode, clip, and uint8.
 `finetune_unet`: the training path — eps-loss steps of the UNet on given
 latents and a precomputed text condition, f32 masters with a (bf16) compute
 dtype, AdamW.
+
+`train_autoencoder`: the adversarial training of the KL autoencoder — two
+scopes per step (the autoencoder, then its PatchGAN discriminator), f32
+masters with a (bf16) compute dtype, Adam.
 """
 
 from typing import Any, Dict, Optional
@@ -14,9 +18,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from .device import resolve_device
+from .models.cv.ae import AEModel
 from .models.cv.diffusion import INPUT_KEY, LOSS_KEY, DDPMModel
 from .modules.multimodal.diffusion.samplers import ISampler
-from .trainer import make_train_step
+from .optimizers import build_optimizer
+from .trainer import MultiScopeStep, make_train_step
 
 
 @torch.no_grad()
@@ -94,3 +100,49 @@ def finetune_unet(
     step = make_train_step(wrapped, optimizer="adamw", lr=lr, compute_dtype=compute_dtype)
     losses = [step.step(batch, generator=generator)[LOSS_KEY] for _ in range(num_steps)]
     return {"losses": torch.stack(losses), "step": step, "model": wrapped}
+
+
+# the JAX trainer's defaults for a config that names no optimizer: Adam at
+# lr 1e-3 behind a warm-up that starts at a third of it. Schedulers are not
+# ported; the first steps of that schedule are (nearly) its starting value.
+AE_DEFAULT_LR = 1.0e-3 / 3.0
+
+
+def train_autoencoder(
+    model: AEModel,
+    images: Any,
+    *,
+    num_steps: int = 1,
+    lr: float = AE_DEFAULT_LR,
+    compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+    generator: Optional[torch.Generator] = None,
+    device: Any = None,
+) -> Dict[str, Any]:
+    """`num_steps` adversarial training steps of an `AEModel` on one batch.
+
+    `model` has f32 (master) parameters; `images` are (B, H, W, 3) in [-1,
+    1]. Each step runs the `core` scope (the autoencoder against L1, KL and
+    the generator term) and then the `discriminator` scope (hinge on the
+    inputs and on the detached reconstruction of a new forward), each with
+    its own forward, loss, gradient and Adam update (no weight decay), in
+    `compute_dtype` with gradients back to the f32 masters. The posterior
+    noise of each scope's forward is drawn from `generator` (seed 0 when not
+    given).
+
+    Runs on the CUDA card and raises without one, unless `device` says
+    otherwise ("cpu" runs the plain PyTorch path); the model is moved there.
+    Returns {"losses": one dict per step with the JAX trainer's names
+    (`core_loss`, `core_l1`, `core_kl`, `core_g`, `discriminator_loss`,
+    `discriminator_d`), "steps": {scope: its `TrainStepFn`, whose `grads` hold
+    the last step's gradients}, "step": the `MultiScopeStep`, "model"}.
+    """
+    device = resolve_device(device)
+    model.to(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    batch = {INPUT_KEY: torch.as_tensor(images, dtype=torch.float32, device=device)}
+    optimizers = {ts.scope: build_optimizer("adam", lr) for ts in model.train_steps}
+    step = MultiScopeStep(model, optimizers, compute_dtype=compute_dtype)
+    kwargs = {scope: {"generator": generator} for scope in step.steps}
+    losses = [step.step(batch, forward_kwargs=kwargs) for _ in range(num_steps)]
+    return {"losses": losses, "steps": step.steps, "step": step, "model": model}

@@ -11,8 +11,12 @@ Phases, in order; any failure exits non-zero:
    forward and the conv at every shape SD-1.5 512px txt2img gives them, the
    forward-with-logsumexp and the three backward kernels at the three shapes
    of the UNet finetune step (batch 8), plus ragged, causal, f32, d = 640 and
-   odd-width cases; print max_abs_err and the kernel's, the plain version's
-   and a library call's ms (the library call is timed only).
+   odd-width cases; the conv forward, its dx (the forward kernel on dy with
+   flipped weights) and the weight-gradient kernel at every shape the
+   autoencoder step routes; GroupNorm with and without SiLU at the UNet's, the
+   VAE decoder's and the autoencoder step's shapes, plus f32 and odd group
+   widths. Prints max_abs_err and the kernel's, the plain version's and a
+   library call's ms (the library call is timed only).
 3. path — full-width SD-1.5 v1 in bf16 from seeded random weights (the
    zero-initialised output convs redrawn with small noise, so conditioning
    reaches the output), txt2img at batch 1 (CFG batch 2), 512x512, DDIM,
@@ -31,7 +35,17 @@ Phases, in order; any failure exits non-zero:
    input); then the split dq / dk.dv kernels on the same step, twice: launch
    counts, bit-identical attention gradients, and agreement with the fused
    kernel.
-7. summary — a `{"kernels": [...]}` line, the paths' img/s and samples/s,
+7. ae path — the full-width `ae_kl` model (256px, 128 channels, multipliers
+   [1, 2, 4, 4], two res blocks, PatchGAN discriminator) with f32 masters,
+   `train_autoencoder` at batch 8, bf16 compute, Adam: one warm-up step, then
+   timed steps. Checks the six loss items, that every parameter of both scopes
+   and the BatchNorm statistics moved, the gradients, the exact launch counts
+   and the peak memory.
+8. ae parity — one `core` forward + backward through the kernels against the
+   same through the plain versions (same noise), held to the plain path's
+   drift under a one-ulp change of the images; then the same step twice with
+   the split attention backward: bit-identical gradients.
+9. summary — a `{"kernels": [...]}` line, the paths' img/s and samples/s,
    the card's name and power limit, and last `{"ok": true, "device": {...}}`.
    The per-shape rows also go to `chiprun_out/chip_smoke.json`.
 
@@ -71,6 +85,25 @@ FLASH_REL_TF32 = 2.0**-8
 # the summation order differs; TF32 rounds the scores (|s| up to ~5) by 2^-11.
 LSE_TOL = {2: 1e-4, 4: 4e-3}  # by input element size
 CONV_TOL = 6.25e-2  # 2 bf16 ulps at |y| < 8 (y ~ N(0, 1)); both round the same f32 sum
+# the conv at the autoencoder step's shapes (forward, and dx with flipped weights, whose outputs
+# have variance Co / C): the same two ulps, of the largest output
+CONV_REL = 2.0**-6
+# weight gradient: both versions sum exact products of 16-bit values in f32
+# (in another order: at most ~1e-5 of the sum) and round once to bf16, so they
+# differ by at most one ulp of an output, 2^-8 of its value. The limit is two
+# ulps of the largest output. Each tap is an output slice of its own, so a
+# dropped tap or a window shifted by a pixel misses by the whole value
+# (`tests/test_torch_ae_ops.py`).
+WGRAD_REL = 2.0**-6
+# GroupNorm(+SiLU): kernel and plain version compute in f32 (sums in another
+# order, FMA contraction: ~1e-6 relative) and round once to x's dtype: at most
+# one ulp apart. Outputs are O(1) whatever the input's scale, so 2^-6 of
+# max|ref| is two to four bf16 ulps of the largest output; a missing `- mean^2`,
+# a dropped bias or a wrong group width exceeds it. f32 outputs are held to
+# 2^-16 of max|ref| (about 30 f32 ulps at the largest output: the statistics of
+# 10^4..10^6 values are summed in another order).
+GN_REL = 2.0**-6
+GN_REL_F32 = 2.0**-16
 # whole-net parity: the kernel path may differ from the plain path (max error
 # relative to the output's max) by at most PARITY_FACTOR times what the plain
 # path differs from itself when its input moves one bf16 ulp, both measured in
@@ -86,11 +119,32 @@ PARITY_FACTOR = 1.5
 # input flip and by 2.21e-3 and 2.32e-2 for the kernels, so the factor has
 # more room than PARITY_FACTOR.
 TRAIN_PARITY_FACTOR = 2.0
+# ae parity: the same for the gradients of the autoencoder's `core` scope, where the kernel path
+# differs from the plain one at 32 conv forwards, 32 dx, 32 weight gradients, 52 norms and 2
+# attentions, each by ~1 bf16 ulp, and an input flip moves all 8 x 256 x 256 x 3 pixels once.
+# The factor holds the loss, the gradient's global 2-norm, the median leaf and every leaf, each
+# leaf in its own 2-norm against max(its own drift, the upper decile of the leaves' drifts). The
+# state of the weights after the four train steps differs from run to run (the fused attention
+# backward and cuDNN do not sum in a fixed order), and the noise with it. In five runs on an H100
+# the drift moved the gradient by 4.6e-3..1.3e-2 (global), the median leaf by 1.2e-2..2.4e-2, the
+# upper decile by 0.035..0.127 and the worst gated leaf by 0.06..0.19; the kernels moved it by
+# 3.0e-3..5.9e-3, 7.1e-3..1.8e-2 and 0.06..0.14, the worst leaf at 0.94..1.26 of its allowance's
+# base. A gated leaf is allowed at most AE_PARITY_FACTOR x AE_UNDETERMINED of its norm, and
+# about 0.1..0.4 in these runs: a zeroed leaf (1.0) fails, and a dropped tap (a third of the
+# norm of a conv weight's gradient) wherever the drift is below a sixth.
+AE_PARITY_FACTOR = 2.0
+# a bias gradient below this share of its weight's gradient (largest elements) may be rounding noise
+AE_NOISE_RATIO = 1.0e-2
+# a leaf that a one-ulp change of the images moves by more than this share of its norm has no
+# determined gradient; at most AE_MAX_LEFT_OUT of the 248 leaves may be left out of the per-leaf gate
+AE_UNDETERMINED = 0.5
+AE_MAX_LEFT_OUT = 6
 STEPS = 20
 DECODER_CONVS = 31  # kernel-routed VAE decoder convs per decode
 FLASH_PER_UNET = 15  # self-attentions with L >= 256 per UNet call
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
+AE_BATCH = 8
 
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per txt2img as a function of steps)
 FLASH_CASES = [
@@ -102,6 +156,7 @@ FLASH_CASES = [
     ("causal", 1, 4, 1000, 1000, 64, True, "bfloat16", lambda s: 0),
     ("f32", 1, 4, 1000, 777, 64, False, "float32", lambda s: 0),
     ("d640", 1, 2, 512, 512, 640, False, "bfloat16", lambda s: 0),
+    ("ae_mid", AE_BATCH, 1, 1024, 1024, 512, False, "bfloat16", lambda s: 0),
 ]
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per finetune step)
 TRAIN_CASES = [
@@ -112,6 +167,7 @@ TRAIN_CASES = [
     ("causal", 1, 4, 1000, 1000, 64, True, "bfloat16", 0),
     ("f32", 1, 4, 1000, 777, 64, False, "float32", 0),
     ("d640", 1, 2, 512, 512, 640, False, "bfloat16", 0),
+    ("ae_mid", AE_BATCH, 1, 1024, 1024, 512, False, "bfloat16", 0),
 ]
 # (name, B, H, W, C, Co, launches per decode)
 CONV_CASES = [
@@ -125,6 +181,54 @@ CONV_CASES = [
     ("512x512_128_128", 1, 512, 512, 128, 128, 5),
     ("odd_129x131_64_96", 2, 129, 131, 64, 96, 0),
 ]
+# the autoencoder step: `scripts/profile_training_multi.py`'s ae_kl workload
+AE_CONFIG = dict(
+    img_size=256, in_channels=3, inner_channels=128, z_channels=4, embedding_channels=4,
+    channel_multipliers=[1, 2, 4, 4], num_res_blocks=2, use_perceptual=False, d_loss_start_step=0,
+)
+AE_STEPS = 3
+# (name, B, H, W, C, Co, kernel-routed convs of this shape per autoencoder forward), found with a
+# hook on the wrappers. One train step runs each forward conv twice (the `core` scope, and the
+# discriminator scope's forward without a gradient), its dx (the forward kernel, C and Co
+# swapped) once and its weight gradient once.
+AE_CONV_CASES = [
+    ("256x256_128_128", AE_BATCH, 256, 256, 128, 128, 9),
+    ("256x256_256_128", AE_BATCH, 256, 256, 256, 128, 1),
+    ("256x256_256_256", AE_BATCH, 256, 256, 256, 256, 1),
+    ("128x128_128_256", AE_BATCH, 128, 128, 128, 256, 1),
+    ("128x128_256_256", AE_BATCH, 128, 128, 256, 256, 8),
+    ("128x128_512_256", AE_BATCH, 128, 128, 512, 256, 1),
+    ("128x128_512_512", AE_BATCH, 128, 128, 512, 512, 1),
+    ("64x64_512_512", AE_BATCH, 64, 64, 512, 512, 10),
+    # H != W, C != Co, and 3 * 33 * 47 pixels: K tiles cross image boundaries and the last is ragged
+    ("odd_3x33x47_64_136", 3, 33, 47, 64, 136, 0),
+]
+AE_CONVS = sum(case[-1] for case in AE_CONV_CASES)  # 32
+AE_FLASH = 2  # the encoder's and the decoder's mid-block attention, B8 H1 L1024 d512
+# GroupNorm calls, (H = W, C, SiLU fused, launches): per UNet call at 512px (61), per VAE decode at
+# 512px (30) and per autoencoder forward at 256px (52; two forwards per train step)
+UNET_GN = [
+    (64, 320, False, 6), (64, 320, True, 7), (64, 640, True, 2), (64, 960, True, 1),
+    (32, 320, True, 1), (32, 640, False, 5), (32, 640, True, 6), (32, 960, True, 1), (32, 1280, True, 1),
+    (32, 1920, True, 1), (16, 640, True, 1), (16, 1280, False, 5), (16, 1280, True, 6), (16, 1920, True, 1),
+    (16, 2560, True, 2), (8, 1280, False, 1), (8, 1280, True, 11), (8, 2560, True, 3),
+]
+DECODER_GN = [
+    (64, 512, False, 1), (64, 512, True, 10), (128, 512, True, 6), (256, 512, True, 1), (256, 256, True, 5),
+    (512, 256, True, 1), (512, 128, True, 5), (512, 128, False, 1),
+]
+AE_GN = [
+    (256, 128, False, 1), (256, 128, True, 9), (256, 256, True, 1), (128, 128, True, 1), (128, 256, True, 8),
+    (128, 512, True, 1), (64, 256, True, 1), (64, 512, True, 9), (32, 512, False, 3), (32, 512, True, 18),
+]
+GN_PER_UNET = sum(case[-1] for case in UNET_GN)  # 61
+GN_PER_DECODE = sum(case[-1] for case in DECODER_GN)  # 30
+GN_PER_AE_FORWARD = sum(case[-1] for case in AE_GN)  # 52
+# which path's launches and times a kernel's summary row reports; its other paths go under "other_paths"
+MAIN_PATH = {
+    "flash_attention": "txt2img", "conv3x3": "txt2img", "flash_fwd_lse": "finetune", "flash_bwd_fused": "finetune",
+    "flash_bwd_dq": "finetune", "flash_bwd_dkv": "finetune", "conv3x3_wgrad": "ae", "group_norm": "ae",
+}
 # floating-point operations per (q, k, d) triple: two products forward; five
 # in the fused backward; s, dp, dq in the dq kernel; s, dp, dv, dk in the dk.dv kernel
 OPS_PER_TRIPLE = {"flash_fwd_lse": 4.0, "flash_bwd_fused": 10.0, "flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
@@ -304,25 +408,151 @@ def phase_train_kernels(torch, F, A):
     return rows
 
 
+def gn_cases():
+    """(name, shape, groups, dtype, SiLU, {path: launches per image or step})."""
+    cases = []
+    for h, c, silu, n in UNET_GN:
+        tag = f"{h}x{h}_{c}{'_silu' if silu else ''}"
+        cases.append((f"unet_b2_{tag}", (2, h, h, c), 32, "bfloat16", silu, {"txt2img": n * STEPS}))
+        cases.append((f"unet_b{TRAIN_BATCH}_{tag}", (TRAIN_BATCH, h, h, c), 32, "bfloat16", silu, {"finetune": n}))
+    for h, c, silu, n in DECODER_GN:
+        cases.append((f"vae_b1_{h}x{h}_{c}{'_silu' if silu else ''}", (1, h, h, c), 32, "bfloat16", silu, {"txt2img": n}))
+    for h, c, silu, n in AE_GN:
+        cases.append((f"ae_b{AE_BATCH}_{h}x{h}_{c}{'_silu' if silu else ''}", (AE_BATCH, h, h, c), 32, "bfloat16", silu,
+                      {"ae": 2 * n}))
+    for silu in (False, True):
+        cases.append((f"f32_odd_width{'_silu' if silu else ''}", (2, 17, 13, 96), 32, "float32", silu, {}))  # 3 per group
+        cases.append((f"fp16_unvectorised{'_silu' if silu else ''}", (2, 9, 7, 36), 4, "float16", silu, {}))  # 9 per group
+    # more than 256 chunks of channels: the statistics pass walks tiles of channels, groups span them
+    cases.append(("wide_6152_silu", (2, 5, 3, 6152), 2, "bfloat16", True, {}))
+    cases.append(("f32_wide_unvectorised_777", (1, 4, 4, 777), 3, "float32", False, {}))
+    return cases
+
+
+def phase_ae_kernels(torch, F, Cv, Gn):
+    """The conv forward, its dx and the weight-gradient kernel at the shapes
+    the autoencoder step routes, and GroupNorm(+SiLU) at every shape of the
+    three paths, each against its plain version. Library yardsticks, timed
+    only: cuDNN's forward, input gradient and weight gradient;
+    `F.group_norm` (+ `F.silu`) on the NCHW view."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    rows = {"conv3x3": [], "conv3x3_wgrad": [], "group_norm": []}
+
+    def check(kernel, name, err, tol):
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{kernel} {name}: max_abs_err {err} > {tol}")
+
+    for name, b, hh, ww, c, co, per in AE_CONV_CASES:
+        x = torch.randn((b, hh, ww, c), generator=gen, device="cuda").to(bf16)
+        dy = torch.randn((b, hh, ww, co), generator=gen, device="cuda").to(bf16)
+        w = (torch.randn((co, c, 3, 3), generator=gen, device="cuda") * (9 * c) ** -0.5).to(bf16)
+        bias = (torch.randn((co,), generator=gen, device="cuda") * 0.1).to(bf16)
+        wk = Cv.kernel_weight(w)
+        wf = Cv.flip_weights(wk)
+        xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # NCHW views of NHWC memory: channels_last
+        wc = w.contiguous(memory_format=torch.channels_last)
+        m = b * hh * ww
+        # forward (C -> Co) and dx (the forward kernel, Co -> C, flipped weights, no bias)
+        xg = x.detach().clone().requires_grad_()
+        ref_y = Cv.conv3x3_plain(xg, wk, bias)
+        (ref_dx,) = torch.autograd.grad(ref_y, xg, dy)
+        ref_y = ref_y.detach()
+        del xg
+        for kind, run, plain_run, lib_run, ref, cin, cout, count in (
+            ("fwd", lambda: Cv.conv3x3(x, wk, bias), lambda: Cv.conv3x3_plain(x, wk, bias),
+             lambda: F.conv2d(xc, wc, bias, padding=1), ref_y, c, co, 2 * per),
+            ("dx", lambda: Cv.conv3x3(dy, wf), lambda: Cv.conv3x3_plain(dy, wf),
+             lambda: torch.nn.grad.conv2d_input(xc.shape, wc, dyc, padding=1), ref_dx, co, c, per),
+        ):
+            out = run()
+            torch.cuda.synchronize()
+            err, tol = max_err(out, ref), CONV_REL * ref.float().abs().max().item()
+            bms, by = bound_ms(2.0 * m * cin * cout * 9, 2.0 * (m * cin + 9 * cin * cout + cout + m * cout))
+            row = dict(case=f"ae_{kind}_{name}", shape=[b, hh, ww, cin, cout], max_abs_err=err, tol=tol,
+                       ms=time_ms(torch, run), plain_ms=time_ms(torch, plain_run, 20.0), library_ms=time_ms(torch, lib_run),
+                       bound_ms=bms, bound_by=by, per={"ae": count})
+            print("conv3x3", json.dumps(row))
+            check("conv3x3", row["case"], err, tol)
+            rows["conv3x3"].append(row)
+        del ref_y, ref_dx
+        # weight gradient
+        out = Cv.conv3x3_wgrad(x, dy)
+        torch.cuda.synchronize()
+        ref = Cv.conv3x3_wgrad_plain(x, dy)
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            raise AssertionError(f"conv3x3_wgrad {name}: {tuple(out.shape)} {out.dtype}")
+        if not torch.equal(out, Cv.conv3x3_wgrad(x, dy)):
+            raise AssertionError(f"conv3x3_wgrad {name}: a second launch on the same inputs differs")
+        err, tol = max_err(out, ref), WGRAD_REL * ref.float().abs().max().item()
+        bms, by = bound_ms(2.0 * m * c * co * 9, 2.0 * (m * c + m * co + 9 * c * co))
+        row = dict(case=name, shape=[b, hh, ww, c, co], splits=Cv.wgrad_splits(m, c, co), max_abs_err=err, tol=tol,
+                   ms=time_ms(torch, lambda: Cv.conv3x3_wgrad(x, dy)),
+                   plain_ms=time_ms(torch, lambda: Cv.conv3x3_wgrad_plain(x, dy), 20.0),
+                   library_ms=time_ms(torch, lambda: torch.nn.grad.conv2d_weight(xc, w.shape, dyc, padding=1)),
+                   bound_ms=bms, bound_by=by, per={"ae": per})
+        print("conv3x3_wgrad", json.dumps(row))
+        check("conv3x3_wgrad", name, err, tol)
+        rows["conv3x3_wgrad"].append(row)
+        del x, dy, out, ref
+    torch.cuda.empty_cache()
+
+    for name, shape, groups, dtype, silu, per in gn_cases():
+        dt = getattr(torch, dtype)
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dt)
+        w = (1.0 + 0.2 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
+        bias = (0.2 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
+        kw = dict(num_groups=groups, eps=1e-6, apply_silu=silu)
+        out = Gn.group_norm_silu(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        ref = Gn.group_norm_silu_plain(x, w, bias, **kw)
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            raise AssertionError(f"group_norm {name}: {tuple(out.shape)} {out.dtype}")
+        if not torch.equal(out, Gn.group_norm_silu(x, w, bias, **kw)):
+            raise AssertionError(f"group_norm {name}: a second launch on the same inputs differs")
+        err = max_err(out, ref)
+        tol = (GN_REL_F32 if dt == torch.float32 else GN_REL) * ref.float().abs().max().item()
+        xn = x.permute(0, 3, 1, 2)
+
+        def lib():
+            y = F.group_norm(xn, groups, w, bias, 1e-6)
+            return F.silu(y) if silu else y
+
+        # bytes: x read once and y written once (the kernel itself reads x twice), w and b
+        bms, by = bound_ms(0.0, x.element_size() * (2.0 * x.numel() + 2.0 * c))
+        row = dict(case=name, shape=list(shape), groups=groups, dtype=dtype, silu=silu, max_abs_err=err, tol=tol,
+                   ms=time_ms(torch, lambda: Gn.group_norm_silu(x, w, bias, **kw), 20.0),
+                   plain_ms=time_ms(torch, lambda: Gn.group_norm_silu_plain(x, w, bias, **kw), 10.0),
+                   library_ms=time_ms(torch, lib, 20.0), bound_ms=bms, bound_by=by, per=per)
+        print("group_norm", json.dumps(row))
+        check("group_norm", name, err, tol)
+        rows["group_norm"].append(row)
+    return rows
+
+
 @contextlib.contextmanager
-def plain_kernels(A, Cv):
+def plain_kernels(A, Cv, Gn):
     """Point the callers at the kernels' plain versions: `sdp_attn`, the
-    autograd function and `conv_call` look the wrappers up as module globals."""
+    autograd functions, `conv_call` and the GroupNorm dispatcher look the
+    wrappers up as module globals."""
     names = ("flash_attention", "flash_fwd_lse", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
     saved = {n: getattr(A, n) for n in names}
-    saved_conv = Cv.conv3x3
+    saved_conv = Cv.conv3x3, Cv.conv3x3_wgrad, Gn.group_norm_silu
     A.flash_attention = A.flash_attention_plain
     A.flash_fwd_lse = A.flash_fwd_with_lse_plain
     A.flash_bwd_fused = A.flash_bwd_plain
     A.flash_bwd_dq = lambda *a, **kw: A.flash_bwd_plain(*a, **kw)[0]
     A.flash_bwd_dkv = lambda *a, **kw: A.flash_bwd_plain(*a, **kw)[1:]
     Cv.conv3x3 = Cv.conv3x3_plain
+    Cv.conv3x3_wgrad = Cv.conv3x3_wgrad_plain
+    Gn.group_norm_silu = Gn.group_norm_silu_plain
     try:
         yield
     finally:
         for n, fn in saved.items():
             setattr(A, n, fn)
-        Cv.conv3x3 = saved_conv
+        Cv.conv3x3, Cv.conv3x3_wgrad, Gn.group_norm_silu = saved_conv
 
 
 @contextlib.contextmanager
@@ -349,6 +579,33 @@ def split_backward(A, record):
         A.FUSED_BWD, A.flash_bwd_dq, A.flash_bwd_dkv = saved
 
 
+def _bits(torch, t):
+    """Two order-independent checksums of a tensor's bit pattern (wrapping int64 sums)."""
+    b = t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32).to(torch.int64)
+    return b.sum().item(), (b * b).sum().item()
+
+
+@contextlib.contextmanager
+def record_bits(torch, Cv, Gn, record):
+    """Append (kernel, checksums of the inputs, checksums of the output) of every
+    `conv3x3_wgrad` and `group_norm_silu` call to `record`."""
+    saved = Cv.conv3x3_wgrad, Gn.group_norm_silu
+
+    def rec(kind, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            record.append((kind, tuple(_bits(torch, a) for a in args), _bits(torch, out)))
+            return out
+
+        return call
+
+    Cv.conv3x3_wgrad, Gn.group_norm_silu = rec("conv3x3_wgrad", saved[0]), rec("group_norm", saved[1])
+    try:
+        yield
+    finally:
+        Cv.conv3x3_wgrad, Gn.group_norm_silu = saved
+
+
 def bump_ulp(torch, x):
     """x rounded to bf16 and moved one bf16 ulp away from zero, in x's dtype."""
     b = x.to(torch.bfloat16)
@@ -359,35 +616,55 @@ def rel_err(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def reset_launches(A, Cv) -> None:
-    Cv.conv3x3.launches = 0
+def reset_launches(A, Cv, Gn) -> None:
+    Cv.conv3x3.launches = Cv.conv3x3_wgrad.launches = Gn.group_norm_silu.launches = 0
     A.flash_attention.launches = 0
     for name in TRAIN_KERNELS:
         getattr(A, name).launches = 0
 
 
-def read_launches(A, Cv) -> dict:
-    out = {"flash_attention": A.flash_attention.launches, "conv3x3": Cv.conv3x3.launches}
+def read_launches(A, Cv, Gn) -> dict:
+    out = {"flash_attention": A.flash_attention.launches, "conv3x3": Cv.conv3x3.launches,
+           "conv3x3_wgrad": Cv.conv3x3_wgrad.launches, "group_norm": Gn.group_norm_silu.launches}
     out.update({name: getattr(A, name).launches for name in TRAIN_KERNELS})
     return out
+
+
+def leaf_errors(grads, ref) -> dict:
+    """{leaf: max|a - b| / max|b|} over the leaves with a non-zero reference."""
+    out = {}
+    for name, r in ref.items():
+        scale = r.float().abs().max().item()
+        if scale > 0:
+            out[name] = (grads[name].float() - r.float()).abs().max().item() / scale
+    return out
+
+
+def leaf_norm_errors(grads, ref) -> dict:
+    """{leaf: ||a - b||_2 / ||b||_2} over the leaves with a non-zero reference."""
+    out = {}
+    for name, r in ref.items():
+        scale = r.double().square().sum().item()
+        if scale > 0:
+            out[name] = math.sqrt((grads[name].double() - r.double()).square().sum().item() / scale)
+    return out
+
+
+def quantile(values, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
 
 
 def grad_errors(grads, ref) -> dict:
     """Per-leaf max relative error (max|a - b| / max|b|, over leaves with a
     non-zero reference) and the error of the whole gradient in the global
     2-norm, relative to the reference's norm."""
-    worst, worst_name, num, den = 0.0, "", 0.0, 0.0
-    for name, r in ref.items():
-        g = grads[name].float()
-        r = r.float()
-        num += (g - r).square().sum().item()
-        den += r.square().sum().item()
-        scale = r.abs().max().item()
-        if scale > 0:
-            e = (g - r).abs().max().item() / scale
-            if e > worst:
-                worst, worst_name = e, name
-    return {"leaf_max_rel": worst, "leaf": worst_name, "global_rel": math.sqrt(num / max(den, 1e-300))}
+    num = sum((grads[name].float() - r.float()).square().sum().item() for name, r in ref.items())
+    den = sum(r.float().square().sum().item() for r in ref.values())
+    leaves = leaf_errors(grads, ref)
+    worst_name = max(leaves, key=leaves.get, default="")
+    return {"leaf_max_rel": leaves.get(worst_name, 0.0), "leaf": worst_name,
+            "global_rel": math.sqrt(num / max(den, 1e-300))}
 
 
 def main() -> int:
@@ -407,7 +684,9 @@ def main() -> int:
     from cflearn_torch.ops import _native
     from cflearn_torch.ops import attention as A
     from cflearn_torch.ops import conv as Cv
-    from cflearn_torch.trainer import make_train_step
+    from cflearn_torch.ops import group_norm as Gn
+    from cflearn_torch.optimizers import build_optimizer
+    from cflearn_torch.trainer import MultiScopeStep, make_train_step
 
     print("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
     print("tf32: matmul", torch.backends.cuda.matmul.allow_tf32, "cudnn", torch.backends.cudnn.allow_tf32)
@@ -430,6 +709,16 @@ def main() -> int:
     rows = phase_kernels(torch, F, (A, Cv))
     rows.update(phase_train_kernels(torch, F, A))
     torch.cuda.empty_cache()
+    for name, cases in phase_ae_kernels(torch, F, Cv, Gn).items():
+        rows.setdefault(name, []).extend(cases)
+    # every row says on which path it is launched how often
+    for name, cases in rows.items():
+        for r in cases:
+            if "per" not in r:
+                r["per"] = {MAIN_PATH[name]: r.pop("per_path")}
+            if r["case"] == "ae_mid" and name in ("flash_attention", "flash_fwd_lse", "flash_bwd_fused"):
+                r["per"]["ae"] = AE_FLASH
+    torch.cuda.empty_cache()
     print(f"kernels: done at {time.perf_counter() - t_start:.0f} s")
 
     # 3. path
@@ -446,14 +735,14 @@ def main() -> int:
     z = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
     cflearn_torch.txt2img(model, tokens, uncond, num_steps=steps, guidance_scale=7.5, z=z)  # warm-up
     torch.cuda.synchronize()
-    reset_launches(A, Cv)
+    reset_launches(A, Cv, Gn)
     t0 = time.perf_counter()
     images, latents = cflearn_torch.txt2img(
         model, tokens, uncond, num_steps=steps, guidance_scale=7.5, z=z, return_latents=True
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(A, Cv)
+    launches = read_launches(A, Cv, Gn)
     print(f"path: steps {steps}, {wall:.3f} s per image, launches {json.dumps(launches)}")
     if tuple(images.shape) != (1, 512, 512, 3) or images.dtype != torch.uint8:
         return fail(f"image {tuple(images.shape)} {images.dtype}, want (1, 512, 512, 3) uint8")
@@ -463,7 +752,9 @@ def main() -> int:
         return fail(f"flash launches {launches['flash_attention']} != {FLASH_PER_UNET * steps + 1}")
     if launches["conv3x3"] != DECODER_CONVS:
         return fail(f"conv launches {launches['conv3x3']} != {DECODER_CONVS}")
-    if any(launches[name] for name in TRAIN_KERNELS):
+    if launches["group_norm"] != GN_PER_UNET * steps + GN_PER_DECODE:
+        return fail(f"group_norm launches {launches['group_norm']} != {GN_PER_UNET * steps + GN_PER_DECODE}")
+    if any(launches[name] for name in TRAIN_KERNELS + ("conv3x3_wgrad",)):
         return fail(f"txt2img launched a training kernel: {launches}")
     print(f"path: image mean {images.float().mean().item():.3f} std {images.float().std().item():.3f}, "
           f"latent std {latents.std().item():.4f}")
@@ -475,7 +766,7 @@ def main() -> int:
         t2 = torch.full((2,), 981, dtype=torch.long, device="cuda")
         eps_k = model.denoise(x2, t2, cond).float()
         dec_k = model.decode(latents).float()
-        with plain_kernels(A, Cv):
+        with plain_kernels(A, Cv, Gn):
             eps_p = model.denoise(x2, t2, cond).float()
             dec_p = model.decode(latents).float()
             # the plain path against itself, its input moved by one bf16 ulp:
@@ -530,14 +821,14 @@ def main() -> int:
           f"use_checkpoint={use_checkpoint}")
     before = [p.detach().clone() for _, p in tmodel.params_filter("all")]
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(A, Cv)
+    reset_launches(A, Cv, Gn)
     t0 = time.perf_counter()
     result = cflearn_torch.finetune_unet(
         tmodel, x0, ctx, num_steps=TRAIN_STEPS, use_checkpoint=use_checkpoint, **train_kw
     )
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
-    train_launches = read_launches(A, Cv)
+    train_launches = read_launches(A, Cv, Gn)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     losses = result["losses"].tolist()
     step_ms = train_wall / TRAIN_STEPS * 1e3
@@ -550,7 +841,10 @@ def main() -> int:
     want = {
         "flash_fwd_lse": FLASH_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
         "flash_bwd_fused": FLASH_PER_UNET * TRAIN_STEPS,
-        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_attention": 0, "conv3x3": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_attention": 0, "conv3x3": 0, "conv3x3_wgrad": 0,
+        # the forward's norms; their backward recomputes the plain version. A checkpointed block's
+        # forward runs twice
+        "group_norm": GN_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
     }
     if train_launches != want:
         return fail(f"train launches {train_launches} != {want}")
@@ -581,7 +875,7 @@ def main() -> int:
         return loss, grads
 
     loss_k, grads_k = fwd_bwd()
-    with plain_kernels(A, Cv):
+    with plain_kernels(A, Cv, Gn):
         loss_p, grads_p = fwd_bwd()
         # the plain path against itself, x0 moved one bf16 ulp
         loss_u, grads_u = fwd_bwd({INPUT_KEY: bump_ulp(torch, x0_b), "cond": ctx})
@@ -606,11 +900,11 @@ def main() -> int:
     split_runs, split_launches = [], None
     for _ in range(2):
         record = []
-        reset_launches(A, Cv)
+        reset_launches(A, Cv, Gn)
         with split_backward(A, record):
             loss_s, grads_s = fwd_bwd()
         torch.cuda.synchronize()
-        split_launches = read_launches(A, Cv)
+        split_launches = read_launches(A, Cv, Gn)
         if (split_launches["flash_bwd_dq"], split_launches["flash_bwd_dkv"], split_launches["flash_bwd_fused"]) != (
             FLASH_PER_UNET, FLASH_PER_UNET, 0
         ):
@@ -645,50 +939,241 @@ def main() -> int:
         return fail("fused and split backward disagree (per leaf)")
     print(f"train parity: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 7. summary
+    del tmodel, step, grads_k, grads_a, grads_b, grads_s, split_runs, rec_a, rec_b, record
+    torch.cuda.empty_cache()
+
+    # 7. ae path: the ae_kl adversarial train step at full width, batch 8, 256px
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ae = cflearn_torch.build_ae(AE_CONFIG, device="cuda", seed=0)
+    images = torch.randn((AE_BATCH, 256, 256, 3), generator=gen, device="cuda").clamp(-1.0, 1.0)
+    ae_kw = dict(compute_dtype=torch.bfloat16, generator=gen)
+    cflearn_torch.train_autoencoder(ae, images, num_steps=1, **ae_kw)  # warm-up
+    torch.cuda.synchronize()
+    scopes = {scope: ae.params_filter(scope) for scope in ("core", "discriminator")}
+    print(f"ae: {sum(p.numel() for _, p in scopes['core'])} core + "
+          f"{sum(p.numel() for _, p in scopes['discriminator'])} discriminator f32 parameters, batch {AE_BATCH}, 256px")
+    before = {n: p.detach().clone() for named in scopes.values() for n, p in named}
+    stats_before = {n: b.detach().clone() for n, b in ae.named_buffers()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    result = cflearn_torch.train_autoencoder(ae, images, num_steps=AE_STEPS, **ae_kw)
+    torch.cuda.synchronize()
+    ae_wall = time.perf_counter() - t0
+    ae_launches = read_launches(A, Cv, Gn)
+    ae_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ae_step_ms = ae_wall / AE_STEPS * 1e3
+    ae_losses = [{k: v.item() for k, v in step_losses.items()} for step_losses in result["losses"]]
+    print(f"ae: {AE_STEPS} steps, {ae_step_ms:.1f} ms per step, {AE_BATCH / ae_step_ms * 1e3:.2f} samples/s, "
+          f"peak memory {ae_peak_gb:.2f} GiB, launches {json.dumps(ae_launches)}")
+    print(f"ae: losses {json.dumps(ae_losses)}")
+    names = {"core_loss", "core_l1", "core_kl", "core_g", "discriminator_loss", "discriminator_d"}
+    for step_losses in ae_losses:
+        if set(step_losses) != names or not all(math.isfinite(v) for v in step_losses.values()):
+            return fail(f"ae losses {step_losses}")
+    # per step: every routed conv forward twice (core, and the discriminator scope's forward) and
+    # its dx once through the forward kernel, its weight gradient once; the norms of two forwards;
+    # the two attentions with a gradient in core and without in the discriminator scope
+    want = {
+        "conv3x3": 3 * AE_CONVS * AE_STEPS, "conv3x3_wgrad": AE_CONVS * AE_STEPS,
+        "group_norm": 2 * GN_PER_AE_FORWARD * AE_STEPS, "flash_fwd_lse": AE_FLASH * AE_STEPS,
+        "flash_bwd_fused": AE_FLASH * AE_STEPS, "flash_attention": AE_FLASH * AE_STEPS,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    }
+    if ae_launches != want:
+        return fail(f"ae launches {ae_launches} != {want}")
+    still = [n for named in scopes.values() for n, p in named if torch.equal(p, before[n])]
+    stats_still = [n for n, b in ae.named_buffers() if torch.equal(b, stats_before[n])]
+    n_leaves = 0
+    for scope, fn in result["steps"].items():
+        bad = [n for n, g in fn.grads.items() if not torch.isfinite(g).all()]
+        zero = [n for n, g in fn.grads.items() if not g.any()]
+        if bad or zero or len(fn.grads) != len(scopes[scope]):
+            return fail(f"ae {scope}: non-finite gradients {bad[:3]}, all-zero gradients {zero[:3]}")
+        n_leaves += len(fn.grads)
+    print(f"ae: {n_leaves} gradient leaves finite, none all-zero, {len(still)} parameters unmoved, "
+          f"{len(stats_before)} BatchNorm statistics, {len(stats_still)} of them unmoved")
+    if still or stats_still or not stats_before:
+        return fail(f"unmoved parameters {still[:3]}, unmoved BatchNorm statistics {stats_still[:3]}")
+    del before, result
+    torch.cuda.empty_cache()
+    print(f"ae path: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 8. ae parity: one core forward + backward, kernels vs plain versions, same noise
+    multi = MultiScopeStep(ae, {scope: build_optimizer("adam", 1e-4) for scope in scopes}, compute_dtype=torch.bfloat16)
+    core = multi.steps["core"]
+    core.train_step.step_actives = {"core": True, "discriminator": True}
+    z_noise = torch.randn((AE_BATCH, 32, 32, 4), generator=gen, device="cuda")
+    images_b = images.to(torch.bfloat16).float()  # on the bf16 grid, so that the bump below is one ulp
+
+    def ae_fwd_bwd(x=images_b):
+        losses = core.loss_and_grads({INPUT_KEY: x}, forward_kwargs={"noise": z_noise})
+        grads, core.grads = core.grads, {}
+        return losses[LOSS_KEY].item(), grads
+
+    ae_loss_k, ae_grads_k = ae_fwd_bwd()
+    with plain_kernels(A, Cv, Gn):
+        ae_loss_p, ae_grads_p = ae_fwd_bwd()
+        images_u = bump_ulp(torch, images_b)
+        ae_loss_u, ae_grads_u = ae_fwd_bwd(images_u)
+        # one ulp the other way: a second reading of the drift, for the leaves one by one
+        _, ae_grads_d = ae_fwd_bwd(images_b - (images_u - images_b))
+    # the global norm as in the train parity; the leaves one by one in the 2-norm, ||d|| / ||ref||, which
+    # averages over a leaf's elements where the largest element's error does not. A leaf may lie
+    # AE_PARITY_FACTOR times as far from the plain path as the one-ulp drift moved that same leaf
+    # (the larger of the two readings), or moved the leaves' upper decile where its own drift
+    # happened to be small.
+    ae_drift, ae_err = grad_errors(ae_grads_u, ae_grads_p), grad_errors(ae_grads_k, ae_grads_p)
+    drift_up, drift_down = leaf_norm_errors(ae_grads_u, ae_grads_p), leaf_norm_errors(ae_grads_d, ae_grads_p)
+    drift_leaves = {n: max(d, drift_down[n]) for n, d in drift_up.items()}
+    err_leaves = leaf_norm_errors(ae_grads_k, ae_grads_p)
+    leaf_floor = quantile(drift_leaves.values(), 0.9)
+    # Left out of the per-leaf gate, by measured rules on the plain path alone. A leaf that one ulp
+    # of the images moves by more than AE_UNDETERMINED of its own norm: its gradient is rounding
+    # noise in this state of the weights, and no path can be held to it. And a bias whose gradient
+    # is below a hundredth of its weight's and which the drift moves further than the upper
+    # decile: the key bias of a softmax attention, whose gradient is zero in exact arithmetic (a
+    # shift of every score of a row leaves the softmax as it is), so that what is computed for it
+    # differs between any two ways of summing. Both count in the global norm.
+    noise_leaves = sorted(
+        n for n, g in ae_grads_p.items()
+        if drift_leaves[n] > AE_UNDETERMINED or (
+            n.endswith(".bias") and n[: -len("bias")] + "weight" in ae_grads_p
+            and g.abs().max().item() < AE_NOISE_RATIO * ae_grads_p[n[: -len("bias")] + "weight"].abs().max().item()
+            and drift_leaves[n] > leaf_floor
+        )
+    )
+    gated = [n for n in drift_leaves if n not in noise_leaves]
+    leaf_ratio = {n: err_leaves[n] / max(drift_leaves[n], leaf_floor) for n in gated}
+    worst = max(leaf_ratio, key=leaf_ratio.get)
+    ae_leaves = {
+        "gated": len(gated), "noise_leaves": noise_leaves, "floor": leaf_floor,
+        "drift_median": quantile([drift_leaves[n] for n in gated], 0.5), "drift_max": max(drift_leaves[n] for n in gated),
+        "err_median": quantile([err_leaves[n] for n in gated], 0.5), "err_max": max(err_leaves[n] for n in gated),
+        "worst_ratio": leaf_ratio[worst], "worst_leaf": worst,
+    }
+    print(f"ae parity: left out of the per-leaf gate: {noise_leaves} (drift "
+          f"{[round(drift_leaves[n], 3) for n in noise_leaves]}, kernels {[round(err_leaves[n], 3) for n in noise_leaves]})")
+    for label, leaves in (("drift", drift_leaves), ("kernels", err_leaves), ("kernels / allowed drift", leaf_ratio)):
+        top = sorted(((leaves[n], n) for n in gated), reverse=True)[:4]
+        print(f"ae parity: worst leaves in the 2-norm, {label}: {[(n, round(e, 4)) for e, n in top]}")
+    print(f"ae parity: per leaf {json.dumps(ae_leaves)}")
+    if len(noise_leaves) > AE_MAX_LEFT_OUT or len(gated) + len(noise_leaves) != len(ae_grads_p):
+        return fail(f"ae parity: {len(gated)} gated leaves of {len(ae_grads_p)}, left out {noise_leaves}")
+    leaf_table = {n: [drift_leaves[n], err_leaves[n]] for n in drift_leaves}
+    del ae_grads_u, ae_grads_d, ae_grads_p, images_u
+    ae_tol_loss = max(AE_PARITY_FACTOR * abs(ae_loss_u - ae_loss_p), 2.0**-10 * abs(ae_loss_p))
+    print(f"ae parity: loss kernels {ae_loss_k:.6f} plain {ae_loss_p:.6f} plain+ulp {ae_loss_u:.6f} "
+          f"(tolerance {ae_tol_loss:.3e})")
+    print(f"ae parity: plain path vs itself with the images one bf16 ulp away: {json.dumps(ae_drift)}")
+    print(f"ae parity: kernels vs plain: {json.dumps(ae_err)} (tolerance {AE_PARITY_FACTOR} x the drift)")
+    if not abs(ae_loss_k - ae_loss_p) <= ae_tol_loss:
+        return fail("ae loss through the kernels disagrees with the plain path")
+    if not ae_err["global_rel"] <= AE_PARITY_FACTOR * ae_drift["global_rel"]:
+        return fail("ae gradients through the kernels disagree with the plain path (global norm)")
+    if not ae_leaves["err_median"] <= AE_PARITY_FACTOR * ae_leaves["drift_median"]:
+        return fail("ae gradients through the kernels disagree with the plain path (median leaf)")
+    if not leaf_ratio[worst] <= AE_PARITY_FACTOR:
+        return fail(f"ae gradients through the kernels disagree with the plain path (leaf {worst})")
+    # the weight gradient and GroupNorm sum in a fixed order. With the split attention backward and
+    # cuDNN held to its deterministic algorithms (the convs that are not routed to the kernels),
+    # two runs of the step give bit-identical gradients; every call of the two kernels that met
+    # bit-identical inputs in both runs must have given bit-identical outputs
+    det_runs = []
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reset_launches(A, Cv, Gn)
+    try:
+        for _ in range(2):
+            record = []
+            with split_backward(A, []), record_bits(torch, Cv, Gn, record):
+                _, grads = ae_fwd_bwd()
+            det_runs.append((record, grads))
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    torch.cuda.synchronize()
+    det_launches = read_launches(A, Cv, Gn)
+    (rec_a, ae_grads_a), (rec_b, ae_grads_b) = det_runs
+    same_in = [i for i, (a, b) in enumerate(zip(rec_a, rec_b)) if a[:2] == b[:2]]
+    same_out = [i for i in same_in if rec_a[i][2] == rec_b[i][2]]
+    ae_equal = [n for n in ae_grads_a if not torch.equal(ae_grads_a[n], ae_grads_b[n])]
+    print(f"ae parity: split attention backward, launches of two runs {json.dumps(det_launches)}; of "
+          f"{len(rec_a)} conv3x3_wgrad and group_norm calls {len(same_in)} met bit-identical inputs in both runs and "
+          f"{len(same_out)} of them gave bit-identical outputs; "
+          f"{len(ae_grads_a) - len(ae_equal)} of {len(ae_grads_a)} gradient leaves bit-identical")
+    if (det_launches["flash_bwd_dq"], det_launches["flash_bwd_dkv"], det_launches["flash_bwd_fused"]) != (
+        2 * AE_FLASH, 2 * AE_FLASH, 0
+    ) or det_launches["conv3x3_wgrad"] != 2 * AE_CONVS or not len(rec_a) == len(rec_b) == AE_CONVS + GN_PER_AE_FORWARD:
+        return fail(f"ae split backward launches {det_launches}")
+    if len(same_out) != len(same_in) or not same_in:
+        return fail("conv3x3_wgrad or group_norm gave different outputs on bit-identical inputs")
+    if ae_equal:
+        return fail(f"ae gradients are not bit-reproducible with the split backward, e.g. {ae_equal[:3]}")
+    del det_runs, rec_a, rec_b
+    del ae_grads_a, ae_grads_b, ae_grads_k
+    print(f"ae parity: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 9. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
-    # name: (source, TPU kernel, launches of the path that runs it, what "ms" sums over)
-    per_img, per_step = "one txt2img: each main-path shape's time times its launches", \
-        "one finetune step: each main-path shape's time times its launches"
+    # name: (source, TPU kernel); launches come from the run of the kernel's main path
     info = {
-        "flash_attention": (src + "flash_attention.cu", tpu + "attention.py:35", launches["flash_attention"], per_img),
-        "conv3x3": (src + "conv3x3.cu", tpu + "conv.py:52", launches["conv3x3"], per_img),
-        "flash_fwd_lse": (src + "flash_fwd_lse.cu", tpu + "attention.py:196", train_launches["flash_fwd_lse"], per_step),
-        "flash_bwd_fused": (src + "flash_bwd_fused.cu", tpu + "attention.py:340", train_launches["flash_bwd_fused"],
-                            per_step),
-        "flash_bwd_dq": (src + "flash_bwd_dq.cu", tpu + "attention.py:247", split_launches["flash_bwd_dq"], per_step),
-        "flash_bwd_dkv": (src + "flash_bwd_dkv.cu", tpu + "attention.py:290", split_launches["flash_bwd_dkv"],
-                          per_step),
+        "flash_attention": (src + "flash_attention.cu", tpu + "attention.py:35"),
+        "conv3x3": (src + "conv3x3.cu", tpu + "conv.py:52"),
+        "flash_fwd_lse": (src + "flash_fwd_lse.cu", tpu + "attention.py:196"),
+        "flash_bwd_fused": (src + "flash_bwd_fused.cu", tpu + "attention.py:340"),
+        "flash_bwd_dq": (src + "flash_bwd_dq.cu", tpu + "attention.py:247"),
+        "flash_bwd_dkv": (src + "flash_bwd_dkv.cu", tpu + "attention.py:290"),
+        "conv3x3_wgrad": (src + "conv3x3_wgrad.cu", tpu + "conv.py:304"),
+        "group_norm": (src + "group_norm.cu", tpu + "group_norm.py:24"),
     }
+    path_launches = {"txt2img": launches, "finetune": train_launches, "ae": ae_launches}
+    path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step"}
+    path_run = {"txt2img": "one txt2img", "finetune": f"{TRAIN_STEPS} finetune steps",
+                "ae": f"{AE_STEPS} autoencoder train steps"}
     kernels = []
     for name, cases in rows.items():
-        main_cases = [r for r in cases if r["per_path"] > 0]
+        source, replaces = info[name]
 
-        def total(key: str, cases=main_cases) -> float:
-            return sum(r[key] * r["per_path"] for r in cases)
+        def totals(path: str, cases=cases) -> dict:
+            on_path = [r for r in cases if r["per"].get(path, 0) > 0]
+            out = {key: sum(r[key] * r["per"][path] for r in on_path) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            out["bound_by"] = max(on_path, key=lambda r: r["bound_ms"] * r["per"][path])["bound_by"]
+            # the split kernels run where the deterministic backward is chosen: the train parity phase
+            split = name in ("flash_bwd_dq", "flash_bwd_dkv")
+            out["launches"] = split_launches[name] if split and path == "finetune" else path_launches[path][name]
+            out["launches_of"] = "one finetune forward + backward with the split backward" if split and path == "finetune" else path_run[path]
+            out["per"] = f"the times are of {path_unit[path]}: each of its shapes' time times its launches in it"
+            return out
 
-        by = max(main_cases, key=lambda r: r["bound_ms"] * r["per_path"])["bound_by"]
-        source, replaces, count, per = info[name]
+        paths = sorted({p for r in cases for p, n in r["per"].items() if n > 0})
+        main_path = MAIN_PATH[name]
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=count, max_abs_err=max(r["max_abs_err"] for r in cases),
-            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"), bound_by=by,
-            library_ms=total("library_ms"), per=per,
+            name=name, route="cuda", source=source, replaces=replaces, path=main_path,
+            max_abs_err=max(r["max_abs_err"] for r in cases), **totals(main_path),
+            other_paths={p: totals(p) for p in paths if p != main_path},
         ))
     serve = {"img_per_s": 1.0 / wall, "steps": steps, "batch": 1, "px": 512}
     train = {"finetune_steps_per_s": 1e3 / step_ms, "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
              "step_ms": step_ms, "batch": TRAIN_BATCH, "use_checkpoint": use_checkpoint,
-             "peak_memory_gib": peak_gb, "seconds_total": time.perf_counter() - t_start}
+             "peak_memory_gib": peak_gb}
+    ae_out = {"ae_steps_per_s": 1e3 / ae_step_ms, "samples_per_s": AE_BATCH / ae_step_ms * 1e3, "step_ms": ae_step_ms,
+              "batch": AE_BATCH, "px": 256, "peak_memory_gib": ae_peak_gb, "losses": ae_losses,
+              "seconds_total": time.perf_counter() - t_start}
     # the per-shape rows printed above, once more in one file beside the checkout
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card_line(), "kernels": kernels, "shapes": rows, "txt2img": serve, "finetune": train,
-                   "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s}}, f, indent=1)
+                   "autoencoder": ae_out,
+                   "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
+                   "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
+                   "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "leaves": ae_leaves,
+                                 "leaf_drift_and_error": leaf_table}}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps(serve))
     print(json.dumps(train))
+    print(json.dumps(ae_out))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

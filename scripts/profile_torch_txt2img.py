@@ -2,6 +2,7 @@
 
     python scripts/profile_torch_txt2img.py [--steps 5] [--out chiprun_out/profile_torch_txt2img.json]
     python scripts/profile_torch_txt2img.py --path finetune [--steps 2] [--checkpoint]
+    python scripts/profile_torch_txt2img.py --path ae [--steps 2]
 
 `--path txt2img` (default): builds full-width SD-1.5 v1 in bf16 from seeded
 random weights, runs one warm-up txt2img at 512px (batch 1, CFG batch 2),
@@ -12,6 +13,11 @@ parameters, runs one warm-up `finetune_unet` step at batch 8 (64x64x4
 latents, a 77x768 condition, bf16 compute, AdamW 1e-5), then `--steps` steps
 under `torch.profiler`. Writes to `chiprun_out/profile_torch_finetune.json`
 unless `--out` says otherwise.
+
+`--path ae`: builds the full-width `ae_kl` model (256px, 128 channels,
+multipliers [1, 2, 4, 4], two res blocks, PatchGAN discriminator) with f32
+master parameters, runs warm-up `train_autoencoder` steps at batch 8 (bf16
+compute, Adam), then `--steps` steps under `torch.profiler`.
 
 Prints the wall time, the summed device time of all kernels and the
 device's idle share over the wall, the device time by kernel group and the
@@ -30,6 +36,8 @@ GROUPS = [
     ("flash backward (port kernels)", ("flash_bwd_kernel",)),
     ("flash_attention (port kernel)", ("flash_fwd_kernel", "flash_fwd_chunked_kernel")),
     ("conv3x3 (port kernel)", ("conv3x3_kernel",)),
+    ("conv3x3_wgrad (port kernels)", ("wgrad_kernel", "wgrad_reduce_kernel")),
+    ("group_norm (port kernels)", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("cuDNN / library conv", ("conv", "implicit_gemm", "xmma_fprop", "fprop", "dgrad", "wgrad")),
     ("GEMM (Linear)", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
@@ -49,7 +57,7 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--path", choices=("txt2img", "finetune"), default="txt2img")
+    parser.add_argument("--path", choices=("txt2img", "finetune", "ae"), default="txt2img")
     parser.add_argument("--steps", type=int, default=None, help="DDIM steps (default 5) or train steps (default 2)")
     parser.add_argument("--checkpoint", action="store_true", help="finetune: recompute each UNet block in the backward")
     parser.add_argument("--out", default=None)
@@ -84,6 +92,23 @@ def main() -> int:
             return out
 
         run()
+    elif args.path == "ae":
+        model = cflearn_torch.build_ae(
+            dict(img_size=256, in_channels=3, inner_channels=128, z_channels=4, embedding_channels=4,
+                 channel_multipliers=[1, 2, 4, 4], num_res_blocks=2, use_perceptual=False, d_loss_start_step=0),
+            device="cuda", seed=0,
+        )
+        images = torch.randn((8, 256, 256, 3), generator=gen, device="cuda").clamp(-1.0, 1.0)
+
+        def run(steps=args.steps):
+            out = cflearn_torch.train_autoencoder(
+                model, images, num_steps=steps, compute_dtype=torch.bfloat16, generator=gen
+            )["losses"]
+            torch.cuda.synchronize()
+            return out
+
+        run(1)
+        run(1)
     else:
         from cflearn_torch.models.cv.diffusion import DDPMModel
 

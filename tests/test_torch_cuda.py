@@ -11,6 +11,7 @@ import torch
 
 from cflearn_torch.ops import attention as A
 from cflearn_torch.ops import conv as C
+from cflearn_torch.ops import group_norm as G
 
 pytestmark = pytest.mark.cuda
 
@@ -133,10 +134,78 @@ def test_trainable_function_on_the_card(cuda, deterministic) -> None:
         _close(got, r, _rel(torch.bfloat16))
 
 
-def test_conv_kernel_refuses_gradients_on_the_card(cuda) -> None:
-    x = torch.randn((1, 8, 8, 64), device="cuda").bfloat16()
-    w = torch.randn((64, 3, 3, 64), device="cuda").bfloat16()
-    with pytest.raises(RuntimeError, match="conv VJP"):
-        C.conv3x3(x.requires_grad_(), w)
+def test_conv_kernel_carries_gradients_on_the_card(cuda) -> None:
+    """`conv3x3` on CUDA tensors that need a gradient goes through the conv
+    VJP: dx from the forward kernel with flipped weights, dw from the
+    weight-gradient kernel, db; each within two bf16 ulps of its largest value
+    of the plain version's autograd."""
+    x = torch.randn((2, 33, 47, 64), generator=cuda, device="cuda").bfloat16().requires_grad_()
+    w = (torch.randn((136, 3, 3, 64), generator=cuda, device="cuda") / 24).bfloat16().requires_grad_()
+    b = (torch.randn((136,), generator=cuda, device="cuda") * 0.1).bfloat16().requires_grad_()
+    dy = torch.randn((2, 33, 47, 136), generator=cuda, device="cuda").bfloat16()
+    counts = C.conv3x3.launches, C.conv3x3_wgrad.launches
+    y = C.conv3x3(x, w, b)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, (x, w, b), dy)
+    assert (C.conv3x3.launches, C.conv3x3_wgrad.launches) == (counts[0] + 2, counts[1] + 1)
+    ref = torch.autograd.grad(C.conv3x3_plain(x, w, b), (x, w, b), dy)
+    for g, r in zip(got, ref):
+        _close(g, r, 2.0**-6)
     with torch.no_grad():
         assert C.conv3x3(x, w).grad_fn is None
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 64, 128, 128), (3, 33, 47, 64, 136), (2, 5, 7, 96, 64), (1, 128, 128, 256, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgrad_kernel_matches_plain(cuda, shape, dtype) -> None:
+    b, h, w, c, co = shape
+    x = torch.randn((b, h, w, c), generator=cuda, device="cuda").to(dtype)
+    dy = (torch.randn((b, h, w, co), generator=cuda, device="cuda") * (b * h * w) ** -0.5).to(dtype)
+    before = C.conv3x3_wgrad.launches
+    out = C.conv3x3_wgrad(x, dy)
+    assert C.conv3x3_wgrad.launches == before + 1
+    _close(out, C.conv3x3_wgrad_plain(x, dy), 2.0**-6)
+    assert torch.equal(out, C.conv3x3_wgrad(x, dy))  # a fixed summation order: bit-identical again
+    with pytest.raises(TypeError):
+        C.conv3x3_wgrad(x.float(), dy.float())
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize(
+    "shape,groups", [((8, 64, 64, 128), 32), ((2, 16, 16, 320), 32), ((1, 9, 7, 36), 4), ((2, 3, 5, 1280), 32),
+                     ((2, 5, 3, 6152), 2), ((1, 4, 4, 777), 3)]
+)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_group_norm_kernel_matches_plain(cuda, silu, shape, groups, dtype) -> None:
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    w = 1 + 0.2 * torch.randn((shape[-1],), generator=cuda, device="cuda")
+    b = 0.2 * torch.randn((shape[-1],), generator=cuda, device="cuda")
+    for params in ((w, b), (w.to(dtype), b.to(dtype))):
+        before = G.group_norm_silu.launches
+        out = G.group_norm_silu(x, *params, num_groups=groups, apply_silu=silu)
+        assert G.group_norm_silu.launches == before + 1
+        ref = G.group_norm_silu_plain(x, *params, num_groups=groups, apply_silu=silu)
+        _close(out, ref, 2.0**-16 if dtype == torch.float32 else 2.0**-6)
+        assert torch.equal(out, G.group_norm_silu(x, *params, num_groups=groups, apply_silu=silu))
+    with pytest.raises(TypeError):
+        G.group_norm_silu(x.double(), w, b, num_groups=groups)
+
+
+def test_fused_group_norm_on_the_card(cuda) -> None:
+    """The modules' dispatcher launches the kernel on CUDA tensors with and
+    without a gradient; the backward recomputes the plain version."""
+    x = torch.randn((2, 16, 16, 64), generator=cuda, device="cuda").bfloat16().requires_grad_()
+    w = torch.ones(64, device="cuda", requires_grad=True)
+    b = torch.zeros(64, device="cuda", requires_grad=True)
+    before = G.group_norm_silu.launches
+    y = G.module_call(x, w, b, num_groups=32, eps=1e-6, apply_silu=True)
+    assert y.dtype == torch.float32 and isinstance(y.grad_fn, G.FusedGroupNorm._backward_cls)
+    got = torch.autograd.grad(y, (x, w, b), torch.ones_like(y))
+    with torch.no_grad():
+        assert G.module_call(x, w, b, num_groups=32, eps=1e-6).grad_fn is None
+    assert G.group_norm_silu.launches == before + 2
+    ref = torch.autograd.grad(
+        G.group_norm_silu_plain(x.float(), w, b, num_groups=32, apply_silu=True), (x, w, b), torch.ones_like(y)
+    )
+    for g, r in zip(got, ref):
+        _close(g, r.to(g.dtype), 2.0**-6)

@@ -109,6 +109,112 @@ def test_training_kernel_wrappers_refuse_other_devices(name) -> None:
     assert fn.launches == before
 
 
+def test_conv_wgrad_wrapper_refuses_other_devices_and_dtypes() -> None:
+    from cflearn_torch.ops import conv
+
+    x = torch.empty((1, 8, 8, 64), device="meta", dtype=torch.bfloat16)
+    before = conv.conv3x3_wgrad.launches
+    with pytest.raises(RuntimeError, match="no kernel"):
+        conv.conv3x3_wgrad(x, x)
+    assert conv.conv3x3_wgrad.launches == before
+    # on the CPU the plain version takes any floating dtype, in x's dtype and the kernel's layout
+    xc = torch.zeros((1, 4, 4, 8), dtype=torch.float64)
+    out = conv.conv3x3_wgrad(xc, torch.zeros((1, 4, 4, 16), dtype=torch.float64))
+    assert out.shape == (16, 3, 3, 8) and out.dtype == torch.float64
+
+
+def test_conv_wgrad_checks_come_before_any_launch(monkeypatch) -> None:
+    """What the kernel does not take is refused by the wrapper (dtype, shape,
+    channel multiple), not by the library: a CUDA tensor's checks run before
+    the kernel is built or loaded."""
+    from cflearn_torch.ops import _native, conv
+
+    def no_library(name):
+        raise AssertionError(f"library({name!r}) reached")
+
+    monkeypatch.setattr(_native, "library", no_library)
+
+    class OnCard(torch.Tensor):
+        """A meta tensor that says it lies on a CUDA card."""
+
+        @property
+        def device(self):  # type: ignore[override]
+            return torch.device("cuda", 0)
+
+    def card(shape, dtype):
+        return torch.empty(shape, device="meta", dtype=dtype).as_subclass(OnCard)
+
+    with pytest.raises(TypeError, match="bf16/fp16"):
+        conv.conv3x3_wgrad(card((1, 8, 8, 64), torch.float32), card((1, 8, 8, 64), torch.float32))
+    with pytest.raises(TypeError, match="one dtype"):
+        conv.conv3x3_wgrad(card((1, 8, 8, 64), torch.bfloat16), card((1, 8, 8, 64), torch.float16))
+    with pytest.raises(ValueError, match="dy"):
+        conv.conv3x3_wgrad(card((1, 8, 8, 64), torch.bfloat16), card((1, 8, 9, 64), torch.bfloat16))
+    with pytest.raises(ValueError, match="% 8"):
+        conv.conv3x3_wgrad(card((1, 8, 8, 60), torch.bfloat16), card((1, 8, 8, 64), torch.bfloat16))
+    from cflearn_torch.ops import group_norm as gn
+
+    w = card((64,), torch.float32)
+    with pytest.raises(TypeError, match="bf16/fp16/f32"):
+        gn.group_norm_silu(card((1, 8, 8, 64), torch.float64), w, w)
+    with pytest.raises(TypeError, match="bf16/fp16/f32"):
+        gn.group_norm_silu(card((1, 8, 8, 64), torch.bfloat16), w, card((64,), torch.bfloat16))
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_silu(card((1, 8, 8, 64), torch.bfloat16), w, w, num_groups=5)
+    with pytest.raises(ValueError, match="x "):
+        gn.group_norm_silu(card((1, 8, 8, 64), torch.bfloat16), card((32,), torch.float32), w)
+
+
+def test_group_norm_wrapper_refuses_other_devices() -> None:
+    from cflearn_torch.ops import group_norm as gn
+
+    x = torch.empty((1, 8, 8, 64), device="meta")
+    w = torch.empty((64,), device="meta")
+    before = gn.group_norm_silu.launches
+    with pytest.raises(RuntimeError, match="no kernel"):
+        gn.group_norm_silu(x, w, w)
+    assert gn.group_norm_silu.launches == before
+    # the modules' dispatcher sends only CUDA tensors to the kernel
+    xc = torch.randn(1, 4, 4, 32)
+    out = gn.module_call(xc, torch.ones(32), torch.zeros(32), num_groups=8, eps=1e-6)
+    assert out.shape == xc.shape and gn.group_norm_silu.launches == before
+
+
+def test_conv3x3_needs_no_function_on_the_cpu() -> None:
+    """On a CPU tensor `conv3x3` is the plain version and autograd runs
+    through it; `Conv3x3Function` launches kernels and refuses the CPU."""
+    from cflearn_torch.ops import conv
+
+    x = torch.randn(1, 4, 4, 8, requires_grad=True)
+    w = torch.randn(8, 3, 3, 8, requires_grad=True)
+    conv.conv3x3(x, w).sum().backward()
+    assert x.grad is not None and w.grad is not None
+    with pytest.raises(RuntimeError, match="no kernel"):
+        conv.Conv3x3Function.apply(x, w, None)
+
+
+def test_train_autoencoder_raises_without_cuda(monkeypatch) -> None:
+    _no_cuda(monkeypatch)
+    config = dict(img_size=16, inner_channels=32, channel_multipliers=[1, 2], num_res_blocks=1, use_perceptual=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cflearn_torch.build_ae(config)
+    model = cflearn_torch.build_ae(config, device="cpu")
+    assert all(p.device.type == "cpu" and p.dtype == torch.float32 for p in model.parameters())
+    images = np.random.RandomState(0).randn(2, 16, 16, 3).astype(np.float32).clip(-1, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cflearn_torch.train_autoencoder(model, images)
+    out = cflearn_torch.train_autoencoder(model, images, num_steps=2, device="cpu")
+    assert len(out["losses"]) == 2
+    for losses in out["losses"]:
+        assert set(losses) == {"core_loss", "core_l1", "core_kl", "core_g", "discriminator_loss", "discriminator_d"}
+        assert all(torch.isfinite(v) for v in losses.values())
+    # the same seed gives the same steps: the posterior noise comes from the generator
+    again = cflearn_torch.train_autoencoder(
+        cflearn_torch.build_ae(config, device="cpu"), images, num_steps=2, device="cpu"
+    )
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(out["losses"], again["losses"]) for k in a)
+
+
 def test_finetune_unet_raises_without_cuda(monkeypatch) -> None:
     _no_cuda(monkeypatch)
     model = cflearn_torch.build(

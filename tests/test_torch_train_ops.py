@@ -168,21 +168,27 @@ def test_sdp_attn_library_branch_keeps_its_graph() -> None:
     assert TA.sdp_attn(q, kv, kv).grad_fn is not None
 
 
-def test_conv_kernel_refuses_tensors_that_need_a_gradient() -> None:
-    """On the card `conv3x3` has no backward: a tensor that needs a gradient
-    must raise, not come back without a `grad_fn`. A stand-in with a CUDA
-    device shows the guard here; `tests/test_torch_cuda.py` shows it on the card."""
+def test_conv_kernel_refuses_tensors_that_need_a_gradient(monkeypatch) -> None:
+    """On the card the bare kernel launch never takes a tensor that needs a
+    gradient, so none comes back without a `grad_fn`: such a call goes through
+    `Conv3x3Function` (the conv VJP), and only a call with nothing to
+    differentiate reaches the launcher directly. A stand-in with a CUDA device
+    shows the routing here; `tests/test_torch_cuda.py` shows it on the card."""
+    routed = []
+    monkeypatch.setattr(TC.Conv3x3Function, "apply", lambda *args: routed.append("function"))
+    monkeypatch.setattr(TC, "_launch_conv3x3", lambda *args: routed.append("kernel"))
     w = torch.zeros((64, 3, 3, 64))
     x = SimpleNamespace(device=torch.device("cuda"), requires_grad=True)
-    with pytest.raises(RuntimeError, match="conv VJP"):
-        TC.conv3x3(x, w)
+    TC.conv3x3(x, w)
     x.requires_grad = False
-    with pytest.raises(RuntimeError, match="conv VJP"):
-        TC.conv3x3(x, w.requires_grad_())
-    with pytest.raises(RuntimeError, match="conv VJP"):
-        TC.conv3x3(x, w.detach(), torch.zeros(64, requires_grad=True))
-    with torch.no_grad(), pytest.raises(AttributeError):  # past the guard: the stand-in has no shape
+    TC.conv3x3(x, w.requires_grad_())
+    TC.conv3x3(x, w.detach(), torch.zeros(64, requires_grad=True))
+    assert routed == ["function"] * 3
+    TC.conv3x3(x, w.detach())
+    with torch.no_grad():
+        x.requires_grad = True
         TC.conv3x3(x, w)
+    assert routed[3:] == ["kernel"] * 2
     # on the CPU the plain version carries the gradient
     xc = torch.randn((1, 4, 4, 64), requires_grad=True)
     assert TC.conv3x3(xc, w).grad_fn is not None
