@@ -59,6 +59,7 @@ struct Mma<__nv_bfloat16> {
     return *reinterpret_cast<uint32_t*>(&v);
   }
   static __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ __nv_bfloat16 from_float(float v) { return __float2bfloat16_rn(v); }
 };
 
 template <>
@@ -75,6 +76,7 @@ struct Mma<__half> {
     return *reinterpret_cast<uint32_t*>(&v);
   }
   static __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+  static __device__ __forceinline__ __half from_float(float v) { return __float2half_rn(v); }
 };
 
 __device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {

@@ -1,7 +1,8 @@
-"""The SD UNet's transformer stack (counterpart of the plain branch of
-`cflearn_tpu/modules/core/mixed_stacks.py`: no hooks, ToMe ratio 0)."""
+"""The SD UNet's transformer stack (counterpart of
+`cflearn_tpu/modules/core/mixed_stacks.py`: the plain branch and ToMe; the
+style-reference hooks are not ported)."""
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -10,6 +11,7 @@ from ...ops.group_norm import gn_call
 from ..layers import Conv, GroupNorm, LayerNorm, Linear
 from .activations import GEGLU
 from .attentions import CrossAttention
+from .tome import compute_merge
 
 
 class FeedForward(nn.Module):
@@ -39,7 +41,20 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(query_dim)
         self.ff = FeedForward(query_dim, query_dim * 4)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, context: Optional[torch.Tensor] = None, *, tome_info: Optional[Any] = None
+    ) -> torch.Tensor:
+        """`tome_info` = (h, w, ratio, merge_mlp): ToMe merges the tokens for
+        the self-attention (and, with merge_mlp, for the FF, with the same
+        matching), the block's input `x` being the similarity metric."""
+        if tome_info is not None:
+            h, w, ratio, merge_mlp = tome_info
+            merge, unmerge, _ = compute_merge(x, h, w, ratio=ratio)
+            x = x + unmerge(self.attn1(merge(self.norm1(x))))
+            x = x + self.attn2(self.norm2(x), context=context)
+            if merge_mlp:
+                return x + unmerge(self.ff(merge(self.norm3(x))))
+            return x + self.ff(self.norm3(x))
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context=context)
         return x + self.ff(self.norm3(x))
@@ -72,6 +87,13 @@ class SpatialTransformer(nn.Module):
             BasicTransformerBlock(inner_dim, num_heads, head_dim, context_dim=context_dim)
             for _ in range(num_layers)
         )
+        # ToMe ratio (0 = off), set through `set_tome_ratio`
+        self.tome_ratio = 0.0
+        self.tome_merge_mlp = False
+
+    def set_tome_ratio(self, ratio: float, *, merge_mlp: bool = False) -> None:
+        self.tome_ratio = float(ratio)
+        self.tome_merge_mlp = bool(merge_mlp)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -80,8 +102,9 @@ class SpatialTransformer(nn.Module):
             net = self.proj_in(net.reshape(b, h * w, c))
         else:
             net = self.proj_in(net).reshape(b, h * w, -1)
+        tome_info = (h, w, self.tome_ratio, self.tome_merge_mlp) if self.tome_ratio > 0 else None
         for block in self.blocks:
-            net = block(net, context=context)
+            net = block(net, context=context, tome_info=tome_info)
         if self.use_linear:
             net = self.proj_out(net).reshape(b, h, w, c)
         else:

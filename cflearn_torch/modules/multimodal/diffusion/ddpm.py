@@ -1,7 +1,7 @@
 """DDPM: noise schedule buffers, condition dispatch, the eps/v/x0
-parameterizations and the forward process (counterpart of
-`cflearn_tpu/modules/multimodal/diffusion/ddpm.py`, cross-attention
-conditioning only)."""
+parameterizations, the forward process and the DeepCache settings
+(counterpart of `cflearn_tpu/modules/multimodal/diffusion/ddpm.py`,
+cross-attention conditioning only, no ControlNet)."""
 
 import math
 from typing import Any, Dict, Optional
@@ -79,6 +79,14 @@ class DDPM(nn.Module):
         self.condition_model = condition_model
         self.condition_learnable = condition_learnable
         self.v_posterior = v_posterior
+        # DeepCache (Ma et al. 2023): the samplers alternate full and shallow
+        # UNet passes when `deepcache_interval` is set; the cut is clamped to
+        # the UNet when used (`_effective_cache_cut`). `deepcache_center` None
+        # = uniform 1:N refreshes, a fraction in [0, 1] = the paper's
+        # non-uniform placement centred there (same number of full passes)
+        self.deepcache_interval: Optional[int] = None
+        self.deepcache_cut: int = 3
+        self.deepcache_center: Optional[float] = None
         # per-timestep log-variance of the simple loss: a parameter when
         # learned (the "gamma" objective), else a constant buffer
         self.learn_log_var = learn_log_var
@@ -175,5 +183,28 @@ class DDPM(nn.Module):
             return cond
         return self.condition_model(cond)
 
-    def denoise(self, net: torch.Tensor, timesteps: torch.Tensor, cond: Optional[Any] = None) -> torch.Tensor:
-        return self.unet(net, timesteps, cond)
+    def _effective_cache_cut(self) -> int:
+        """The DeepCache cut clamped to the UNet: the shallow pass runs
+        `input_blocks[:cut]` and `output_blocks[-(cut+1):]`, so 1 <= cut <=
+        len(input_blocks) and cut <= len(output_blocks) - 1."""
+        n_in = len(self.unet.input_blocks)
+        n_out = len(self.unet.output_blocks)
+        return max(1, min(self.deepcache_cut, n_in, n_out - 1))
+
+    def denoise(
+        self,
+        net: torch.Tensor,
+        timesteps: torch.Tensor,
+        cond: Optional[Any] = None,
+        *,
+        deep_cache: Optional[torch.Tensor] = None,
+        return_cache: bool = False,
+    ) -> Any:
+        """The UNet on `net` with `cond` as its cross-attention context. A
+        DeepCache pass (`deep_cache` given, or `return_cache`) runs at the
+        effective cut and returns (out, cache)."""
+        use_cache = deep_cache is not None or return_cache
+        return self.unet(
+            net, timesteps, cond, deep_cache=deep_cache,
+            cache_cut=self._effective_cache_cut() if use_cache else None, return_cache=return_cache,
+        )

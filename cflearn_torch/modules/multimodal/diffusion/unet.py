@@ -1,6 +1,6 @@
 """`UNetDiffuser` — the SD UNet (counterpart of
-`cflearn_tpu/modules/multimodal/diffusion/unet.py`, full pass only: no
-ControlNet, no DeepCache). Channel-last NHWC."""
+`cflearn_tpu/modules/multimodal/diffusion/unet.py`: the full pass and
+DeepCache's shallow pass; no ControlNet, no hooks). Channel-last NHWC."""
 
 import math
 from typing import Any, List, Optional, Tuple, Union
@@ -160,8 +160,21 @@ class UNetDiffuser(nn.Module):
         return block(*args)
 
     def forward(
-        self, net: torch.Tensor, timesteps: torch.Tensor, context: Optional[torch.Tensor] = None
-    ) -> torch.Tensor:
+        self,
+        net: torch.Tensor,
+        timesteps: torch.Tensor,
+        context: Optional[torch.Tensor] = None,
+        *,
+        deep_cache: Optional[torch.Tensor] = None,
+        cache_cut: Optional[int] = None,
+        return_cache: bool = False,
+    ) -> Any:
+        """DeepCache (Ma et al. 2023) feature reuse: with `cache_cut=c`, a
+        full pass (`deep_cache` None, `return_cache=True`) also returns the
+        feature entering `output_blocks[-(c+1)]`; a shallow pass (`deep_cache`
+        given) runs only the first `c` input blocks and the last `c+1` output
+        blocks around the cached deep feature, skipping the deep levels and
+        the mid block. With `return_cache` the result is (out, cache)."""
         p_dtype = self.param_dtype
         net = net.to(p_dtype)
         if context is not None:
@@ -169,10 +182,25 @@ class UNetDiffuser(nn.Module):
         time_embed = self.time_embed(timesteps)
         net = self.conv_in(net)
         hs = [net]
-        for block in self.input_blocks:
-            net = self._run_block(block, net, time_embed, context)
-            hs.append(net)
-        net = self.mid(net, time_embed, context)
-        for block in self.output_blocks:
+        shallow = deep_cache is not None and cache_cut is not None
+        cache_out = None
+        if shallow:
+            for block in self.input_blocks[:cache_cut]:
+                net = self._run_block(block, net, time_embed, context)
+                hs.append(net)
+            net = deep_cache.to(p_dtype)
+            out_blocks = list(self.output_blocks)[-(cache_cut + 1):]
+            cache_out = deep_cache
+        else:
+            for block in self.input_blocks:
+                net = self._run_block(block, net, time_embed, context)
+                hs.append(net)
+            net = self.mid(net, time_embed, context)
+            out_blocks = list(self.output_blocks)
+        capture_at = None if cache_cut is None else len(self.output_blocks) - (cache_cut + 1)
+        for i, block in enumerate(out_blocks):
+            if not shallow and return_cache and i == capture_at:
+                cache_out = net
             net = self._run_block(block, torch.cat([net, hs.pop()], dim=-1), time_embed, context)
-        return self.conv_out(F.silu(self.norm_out(net)))
+        out = self.conv_out(F.silu(self.norm_out(net)))
+        return (out, cache_out) if return_cache else out

@@ -32,8 +32,10 @@ SOURCES = {
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "conv3x3_wgrad": "conv3x3_wgrad.cu",
     "group_norm": "group_norm.cu",
+    "conv3x3_w8a8": "conv3x3_w8a8.cu",
+    "conv3x3_fold": "conv3x3_fold.cu",
 }
-_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh")
+_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -57,12 +59,16 @@ _SIGNATURES = {
     "flash_bwd_dkv": ("cflearn_flash_bwd_dkv", _BWD),
     # dtype, x, dy, workspace, out, B, H, W, C, Co, splits, stream
     "conv3x3_wgrad": ("cflearn_conv3x3_wgrad", [_I, _P, _P, _P, _P] + [_I] * 6 + [_P]),
-    # x dtype, parameter dtype, x, w, bias, y, partial sums, stats, B, S, C, G, eps, silu, vec,
-    # slabs, rows per slab, stream
+    # x dtype, parameter dtype, x, w, bias, y, partial sums, stats, B, S, C, G, eps, silu, slabs,
+    # rows per slab, stream
     "group_norm": (
         "cflearn_group_norm",
         [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, ctypes.c_float, _I, _I, _L, _P],
     ),
+    # output dtype, x (int8), w (int8), scale (f32), bias, y, B, H, W, C, Co, stream
+    "conv3x3_w8a8": ("cflearn_conv3x3_w8a8", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
+    # dtype, x, w, bias, y, B, H, W, C, Co, stream (as conv3x3)
+    "conv3x3_fold": ("cflearn_conv3x3_fold_fwd", [_I, _P, _P, _P, _P] + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -17,18 +17,32 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   weight gradient was faster on its chip; that is a measurement of that chip,
   not a semantic, so here every conv whose forward was routed to the kernel
   takes both kernels in its backward.
+* `conv3x3_fold` — wrapper of the dj-folded kernel (`csrc/conv3x3_fold.cu`),
+  which replaces `_conv3x3_kernel_fold` (`conv3x3_pallas(fold=True)`): the
+  same conv as three products 3C deep over (dj, channel).
+  `conv3x3_fold_plain` is its plain version. `conv3x3(..., fold=None)` reads
+  the module default `FOLD` (False, as the JAX package defaults `fold`).
+* `conv3x3_w8a8` — the dynamically quantised W8A8 conv: `quantize_activation`
+  (per tensor) and `quantize_weight` (per output channel) in plain PyTorch, as
+  the JAX package quantises outside its kernel, then `conv3x3_int8`, the
+  wrapper of the int8 kernel (`csrc/conv3x3_w8a8.cu`), which replaces
+  `_conv3x3_kernel_q`. `conv3x3_int8_plain` / `conv3x3_w8a8_plain` are the
+  plain versions: the int8 taps summed exactly, then the kernel's epilogue.
 * `use_kernel_conv` / `conv_call` — the dispatcher with the predicates of
   the JAX package's `use_pallas_conv` and `_shape_wins`: bf16/fp16, C and
   Co >= 64, and H*W >= 128^2 or the pinned (64, 64, 512, 512) shape. Every
   other conv runs through `F.conv2d`, as the JAX package leaves it to XLA.
+  `quantized=True` (default `W8A8_DEFAULT`, from `CFLEARN_TORCH_CONV_W8A8`)
+  sends the routed convs through W8A8 instead.
 
 Tensors are NHWC; weights are the port's OIHW, and (Co, 3, 3, C) at the
-kernels (where the JAX package has (3, 3, C, Co)). W8A8 and the dj-fold
-variant belong to later slices.
+kernels (where the JAX package has (3, 3, C, Co)).
 """
 
+import os
 from typing import Any, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,45 +79,98 @@ def conv3x3_plain(
     return acc.reshape(b, h, w, -1).to(x.dtype)
 
 
+def conv3x3_fold_plain(
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The fold kernel's function in plain PyTorch: the three horizontal taps
+    side by side on the channel axis, then three f32 products 3C deep,
+    y[b,i,j] = sum over di of [x[b,i+di-1,j-1], x[b,i+di-1,j], x[b,i+di-1,j+1]]
+    @ w[:, di].reshape(Co, 3C).T (zero halo), plus the bias in f32, cast to
+    x's dtype."""
+    b, h, w, c = x.shape
+    co = w_ohwi.shape[0]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    xc = torch.cat([xp[:, :, dj : dj + w, :] for dj in range(3)], dim=-1)  # (B, H+2, W, 3C)
+    wf = w_ohwi.float().reshape(co, 3, 3 * c)
+    acc = None
+    for di in range(3):
+        part = xc[:, di : di + h].reshape(-1, 3 * c) @ wf[:, di].T
+        acc = part if acc is None else acc + part
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.reshape(b, h, w, co).to(x.dtype)
+
+
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _launch_conv3x3(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """Check the arguments and launch the forward kernel on CUDA tensors."""
+def _check_conv_args(
+    name: str, x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor], dtypes: Any, multiple: int
+) -> Tuple[int, int, int, int, int]:
+    """What every conv kernel refuses: another device, dtype or layout, or a
+    channel count that is not a whole number of 16-byte chunks."""
     if x.device.type != "cuda":
-        raise RuntimeError(f"conv3x3: no kernel for device {x.device}")
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    if x.ndim != 4:
+        raise ValueError(f"{name}: x {tuple(x.shape)}")
     bsz, h, w, c = x.shape
     co = w_ohwi.shape[0]
-    if x.dtype not in _DTYPES or w_ohwi.dtype != x.dtype or (bias is not None and bias.dtype != x.dtype):
-        raise TypeError(f"conv3x3 kernel takes bf16/fp16 x, w, bias of one dtype; got {x.dtype}, {w_ohwi.dtype}")
+    if x.dtype not in dtypes or w_ohwi.dtype != x.dtype:
+        raise TypeError(f"{name} kernel takes x and w of one dtype in {list(dtypes)}; got {x.dtype}, {w_ohwi.dtype}")
     if tuple(w_ohwi.shape) != (co, 3, 3, c) or (bias is not None and tuple(bias.shape) != (co,)):
-        raise ValueError(f"conv3x3: x {tuple(x.shape)} w {tuple(w_ohwi.shape)}")
-    if c % 8 != 0 or co % 8 != 0:
-        raise ValueError(f"conv3x3 kernel takes C % 8 == 0 and Co % 8 == 0; got C={c}, Co={co}")
+        raise ValueError(f"{name}: x {tuple(x.shape)} w {tuple(w_ohwi.shape)}")
+    if c % multiple != 0 or co % 8 != 0:
+        raise ValueError(f"{name} kernel takes C % {multiple} == 0 and Co % 8 == 0; got C={c}, Co={co}")
+    return bsz, h, w, c, co
+
+
+def _launch_forward(
+    name: str, x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """Check the arguments and launch forward kernel `name` ("conv3x3" or
+    "conv3x3_fold") on CUDA tensors."""
+    bsz, h, w, c, co = _check_conv_args(name, x, w_ohwi, bias, _DTYPES, 8)
+    if bias is not None and bias.dtype != x.dtype:
+        raise TypeError(f"{name} kernel takes bf16/fp16 x, w, bias of one dtype; got bias {bias.dtype}")
     x = x.contiguous()
     w_ohwi = w_ohwi.contiguous()
     bias = None if bias is None else bias.contiguous()
     y = torch.empty((bsz, h, w, co), dtype=x.dtype, device=x.device)
-    fn = _native.library("conv3x3")
+    fn = _native.library(name)
     err = fn(
         _DTYPES[x.dtype], x.data_ptr(), w_ohwi.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         bsz, h, w, c, co, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _native.check(err, "conv3x3")
-    _WRAPPER.launches += 1
+    _native.check(err, name)
+    (_FOLD_WRAPPER if name == "conv3x3_fold" else _WRAPPER).launches += 1
     return y
 
 
+def _launch_conv3x3(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return _launch_forward("conv3x3", x, w_ohwi, bias)
+
+
+def _launch_conv3x3_fold(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return _launch_forward("conv3x3_fold", x, w_ohwi, bias)
+
+
+# the default of `conv3x3(fold=None)`: the JAX package defaults `fold` to False
+FOLD = False
+
+
 def conv3x3(
-    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None, fold: Optional[bool] = None
 ) -> torch.Tensor:
     """3x3 stride-1 SAME conv. x: (B, H, W, C), w: (Co, 3, 3, C), bias:
     (Co,) -> (B, H, W, Co). CPU tensors take the plain version (autograd runs
     through it); CUDA tensors launch the kernel (bf16 / fp16, C % 8 == 0,
     Co % 8 == 0) or raise. On the card a call whose inputs need a gradient
-    goes through `Conv3x3Function`."""
+    goes through `Conv3x3Function`. `fold` (default `FOLD`) takes the
+    dj-folded kernel, `conv3x3_fold`."""
+    if FOLD if fold is None else fold:
+        return conv3x3_fold(x, w_ohwi, bias)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w_ohwi, bias)
     if _needs_grad(x, w_ohwi, bias):
@@ -114,6 +181,154 @@ def conv3x3(
 conv3x3.launches = 0
 # the counter's holder, whatever a caller may have bound the module's name to
 _WRAPPER = conv3x3
+
+
+def conv3x3_fold(
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The conv of `conv3x3` through the dj-folded kernel: CPU tensors take
+    `conv3x3_fold_plain`; CUDA tensors launch the kernel (bf16 / fp16,
+    C % 8 == 0, Co % 8 == 0) or raise. A forward kernel: on the card a call
+    whose inputs need a gradient goes through `Conv3x3Function` with the
+    folded forward (its backward is the one of `conv3x3`)."""
+    if x.device.type == "cpu":
+        return conv3x3_fold_plain(x, w_ohwi, bias)
+    if _needs_grad(x, w_ohwi, bias):
+        return Conv3x3Function.apply(x, w_ohwi, bias, True)
+    return _launch_conv3x3_fold(x, w_ohwi, bias)
+
+
+conv3x3_fold.launches = 0
+_FOLD_WRAPPER = conv3x3_fold
+
+# the largest C whose int32 sums stay exact: 127 * 127 * 9 * C < 2^31
+W8A8_MAX_C = (2**31 - 1) // (127 * 127 * 9)
+# the default of `conv_call(quantized=None)`, as `CFLEARN_TPU_CONV_W8A8` sets it for the JAX package
+W8A8_DEFAULT = bool(int(os.environ.get("CFLEARN_TORCH_CONV_W8A8", "0")))
+
+
+# f32(1 / 127) and f32(1e-12), as Python floats
+_INV_127 = float(np.float32(1.0 / 127.0))
+_EPS = float(np.float32(1e-12))
+
+
+def _quant_scale(amax: torch.Tensor) -> torch.Tensor:
+    """amax / 127 + 1e-12 as the JAX package's jitted quantiser computes it:
+    XLA turns the division by a constant into the product with the f32
+    reciprocal and fuses it with the add into one multiply-add, rounded once
+    to f32. The f64 product of two f32 values is exact, so the f64 sum
+    rounded to f32 gives the same value."""
+    return (amax.double() * _INV_127 + _EPS).float()
+
+
+def _to_int8(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """t / scale in f32, rounded half to even, clipped to +-127, as int8: one
+    f32 copy, updated in place."""
+    q = t.to(torch.float32, copy=True)
+    return q.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
+
+
+def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8: s_x = max|x| / 127 + 1e-12 (`_quant_scale`;
+    the maximum is exact in x's dtype), then x / s_x in f32 rounded half to
+    even and clipped to +-127. Returns (int8 x, the 0-d f32 scale); nothing
+    leaves the device."""
+    s_x = _quant_scale(torch.linalg.vector_norm(x, float("inf")).float())
+    return _to_int8(x, s_x), s_x
+
+
+def quantize_weight(w_ohwi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 of a (Co, 3, 3, C) weight: s_w[co] =
+    max over (di, dj, c) of |w| / 127 + 1e-12 (`_quant_scale`). Returns
+    (int8 w, the (Co,) f32 scales)."""
+    s_w = _quant_scale(torch.linalg.vector_norm(w_ohwi, float("inf"), dim=(1, 2, 3)).float())
+    return _to_int8(w_ohwi, s_w[:, None, None, None]), s_w
+
+
+def w8a8_operands(x: torch.Tensor, w_ohwi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(int8 x, int8 w, the (Co,) f32 combined scale s_x * s_w)."""
+    x8, s_x = quantize_activation(x)
+    w8, s_w = quantize_weight(w_ohwi)
+    return x8, w8, (s_x * s_w).float()
+
+
+def conv3x3_int8_plain(
+    x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype
+) -> torch.Tensor:
+    """The int8 kernel's function in plain PyTorch: the nine taps of the int8
+    values summed exactly (int64 products on the CPU, f64 on the card: exact
+    below 2^53), then the kernel's epilogue: f32(sum) * scale[co] in f32, one
+    cast to `out_dtype`, + bias in `out_dtype`."""
+    b, h, w, c = x8.shape
+    acc_dtype = torch.int64 if x8.device.type == "cpu" else torch.float64
+    xp = F.pad(x8.to(acc_dtype), (0, 0, 1, 1, 1, 1))
+    wf = w8.to(acc_dtype)
+    acc = None
+    for di in range(3):
+        for dj in range(3):
+            part = xp[:, di : di + h, dj : dj + w, :].reshape(-1, c) @ wf[:, di, dj, :].T
+            acc = part if acc is None else acc + part
+    out = (acc.float() * scale.float()).to(out_dtype)
+    if bias is not None:
+        out = out + bias.to(out_dtype)
+    return out.reshape(b, h, w, -1)
+
+
+def conv3x3_w8a8_plain(
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """`conv3x3_w8a8` in plain PyTorch: the same quantisation, then
+    `conv3x3_int8_plain`, out in x's dtype."""
+    return conv3x3_int8_plain(*w8a8_operands(x, w_ohwi), bias, x.dtype)
+
+
+def conv3x3_int8(
+    x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype
+) -> torch.Tensor:
+    """The int8 conv on quantised operands: x8 (B, H, W, C) int8, w8 (Co, 3,
+    3, C) int8, scale (Co,) f32, bias (Co,) -> (B, H, W, Co) in `out_dtype`.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16 /
+    fp16 out, C % 16 == 0, Co % 8 == 0, C <= W8A8_MAX_C) or raise. The launch
+    counts on `conv3x3_w8a8`."""
+    if x8.device.type == "cpu":
+        return conv3x3_int8_plain(x8, w8, scale, bias, out_dtype)
+    name = "conv3x3_w8a8"
+    bsz, h, w, c, co = _check_conv_args(name, x8, w8, bias, (torch.int8,), 16)
+    if out_dtype not in _DTYPES or (bias is not None and bias.dtype != out_dtype):
+        raise TypeError(f"{name} kernel writes bf16/fp16 with a bias of that dtype; got {out_dtype}, {bias}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (co,):
+        raise ValueError(f"{name}: scale {scale.dtype} {tuple(scale.shape)}, want f32 ({co},)")
+    if c > W8A8_MAX_C:
+        raise ValueError(f"{name}: C={c} > {W8A8_MAX_C}, the int32 sums would not stay exact")
+    x8, w8, scale = x8.contiguous(), w8.contiguous(), scale.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    y = torch.empty((bsz, h, w, co), dtype=out_dtype, device=x8.device)
+    fn = _native.library(name)
+    err = fn(
+        _DTYPES[out_dtype], x8.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(),
+        bsz, h, w, c, co, torch.cuda.current_stream(x8.device).cuda_stream,
+    )
+    _native.check(err, name)
+    _W8A8_WRAPPER.launches += 1
+    return y
+
+
+def conv3x3_w8a8(
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Dynamically quantised W8A8 3x3 stride-1 SAME conv (the JAX package's
+    `conv3x3_w8a8`): per-tensor activation scale, per-output-channel weight
+    scale, the int8 kernel with its in-kernel dequantisation, out in x's
+    dtype. An inference route: on the card it refuses inputs that need a
+    gradient."""
+    if x.device.type == "cuda" and _needs_grad(x, w_ohwi, bias):
+        raise RuntimeError("conv3x3_w8a8: the W8A8 route has no gradient; call it under torch.no_grad()")
+    return conv3x3_int8(*w8a8_operands(x, w_ohwi), bias, x.dtype)
+
+
+conv3x3_w8a8.launches = 0
+_W8A8_WRAPPER = conv3x3_w8a8
 
 # the card's SM count times the CTAs of the weight-gradient kernel that fit
 # one SM: how many CTAs the split of K aims at
@@ -199,10 +414,10 @@ class Conv3x3Function(torch.autograd.Function):
     weights, dw through the weight-gradient kernel, db = sum of dy in f32."""
 
     @staticmethod
-    def forward(ctx, x, w_ohwi, bias):  # type: ignore[override]
+    def forward(ctx, x, w_ohwi, bias, fold=False):  # type: ignore[override]
         ctx.save_for_backward(x, w_ohwi)
         ctx.bias_dtype = None if bias is None else bias.dtype
-        return _launch_conv3x3(x, w_ohwi, bias)
+        return (_launch_conv3x3_fold if fold else _launch_conv3x3)(x, w_ohwi, bias)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -216,7 +431,7 @@ class Conv3x3Function(torch.autograd.Function):
             dw = conv3x3_wgrad(x, dy)
         if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
             db = dy.float().sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
-        return dx, dw, db
+        return dx, dw, db, None
 
 
 _Padding = Union[str, Any]
@@ -255,13 +470,18 @@ def use_kernel_conv(
     return x.shape[-1] >= 64 and co >= 64 and shape_wins(tuple(x.shape), x.dtype, co)
 
 
-def conv_call(conv: Any, x: torch.Tensor) -> torch.Tensor:
+def conv_call(conv: Any, x: torch.Tensor, *, quantized: Optional[bool] = None) -> torch.Tensor:
     """Run a port `Conv` module on NHWC `x` through the kernel where the
-    predicate routes it, else through the module itself (`F.conv2d`)."""
+    predicate routes it, else through the module itself (`F.conv2d`).
+    `quantized` (default `W8A8_DEFAULT`) sends the routed convs through
+    `conv3x3_w8a8`: an inference-serving trade of some output fidelity for
+    int8 tensor-core rates."""
     plain = tuple(conv.dilation) == (1, 1) and conv.groups == 1
     if plain and use_kernel_conv(x, conv.weight, conv.strides, conv.padding):
         w = conv.kernel_weight()
         bias = conv.bias
         x = x.to(w.dtype)
+        if W8A8_DEFAULT if quantized is None else quantized:
+            return conv3x3_w8a8(x, w, bias)
         return conv3x3(x, w, bias)
     return conv(x)

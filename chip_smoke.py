@@ -17,14 +17,26 @@ Phases, in order; any failure exits non-zero:
    VAE decoder's and the autoencoder step's shapes, plus f32 and odd group
    widths. Prints max_abs_err and the kernel's, the plain version's and a
    library call's ms (the library call is timed only).
+   The W8A8 int8 conv and the dj-folded conv at every VAE-decoder conv
+   shape, W8A8 bit for bit (its int32 sums are exact), with the bf16 cuDNN
+   conv and the bf16 conv kernel timed beside it as the unquantised conv it
+   stands in for; the flash forward at the ToMe-merged 64x64 shape.
 3. path — full-width SD-1.5 v1 in bf16 from seeded random weights (the
    zero-initialised output convs redrawn with small noise, so conditioning
    reaches the output), txt2img at batch 1 (CFG batch 2), 512x512, DDIM,
-   guidance 7.5. Checks the image, finite latents and the kernel launch
-   counts of that run.
+   guidance 7.5, one prompt through the CLIP tokenizer, in each serving
+   configuration of `bench.py` from the same z: lossless, faithful (ToMe 0.5,
+   DeepCache N=3 at cut 1), accelerated (ToMe 0.5, DeepCache N=5 at cut 1),
+   and ToMe alone. Checks each image, finite latents, the exact kernel launch
+   counts of each run, its seconds per image, and the lossy configurations'
+   PSNR / SSIM against the lossless image (the JAX package's floors).
 4. parity — one full-width UNet denoise and one VAE decode through the
    kernels against the same calls on the plain versions, on the card, held
-   to the plain path's own drift under a one-ulp change of its input.
+   to the plain path's own drift under a one-ulp change of its input. Then
+   the lossless latents decoded again with W8A8 on (31 W8A8 launches, no
+   bf16 conv launch; PSNR >= 30 dB, SSIM >= 0.98 against the bf16 decode)
+   and with the dj-folded conv (31 fold launches; held to the bf16 decode
+   within the parity factor times the VAE's one-ulp drift).
 5. train path — the full-width SD-1.5 UNet with f32 master parameters,
    `finetune_unet` at batch 8 on 64x64x4 latents and a 77x768 condition,
    bf16 compute, AdamW 1e-5: one warm-up step, then timed steps. Checks the
@@ -45,7 +57,8 @@ Phases, in order; any failure exits non-zero:
    same through the plain versions (same noise), held to the plain path's
    drift under a one-ulp change of the images; then the same step twice with
    the split attention backward: bit-identical gradients.
-9. summary — a `{"kernels": [...]}` line, the paths' img/s and samples/s,
+9. summary — a `{"kernels": [...]}` line (ten kernels), the paths' img/s
+   and samples/s, the serving configurations' img/s on a line of their own,
    the card's name and power limit, and last `{"ok": true, "device": {...}}`.
    The per-shape rows also go to `chiprun_out/chip_smoke.json`.
 
@@ -65,6 +78,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 / fp16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 rate: what the f32 flash kernels' products run in
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 # flash: max_abs_err <= FLASH_REL * max|ref|, i.e. at least 2 bf16 ulps of the
@@ -142,6 +156,16 @@ AE_MAX_LEFT_OUT = 6
 STEPS = 20
 DECODER_CONVS = 31  # kernel-routed VAE decoder convs per decode
 FLASH_PER_UNET = 15  # self-attentions with L >= 256 per UNet call
+# a DeepCache shallow UNet call at cut 1 runs input block 0 and the last two output blocks, all at 64x64:
+# three self-attentions, and 3 + 3 + 3 GroupNorms and norm_out
+FLASH_PER_SHALLOW = 3
+GN_PER_SHALLOW = 10
+PROMPT = "a photograph of an astronaut riding a horse on the moon, highly detailed, 8k"
+# the serving configurations: name -> (ToMe ratio, DeepCache interval or None); the first three are `bench.py`'s
+SERVE_CONFIGS = {"lossless": (0.0, None), "faithful": (0.5, 3), "accelerated": (0.5, 5), "tome": (0.5, None)}
+# the JAX package's floors for the recorded full-scale quality of each lever (tests/test_quality.py)
+QUALITY_FLOORS = {"faithful": (10.0, 0.3), "accelerated": (10.0, 0.3), "tome": (15.0, 0.5)}
+W8A8_FLOOR = (30.0, 0.98)  # the W8A8 decode against the bf16 decode: PSNR dB, SSIM
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
 AE_BATCH = 8
@@ -149,6 +173,7 @@ AE_BATCH = 8
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per txt2img as a function of steps)
 FLASH_CASES = [
     ("unet_64x64", 2, 8, 4096, 4096, 40, False, "bfloat16", lambda s: 5 * s),
+    ("unet_64x64_tome", 2, 8, 2048, 2048, 40, False, "bfloat16", lambda s: 0),  # ToMe r = 0.5 merges 4096 to 2048
     ("unet_32x32", 2, 8, 1024, 1024, 80, False, "bfloat16", lambda s: 5 * s),
     ("unet_16x16", 2, 8, 256, 256, 160, False, "bfloat16", lambda s: 5 * s),
     ("vae_mid", 1, 1, 4096, 4096, 512, False, "bfloat16", lambda s: 1),
@@ -228,6 +253,7 @@ GN_PER_AE_FORWARD = sum(case[-1] for case in AE_GN)  # 52
 MAIN_PATH = {
     "flash_attention": "txt2img", "conv3x3": "txt2img", "flash_fwd_lse": "finetune", "flash_bwd_fused": "finetune",
     "flash_bwd_dq": "finetune", "flash_bwd_dkv": "finetune", "conv3x3_wgrad": "ae", "group_norm": "ae",
+    "conv3x3_w8a8": "w8a8", "conv3x3_fold": "fold",
 }
 # floating-point operations per (q, k, d) triple: two products forward; five
 # in the fused backward; s, dp, dq in the dq kernel; s, dp, dv, dk in the dk.dv kernel
@@ -284,7 +310,7 @@ def phase_kernels(torch, F, ops):
     A, Cv = ops
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev, bf16 = "cuda", torch.bfloat16
-    rows = {"flash_attention": [], "conv3x3": []}
+    rows = {"flash_attention": [], "conv3x3": [], "conv3x3_w8a8": [], "conv3x3_fold": []}
     for name, b, h, lq, lk, d, causal, dtype, per in FLASH_CASES:
         dt = getattr(torch, dtype)
         q = torch.randn((b, h, lq, d), generator=gen, device=dev).to(dt)
@@ -327,6 +353,42 @@ def phase_kernels(torch, F, ops):
         if not math.isfinite(err) or err > CONV_TOL:
             raise AssertionError(f"conv3x3 {name}: max_abs_err {err} > {CONV_TOL}")
         rows["conv3x3"].append(row)
+        # the dj-folded kernel: the same function, against its plain version and the 9-tap kernel
+        fold = Cv.conv3x3_fold(x, wk, bias)
+        torch.cuda.synchronize()
+        err_f = max(max_err(fold, Cv.conv3x3_fold_plain(x, wk, bias)), max_err(fold, ref))
+        err_k = max_err(fold, out)
+        row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err_f, vs_conv3x3_kernel=err_k, tol=CONV_TOL,
+                   ms=time_ms(torch, lambda: Cv.conv3x3_fold(x, wk, bias)),
+                   plain_ms=time_ms(torch, lambda: Cv.conv3x3_fold_plain(x, wk, bias), 20.0),
+                   library_ms=lib, conv3x3_ms=ms, bound_ms=bms, bound_by=by, per={"fold": per})
+        print("conv3x3_fold", json.dumps(row))
+        if not max(err_f, err_k) <= CONV_TOL:
+            raise AssertionError(f"conv3x3_fold {name}: max_abs_err {err_f}, against the 9-tap kernel {err_k}")
+        rows["conv3x3_fold"].append(row)
+        # W8A8: the int8 kernel on the quantised operands, bit for bit against its plain version (f64
+        # sums on the card: exact), and the whole route (quantisation + kernel) against its plain version
+        x8, w8, scale = Cv.w8a8_operands(x, wk)
+        q = Cv.conv3x3_int8(x8, w8, scale, bias, bf16)
+        torch.cuda.synchronize()
+        q_ref = Cv.conv3x3_int8_plain(x8, w8, scale, bias, bf16)
+        err_q = max_err(q, q_ref)
+        whole_equal = torch.equal(Cv.conv3x3_w8a8(x, wk, bias), Cv.conv3x3_w8a8_plain(x, wk, bias))
+        # bytes: int8 x and w in, the f32 scale and the bias, bf16 out
+        bms_q, by_q = bound_ms(2.0 * m * co * 9 * c, m * c + 9 * c * co + 4 * co + 2 * co + 2 * m * co, PEAK_INT8_OPS)
+        row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err_q, bit_identical=bool(torch.equal(q, q_ref)),
+                   route_bit_identical=whole_equal, tol=0.0,
+                   ms=time_ms(torch, lambda: Cv.conv3x3_int8(x8, w8, scale, bias, bf16)),
+                   route_ms=time_ms(torch, lambda: Cv.conv3x3_w8a8(x, wk, bias)),
+                   plain_ms=time_ms(torch, lambda: Cv.conv3x3_int8_plain(x8, w8, scale, bias, bf16), 20.0),
+                   library_ms=None, unquantised_cudnn_bf16_ms=lib, unquantised_conv3x3_kernel_ms=ms,
+                   quantisation_error_rel=max_err(q, ref) / ref.float().abs().max().item(),
+                   bound_ms=bms_q, bound_by=by_q, per={"w8a8": per})
+        print("conv3x3_w8a8", json.dumps(row))
+        if err_q != 0.0 or not row["bit_identical"] or not whole_equal:
+            raise AssertionError(f"conv3x3_w8a8 {name}: not bit-identical to its plain version (max_abs_err {err_q})")
+        rows["conv3x3_w8a8"].append(row)
+        del x8, w8, q, q_ref, fold
     return rows
 
 
@@ -539,6 +601,7 @@ def plain_kernels(A, Cv, Gn):
     names = ("flash_attention", "flash_fwd_lse", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
     saved = {n: getattr(A, n) for n in names}
     saved_conv = Cv.conv3x3, Cv.conv3x3_wgrad, Gn.group_norm_silu
+    assert not Cv.W8A8_DEFAULT and not Cv.FOLD, "the plain path is compared with the 9-tap bf16 route"
     A.flash_attention = A.flash_attention_plain
     A.flash_fwd_lse = A.flash_fwd_with_lse_plain
     A.flash_bwd_fused = A.flash_bwd_plain
@@ -618,6 +681,7 @@ def rel_err(a, b) -> float:
 
 def reset_launches(A, Cv, Gn) -> None:
     Cv.conv3x3.launches = Cv.conv3x3_wgrad.launches = Gn.group_norm_silu.launches = 0
+    Cv.conv3x3_w8a8.launches = Cv.conv3x3_fold.launches = 0
     A.flash_attention.launches = 0
     for name in TRAIN_KERNELS:
         getattr(A, name).launches = 0
@@ -625,7 +689,8 @@ def reset_launches(A, Cv, Gn) -> None:
 
 def read_launches(A, Cv, Gn) -> dict:
     out = {"flash_attention": A.flash_attention.launches, "conv3x3": Cv.conv3x3.launches,
-           "conv3x3_wgrad": Cv.conv3x3_wgrad.launches, "group_norm": Gn.group_norm_silu.launches}
+           "conv3x3_wgrad": Cv.conv3x3_wgrad.launches, "group_norm": Gn.group_norm_silu.launches,
+           "conv3x3_w8a8": Cv.conv3x3_w8a8.launches, "conv3x3_fold": Cv.conv3x3_fold.launches}
     out.update({name: getattr(A, name).launches for name in TRAIN_KERNELS})
     return out
 
@@ -681,6 +746,9 @@ def main() -> int:
     import cflearn_torch
     from cflearn_torch.models.cv.diffusion import INPUT_KEY, LOSS_KEY, DDPMModel
     from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.modules.core.mixed_stacks import SpatialTransformer
+    from cflearn_torch.modules.multimodal.diffusion.samplers import deepcache_refresh_mask
+    from cflearn_torch.toolkit.quality import compare_outputs
     from cflearn_torch.ops import _native
     from cflearn_torch.ops import attention as A
     from cflearn_torch.ops import conv as Cv
@@ -718,10 +786,18 @@ def main() -> int:
                 r["per"] = {MAIN_PATH[name]: r.pop("per_path")}
             if r["case"] == "ae_mid" and name in ("flash_attention", "flash_fwd_lse", "flash_bwd_fused"):
                 r["per"]["ae"] = AE_FLASH
+    # the flash shapes of the lossy serving configurations: the 64x64 attentions at the merged length
+    for config in ("faithful", "accelerated"):
+        full = int(deepcache_refresh_mask(STEPS, SERVE_CONFIGS[config][1]).sum())
+        per_case = {"unet_64x64_tome": 5 * full + FLASH_PER_SHALLOW * (STEPS - full), "unet_32x32": 5 * full,
+                    "unet_16x16": 5 * full, "vae_mid": 1}
+        for r in rows["flash_attention"]:
+            if r["case"] in per_case:
+                r["per"][config] = per_case[r["case"]]
     torch.cuda.empty_cache()
     print(f"kernels: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 3. path
+    # 3. path: the serving configurations, one prompt through the tokenizer, the same z
     steps = STEPS
     t0 = time.perf_counter()
     model = cflearn_torch.build_sd("v1", device="cuda", dtype=torch.bfloat16, seed=0)
@@ -729,35 +805,59 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"path: built SD-1.5 v1 bf16 ({sum(p.numel() for p in model.parameters())} params, "
           f"{redrawn} zero-init modules redrawn) in {time.perf_counter() - t0:.1f} s")
-    tokens = np.random.RandomState(0).randint(0, 49000, (1, 77))
-    uncond = np.zeros((1, 77), dtype=np.int64)
+    tokenizer = cflearn_torch.CLIPTokenizer()
+    tokens = tokenizer.tokenize([PROMPT]).astype(np.int64)
+    uncond = tokenizer.tokenize([""]).astype(np.int64)
+    print(f"path: tokenizer {tokenizer.provenance}, prompt ids {tokens[0, :12].tolist()}...")
     gen = torch.Generator(device="cuda").manual_seed(0)
     z = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
-    cflearn_torch.txt2img(model, tokens, uncond, num_steps=steps, guidance_scale=7.5, z=z)  # warm-up
-    torch.cuda.synchronize()
-    reset_launches(A, Cv, Gn)
-    t0 = time.perf_counter()
-    images, latents = cflearn_torch.txt2img(
-        model, tokens, uncond, num_steps=steps, guidance_scale=7.5, z=z, return_latents=True
-    )
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches(A, Cv, Gn)
-    print(f"path: steps {steps}, {wall:.3f} s per image, launches {json.dumps(launches)}")
-    if tuple(images.shape) != (1, 512, 512, 3) or images.dtype != torch.uint8:
-        return fail(f"image {tuple(images.shape)} {images.dtype}, want (1, 512, 512, 3) uint8")
-    if not torch.isfinite(latents).all():
-        return fail("non-finite latents")
-    if launches["flash_attention"] != FLASH_PER_UNET * steps + 1:
-        return fail(f"flash launches {launches['flash_attention']} != {FLASH_PER_UNET * steps + 1}")
-    if launches["conv3x3"] != DECODER_CONVS:
-        return fail(f"conv launches {launches['conv3x3']} != {DECODER_CONVS}")
-    if launches["group_norm"] != GN_PER_UNET * steps + GN_PER_DECODE:
-        return fail(f"group_norm launches {launches['group_norm']} != {GN_PER_UNET * steps + GN_PER_DECODE}")
-    if any(launches[name] for name in TRAIN_KERNELS + ("conv3x3_wgrad",)):
-        return fail(f"txt2img launched a training kernel: {launches}")
+    serve = {}
+    for config, (ratio, interval) in SERVE_CONFIGS.items():
+        bench_config = config if config in cflearn_torch.CONFIGS else None
+        if bench_config is None:  # ToMe alone
+            cflearn_torch.configure(model, "lossless")
+            for module in model.modules():
+                if isinstance(module, SpatialTransformer):
+                    module.set_tome_ratio(ratio)
+        kw = dict(config=bench_config, num_steps=steps, guidance_scale=7.5, z=z)
+        cflearn_torch.txt2img(model, PROMPT, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        images_c, latents_c = cflearn_torch.txt2img(model, PROMPT, return_latents=True, **kw)
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        launches_c = read_launches(A, Cv, Gn)
+        full = steps if interval is None else int(deepcache_refresh_mask(steps, interval).sum())
+        shallow = steps - full
+        want = dict.fromkeys(launches_c, 0)
+        want.update(flash_attention=FLASH_PER_UNET * full + FLASH_PER_SHALLOW * shallow + 1, conv3x3=DECODER_CONVS,
+                    group_norm=GN_PER_UNET * full + GN_PER_SHALLOW * shallow + GN_PER_DECODE)
+        print(f"path[{config}]: steps {steps} ({full} full and {shallow} shallow UNet calls), {wall_c:.3f} s per image, "
+              f"launches {json.dumps(launches_c)}")
+        if tuple(images_c.shape) != (1, 512, 512, 3) or images_c.dtype != torch.uint8:
+            return fail(f"{config}: image {tuple(images_c.shape)} {images_c.dtype}, want (1, 512, 512, 3) uint8")
+        if not torch.isfinite(latents_c).all():
+            return fail(f"{config}: non-finite latents")
+        if launches_c != want:
+            return fail(f"{config}: launches {launches_c} != {want}")
+        with torch.no_grad():
+            decoded = model.decode(latents_c).float().cpu().numpy()
+        serve[config] = dict(seconds_per_image=wall_c, img_per_s=1.0 / wall_c, full_unet_calls=full,
+                             shallow_unet_calls=shallow, launches=launches_c, images=images_c, latents=latents_c,
+                             decoded=decoded)
+    cflearn_torch.configure(model, "lossless")
+    images, latents = serve["lossless"]["images"], serve["lossless"]["latents"]
+    wall, launches = serve["lossless"]["seconds_per_image"], serve["lossless"]["launches"]
     print(f"path: image mean {images.float().mean().item():.3f} std {images.float().std().item():.3f}, "
           f"latent std {latents.std().item():.4f}")
+    ref_lat, ref_dec = latents.float().cpu().numpy(), serve["lossless"]["decoded"]
+    for config, (psnr_min, ssim_min) in QUALITY_FLOORS.items():
+        report = compare_outputs(ref_lat, ref_dec, serve[config]["latents"].float().cpu().numpy(), serve[config]["decoded"])
+        serve[config]["quality"] = report.to_dict()
+        print(f"quality[{config}] vs lossless: {json.dumps(report.to_dict())} (floors PSNR {psnr_min} dB, SSIM {ssim_min})")
+        if not (report.image_psnr >= psnr_min and report.image_ssim >= ssim_min):
+            return fail(f"{config}: PSNR {report.image_psnr:.2f} dB / SSIM {report.image_ssim:.3f} below the floors")
 
     # 4. parity: kernels vs plain versions through the whole net
     with torch.no_grad():
@@ -784,7 +884,48 @@ def main() -> int:
           f"VAE decode max rel err {rel_vae:.3e} (tolerance {tol_vae:.3e}), mean rel err {mean_vae:.3e}")
     if not rel_unet <= tol_unet or not rel_vae <= tol_vae:
         return fail("kernel path disagrees with the plain path")
-    del model, images, latents, cond, eps_k, eps_p, eps_u, dec_k, dec_p
+
+    # the lossless latents decoded again: W8A8 on, then the dj-folded conv (module defaults, restored)
+    decodes = {}
+    with torch.no_grad():
+        for route, attr in (("w8a8", "W8A8_DEFAULT"), ("fold", "FOLD")):
+            setattr(Cv, attr, True)
+            try:
+                reset_launches(A, Cv, Gn)
+                dec = model.decode(latents)
+                torch.cuda.synchronize()
+                decodes[route] = (dec.float(), read_launches(A, Cv, Gn))
+                decodes[route + "_ms"] = time_ms(torch, lambda: model.decode(latents))
+            finally:
+                setattr(Cv, attr, False)
+        decodes["bf16_ms"] = time_ms(torch, lambda: model.decode(latents))
+    w8a8_launches, fold_launches = decodes["w8a8"][1], decodes["fold"][1]
+    for route, kernel in (("w8a8", "conv3x3_w8a8"), ("fold", "conv3x3_fold")):
+        got = decodes[route][1]
+        want = dict.fromkeys(got, 0)
+        want.update({kernel: DECODER_CONVS, "flash_attention": 1, "group_norm": GN_PER_DECODE})
+        print(f"{route} decode: launches {json.dumps(got)}, {decodes[route + '_ms']:.2f} ms "
+              f"(bf16 9-tap decode {decodes['bf16_ms']:.2f} ms)")
+        if got != want:
+            return fail(f"{route} decode launches {got} != {want}")
+    w8a8_quality = compare_outputs(ref_lat, dec_k.cpu().numpy(), ref_lat, decodes["w8a8"][0].cpu().numpy())
+    print(f"w8a8 decode vs the bf16 decode: {json.dumps(w8a8_quality.to_dict())} "
+          f"(floors PSNR {W8A8_FLOOR[0]} dB, SSIM {W8A8_FLOOR[1]})")
+    if not (w8a8_quality.image_psnr >= W8A8_FLOOR[0] and w8a8_quality.image_ssim >= W8A8_FLOOR[1]):
+        return fail("the W8A8 decode is below its quality floors")
+    rel_fold = rel_err(decodes["fold"][0], dec_k)
+    print(f"fold decode vs the 9-tap decode: max rel err {rel_fold:.3e} (tolerance {tol_vae:.3e})")
+    if not rel_fold <= tol_vae:
+        return fail("the dj-folded decode disagrees with the 9-tap decode")
+    serve_out = {
+        config: {key: serve[config][key] for key in ("seconds_per_image", "img_per_s", "full_unet_calls",
+                                                     "shallow_unet_calls", "launches", "quality") if key in serve[config]}
+        for config in serve
+    }
+    serve_out["decode_ms"] = {route: decodes[route + "_ms"] for route in ("bf16", "w8a8", "fold")}
+    serve_out["w8a8_decode_quality"] = w8a8_quality.to_dict()
+    serve_out["fold_decode_rel_err"] = rel_fold
+    del model, images, latents, cond, eps_k, eps_p, eps_u, dec_k, dec_p, serve, decodes
     torch.cuda.empty_cache()
     print(f"serving phases: done at {time.perf_counter() - t_start:.0f} s")
 
@@ -842,6 +983,7 @@ def main() -> int:
         "flash_fwd_lse": FLASH_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
         "flash_bwd_fused": FLASH_PER_UNET * TRAIN_STEPS,
         "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_attention": 0, "conv3x3": 0, "conv3x3_wgrad": 0,
+        "conv3x3_w8a8": 0, "conv3x3_fold": 0,
         # the forward's norms; their backward recomputes the plain version. A checkpointed block's
         # forward runs twice
         "group_norm": GN_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
@@ -978,7 +1120,7 @@ def main() -> int:
         "conv3x3": 3 * AE_CONVS * AE_STEPS, "conv3x3_wgrad": AE_CONVS * AE_STEPS,
         "group_norm": 2 * GN_PER_AE_FORWARD * AE_STEPS, "flash_fwd_lse": AE_FLASH * AE_STEPS,
         "flash_bwd_fused": AE_FLASH * AE_STEPS, "flash_attention": AE_FLASH * AE_STEPS,
-        "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "conv3x3_w8a8": 0, "conv3x3_fold": 0,
     }
     if ae_launches != want:
         return fail(f"ae launches {ae_launches} != {want}")
@@ -1126,18 +1268,29 @@ def main() -> int:
         "flash_bwd_dkv": (src + "flash_bwd_dkv.cu", tpu + "attention.py:290"),
         "conv3x3_wgrad": (src + "conv3x3_wgrad.cu", tpu + "conv.py:304"),
         "group_norm": (src + "group_norm.cu", tpu + "group_norm.py:24"),
+        "conv3x3_w8a8": (src + "conv3x3_w8a8.cu", tpu + "conv.py:74"),
+        "conv3x3_fold": (src + "conv3x3_fold.cu", tpu + "conv.py:96"),
     }
-    path_launches = {"txt2img": launches, "finetune": train_launches, "ae": ae_launches}
-    path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step"}
-    path_run = {"txt2img": "one txt2img", "finetune": f"{TRAIN_STEPS} finetune steps",
-                "ae": f"{AE_STEPS} autoencoder train steps"}
+    path_launches = {"txt2img": launches, "finetune": train_launches, "ae": ae_launches, "w8a8": w8a8_launches,
+                     "fold": fold_launches, "faithful": serve_out["faithful"]["launches"],
+                     "accelerated": serve_out["accelerated"]["launches"]}
+    path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
+                 "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
+                 "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img"}
+    path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps")
     kernels = []
     for name, cases in rows.items():
         source, replaces = info[name]
 
         def totals(path: str, cases=cases) -> dict:
             on_path = [r for r in cases if r["per"].get(path, 0) > 0]
-            out = {key: sum(r[key] * r["per"][path] for r in on_path) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            out = {key: sum(r[key] * r["per"][path] for r in on_path) for key in ("ms", "plain_ms", "bound_ms")}
+            # no single PyTorch call computes W8A8: its rows carry the unquantised convs' times instead
+            out["library_ms"] = None if any(r["library_ms"] is None for r in on_path) else sum(
+                r["library_ms"] * r["per"][path] for r in on_path)
+            for key in ("unquantised_cudnn_bf16_ms", "unquantised_conv3x3_kernel_ms", "route_ms"):
+                if key in on_path[0]:
+                    out[key] = sum(r[key] * r["per"][path] for r in on_path)
             out["bound_by"] = max(on_path, key=lambda r: r["bound_ms"] * r["per"][path])["bound_by"]
             # the split kernels run where the deterministic backward is chosen: the train parity phase
             split = name in ("flash_bwd_dq", "flash_bwd_dkv")
@@ -1165,12 +1318,13 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card_line(), "kernels": kernels, "shapes": rows, "txt2img": serve, "finetune": train,
-                   "autoencoder": ae_out,
+                   "autoencoder": ae_out, "serve_configs": serve_out,
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "leaves": ae_leaves,
                                  "leaf_drift_and_error": leaf_table}}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"serve_configs": serve_out}))
     print(json.dumps(serve))
     print(json.dumps(train))
     print(json.dumps(ae_out))

@@ -1,12 +1,17 @@
 """Where the time of the port's main paths goes on one CUDA card.
 
-    python scripts/profile_torch_txt2img.py [--steps 5] [--out chiprun_out/profile_torch_txt2img.json]
+    python scripts/profile_torch_txt2img.py [--steps 5] [--config lossless] [--w8a8] [--out ...]
     python scripts/profile_torch_txt2img.py --path finetune [--steps 2] [--checkpoint]
     python scripts/profile_torch_txt2img.py --path ae [--steps 2]
 
 `--path txt2img` (default): builds full-width SD-1.5 v1 in bf16 from seeded
-random weights, runs one warm-up txt2img at 512px (batch 1, CFG batch 2),
-then one txt2img of `--steps` DDIM steps under `torch.profiler`.
+random weights, runs one warm-up txt2img at 512px (batch 1, CFG batch 2, one
+prompt through the CLIP tokenizer), then one txt2img of `--steps` DDIM steps
+under `torch.profiler`. `--config` picks the serving configuration
+(lossless, faithful: ToMe 0.5 and DeepCache N=3; accelerated: ToMe 0.5 and
+DeepCache N=5), `--w8a8` decodes with the W8A8 convs. Writes to
+`chiprun_out/profile_torch_txt2img_<config>[_w8a8].json` unless `--out` says
+otherwise.
 
 `--path finetune`: builds the full-width SD-1.5 UNet with f32 master
 parameters, runs one warm-up `finetune_unet` step at batch 8 (64x64x4
@@ -35,7 +40,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = [
     ("flash backward (port kernels)", ("flash_bwd_kernel",)),
     ("flash_attention (port kernel)", ("flash_fwd_kernel", "flash_fwd_chunked_kernel")),
-    ("conv3x3 (port kernel)", ("conv3x3_kernel",)),
+    ("conv3x3_w8a8 (port kernel)", ("epidequant",)),
+    ("conv3x3_fold (port kernel)", ("taps)1", "kfold")),
+    ("conv3x3 (port kernel)", ("conv3x3_igemm",)),
     ("conv3x3_wgrad (port kernels)", ("wgrad_kernel", "wgrad_reduce_kernel")),
     ("group_norm (port kernels)", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -60,14 +67,19 @@ def main() -> int:
     parser.add_argument("--path", choices=("txt2img", "finetune", "ae"), default="txt2img")
     parser.add_argument("--steps", type=int, default=None, help="DDIM steps (default 5) or train steps (default 2)")
     parser.add_argument("--checkpoint", action="store_true", help="finetune: recompute each UNet block in the backward")
+    parser.add_argument("--config", choices=("lossless", "faithful", "accelerated"), default="lossless",
+                        help="txt2img: the serving configuration")
+    parser.add_argument("--w8a8", action="store_true", help="txt2img: decode with the W8A8 convs")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if args.steps is None:
         args.steps = 5 if args.path == "txt2img" else 2
     if args.out is None:
-        args.out = os.path.join(ROOT, "chiprun_out", f"profile_torch_{args.path}.json")
+        name = args.path
+        if args.path == "txt2img":
+            name += f"_{args.config}" + ("_w8a8" if args.w8a8 else "")
+        args.out = os.path.join(ROOT, "chiprun_out", f"profile_torch_{name}.json")
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,14 +92,18 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.path == "txt2img":
+        from cflearn_torch.ops import conv
+
         model = cflearn_torch.build_sd("v1", device="cuda", dtype=torch.bfloat16, seed=0)
         redraw_zero_init(model, seed=1)
-        tokens = np.random.RandomState(0).randint(0, 49000, (1, 77))
-        uncond = np.zeros((1, 77), dtype=np.int64)
+        conv.W8A8_DEFAULT = args.w8a8
         z = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
 
         def run(steps=args.steps):
-            out = cflearn_torch.txt2img(model, tokens, uncond, num_steps=steps, guidance_scale=7.5, z=z)
+            out = cflearn_torch.txt2img(
+                model, "a photograph of an astronaut riding a horse on the moon", config=args.config,
+                num_steps=steps, guidance_scale=7.5, z=z,
+            )
             torch.cuda.synchronize()
             return out
 
@@ -150,6 +166,8 @@ def main() -> int:
     report = {
         "device": torch.cuda.get_device_name(0),
         "path": args.path,
+        "config": args.config if args.path == "txt2img" else None,
+        "w8a8": bool(args.w8a8) if args.path == "txt2img" else None,
         "use_checkpoint": bool(args.checkpoint),
         "steps": args.steps,
         "wall_ms": wall_ms,
@@ -163,7 +181,8 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share {report['device_idle_share']:.3f}, "
-          f"{report['kernel_launches']} kernel launches ({args.path}, {args.steps} steps)")
+          f"{report['kernel_launches']} kernel launches ({args.path} {report['config'] or ''}"
+          f"{' w8a8' if args.w8a8 else ''}, {args.steps} steps)")
     for k, v in report["groups"].items():
         print(f"  {k:32s} {v['ms']:9.2f} ms  {v['launches']:6d} launches")
     for row in report["top"]:

@@ -209,3 +209,53 @@ def test_fused_group_norm_on_the_card(cuda) -> None:
     )
     for g, r in zip(got, ref):
         _close(g, r.to(g.dtype), 2.0**-6)
+
+
+W8A8_SHAPES = [(1, 64, 64, 512, 512), (2, 33, 47, 64, 136), (1, 128, 128, 256, 128), (1, 9, 7, 16, 8)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("shape", W8A8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_w8a8_kernel_matches_plain_bit_for_bit(cuda, with_bias, shape, dtype) -> None:
+    """The int32 sums are exact and the epilogue rounds as PyTorch does: the
+    kernel and its plain version (f64 sums on the card) agree bit for bit."""
+    b, h, w, c, co = shape
+    x = torch.randn((b, h, w, c), generator=cuda, device="cuda").to(dtype)
+    wt = (torch.randn((co, 3, 3, c), generator=cuda, device="cuda") * (9 * c) ** -0.5).to(dtype)
+    bias = (torch.randn((co,), generator=cuda, device="cuda") * 0.1).to(dtype) if with_bias else None
+    before = C.conv3x3_w8a8.launches
+    out = C.conv3x3_w8a8(x, wt, bias)
+    assert C.conv3x3_w8a8.launches == before + 1
+    ref = C.conv3x3_w8a8_plain(x, wt, bias)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, ref)
+    # and close to the unquantised conv: a few per cent of its largest output
+    exact = C.conv3x3_plain(x, wt, bias).float()
+    assert (out.float() - exact).abs().max() <= 0.05 * exact.abs().max()
+
+
+def test_w8a8_kernel_refuses_what_it_cannot_take(cuda) -> None:
+    x = torch.randn((1, 8, 8, 72), generator=cuda, device="cuda").bfloat16()
+    w = torch.randn((64, 3, 3, 72), generator=cuda, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="% 16"):
+        C.conv3x3_w8a8(x, w)
+    x8, w8, scale = C.w8a8_operands(x[..., :64], w[..., :64])
+    with pytest.raises(TypeError):
+        C.conv3x3_int8(x8, w8, scale, None, torch.float32)
+    with pytest.raises(RuntimeError, match="gradient"):
+        C.conv3x3_w8a8(x[..., :64], w[..., :64].clone().requires_grad_())
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 64, 512, 512), (2, 33, 47, 64, 136), (1, 128, 128, 256, 128), (2, 9, 7, 40, 24)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fold_kernel_matches_plain(cuda, shape, dtype) -> None:
+    b, h, w, c, co = shape
+    x = torch.randn((b, h, w, c), generator=cuda, device="cuda").to(dtype)
+    wt = (torch.randn((co, 3, 3, c), generator=cuda, device="cuda") * (9 * c) ** -0.5).to(dtype)
+    bias = (torch.randn((co,), generator=cuda, device="cuda") * 0.1).to(dtype)
+    counts = C.conv3x3_fold.launches, C.conv3x3.launches
+    out = C.conv3x3(x, wt, bias, fold=True)
+    assert (C.conv3x3_fold.launches, C.conv3x3.launches) == (counts[0] + 1, counts[1])
+    _close(out, C.conv3x3_fold_plain(x, wt, bias), 2.0**-6)
+    _close(out, C.conv3x3(x, wt, bias), 2.0**-6)

@@ -38,6 +38,36 @@ def test_port_imports_no_jax(path: Path) -> None:
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _imported_at_import(path: Path):
+    """The modules a file imports when it is imported: its top-level
+    statements, and those inside a top-level `if` / `try`, not function bodies."""
+    body = list(ast.parse(path.read_text(), filename=str(path)).body)
+    while body:
+        node = body.pop()
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try)):
+            body.extend(node.body + node.orelse + getattr(node, "finalbody", []))
+            body.extend(stmt for handler in getattr(node, "handlers", []) for stmt in handler.body)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_transformers_at_import(path: Path) -> None:
+    """The tokenizer may look for a `transformers` cache inside a function;
+    importing the port never imports it."""
+    bad = [m for m in _imported_at_import(path) if m.split(".")[0] == "transformers"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at import"
+
+
+def test_serving_modules_are_scanned() -> None:
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("cflearn_torch/modules/nlp/tokenizers.py", "cflearn_torch/modules/core/tome.py",
+                "cflearn_torch/toolkit/quality.py"):
+        assert rel in names
+
+
 def _no_cuda(monkeypatch) -> None:
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -228,3 +258,54 @@ def test_finetune_unet_raises_without_cuda(monkeypatch) -> None:
         cflearn_torch.finetune_unet(model, x0, cond)
     out = cflearn_torch.finetune_unet(model, x0, cond, num_steps=1, device="cpu")
     assert torch.isfinite(out["losses"]).all()
+
+
+def test_w8a8_and_fold_wrappers_refuse_other_devices() -> None:
+    from cflearn_torch.ops import conv
+
+    x = torch.empty((1, 8, 8, 64), device="meta", dtype=torch.bfloat16)
+    w = torch.empty((64, 3, 3, 64), device="meta", dtype=torch.bfloat16)
+    before = conv.conv3x3_w8a8.launches, conv.conv3x3_fold.launches
+    with pytest.raises(RuntimeError, match="no kernel"):
+        conv.conv3x3_w8a8(x, w)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        conv.conv3x3(x, w, fold=True)
+    assert (conv.conv3x3_w8a8.launches, conv.conv3x3_fold.launches) == before
+
+
+def test_w8a8_checks_come_before_any_launch(monkeypatch) -> None:
+    """What the int8 kernel does not take is refused by the wrapper: the
+    channel multiple of 16, the output dtype, the scale, a C whose int32 sums
+    could overflow, and inputs that need a gradient."""
+    from cflearn_torch.ops import _native, conv
+
+    def no_library(name):
+        raise AssertionError(f"library({name!r}) reached")
+
+    monkeypatch.setattr(_native, "library", no_library)
+
+    class OnCard(torch.Tensor):
+        @property
+        def device(self):  # type: ignore[override]
+            return torch.device("cuda", 0)
+
+    def card(shape, dtype):
+        return torch.empty(shape, device="meta", dtype=dtype).as_subclass(OnCard)
+
+    i8, f32, bf16 = torch.int8, torch.float32, torch.bfloat16
+    with pytest.raises(ValueError, match="% 16"):
+        conv.conv3x3_int8(card((1, 8, 8, 72), i8), card((64, 3, 3, 72), i8), card((64,), f32), None, bf16)
+    with pytest.raises(TypeError, match="bf16/fp16"):
+        conv.conv3x3_int8(card((1, 8, 8, 64), i8), card((64, 3, 3, 64), i8), card((64,), f32), None, f32)
+    with pytest.raises(TypeError, match="one dtype"):
+        conv.conv3x3_int8(card((1, 8, 8, 64), bf16), card((64, 3, 3, 64), i8), card((64,), f32), None, bf16)
+    with pytest.raises(ValueError, match="scale"):
+        conv.conv3x3_int8(card((1, 8, 8, 64), i8), card((64, 3, 3, 64), i8), card((32,), f32), None, bf16)
+    big = conv.W8A8_MAX_C + 16 - conv.W8A8_MAX_C % 16
+    with pytest.raises(ValueError, match="int32"):
+        conv.conv3x3_int8(card((1, 2, 2, big), i8), card((8, 3, 3, big), i8), card((8,), f32), None, bf16)
+    assert 127 * 127 * 9 * conv.W8A8_MAX_C < 2**31 <= 127 * 127 * 9 * (conv.W8A8_MAX_C + 1)
+    with pytest.raises(RuntimeError, match="gradient"):
+        conv.conv3x3_w8a8(card((1, 8, 8, 64), bf16), card((64, 3, 3, 64), bf16).requires_grad_())
+    with pytest.raises(ValueError, match="% 8"):
+        conv.conv3x3_fold(card((1, 8, 8, 60), bf16), card((64, 3, 3, 60), bf16))
