@@ -1,144 +1,183 @@
 // Weight gradient of the 3x3 stride-1 SAME convolution over NHWC bf16 / fp16
-// as nine implicit GEMMs on the tensor cores (mma.sync m16n8k16, f32
-// accumulation), for Hopper (sm_90a).
+// on Hopper's warpgroup MMA (wgmma, f32 accumulation) fed by TMA, for sm_90a.
 //
 // Replaces: cflearn_tpu/ops/conv.py `_conv3x3_wgrad_kernel` (launched by
 // `conv3x3_wgrad_pallas`), which walks (batch x row) tiles in grid order and
 // carries one f32 accumulator of all nine taps from tile to tile.
 //
 // Here: per tap (di, dj), dW[co, di, dj, c] = sum over pixels p = (b, i, j) of
-// dy[p, co] * x[b, i+di-1, j+dj-1, c], i.e. a GEMM with M = Co, N = C and
-// K = B*H*W. The contraction runs over pixels, the slow axis of both
-// operands, so both tiles sit in shared memory as (pixels x channels) and are
-// read transposed with ldmatrix.trans. A CTA owns one tap's 128 x 128 output
-// tile and one contiguous range of K; 8 warps each own 64 x 32. Each pixel of
-// a K tile finds its own image and its shifted position, and the copy
-// zero-fills what falls outside, so K tiles may cross image boundaries.
+// dy[p, co] * x[b, i+di-1, j+dj-1, c], a GEMM with M = Co, N = C and K =
+// pixels. A K step is 64 pixels of one image row, so both operands are TMA
+// boxes: dy (64 channels, 64 columns, 1, 1) at (co0, j0, i, b), where columns
+// past the image's edge come back zero and add nothing. Both tiles land
+// pixel-major, which is MN-major for this GEMM: wgmma reads them through its
+// transpose bits, with no ldmatrix.trans.
+//
+// A CTA owns 128 output channels x 128 input channels of one tap row di and
+// all three taps dj of it: each K step loads dy once and feeds the three
+// taps. x comes as one box two pixels wider, (64, 66, 1, 1) at (c0, j0 - 1,
+// i + di - 1, b), and tap dj reads its 64 rows from row dj on: a descriptor
+// start 128 * dj bytes into the box. The 128-byte swizzle is a function of
+// the shared-memory address bits, so TMA's writes and wgmma's reads agree at
+// any row, and x is loaded once per K step instead of three times (34 KB a
+// stage instead of 64). TMA's zero fill outside the image (the columns -1
+// and W, the rows -1 and H) is the SAME halo. Two consumer warpgroups each
+// hold 64 output channels x 128 input channels x 3 taps in f32 (192
+// registers a thread, after `setmaxnreg`); the producer warpgroup's one
+// thread keeps the ring of stages full.
 //
 // Blocks run in no order, so nothing carries over between them: K is split
-// across CTAs to fill the card (9 output tiles at C = Co = 128), each CTA
-// writes its f32 partial sum to a workspace (splits, Co, 9, C), and a second
-// kernel adds the partial sums in the order of the splits and casts once.
-// No atomics: the result is bit-reproducible.
+// across CTAs to fill the card (`ops/conv.py::wgrad_plan`), each CTA writes
+// its f32 partial sums to a workspace (splits, Co, 9, C), and a second kernel
+// adds them in the order of the splits and casts once. No atomics: the
+// result is bit-reproducible.
 //
-// What bounds it on the H100: 2*9*C*Co operations per pixel against
-// 2*(C + Co) bytes, several hundred per byte at the autoencoder's widths ->
-// tensor-core bound. Each tap reads x and dy again (from L2 where the nine
-// taps' CTAs run together); sharing one halo tile across the taps, wgmma and
-// TMA are later work.
+// What bounds it on the H100: 2 * 9 * C * Co operations per pixel against
+// 2 * (C + Co) bytes, several hundred per byte at the autoencoder's widths:
+// the tensor cores. A K step does 189 operations per byte it loads from L2.
 //
-// Layout: x (B, H, W, C) and dy (B, H, W, Co) contiguous; out (Co, 3, 3, C),
-// the forward kernel's weight layout. C % 8 == 0 and Co % 8 == 0.
+// Layout: x (B, H, W, C) and dy (B, H, W, Co) contiguous and 16-byte aligned;
+// out (Co, 3, 3, C), the forward kernel's weight layout. C % 8 == 0 and
+// Co % 8 == 0.
 
-#include "mma_common.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace cflearn {
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, LD = BM + 8, THREADS = 256;
-constexpr size_t SMEM = size_t(STAGES) * 2 * BK * LD * 2;
+using namespace sm90;
+
+constexpr int BM = 128;       // output channels per CTA, 64 per consumer warpgroup
+constexpr int BN = 128;       // input channels per CTA and tap
+constexpr int KP = 64;        // pixels per K step: columns of one image row
+constexpr int THREADS = 384;  // warpgroup 0 loads, 1 and 2 multiply
+constexpr int BOX = KP * ROW_BYTES;  // 8 KB: 64 pixels x 64 channels
+constexpr int DY_BYTES = BM / BOX_C * BOX;
+// one x box of KP + 2 pixels, its slot rounded up to whole swizzle atoms
+constexpr int X_BOX_BYTES = (KP + 2) * ROW_BYTES;
+constexpr int X_BOX = (X_BOX_BYTES + SWIZZLE_ATOM - 1) / SWIZZLE_ATOM * SWIZZLE_ATOM;
+constexpr int STAGE = DY_BYTES + BN / BOX_C * X_BOX;  // 34 KB
+constexpr int TX = DY_BYTES + BN / BOX_C * X_BOX_BYTES;  // bytes TMA delivers per stage
+constexpr int STAGES = 5;
+constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + SWIZZLE_ATOM;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ ws, int B,
-                 int H, int W, int C, int Co, int kt_per_split) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);  // [STAGES][BK][LD]: dy, pixels x co
-  T* Bs = As + STAGES * BK * LD;           // [STAGES][BK][LD]: shifted x, pixels x c
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int tiles_n = (C + BN - 1) / BN, tiles_m = (Co + BM - 1) / BM;
-  const int tap = blockIdx.x / (tiles_m * tiles_n);
-  const int rem = blockIdx.x % (tiles_m * tiles_n);
-  const int m0 = (rem / tiles_n) * BM, n0 = (rem % tiles_n) * BN;
-  const int di = tap / 3 - 1, dj = tap % 3 - 1;
+__global__ void __launch_bounds__(THREADS, 1)
+    wgrad_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
+                 float* __restrict__ ws, int B, int H, int W, int C, int Co, int kt_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + SWIZZLE_ATOM - 1) & ~uintptr_t(SWIZZLE_ATOM - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+
+  // unit = (co tile, c tile, tap row di), di fastest: the three CTAs that share dy run side by side
+  const int c_tiles = (C + BN - 1) / BN;
+  const int di = blockIdx.x % 3, c0 = (blockIdx.x / 3 % c_tiles) * BN, co0 = (blockIdx.x / (3 * c_tiles)) * BM;
   const int split = blockIdx.y;
-  const int HW = H * W, K = B * HW;
-  const int KT = (K + BK - 1) / BK;
+  const int cols_t = (W + KP - 1) / KP;
+  const int KT = B * H * cols_t;
   const int kt0 = split * kt_per_split;
-  const int kt1 = min(KT, kt0 + kt_per_split);
-  const int nkt = max(kt1 - kt0, 0);
+  const int nkt = max(min(KT, kt0 + kt_per_split) - kt0, 0);
+  const int wg = threadIdx.x / 128;
 
-  // each thread copies two 16-byte chunks of each tile per stage: pixel rows
-  // tid / 16 and tid / 16 + 16, channel chunk tid % 16 (16 chunks = 128 channels)
-  const int r_row = tid >> 4, chk = (tid & 15) * 8;
-  const bool ok_m = m0 + chk < Co, ok_n = n0 + chk < C;
-
-  auto load = [&](int stage, int kt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r_row + i * 16;
-      const int p = kt * BK + row;
-      const bool ok_p = p < K;
-      const int pp = ok_p ? p : 0;
-      const int b = pp / HW, ij = pp % HW;
-      const int yy = ij / W + di, xx = ij % W + dj;
-      const bool ok_a = ok_p && ok_m;
-      const T* asrc = ok_a ? dy + size_t(pp) * Co + m0 + chk : dy;
-      cp_async16(As + (stage * BK + row) * LD + chk, asrc, ok_a ? 16 : 0);
-      const bool ok_b = ok_p && ok_n && yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const T* bsrc = ok_b ? x + ((size_t(b) * H + yy) * W + xx) * C + n0 + chk : x;
-      cp_async16(Bs + (stage * BK + row) * LD + chk, bsrc, ok_b ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
     }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nkt) load(s, kt0 + s);
-    cp_async_commit();
+    mbar_fence_init();
   }
-  for (int kt = 0; kt < nkt; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1 is free for the next copy
-    const int nk = kt + STAGES - 1;
-    if (nk < nkt) load(nk % STAGES, kt0 + nk);
-    cp_async_commit();
-    const T* At = As + (kt % STAGES) * BK * LD;
-    const T* Bt = Bs + (kt % STAGES) * BK * LD;
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&xmap);
+      prefetch_map(&dymap);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = kt0; kt < kt0 + nkt; ++kt) {
+        const int j0 = (kt % cols_t) * KP, i = kt / cols_t % H, b = kt / (cols_t * H);
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* s = smem + stage * STAGE;
+        mbar_expect_tx(&full[stage], TX);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4][4], bf[4][2];
+        for (int q = 0; q < BM / BOX_C; ++q) tma_load_4d(s + q * BOX, &dymap, &full[stage], co0 + q * BOX_C, j0, i, b);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) Frag<T>::load_a_t(af[mt], At, LD, wm * 64 + mt * 16, kk * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) Frag<T>::load_b_t(bf[nt], Bt, LD, wn * 32 + nt * 8, kk * 16, lane);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) Frag<T>::mma(acc[mt][nt], af[mt], bf[nt]);
+        for (int q = 0; q < BN / BOX_C; ++q)
+          tma_load_4d(s + DY_BYTES + q * X_BOX, &xmap, &full[stage], c0 + q * BOX_C, j0 - 1, i + di - 1, b);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
     }
-  }
-  cp_async_wait<0>();
+  } else {
+    regs_inc<232>();
+    const int g = wg - 1, t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    float acc[3][BN / 2];
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[dj][i] = 0.f;
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < nkt; ++kt) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* s = smem + stage * STAGE;
+      const uint64_t da = desc_mn_major(s + g * BOX, BOX);
+      wgmma_fence();
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj) fence_regs<BN / 2>(acc[dj]);
+#pragma unroll
+      for (int k = 0; k < KP / 16; ++k) {
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj) {
+          // x of tap dj: channels [c0, c0 + 64) and [c0 + 64, c0 + 128), X_BOX bytes apart, from the
+          // box's row dj on
+          const uint64_t db = desc_mn_major(s + DY_BYTES + dj * ROW_BYTES, X_BOX);
+          wgmma<T, BN, 1, 1>(acc[dj], da + k * 128, db + k * 128);  // +16 pixel rows = 2048 bytes
+        }
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj) fence_regs<BN / 2>(acc[dj]);
+      wgmma_wait<1>();
+      if (prev >= 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj) fence_regs<BN / 2>(acc[dj]);
+    if (prev >= 0) mbar_arrive(&empty[prev]);
 
-  // partial sums of this split: ws[split][co][tap][c], c contiguous
-  const int g = lane >> 2, cq = lane & 3;
+    // partial sums of this split: ws[split][co][tap][c], c contiguous
+    const int co_a = co0 + g * 64 + warp * 16 + lane / 4;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = n0 + wn * 32 + nt * 8 + cq * 2;
-    if (col >= C) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int co = co_a + h * 8;
+      if (co >= Co) continue;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int r = m0 + wm * 64 + mt * 16 + g;
-      if (r < Co)
-        *reinterpret_cast<float2*>(ws + ((size_t(split) * Co + r) * 9 + tap) * C + col) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r + 8 < Co)
-        *reinterpret_cast<float2*>(ws + ((size_t(split) * Co + r + 8) * 9 + tap) * C + col) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      for (int dj = 0; dj < 3; ++dj) {
+        float* row = ws + ((size_t(split) * Co + co) * 9 + di * 3 + dj) * C;
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q) {
+          const int c = c0 + q * 8 + (lane % 4) * 2;
+          if (c < C) *reinterpret_cast<float2*>(row + c) = make_float2(acc[dj][q * 4 + h * 2], acc[dj][q * 4 + h * 2 + 1]);
+        }
+      }
     }
   }
 }
 
 // out[i] = sum over the splits, in their order, of ws[s][i]; two elements per thread
 template <typename T>
-__global__ void wgrad_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out, size_t n,
-                                    int splits) {
+__global__ void wgrad_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out, size_t n, int splits) {
   const size_t i = (size_t(blockIdx.x) * blockDim.x + threadIdx.x) * 2;
   if (i >= n) return;
   float lo = 0.f, hi = 0.f;
@@ -151,24 +190,25 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ ws, T* __restrict_
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* dy, void* ws, void* out, int B, int H, int W, int C,
-                   int Co, int splits, cudaStream_t stream) {
-  auto kernel = wgrad_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(SMEM));
+cudaError_t launch(const void* x, const void* dy, void* ws, void* out, int B, int H, int W, int C, int Co, int splits,
+                   cudaStream_t stream) {
+  CUtensorMap xmap, dymap;
+  cudaError_t err = encode_nhwc<T>(&xmap, x, B, H, W, C, 1, KP + 2);
   if (err != cudaSuccess) return err;
-  const int KT = (B * H * W + BK - 1) / BK;
+  err = encode_nhwc<T>(&dymap, dy, B, H, W, Co, 1, KP);
+  if (err != cudaSuccess) return err;
+  err = set_smem<wgrad_kernel<T>>(SMEM);
+  if (err != cudaSuccess) return err;
+  const int KT = B * H * ((W + KP - 1) / KP);
   const int per = (KT + splits - 1) / splits;
-  const int tiles = 9 * ((Co + BM - 1) / BM) * ((C + BN - 1) / BN);
-  kernel<<<dim3(tiles, splits), THREADS, SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<float*>(ws), B, H, W, C, Co,
-      per);
+  const int units = 3 * ((Co + BM - 1) / BM) * ((C + BN - 1) / BN);
+  wgrad_kernel<T><<<dim3(units, splits), THREADS, SMEM, stream>>>(xmap, dymap, static_cast<float*>(ws), B, H, W, C, Co,
+                                                                  per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n = size_t(Co) * 9 * C;
   const unsigned blocks = static_cast<unsigned>((n / 2 + 255) / 256);
-  wgrad_reduce_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws),
-                                                     static_cast<T*>(out), n, splits);
+  wgrad_reduce_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws), static_cast<T*>(out), n, splits);
   return cudaGetLastError();
 }
 
@@ -177,11 +217,12 @@ cudaError_t launch(const void* x, const void* dy, void* ws, void* out, int B, in
 
 // dtype: 0 = bf16, 1 = fp16. `ws` holds splits * Co * 9 * C floats. Returns a
 // cudaError_t.
-extern "C" int cflearn_conv3x3_wgrad(int dtype, const void* x, const void* dy, void* ws, void* out,
-                                     int B, int H, int W, int C, int Co, int splits,
-                                     void* stream) {
+extern "C" int cflearn_conv3x3_wgrad(int dtype, const void* x, const void* dy, void* ws, void* out, int B, int H,
+                                     int W, int C, int Co, int splits, void* stream) {
+  using cflearn::sm90::aligned16;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 != 0 || Co % 8 != 0 || splits <= 0 ||
-      splits > 65535 || static_cast<long long>(B) * H * W > 0x7fffffffLL - 64)
+      splits > 65535 || !aligned16(x) || !aligned16(dy) ||
+      static_cast<long long>(B) * H * ((W + cflearn::KP - 1) / cflearn::KP) > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return cflearn::launch<__nv_bfloat16>(x, dy, ws, out, B, H, W, C, Co, splits, s);

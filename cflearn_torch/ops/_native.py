@@ -35,7 +35,7 @@ SOURCES = {
     "conv3x3_w8a8": "conv3x3_w8a8.cu",
     "conv3x3_fold": "conv3x3_fold.cu",
 }
-_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh")
+_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "conv3x3_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -52,7 +52,8 @@ _FWD = [_I] + [_P] * 5 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P]
 _BWD = [_I] + [_P] * 9 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P]
 _SIGNATURES = {
     "flash_attention": ("cflearn_flash_attention_fwd", _FWD),
-    "conv3x3": ("cflearn_conv3x3_fwd", [_I, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+    # dtype, x, w, bias, y, B, H, W, C, Co, box rows, box columns, output channels per tile, CTAs, stream
+    "conv3x3": ("cflearn_conv3x3_fwd", [_I, _P, _P, _P, _P] + [_I] * 9 + [_P]),
     "flash_fwd_lse": ("cflearn_flash_fwd_lse", _FWD),
     "flash_bwd_fused": ("cflearn_flash_bwd_fused", _BWD),
     "flash_bwd_dq": ("cflearn_flash_bwd_dq", _BWD),

@@ -3,7 +3,8 @@
 Counterpart of `cflearn_tpu/ops/conv.py`:
 
 * `conv3x3` — wrapper of the hand-written Hopper kernel
-  (`csrc/conv3x3.cu`), which replaces the TPU's `_conv3x3_kernel`
+  (`csrc/conv3x3.cu`: wgmma fed by TMA, see `conv3x3_plan`), which
+  replaces the TPU's `_conv3x3_kernel`
   (`conv3x3_pallas`, fold=False). On a CPU tensor it runs `conv3x3_plain`,
   the same 9 shifted f32 matmuls in plain PyTorch; on a CUDA tensor it
   launches the kernel or raises. Where an input needs a gradient it goes
@@ -11,7 +12,8 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   kernel on dy with `flip_weights(w)`, dw the weight-gradient kernel, db a sum
   of dy in f32.
 * `conv3x3_wgrad` — wrapper of the weight-gradient kernel
-  (`csrc/conv3x3_wgrad.cu`), which replaces `_conv3x3_wgrad_kernel`
+  (`csrc/conv3x3_wgrad.cu`: wgmma fed by TMA, see `wgrad_plan`), which
+  replaces `_conv3x3_wgrad_kernel`
   (`conv3x3_wgrad_pallas`); `conv3x3_wgrad_plain` is its plain version. The
   JAX package keeps its kernel behind `CFLEARN_TPU_WGRAD_PALLAS` because XLA's
   weight gradient was faster on its chip; that is a measurement of that chip,
@@ -35,12 +37,18 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   `quantized=True` (default `W8A8_DEFAULT`, from `CFLEARN_TORCH_CONV_W8A8`)
   sends the routed convs through W8A8 instead.
 
+* `conv3x3_plan` / `wgrad_plan` — the host's tile planner of those two
+  kernels: which spatial box of pixels a tile is, how many output channels
+  it takes, how many CTAs run and how K is split. Plain Python, so that the
+  CPU tests hold its coverage and TMA's box limits.
+
 Tensors are NHWC; weights are the port's OIHW, and (Co, 3, 3, C) at the
 kernels (where the JAX package has (3, 3, C, Co)).
 """
 
+import functools
 import os
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -101,6 +109,114 @@ def conv3x3_fold_plain(
     return acc.reshape(b, h, w, co).to(x.dtype)
 
 
+# ---- the tile planner of the Hopper kernels `conv3x3` and `conv3x3_wgrad` ----
+
+SM_COUNT = 132  # an H100 SXM's; the wrappers plan with the card's own count
+BOX_CHANNELS = 64  # channels per TMA box: 128 bytes of 16-bit values, the 128-byte swizzle's row
+TMA_BOX_MAX = 256  # the largest extent of a TMA box in any dimension
+CONV_PIXELS = 128  # output pixels per forward tile: two consumer warpgroups x 64 wgmma rows
+WGRAD_PIXELS = 64  # pixels per K step of the weight gradient: columns of one image row
+WGRAD_BM = WGRAD_BN = 128  # output x input channels of one weight-gradient CTA, per tap
+_WGRAD_MIN_KT = 8  # least K steps per split: below it the partial sums cost more than they spread
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pixel_box(h: int, w: int, pixels: int) -> Tuple[int, int]:
+    """(th, tw): the box of th x tw = `pixels` pixels of one image, tw a
+    power of two >= 8, that covers an h x w image in the fewest boxes (the
+    widest box among ties). Its pixels past the image's edge are TMA's zero
+    fill on load and are not stored."""
+    best = None
+    tw = pixels
+    while tw >= 8:
+        th = pixels // tw
+        n = _cdiv(h, th) * _cdiv(w, tw)
+        if best is None or n < best[0]:
+            best = (n, th, tw)
+        tw //= 2
+    return best[1], best[2]
+
+
+class ConvPlan(NamedTuple):
+    th: int  # box rows of an output tile
+    tw: int  # box columns
+    bn: int  # output channels per tile
+    m_tiles: int  # pixel boxes over the batch
+    n_tiles: int  # output-channel tiles
+    ctas: int  # persistent CTAs, each walking tiles `ctas` apart
+
+
+@functools.lru_cache(maxsize=1024)
+def conv3x3_plan(b: int, h: int, w: int, c: int, co: int, sms: int = SM_COUNT) -> ConvPlan:
+    """The forward kernel's tiles at x (b, h, w, c) -> co channels: a
+    128-pixel box, and 256 output channels per tile where the grid still
+    fills the card (each byte loaded from L2 then does 85 operations, not
+    64), else 128."""
+    th, tw = pixel_box(h, w, CONV_PIXELS)
+    m_tiles = b * _cdiv(h, th) * _cdiv(w, tw)
+    bn = 256 if co > 128 and m_tiles * _cdiv(co, 256) >= sms else 128
+    n_tiles = _cdiv(co, bn)
+    return ConvPlan(th, tw, bn, m_tiles, n_tiles, min(m_tiles * n_tiles, sms))
+
+
+def box_pixels(h: int, w: int, th: int, tw: int, m: int):
+    """The pixels (b, i, j) inside an h x w image of box `m` of th x tw, the
+    boxes numbered as the kernels walk them: columns fastest, then rows, then
+    the batch. A forward tile's box is its index // `n_tiles`, a K step's its
+    index."""
+    rows_t, cols_t = _cdiv(h, th), _cdiv(w, tw)
+    j0, i0, b = (m % cols_t) * tw, (m // cols_t % rows_t) * th, m // (cols_t * rows_t)
+    return [(b, i0 + r // tw, j0 + r % tw) for r in range(th * tw) if i0 + r // tw < h and j0 + r % tw < w]
+
+
+class WgradPlan(NamedTuple):
+    k_tiles: int  # K steps over the batch: one image row of WGRAD_PIXELS columns each
+    units: int  # CTAs per split: 3 tap rows x output-channel tiles x input-channel tiles
+    splits: int  # contiguous ranges of K steps, each its own CTAs and workspace slice
+    per: int  # K steps per split (the last may have fewer)
+
+
+def _wgrad_units(c: int, co: int) -> int:
+    """Weight-gradient CTAs per split: 3 tap rows x output- x input-channel tiles."""
+    return 3 * _cdiv(co, WGRAD_BM) * _cdiv(c, WGRAD_BN)
+
+
+def wgrad_splits(k_tiles: int, c: int, co: int, sms: int = SM_COUNT) -> int:
+    """Into how many contiguous ranges of its `k_tiles` K steps the
+    weight-gradient kernel splits the contraction: the split whose CTAs
+    (one per SM at a time, at most two waves) keep the largest share of the
+    SMs busy, the fewest splits among ties, at least `_WGRAD_MIN_KT` K steps
+    a split; every split non-empty."""
+    units = _wgrad_units(c, co)
+    best, best_fill = 1, 0.0
+    for splits in range(1, min(k_tiles // _WGRAD_MIN_KT, 2 * sms // units) + 1):
+        fill = units * splits / (_cdiv(units * splits, sms) * sms)
+        if fill > best_fill:
+            best, best_fill = splits, fill
+    per = _cdiv(k_tiles, best)
+    return _cdiv(k_tiles, per)
+
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_plan(b: int, h: int, w: int, c: int, co: int, sms: int = SM_COUNT) -> WgradPlan:
+    """The weight-gradient kernel's tiles at x (b, h, w, c), dy (b, h, w, co).
+    A K step is the box of one image row and WGRAD_PIXELS columns (1 x 64);
+    x comes as one box two pixels wider than dy's, whose three shifted
+    windows feed the three taps dj."""
+    kt = b * h * _cdiv(w, WGRAD_PIXELS)
+    splits = wgrad_splits(kt, c, co, sms)
+    return WgradPlan(kt, _wgrad_units(c, co), splits, _cdiv(kt, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device `index` (a CUDA tensor's `device.index`)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
@@ -125,11 +241,17 @@ def _check_conv_args(
     return bsz, h, w, c, co
 
 
+def _no_plan(*dims: Any) -> Tuple[int, ...]:
+    return ()
+
+
 def _launch_forward(
-    name: str, x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]
+    name: str, counter: Any, x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor],
+    plan: Callable[..., Tuple[int, ...]] = _no_plan,
 ) -> torch.Tensor:
     """Check the arguments and launch forward kernel `name` ("conv3x3" or
-    "conv3x3_fold") on CUDA tensors."""
+    "conv3x3_fold") on CUDA tensors; `plan(b, h, w, c, co, device)` gives the
+    kernel's arguments after Co, and `counter` holds the launch count."""
     bsz, h, w, c, co = _check_conv_args(name, x, w_ohwi, bias, _DTYPES, 8)
     if bias is not None and bias.dtype != x.dtype:
         raise TypeError(f"{name} kernel takes bf16/fp16 x, w, bias of one dtype; got bias {bias.dtype}")
@@ -141,19 +263,25 @@ def _launch_forward(
     err = fn(
         _DTYPES[x.dtype], x.data_ptr(), w_ohwi.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
-        bsz, h, w, c, co, torch.cuda.current_stream(x.device).cuda_stream,
+        bsz, h, w, c, co, *plan(bsz, h, w, c, co, x.device), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _native.check(err, name)
-    (_FOLD_WRAPPER if name == "conv3x3_fold" else _WRAPPER).launches += 1
+    counter.launches += 1
     return y
 
 
+def _conv3x3_tiles(b: int, h: int, w: int, c: int, co: int, device: torch.device) -> Tuple[int, ...]:
+    """The wgmma kernel's (box rows, box columns, output channels per tile, CTAs) on `device`."""
+    p = conv3x3_plan(b, h, w, c, co, _sm_count(device.index))
+    return p.th, p.tw, p.bn, p.ctas
+
+
 def _launch_conv3x3(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    return _launch_forward("conv3x3", x, w_ohwi, bias)
+    return _launch_forward("conv3x3", _WRAPPER, x, w_ohwi, bias, _conv3x3_tiles)
 
 
 def _launch_conv3x3_fold(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    return _launch_forward("conv3x3_fold", x, w_ohwi, bias)
+    return _launch_forward("conv3x3_fold", _FOLD_WRAPPER, x, w_ohwi, bias)
 
 
 # the default of `conv3x3(fold=None)`: the JAX package defaults `fold` to False
@@ -330,25 +458,6 @@ def conv3x3_w8a8(
 conv3x3_w8a8.launches = 0
 _W8A8_WRAPPER = conv3x3_w8a8
 
-# the card's SM count times the CTAs of the weight-gradient kernel that fit
-# one SM: how many CTAs the split of K aims at
-_WGRAD_CTAS = 2 * 132
-_WGRAD_BK = 32  # pixels per K tile of the kernel
-_WGRAD_MIN_KT = 8  # least K tiles per split: below it the partial sums cost more than they spread
-
-
-def wgrad_splits(pixels: int, c: int, co: int) -> int:
-    """Into how many contiguous ranges the weight-gradient kernel splits its
-    contraction over `pixels` = B*H*W: enough CTAs to fill the card when the
-    output (9 tiles of 128 x 128 at C = Co = 128) is small, every split
-    non-empty."""
-    tiles = 9 * -(-co // 128) * -(-c // 128)
-    kt = -(-pixels // _WGRAD_BK)
-    splits = max(1, min(-(-_WGRAD_CTAS // tiles), kt // _WGRAD_MIN_KT))
-    per = -(-kt // splits)
-    return -(-kt // per)
-
-
 def conv3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The weight-gradient kernel's function in plain PyTorch:
     dw[co, di, dj, c] = sum over (b, i, j) of dy[b, i, j, co] *
@@ -384,13 +493,13 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3_wgrad kernel takes C % 8 == 0 and Co % 8 == 0; got C={c}, Co={co}")
     x = x.contiguous()
     dy = dy.contiguous()
-    splits = wgrad_splits(bsz * h * w, c, co)
-    ws = torch.empty((splits, co, 9, c), dtype=torch.float32, device=x.device)
+    plan = wgrad_plan(bsz, h, w, c, co, _sm_count(x.device.index))
+    ws = torch.empty((plan.splits, co, 9, c), dtype=torch.float32, device=x.device)
     out = torch.empty((co, 3, 3, c), dtype=x.dtype, device=x.device)
     fn = _native.library("conv3x3_wgrad")
     err = fn(
         _DTYPES[x.dtype], x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        bsz, h, w, c, co, splits, torch.cuda.current_stream(x.device).cuda_stream,
+        bsz, h, w, c, co, plan.splits, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _native.check(err, "conv3x3_wgrad")
     _WGRAD_WRAPPER.launches += 1

@@ -249,6 +249,31 @@ AE_GN = [
 GN_PER_UNET = sum(case[-1] for case in UNET_GN)  # 61
 GN_PER_DECODE = sum(case[-1] for case in DECODER_GN)  # 30
 GN_PER_AE_FORWARD = sum(case[-1] for case in AE_GN)  # 52
+# the yardstick of the wgmma + TMA redesign of `conv3x3` and `conv3x3_wgrad`: the mma.sync kernels' ms per
+# shape in the final run of the previous design (H100 80GB HBM3, 700 W), keyed by (kernel, case); the
+# per-shape rows carry them as `pr4_ms`
+MMA_SYNC_MS = {
+    ("conv3x3", "64x64_512_512"): 0.1128, ("conv3x3", "128x128_512_512"): 0.3121,
+    ("conv3x3", "256x256_512_512"): 1.2615, ("conv3x3", "256x256_512_256"): 0.6416,
+    ("conv3x3", "256x256_256_256"): 0.3367, ("conv3x3", "512x512_256_256"): 1.4119,
+    ("conv3x3", "512x512_256_128"): 0.6475, ("conv3x3", "512x512_128_128"): 0.3530,
+    ("conv3x3", "odd_129x131_64_96"): 0.0363,
+    ("conv3x3", "ae_fwd_256x256_128_128"): 0.6707, ("conv3x3", "ae_dx_256x256_128_128"): 0.6972,
+    ("conv3x3", "ae_fwd_256x256_256_128"): 1.2890, ("conv3x3", "ae_dx_256x256_256_128"): 1.4184,
+    ("conv3x3", "ae_fwd_256x256_256_256"): 2.4911, ("conv3x3", "ae_dx_256x256_256_256"): 2.6959,
+    ("conv3x3", "ae_fwd_128x128_128_256"): 0.3675, ("conv3x3", "ae_dx_128x128_128_256"): 0.3339,
+    ("conv3x3", "ae_fwd_128x128_256_256"): 0.6768, ("conv3x3", "ae_dx_128x128_256_256"): 0.6936,
+    ("conv3x3", "ae_fwd_128x128_512_256"): 1.2816, ("conv3x3", "ae_dx_128x128_512_256"): 1.3915,
+    ("conv3x3", "ae_fwd_128x128_512_512"): 2.5466, ("conv3x3", "ae_dx_128x128_512_512"): 2.7179,
+    ("conv3x3", "ae_fwd_64x64_512_512"): 0.7270, ("conv3x3", "ae_dx_64x64_512_512"): 0.6716,
+    ("conv3x3", "ae_fwd_odd_3x33x47_64_136"): 0.0199, ("conv3x3", "ae_dx_odd_3x33x47_64_136"): 0.0414,
+    ("conv3x3_wgrad", "256x256_128_128"): 1.0411, ("conv3x3_wgrad", "256x256_256_128"): 1.9148,
+    ("conv3x3_wgrad", "256x256_256_256"): 3.5823, ("conv3x3_wgrad", "128x128_128_256"): 0.4849,
+    ("conv3x3_wgrad", "128x128_256_256"): 0.9167, ("conv3x3_wgrad", "128x128_512_256"): 1.7845,
+    ("conv3x3_wgrad", "128x128_512_512"): 3.5840, ("conv3x3_wgrad", "64x64_512_512"): 0.9169,
+    ("conv3x3_wgrad", "odd_3x33x47_64_136"): 0.0496,
+}
+REDESIGNED = ("conv3x3", "conv3x3_wgrad")
 # which path's launches and times a kernel's summary row reports; its other paths go under "other_paths"
 MAIN_PATH = {
     "flash_attention": "txt2img", "conv3x3": "txt2img", "flash_fwd_lse": "finetune", "flash_bwd_fused": "finetune",
@@ -348,12 +373,14 @@ def phase_kernels(torch, F, ops):
         m = b * hh * ww
         bms, by = bound_ms(2.0 * m * co * 9 * c, 2.0 * (m * c + 9 * c * co + co + m * co))
         row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err, tol=CONV_TOL, ms=ms, plain_ms=plain,
-                   library_ms=lib, bound_ms=bms, bound_by=by, per_path=per)
+                   library_ms=lib, bound_ms=bms, bound_by=by, per_path=per, pr4_ms=MMA_SYNC_MS.get(("conv3x3", name)),
+                   bound_share=bms / ms)
         print("conv3x3", json.dumps(row))
         if not math.isfinite(err) or err > CONV_TOL:
             raise AssertionError(f"conv3x3 {name}: max_abs_err {err} > {CONV_TOL}")
         rows["conv3x3"].append(row)
-        # the dj-folded kernel: the same function, against its plain version and the 9-tap kernel
+        # the dj-folded kernel (the mma.sync body): the same function, against its plain version and the
+        # 9-tap kernel, which is of another design (wgmma + TMA), held to CONV_TOL of each other
         fold = Cv.conv3x3_fold(x, wk, bias)
         torch.cuda.synchronize()
         err_f = max(max_err(fold, Cv.conv3x3_fold_plain(x, wk, bias)), max_err(fold, ref))
@@ -531,9 +558,11 @@ def phase_ae_kernels(torch, F, Cv, Gn):
             torch.cuda.synchronize()
             err, tol = max_err(out, ref), CONV_REL * ref.float().abs().max().item()
             bms, by = bound_ms(2.0 * m * cin * cout * 9, 2.0 * (m * cin + 9 * cin * cout + cout + m * cout))
+            ms = time_ms(torch, run)
             row = dict(case=f"ae_{kind}_{name}", shape=[b, hh, ww, cin, cout], max_abs_err=err, tol=tol,
-                       ms=time_ms(torch, run), plain_ms=time_ms(torch, plain_run, 20.0), library_ms=time_ms(torch, lib_run),
-                       bound_ms=bms, bound_by=by, per={"ae": count})
+                       ms=ms, plain_ms=time_ms(torch, plain_run, 20.0), library_ms=time_ms(torch, lib_run),
+                       bound_ms=bms, bound_by=by, per={"ae": count}, pr4_ms=MMA_SYNC_MS.get(("conv3x3", f"ae_{kind}_{name}")),
+                       bound_share=bms / ms)
             print("conv3x3", json.dumps(row))
             check("conv3x3", row["case"], err, tol)
             rows["conv3x3"].append(row)
@@ -548,11 +577,12 @@ def phase_ae_kernels(torch, F, Cv, Gn):
             raise AssertionError(f"conv3x3_wgrad {name}: a second launch on the same inputs differs")
         err, tol = max_err(out, ref), WGRAD_REL * ref.float().abs().max().item()
         bms, by = bound_ms(2.0 * m * c * co * 9, 2.0 * (m * c + m * co + 9 * c * co))
-        row = dict(case=name, shape=[b, hh, ww, c, co], splits=Cv.wgrad_splits(m, c, co), max_abs_err=err, tol=tol,
-                   ms=time_ms(torch, lambda: Cv.conv3x3_wgrad(x, dy)),
-                   plain_ms=time_ms(torch, lambda: Cv.conv3x3_wgrad_plain(x, dy), 20.0),
+        ms = time_ms(torch, lambda: Cv.conv3x3_wgrad(x, dy))
+        row = dict(case=name, shape=[b, hh, ww, c, co], splits=Cv.wgrad_plan(b, hh, ww, c, co).splits, max_abs_err=err,
+                   tol=tol, ms=ms, plain_ms=time_ms(torch, lambda: Cv.conv3x3_wgrad_plain(x, dy), 20.0),
                    library_ms=time_ms(torch, lambda: torch.nn.grad.conv2d_weight(xc, w.shape, dyc, padding=1)),
-                   bound_ms=bms, bound_by=by, per={"ae": per})
+                   bound_ms=bms, bound_by=by, per={"ae": per}, pr4_ms=MMA_SYNC_MS.get(("conv3x3_wgrad", name)),
+                   bound_share=bms / ms)
         print("conv3x3_wgrad", json.dumps(row))
         check("conv3x3_wgrad", name, err, tol)
         rows["conv3x3_wgrad"].append(row)
@@ -770,8 +800,10 @@ def main() -> int:
             lines = [ln for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
             regs = [int(ln.split("Used ")[1].split(" ")[0]) for ln in lines if "Used " in ln]
             spills = [ln for ln in lines if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+            ptxas_ms = sum(float(ln.split("Compile time = ")[1].split(" ")[0])
+                           for ln in log.read_text().splitlines() if "Compile time = " in ln)
             print(f"ptxas[{name}] {len(regs)} kernels, registers {min(regs, default=0)}..{max(regs, default=0)}, "
-                  f"{len(spills)} with spills")
+                  f"{len(spills)} with spills, ptxas {ptxas_ms:.0f} ms, library built in {secs[name]:.1f} s")
 
     # 2. kernels
     rows = phase_kernels(torch, F, (A, Cv))
@@ -1161,11 +1193,25 @@ def main() -> int:
         # one ulp the other way: a second reading of the drift, for the leaves one by one
         _, ae_grads_d = ae_fwd_bwd(images_b - (images_u - images_b))
     # the global norm as in the train parity; the leaves one by one in the 2-norm, ||d|| / ||ref||, which
-    # averages over a leaf's elements where the largest element's error does not. A leaf may lie
-    # AE_PARITY_FACTOR times as far from the plain path as the one-ulp drift moved that same leaf
-    # (the larger of the two readings), or moved the leaves' upper decile where its own drift
-    # happened to be small.
+    # averages over a leaf's elements where the largest element's error does not. The whole gradient
+    # may lie AE_PARITY_FACTOR times as far from the plain path as the one-ulp drift moved it, and a
+    # leaf as far as the drift moved that same leaf, or the leaves' upper decile where its own drift
+    # happened to be small; each drift is the larger of two readings (one ulp up, one down). One leaf
+    # (the decoder's last conv, 128 -> 3) holds three quarters of the gradient's squared norm, so the
+    # global norm is nearly that leaf's, and one reading of its drift alone varies twofold from run to
+    # run.
     ae_drift, ae_err = grad_errors(ae_grads_u, ae_grads_p), grad_errors(ae_grads_k, ae_grads_p)
+    ae_drift_down = grad_errors(ae_grads_d, ae_grads_p)["global_rel"]
+    ae_drift["global_rel_up"] = ae_drift["global_rel"]
+    ae_drift["global_rel_down"] = ae_drift_down
+    ae_drift["global_rel"] = max(ae_drift["global_rel"], ae_drift_down)
+    # the leaves that carry most of each global-norm error: ||a - b||^2 of the leaf over ||ref||^2 of all
+    total = sum(r.double().square().sum().item() for r in ae_grads_p.values())
+    for label, grads in (("drift up", ae_grads_u), ("drift down", ae_grads_d), ("kernels", ae_grads_k)):
+        share = {n: (grads[n].double() - r.double()).square().sum().item() / total for n, r in ae_grads_p.items()}
+        top = sorted(share, key=share.get, reverse=True)[:4]
+        print(f"ae parity: global-norm error^2 by leaf, {label}: "
+              f"{[(n, f'{share[n]:.3e}', f'{r:.3e}') for n, r in ((n, ae_grads_p[n].double().square().sum().item() / total) for n in top)]}")
     drift_up, drift_down = leaf_norm_errors(ae_grads_u, ae_grads_p), leaf_norm_errors(ae_grads_d, ae_grads_p)
     drift_leaves = {n: max(d, drift_down[n]) for n, d in drift_up.items()}
     err_leaves = leaf_norm_errors(ae_grads_k, ae_grads_p)
@@ -1207,7 +1253,8 @@ def main() -> int:
     ae_tol_loss = max(AE_PARITY_FACTOR * abs(ae_loss_u - ae_loss_p), 2.0**-10 * abs(ae_loss_p))
     print(f"ae parity: loss kernels {ae_loss_k:.6f} plain {ae_loss_p:.6f} plain+ulp {ae_loss_u:.6f} "
           f"(tolerance {ae_tol_loss:.3e})")
-    print(f"ae parity: plain path vs itself with the images one bf16 ulp away: {json.dumps(ae_drift)}")
+    print(f"ae parity: plain path vs itself with the images one bf16 ulp away (global_rel: the larger of up "
+          f"and down): {json.dumps(ae_drift)}")
     print(f"ae parity: kernels vs plain: {json.dumps(ae_err)} (tolerance {AE_PARITY_FACTOR} x the drift)")
     if not abs(ae_loss_k - ae_loss_p) <= ae_tol_loss:
         return fail("ae loss through the kernels disagrees with the plain path")
@@ -1297,6 +1344,8 @@ def main() -> int:
             out["launches"] = split_launches[name] if split and path == "finetune" else path_launches[path][name]
             out["launches_of"] = "one finetune forward + backward with the split backward" if split and path == "finetune" else path_run[path]
             out["per"] = f"the times are of {path_unit[path]}: each of its shapes' time times its launches in it"
+            if name in REDESIGNED:
+                out["bound_share"] = out["bound_ms"] / out["ms"]
             return out
 
         paths = sorted({p for r in cases for p, n in r["per"].items() if n > 0})

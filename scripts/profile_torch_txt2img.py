@@ -42,7 +42,7 @@ GROUPS = [
     ("flash_attention (port kernel)", ("flash_fwd_kernel", "flash_fwd_chunked_kernel")),
     ("conv3x3_w8a8 (port kernel)", ("epidequant",)),
     ("conv3x3_fold (port kernel)", ("taps)1", "kfold")),
-    ("conv3x3 (port kernel)", ("conv3x3_igemm",)),
+    ("conv3x3 (port kernel)", ("conv3x3_fwd_kernel",)),
     ("conv3x3_wgrad (port kernels)", ("wgrad_kernel", "wgrad_reduce_kernel")),
     ("group_norm (port kernels)", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),

@@ -141,12 +141,15 @@ def test_conv3x3_on_cpu_carries_gradients_through_the_plain_version() -> None:
 
 
 @pytest.mark.parametrize(
-    "pixels,c,co", [(8 * 256 * 256, 128, 128), (8 * 64 * 64, 512, 512), (2 * 5 * 7, 64, 96), (257, 64, 64), (3 * 33 * 47, 64, 136)]
+    "images,c,co",
+    [((8, 256, 256), 128, 128), ((8, 64, 64), 512, 512), ((2, 5, 7), 64, 96), ((1, 1, 257), 64, 64), ((3, 33, 47), 64, 136)],
 )
-def test_wgrad_splits_cover_every_k_tile(pixels, c, co) -> None:
-    splits = TC.wgrad_splits(pixels, c, co)
-    kt = -(-pixels // 32)
-    per = -(-kt // splits)
+def test_wgrad_splits_cover_every_k_tile(images, c, co) -> None:
+    plan = TC.wgrad_plan(*images, c, co)
+    kt = plan.k_tiles  # K steps of one image row of 64 columns each
+    assert kt == images[0] * images[1] * -(-images[2] // 64)
+    splits, per = plan.splits, plan.per
+    assert splits == TC.wgrad_splits(kt, c, co) and per == -(-kt // splits)
     assert splits >= 1 and per * splits >= kt and per * (splits - 1) < kt  # every split non-empty
 
 

@@ -38,16 +38,27 @@ def test_flash_kernel_matches_plain(cuda, causal, shape, dtype) -> None:
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(1, 64, 64, 512, 512), (2, 33, 47, 64, 136), (1, 128, 128, 256, 128)])
+# C = 24 and 72 (below and not a multiple of the kernels' 64-channel box), W = 131 and H != W (boxes past
+# the image's edge), batch 3, and (2, 128, 128, 64, 264) for 256 output channels per tile with a ragged last one
+CONV_SHAPES = [
+    (1, 64, 64, 512, 512), (2, 33, 47, 64, 136), (1, 128, 128, 256, 128), (3, 20, 131, 24, 72),
+    (2, 9, 40, 72, 24), (2, 128, 128, 64, 264),
+]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_conv_kernel_matches_plain(cuda, shape, dtype) -> None:
     b, h, w, c, co = shape
     x = torch.randn((b, h, w, c), generator=cuda, device="cuda").to(dtype)
     wt = (torch.randn((co, 3, 3, c), generator=cuda, device="cuda") * (9 * c) ** -0.5).to(dtype)
     bias = (torch.randn((co,), generator=cuda, device="cuda") * 0.1).to(dtype)
+    before = C.conv3x3.launches
     out = C.conv3x3(x, wt, bias)
+    assert C.conv3x3.launches == before + 1
     ref = C.conv3x3_plain(x, wt, bias)
     torch.testing.assert_close(out.float(), ref.float(), atol=6.25e-2, rtol=0)
+    assert torch.equal(out, C.conv3x3(x, wt, bias))  # no atomics: the same bits again
 
 
 def test_kernels_reject_f64_and_take_f32(cuda) -> None:
@@ -155,7 +166,11 @@ def test_conv_kernel_carries_gradients_on_the_card(cuda) -> None:
         assert C.conv3x3(x, w).grad_fn is None
 
 
-@pytest.mark.parametrize("shape", [(8, 64, 64, 128, 128), (3, 33, 47, 64, 136), (2, 5, 7, 96, 64), (1, 128, 128, 256, 128)])
+@pytest.mark.parametrize(
+    "shape",
+    [(8, 64, 64, 128, 128), (3, 33, 47, 64, 136), (2, 5, 7, 96, 64), (1, 128, 128, 256, 128), (3, 20, 131, 24, 72),
+     (2, 9, 40, 72, 24), (1, 7, 131, 72, 264)],
+)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_wgrad_kernel_matches_plain(cuda, shape, dtype) -> None:
     b, h, w, c, co = shape
