@@ -36,7 +36,7 @@
 // null, y (B, H, W, Co) contiguous, all 16-byte aligned. C % 8 == 0 and
 // Co % 8 == 0 (TMA's 16-byte global strides).
 
-#include "conv3x3_sm90.cuh"
+#include "sm90.cuh"
 
 namespace cflearn {
 namespace {

@@ -40,7 +40,7 @@
 // out (Co, 3, 3, C), the forward kernel's weight layout. C % 8 == 0 and
 // Co % 8 == 0.
 
-#include "conv3x3_sm90.cuh"
+#include "sm90.cuh"
 
 namespace cflearn {
 namespace {

@@ -1,8 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a): the kernels shared by
-// `flash_attention.cu` (inference forward) and `flash_fwd_lse.cu` (the same
-// forward that also writes the per-row logsumexp, the residual of the
-// backward). The including file defines CFLEARN_FLASH_LSE (0 / 1) and
-// CFLEARN_FLASH_ENTRY (the exported C symbol).
+// Flash-attention forward on mma.sync tensor-core products (sm_90a): the
+// kernels that `flash_fwd_sm90.cuh`'s entry point runs for what its wgmma +
+// TMA kernel does not take (f32 inputs, d = 512 and d > 512; the planner
+// `ops/attention.py::flash_plan` decides), and on request for any shape, as
+// the yardstick of that kernel. Built into `flash_attention.cu` (inference
+// forward) and `flash_fwd_lse.cu` (the same forward that also writes the
+// per-row logsumexp, the residual of the backward) through that header.
 //
 // Same algebra as the TPU kernels: scores in f32, masked positions set to
 // -1e30 (kv tail and, with `causal`, k > q), a running row max m, row sum l
@@ -10,9 +12,10 @@
 // acc / max(l, 1e-30), and lse = m + log(max(l, 1e-30)). Causal CTAs stop at
 // the last kv block that touches the diagonal.
 //
-// What bounds it on the H100: at the UNet shapes (L = 4096 / 1024 / 256,
-// d = 40 / 80 / 160) the two products do 4*L*L*d FLOPs per head against
-// (3+1)*L*d*2 bytes, i.e. hundreds of FLOPs per byte -> tensor-core bound.
+// What bounds it on the H100: the two products do 4*L*L*d FLOPs per head
+// against (3+1)*L*d*2 bytes, hundreds of FLOPs per byte, and the softmax
+// L*L exponentials: the tensor cores at d = 80 and above, the exponentials
+// at d = 40 (`flash_fwd_sm90.cuh`).
 // The bf16 / fp16 kernel keeps S and P in registers (the m16n8k16 accumulator
 // layout is the A-operand layout of the next product), streams K/V through a
 // double-buffered cp.async ring, and never writes S to device memory.
@@ -30,6 +33,7 @@
 #pragma once
 
 #include "mma_common.cuh"
+#include "sm90.cuh"
 
 namespace cflearn {
 namespace {
@@ -449,11 +453,11 @@ __global__ void __launch_bounds__(128) flash_fwd_chunked_kernel(const FlashArgs 
 }
 
 template <typename T, int DP, int WQ, int WD, int BK, int STAGES, bool LSE>
-cudaError_t launch(const FlashArgs& a, int batch, cudaStream_t stream) {
+cudaError_t launch(const FlashArgs& a, int batch, int bq, int bk, cudaStream_t stream) {
   using Cfg = FlashCfg<T, DP, WQ, WD, BK, STAGES>;
+  if (bq != Cfg::BQ || bk != BK) return cudaErrorInvalidValue;  // the planner's tiles are not these
   auto kernel = flash_fwd_kernel<T, DP, WQ, WD, BK, STAGES, LSE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(Cfg::SMEM));
+  cudaError_t err = sm90::set_smem<flash_fwd_kernel<T, DP, WQ, WD, BK, STAGES, LSE>>(static_cast<int>(Cfg::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.q_len + Cfg::BQ - 1) / Cfg::BQ, a.heads, batch);
   kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(a);
@@ -461,57 +465,35 @@ cudaError_t launch(const FlashArgs& a, int batch, cudaStream_t stream) {
 }
 
 template <typename T, int DC, bool LSE>
-cudaError_t launch_chunked(const FlashArgs& a, int batch, cudaStream_t stream) {
+cudaError_t launch_chunked(const FlashArgs& a, int batch, int bq, int bk, cudaStream_t stream) {
   using Cfg = ChunkCfg<T, DC>;
+  if (bq != Cfg::BQ || bk != Cfg::BK) return cudaErrorInvalidValue;
   auto kernel = flash_fwd_chunked_kernel<T, DC, LSE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(Cfg::SMEM));
+  cudaError_t err = sm90::set_smem<flash_fwd_chunked_kernel<T, DC, LSE>>(static_cast<int>(Cfg::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.q_len + Cfg::BQ - 1) / Cfg::BQ, (a.d + DC - 1) / DC, batch * a.heads);
   kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the mma.sync kernel for head dim d and dtype T; (bq, bk) must be its tiles
 template <typename T, bool LSE>
-cudaError_t dispatch(const FlashArgs& a, int batch, cudaStream_t s) {
+cudaError_t dispatch(const FlashArgs& a, int batch, int bq, int bk, cudaStream_t s) {
   if constexpr (sizeof(T) == 4) {
-    if (a.d <= 64) return launch_chunked<T, 64, LSE>(a, batch, s);
-    return launch_chunked<T, 128, LSE>(a, batch, s);
+    if (a.d <= 64) return launch_chunked<T, 64, LSE>(a, batch, bq, bk, s);
+    return launch_chunked<T, 128, LSE>(a, batch, bq, bk, s);
   } else {
-    if (a.d <= 32) return launch<T, 32, 4, 1, 64, 2, LSE>(a, batch, s);
-    if (a.d <= 48) return launch<T, 48, 4, 1, 64, 2, LSE>(a, batch, s);
-    if (a.d <= 64) return launch<T, 64, 4, 1, 64, 2, LSE>(a, batch, s);
-    if (a.d <= 80) return launch<T, 80, 4, 1, 64, 2, LSE>(a, batch, s);
-    if (a.d <= 128) return launch<T, 128, 4, 1, 64, 2, LSE>(a, batch, s);
-    if (a.d <= 160) return launch<T, 160, 4, 1, 64, 2, LSE>(a, batch, s);
-    if (a.d <= 256) return launch<T, 256, 2, 2, 64, 2, LSE>(a, batch, s);
-    if (a.d <= 512) return launch<T, 512, 1, 4, 64, 1, LSE>(a, batch, s);
-    return launch_chunked<T, 128, LSE>(a, batch, s);
+    if (a.d <= 32) return launch<T, 32, 4, 1, 64, 2, LSE>(a, batch, bq, bk, s);
+    if (a.d <= 48) return launch<T, 48, 4, 1, 64, 2, LSE>(a, batch, bq, bk, s);
+    if (a.d <= 64) return launch<T, 64, 4, 1, 64, 2, LSE>(a, batch, bq, bk, s);
+    if (a.d <= 80) return launch<T, 80, 4, 1, 64, 2, LSE>(a, batch, bq, bk, s);
+    if (a.d <= 128) return launch<T, 128, 4, 1, 64, 2, LSE>(a, batch, bq, bk, s);
+    if (a.d <= 160) return launch<T, 160, 4, 1, 64, 2, LSE>(a, batch, bq, bk, s);
+    if (a.d <= 256) return launch<T, 256, 2, 2, 64, 2, LSE>(a, batch, bq, bk, s);
+    if (a.d <= 512) return launch<T, 512, 1, 4, 64, 1, LSE>(a, batch, bq, bk, s);
+    return launch_chunked<T, 128, LSE>(a, batch, bq, bk, s);
   }
 }
 
 }  // namespace
 }  // namespace cflearn
-
-// dtype: 0 = bf16, 1 = fp16, 2 = f32. Strides are in elements. `lse` is read
-// by the LSE build only. Returns a cudaError_t.
-extern "C" int CFLEARN_FLASH_ENTRY(int dtype, const void* q, const void* k, const void* v, void* o,
-                                   void* lse, long long q_sb, long long q_sh, long long q_sl,
-                                   long long k_sb, long long k_sh, long long k_sl, long long v_sb,
-                                   long long v_sh, long long v_sl, long long o_sb, long long o_sh,
-                                   long long o_sl, int batch, int heads, int q_len, int kv_len,
-                                   int d, int causal, float scale, void* stream) {
-  cflearn::FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
-                       q_sb, q_sh, q_sl, k_sb, k_sh,
-                       k_sl, v_sb, v_sh, v_sl, o_sb,
-                       o_sh, o_sl, heads, q_len, kv_len,
-                       d,    causal, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr bool kLse = CFLEARN_FLASH_LSE != 0;
-  if (d <= 0 || d % 8 != 0 || d > 1024 || q_len <= 0 || kv_len <= 0) return cudaErrorInvalidValue;
-  if (kLse && lse == nullptr) return cudaErrorInvalidValue;
-  if (dtype == 0) return cflearn::dispatch<__nv_bfloat16, kLse>(a, batch, s);
-  if (dtype == 1) return cflearn::dispatch<__half, kLse>(a, batch, s);
-  if (dtype == 2) return cflearn::dispatch<float, kLse>(a, batch, s);
-  return cudaErrorInvalidValue;
-}

@@ -1,5 +1,7 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the card facts the
+kernels' planners read."""
 
+import functools
 from typing import Any
 
 import torch
@@ -17,3 +19,12 @@ def resolve_device(device: Any = None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+SM_COUNT = 132  # an H100 SXM's; the kernel wrappers plan with the card's own count
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device `index` (a CUDA tensor's `device.index`)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

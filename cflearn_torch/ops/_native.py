@@ -35,7 +35,7 @@ SOURCES = {
     "conv3x3_w8a8": "conv3x3_w8a8.cu",
     "conv3x3_fold": "conv3x3_fold.cu",
 }
-_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "conv3x3_sm90.cuh")
+_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "sm90.cuh", "flash_fwd_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -46,8 +46,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# forward: dtype, q, k, v, o, lse, 12 strides, batch, heads, q_len, kv_len, d, causal, scale, stream
-_FWD = [_I] + [_P] * 5 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P]
+# forward: dtype, q, k, v, o, lse, 12 strides, batch, heads, q_len, kv_len, d, causal, scale, then the
+# planner's kernel (0 = mma.sync, 1 = wgmma + TMA), q rows a CTA, kv rows a block, ring stages, K steps of
+# 16 over the head dim, and stream
+_FWD = [_I] + [_P] * 5 + [_L] * 12 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P]
 # backward: dtype, q, k, v, dO, lse, delta, dq, dk, dv, then as the forward
 _BWD = [_I] + [_P] * 9 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P]
 _SIGNATURES = {

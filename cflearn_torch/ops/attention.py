@@ -6,6 +6,10 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
   (`csrc/flash_attention.cu`), which replaces the TPU's `_flash_kernel`.
 * `flash_fwd_lse` — the same forward that also returns the per-row
   logsumexp (`csrc/flash_fwd_lse.cu`, the TPU's `_flash_fwd_kernel`).
+* `flash_plan` — which forward kernel runs and with what tiles: the wgmma +
+  TMA kernel (`csrc/flash_fwd_sm90.cuh`) for bf16 / fp16 with d <= 256, the
+  mma.sync kernels (`csrc/flash_fwd.cuh`) for the rest, or for any shape
+  when a caller names them (`kernel="mma_sync"`).
 * `flash_bwd_fused`, `flash_bwd_dq`, `flash_bwd_dkv` — the backward kernels
   (`csrc/flash_bwd_*.cu`; the TPU's `_flash_bwd_fused_kernel`,
   `_flash_bwd_dq_kernel`, `_flash_bwd_dkv_kernel`).
@@ -27,12 +31,14 @@ Layout is (B, H, L, D) throughout. The ring-attention branch belongs to a
 later slice.
 """
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..device import SM_COUNT, sm_count
 from . import _native
 
 _NEG_INF = -1.0e30
@@ -45,6 +51,10 @@ FUSED_BWD = True
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _scale(d: int, sm_scale: Optional[float]) -> float:
@@ -124,13 +134,106 @@ def flash_bwd_plain(
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """A (B, H, L, D) view the kernels can read: contiguous D, B/H/L strides
-    and base address 16-byte aligned; otherwise a contiguous copy."""
+    positive and 16-byte multiples, base address 16-byte aligned (what TMA
+    asks of a tensor map); otherwise a contiguous copy."""
     ok = (
         t.stride(-1) == 1
-        and all(s % 8 == 0 for s in t.stride()[:-1])
+        and all(s > 0 and s % 8 == 0 for s in t.stride()[:-1])
         and t.data_ptr() % 16 == 0
     )
     return t if ok else t.contiguous()
+
+
+# ---- the forward kernels' planner ----
+
+SMEM_MAX = 232448  # the most dynamic shared memory a block can have on sm_90
+TMA_BOX_MAX = 256  # the largest extent of a TMA box in any dimension
+BOX_COLS = 64  # head-dim columns per TMA box: 128 bytes of 16-bit values, the 128-byte swizzle's row
+SWIZZLE_BYTES = 128
+SM90_MAX_STAGES = 4  # the K / V ring's barriers are sized for this many stages
+_SM90_BARRIER_BYTES = 8 * (1 + 4 * SM90_MAX_STAGES)
+_KERNEL_CODES = {"mma_sync": 0, "mma_sync_chunked": 0, "sm90": 1}
+# the sm90 kernel's instantiated steps of 16 over the head dim (`dispatch_sm90`); 16 with one consumer only
+SM90_KSTEPS = (2, 3, 4, 5, 6, 8, 10, 12, 16)
+# the planner's estimate of how much faster a CTA of three consumer warpgroups computes its q rows than one
+# of two at d <= 64, where the softmax binds and a third warpgroup hides more of its latency (H100)
+_THREE_CONSUMER_RATE = 1.2
+
+
+class FlashPlan(NamedTuple):
+    kernel: str  # "sm90" (wgmma + TMA), "mma_sync" or "mma_sync_chunked" (`flash_fwd.cuh`)
+    bq: int  # q rows per CTA
+    bk: int  # kv rows per block
+    stages: int  # K / V ring stages (the mma.sync kernels: 2 = double-buffered, 1 = single)
+    consumers: int  # sm90: consumer warpgroups of 64 q rows (2, 3 = ping-pong); else 0
+    head_pad: int  # the head dim as shared memory holds it: whole 64-column boxes (sm90), or the kernel's DP
+    ksteps: int  # sm90: steps of 16 over the head dim in S = Q K^T (zero columns past d); else 0
+    boxes: Tuple[Tuple[int, int], ...]  # sm90: TMA boxes (columns, rows) of q and of k / v; else ()
+    swizzle: int  # bytes of the shared-memory swizzle (sm90); 0 for the cp.async kernels
+    smem: int  # dynamic shared memory bytes of a CTA
+    ctas: int  # CTAs of the grid
+
+
+def _sm90_smem(slabs: int, bq: int, bk: int, stages: int) -> int:
+    """`sm90_smem` of `csrc/flash_fwd_sm90.cuh`: 1024 bytes of alignment
+    slack, the q tile, the K and V rings, the barriers."""
+    return 1024 + slabs * SWIZZLE_BYTES * (bq + 2 * stages * bk) + _SM90_BARRIER_BYTES
+
+
+def _mma_sync_tiles(d: int, size: int) -> Tuple[str, int, int, int, int, int]:
+    """(kernel, bq, bk, stages, head_pad, smem) of the mma.sync kernel that
+    `flash_fwd.cuh`'s `dispatch` launches for head dim d and element size."""
+    if size == 4 or d > 512:  # the chunked kernel: 64 q rows, one chunk of DC columns a CTA
+        dc = 64 if size == 4 and d <= 64 else 128
+        pad = 4 if size == 4 else 8
+        smem = 3 * 64 * (dc + pad) * size + 64 * (64 + pad) * size
+        return "mma_sync_chunked", 64, 64, 1, dc, smem
+    dp, wq, wd, stages = next(t for t in ((32, 4, 1, 2), (48, 4, 1, 2), (64, 4, 1, 2), (80, 4, 1, 2),
+                                          (128, 4, 1, 2), (160, 4, 1, 2), (256, 2, 2, 2), (512, 1, 4, 1))
+                              if d <= t[0])
+    bq, bk, ld = 16 * wq, 64, dp + 8
+    smem = bq * ld * 2 + 2 * stages * bk * ld * 2 + (bq * (bk + 4) * 4 if wd > 1 else 0)
+    return "mma_sync", bq, bk, stages, dp, smem
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_plan(
+    b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype, sms: int = SM_COUNT, kernel: Optional[str] = None
+) -> FlashPlan:
+    """The forward kernel and its tiles at q (b, h, lq, d), k / v (b, h, lk, d).
+
+    bf16 / fp16 with d <= 256 take the wgmma + TMA kernel: S = Q K^T in the
+    fewest instantiated steps of 16 (`SM90_KSTEPS`) that cover d, 64-column
+    boxes over those, kv blocks of 128 rows while S and the P.V accumulator
+    fit the registers side by side (d <= 128) and 64 beyond,
+    two consumer warpgroups (128 q rows, ping-pong) unless that grid would
+    leave more than half the SMs idle (then one, 64 rows), three (192 rows)
+    at d <= 64 where their waves of CTAs finish sooner, and as many ring
+    stages (2..4) as shared memory holds. f32, d > 256, and `kernel="mma_sync"`
+    take the mma.sync kernels (`mma_sync_chunked` for f32 and d > 512)."""
+    if kernel not in (None, "sm90", "mma_sync"):
+        raise ValueError(f"flash_plan: kernel {kernel!r} is not 'sm90' or 'mma_sync'")
+    size = torch.empty((), dtype=dtype).element_size()
+    sm90_ok = dtype in (torch.bfloat16, torch.float16) and d % 8 == 0 and d <= 256
+    if kernel == "sm90" and not sm90_ok:
+        raise ValueError(f"flash_plan: the sm90 kernel takes bf16 / fp16 with 8 | d <= 256; got {dtype}, d={d}")
+    if kernel == "mma_sync" or not sm90_ok:
+        name, bq, bk, stages, pad, smem = _mma_sync_tiles(d, size)
+        grid = _cdiv(lq, bq) * b * h * (_cdiv(d, pad) if name == "mma_sync_chunked" else 1)
+        return FlashPlan(name, bq, bk, stages, 0, pad, 0, (), 0, smem, grid)
+    ksteps = next(k for k in SM90_KSTEPS if 16 * k >= d)
+    slabs = _cdiv(16 * ksteps, BOX_COLS)
+    bk = 128 if slabs <= 2 else 64
+    consumers = 2 if ksteps < 16 and 2 * _cdiv(lq, 128) * b * h > sms else 1
+    if consumers == 2 and slabs == 1:
+        # three consumers where their waves of CTAs take less time than two's
+        waves = {c: _cdiv(_cdiv(lq, 64 * c) * b * h, sms) for c in (2, 3)}
+        if waves[3] * 3 / _THREE_CONSUMER_RATE < waves[2] * 2:
+            consumers = 3
+    bq = 64 * consumers
+    stages = max(s for s in range(2, SM90_MAX_STAGES + 1) if _sm90_smem(slabs, bq, bk, s) <= SMEM_MAX)
+    return FlashPlan("sm90", bq, bk, stages, consumers, BOX_COLS * slabs, ksteps, ((BOX_COLS, bq), (BOX_COLS, bk)),
+                     SWIZZLE_BYTES, _sm90_smem(slabs, bq, bk, stages), _cdiv(lq, bq) * b * h)
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -157,10 +260,15 @@ def _count_launch(name: str) -> None:
 
 
 def _launch_fwd(
-    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sm_scale: Optional[float], with_lse: bool
+    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sm_scale: Optional[float],
+    with_lse: bool, kernel: Optional[str],
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check_qkv(name, q, k, v)
     b, h, q_len, d = q.shape
+    scale = _scale(d, sm_scale)
+    # the sm90 kernel takes the row max of the raw scores, which needs a positive scale
+    plan = flash_plan(b, h, q_len, k.shape[2], d, q.dtype, sm_count(q.device.index),
+                      "mma_sync" if kernel is None and scale <= 0 else kernel)
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     # (B, Lq, H, D) storage: merging heads afterwards is a free view
     out = torch.empty((b, q_len, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -169,10 +277,11 @@ def _launch_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        b, h, q_len, k.shape[2], d, int(causal), _scale(d, sm_scale),
+        b, h, q_len, k.shape[2], d, int(causal), scale,
+        _KERNEL_CODES[plan.kernel], plan.bq, plan.bk, plan.stages, plan.ksteps,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _native.check(err, name)
+    _native.check(err, f"{name} ({plan.kernel})")
     _count_launch(name)
     return out, lse
 
@@ -184,14 +293,16 @@ def flash_attention(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """Flash attention forward, no graph. q: (B, H, Lq, D), k/v:
     (B, H, Lk, D) -> (B, H, Lq, D). CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise. The result carries no `grad_fn`:
+    tensors launch the kernel that `flash_plan` picks (or `kernel`, "sm90" or
+    "mma_sync", names) or raise. The result carries no `grad_fn`:
     differentiable callers go through `flash_attention_trainable`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
-    out, _ = _launch_fwd("flash_attention", q, k, v, causal, sm_scale, False)
+    out, _ = _launch_fwd("flash_attention", q, k, v, causal, sm_scale, False, kernel)
     return out
 
 
@@ -205,12 +316,14 @@ def flash_fwd_lse(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward with its residual: (o (B, H, Lq, D),
-    lse (B, H, Lq) f32). No padded rows are stored."""
+    lse (B, H, Lq) f32). No padded rows are stored. `kernel` as in
+    `flash_attention`."""
     if q.device.type == "cpu":
         return flash_fwd_with_lse_plain(q, k, v, causal=causal, sm_scale=sm_scale)
-    out, lse = _launch_fwd("flash_fwd_lse", q, k, v, causal, sm_scale, True)
+    out, lse = _launch_fwd("flash_fwd_lse", q, k, v, causal, sm_scale, True, kernel)
     return out, lse
 
 

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import SM_COUNT, sm_count
 from . import _native
 
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
@@ -111,7 +112,6 @@ def conv3x3_fold_plain(
 
 # ---- the tile planner of the Hopper kernels `conv3x3` and `conv3x3_wgrad` ----
 
-SM_COUNT = 132  # an H100 SXM's; the wrappers plan with the card's own count
 BOX_CHANNELS = 64  # channels per TMA box: 128 bytes of 16-bit values, the 128-byte swizzle's row
 TMA_BOX_MAX = 256  # the largest extent of a TMA box in any dimension
 CONV_PIXELS = 128  # output pixels per forward tile: two consumer warpgroups x 64 wgmma rows
@@ -211,12 +211,6 @@ def wgrad_plan(b: int, h: int, w: int, c: int, co: int, sms: int = SM_COUNT) -> 
     return WgradPlan(kt, _wgrad_units(c, co), splits, _cdiv(kt, splits))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """SMs of CUDA device `index` (a CUDA tensor's `device.index`)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
@@ -272,7 +266,7 @@ def _launch_forward(
 
 def _conv3x3_tiles(b: int, h: int, w: int, c: int, co: int, device: torch.device) -> Tuple[int, ...]:
     """The wgmma kernel's (box rows, box columns, output channels per tile, CTAs) on `device`."""
-    p = conv3x3_plan(b, h, w, c, co, _sm_count(device.index))
+    p = conv3x3_plan(b, h, w, c, co, sm_count(device.index))
     return p.th, p.tw, p.bn, p.ctas
 
 
@@ -493,7 +487,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3_wgrad kernel takes C % 8 == 0 and Co % 8 == 0; got C={c}, Co={co}")
     x = x.contiguous()
     dy = dy.contiguous()
-    plan = wgrad_plan(bsz, h, w, c, co, _sm_count(x.device.index))
+    plan = wgrad_plan(bsz, h, w, c, co, sm_count(x.device.index))
     ws = torch.empty((plan.splits, co, 9, c), dtype=torch.float32, device=x.device)
     out = torch.empty((co, 3, 3, c), dtype=x.dtype, device=x.device)
     fn = _native.library("conv3x3_wgrad")

@@ -16,7 +16,11 @@ Phases, in order; any failure exits non-zero:
    autoencoder step routes; GroupNorm with and without SiLU at the UNet's, the
    VAE decoder's and the autoencoder step's shapes, plus f32 and odd group
    widths. Prints max_abs_err and the kernel's, the plain version's and a
-   library call's ms (the library call is timed only).
+   library call's ms (the library call is timed only), and the kernel's
+   device time (`device_ms`: calls replayed from a CUDA graph, without the
+   host's enqueue time). The flash forwards also run the mma.sync
+   kernel of `flash_fwd.cuh` on request at every shape (checked and timed beside the
+   wgmma + TMA kernel), and their bounds count the softmax's exponentials.
    The W8A8 int8 conv and the dj-folded conv at every VAE-decoder conv
    shape, W8A8 bit for bit (its int32 sums are exact), with the bf16 cuDNN
    conv and the bf16 conv kernel timed beside it as the unquantised conv it
@@ -54,9 +58,12 @@ Phases, in order; any failure exits non-zero:
    and the BatchNorm statistics moved, the gradients, the exact launch counts
    and the peak memory.
 8. ae parity — one `core` forward + backward through the kernels against the
-   same through the plain versions (same noise), held to the plain path's
-   drift under a one-ulp change of the images; then the same step twice with
-   the split attention backward: bit-identical gradients.
+   same through the plain versions (same noise): the loss, the gradient's
+   global norm and each module's gradient (a weight with its bias), held to
+   the plain path's drift under four one-ulp changes of the images
+   (`ae_parity`; `scripts/ae_parity_runs.py` repeats it over seeds); then
+   the same step twice with the split attention backward: bit-identical
+   gradients.
 9. summary — a `{"kernels": [...]}` line (ten kernels), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the card's name and power limit, and last `{"ok": true, "device": {...}}`.
@@ -71,6 +78,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -81,6 +89,11 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 / fp16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 rate: what the f32 flash kernels' products run in
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
+# the special-function unit's exponentials (ex2) per clock on one SM, compute capability 9.0 (CUDA C
+# Programming Guide, arithmetic instruction throughput): with the SM count and the card's SM clock
+# (`nvidia-smi --query-gpu=clocks.max.sm`, read in `main`) the rate that bounds a softmax
+EX2_PER_CLOCK_PER_SM = 16
+EXP_PER_S = None  # set in `main`: SMs x EX2_PER_CLOCK_PER_SM x the SM clock in Hz
 # flash: max_abs_err <= FLASH_REL * max|ref|, i.e. at least 2 bf16 ulps of the
 # largest output. Both versions round one f32 result to bf16 (<= 1 ulp apart;
 # P's per-block re-rounding adds far less). With N(0, 1) inputs |o| is only
@@ -135,24 +148,20 @@ PARITY_FACTOR = 1.5
 TRAIN_PARITY_FACTOR = 2.0
 # ae parity: the same for the gradients of the autoencoder's `core` scope, where the kernel path
 # differs from the plain one at 32 conv forwards, 32 dx, 32 weight gradients, 52 norms and 2
-# attentions, each by ~1 bf16 ulp, and an input flip moves all 8 x 256 x 256 x 3 pixels once.
-# The factor holds the loss, the gradient's global 2-norm, the median leaf and every leaf, each
-# leaf in its own 2-norm against max(its own drift, the upper decile of the leaves' drifts). The
-# state of the weights after the four train steps differs from run to run (the fused attention
-# backward and cuDNN do not sum in a fixed order), and the noise with it. In five runs on an H100
-# the drift moved the gradient by 4.6e-3..1.3e-2 (global), the median leaf by 1.2e-2..2.4e-2, the
-# upper decile by 0.035..0.127 and the worst gated leaf by 0.06..0.19; the kernels moved it by
-# 3.0e-3..5.9e-3, 7.1e-3..1.8e-2 and 0.06..0.14, the worst leaf at 0.94..1.26 of its allowance's
-# base. A gated leaf is allowed at most AE_PARITY_FACTOR x AE_UNDETERMINED of its norm, and
-# about 0.1..0.4 in these runs: a zeroed leaf (1.0) fails, and a dropped tap (a third of the
-# norm of a conv weight's gradient) wherever the drift is below a sixth.
+# attentions, each by ~1 bf16 ulp. The drift is read four times, the images moved one bf16 ulp each
+# time: every pixel away from zero, every pixel towards zero, and twice every pixel in a direction
+# drawn at random (a move that the first GroupNorm cannot absorb as a change of scale); each drift is
+# the largest of the four readings. The factor holds the loss, the gradient's global 2-norm, the
+# median module and every module, each module (a weight and its bias) in the joint 2-norm of its
+# parameters against max(its own drift, the upper decile of the modules' drifts). A bias is gated
+# with its weight: no kernel computes a bias gradient (it is a plain sum of the dy that also makes
+# the weight's), and a bias of 4 to 512 values read alone is too noisy a statistic for a limit of its
+# own (the key bias of an attention has a gradient that is zero in exact arithmetic). The state of
+# the weights after the train steps differs from run to run (the fused attention backward and cuDNN
+# do not sum in a fixed order), and the readings with it: `scripts/ae_parity_runs.py` repeats this
+# phase over seeds and prints the ratios that the gates take, and the largest allowance of a module.
 AE_PARITY_FACTOR = 2.0
-# a bias gradient below this share of its weight's gradient (largest elements) may be rounding noise
-AE_NOISE_RATIO = 1.0e-2
-# a leaf that a one-ulp change of the images moves by more than this share of its norm has no
-# determined gradient; at most AE_MAX_LEFT_OUT of the 248 leaves may be left out of the per-leaf gate
-AE_UNDETERMINED = 0.5
-AE_MAX_LEFT_OUT = 6
+AE_DRIFT_SEEDS = (1, 2)  # the random directions of the two last one-ulp moves of the images
 STEPS = 20
 DECODER_CONVS = 31  # kernel-routed VAE decoder convs per decode
 FLASH_PER_UNET = 15  # self-attentions with L >= 256 per UNet call
@@ -273,7 +282,7 @@ MMA_SYNC_MS = {
     ("conv3x3_wgrad", "128x128_512_512"): 3.5840, ("conv3x3_wgrad", "64x64_512_512"): 0.9169,
     ("conv3x3_wgrad", "odd_3x33x47_64_136"): 0.0496,
 }
-REDESIGNED = ("conv3x3", "conv3x3_wgrad")
+REDESIGNED = ("conv3x3", "conv3x3_wgrad", "flash_attention", "flash_fwd_lse")
 # which path's launches and times a kernel's summary row reports; its other paths go under "other_paths"
 MAIN_PATH = {
     "flash_attention": "txt2img", "conv3x3": "txt2img", "flash_fwd_lse": "finetune", "flash_bwd_fused": "finetune",
@@ -310,9 +319,56 @@ def time_ms(torch, fn, min_ms: float = 50.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS, exps: float = 0.0):
+    """The least ms the card could take: the largest of the operations at the tensor-core peak, the bytes
+    at the memory rate and `exps` exponentials at the special-function units' rate; and which binds."""
+    times = {"operations": flops / peak_flops, "bytes": nbytes / PEAK_BYTES, "exponentials": exps / EXP_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def device_ms(torch, fn, calls: int = 10, replays: int = 5) -> float:
+    """Mean device time per call, free of the host's enqueue time that the event window of `time_ms` holds
+    where a call is microseconds of device work: `calls` calls captured in one CUDA graph, the graph
+    replayed `replays` times under a CUDA-event window after a warm-up replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def sm90_registers(log: str) -> dict:
+    """{"bf16 ks3 nc2": registers, ...} of the wgmma + TMA flash kernels in an `nvcc -Xptxas -v` log: the
+    count at launch, before `setmaxnreg` hands the producer's registers to the consumers."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"flash_fwd_sm90_kernelI(\w+?)Li(\d+)ELi(\d+)E", ln)
+            key = f"{'bf16' if 'bfloat16' in m.group(1) else 'f16'} ks{m.group(2)} nc{m.group(3)}" if m else None
+        elif key and "Used " in ln:
+            out[key] = int(ln.split("Used ")[1].split(" ")[0])
+            key = None
+    return out
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def card_line() -> str:
@@ -345,17 +401,26 @@ def phase_kernels(torch, F, ops):
         ref = A.flash_attention_plain(q, k, v, causal=causal)
         err = max_err(out, ref)
         tol = flash_rel(q.element_size()) * ref.float().abs().max().item()
-        ms = time_ms(torch, lambda: A.flash_attention(q, k, v, causal=causal))
+        # the yardstick: the mma.sync kernel (`flash_fwd.cuh`), on request, on the same inputs
+        err_old = max_err(A.flash_attention(q, k, v, causal=causal, kernel="mma_sync"), ref)
+        run = lambda: A.flash_attention(q, k, v, causal=causal)  # noqa: E731
+        old = lambda: A.flash_attention(q, k, v, causal=causal, kernel="mma_sync")  # noqa: E731
+        lib_run = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        ms = time_ms(torch, run)
         plain = time_ms(torch, lambda: A.flash_attention_plain(q, k, v, causal=causal), 20.0)
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
         pairs = lq * (lq + 1) / 2 if causal else lq * lk
         peak = PEAK_BF16_FLOPS if q.element_size() == 2 else PEAK_TF32_FLOPS
-        bms, by = bound_ms(4.0 * b * h * pairs * d, q.element_size() * b * h * (2 * lq + 2 * lk) * d, peak)
-        row = dict(case=name, shape=[b, h, lq, lk, d], dtype=dtype, causal=causal, max_abs_err=err, tol=tol,
-                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, per_path=per(STEPS))
+        bms, by = bound_ms(4.0 * b * h * pairs * d, q.element_size() * b * h * (2 * lq + 2 * lk) * d, peak,
+                           b * h * pairs)
+        row = dict(case=name, shape=[b, h, lq, lk, d], dtype=dtype, causal=causal,
+                   kernel=A.flash_plan(b, h, lq, lk, d, dt, torch.cuda.get_device_properties(0).multi_processor_count).kernel,
+                   max_abs_err=err, mma_sync_max_abs_err=err_old, tol=tol, ms=ms, device_ms=device_ms(torch, run),
+                   mma_sync_ms=time_ms(torch, old), mma_sync_device_ms=device_ms(torch, old), plain_ms=plain,
+                   library_ms=time_ms(torch, lib_run), library_device_ms=device_ms(torch, lib_run), bound_ms=bms,
+                   bound_by=by, per_path=per(STEPS))
         print("flash", json.dumps(row))
-        if not math.isfinite(err) or err > tol:
-            raise AssertionError(f"flash {name}: max_abs_err {err} > {tol}")
+        if not math.isfinite(err) or err > tol or not err_old <= tol:
+            raise AssertionError(f"flash {name}: max_abs_err {err} (mma.sync {err_old}) > {tol}")
         rows["flash_attention"].append(row)
     for name, b, hh, ww, c, co, per in CONV_CASES:
         x = torch.randn((b, hh, ww, c), generator=gen, device=dev).to(bf16)
@@ -366,14 +431,15 @@ def phase_kernels(torch, F, ops):
         ref = Cv.conv3x3_plain(x, wk, bias)
         err = max_err(out, ref)
         ms = time_ms(torch, lambda: Cv.conv3x3(x, wk, bias))
+        dev_ms = device_ms(torch, lambda: Cv.conv3x3(x, wk, bias))
         plain = time_ms(torch, lambda: Cv.conv3x3_plain(x, wk, bias), 20.0)
         xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
         wc = w.contiguous(memory_format=torch.channels_last)
         lib = time_ms(torch, lambda: F.conv2d(xc, wc, bias, padding=1))
         m = b * hh * ww
         bms, by = bound_ms(2.0 * m * co * 9 * c, 2.0 * (m * c + 9 * c * co + co + m * co))
-        row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err, tol=CONV_TOL, ms=ms, plain_ms=plain,
-                   library_ms=lib, bound_ms=bms, bound_by=by, per_path=per, pr4_ms=MMA_SYNC_MS.get(("conv3x3", name)),
+        row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err, tol=CONV_TOL, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, per_path=per, pr4_ms=MMA_SYNC_MS.get(("conv3x3", name)),
                    bound_share=bms / ms)
         print("conv3x3", json.dumps(row))
         if not math.isfinite(err) or err > CONV_TOL:
@@ -387,6 +453,7 @@ def phase_kernels(torch, F, ops):
         err_k = max_err(fold, out)
         row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err_f, vs_conv3x3_kernel=err_k, tol=CONV_TOL,
                    ms=time_ms(torch, lambda: Cv.conv3x3_fold(x, wk, bias)),
+                   device_ms=device_ms(torch, lambda: Cv.conv3x3_fold(x, wk, bias)),
                    plain_ms=time_ms(torch, lambda: Cv.conv3x3_fold_plain(x, wk, bias), 20.0),
                    library_ms=lib, conv3x3_ms=ms, bound_ms=bms, bound_by=by, per={"fold": per})
         print("conv3x3_fold", json.dumps(row))
@@ -406,6 +473,7 @@ def phase_kernels(torch, F, ops):
         row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err_q, bit_identical=bool(torch.equal(q, q_ref)),
                    route_bit_identical=whole_equal, tol=0.0,
                    ms=time_ms(torch, lambda: Cv.conv3x3_int8(x8, w8, scale, bias, bf16)),
+                   device_ms=device_ms(torch, lambda: Cv.conv3x3_int8(x8, w8, scale, bias, bf16)),
                    route_ms=time_ms(torch, lambda: Cv.conv3x3_w8a8(x, wk, bias)),
                    plain_ms=time_ms(torch, lambda: Cv.conv3x3_int8_plain(x8, w8, scale, bias, bf16), 20.0),
                    library_ms=None, unquantised_cudnn_bf16_ms=lib, unquantised_conv3x3_kernel_ms=ms,
@@ -482,13 +550,25 @@ def phase_train_kernels(torch, F, A):
                     raise AssertionError(f"{kernel} {name}: {label} is {tuple(got.shape)} {got.dtype}")
                 errs[label] = (max_err(got, ref), rel * ref.float().abs().max().item())
             ms = time_ms(torch, runs[kernel])
-            bms, by = bound_ms(OPS_PER_TRIPLE[kernel] * b * h * pairs * d, nbytes[kernel], peak)
+            # every kernel takes one exponential per (q, k) pair: the forward's softmax, the backward's p
+            bms, by = bound_ms(OPS_PER_TRIPLE[kernel] * b * h * pairs * d, nbytes[kernel], peak, b * h * pairs)
             fwd = kernel == "flash_fwd_lse"
             row = dict(case=name, shape=[b, h, lq, lk, d], dtype=dtype, causal=causal,
                        max_abs_err=max(e for e, _ in errs.values()),
                        errs={k_: e for k_, (e, _) in errs.items()}, tols={k_: t for k_, (_, t) in errs.items()},
-                       ms=ms, plain_ms=plain_fwd if fwd else plain_bwd, library_ms=lib_fwd if fwd else lib_bwd,
-                       bound_ms=bms, bound_by=by, per_path=per)
+                       ms=ms, device_ms=device_ms(torch, runs[kernel]), plain_ms=plain_fwd if fwd else plain_bwd,
+                       library_ms=lib_fwd if fwd else lib_bwd, bound_ms=bms, bound_by=by, per_path=per)
+            if fwd:
+                # the yardstick: the mma.sync kernel (`flash_fwd.cuh`), on request, on the same inputs
+                old = lambda: A.flash_fwd_lse(q, k, v, kernel="mma_sync", **kw)  # noqa: E731
+                o_old, lse_old = old()
+                row.update(kernel=A.flash_plan(b, h, lq, lk, d, dt, torch.cuda.get_device_properties(0).multi_processor_count).kernel,
+                           mma_sync_errs={"o": max_err(o_old, o_ref), "lse": max_err(lse_old, lse_ref)},
+                           mma_sync_ms=time_ms(torch, old), mma_sync_device_ms=device_ms(torch, old),
+                           library_device_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                               ql, kl, vl, is_causal=causal)))
+                if not (row["mma_sync_errs"]["o"] <= errs["o"][1] and row["mma_sync_errs"]["lse"] <= errs["lse"][1]):
+                    raise AssertionError(f"flash_fwd_lse {name}: the mma.sync kernel's {row['mma_sync_errs']}")
             print(kernel, json.dumps(row))
             for label, (e, t) in errs.items():
                 if not math.isfinite(e) or e > t:
@@ -560,7 +640,7 @@ def phase_ae_kernels(torch, F, Cv, Gn):
             bms, by = bound_ms(2.0 * m * cin * cout * 9, 2.0 * (m * cin + 9 * cin * cout + cout + m * cout))
             ms = time_ms(torch, run)
             row = dict(case=f"ae_{kind}_{name}", shape=[b, hh, ww, cin, cout], max_abs_err=err, tol=tol,
-                       ms=ms, plain_ms=time_ms(torch, plain_run, 20.0), library_ms=time_ms(torch, lib_run),
+                       ms=ms, device_ms=device_ms(torch, run), plain_ms=time_ms(torch, plain_run, 20.0), library_ms=time_ms(torch, lib_run),
                        bound_ms=bms, bound_by=by, per={"ae": count}, pr4_ms=MMA_SYNC_MS.get(("conv3x3", f"ae_{kind}_{name}")),
                        bound_share=bms / ms)
             print("conv3x3", json.dumps(row))
@@ -579,7 +659,8 @@ def phase_ae_kernels(torch, F, Cv, Gn):
         bms, by = bound_ms(2.0 * m * c * co * 9, 2.0 * (m * c + m * co + 9 * c * co))
         ms = time_ms(torch, lambda: Cv.conv3x3_wgrad(x, dy))
         row = dict(case=name, shape=[b, hh, ww, c, co], splits=Cv.wgrad_plan(b, hh, ww, c, co).splits, max_abs_err=err,
-                   tol=tol, ms=ms, plain_ms=time_ms(torch, lambda: Cv.conv3x3_wgrad_plain(x, dy), 20.0),
+                   tol=tol, ms=ms, device_ms=device_ms(torch, lambda: Cv.conv3x3_wgrad(x, dy)),
+                   plain_ms=time_ms(torch, lambda: Cv.conv3x3_wgrad_plain(x, dy), 20.0),
                    library_ms=time_ms(torch, lambda: torch.nn.grad.conv2d_weight(xc, w.shape, dyc, padding=1)),
                    bound_ms=bms, bound_by=by, per={"ae": per}, pr4_ms=MMA_SYNC_MS.get(("conv3x3_wgrad", name)),
                    bound_share=bms / ms)
@@ -615,6 +696,7 @@ def phase_ae_kernels(torch, F, Cv, Gn):
         bms, by = bound_ms(0.0, x.element_size() * (2.0 * x.numel() + 2.0 * c))
         row = dict(case=name, shape=list(shape), groups=groups, dtype=dtype, silu=silu, max_abs_err=err, tol=tol,
                    ms=time_ms(torch, lambda: Gn.group_norm_silu(x, w, bias, **kw), 20.0),
+                   device_ms=device_ms(torch, lambda: Gn.group_norm_silu(x, w, bias, **kw)),
                    plain_ms=time_ms(torch, lambda: Gn.group_norm_silu_plain(x, w, bias, **kw), 10.0),
                    library_ms=time_ms(torch, lib, 20.0), bound_ms=bms, bound_by=by, per=per)
         print("group_norm", json.dumps(row))
@@ -762,6 +844,107 @@ def grad_errors(grads, ref) -> dict:
             "global_rel": math.sqrt(num / max(den, 1e-300))}
 
 
+def bump_ulp_random(torch, x, seed: int):
+    """x rounded to bf16 and moved one bf16 ulp, each element away from or towards zero as drawn from
+    `seed` (zeros away)."""
+    b = x.to(torch.bfloat16)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    step = torch.randint(0, 2, b.shape, generator=gen, device=x.device, dtype=torch.int16) * 2 - 1
+    step = torch.where(b == 0, torch.ones_like(step), step)
+    return (b.view(torch.int16) + step).view(torch.bfloat16).to(x.dtype)
+
+
+def module_norm_errors(grads, ref) -> dict:
+    """{module: ||a - b||_2 / ||b||_2} over the parameters of each module together (a weight and its
+    bias: the names before their last dot), over the modules with a non-zero reference."""
+    num, den = {}, {}
+    for name, r in ref.items():
+        module = name.rsplit(".", 1)[0]
+        num[module] = num.get(module, 0.0) + (grads[name].double() - r.double()).square().sum().item()
+        den[module] = den.get(module, 0.0) + r.double().square().sum().item()
+    return {m: math.sqrt(num[m] / den[m]) for m in den if den[m] > 0}
+
+
+def ae_parity(torch, fwd_bwd, images, A, Cv, Gn, reference=None) -> dict:
+    """The ae parity's readings and gates (AE_PARITY_FACTOR). `fwd_bwd(x)` runs one `core` forward +
+    backward of the autoencoder on images x and returns (loss, {leaf: gradient}); it runs once through
+    the kernels, once through their plain versions, and once through the plain versions for each of
+    four one-ulp moves of the images. `failure` is None where every gate holds. `reference(x)`, where
+    given, returns the same gradients computed more exactly (read, not gated): `accuracy` then holds
+    each module's error of the kernel path and of the plain path against them."""
+    x0 = images.to(torch.bfloat16).float()  # on the bf16 grid, so that each move below is one ulp
+    loss_k, grads_k = fwd_bwd(x0)
+    drift = {"loss": 0.0, "global_rel": 0.0}
+    drift_modules, drift_leaves, shares = {}, {}, {}
+    with plain_kernels(A, Cv, Gn):
+        loss_p, grads_p = fwd_bwd(x0)
+        accuracy = None
+        if reference is not None:
+            grads_r = reference(x0)
+            acc_k, acc_p = module_norm_errors(grads_k, grads_r), module_norm_errors(grads_p, grads_r)
+            accuracy = {"global": [grad_errors(g, grads_r)["global_rel"] for g in (grads_k, grads_p)],
+                        "modules": {m: [e, acc_p[m]] for m, e in acc_k.items()}}
+            del grads_r
+        total = sum(r.double().square().sum().item() for r in grads_p.values())
+
+        def top_shares(grads):
+            # the leaves that carry most of a global-norm error: ||a - b||^2 of the leaf over ||ref||^2 of all
+            share = {n: (grads[n].double() - r.double()).square().sum().item() / total for n, r in grads_p.items()}
+            return [(n, share[n], grads_p[n].double().square().sum().item() / total)
+                    for n in sorted(share, key=share.get, reverse=True)[:4]]
+
+        up = bump_ulp(torch, x0)
+        moves = {"up": up, "down": x0 - (up - x0)}
+        moves.update({f"random{seed}": bump_ulp_random(torch, x0, seed) for seed in AE_DRIFT_SEEDS})
+        for label, x in moves.items():
+            loss, grads = fwd_bwd(x)
+            drift["loss"] = max(drift["loss"], abs(loss - loss_p))
+            drift[f"global_rel_{label}"] = grad_errors(grads, grads_p)["global_rel"]
+            drift["global_rel"] = max(drift["global_rel"], drift[f"global_rel_{label}"])
+            for table, errors in ((drift_modules, module_norm_errors(grads, grads_p)),
+                                  (drift_leaves, leaf_norm_errors(grads, grads_p))):
+                for n, e in errors.items():
+                    table[n] = max(table.get(n, 0.0), e)
+            shares[label] = top_shares(grads)
+            del grads
+    shares["kernels"] = top_shares(grads_k)
+    err = grad_errors(grads_k, grads_p)
+    err_modules = module_norm_errors(grads_k, grads_p)
+    err_leaves = leaf_norm_errors(grads_k, grads_p)
+    n_modules = len({n.rsplit(".", 1)[0] for n in grads_p})
+    del grads_k, grads_p
+    floor = quantile(drift_modules.values(), 0.9)
+    ratio = {m: err_modules[m] / max(drift_modules[m], floor) for m in err_modules}
+    worst = max(ratio, key=ratio.get)
+    # the leaves one by one against max(their own drift, the leaves' upper decile): printed, not gated
+    leaf_floor = quantile(drift_leaves.values(), 0.9)
+    leaf_ratio = {n: err_leaves[n] / max(drift_leaves[n], leaf_floor) for n in err_leaves}
+    worst_leaf = max(leaf_ratio, key=leaf_ratio.get)
+    modules = {
+        "modules": len(err_modules), "floor": floor,
+        "drift_median": quantile(drift_modules.values(), 0.5), "drift_max": max(drift_modules.values()),
+        "err_median": quantile(err_modules.values(), 0.5), "err_max": max(err_modules.values()),
+        "worst_ratio": ratio[worst], "worst_module": worst,
+        "largest_allowance": AE_PARITY_FACTOR * max(max(d, floor) for d in drift_modules.values()),
+        "leaf_worst_ratio": leaf_ratio[worst_leaf], "leaf_worst": worst_leaf,
+    }
+    tol_loss = max(AE_PARITY_FACTOR * drift["loss"], 2.0**-10 * abs(loss_p))
+    failure = None
+    if len(err_modules) != n_modules or set(drift_modules) != set(err_modules):
+        failure = f"ae parity: {len(err_modules)} of {n_modules} modules have a non-zero gradient"
+    elif not abs(loss_k - loss_p) <= tol_loss:
+        failure = "ae loss through the kernels disagrees with the plain path"
+    elif not err["global_rel"] <= AE_PARITY_FACTOR * drift["global_rel"]:
+        failure = "ae gradients through the kernels disagree with the plain path (global norm)"
+    elif not modules["err_median"] <= AE_PARITY_FACTOR * modules["drift_median"]:
+        failure = "ae gradients through the kernels disagree with the plain path (median module)"
+    elif not ratio[worst] <= AE_PARITY_FACTOR:
+        failure = f"ae gradients through the kernels disagree with the plain path (module {worst})"
+    return {"loss": {"kernels": loss_k, "plain": loss_p, "tolerance": tol_loss}, "drift": drift, "kernels_vs_plain": err,
+            "modules": modules, "module_drift_and_error": {m: [drift_modules[m], err_modules[m]] for m in err_modules},
+            "ratio": ratio, "shares": shares, "accuracy": accuracy, "failure": failure}
+
+
 def main() -> int:
     import torch
 
@@ -788,6 +971,11 @@ def main() -> int:
 
     print("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
     print("tf32: matmul", torch.backends.cuda.matmul.allow_tf32, "cudnn", torch.backends.cudnn.allow_tf32)
+    global EXP_PER_S
+    clock = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_PER_S = sms * EX2_PER_CLOCK_PER_SM * clock * 1e6
+    print(f"sm clock (clocks.max.sm) {clock:.0f} MHz, {sms} SMs: {EXP_PER_S:.4g} exponentials/s")
     t_start = time.perf_counter()
 
     # 1. build
@@ -800,10 +988,18 @@ def main() -> int:
             lines = [ln for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
             regs = [int(ln.split("Used ")[1].split(" ")[0]) for ln in lines if "Used " in ln]
             spills = [ln for ln in lines if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+            # ptxas's "wgmma.mma_async instructions are serialized" (C7515 / C7520): each wgmma then waits for the last
+            serial = log.read_text().count("wgmma.mma_async instructions are serialized")
             ptxas_ms = sum(float(ln.split("Compile time = ")[1].split(" ")[0])
                            for ln in log.read_text().splitlines() if "Compile time = " in ln)
             print(f"ptxas[{name}] {len(regs)} kernels, registers {min(regs, default=0)}..{max(regs, default=0)}, "
-                  f"{len(spills)} with spills, ptxas {ptxas_ms:.0f} ms, library built in {secs[name]:.1f} s")
+                  f"{len(spills)} with spills, {serial} with wgmma serialised, ptxas {ptxas_ms:.0f} ms, "
+                  f"library built in {secs[name]:.1f} s")
+            if name in ("flash_attention", "flash_fwd_lse"):
+                regs90 = sm90_registers(log.read_text())
+                print(f"ptxas[{name}] wgmma + TMA kernels (K steps, consumers): registers at launch, bf16 "
+                      f"{json.dumps({k[5:]: v for k, v in regs90.items() if k.startswith('bf16')})} (fp16 the same: "
+                      f"{all(regs90[k] == regs90['bf16' + k[3:]] for k in regs90 if k.startswith('f16'))})")
 
     # 2. kernels
     rows = phase_kernels(torch, F, (A, Cv))
@@ -827,6 +1023,12 @@ def main() -> int:
             if r["case"] in per_case:
                 r["per"][config] = per_case[r["case"]]
     torch.cuda.empty_cache()
+    for name in ("flash_attention", "flash_fwd_lse"):
+        for r in rows[name]:
+            if r.get("kernel") == "sm90":
+                print(f"yardstick {name} {r['case']}: device ms sm90 {r['device_ms']:.4f}, mma.sync "
+                      f"{r['mma_sync_device_ms']:.4f} ({r['mma_sync_device_ms'] / r['device_ms']:.2f}x), "
+                      f"SDPA {r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
     print(f"kernels: done at {time.perf_counter() - t_start:.0f} s")
 
     # 3. path: the serving configurations, one prompt through the tokenizer, the same z
@@ -1178,92 +1380,32 @@ def main() -> int:
     core = multi.steps["core"]
     core.train_step.step_actives = {"core": True, "discriminator": True}
     z_noise = torch.randn((AE_BATCH, 32, 32, 4), generator=gen, device="cuda")
-    images_b = images.to(torch.bfloat16).float()  # on the bf16 grid, so that the bump below is one ulp
+    images_b = images.to(torch.bfloat16).float()
 
     def ae_fwd_bwd(x=images_b):
         losses = core.loss_and_grads({INPUT_KEY: x}, forward_kwargs={"noise": z_noise})
         grads, core.grads = core.grads, {}
         return losses[LOSS_KEY].item(), grads
 
-    ae_loss_k, ae_grads_k = ae_fwd_bwd()
-    with plain_kernels(A, Cv, Gn):
-        ae_loss_p, ae_grads_p = ae_fwd_bwd()
-        images_u = bump_ulp(torch, images_b)
-        ae_loss_u, ae_grads_u = ae_fwd_bwd(images_u)
-        # one ulp the other way: a second reading of the drift, for the leaves one by one
-        _, ae_grads_d = ae_fwd_bwd(images_b - (images_u - images_b))
-    # the global norm as in the train parity; the leaves one by one in the 2-norm, ||d|| / ||ref||, which
-    # averages over a leaf's elements where the largest element's error does not. The whole gradient
-    # may lie AE_PARITY_FACTOR times as far from the plain path as the one-ulp drift moved it, and a
-    # leaf as far as the drift moved that same leaf, or the leaves' upper decile where its own drift
-    # happened to be small; each drift is the larger of two readings (one ulp up, one down). One leaf
-    # (the decoder's last conv, 128 -> 3) holds three quarters of the gradient's squared norm, so the
-    # global norm is nearly that leaf's, and one reading of its drift alone varies twofold from run to
-    # run.
-    ae_drift, ae_err = grad_errors(ae_grads_u, ae_grads_p), grad_errors(ae_grads_k, ae_grads_p)
-    ae_drift_down = grad_errors(ae_grads_d, ae_grads_p)["global_rel"]
-    ae_drift["global_rel_up"] = ae_drift["global_rel"]
-    ae_drift["global_rel_down"] = ae_drift_down
-    ae_drift["global_rel"] = max(ae_drift["global_rel"], ae_drift_down)
-    # the leaves that carry most of each global-norm error: ||a - b||^2 of the leaf over ||ref||^2 of all
-    total = sum(r.double().square().sum().item() for r in ae_grads_p.values())
-    for label, grads in (("drift up", ae_grads_u), ("drift down", ae_grads_d), ("kernels", ae_grads_k)):
-        share = {n: (grads[n].double() - r.double()).square().sum().item() / total for n, r in ae_grads_p.items()}
-        top = sorted(share, key=share.get, reverse=True)[:4]
-        print(f"ae parity: global-norm error^2 by leaf, {label}: "
-              f"{[(n, f'{share[n]:.3e}', f'{r:.3e}') for n, r in ((n, ae_grads_p[n].double().square().sum().item() / total) for n in top)]}")
-    drift_up, drift_down = leaf_norm_errors(ae_grads_u, ae_grads_p), leaf_norm_errors(ae_grads_d, ae_grads_p)
-    drift_leaves = {n: max(d, drift_down[n]) for n, d in drift_up.items()}
-    err_leaves = leaf_norm_errors(ae_grads_k, ae_grads_p)
-    leaf_floor = quantile(drift_leaves.values(), 0.9)
-    # Left out of the per-leaf gate, by measured rules on the plain path alone. A leaf that one ulp
-    # of the images moves by more than AE_UNDETERMINED of its own norm: its gradient is rounding
-    # noise in this state of the weights, and no path can be held to it. And a bias whose gradient
-    # is below a hundredth of its weight's and which the drift moves further than the upper
-    # decile: the key bias of a softmax attention, whose gradient is zero in exact arithmetic (a
-    # shift of every score of a row leaves the softmax as it is), so that what is computed for it
-    # differs between any two ways of summing. Both count in the global norm.
-    noise_leaves = sorted(
-        n for n, g in ae_grads_p.items()
-        if drift_leaves[n] > AE_UNDETERMINED or (
-            n.endswith(".bias") and n[: -len("bias")] + "weight" in ae_grads_p
-            and g.abs().max().item() < AE_NOISE_RATIO * ae_grads_p[n[: -len("bias")] + "weight"].abs().max().item()
-            and drift_leaves[n] > leaf_floor
-        )
-    )
-    gated = [n for n in drift_leaves if n not in noise_leaves]
-    leaf_ratio = {n: err_leaves[n] / max(drift_leaves[n], leaf_floor) for n in gated}
-    worst = max(leaf_ratio, key=leaf_ratio.get)
-    ae_leaves = {
-        "gated": len(gated), "noise_leaves": noise_leaves, "floor": leaf_floor,
-        "drift_median": quantile([drift_leaves[n] for n in gated], 0.5), "drift_max": max(drift_leaves[n] for n in gated),
-        "err_median": quantile([err_leaves[n] for n in gated], 0.5), "err_max": max(err_leaves[n] for n in gated),
-        "worst_ratio": leaf_ratio[worst], "worst_leaf": worst,
-    }
-    print(f"ae parity: left out of the per-leaf gate: {noise_leaves} (drift "
-          f"{[round(drift_leaves[n], 3) for n in noise_leaves]}, kernels {[round(err_leaves[n], 3) for n in noise_leaves]})")
-    for label, leaves in (("drift", drift_leaves), ("kernels", err_leaves), ("kernels / allowed drift", leaf_ratio)):
-        top = sorted(((leaves[n], n) for n in gated), reverse=True)[:4]
-        print(f"ae parity: worst leaves in the 2-norm, {label}: {[(n, round(e, 4)) for e, n in top]}")
-    print(f"ae parity: per leaf {json.dumps(ae_leaves)}")
-    if len(noise_leaves) > AE_MAX_LEFT_OUT or len(gated) + len(noise_leaves) != len(ae_grads_p):
-        return fail(f"ae parity: {len(gated)} gated leaves of {len(ae_grads_p)}, left out {noise_leaves}")
-    leaf_table = {n: [drift_leaves[n], err_leaves[n]] for n in drift_leaves}
-    del ae_grads_u, ae_grads_d, ae_grads_p, images_u
-    ae_tol_loss = max(AE_PARITY_FACTOR * abs(ae_loss_u - ae_loss_p), 2.0**-10 * abs(ae_loss_p))
-    print(f"ae parity: loss kernels {ae_loss_k:.6f} plain {ae_loss_p:.6f} plain+ulp {ae_loss_u:.6f} "
-          f"(tolerance {ae_tol_loss:.3e})")
-    print(f"ae parity: plain path vs itself with the images one bf16 ulp away (global_rel: the larger of up "
-          f"and down): {json.dumps(ae_drift)}")
+    ae_par = ae_parity(torch, ae_fwd_bwd, images_b, A, Cv, Gn)
+    ae_drift, ae_err, ae_modules = ae_par["drift"], ae_par["kernels_vs_plain"], ae_par["modules"]
+    for label, top in ae_par["shares"].items():
+        print(f"ae parity: global-norm error^2 by leaf, {label}: {[(n, f'{e:.3e}', f'{r:.3e}') for n, e, r in top]}")
+    drift_mod = {m: d for m, (d, _) in ae_par["module_drift_and_error"].items()}
+    err_mod = {m: e for m, (_, e) in ae_par["module_drift_and_error"].items()}
+    for label, table in (("drift", drift_mod), ("kernels", err_mod), ("kernels / allowed drift", ae_par["ratio"])):
+        top = sorted(((v, m) for m, v in table.items()), reverse=True)[:4]
+        print(f"ae parity: worst modules in the 2-norm, {label}: {[(m, round(v, 4)) for v, m in top]}")
+    print(f"ae parity: per module {json.dumps(ae_modules)}")
+    print(f"ae parity: loss kernels {ae_par['loss']['kernels']:.6f} plain {ae_par['loss']['plain']:.6f} "
+          f"(tolerance {ae_par['loss']['tolerance']:.3e})")
+    print(f"ae parity: plain path vs itself with the images one bf16 ulp away (global_rel: the largest of the "
+          f"four moves): {json.dumps(ae_drift)}")
     print(f"ae parity: kernels vs plain: {json.dumps(ae_err)} (tolerance {AE_PARITY_FACTOR} x the drift)")
-    if not abs(ae_loss_k - ae_loss_p) <= ae_tol_loss:
-        return fail("ae loss through the kernels disagrees with the plain path")
-    if not ae_err["global_rel"] <= AE_PARITY_FACTOR * ae_drift["global_rel"]:
-        return fail("ae gradients through the kernels disagree with the plain path (global norm)")
-    if not ae_leaves["err_median"] <= AE_PARITY_FACTOR * ae_leaves["drift_median"]:
-        return fail("ae gradients through the kernels disagree with the plain path (median leaf)")
-    if not leaf_ratio[worst] <= AE_PARITY_FACTOR:
-        return fail(f"ae gradients through the kernels disagree with the plain path (leaf {worst})")
+    if ae_par["failure"]:
+        return fail(ae_par["failure"])
+    ae_mod_table = ae_par["module_drift_and_error"]
+    del ae_par
     # the weight gradient and GroupNorm sum in a fixed order. With the split attention backward and
     # cuDNN held to its deterministic algorithms (the convs that are not routed to the kernels),
     # two runs of the step give bit-identical gradients; every call of the two kernels that met
@@ -1299,7 +1441,7 @@ def main() -> int:
     if ae_equal:
         return fail(f"ae gradients are not bit-reproducible with the split backward, e.g. {ae_equal[:3]}")
     del det_runs, rec_a, rec_b
-    del ae_grads_a, ae_grads_b, ae_grads_k
+    del ae_grads_a, ae_grads_b
     print(f"ae parity: done at {time.perf_counter() - t_start:.0f} s")
 
     # 9. summary
@@ -1331,7 +1473,11 @@ def main() -> int:
 
         def totals(path: str, cases=cases) -> dict:
             on_path = [r for r in cases if r["per"].get(path, 0) > 0]
-            out = {key: sum(r[key] * r["per"][path] for r in on_path) for key in ("ms", "plain_ms", "bound_ms")}
+            out = {key: sum(r[key] * r["per"][path] for r in on_path) for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+            # the flash forwards' yardsticks in the same run: the mma.sync kernel, SDPA's device time
+            for key in ("mma_sync_ms", "mma_sync_device_ms", "library_device_ms"):
+                if all(key in r for r in on_path):
+                    out[key] = sum(r[key] * r["per"][path] for r in on_path)
             # no single PyTorch call computes W8A8: its rows carry the unquantised convs' times instead
             out["library_ms"] = None if any(r["library_ms"] is None for r in on_path) else sum(
                 r["library_ms"] * r["per"][path] for r in on_path)
@@ -1370,8 +1516,8 @@ def main() -> int:
                    "autoencoder": ae_out, "serve_configs": serve_out,
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
-                   "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "leaves": ae_leaves,
-                                 "leaf_drift_and_error": leaf_table}}, f, indent=1)
+                   "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
+                                 "module_drift_and_error": ae_mod_table}}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve_configs": serve_out}))
     print(json.dumps(serve))

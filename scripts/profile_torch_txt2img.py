@@ -39,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GROUPS = [
     ("flash backward (port kernels)", ("flash_bwd_kernel",)),
-    ("flash_attention (port kernel)", ("flash_fwd_kernel", "flash_fwd_chunked_kernel")),
+    ("flash forward (port kernels)", ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "flash_fwd_chunked_kernel")),
     ("conv3x3_w8a8 (port kernel)", ("epidequant",)),
     ("conv3x3_fold (port kernel)", ("taps)1", "kfold")),
     ("conv3x3 (port kernel)", ("conv3x3_fwd_kernel",)),

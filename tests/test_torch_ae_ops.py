@@ -8,6 +8,7 @@ reference's largest value: the tolerance covers another summation order only
 (nine tap products against one transposed convolution; group sums of x and
 x^2 against a two-pass variance)."""
 
+import copy
 import importlib
 import importlib.util
 from pathlib import Path
@@ -322,3 +323,60 @@ def test_gn_tolerance_catches_planted_faults() -> None:
         assert (faulty(kind) - ref).abs().max().item() > limit
     wrong_groups = TG.group_norm_silu_plain(xb, w, b, num_groups=16, eps=1e-6, apply_silu=True).float()
     assert (wrong_groups - ref).abs().max().item() > limit
+
+
+# ---------------------------------------------------------------- the ae parity gate
+
+
+@pytest.mark.parametrize("fault", ["none", "zeroed_module", "dropped_tap", "halved_bias"])
+def test_ae_parity_gate_catches_planted_faults(fault) -> None:
+    """`chip_smoke.py`'s ae parity (`ae_parity`) on a small conv / GroupNorm
+    net in f32: a kernel path equal to the plain one passes; one whose
+    gradient lost a module's weight gradient, one tap of a conv weight's, or
+    half of a conv bias's (more than the bias's share of its module's drift)
+    fails, and the failure names the module. The reading against an f64
+    reference puts the plain path at f32 rounding and the fault far above it."""
+    S = _smoke()
+    from cflearn_torch.ops import attention as TA
+
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 8, 3, padding=1), torch.nn.GroupNorm(2, 8), torch.nn.SiLU(), torch.nn.Conv2d(8, 3, 3, padding=1)
+    )
+    with torch.no_grad():
+        net[0].bias.mul_(20.0)  # a bias gradient of a size that shows in its module's norm
+    calls = []
+
+    def fwd_bwd(x):
+        net.zero_grad()
+        loss = (net(x) - x.flip(-1)).square().mean()
+        loss.backward()
+        grads = {f"m.{n}": p.grad.detach().clone() for n, p in net.named_parameters()}
+        if not calls:  # the first call is the kernel path's
+            if fault == "zeroed_module":
+                grads["m.3.weight"].zero_()
+            elif fault == "dropped_tap":
+                grads["m.0.weight"][:, :, 0, 0] = 0.0
+            elif fault == "halved_bias":
+                grads["m.0.bias"].mul_(0.5)
+        calls.append(x)
+        return loss.item(), grads
+
+    def reference(x):  # the same gradients in f64
+        net64 = copy.deepcopy(net).double()
+        (net64(x.double()) - x.double().flip(-1)).square().mean().backward()
+        return {f"m.{n}": p.grad.float() for n, p in net64.named_parameters()}
+
+    images = torch.randn(2, 3, 16, 16, generator=torch.Generator().manual_seed(1)).clamp(-1.0, 1.0)
+    result = S.ae_parity(torch, fwd_bwd, images, TA, TC, TG, reference)
+    assert len(calls) == 6  # kernels, plain, and four one-ulp moves
+    assert result["modules"]["modules"] == 3 and set(result["module_drift_and_error"]) == {"m.0", "m.1", "m.3"}
+    accuracy = result["accuracy"]["modules"]
+    assert set(accuracy) == {"m.0", "m.1", "m.3"} and all(p < 1e-5 for _, p in accuracy.values())
+    if fault == "none":
+        assert result["failure"] is None and result["modules"]["err_max"] == 0.0
+    else:
+        assert result["failure"] is not None
+        module = "m.3" if fault == "zeroed_module" else "m.0"
+        assert result["ratio"][module] > S.AE_PARITY_FACTOR
+        assert accuracy[module][0] > 1e3 * accuracy[module][1]

@@ -23,19 +23,66 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 8, 1024, 1024, 40), (1, 2, 300, 777, 80), (1, 1, 512, 512, 512), (1, 2, 256, 256, 256)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_flash_kernel_matches_plain(cuda, causal, shape, dtype) -> None:
+# the UNet's d = 40 at L = 1024 and ToMe's L = 2048, d = 80 and 160 with a ragged kv, d = 40 with a ragged kv
+# (the kv tail that TMA zero-fills is masked) and with ragged q and kv on three consumer warpgroups, d = 512 (the
+# mma.sync kernel) and d = 256
+FWD_SHAPES = [
+    (2, 8, 1024, 1024, 40), (2, 8, 2048, 2048, 40), (1, 2, 300, 777, 40), (8, 8, 1000, 777, 40), (1, 2, 300, 777, 80),
+    (2, 8, 256, 256, 160), (1, 3, 200, 333, 160), (1, 1, 512, 512, 512), (1, 2, 256, 256, 256),
+]
+
+
+def _fwd_inputs(gen, shape, dtype, layout):
+    """q, k, v of `shape` (B, H, Lq, Lk, D): (B, H, L, D) tensors, or transposed views of (B, L, H, D)
+    storage as the UNet hands them over."""
     b, h, lq, lk, d = shape
-    q = torch.randn((b, h, lq, d), generator=cuda, device="cuda").to(dtype)
-    k = torch.randn((b, h, lk, d), generator=cuda, device="cuda").to(dtype)
-    v = torch.randn((b, h, lk, d), generator=cuda, device="cuda").to(dtype)
+    out = []
+    for length in (lq, lk, lk):
+        if layout == "bhld":
+            out.append(torch.randn((b, h, length, d), generator=gen, device="cuda").to(dtype))
+        else:
+            out.append(torch.randn((b, length, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2))
+    return out
+
+
+def _expected_kernel(shape, dtype) -> str:
+    """The planner's choice: wgmma + TMA for 16-bit d <= 256, mma.sync for d = 512, the chunked kernel beyond
+    and for f32."""
+    d = shape[-1]
+    if dtype == torch.float32 or d > 512:
+        return "mma_sync_chunked"
+    return "sm90" if d <= 256 else "mma_sync"
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_matches_plain(cuda, layout, causal, shape, dtype) -> None:
+    q, k, v = _fwd_inputs(cuda, shape, dtype, layout)
+    b, h, lq, lk, d = shape
+    plan = A.flash_plan(b, h, lq, lk, d, dtype, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.kernel == _expected_kernel(shape, dtype)
     before = A.flash_attention.launches
     out = A.flash_attention(q, k, v, causal=causal)
     assert A.flash_attention.launches == before + 1
     ref = A.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    _close(out, ref, _rel(dtype))
+    # the mma.sync kernel, on request: the same function
+    _close(A.flash_attention(q, k, v, causal=causal, kernel="mma_sync"), ref, _rel(dtype))
+    assert torch.equal(out, A.flash_attention(q, k, v, causal=causal))  # no atomics: the same bits again
+
+
+def test_flash_kernel_routes_a_non_positive_scale_to_mma_sync(cuda) -> None:
+    """The wgmma kernel takes the row max of the raw scores, which needs a positive scale: the wrapper sends
+    any other scale to the mma.sync kernel, and the wgmma entry refuses one."""
+    q, k, v = _fwd_inputs(cuda, (1, 2, 300, 777, 40), torch.bfloat16, "bhld")
+    for scale in (-0.3, 0.0):
+        out = A.flash_attention(q, k, v, sm_scale=scale)
+        _close(out, A.flash_attention_plain(q, k, v, sm_scale=scale), _rel(torch.bfloat16))
+        with pytest.raises(RuntimeError):
+            A.flash_attention(q, k, v, sm_scale=scale, kernel="sm90")
 
 
 # C = 24 and 72 (below and not a multiple of the kernels' 64-channel box), W = 131 and H != W (boxes past
@@ -93,18 +140,26 @@ def _train_inputs(gen, shape, dtype):
     return q, k, v, do
 
 
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize(
+    "shape", TRAIN_SHAPES + [(2, 8, 2048, 2048, 40), (1, 2, 300, 777, 40), (8, 8, 1000, 777, 40), (2, 8, 256, 256, 160)]
+)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-def test_flash_fwd_lse_kernel_matches_plain(cuda, causal, shape, dtype) -> None:
-    q, k, v, _ = _train_inputs(cuda, shape, dtype)
+def test_flash_fwd_lse_kernel_matches_plain(cuda, layout, causal, shape, dtype) -> None:
+    q, k, v = _fwd_inputs(cuda, shape, dtype, layout)
+    b, h, lq, lk, d = shape
+    plan = A.flash_plan(b, h, lq, lk, d, dtype, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.kernel == _expected_kernel(shape, dtype)
     before = A.flash_fwd_lse.launches
     o, lse = A.flash_fwd_lse(q, k, v, causal=causal)
     assert A.flash_fwd_lse.launches == before + 1
     ref_o, ref_lse = A.flash_fwd_with_lse_plain(q, k, v, causal=causal)
-    _close(o, ref_o, _rel(dtype))
-    assert lse.dtype == torch.float32 and lse.shape == ref_lse.shape
-    assert (lse - ref_lse).abs().max() <= (4e-3 if dtype == torch.float32 else 1e-4)
+    tol = 4e-3 if dtype == torch.float32 else 1e-4
+    for got_o, got_lse in ((o, lse), A.flash_fwd_lse(q, k, v, causal=causal, kernel="mma_sync")):
+        _close(got_o, ref_o, _rel(dtype))
+        assert got_lse.dtype == torch.float32 and got_lse.shape == ref_lse.shape
+        assert (got_lse - ref_lse).abs().max() <= tol
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -14,10 +14,11 @@ from cflearn_torch.modules.multimodal.diffusion.cond_models import CLIPTextCondi
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cflearn_tpu")
-# the package's sources; `_build/` holds build outputs only and is not part of it
+# the package's sources (`_build/` holds build outputs only and is not part of it), and the scripts
+# that drive it on the card
 PORT_FILES = sorted(
     p for p in (ROOT / "cflearn_torch").rglob("*.py") if "_build" not in p.relative_to(ROOT).parts
-) + [ROOT / "chip_smoke.py"]
+) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_txt2img.py", ROOT / "scripts" / "ae_parity_runs.py"]
 
 
 def _imported(path: Path):
