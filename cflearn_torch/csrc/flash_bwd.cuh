@@ -1,6 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a): one kernel template in three
-// modes, built by `flash_bwd_fused.cu`, `flash_bwd_dq.cu` and
-// `flash_bwd_dkv.cu` (each defines CFLEARN_BWD_MODE and CFLEARN_BWD_ENTRY).
+// Flash-attention backward on mma.sync (m16n8k16, and m16n8k8 TF32 for f32):
+// one kernel template in three modes. It is the path for f32, for head dims
+// the wgmma + TMA kernels of `flash_bwd_sm90.cuh` cannot hold in registers
+// (d > 128 for dk.dv and the fused backward, d > 192 for dq: the UNet's
+// d = 160, the VAE's d = 512, d = 640), and the yardstick those kernels are
+// timed against (`kernel="mma_sync"`). `flash_bwd_sm90.cuh` includes it and
+// holds the C entry of `flash_bwd_fused.cu`, `flash_bwd_dq.cu` and
+// `flash_bwd_dkv.cu`.
 //
 // Replaces, in cflearn_tpu/ops/attention.py (launched by `_flash_train_bwd`):
 //   MODE_FUSED -> `_flash_bwd_fused_kernel`  (dq, dk, dv in one pass)
@@ -343,48 +348,3 @@ cudaError_t dispatch(const BwdArgs& a, int batch, cudaStream_t s) {
 
 }  // namespace
 }  // namespace cflearn
-
-// dtype: 0 = bf16, 1 = fp16, 2 = f32. Strides are in elements. Outputs this
-// mode does not produce are ignored (may be null). Returns a cudaError_t.
-extern "C" int CFLEARN_BWD_ENTRY(int dtype, const void* q, const void* k, const void* v,
-                                 const void* dO, const void* lse, const void* delta, void* dq,
-                                 void* dk, void* dv, long long q_sb, long long q_sh,
-                                 long long q_sl, long long k_sb, long long k_sh, long long k_sl,
-                                 long long v_sb, long long v_sh, long long v_sl, long long o_sb,
-                                 long long o_sh, long long o_sl, int batch, int heads, int q_len,
-                                 int kv_len, int d, int causal, float scale, void* stream) {
-  cflearn::BwdArgs a{q,
-                     k,
-                     v,
-                     dO,
-                     static_cast<const float*>(lse),
-                     static_cast<const float*>(delta),
-                     dq,
-                     dk,
-                     dv,
-                     q_sb,
-                     q_sh,
-                     q_sl,
-                     k_sb,
-                     k_sh,
-                     k_sl,
-                     v_sb,
-                     v_sh,
-                     v_sl,
-                     o_sb,
-                     o_sh,
-                     o_sl,
-                     heads,
-                     q_len,
-                     kv_len,
-                     d,
-                     causal,
-                     scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kMode = CFLEARN_BWD_MODE;
-  if (d <= 0 || d % 8 != 0 || d > 1024 || q_len <= 0 || kv_len <= 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return cflearn::dispatch<__nv_bfloat16, kMode>(a, batch, s);
-  if (dtype == 1) return cflearn::dispatch<__half, kMode>(a, batch, s);
-  if (dtype == 2) return cflearn::dispatch<float, kMode>(a, batch, s);
-  return cudaErrorInvalidValue;
-}

@@ -108,11 +108,7 @@ struct Sm90Args {
   float scale2;  // the softmax scale times log2(e): exponentials in base 2
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using sm90::ex2;
 
 // KS: steps of 16 over the head dim in S = Q K^T (the head dim rounded up to
 // a planned multiple of 16; TMA's zero fill supplies the columns past d), a
@@ -392,15 +388,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   }
 }
 
-// a (B, H, L, D) view as the 4-D map (D, L, H, B), box (64, rows, 1, 1)
-template <typename T>
-cudaError_t encode_bhld(CUtensorMap* map, const void* base, int batch, int heads, int len, int d, long long sb,
-                        long long sh, long long sl, int rows) {
-  const uint64_t dims[4] = {uint64_t(d), uint64_t(len), uint64_t(heads), uint64_t(batch)};
-  const uint64_t strides[3] = {uint64_t(sl) * sizeof(T), uint64_t(sh) * sizeof(T), uint64_t(sb) * sizeof(T)};
-  const uint32_t box[4] = {uint32_t(sm90::BOX_C), uint32_t(rows), 1, 1};
-  return sm90::encode_map(map, sm90::tma_dtype<T>(), 4, base, dims, strides, box);
-}
+using sm90::encode_bhld;
 
 template <typename T, int KS, int NC, bool LSE>
 cudaError_t launch_sm90(const FlashArgs& fa, int batch, int bq, int bk, int stages, cudaStream_t stream) {

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma + TMA kernels (sm_90a): the 3x3
-// conv kernels `conv3x3.cu` and `conv3x3_wgrad.cu` and the flash-attention
-// forward `flash_fwd_sm90.cuh`. TMA tile loads that complete on shared-memory
-// mbarriers, named barriers between warpgroups, warpgroup MMA
+// conv kernels `conv3x3.cu` and `conv3x3_wgrad.cu`, the flash-attention
+// forward `flash_fwd_sm90.cuh` and backward `flash_bwd_sm90.cuh`. TMA tile
+// loads that complete on shared-memory mbarriers, bulk reduce-adds from
+// shared into global memory, named barriers between warpgroups, warpgroup MMA
 // (`wgmma.mma_async`) with A and B read from shared memory through matrix
 // descriptors or A from registers, and the host-side encoding of the TMA
 // tensor maps.
@@ -110,6 +111,55 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---- bulk reduce-add (shared -> global), issued by the threads where `pred` holds ----
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, bulk copies) that reads them after a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// global[dst .. dst + bytes) += shared[src ..) in f32, as one bulk operation
+// of its own bulk group; bytes and both addresses are multiples of 16
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+      "@p cp.async.bulk.commit_group;\n}\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(int(pred))
+      : "memory");
+}
+
+// wait until all but the newest N of this thread's bulk groups have read their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read(bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.wait_group.read %1;\n}\n" ::"r"(
+                   int(pred)),
+               "n"(N)
+               : "memory");
+}
+
+// wait until this thread's bulk groups have completed
+__device__ __forceinline__ void bulk_wait(bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.wait_group 0;\n}\n" ::"r"(int(pred))
+               : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a box of a 1-D map (`encode_rows_f32`) into shared memory
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -158,6 +208,15 @@ __device__ __forceinline__ uint64_t desc_k_major(const void* tile) { return make
 __device__ __forceinline__ uint64_t desc_mn_major(const void* tile, uint32_t mn_stride) {
   return make_desc(tile, mn_stride, SWIZZLE_ATOM);
 }
+
+// the same descriptors as two 32-bit words: the low word holds the start address and the leading byte
+// offset, the high word the stride byte offset (one atom) and the 128-byte swizzle, which every tile here
+// shares. A kernel that keeps many descriptors live holds one register each (the low words) instead of two.
+constexpr uint32_t DESC_HI = (SWIZZLE_ATOM >> 4) | (1u << 30);
+__device__ __forceinline__ uint32_t desc_lo(const void* tile, uint32_t lbo_bytes) {
+  return ((smem_addr(tile) & 0x3FFFF) >> 4) | (((lbo_bytes >> 4) & 0x3FFF) << 16);
+}
+__device__ __forceinline__ uint64_t desc_of(uint32_t lo) { return (uint64_t(DESC_HI) << 32) | lo; }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -391,12 +450,13 @@ constexpr CUtensorMapDataType tma_dtype() {
   return std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
 
-// A tensor map of `rank` dimensions (innermost first) over 16-bit values:
-// `dims` elements, `strides` bytes for dimensions 1.., `box` elements, the
-// 128-byte swizzle, zeros out of bounds. `cuTensorMapEncodeTiled` is looked
+// A tensor map of `rank` dimensions (innermost first): `dims` elements,
+// `strides` bytes for dimensions 1.., `box` elements, the 128-byte swizzle
+// unless another is named, zeros out of bounds. `cuTensorMapEncodeTiled` is looked
 // up through the runtime, so the library needs no link against libcuda.
 inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const void* base,
-                              const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+                              const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -408,7 +468,7 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int r
   }
   const uint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(map, dtype, rank, const_cast<void*>(base), dims, strides, box, elem,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -421,6 +481,24 @@ cudaError_t encode_nhwc(CUtensorMap* map, const void* base, int B, int H, int W,
   const uint64_t strides[3] = {row, row * W, row * W * H};
   const uint32_t box[4] = {uint32_t(BOX_C), uint32_t(tw), uint32_t(th), 1};
   return encode_map(map, tma_dtype<T>(), 4, base, dims, strides, box);
+}
+
+// a (B, H, L, D) view as the 4-D map (D, L, H, B), box (64, rows, 1, 1)
+template <typename T>
+cudaError_t encode_bhld(CUtensorMap* map, const void* base, int batch, int heads, int len, int d, long long sb,
+                        long long sh, long long sl, int rows) {
+  const uint64_t dims[4] = {uint64_t(d), uint64_t(len), uint64_t(heads), uint64_t(batch)};
+  const uint64_t strides[3] = {uint64_t(sl) * sizeof(T), uint64_t(sh) * sizeof(T), uint64_t(sb) * sizeof(T)};
+  const uint32_t box[4] = {uint32_t(BOX_C), uint32_t(rows), 1, 1};
+  return encode_map(map, tma_dtype<T>(), 4, base, dims, strides, box);
+}
+
+// `n` contiguous f32 values as a 1-D map, box `rows`, no swizzle (per-row statistics such as a logsumexp)
+inline cudaError_t encode_rows_f32(CUtensorMap* map, const float* base, long long n, int rows) {
+  const uint64_t dims[1] = {uint64_t(n)};
+  const uint64_t strides[1] = {0};  // a 1-D map has no strides
+  const uint32_t box[1] = {uint32_t(rows)};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // raise kernel `Kernel`'s dynamic shared memory limit once per device, not on every launch

@@ -35,7 +35,10 @@ SOURCES = {
     "conv3x3_w8a8": "conv3x3_w8a8.cu",
     "conv3x3_fold": "conv3x3_fold.cu",
 }
-_HEADERS = ("mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "sm90.cuh", "flash_fwd_sm90.cuh")
+_HEADERS = (
+    "mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "sm90.cuh", "flash_fwd_sm90.cuh",
+    "flash_bwd_sm90.cuh",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -50,8 +53,10 @@ _L = ctypes.c_longlong
 # planner's kernel (0 = mma.sync, 1 = wgmma + TMA), q rows a CTA, kv rows a block, ring stages, K steps of
 # 16 over the head dim, and stream
 _FWD = [_I] + [_P] * 5 + [_L] * 12 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P]
-# backward: dtype, q, k, v, dO, lse, delta, dq, dk, dv, then as the forward
-_BWD = [_I] + [_P] * 9 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _P]
+# backward: dtype, q, k, v, dO, lse, delta, dq, dk, dv, 12 strides, batch, heads, q_len, kv_len, d, causal,
+# scale, then the planner's kernel (0 = mma.sync, 1 = wgmma + TMA), outer rows a CTA, inner rows a tile, ring
+# stages, K steps of 16 over the head dim, and stream
+_BWD = [_I] + [_P] * 9 + [_L] * 12 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P]
 _SIGNATURES = {
     "flash_attention": ("cflearn_flash_attention_fwd", _FWD),
     # dtype, x, w, bias, y, B, H, W, C, Co, box rows, box columns, output channels per tile, CTAs, stream

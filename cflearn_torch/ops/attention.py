@@ -13,6 +13,11 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
 * `flash_bwd_fused`, `flash_bwd_dq`, `flash_bwd_dkv` — the backward kernels
   (`csrc/flash_bwd_*.cu`; the TPU's `_flash_bwd_fused_kernel`,
   `_flash_bwd_dq_kernel`, `_flash_bwd_dkv_kernel`).
+* `flash_bwd_plan` — which backward kernel runs and with what tiles: the
+  wgmma + TMA kernels (`csrc/flash_bwd_sm90.cuh`) for bf16 / fp16 with
+  d <= 128 (d <= 192 for dq), the mma.sync kernel (`csrc/flash_bwd.cuh`)
+  for the rest, or for any shape when a caller names it
+  (`kernel="mma_sync"`).
 * `flash_attention_trainable` — the `torch.autograd.Function` over them
   (the JAX package's custom VJP of the same name).
 * `xla_attention` — what the JAX package leaves to XLA (masks, biases, short
@@ -236,6 +241,104 @@ def flash_plan(
                      SWIZZLE_BYTES, _sm90_smem(slabs, bq, bk, stages), _cdiv(lq, bq) * b * h)
 
 
+# ---- the backward kernels' planner ----
+
+BWD_MODES = ("fused", "dq", "dkv")
+# the largest head dim whose sums the wgmma + TMA backward kernels hold in registers: a kv-outer consumer
+# (fused, dkv) holds dK and dV, the dq kernel dQ alone (`csrc/flash_bwd_sm90.cuh`)
+SM90_BWD_MAX_D = {"fused": 128, "dkv": 128, "dq": 192}
+# their instantiated steps of 16 over the head dim (`dispatch_bwd_sm90`)
+SM90_BWD_KSTEPS = {"fused": (2, 3, 4, 5, 6, 8), "dkv": (2, 3, 4, 5, 6, 8), "dq": (2, 3, 4, 5, 6, 8, 10, 12)}
+BWD_Q_TILE = 64  # q rows of a tile that a kv-outer CTA walks
+_BWD_BARRIER_BYTES = 8 * (1 + 2 * SM90_MAX_STAGES)
+_BWD_TILE = 64  # the mma.sync kernel's rows of an outer and of an inner tile (`flash_bwd.cuh`)
+
+
+class FlashBwdPlan(NamedTuple):
+    kernel: str  # "sm90" (wgmma + TMA, `flash_bwd_sm90.cuh`) or "mma_sync" (`flash_bwd.cuh`)
+    mode: str  # "fused", "dq" or "dkv"
+    outer: int  # rows a CTA owns: kv rows (fused, dkv) or q rows (dq)
+    inner: int  # rows of each tile its loop walks: q rows (fused, dkv) or kv rows (dq)
+    consumers: int  # sm90: consumer warpgroups of 64 outer rows; mma_sync: 0
+    stages: int  # sm90: the ring's stages; mma_sync: 1 (each tile loaded and waited for)
+    ksteps: int  # sm90: steps of 16 over the head dim in S and dP (zero columns past d); else 0
+    head_pad: int  # the head dim as shared memory holds it: whole 64-column boxes (sm90), or the chunk DC
+    boxes: Tuple[Tuple[int, int], ...]  # sm90: TMA boxes (columns, rows) of the outer and the inner tiles
+    swizzle: int  # bytes of the shared-memory swizzle (sm90); 0 for the cp.async kernel
+    smem: int  # dynamic shared memory bytes of a CTA
+    ctas: int  # CTAs of the grid
+
+
+def _bwd_sm90_smem(mode: str, slabs: int, ksteps: int, outer: int, inner: int, stages: int) -> int:
+    """`kv_outer_smem` / `q_outer_smem` of `csrc/flash_bwd_sm90.cuh`."""
+    if mode == "dq":  # Q and dO once, the K and V ring
+        return 1024 + slabs * SWIZZLE_BYTES * (2 * outer + 2 * stages * inner) + _BWD_BARRIER_BYTES
+    # K and V once, the Q and dO ring with its lse and delta rows; fused: dS^T and two 64 x d f32 dq tiles a
+    # consumer
+    smem = 1024 + slabs * SWIZZLE_BYTES * (2 * outer + 2 * stages * inner) + stages * 2 * inner * 4 + _BWD_BARRIER_BYTES
+    if mode == "fused":
+        smem += outer * SWIZZLE_BYTES + 2 * (outer // 64) * inner * 16 * ksteps * 4
+    return smem
+
+
+def _bwd_mma_sync_chunk(d: int, size: int) -> int:
+    """The head-dim chunk DC that `flash_bwd.cuh`'s `dispatch` takes for head dim d and element size."""
+    if size == 4:
+        return 64 if d <= 64 else 128
+    return next((dc for dc in (32, 48, 64, 80, 128, 160) if d <= dc), 128)
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_bwd_plan(
+    b: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype, sms: int = SM_COUNT, kernel: Optional[str] = None,
+    mode: str = "fused",
+) -> FlashBwdPlan:
+    """The backward kernel of `mode` and its tiles at q / dO (b, h, lq, d), k / v (b, h, lk, d).
+
+    bf16 / fp16 with 8 | d <= `SM90_BWD_MAX_D[mode]` (128 for the fused and
+    dk.dv kernels, 192 for dq) take the wgmma + TMA kernels: the fewest
+    instantiated steps of 16 (`SM90_BWD_KSTEPS`) that cover d, 64-column
+    boxes over those, two consumer warpgroups (128 outer rows) unless that
+    grid would leave more than half the SMs idle or their tiles would not
+    fit in shared memory (the fused kernel past d = 80; then one, 64 rows), inner
+    tiles of 64 q rows (kv outer) or of 128 kv rows where one box holds the
+    head dim and 64 beyond (dq), and as many ring stages (2..4) as shared
+    memory holds. f32, larger head dims (the UNet's d = 160 for the fused and
+    dk.dv kernels, whose dK and dV do not fit a consumer's registers) and
+    `kernel="mma_sync"` take the mma.sync kernel."""
+    if kernel not in (None, "sm90", "mma_sync"):
+        raise ValueError(f"flash_bwd_plan: kernel {kernel!r} is not 'sm90' or 'mma_sync'")
+    if mode not in BWD_MODES:
+        raise ValueError(f"flash_bwd_plan: mode {mode!r} is not one of {BWD_MODES}")
+    size = torch.empty((), dtype=dtype).element_size()
+    max_d = SM90_BWD_MAX_D[mode]
+    sm90_ok = dtype in (torch.bfloat16, torch.float16) and d % 8 == 0 and d <= max_d
+    if kernel == "sm90" and not sm90_ok:
+        raise ValueError(f"flash_bwd_plan: the sm90 {mode} kernel takes bf16 / fp16 with 8 | d <= {max_d}; "
+                         f"got {dtype}, d={d}")
+    outer_len = lq if mode == "dq" else lk
+    if kernel == "mma_sync" or not sm90_ok:
+        dc = _bwd_mma_sync_chunk(d, size)
+        pad = 4 if size == 4 else 8
+        smem = 4 * 64 * (dc + pad) * size + 2 * 64 * (64 + pad) * size + 2 * 64 * 4
+        return FlashBwdPlan("mma_sync", mode, _BWD_TILE, _BWD_TILE, 0, 1, 0, dc, (), 0, smem,
+                            _cdiv(outer_len, _BWD_TILE) * _cdiv(d, dc) * b * h)
+    ksteps = next(k for k in SM90_BWD_KSTEPS[mode] if 16 * k >= d)
+    slabs = _cdiv(16 * ksteps, BOX_COLS)
+    inner = (128 if slabs == 1 else 64) if mode == "dq" else BWD_Q_TILE
+    # two consumers where the grid keeps the SMs busy and their tiles fit at two stages: the fused kernel's
+    # f32 dq tiles (two 64 x d a consumer) do not past d = 80
+    consumers = 2 if (2 * _cdiv(outer_len, 128) * b * h > sms
+                      and _bwd_sm90_smem(mode, slabs, ksteps, 128, inner, 2) <= SMEM_MAX) else 1
+    outer = 64 * consumers
+    fit = [s for s in range(2, SM90_MAX_STAGES + 1) if _bwd_sm90_smem(mode, slabs, ksteps, outer, inner, s) <= SMEM_MAX]
+    assert fit, f"flash_bwd_plan: no ring of the sm90 {mode} kernel fits at d={d}"
+    stages = max(fit)
+    return FlashBwdPlan("sm90", mode, outer, inner, consumers, stages, ksteps, BOX_COLS * slabs,
+                        ((BOX_COLS, outer), (BOX_COLS, inner)), SWIZZLE_BYTES,
+                        _bwd_sm90_smem(mode, slabs, ksteps, outer, inner, stages), _cdiv(outer_len, outer) * b * h)
+
+
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the kernels do not take."""
     if q.device.type != "cuda":
@@ -346,10 +449,13 @@ def _launch_bwd(
     do: torch.Tensor,
     causal: bool,
     sm_scale: Optional[float],
+    kernel: Optional[str],
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
     _check_qkv(name, q, k, v)
     b, h, q_len, d = q.shape
     kv_len = k.shape[2]
+    plan = flash_bwd_plan(b, h, q_len, kv_len, d, q.dtype, sm_count(q.device.index), kernel,
+                          name[len("flash_bwd_"):])
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"{name}: dO {tuple(do.shape)} {do.dtype} does not match q {tuple(q.shape)} {q.dtype}")
     if tuple(lse.shape) != (b, h, q_len) or lse.dtype != torch.float32:
@@ -361,7 +467,8 @@ def _launch_bwd(
     q, k, v, do = _kernel_view(q), _kernel_view(k), _kernel_view(v), _kernel_view(do)
     dq = dk = dv = None
     if name == "flash_bwd_fused":
-        # the kv tiles' CTAs add their shares of dq into this f32 buffer
+        # the kv tiles' CTAs add their shares of dq into this f32 buffer (whole tiles by bulk reduce-adds on
+        # the sm90 kernel, f32 atomics on the mma.sync one)
         dq = torch.zeros((b, h, q_len, d), dtype=torch.float32, device=q.device)
     elif name == "flash_bwd_dq":
         dq = torch.empty((b, h, q_len, d), dtype=q.dtype, device=q.device)
@@ -376,9 +483,10 @@ def _launch_bwd(
         None if dv is None else dv.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         b, h, q_len, kv_len, d, int(causal), _scale(d, sm_scale),
+        _KERNEL_CODES[plan.kernel], plan.outer, plan.inner, plan.stages, plan.ksteps,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _native.check(err, name)
+    _native.check(err, f"{name} ({plan.kernel})")
     _count_launch(name)
     if name == "flash_bwd_fused":
         dq = dq.to(q.dtype)
@@ -395,12 +503,18 @@ def flash_bwd_fused(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) from one kernel. dq is summed across kv tiles by f32
-    atomics (not bit-reproducible) and cast to q's dtype afterwards."""
+    """(dq, dk, dv) from one kernel: the one `flash_bwd_plan` picks, the
+    wgmma + TMA kernel of `csrc/flash_bwd_sm90.cuh` or the mma.sync kernel
+    of `csrc/flash_bwd.cuh` (or `kernel`, "sm90" or "mma_sync", names). dq
+    is summed across kv tiles in an f32 buffer, by bulk reduce-adds of
+    whole tiles (the wgmma + TMA kernel) or by f32 atomics (the mma.sync
+    kernel), in an order that varies from run to run (not
+    bit-reproducible), and cast to q's dtype afterwards."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale)
-    grads = _launch_bwd("flash_bwd_fused", q, k, v, o, lse, do, causal, sm_scale)
+    grads = _launch_bwd("flash_bwd_fused", q, k, v, o, lse, do, causal, sm_scale, kernel)
     return grads
 
 
@@ -417,11 +531,13 @@ def flash_bwd_dq(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
-    """dq of the split (bit-reproducible) backward."""
+    """dq of the split (bit-reproducible) backward: q tiles outer, the kv
+    blocks summed in a fixed order. `kernel` as in `flash_bwd_fused`."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale)[0]
-    dq, _, _ = _launch_bwd("flash_bwd_dq", q, k, v, o, lse, do, causal, sm_scale)
+    dq, _, _ = _launch_bwd("flash_bwd_dq", q, k, v, o, lse, do, causal, sm_scale, kernel)
     return dq
 
 
@@ -438,11 +554,13 @@ def flash_bwd_dkv(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the split (bit-reproducible) backward."""
+    """(dk, dv) of the split (bit-reproducible) backward: kv tiles outer,
+    the q tiles summed in a fixed order. `kernel` as in `flash_bwd_fused`."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale)[1:]
-    _, dk, dv = _launch_bwd("flash_bwd_dkv", q, k, v, o, lse, do, causal, sm_scale)
+    _, dk, dv = _launch_bwd("flash_bwd_dkv", q, k, v, o, lse, do, causal, sm_scale, kernel)
     return dk, dv
 
 

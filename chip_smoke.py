@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero:
    device time (`device_ms`: calls replayed from a CUDA graph, without the
    host's enqueue time). The flash forwards also run the mma.sync
    kernel of `flash_fwd.cuh` on request at every shape (checked and timed beside the
-   wgmma + TMA kernel), and their bounds count the softmax's exponentials.
+   wgmma + TMA kernel), and their bounds count the softmax's exponentials; so
+   do the three backward kernels, beside the mma.sync kernel of
+   `flash_bwd.cuh`, with SDPA's backward timed by CUDA-graph replay too
+   (`yardstick` lines).
    The W8A8 int8 conv and the dj-folded conv at every VAE-decoder conv
    shape, W8A8 bit for bit (its int32 sums are exact), with the bf16 cuDNN
    conv and the bf16 conv kernel timed beside it as the unquantised conv it
@@ -282,7 +285,10 @@ MMA_SYNC_MS = {
     ("conv3x3_wgrad", "128x128_512_512"): 3.5840, ("conv3x3_wgrad", "64x64_512_512"): 0.9169,
     ("conv3x3_wgrad", "odd_3x33x47_64_136"): 0.0496,
 }
-REDESIGNED = ("conv3x3", "conv3x3_wgrad", "flash_attention", "flash_fwd_lse")
+REDESIGNED = ("conv3x3", "conv3x3_wgrad", "flash_attention", "flash_fwd_lse", "flash_bwd_fused", "flash_bwd_dq",
+              "flash_bwd_dkv")
+# the backward kernels' planner mode
+BWD_MODE = {"flash_bwd_fused": "fused", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}
 # which path's launches and times a kernel's summary row reports; its other paths go under "other_paths"
 MAIN_PATH = {
     "flash_attention": "txt2img", "conv3x3": "txt2img", "flash_fwd_lse": "finetune", "flash_bwd_fused": "finetune",
@@ -327,14 +333,15 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS, e
     return times[by] * 1e3, by
 
 
-def device_ms(torch, fn, calls: int = 10, replays: int = 5) -> float:
+def device_ms(torch, fn, calls: int = 10, replays: int = 5, stream=None) -> float:
     """Mean device time per call, free of the host's enqueue time that the event window of `time_ms` holds
-    where a call is microseconds of device work: `calls` calls captured in one CUDA graph, the graph
-    replayed `replays` times under a CUDA-event window after a warm-up replay."""
-    fn()
+    where a call is microseconds of device work: `calls` calls captured in one CUDA graph (on `stream`, where
+    given), the graph replayed `replays` times under a CUDA-event window after a warm-up replay."""
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -347,6 +354,21 @@ def device_ms(torch, fn, calls: int = 10, replays: int = 5) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (calls * replays)
+
+
+def bwd_registers(log: str) -> dict:
+    """{"bf16 kv_outer ks3 nc2": registers, ...} of the wgmma + TMA backward kernels in an `nvcc -Xptxas -v`
+    log: the count at launch, before `setmaxnreg` hands the producer's registers to the consumers."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"flash_bwd_(kv_outer|q_outer)_kernelI(\w+?)Li(\d+)ELi(\d+)E", ln)
+            key = (f"{'bf16' if 'bfloat16' in m.group(2) else 'f16'} {m.group(1)} ks{m.group(3)} nc{m.group(4)}"
+                   if m else None)
+        elif key and "Used " in ln:
+            out[key] = int(ln.split("Used ")[1].split(" ")[0])
+            key = None
+    return out
 
 
 def sm90_registers(log: str) -> dict:
@@ -516,11 +538,18 @@ def phase_train_kernels(torch, F, A):
             "flash_bwd_dq": 3 * qo + 2 * kv + 2 * rows_q,
             "flash_bwd_dkv": 2 * qo + 4 * kv + 2 * rows_q,
         }
-        # library yardstick: SDPA forward, and its backward through autograd
+        # library yardstick: SDPA forward, and its backward through autograd. Autograd runs a backward op on
+        # its forward op's stream, so the forward runs on a stream of its own, on which a CUDA graph then
+        # captures the backward for its device time
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal))
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
+        lib_stream = torch.cuda.Stream()
+        lib_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(lib_stream):
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        lib_bwd_run = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)  # noqa: E731
+        lib_bwd = time_ms(torch, lib_bwd_run)
+        lib_bwd_device = device_ms(torch, lib_bwd_run, stream=lib_stream)
         del lib_out
         plain_fwd = time_ms(torch, lambda: A.flash_fwd_with_lse_plain(q, k, v, **kw), 20.0)
         plain_bwd = time_ms(torch, lambda: A.flash_bwd_plain(q, k, v, o_ref, lse_ref, do, **kw), 20.0)
@@ -569,6 +598,19 @@ def phase_train_kernels(torch, F, A):
                                ql, kl, vl, is_causal=causal)))
                 if not (row["mma_sync_errs"]["o"] <= errs["o"][1] and row["mma_sync_errs"]["lse"] <= errs["lse"][1]):
                     raise AssertionError(f"flash_fwd_lse {name}: the mma.sync kernel's {row['mma_sync_errs']}")
+            else:
+                # the yardstick: the mma.sync kernel (`flash_bwd.cuh`), on request, on the same inputs
+                fn = getattr(A, kernel)
+                old = lambda fn=fn: fn(q, k, v, o_ref, lse_ref, do, kernel="mma_sync", **kw)  # noqa: E731
+                outs_old = old()
+                outs_old = (outs_old,) if kernel == "flash_bwd_dq" else outs_old
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                row.update(kernel=A.flash_bwd_plan(b, h, lq, lk, d, dt, sms, mode=BWD_MODE[kernel]).kernel,
+                           mma_sync_errs={k_: max_err(got, ref) for k_, got, ref in zip(errs, outs_old, refs[kernel])},
+                           mma_sync_ms=time_ms(torch, old), mma_sync_device_ms=device_ms(torch, old),
+                           library_device_ms=lib_bwd_device)
+                if not all(row["mma_sync_errs"][k_] <= errs[k_][1] for k_ in errs):
+                    raise AssertionError(f"{kernel} {name}: the mma.sync kernel's {row['mma_sync_errs']}")
             print(kernel, json.dumps(row))
             for label, (e, t) in errs.items():
                 if not math.isfinite(e) or e > t:
@@ -995,6 +1037,11 @@ def main() -> int:
             print(f"ptxas[{name}] {len(regs)} kernels, registers {min(regs, default=0)}..{max(regs, default=0)}, "
                   f"{len(spills)} with spills, {serial} with wgmma serialised, ptxas {ptxas_ms:.0f} ms, "
                   f"library built in {secs[name]:.1f} s")
+            if name in BWD_MODE:
+                regs90 = bwd_registers(log.read_text())
+                print(f"ptxas[{name}] wgmma + TMA backward kernels (loop, K steps, consumers): registers at launch, "
+                      f"bf16 {json.dumps({k[5:]: v for k, v in regs90.items() if k.startswith('bf16')})} (fp16 the "
+                      f"same: {all(regs90[k] == regs90['bf16' + k[3:]] for k in regs90 if k.startswith('f16'))})")
             if name in ("flash_attention", "flash_fwd_lse"):
                 regs90 = sm90_registers(log.read_text())
                 print(f"ptxas[{name}] wgmma + TMA kernels (K steps, consumers): registers at launch, bf16 "
@@ -1029,6 +1076,12 @@ def main() -> int:
                 print(f"yardstick {name} {r['case']}: device ms sm90 {r['device_ms']:.4f}, mma.sync "
                       f"{r['mma_sync_device_ms']:.4f} ({r['mma_sync_device_ms'] / r['device_ms']:.2f}x), "
                       f"SDPA {r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    for name in BWD_MODE:
+        for r in rows[name]:
+            print(f"yardstick {name} {r['case']}: plan {r['kernel']}, device ms {r['device_ms']:.4f}, mma.sync "
+                  f"{r['mma_sync_device_ms']:.4f} ({r['mma_sync_device_ms'] / r['device_ms']:.2f}x), SDPA backward "
+                  f"{r['library_device_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}, {r['bound_ms'] / r['device_ms']:.0%} of the device time)")
     print(f"kernels: done at {time.perf_counter() - t_start:.0f} s")
 
     # 3. path: the serving configurations, one prompt through the tokenizer, the same z
@@ -1474,7 +1527,7 @@ def main() -> int:
         def totals(path: str, cases=cases) -> dict:
             on_path = [r for r in cases if r["per"].get(path, 0) > 0]
             out = {key: sum(r[key] * r["per"][path] for r in on_path) for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
-            # the flash forwards' yardsticks in the same run: the mma.sync kernel, SDPA's device time
+            # the flash kernels' yardsticks in the same run: the mma.sync kernel and SDPA's device time
             for key in ("mma_sync_ms", "mma_sync_device_ms", "library_device_ms"):
                 if all(key in r for r in on_path):
                     out[key] = sum(r[key] * r["per"][path] for r in on_path)

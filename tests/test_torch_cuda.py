@@ -162,20 +162,43 @@ def test_flash_fwd_lse_kernel_matches_plain(cuda, layout, causal, shape, dtype) 
         assert (got_lse - ref_lse).abs().max() <= tol
 
 
+# the backward's shapes: TRAIN_SHAPES, the UNet's d = 40 / 80 / 160 at its L (batch cut to 2; d = 160 keeps the
+# fused and dk.dv kernels on mma.sync), and d = 40 with a ragged kv
+BWD_SHAPES = TRAIN_SHAPES + [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80), (2, 8, 256, 256, 160), (1, 2, 300, 777, 40),
+                             (2, 8, 1024, 1024, 96), (2, 8, 1024, 1024, 128)]
+
+
+def _expected_bwd_kernel(shape, dtype, mode) -> str:
+    """The planner's choice: wgmma + TMA for 16-bit d <= 128 (d <= 192 for dq), mma.sync beyond and for f32."""
+    limit = 192 if mode == "dq" else 128
+    return "sm90" if dtype != torch.float32 and shape[-1] <= limit else "mma_sync"
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-def test_flash_bwd_kernels_match_plain(cuda, causal, shape, dtype) -> None:
-    q, k, v, do = _train_inputs(cuda, shape, dtype)
+def test_flash_bwd_kernels_match_plain(cuda, layout, causal, shape, dtype) -> None:
+    """The three backward kernels the planner picks, and the mma.sync kernel on the same inputs, against the
+    plain backward; q, k, v as (B, H, L, D) tensors or transposed views, dO always a transposed view."""
+    q, k, v = _fwd_inputs(cuda, shape, dtype, layout)
+    _, _, _, do = _train_inputs(cuda, shape, dtype)
+    b, h, lq, lk, d = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for mode in A.BWD_MODES:
+        assert A.flash_bwd_plan(b, h, lq, lk, d, dtype, sms, mode=mode).kernel == _expected_bwd_kernel(shape, dtype, mode)
     o, lse = A.flash_fwd_with_lse_plain(q, k, v, causal=causal)
     ref = A.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
     counts = [fn.launches for fn in (A.flash_bwd_fused, A.flash_bwd_dq, A.flash_bwd_dkv)]
     fused = A.flash_bwd_fused(q, k, v, o, lse, do, causal=causal)
     split = (A.flash_bwd_dq(q, k, v, o, lse, do, causal=causal), *A.flash_bwd_dkv(q, k, v, o, lse, do, causal=causal))
     assert [fn.launches for fn in (A.flash_bwd_fused, A.flash_bwd_dq, A.flash_bwd_dkv)] == [c + 1 for c in counts]
-    for got_f, got_s, r in zip(fused, split, ref):
-        _close(got_f, r, _rel(dtype))
-        _close(got_s, r, _rel(dtype))
+    kw = dict(causal=causal, kernel="mma_sync")
+    old_fused = A.flash_bwd_fused(q, k, v, o, lse, do, **kw)
+    old_split = (A.flash_bwd_dq(q, k, v, o, lse, do, **kw), *A.flash_bwd_dkv(q, k, v, o, lse, do, **kw))
+    for got in (fused, split, old_fused, old_split):
+        for g, r in zip(got, ref):
+            _close(g, r, _rel(dtype))
     # the split pair sums in a fixed order: bit-identical on a second launch
     assert torch.equal(split[0], A.flash_bwd_dq(q, k, v, o, lse, do, causal=causal))
     again = A.flash_bwd_dkv(q, k, v, o, lse, do, causal=causal)
