@@ -1,11 +1,12 @@
 // Hopper building blocks shared by the wgmma + TMA kernels (sm_90a): the 3x3
-// conv kernels `conv3x3.cu` and `conv3x3_wgrad.cu`, the flash-attention
-// forward `flash_fwd_sm90.cuh` and backward `flash_bwd_sm90.cuh`. TMA tile
-// loads that complete on shared-memory mbarriers, bulk reduce-adds from
-// shared into global memory, named barriers between warpgroups, warpgroup MMA
-// (`wgmma.mma_async`) with A and B read from shared memory through matrix
-// descriptors or A from registers, and the host-side encoding of the TMA
-// tensor maps.
+// conv kernels `conv3x3.cu`, `conv3x3_wgrad.cu` and `conv3x3_fold.cu`, the
+// flash-attention forward `flash_fwd_sm90.cuh` and backward
+// `flash_bwd_sm90.cuh`, and the bulk loads of `group_norm.cu`. TMA tile
+// loads that complete on shared-memory mbarriers, bulk copies and bulk
+// reduce-adds between global and shared memory, named barriers between
+// warpgroups, warpgroup MMA (`wgmma.mma_async`) with A and B read from
+// shared memory through matrix descriptors or A from registers, and the
+// host-side encoding of the TMA tensor maps.
 //
 // Every operand tile is made of TMA boxes whose innermost dimension is 64
 // 16-bit values (128 bytes), written with the 128-byte swizzle: rows of 128
@@ -16,7 +17,10 @@
 //   * K-major operands (K = channels or head dim: the conv forward's x and
 //     weight tiles, attention's q and k) take one descriptor per 64-row
 //     group; stepping K by 16 moves its start by 32 bytes inside the swizzled
-//     row, and the next 64 values of K sit one box further;
+//     row, and the next 64 values of K sit one box further. A descriptor may
+//     also start at any 128-byte row of a box (the fold's taps dj read one
+//     box dj rows apart): the swizzle follows the address bits, so the base
+//     offset stays 0;
 //   * MN-major operands (K = pixels or tokens: the weight gradient's dy and x
 //     tiles, attention's v) take the transpose bit; the 64 values of a row are
 //     the MN extent of one swizzle atom, the next 64 sit LBO bytes further,
@@ -108,6 +112,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
       "[%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory into shared memory as one bulk copy (no tensor map), completing
+// on `bar`; both addresses 16-byte aligned, `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

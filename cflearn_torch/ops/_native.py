@@ -67,16 +67,29 @@ _SIGNATURES = {
     "flash_bwd_dkv": ("cflearn_flash_bwd_dkv", _BWD),
     # dtype, x, dy, workspace, out, B, H, W, C, Co, splits, stream
     "conv3x3_wgrad": ("cflearn_conv3x3_wgrad", [_I, _P, _P, _P, _P] + [_I] * 6 + [_P]),
-    # x dtype, parameter dtype, x, w, bias, y, partial sums, stats, B, S, C, G, eps, silu, slabs,
-    # rows per slab, stream
+    # x dtype, parameter dtype, x, w, bias, y, slab sums, B, S, C, G, eps, silu, then the planner's slabs per
+    # sample, rows per slab, rows kept in shared memory, samples per wave, CTAs, and stream
     "group_norm": (
         "cflearn_group_norm",
+        [_I, _I] + [_P] * 5 + [_I, _L, _I, _I, ctypes.c_float, _I, _I, _L, _L, _I, _I, _P],
+    ),
+    # the three-launch yardstick: x dtype, parameter dtype, x, w, bias, y, partial sums, stats, B, S, C, G, eps,
+    # silu, slabs, rows per slab, stream
+    "group_norm_slabs": (
+        "cflearn_group_norm_slabs",
         [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, ctypes.c_float, _I, _I, _L, _P],
     ),
     # output dtype, x (int8), w (int8), scale (f32), bias, y, B, H, W, C, Co, stream
     "conv3x3_w8a8": ("cflearn_conv3x3_w8a8", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
-    # dtype, x, w, bias, y, B, H, W, C, Co, stream (as conv3x3)
-    "conv3x3_fold": ("cflearn_conv3x3_fold_fwd", [_I, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+    # dtype, x, w, bias, y, B, H, W, C, Co, box rows, box columns, output channels per tile, CTAs, stream
+    "conv3x3_fold": ("cflearn_conv3x3_fold_fwd", [_I, _P, _P, _P, _P] + [_I] * 9 + [_P]),
+    # the mma.sync yardstick: dtype, x, w, bias, y, B, H, W, C, Co, stream
+    "conv3x3_fold_mma_sync": ("cflearn_conv3x3_fold_mma_sync", [_I, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+}
+# entry points that live in another entry's library (one library per TPU kernel)
+_LIBRARY_OF = {
+    "group_norm_slabs": "group_norm",
+    "conv3x3_fold_mma_sync": "conv3x3_fold",
 }
 
 _lock = threading.Lock()
@@ -138,16 +151,18 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def library(name: str):
-    """The C entry point of kernel `name`, built on first use, with its
-    argument types declared."""
+    """The C entry point `name` (a kernel, or another entry of a kernel's
+    library), its library built on first use, with its argument types
+    declared."""
+    lib_name = _LIBRARY_OF.get(name, name)
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(lib_name)
         if lib is None:
-            path = library_path(name)
+            path = library_path(lib_name)
             if not path.exists():
-                build([name])
+                build([lib_name])
             lib = ctypes.CDLL(str(path))
-            _loaded[name] = lib
+            _loaded[lib_name] = lib
     symbol, argtypes = _SIGNATURES[name]
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes

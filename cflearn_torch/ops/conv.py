@@ -19,10 +19,13 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   weight gradient was faster on its chip; that is a measurement of that chip,
   not a semantic, so here every conv whose forward was routed to the kernel
   takes both kernels in its backward.
-* `conv3x3_fold` — wrapper of the dj-folded kernel (`csrc/conv3x3_fold.cu`),
-  which replaces `_conv3x3_kernel_fold` (`conv3x3_pallas(fold=True)`): the
-  same conv as three products 3C deep over (dj, channel).
-  `conv3x3_fold_plain` is its plain version. `conv3x3(..., fold=None)` reads
+* `conv3x3_fold` — wrapper of the dj-folded kernel (`csrc/conv3x3_fold.cu`:
+  wgmma fed by TMA, one x box feeding all three dj taps, see
+  `conv3x3_fold_plan`), which replaces `_conv3x3_kernel_fold`
+  (`conv3x3_pallas(fold=True)`): the same conv as three products 3C deep
+  over (dj, channel). `conv3x3_fold_plain` is its plain version; the
+  previous design, the mma.sync implicit GEMM, stays reachable as the
+  yardstick through `kernel="mma_sync"`. `conv3x3(..., fold=None)` reads
   the module default `FOLD` (False, as the JAX package defaults `fold`).
 * `conv3x3_w8a8` — the dynamically quantised W8A8 conv: `quantize_activation`
   (per tensor) and `quantize_weight` (per output channel) in plain PyTorch, as
@@ -37,10 +40,11 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   `quantized=True` (default `W8A8_DEFAULT`, from `CFLEARN_TORCH_CONV_W8A8`)
   sends the routed convs through W8A8 instead.
 
-* `conv3x3_plan` / `wgrad_plan` — the host's tile planner of those two
-  kernels: which spatial box of pixels a tile is, how many output channels
-  it takes, how many CTAs run and how K is split. Plain Python, so that the
-  CPU tests hold its coverage and TMA's box limits.
+* `conv3x3_plan` / `wgrad_plan` / `conv3x3_fold_plan` — the host's tile
+  planner of the three wgmma kernels: which spatial box of pixels a tile is,
+  how many output channels it takes, how many CTAs run, how K is split and
+  (the fold) its x boxes and rings. Plain Python, so that the CPU tests hold
+  its coverage and TMA's box limits.
 
 Tensors are NHWC; weights are the port's OIHW, and (Co, 3, 3, C) at the
 kernels (where the JAX package has (3, 3, C, Co)).
@@ -211,6 +215,65 @@ def wgrad_plan(b: int, h: int, w: int, c: int, co: int, sms: int = SM_COUNT) -> 
     return WgradPlan(kt, _wgrad_units(c, co), splits, _cdiv(kt, splits))
 
 
+# the fold kernel's rings (`csrc/conv3x3_fold.cu`): x boxes of up to 2 x 66 or 1 x 130 pixels rounded to the
+# 1024-byte swizzle atom, and as many weight tiles of BN rows as the rest of its shared memory holds
+FOLD_A_STAGES = 3
+FOLD_A_STRIDE = 17 * 1024
+_FOLD_SMEM_BUDGET = 220 * 1024
+SWIZZLE_ATOM = 1024
+FOLD_BOXES = ((1, 128), (2, 64))  # (th, tw): a consumer's 64 tile rows lie in one image row of the x box
+
+
+class FoldPlan(NamedTuple):
+    kernel: str  # "sm90" (wgmma + TMA) or "mma_sync" (the previous design, `conv3x3_igemm.cuh`: the yardstick)
+    th: int  # box rows of an output tile (sm90; 0 for mma_sync)
+    tw: int  # box columns (64 or 128)
+    bn: int  # output channels per tile
+    m_tiles: int  # pixel tiles over the batch
+    n_tiles: int  # output-channel tiles
+    ctas: int  # CTAs: persistent, each walking tiles `ctas` apart (mma_sync: one per tile)
+    x_box: Tuple[int, ...]  # sm90: the x box (channels, columns, rows), two columns wider than the tile
+    k_slices: int  # 64-channel slices of each dj tap (sm90: zero past C; each tap padded on its own)
+    a_stages: int  # sm90: x boxes in flight
+    b_stages: int  # sm90: weight tiles in flight (one per dj)
+    smem: int  # dynamic shared memory bytes of a CTA
+
+
+def fold_x_row0(g: int, tw: int) -> int:
+    """The row of the x box that holds consumer warpgroup `g`'s first pixel at
+    dj = 0 (the kernel's `a_row0`); tap dj's operand is the 64 box rows from
+    there plus dj."""
+    return (g * 64 // tw) * (tw + 2) + (g * 64) % tw
+
+
+@functools.lru_cache(maxsize=1024)
+def conv3x3_fold_plan(
+    b: int, h: int, w: int, c: int, co: int, sms: int = SM_COUNT, kernel: Optional[str] = None
+) -> FoldPlan:
+    """The fold kernel's tiles at x (b, h, w, c) -> co channels: a 128-pixel
+    box of 1 x 128 or 2 x 64 (the fewer boxes, the wider among ties), so that
+    each consumer's 64 rows are consecutive rows of an x box two columns
+    wider; 256 output channels per tile where the grid still fills the card,
+    else 128, as `conv3x3_plan`. `kernel="mma_sync"` plans the previous
+    design, 128 x 128 tiles of one CTA each."""
+    if kernel not in (None, "sm90", "mma_sync"):
+        raise ValueError(f"conv3x3_fold_plan: kernel {kernel!r} is not 'sm90' or 'mma_sync'")
+    k_slices = _cdiv(c, BOX_CHANNELS)
+    if kernel == "mma_sync":
+        m_tiles, n_tiles = _cdiv(b * h * w, CONV_PIXELS), _cdiv(co, 128)
+        return FoldPlan("mma_sync", 0, 0, 128, m_tiles, n_tiles, m_tiles * n_tiles, (), k_slices, 3, 0,
+                        3 * (128 + 128) * 80)
+    th, tw = min(FOLD_BOXES, key=lambda box: (_cdiv(h, box[0]) * _cdiv(w, box[1]), -box[1]))
+    m_tiles = b * _cdiv(h, th) * _cdiv(w, tw)
+    bn = 256 if co > 128 and m_tiles * _cdiv(co, 256) >= sms else 128
+    n_tiles = _cdiv(co, bn)
+    b_bytes = bn * BOX_CHANNELS * 2
+    b_stages = (_FOLD_SMEM_BUDGET - FOLD_A_STAGES * FOLD_A_STRIDE) // b_bytes
+    smem = FOLD_A_STAGES * FOLD_A_STRIDE + b_stages * b_bytes + 2 * (FOLD_A_STAGES + b_stages) * 8 + SWIZZLE_ATOM
+    return FoldPlan("sm90", th, tw, bn, m_tiles, n_tiles, min(m_tiles * n_tiles, sms), (BOX_CHANNELS, tw + 2, th),
+                    k_slices, FOLD_A_STAGES, b_stages, smem)
+
+
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
@@ -243,9 +306,10 @@ def _launch_forward(
     name: str, counter: Any, x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor],
     plan: Callable[..., Tuple[int, ...]] = _no_plan,
 ) -> torch.Tensor:
-    """Check the arguments and launch forward kernel `name` ("conv3x3" or
-    "conv3x3_fold") on CUDA tensors; `plan(b, h, w, c, co, device)` gives the
-    kernel's arguments after Co, and `counter` holds the launch count."""
+    """Check the arguments and launch forward kernel `name` ("conv3x3",
+    "conv3x3_fold" or its yardstick "conv3x3_fold_mma_sync") on CUDA
+    tensors; `plan(b, h, w, c, co, device)` gives the kernel's arguments
+    after Co, and `counter` holds the launch count."""
     bsz, h, w, c, co = _check_conv_args(name, x, w_ohwi, bias, _DTYPES, 8)
     if bias is not None and bias.dtype != x.dtype:
         raise TypeError(f"{name} kernel takes bf16/fp16 x, w, bias of one dtype; got bias {bias.dtype}")
@@ -274,8 +338,20 @@ def _launch_conv3x3(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.
     return _launch_forward("conv3x3", _WRAPPER, x, w_ohwi, bias, _conv3x3_tiles)
 
 
-def _launch_conv3x3_fold(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    return _launch_forward("conv3x3_fold", _FOLD_WRAPPER, x, w_ohwi, bias)
+def _fold_tiles(b: int, h: int, w: int, c: int, co: int, device: torch.device) -> Tuple[int, ...]:
+    """The fold kernel's (box rows, box columns, output channels per tile, CTAs) on `device`."""
+    p = conv3x3_fold_plan(b, h, w, c, co, sm_count(device.index))
+    return p.th, p.tw, p.bn, p.ctas
+
+
+def _launch_conv3x3_fold(
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor], kernel: Optional[str] = None
+) -> torch.Tensor:
+    if kernel not in (None, "sm90", "mma_sync"):
+        raise ValueError(f"conv3x3_fold: kernel {kernel!r} is not 'sm90' or 'mma_sync'")
+    if kernel == "mma_sync":
+        return _launch_forward("conv3x3_fold_mma_sync", _FOLD_WRAPPER, x, w_ohwi, bias)
+    return _launch_forward("conv3x3_fold", _FOLD_WRAPPER, x, w_ohwi, bias, _fold_tiles)
 
 
 # the default of `conv3x3(fold=None)`: the JAX package defaults `fold` to False
@@ -306,10 +382,11 @@ _WRAPPER = conv3x3
 
 
 def conv3x3_fold(
-    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None, *, kernel: Optional[str] = None
 ) -> torch.Tensor:
     """The conv of `conv3x3` through the dj-folded kernel: CPU tensors take
-    `conv3x3_fold_plain`; CUDA tensors launch the kernel (bf16 / fp16,
+    `conv3x3_fold_plain`; CUDA tensors launch the wgmma + TMA kernel (or
+    `kernel="mma_sync"`, the previous design, as a yardstick; bf16 / fp16,
     C % 8 == 0, Co % 8 == 0) or raise. A forward kernel: on the card a call
     whose inputs need a gradient goes through `Conv3x3Function` with the
     folded forward (its backward is the one of `conv3x3`)."""
@@ -317,7 +394,7 @@ def conv3x3_fold(
         return conv3x3_fold_plain(x, w_ohwi, bias)
     if _needs_grad(x, w_ohwi, bias):
         return Conv3x3Function.apply(x, w_ohwi, bias, True)
-    return _launch_conv3x3_fold(x, w_ohwi, bias)
+    return _launch_conv3x3_fold(x, w_ohwi, bias, kernel)
 
 
 conv3x3_fold.launches = 0

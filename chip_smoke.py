@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero:
    The W8A8 int8 conv and the dj-folded conv at every VAE-decoder conv
    shape, W8A8 bit for bit (its int32 sums are exact), with the bf16 cuDNN
    conv and the bf16 conv kernel timed beside it as the unquantised conv it
-   stands in for; the flash forward at the ToMe-merged 64x64 shape.
+   stands in for; the flash forward at the ToMe-merged 64x64 shape. The
+   fold runs beside its previous design, the mma.sync kernel
+   (`kernel="mma_sync"`), and GroupNorm beside its previous three-launch
+   design (`kernel="slabs"`), each checked and timed on the same inputs;
+   GroupNorm's one launch is also replayed from a CUDA graph, bit for bit
+   (`yardstick` lines, with each row's plan).
 3. path — full-width SD-1.5 v1 in bf16 from seeded random weights (the
    zero-initialised output convs redrawn with small noise, so conditioning
    reaches the output), txt2img at batch 1 (CFG batch 2), 512x512, DDIM,
@@ -286,7 +291,7 @@ MMA_SYNC_MS = {
     ("conv3x3_wgrad", "odd_3x33x47_64_136"): 0.0496,
 }
 REDESIGNED = ("conv3x3", "conv3x3_wgrad", "flash_attention", "flash_fwd_lse", "flash_bwd_fused", "flash_bwd_dq",
-              "flash_bwd_dkv")
+              "flash_bwd_dkv", "conv3x3_fold", "group_norm")
 # the backward kernels' planner mode
 BWD_MODE = {"flash_bwd_fused": "fused", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}
 # which path's launches and times a kernel's summary row reports; its other paths go under "other_paths"
@@ -299,6 +304,12 @@ MAIN_PATH = {
 # in the fused backward; s, dp, dq in the dq kernel; s, dp, dv, dk in the dk.dv kernel
 OPS_PER_TRIPLE = {"flash_fwd_lse": 4.0, "flash_bwd_fused": 10.0, "flash_bwd_dq": 6.0, "flash_bwd_dkv": 8.0}
 TRAIN_KERNELS = tuple(OPS_PER_TRIPLE)
+
+
+# the yardsticks (the previous designs, timed beside the kernels that replaced them): a short event window and a
+# CUDA graph of 5 calls replayed twice, so that they add little to the run's time
+YARDSTICK_MS = 5.0
+YARDSTICK_GRAPH = (5, 2)
 
 
 def fail(msg: str) -> int:
@@ -385,6 +396,19 @@ def sm90_registers(log: str) -> dict:
     return out
 
 
+def spilled(log: str) -> list:
+    """The (mangled) names of the functions that spill registers in an `nvcc -Xptxas -v` log."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            name = ln.split("Function properties for ")[1].strip()
+        elif name and "spill" in ln:
+            if "0 bytes spill stores, 0 bytes spill loads" not in ln:
+                out.append(name)
+            name = None
+    return out
+
+
 def sm_clock_mhz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -411,6 +435,7 @@ def flash_rel(dtype_size: int) -> float:
 
 def phase_kernels(torch, F, ops):
     A, Cv = ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev, bf16 = "cuda", torch.bfloat16
     rows = {"flash_attention": [], "conv3x3": [], "conv3x3_w8a8": [], "conv3x3_fold": []}
@@ -437,7 +462,8 @@ def phase_kernels(torch, F, ops):
         row = dict(case=name, shape=[b, h, lq, lk, d], dtype=dtype, causal=causal,
                    kernel=A.flash_plan(b, h, lq, lk, d, dt, torch.cuda.get_device_properties(0).multi_processor_count).kernel,
                    max_abs_err=err, mma_sync_max_abs_err=err_old, tol=tol, ms=ms, device_ms=device_ms(torch, run),
-                   mma_sync_ms=time_ms(torch, old), mma_sync_device_ms=device_ms(torch, old), plain_ms=plain,
+                   mma_sync_ms=time_ms(torch, old, YARDSTICK_MS),
+                   mma_sync_device_ms=device_ms(torch, old, *YARDSTICK_GRAPH), plain_ms=plain,
                    library_ms=time_ms(torch, lib_run), library_device_ms=device_ms(torch, lib_run), bound_ms=bms,
                    bound_by=by, per_path=per(STEPS))
         print("flash", json.dumps(row))
@@ -467,20 +493,32 @@ def phase_kernels(torch, F, ops):
         if not math.isfinite(err) or err > CONV_TOL:
             raise AssertionError(f"conv3x3 {name}: max_abs_err {err} > {CONV_TOL}")
         rows["conv3x3"].append(row)
-        # the dj-folded kernel (the mma.sync body): the same function, against its plain version and the
-        # 9-tap kernel, which is of another design (wgmma + TMA), held to CONV_TOL of each other
-        fold = Cv.conv3x3_fold(x, wk, bias)
+        # the dj-folded kernel (wgmma + TMA, one x box for the three dj taps): the same function, against
+        # its plain version and the 9-tap kernel, held to CONV_TOL of each other; beside it the previous
+        # design (the mma.sync implicit GEMM, `kernel="mma_sync"`) on the same inputs, the yardstick
+        fold_run = lambda: Cv.conv3x3_fold(x, wk, bias)  # noqa: E731
+        fold_old = lambda: Cv.conv3x3_fold(x, wk, bias, kernel="mma_sync")  # noqa: E731
+        fold = fold_run()
         torch.cuda.synchronize()
-        err_f = max(max_err(fold, Cv.conv3x3_fold_plain(x, wk, bias)), max_err(fold, ref))
+        fold_ref = Cv.conv3x3_fold_plain(x, wk, bias)
+        err_f = max(max_err(fold, fold_ref), max_err(fold, ref))
         err_k = max_err(fold, out)
-        row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err_f, vs_conv3x3_kernel=err_k, tol=CONV_TOL,
-                   ms=time_ms(torch, lambda: Cv.conv3x3_fold(x, wk, bias)),
-                   device_ms=device_ms(torch, lambda: Cv.conv3x3_fold(x, wk, bias)),
+        err_old = max_err(fold_old(), fold_ref)
+        fp = Cv.conv3x3_fold_plan(b, hh, ww, c, co, sms)
+        fold_ms, fold_dev = time_ms(torch, fold_run), device_ms(torch, fold_run)
+        row = dict(case=name, shape=[b, hh, ww, c, co],
+                   plan=dict(box=[fp.th, fp.tw], x_box=list(fp.x_box), bn=fp.bn, ctas=fp.ctas, k_slices=fp.k_slices,
+                             stages=[fp.a_stages, fp.b_stages]),
+                   max_abs_err=err_f, vs_conv3x3_kernel=err_k, mma_sync_max_abs_err=err_old, tol=CONV_TOL,
+                   ms=fold_ms, device_ms=fold_dev, mma_sync_ms=time_ms(torch, fold_old, YARDSTICK_MS),
+                   mma_sync_device_ms=device_ms(torch, fold_old, *YARDSTICK_GRAPH),
                    plain_ms=time_ms(torch, lambda: Cv.conv3x3_fold_plain(x, wk, bias), 20.0),
-                   library_ms=lib, conv3x3_ms=ms, bound_ms=bms, bound_by=by, per={"fold": per})
+                   library_ms=lib, conv3x3_ms=ms, conv3x3_device_ms=dev_ms, bound_ms=bms, bound_by=by,
+                   bound_share=bms / fold_ms, bound_share_device=bms / fold_dev, per={"fold": per})
         print("conv3x3_fold", json.dumps(row))
-        if not max(err_f, err_k) <= CONV_TOL:
-            raise AssertionError(f"conv3x3_fold {name}: max_abs_err {err_f}, against the 9-tap kernel {err_k}")
+        if not max(err_f, err_k, err_old) <= CONV_TOL:
+            raise AssertionError(f"conv3x3_fold {name}: max_abs_err {err_f} (mma.sync {err_old}), against the "
+                                 f"9-tap kernel {err_k}")
         rows["conv3x3_fold"].append(row)
         # W8A8: the int8 kernel on the quantised operands, bit for bit against its plain version (f64
         # sums on the card: exact), and the whole route (quantisation + kernel) against its plain version
@@ -593,7 +631,8 @@ def phase_train_kernels(torch, F, A):
                 o_old, lse_old = old()
                 row.update(kernel=A.flash_plan(b, h, lq, lk, d, dt, torch.cuda.get_device_properties(0).multi_processor_count).kernel,
                            mma_sync_errs={"o": max_err(o_old, o_ref), "lse": max_err(lse_old, lse_ref)},
-                           mma_sync_ms=time_ms(torch, old), mma_sync_device_ms=device_ms(torch, old),
+                           mma_sync_ms=time_ms(torch, old, YARDSTICK_MS),
+                           mma_sync_device_ms=device_ms(torch, old, *YARDSTICK_GRAPH),
                            library_device_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                                ql, kl, vl, is_causal=causal)))
                 if not (row["mma_sync_errs"]["o"] <= errs["o"][1] and row["mma_sync_errs"]["lse"] <= errs["lse"][1]):
@@ -607,7 +646,8 @@ def phase_train_kernels(torch, F, A):
                 sms = torch.cuda.get_device_properties(0).multi_processor_count
                 row.update(kernel=A.flash_bwd_plan(b, h, lq, lk, d, dt, sms, mode=BWD_MODE[kernel]).kernel,
                            mma_sync_errs={k_: max_err(got, ref) for k_, got, ref in zip(errs, outs_old, refs[kernel])},
-                           mma_sync_ms=time_ms(torch, old), mma_sync_device_ms=device_ms(torch, old),
+                           mma_sync_ms=time_ms(torch, old, YARDSTICK_MS),
+                           mma_sync_device_ms=device_ms(torch, old, *YARDSTICK_GRAPH),
                            library_device_ms=lib_bwd_device)
                 if not all(row["mma_sync_errs"][k_] <= errs[k_][1] for k_ in errs):
                     raise AssertionError(f"{kernel} {name}: the mma.sync kernel's {row['mma_sync_errs']}")
@@ -734,15 +774,35 @@ def phase_ae_kernels(torch, F, Cv, Gn):
             y = F.group_norm(xn, groups, w, bias, 1e-6)
             return F.silu(y) if silu else y
 
-        # bytes: x read once and y written once (the kernel itself reads x twice), w and b
+        # the previous design, three launches (`kernel="slabs"`), on the same inputs: the yardstick
+        slabs_run = lambda: Gn.group_norm_silu(x, w, bias, kernel="slabs", **kw)  # noqa: E731
+        err_old = max_err(slabs_run(), ref)
+        # bytes: x read once and y written once, w and b
         bms, by = bound_ms(0.0, x.element_size() * (2.0 * x.numel() + 2.0 * c))
-        row = dict(case=name, shape=list(shape), groups=groups, dtype=dtype, silu=silu, max_abs_err=err, tol=tol,
-                   ms=time_ms(torch, lambda: Gn.group_norm_silu(x, w, bias, **kw), 20.0),
-                   device_ms=device_ms(torch, lambda: Gn.group_norm_silu(x, w, bias, **kw)),
-                   plain_ms=time_ms(torch, lambda: Gn.group_norm_silu_plain(x, w, bias, **kw), 10.0),
-                   library_ms=time_ms(torch, lib, 20.0), bound_ms=bms, bound_by=by, per=per)
+        gp = Gn.gn_plan(shape[0], math.prod(shape[1:-1]), c, groups, x.element_size(),
+                        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        run = lambda: Gn.group_norm_silu(x, w, bias, **kw)  # noqa: E731
+        # the one launch captured in a CUDA graph and replayed: the same bits
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, out):
+            raise AssertionError(f"group_norm {name}: a CUDA-graph replay differs from the launch")
+        del graph, replayed
+        ms, dev = time_ms(torch, run, 10.0), device_ms(torch, run, 10, 3)
+        row = dict(case=name, shape=list(shape), groups=groups, dtype=dtype, silu=silu,
+                   plan=dict(route=gp.route, per_sample=gp.per_sample, rows=gp.rows, keep=gp.keep,
+                             samples_per_wave=gp.spw, ctas=gp.ctas, smem=gp.smem),
+                   max_abs_err=err, slabs_max_abs_err=err_old, tol=tol, ms=ms, device_ms=dev,
+                   slabs_ms=time_ms(torch, slabs_run, YARDSTICK_MS),
+                   slabs_device_ms=device_ms(torch, slabs_run, *YARDSTICK_GRAPH),
+                   plain_ms=time_ms(torch, lambda: Gn.group_norm_silu_plain(x, w, bias, **kw), 5.0),
+                   library_ms=time_ms(torch, lib, 10.0), bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   bound_share_device=bms / dev, per=per)
         print("group_norm", json.dumps(row))
-        check("group_norm", name, err, tol)
+        check("group_norm", name, max(err, err_old), tol)
         rows["group_norm"].append(row)
     return rows
 
@@ -1035,8 +1095,8 @@ def main() -> int:
             ptxas_ms = sum(float(ln.split("Compile time = ")[1].split(" ")[0])
                            for ln in log.read_text().splitlines() if "Compile time = " in ln)
             print(f"ptxas[{name}] {len(regs)} kernels, registers {min(regs, default=0)}..{max(regs, default=0)}, "
-                  f"{len(spills)} with spills, {serial} with wgmma serialised, ptxas {ptxas_ms:.0f} ms, "
-                  f"library built in {secs[name]:.1f} s")
+                  f"{len(spills)} with spills{spilled(log.read_text()) if spills else ''}, {serial} with wgmma "
+                  f"serialised, ptxas {ptxas_ms:.0f} ms, library built in {secs[name]:.1f} s")
             if name in BWD_MODE:
                 regs90 = bwd_registers(log.read_text())
                 print(f"ptxas[{name}] wgmma + TMA backward kernels (loop, K steps, consumers): registers at launch, "
@@ -1076,6 +1136,20 @@ def main() -> int:
                 print(f"yardstick {name} {r['case']}: device ms sm90 {r['device_ms']:.4f}, mma.sync "
                       f"{r['mma_sync_device_ms']:.4f} ({r['mma_sync_device_ms'] / r['device_ms']:.2f}x), "
                       f"SDPA {r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    for r in rows["conv3x3_fold"]:
+        print(f"yardstick conv3x3_fold {r['case']}: plan {json.dumps(r['plan'])}, ms {r['ms']:.4f} (device "
+              f"{r['device_ms']:.4f}), mma.sync {r['mma_sync_ms']:.4f} (device {r['mma_sync_device_ms']:.4f}, "
+              f"{r['mma_sync_device_ms'] / r['device_ms']:.2f}x), 9-tap conv3x3 device {r['conv3x3_device_ms']:.4f}, "
+              f"cuDNN {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}, "
+              f"{r['bound_share_device']:.0%} of the device time)")
+    for path in ("txt2img", "finetune", "ae"):
+        on = [r for r in rows["group_norm"] if r["per"].get(path, 0) > 0]
+        tot = {k: sum(r[k] * r["per"][path] for r in on) for k in ("ms", "device_ms", "slabs_ms", "slabs_device_ms",
+                                                                   "library_ms", "bound_ms")}
+        print(f"yardstick group_norm per {path} ({sum(r['per'][path] for r in on)} calls): ms {tot['ms']:.3f} (device "
+              f"{tot['device_ms']:.3f}), slabs {tot['slabs_ms']:.3f} (device {tot['slabs_device_ms']:.3f}), "
+              f"F.group_norm + F.silu {tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} (bytes, "
+              f"{tot['bound_ms'] / tot['device_ms']:.0%} of the device time)")
     for name in BWD_MODE:
         for r in rows[name]:
             print(f"yardstick {name} {r['case']}: plan {r['kernel']}, device ms {r['device_ms']:.4f}, mma.sync "
@@ -1527,8 +1601,9 @@ def main() -> int:
         def totals(path: str, cases=cases) -> dict:
             on_path = [r for r in cases if r["per"].get(path, 0) > 0]
             out = {key: sum(r[key] * r["per"][path] for r in on_path) for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
-            # the flash kernels' yardsticks in the same run: the mma.sync kernel and SDPA's device time
-            for key in ("mma_sync_ms", "mma_sync_device_ms", "library_device_ms"):
+            # the yardsticks in the same run: the previous designs (the mma.sync kernels, GroupNorm's three
+            # launches) and SDPA's device time
+            for key in ("mma_sync_ms", "mma_sync_device_ms", "library_device_ms", "slabs_ms", "slabs_device_ms"):
                 if all(key in r for r in on_path):
                     out[key] = sum(r[key] * r["per"][path] for r in on_path)
             # no single PyTorch call computes W8A8: its rows carry the unquantised convs' times instead

@@ -41,10 +41,10 @@ GROUPS = [
     ("flash backward (port kernels)", ("flash_bwd_kernel", "flash_bwd_kv_outer_kernel", "flash_bwd_q_outer_kernel")),
     ("flash forward (port kernels)", ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "flash_fwd_chunked_kernel")),
     ("conv3x3_w8a8 (port kernel)", ("epidequant",)),
-    ("conv3x3_fold (port kernel)", ("taps)1", "kfold")),
+    ("conv3x3_fold (port kernel)", ("conv3x3_fold_kernel", "taps)1", "kfold")),
     ("conv3x3 (port kernel)", ("conv3x3_fwd_kernel",)),
     ("conv3x3_wgrad (port kernels)", ("wgrad_kernel", "wgrad_reduce_kernel")),
-    ("group_norm (port kernels)", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("group_norm (port kernels)", ("gn_grid_kernel", "gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("cuDNN / library conv", ("conv", "implicit_gemm", "xmma_fprop", "fprop", "dgrad", "wgrad")),
     ("GEMM (Linear)", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),

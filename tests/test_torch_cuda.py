@@ -352,3 +352,91 @@ def test_fold_kernel_matches_plain(cuda, shape, dtype) -> None:
     assert (C.conv3x3_fold.launches, C.conv3x3.launches) == (counts[0] + 1, counts[1])
     _close(out, C.conv3x3_fold_plain(x, wt, bias), 2.0**-6)
     _close(out, C.conv3x3(x, wt, bias), 2.0**-6)
+
+
+def _kernels_launched(fn, key: str) -> int:
+    """How many kernels whose name holds `key` one call of `fn` launches on the card (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if key in e.name and e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+# (shape, groups, dtype, route): the UNet's 64^2 x 960 at batch 2 and its 16^2 x 2560 (on chip), f32 and fp16 on
+# chip, an unvectorised width, and the VAE decoder's 512^2 x 128 and the ae step's 256^2 x 128 (streamed)
+GN_ROUTES = [
+    ((2, 64, 64, 960), 32, torch.bfloat16, "on_chip"), ((2, 16, 16, 2560), 32, torch.bfloat16, "on_chip"),
+    ((2, 32, 32, 320), 32, torch.float16, "on_chip"), ((2, 17, 13, 96), 32, torch.float32, "on_chip"),
+    ((2, 9, 7, 36), 4, torch.float16, "on_chip"), ((1, 512, 512, 128), 32, torch.bfloat16, "streamed"),
+    ((8, 256, 256, 128), 32, torch.bfloat16, "streamed"),
+]
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape,groups,dtype,route", GN_ROUTES)
+def test_group_norm_one_launch_on_both_routes(cuda, silu, shape, groups, dtype, route) -> None:
+    """One kernel launch per call on either route, within the limit of the plain version,
+    the same bits on a second launch and from a CUDA-graph replay."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    w = (1 + 0.2 * torch.randn((shape[-1],), generator=cuda, device="cuda")).to(dtype)
+    b = (0.2 * torch.randn((shape[-1],), generator=cuda, device="cuda")).to(dtype)
+    kw = dict(num_groups=groups, apply_silu=silu)
+    spatial = x.numel() // (shape[0] * shape[-1])
+    assert G.gn_plan(shape[0], spatial, shape[-1], groups, x.element_size()).route == route
+    before = G.group_norm_silu.launches
+    out = G.group_norm_silu(x, w, b, **kw)
+    assert G.group_norm_silu.launches == before + 1
+    _close(out, G.group_norm_silu_plain(x, w, b, **kw), 2.0**-16 if dtype == torch.float32 else 2.0**-6)
+    assert torch.equal(out, G.group_norm_silu(x, w, b, **kw))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = G.group_norm_silu(x, w, b, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, out)
+    assert _kernels_launched(lambda: G.group_norm_silu(x, w, b, **kw), "gn_") == 1
+
+
+def test_group_norm_slabs_yardstick_is_reachable(cuda) -> None:
+    """`kernel="slabs"`: the previous design, three launches, the same function."""
+    x = torch.randn((2, 32, 32, 640), generator=cuda, device="cuda").bfloat16()
+    w, b = torch.ones(640, device="cuda"), torch.zeros(640, device="cuda")
+    before = G.group_norm_silu.launches
+    out = G.group_norm_silu(x, w, b, num_groups=32, apply_silu=True, kernel="slabs")
+    assert G.group_norm_silu.launches == before + 1
+    _close(out, G.group_norm_silu_plain(x, w, b, num_groups=32, apply_silu=True), 2.0**-6)
+    slabs = lambda: G.group_norm_silu(x, w, b, num_groups=32, apply_silu=True, kernel="slabs")  # noqa: E731
+    assert _kernels_launched(slabs, "gn_") == 3
+    with pytest.raises(ValueError):
+        G.group_norm_silu(x, w, b, num_groups=32, kernel="nope")
+
+
+# the VAE decoder's conv shapes at 512px (batch 1), and C % 64 != 0 (40 and 72 channels: each dj tap padded to a
+# 64-channel slice on its own) on both x-box layouts (2 x 64 and 1 x 128 pixels)
+FOLD_SHAPES = [
+    (1, 64, 64, 512, 512), (1, 128, 128, 512, 512), (1, 256, 256, 512, 512), (1, 256, 256, 512, 256),
+    (1, 256, 256, 256, 256), (1, 512, 512, 256, 256), (1, 512, 512, 256, 128), (1, 512, 512, 128, 128),
+    (2, 33, 47, 40, 24), (1, 130, 260, 72, 136),
+]
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_fold_wgmma_kernel_and_its_yardstick_match_plain(cuda, shape) -> None:
+    b, h, w, c, co = shape
+    x = torch.randn((b, h, w, c), generator=cuda, device="cuda").bfloat16()
+    wt = (torch.randn((co, 3, 3, c), generator=cuda, device="cuda") * (9 * c) ** -0.5).bfloat16()
+    bias = (torch.randn((co,), generator=cuda, device="cuda") * 0.1).bfloat16()
+    assert C.conv3x3_fold_plan(b, h, w, c, co).kernel == "sm90"
+    ref = C.conv3x3_fold_plain(x, wt, bias)
+    before = C.conv3x3_fold.launches
+    out = C.conv3x3_fold(x, wt, bias)
+    old = C.conv3x3_fold(x, wt, bias, kernel="mma_sync")
+    assert C.conv3x3_fold.launches == before + 2
+    _close(out, ref, 2.0**-6)
+    _close(old, ref, 2.0**-6)
+    assert torch.equal(out, C.conv3x3_fold(x, wt, bias))  # no atomics: the same bits again
+    assert _kernels_launched(lambda: C.conv3x3_fold(x, wt, bias), "conv3x3_fold_kernel") == 1
+    with pytest.raises(ValueError):
+        C.conv3x3_fold(x, wt, bias, kernel="nope")
