@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the wgmma + TMA kernels (sm_90a): the 3x3
-// conv kernels `conv3x3.cu`, `conv3x3_wgrad.cu` and `conv3x3_fold.cu`, the
+// conv kernels `conv3x3.cu`, `conv3x3_wgrad.cu`, `conv3x3_fold.cu` and the
+// int8 `conv3x3_w8a8.cu`, the
 // flash-attention forward `flash_fwd_sm90.cuh` and backward
 // `flash_bwd_sm90.cuh`, and the bulk loads of `group_norm.cu`. TMA tile
 // loads that complete on shared-memory mbarriers, bulk copies and bulk
@@ -112,6 +113,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
       "[%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a box of shared memory (laid out as the map's box, with its swizzle) to the 4-D map's box at the coordinates,
+// as one bulk group of its own: TMA writes whole lines and only the elements inside the tensor
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -245,6 +257,13 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for int32 accumulators (the s8 wgmma)
+template <int R>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // the same for the A fragment registers of an RS wgmma: they must hold their
@@ -457,10 +476,70 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b
   }
 }
 
+// d(64 x N, s32) (+)= A(64 x 32) B(32 x N), int8 x int8, for one warpgroup:
+// both operands K-major in shared memory (the 8-bit form takes no transpose
+// and no scale immediates). The int32 sums wrap, they do not saturate (no
+// .satfinite): a caller keeps them exact by bounding K.
+#define CFLEARN_WGMMA_S8_N128(NAME) \
+  __device__ __forceinline__ void NAME(int* d, uint64_t a, uint64_t b, int scale_d) { \
+    asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " \
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, " \
+      "%64, %65, p;\n}\n" \
+      : \
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), \
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]) \
+      : "l"(a), "l"(b), "r"(scale_d)); \
+  }
+
+#define CFLEARN_WGMMA_S8_N256(NAME) \
+  __device__ __forceinline__ void NAME(int* d, uint64_t a, uint64_t b, int scale_d) { \
+    asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " \
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, " \
+      "%128, %129, p;\n}\n" \
+      : \
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), \
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), \
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), \
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), \
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), \
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), \
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), \
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), \
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), \
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127]) \
+      : "l"(a), "l"(b), "r"(scale_d)); \
+  }
+
+CFLEARN_WGMMA_S8_N128(wgmma_s8_n128)
+CFLEARN_WGMMA_S8_N256(wgmma_s8_n256)
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b, int scale_d = 1) {
+  static_assert(N == 128 || N == 256, "wgmma s8 N");
+  if constexpr (N == 128) wgmma_s8_n128(d, a, b, scale_d); else wgmma_s8_n256(d, a, b, scale_d);
+}
+
 // ---- host: tensor maps ------------------------------------------------------
 
 template <typename T>
 constexpr CUtensorMapDataType tma_dtype() {
+  if constexpr (std::is_same<T, int8_t>::value) return CU_TENSOR_MAP_DATA_TYPE_UINT8;  // TMA copies bytes
   return std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
 
@@ -487,13 +566,14 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int r
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// (B, H, W, C) channels-last 16-bit tensor as a 4-D map (C, W, H, B), box (64, tw, th, 1)
+// (B, H, W, C) channels-last tensor as a 4-D map (C, W, H, B), box (one 128-byte row of channels: 64 16-bit or
+// 128 8-bit values, tw, th, 1)
 template <typename T>
 cudaError_t encode_nhwc(CUtensorMap* map, const void* base, int B, int H, int W, int C, int th, int tw) {
   const uint64_t dims[4] = {uint64_t(C), uint64_t(W), uint64_t(H), uint64_t(B)};
   const uint64_t row = uint64_t(C) * sizeof(T);
   const uint64_t strides[3] = {row, row * W, row * W * H};
-  const uint32_t box[4] = {uint32_t(BOX_C), uint32_t(tw), uint32_t(th), 1};
+  const uint32_t box[4] = {uint32_t(ROW_BYTES / sizeof(T)), uint32_t(tw), uint32_t(th), 1};
   return encode_map(map, tma_dtype<T>(), 4, base, dims, strides, box);
 }
 

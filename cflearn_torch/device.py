@@ -28,3 +28,10 @@ SM_COUNT = 132  # an H100 SXM's; the kernel wrappers plan with the card's own co
 def sm_count(index: int) -> int:
     """SMs of CUDA device `index` (a CUDA tensor's `device.index`)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The raw `cudaStream_t` of the current stream on CUDA `device`, for a kernel's C interface: what
+    `torch.cuda.current_stream(device).cuda_stream` gives, without building a `Stream` object (a few
+    microseconds a call, which the W8A8 route's two launches a conv pay on the host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

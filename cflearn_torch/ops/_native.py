@@ -34,6 +34,7 @@ SOURCES = {
     "group_norm": "group_norm.cu",
     "conv3x3_w8a8": "conv3x3_w8a8.cu",
     "conv3x3_fold": "conv3x3_fold.cu",
+    "quantize_w8a8": "quantize_w8a8.cu",
 }
 _HEADERS = (
     "mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "sm90.cuh", "flash_fwd_sm90.cuh",
@@ -79,8 +80,12 @@ _SIGNATURES = {
         "cflearn_group_norm_slabs",
         [_I, _I] + [_P] * 6 + [_I, _L, _I, _I, ctypes.c_float, _I, _I, _L, _P],
     ),
-    # output dtype, x (int8), w (int8), scale (f32), bias, y, B, H, W, C, Co, stream
-    "conv3x3_w8a8": ("cflearn_conv3x3_w8a8", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
+    # output dtype, x (int8), w (int8), scale (f32), bias, y, B, H, W, C, Co, box rows, box columns, CTAs, stream
+    "conv3x3_w8a8": ("cflearn_conv3x3_w8a8", [_I] + [_P] * 5 + [_I] * 8 + [_P]),
+    # the mma.sync yardstick: output dtype, x, w, scale, bias, y, B, H, W, C, Co, stream
+    "conv3x3_w8a8_mma_sync": ("cflearn_conv3x3_w8a8_mma_sync", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
+    # dtype, x, w, x8, w8, scale, per-CTA maxima, 16-byte chunks of x, Co, chunks of a weight row, CTAs, stream
+    "quantize_w8a8": ("cflearn_quantize_w8a8", [_I] + [_P] * 6 + [_L, _I, _I, _I, _P]),
     # dtype, x, w, bias, y, B, H, W, C, Co, box rows, box columns, output channels per tile, CTAs, stream
     "conv3x3_fold": ("cflearn_conv3x3_fold_fwd", [_I, _P, _P, _P, _P] + [_I] * 9 + [_P]),
     # the mma.sync yardstick: dtype, x, w, bias, y, B, H, W, C, Co, stream
@@ -90,6 +95,7 @@ _SIGNATURES = {
 _LIBRARY_OF = {
     "group_norm_slabs": "group_norm",
     "conv3x3_fold_mma_sync": "conv3x3_fold",
+    "conv3x3_w8a8_mma_sync": "conv3x3_w8a8",
 }
 
 _lock = threading.Lock()

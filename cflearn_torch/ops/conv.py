@@ -27,12 +27,18 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   previous design, the mma.sync implicit GEMM, stays reachable as the
   yardstick through `kernel="mma_sync"`. `conv3x3(..., fold=None)` reads
   the module default `FOLD` (False, as the JAX package defaults `fold`).
-* `conv3x3_w8a8` — the dynamically quantised W8A8 conv: `quantize_activation`
-  (per tensor) and `quantize_weight` (per output channel) in plain PyTorch, as
-  the JAX package quantises outside its kernel, then `conv3x3_int8`, the
-  wrapper of the int8 kernel (`csrc/conv3x3_w8a8.cu`), which replaces
-  `_conv3x3_kernel_q`. `conv3x3_int8_plain` / `conv3x3_w8a8_plain` are the
-  plain versions: the int8 taps summed exactly, then the kernel's epilogue.
+* `conv3x3_w8a8` — the dynamically quantised W8A8 conv: `quantize_w8a8`, the
+  wrapper of the one-launch quantiser (`csrc/quantize_w8a8.cu`: the
+  per-tensor activation scale, the per-output-channel weight scales, both
+  int8 tensors and the combined scale), as the JAX package quantises outside
+  its kernel, then `conv3x3_int8`, the wrapper of the int8 kernel
+  (`csrc/conv3x3_w8a8.cu`: s8 wgmma fed by TMA, see `conv3x3_w8a8_plan`),
+  which replaces `_conv3x3_kernel_q`. `w8a8_operands` (`quantize_activation`
+  and `quantize_weight`) and `conv3x3_int8_plain` / `conv3x3_w8a8_plain` are
+  the plain versions: the same quantisation, the int8 taps summed exactly,
+  then the kernel's epilogue. The previous design of the int8 kernel, the
+  mma.sync implicit GEMM, stays reachable as the yardstick through
+  `kernel="mma_sync"`.
 * `use_kernel_conv` / `conv_call` — the dispatcher with the predicates of
   the JAX package's `use_pallas_conv` and `_shape_wins`: bf16/fp16, C and
   Co >= 64, and H*W >= 128^2 or the pinned (64, 64, 512, 512) shape. Every
@@ -40,11 +46,11 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
   `quantized=True` (default `W8A8_DEFAULT`, from `CFLEARN_TORCH_CONV_W8A8`)
   sends the routed convs through W8A8 instead.
 
-* `conv3x3_plan` / `wgrad_plan` / `conv3x3_fold_plan` — the host's tile
-  planner of the three wgmma kernels: which spatial box of pixels a tile is,
-  how many output channels it takes, how many CTAs run, how K is split and
-  (the fold) its x boxes and rings. Plain Python, so that the CPU tests hold
-  its coverage and TMA's box limits.
+* `conv3x3_plan` / `wgrad_plan` / `conv3x3_fold_plan` / `conv3x3_w8a8_plan`
+  — the host's tile planner of the four wgmma kernels: which spatial box of
+  pixels a tile is, how many output channels it takes, how many CTAs run, how
+  K is split and (the fold) its x boxes and rings. Plain Python, so that the
+  CPU tests hold its coverage and TMA's box limits.
 
 Tensors are NHWC; weights are the port's OIHW, and (Co, 3, 3, C) at the
 kernels (where the JAX package has (3, 3, C, Co)).
@@ -58,7 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import SM_COUNT, sm_count
+from ..device import SM_COUNT, sm_count, stream_ptr
 from . import _native
 
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
@@ -274,6 +280,42 @@ def conv3x3_fold_plan(
                     k_slices, FOLD_A_STAGES, b_stages, smem)
 
 
+# the int8 kernel's tiles (`csrc/conv3x3_w8a8.cu`): 128 int8 channels fill the 128-byte swizzled row of a box; a
+# tile is 128 pixels by 128 output channels, owned by one of two ping-ponged consumer warpgroups, each of which
+# stages its dequantised 16-bit output tile in shared memory for a TMA store
+W8A8_BOX_CHANNELS = 128
+W8A8_BN = 128
+W8A8_STAGES = 5
+W8A8_OUT_BYTES = CONV_PIXELS * W8A8_BN * 2
+
+
+class W8A8Plan(NamedTuple):
+    th: int  # box rows of an output tile
+    tw: int  # box columns
+    bn: int  # output channels per tile
+    m_tiles: int  # pixel tiles over the batch
+    n_tiles: int  # output-channel tiles
+    ctas: int  # CTAs: persistent, each walking tiles `ctas` apart, its consumers every other one
+    k_slices: int  # 128-channel slices of each tap (zero past C)
+    stages: int  # (x box, weight box) stages in the ring
+    smem: int  # dynamic shared memory bytes of a CTA: the ring, two staged output tiles, the barriers
+
+
+@functools.lru_cache(maxsize=1024)
+def conv3x3_w8a8_plan(b: int, h: int, w: int, c: int, co: int, sms: int = SM_COUNT) -> W8A8Plan:
+    """The s8 wgmma kernel's tiles at x (b, h, w, c) -> co channels: a
+    128-pixel box (`pixel_box`) by 128 output channels, one CTA an SM walking
+    them. (The mma.sync yardstick, `conv3x3_int8(kernel="mma_sync")`, plans
+    its own tiles in `conv3x3_igemm.cuh`.)"""
+    th, tw = pixel_box(h, w, CONV_PIXELS)
+    m_tiles = b * _cdiv(h, th) * _cdiv(w, tw)
+    n_tiles = _cdiv(co, W8A8_BN)
+    stage = (CONV_PIXELS + W8A8_BN) * W8A8_BOX_CHANNELS
+    smem = W8A8_STAGES * stage + 2 * W8A8_OUT_BYTES + 2 * W8A8_STAGES * 8 + SWIZZLE_ATOM
+    return W8A8Plan(th, tw, W8A8_BN, m_tiles, n_tiles, min(m_tiles * n_tiles, sms), _cdiv(c, W8A8_BOX_CHANNELS),
+                    W8A8_STAGES, smem)
+
+
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
@@ -481,14 +523,73 @@ def conv3x3_w8a8_plain(
     return conv3x3_int8_plain(*w8a8_operands(x, w_ohwi), bias, x.dtype)
 
 
+# the quantiser's CTAs (`csrc/quantize_w8a8.cu`): 512 threads, two an SM, all resident (one grid barrier)
+QUANT_THREADS = 512
+QUANT_CTAS_PER_SM = 2
+
+
+def quantize_ctas(n: int, co: int, sms: int = SM_COUNT) -> int:
+    """The quantiser's cooperative grid for an activation of `n` values and
+    `co` weight rows: two CTAs an SM, fewer where the chunks of 8 values and
+    the rows give them less to do than one chunk a thread or one row a CTA."""
+    return max(1, min(QUANT_CTAS_PER_SM * sms, max(_cdiv(n // 8, QUANT_THREADS), co)))
+
+
+def quantize_w8a8(x: torch.Tensor, w_ohwi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`w8a8_operands` — (int8 x, int8 w, the (Co,) f32 combined scale
+    s_x * s_w) — bit for bit. CPU tensors take the plain version; CUDA
+    tensors launch the one-launch quantiser (bf16 / fp16 x and w of one
+    dtype, C % 8 == 0) or raise. Nothing leaves the device."""
+    if x.device.type == "cpu":
+        return w8a8_operands(x, w_ohwi)
+    name = "quantize_w8a8"
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in _DTYPES or w_ohwi.dtype != x.dtype:
+        raise TypeError(f"{name} kernel takes bf16/fp16 x and w of one dtype; got {x.dtype}, {w_ohwi.dtype}")
+    c, co = x.shape[-1], w_ohwi.shape[0]
+    if x.ndim != 4 or tuple(w_ohwi.shape) != (co, 3, 3, c) or c % 8 != 0:
+        raise ValueError(f"{name} kernel takes x (B, H, W, C), w (Co, 3, 3, C), C % 8 == 0; got x "
+                         f"{tuple(x.shape)} w {tuple(w_ohwi.shape)}")
+    x, w_ohwi = x.contiguous(), w_ohwi.contiguous()
+    ctas = quantize_ctas(x.numel(), co, sm_count(x.device.index))
+    x8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    w8 = torch.empty(w_ohwi.shape, dtype=torch.int8, device=x.device)
+    # the scale and, past it, the CTAs' partial maxima (scratch): one allocation, as the host's time counts here
+    scratch = torch.empty((co + ctas,), dtype=torch.float32, device=x.device)
+    scale = scratch[:co]
+    fn = _native.library(name)
+    err = fn(
+        _DTYPES[x.dtype], x.data_ptr(), w_ohwi.data_ptr(), x8.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+        scratch.data_ptr() + 4 * co, x.numel() // 8, co, 9 * c // 8, ctas, stream_ptr(x.device),
+    )
+    _native.check(err, name)
+    _QUANT_WRAPPER.launches += 1
+    return x8, w8, scale
+
+
+quantize_w8a8.launches = 0
+_QUANT_WRAPPER = quantize_w8a8
+
+
+def _w8a8_tiles(b: int, h: int, w: int, c: int, co: int, device: torch.device) -> Tuple[int, ...]:
+    """The s8 wgmma kernel's (box rows, box columns, CTAs) on `device`."""
+    p = conv3x3_w8a8_plan(b, h, w, c, co, sm_count(device.index))
+    return p.th, p.tw, p.ctas
+
+
 def conv3x3_int8(
-    x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype
+    x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+    *, kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """The int8 conv on quantised operands: x8 (B, H, W, C) int8, w8 (Co, 3,
     3, C) int8, scale (Co,) f32, bias (Co,) -> (B, H, W, Co) in `out_dtype`.
-    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16 /
-    fp16 out, C % 16 == 0, Co % 8 == 0, C <= W8A8_MAX_C) or raise. The launch
-    counts on `conv3x3_w8a8`."""
+    CPU tensors take the plain version; CUDA tensors launch the s8 wgmma +
+    TMA kernel (or `kernel="mma_sync"`, the previous design, as a yardstick;
+    bf16 / fp16 out, C % 16 == 0, Co % 8 == 0, C <= W8A8_MAX_C) or raise.
+    The launch counts on `conv3x3_w8a8`."""
+    if kernel not in (None, "sm90", "mma_sync"):
+        raise ValueError(f"conv3x3_int8: kernel {kernel!r} is not 'sm90' or 'mma_sync'")
     if x8.device.type == "cpu":
         return conv3x3_int8_plain(x8, w8, scale, bias, out_dtype)
     name = "conv3x3_w8a8"
@@ -502,11 +603,12 @@ def conv3x3_int8(
     x8, w8, scale = x8.contiguous(), w8.contiguous(), scale.contiguous()
     bias = None if bias is None else bias.contiguous()
     y = torch.empty((bsz, h, w, co), dtype=out_dtype, device=x8.device)
-    fn = _native.library(name)
+    plan = () if kernel == "mma_sync" else _w8a8_tiles(bsz, h, w, c, co, x8.device)
+    fn = _native.library(name + "_mma_sync" if kernel == "mma_sync" else name)
     err = fn(
         _DTYPES[out_dtype], x8.data_ptr(), w8.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
-        bsz, h, w, c, co, torch.cuda.current_stream(x8.device).cuda_stream,
+        bsz, h, w, c, co, *plan, stream_ptr(x8.device),
     )
     _native.check(err, name)
     _W8A8_WRAPPER.launches += 1
@@ -514,16 +616,17 @@ def conv3x3_int8(
 
 
 def conv3x3_w8a8(
-    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None
+    x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None, *, kernel: Optional[str] = None
 ) -> torch.Tensor:
     """Dynamically quantised W8A8 3x3 stride-1 SAME conv (the JAX package's
     `conv3x3_w8a8`): per-tensor activation scale, per-output-channel weight
     scale, the int8 kernel with its in-kernel dequantisation, out in x's
-    dtype. An inference route: on the card it refuses inputs that need a
-    gradient."""
+    dtype. On the card: one quantiser launch (`quantize_w8a8`) and one conv
+    launch (`kernel="mma_sync"`: the previous design), nothing else. An
+    inference route: on the card it refuses inputs that need a gradient."""
     if x.device.type == "cuda" and _needs_grad(x, w_ohwi, bias):
         raise RuntimeError("conv3x3_w8a8: the W8A8 route has no gradient; call it under torch.no_grad()")
-    return conv3x3_int8(*w8a8_operands(x, w_ohwi), bias, x.dtype)
+    return conv3x3_int8(*quantize_w8a8(x, w_ohwi), bias, x.dtype, kernel=kernel)
 
 
 conv3x3_w8a8.launches = 0

@@ -24,10 +24,15 @@ Phases, in order; any failure exits non-zero:
    do the three backward kernels, beside the mma.sync kernel of
    `flash_bwd.cuh`, with SDPA's backward timed by CUDA-graph replay too
    (`yardstick` lines).
-   The W8A8 int8 conv and the dj-folded conv at every VAE-decoder conv
-   shape, W8A8 bit for bit (its int32 sums are exact), with the bf16 cuDNN
-   conv and the bf16 conv kernel timed beside it as the unquantised conv it
-   stands in for; the flash forward at the ToMe-merged 64x64 shape. The
+   The W8A8 route and the dj-folded conv at every VAE-decoder conv shape:
+   the quantiser (one launch) bit for bit against `w8a8_operands` in bf16
+   and fp16, with its byte bound; the int8 conv (s8 wgmma + TMA) bit for
+   bit (its int32 sums are exact) in bf16 and fp16 out, with and without
+   bias, beside its previous design, the mma.sync kernel
+   (`kernel="mma_sync"`), with the bf16 cuDNN conv and the bf16 conv kernel
+   timed beside it as the unquantised conv it stands in for, the whole route
+   timed too, and a `yardstick` line of device ms per W8A8 decode; the flash
+   forward at the ToMe-merged 64x64 shape. The
    fold runs beside its previous design, the mma.sync kernel
    (`kernel="mma_sync"`), and GroupNorm beside its previous three-launch
    design (`kernel="slabs"`), each checked and timed on the same inputs;
@@ -45,8 +50,10 @@ Phases, in order; any failure exits non-zero:
 4. parity — one full-width UNet denoise and one VAE decode through the
    kernels against the same calls on the plain versions, on the card, held
    to the plain path's own drift under a one-ulp change of its input. Then
-   the lossless latents decoded again with W8A8 on (31 W8A8 launches, no
-   bf16 conv launch; PSNR >= 30 dB, SSIM >= 0.98 against the bf16 decode)
+   the lossless latents decoded again with W8A8 on (31 int8 conv launches
+   and 31 quantiser launches, no bf16 conv launch; PSNR >= 30 dB, SSIM >=
+   0.98 against the bf16 decode; its ms by event window beside the bf16 and
+   the dj-folded decodes)
    and with the dj-folded conv (31 fold launches; held to the bf16 decode
    within the parity factor times the VAE's one-ulp drift).
 5. train path — the full-width SD-1.5 UNet with f32 master parameters,
@@ -72,7 +79,8 @@ Phases, in order; any failure exits non-zero:
    (`ae_parity`; `scripts/ae_parity_runs.py` repeats it over seeds); then
    the same step twice with the split attention backward: bit-identical
    gradients.
-9. summary — a `{"kernels": [...]}` line (ten kernels), the paths' img/s
+9. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+   replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the card's name and power limit, and last `{"ok": true, "device": {...}}`.
    The per-shape rows also go to `chiprun_out/chip_smoke.json`.
@@ -291,14 +299,14 @@ MMA_SYNC_MS = {
     ("conv3x3_wgrad", "odd_3x33x47_64_136"): 0.0496,
 }
 REDESIGNED = ("conv3x3", "conv3x3_wgrad", "flash_attention", "flash_fwd_lse", "flash_bwd_fused", "flash_bwd_dq",
-              "flash_bwd_dkv", "conv3x3_fold", "group_norm")
+              "flash_bwd_dkv", "conv3x3_fold", "group_norm", "conv3x3_w8a8")
 # the backward kernels' planner mode
 BWD_MODE = {"flash_bwd_fused": "fused", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}
 # which path's launches and times a kernel's summary row reports; its other paths go under "other_paths"
 MAIN_PATH = {
     "flash_attention": "txt2img", "conv3x3": "txt2img", "flash_fwd_lse": "finetune", "flash_bwd_fused": "finetune",
     "flash_bwd_dq": "finetune", "flash_bwd_dkv": "finetune", "conv3x3_wgrad": "ae", "group_norm": "ae",
-    "conv3x3_w8a8": "w8a8", "conv3x3_fold": "fold",
+    "conv3x3_w8a8": "w8a8", "quantize_w8a8": "w8a8", "conv3x3_fold": "fold",
 }
 # floating-point operations per (q, k, d) triple: two products forward; five
 # in the fused backward; s, dp, dq in the dq kernel; s, dp, dv, dk in the dk.dv kernel
@@ -438,7 +446,7 @@ def phase_kernels(torch, F, ops):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev, bf16 = "cuda", torch.bfloat16
-    rows = {"flash_attention": [], "conv3x3": [], "conv3x3_w8a8": [], "conv3x3_fold": []}
+    rows = {"flash_attention": [], "conv3x3": [], "conv3x3_w8a8": [], "quantize_w8a8": [], "conv3x3_fold": []}
     for name, b, h, lq, lk, d, causal, dtype, per in FLASH_CASES:
         dt = getattr(torch, dtype)
         q = torch.randn((b, h, lq, d), generator=gen, device=dev).to(dt)
@@ -520,30 +528,73 @@ def phase_kernels(torch, F, ops):
             raise AssertionError(f"conv3x3_fold {name}: max_abs_err {err_f} (mma.sync {err_old}), against the "
                                  f"9-tap kernel {err_k}")
         rows["conv3x3_fold"].append(row)
-        # W8A8: the int8 kernel on the quantised operands, bit for bit against its plain version (f64
-        # sums on the card: exact), and the whole route (quantisation + kernel) against its plain version
-        x8, w8, scale = Cv.w8a8_operands(x, wk)
+        # W8A8, the quantiser: its one launch against `w8a8_operands` (x8, w8 and the combined scale), bit for bit,
+        # on the bf16 operands and on their fp16 copies
+        quant = lambda: Cv.quantize_w8a8(x, wk)  # noqa: E731
+        plain_quant = lambda: Cv.w8a8_operands(x, wk)  # noqa: E731
+        x8, w8, scale = plain_quant()
+        got = quant()
+        err_z = max(max_err(g, r) for g, r in zip(got, (x8, w8, scale)))
+        z_equal = all(torch.equal(g, r) for g, r in zip(got, (x8, w8, scale)))
+        x16, w16 = x.half(), wk.half()
+        z16_equal = all(torch.equal(g, r) for g, r in zip(Cv.quantize_w8a8(x16, w16), Cv.w8a8_operands(x16, w16)))
+        del got, x16, w16
+        # bytes: x and w read once, x8, w8 and the f32 scale written once (reading x again after the grid barrier
+        # is the kernel's own cost)
+        bms_z, by_z = bound_ms(0.0, 3 * (m * c + 9 * c * co) + 4 * co)
+        row = dict(case=name, shape=[b, hh, ww, c, co], ctas=Cv.quantize_ctas(m * c, co, sms), max_abs_err=err_z,
+                   bit_identical=z_equal, fp16_bit_identical=z16_equal, tol=0.0, ms=time_ms(torch, quant),
+                   device_ms=device_ms(torch, quant), plain_ms=time_ms(torch, plain_quant, 20.0),
+                   plain_device_ms=device_ms(torch, plain_quant, *YARDSTICK_GRAPH), library_ms=None, bound_ms=bms_z,
+                   bound_by=by_z, per={"w8a8": per})
+        row["bound_share_device"] = bms_z / row["device_ms"]
+        print("quantize_w8a8", json.dumps(row))
+        if err_z != 0.0 or not z_equal or not z16_equal:
+            raise AssertionError(f"quantize_w8a8 {name}: not bit-identical to w8a8_operands (max_abs_err {err_z}, "
+                                 f"fp16 {z16_equal})")
+        rows["quantize_w8a8"].append(row)
+        # the int8 kernel (s8 wgmma + TMA) on the quantised operands, bit for bit against its plain version (f64
+        # sums on the card: exact) in both output dtypes, with and without the bias, and so is its previous design
+        # (the mma.sync implicit GEMM, `kernel="mma_sync"`, the yardstick, timed beside it); then the whole route
+        # (quantiser + kernel) against its plain version
+        unequal = []
+        for dt in (bf16, torch.float16):
+            for bq in (bias.to(dt), None):
+                q_ref = Cv.conv3x3_int8_plain(x8, w8, scale, bq, dt)
+                for kernel in ("sm90", "mma_sync"):
+                    q = Cv.conv3x3_int8(x8, w8, scale, bq, dt, kernel=kernel)
+                    if not torch.equal(q, q_ref):
+                        unequal.append((kernel, str(dt), bq is not None, max_err(q, q_ref)))
         q = Cv.conv3x3_int8(x8, w8, scale, bias, bf16)
-        torch.cuda.synchronize()
         q_ref = Cv.conv3x3_int8_plain(x8, w8, scale, bias, bf16)
-        err_q = max_err(q, q_ref)
+        err_q = max(max_err(q, q_ref), max((u[-1] for u in unequal), default=0.0))
         whole_equal = torch.equal(Cv.conv3x3_w8a8(x, wk, bias), Cv.conv3x3_w8a8_plain(x, wk, bias))
+        run_q = lambda: Cv.conv3x3_int8(x8, w8, scale, bias, bf16)  # noqa: E731
+        old_q = lambda: Cv.conv3x3_int8(x8, w8, scale, bias, bf16, kernel="mma_sync")  # noqa: E731
+        route = lambda: Cv.conv3x3_w8a8(x, wk, bias)  # noqa: E731
+        qp = Cv.conv3x3_w8a8_plan(b, hh, ww, c, co, sms)
         # bytes: int8 x and w in, the f32 scale and the bias, bf16 out
         bms_q, by_q = bound_ms(2.0 * m * co * 9 * c, m * c + 9 * c * co + 4 * co + 2 * co + 2 * m * co, PEAK_INT8_OPS)
-        row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err_q, bit_identical=bool(torch.equal(q, q_ref)),
-                   route_bit_identical=whole_equal, tol=0.0,
-                   ms=time_ms(torch, lambda: Cv.conv3x3_int8(x8, w8, scale, bias, bf16)),
-                   device_ms=device_ms(torch, lambda: Cv.conv3x3_int8(x8, w8, scale, bias, bf16)),
-                   route_ms=time_ms(torch, lambda: Cv.conv3x3_w8a8(x, wk, bias)),
+        row = dict(case=name, shape=[b, hh, ww, c, co],
+                   plan=dict(box=[qp.th, qp.tw], bn=qp.bn, ctas=qp.ctas, tiles=qp.m_tiles * qp.n_tiles,
+                             k_slices=qp.k_slices, stages=qp.stages),
+                   max_abs_err=err_q, bit_identical=not unequal, unequal=unequal, route_bit_identical=whole_equal,
+                   tol=0.0, ms=time_ms(torch, run_q), device_ms=device_ms(torch, run_q),
+                   mma_sync_ms=time_ms(torch, old_q, YARDSTICK_MS),
+                   mma_sync_device_ms=device_ms(torch, old_q, *YARDSTICK_GRAPH),
+                   route_ms=time_ms(torch, route), route_device_ms=device_ms(torch, route),
                    plain_ms=time_ms(torch, lambda: Cv.conv3x3_int8_plain(x8, w8, scale, bias, bf16), 20.0),
                    library_ms=None, unquantised_cudnn_bf16_ms=lib, unquantised_conv3x3_kernel_ms=ms,
+                   unquantised_conv3x3_kernel_device_ms=dev_ms,
                    quantisation_error_rel=max_err(q, ref) / ref.float().abs().max().item(),
                    bound_ms=bms_q, bound_by=by_q, per={"w8a8": per})
+        row["bound_share_device"] = bms_q / row["device_ms"]
         print("conv3x3_w8a8", json.dumps(row))
-        if err_q != 0.0 or not row["bit_identical"] or not whole_equal:
-            raise AssertionError(f"conv3x3_w8a8 {name}: not bit-identical to its plain version (max_abs_err {err_q})")
+        if err_q != 0.0 or unequal or not whole_equal:
+            raise AssertionError(f"conv3x3_w8a8 {name}: not bit-identical to its plain version (max_abs_err {err_q}, "
+                                 f"{unequal}, route {whole_equal})")
         rows["conv3x3_w8a8"].append(row)
-        del x8, w8, q, q_ref, fold
+        del x8, w8, scale, q, q_ref, fold
     return rows
 
 
@@ -895,7 +946,7 @@ def rel_err(a, b) -> float:
 
 def reset_launches(A, Cv, Gn) -> None:
     Cv.conv3x3.launches = Cv.conv3x3_wgrad.launches = Gn.group_norm_silu.launches = 0
-    Cv.conv3x3_w8a8.launches = Cv.conv3x3_fold.launches = 0
+    Cv.conv3x3_w8a8.launches = Cv.quantize_w8a8.launches = Cv.conv3x3_fold.launches = 0
     A.flash_attention.launches = 0
     for name in TRAIN_KERNELS:
         getattr(A, name).launches = 0
@@ -904,7 +955,8 @@ def reset_launches(A, Cv, Gn) -> None:
 def read_launches(A, Cv, Gn) -> dict:
     out = {"flash_attention": A.flash_attention.launches, "conv3x3": Cv.conv3x3.launches,
            "conv3x3_wgrad": Cv.conv3x3_wgrad.launches, "group_norm": Gn.group_norm_silu.launches,
-           "conv3x3_w8a8": Cv.conv3x3_w8a8.launches, "conv3x3_fold": Cv.conv3x3_fold.launches}
+           "conv3x3_w8a8": Cv.conv3x3_w8a8.launches, "quantize_w8a8": Cv.quantize_w8a8.launches,
+           "conv3x3_fold": Cv.conv3x3_fold.launches}
     out.update({name: getattr(A, name).launches for name in TRAIN_KERNELS})
     return out
 
@@ -1142,6 +1194,19 @@ def main() -> int:
               f"{r['mma_sync_device_ms'] / r['device_ms']:.2f}x), 9-tap conv3x3 device {r['conv3x3_device_ms']:.4f}, "
               f"cuDNN {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}, "
               f"{r['bound_share_device']:.0%} of the device time)")
+    for r in rows["conv3x3_w8a8"]:
+        print(f"yardstick conv3x3_w8a8 {r['case']}: plan {json.dumps(r['plan'])}, device ms {r['device_ms']:.4f}, "
+              f"mma.sync {r['mma_sync_device_ms']:.4f} ({r['mma_sync_device_ms'] / r['device_ms']:.2f}x), bf16 "
+              f"conv3x3 {r['unquantised_conv3x3_kernel_device_ms']:.4f}, route {r['route_device_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}, {r['bound_share_device']:.0%} of the device time)")
+    on = {name: [r for r in rows[name] if r["per"].get("w8a8", 0) > 0] for name in ("conv3x3_w8a8", "quantize_w8a8")}
+    dec = {f"{name} {key}": sum(r[key] * r["per"]["w8a8"] for r in on[name])
+           for name, keys in (("conv3x3_w8a8", ("device_ms", "mma_sync_device_ms", "unquantised_conv3x3_kernel_device_ms",
+                                                "route_device_ms", "route_ms", "bound_ms")),
+                              ("quantize_w8a8", ("device_ms", "plain_device_ms", "bound_ms")))
+           for key in keys}
+    print(f"yardstick W8A8 per decode ({sum(r['per']['w8a8'] for r in on['conv3x3_w8a8'])} convs), device ms: "
+          f"{json.dumps(dec)}")
     for path in ("txt2img", "finetune", "ae"):
         on = [r for r in rows["group_norm"] if r["per"].get(path, 0) > 0]
         tot = {k: sum(r[k] * r["per"][path] for r in on) for k in ("ms", "device_ms", "slabs_ms", "slabs_device_ms",
@@ -1257,16 +1322,23 @@ def main() -> int:
                 torch.cuda.synchronize()
                 decodes[route] = (dec.float(), read_launches(A, Cv, Gn))
                 decodes[route + "_ms"] = time_ms(torch, lambda: model.decode(latents))
+                # the device's time alone: one decode captured in a CUDA graph and replayed
+                decodes[route + "_device_ms"] = device_ms(torch, lambda: model.decode(latents), 1, 3)
             finally:
                 setattr(Cv, attr, False)
         decodes["bf16_ms"] = time_ms(torch, lambda: model.decode(latents))
+        decodes["bf16_device_ms"] = device_ms(torch, lambda: model.decode(latents), 1, 3)
     w8a8_launches, fold_launches = decodes["w8a8"][1], decodes["fold"][1]
-    for route, kernel in (("w8a8", "conv3x3_w8a8"), ("fold", "conv3x3_fold")):
+    # a W8A8 conv is one quantiser launch and one int8 conv launch
+    for route, kernels in (("w8a8", ("conv3x3_w8a8", "quantize_w8a8")), ("fold", ("conv3x3_fold",))):
         got = decodes[route][1]
         want = dict.fromkeys(got, 0)
-        want.update({kernel: DECODER_CONVS, "flash_attention": 1, "group_norm": GN_PER_DECODE})
-        print(f"{route} decode: launches {json.dumps(got)}, {decodes[route + '_ms']:.2f} ms "
-              f"(bf16 9-tap decode {decodes['bf16_ms']:.2f} ms)")
+        want.update({"flash_attention": 1, "group_norm": GN_PER_DECODE}, **dict.fromkeys(kernels, DECODER_CONVS))
+        print(f"{route} decode: launches {json.dumps(got)}, {decodes[route + '_ms']:.2f} ms (bf16 9-tap decode "
+              f"{decodes['bf16_ms']:.2f} ms, W8A8 decode {decodes['w8a8_ms']:.2f} ms, dj-folded decode "
+              f"{decodes['fold_ms']:.2f} ms; event windows); device ms by graph replay: bf16 "
+              f"{decodes['bf16_device_ms']:.2f}, W8A8 {decodes['w8a8_device_ms']:.2f}, dj-folded "
+              f"{decodes['fold_device_ms']:.2f}")
         if got != want:
             return fail(f"{route} decode launches {got} != {want}")
     w8a8_quality = compare_outputs(ref_lat, dec_k.cpu().numpy(), ref_lat, decodes["w8a8"][0].cpu().numpy())
@@ -1284,6 +1356,7 @@ def main() -> int:
         for config in serve
     }
     serve_out["decode_ms"] = {route: decodes[route + "_ms"] for route in ("bf16", "w8a8", "fold")}
+    serve_out["decode_device_ms"] = {route: decodes[route + "_device_ms"] for route in ("bf16", "w8a8", "fold")}
     serve_out["w8a8_decode_quality"] = w8a8_quality.to_dict()
     serve_out["fold_decode_rel_err"] = rel_fold
     del model, images, latents, cond, eps_k, eps_p, eps_u, dec_k, dec_p, serve, decodes
@@ -1344,7 +1417,7 @@ def main() -> int:
         "flash_fwd_lse": FLASH_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
         "flash_bwd_fused": FLASH_PER_UNET * TRAIN_STEPS,
         "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_attention": 0, "conv3x3": 0, "conv3x3_wgrad": 0,
-        "conv3x3_w8a8": 0, "conv3x3_fold": 0,
+        "conv3x3_w8a8": 0, "quantize_w8a8": 0, "conv3x3_fold": 0,
         # the forward's norms; their backward recomputes the plain version. A checkpointed block's
         # forward runs twice
         "group_norm": GN_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
@@ -1481,7 +1554,7 @@ def main() -> int:
         "conv3x3": 3 * AE_CONVS * AE_STEPS, "conv3x3_wgrad": AE_CONVS * AE_STEPS,
         "group_norm": 2 * GN_PER_AE_FORWARD * AE_STEPS, "flash_fwd_lse": AE_FLASH * AE_STEPS,
         "flash_bwd_fused": AE_FLASH * AE_STEPS, "flash_attention": AE_FLASH * AE_STEPS,
-        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "conv3x3_w8a8": 0, "conv3x3_fold": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "conv3x3_w8a8": 0, "quantize_w8a8": 0, "conv3x3_fold": 0,
     }
     if ae_launches != want:
         return fail(f"ae launches {ae_launches} != {want}")
@@ -1585,6 +1658,8 @@ def main() -> int:
         "conv3x3_wgrad": (src + "conv3x3_wgrad.cu", tpu + "conv.py:304"),
         "group_norm": (src + "group_norm.cu", tpu + "group_norm.py:24"),
         "conv3x3_w8a8": (src + "conv3x3_w8a8.cu", tpu + "conv.py:74"),
+        # the JAX package quantises in XLA, outside its Pallas kernel: no TPU kernel of its own
+        "quantize_w8a8": (src + "quantize_w8a8.cu", tpu + "conv.py:263-267 (XLA, no Pallas kernel)"),
         "conv3x3_fold": (src + "conv3x3_fold.cu", tpu + "conv.py:96"),
     }
     path_launches = {"txt2img": launches, "finetune": train_launches, "ae": ae_launches, "w8a8": w8a8_launches,
@@ -1609,7 +1684,8 @@ def main() -> int:
             # no single PyTorch call computes W8A8: its rows carry the unquantised convs' times instead
             out["library_ms"] = None if any(r["library_ms"] is None for r in on_path) else sum(
                 r["library_ms"] * r["per"][path] for r in on_path)
-            for key in ("unquantised_cudnn_bf16_ms", "unquantised_conv3x3_kernel_ms", "route_ms"):
+            for key in ("unquantised_cudnn_bf16_ms", "unquantised_conv3x3_kernel_ms", "route_ms", "route_device_ms",
+                        "plain_device_ms"):
                 if key in on_path[0]:
                     out[key] = sum(r[key] * r["per"][path] for r in on_path)
             out["bound_by"] = max(on_path, key=lambda r: r["bound_ms"] * r["per"][path])["bound_by"]
@@ -1618,7 +1694,7 @@ def main() -> int:
             out["launches"] = split_launches[name] if split and path == "finetune" else path_launches[path][name]
             out["launches_of"] = "one finetune forward + backward with the split backward" if split and path == "finetune" else path_run[path]
             out["per"] = f"the times are of {path_unit[path]}: each of its shapes' time times its launches in it"
-            if name in REDESIGNED:
+            if name in REDESIGNED or name == "quantize_w8a8":
                 out["bound_share"] = out["bound_ms"] / out["ms"]
             return out
 

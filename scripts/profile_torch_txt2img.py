@@ -40,7 +40,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = [
     ("flash backward (port kernels)", ("flash_bwd_kernel", "flash_bwd_kv_outer_kernel", "flash_bwd_q_outer_kernel")),
     ("flash forward (port kernels)", ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "flash_fwd_chunked_kernel")),
-    ("conv3x3_w8a8 (port kernel)", ("epidequant",)),
+    ("conv3x3_w8a8 (port kernels: s8 wgmma, mma.sync yardstick)", ("conv3x3_w8a8_kernel", "epidequant")),
+    ("quantize_w8a8 (port kernel)", ("quantize_w8a8_kernel",)),
     ("conv3x3_fold (port kernel)", ("conv3x3_fold_kernel", "taps)1", "kfold")),
     ("conv3x3 (port kernel)", ("conv3x3_fwd_kernel",)),
     ("conv3x3_wgrad (port kernels)", ("wgrad_kernel", "wgrad_reduce_kernel")),

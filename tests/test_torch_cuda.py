@@ -304,7 +304,13 @@ def test_fused_group_norm_on_the_card(cuda) -> None:
         _close(g, r.to(g.dtype), 2.0**-6)
 
 
-W8A8_SHAPES = [(1, 64, 64, 512, 512), (2, 33, 47, 64, 136), (1, 128, 128, 256, 128), (1, 9, 7, 16, 8)]
+# the VAE decoder's shape classes (64^2 x 512, 128^2 x 512, 256^2 x 256, 512^2 x 256 -> 128 and 512^2 x 128: each
+# tile shape of `conv3x3_w8a8_plan`), H != W with C != Co, C = 144 (a 128-channel slice zero-filled past C), and
+# narrow ones
+W8A8_SHAPES = [
+    (1, 64, 64, 512, 512), (1, 128, 128, 512, 512), (1, 256, 256, 256, 256), (1, 512, 512, 256, 128),
+    (1, 512, 512, 128, 128), (2, 33, 47, 64, 136), (3, 33, 47, 144, 136), (1, 128, 128, 256, 128), (1, 9, 7, 16, 8),
+]
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
@@ -312,30 +318,107 @@ W8A8_SHAPES = [(1, 64, 64, 512, 512), (2, 33, 47, 64, 136), (1, 128, 128, 256, 1
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_w8a8_kernel_matches_plain_bit_for_bit(cuda, with_bias, shape, dtype) -> None:
     """The int32 sums are exact and the epilogue rounds as PyTorch does: the
-    kernel and its plain version (f64 sums on the card) agree bit for bit."""
+    route (quantiser and s8 wgmma kernel) and its plain version (f64 sums on
+    the card) agree bit for bit; so does the mma.sync yardstick."""
     b, h, w, c, co = shape
     x = torch.randn((b, h, w, c), generator=cuda, device="cuda").to(dtype)
     wt = (torch.randn((co, 3, 3, c), generator=cuda, device="cuda") * (9 * c) ** -0.5).to(dtype)
     bias = (torch.randn((co,), generator=cuda, device="cuda") * 0.1).to(dtype) if with_bias else None
-    before = C.conv3x3_w8a8.launches
+    before = C.conv3x3_w8a8.launches, C.quantize_w8a8.launches
     out = C.conv3x3_w8a8(x, wt, bias)
-    assert C.conv3x3_w8a8.launches == before + 1
+    assert (C.conv3x3_w8a8.launches, C.quantize_w8a8.launches) == (before[0] + 1, before[1] + 1)
     ref = C.conv3x3_w8a8_plain(x, wt, bias)
     assert out.dtype == dtype and out.shape == ref.shape
     assert torch.equal(out, ref)
+    assert torch.equal(C.conv3x3_w8a8(x, wt, bias, kernel="mma_sync"), ref)
+    x8, w8, scale = C.w8a8_operands(x, wt)
+    assert torch.equal(C.conv3x3_int8(x8, w8, scale, bias, dtype), C.conv3x3_int8_plain(x8, w8, scale, bias, dtype))
     # and close to the unquantised conv: a few per cent of its largest output
     exact = C.conv3x3_plain(x, wt, bias).float()
     assert (out.float() - exact).abs().max() <= 0.05 * exact.abs().max()
+
+
+def _quant_cases(gen):
+    """(name, x, w) edge cases of the quantiser, bf16 unless named fp16."""
+    dev = "cuda"
+    ties = torch.cat([torch.arange(-127, 127, device=dev) + 0.5, torch.tensor([127.0], device=dev)])
+    ties = ties[torch.randperm(ties.numel(), generator=gen, device=dev)].repeat(16 * 3)[: 2 * 5 * 8 * 48]
+    w = (torch.randn((24, 3, 3, 48), generator=gen, device=dev) * 0.1).bfloat16()
+    last = torch.randn((1, 9, 10, 64), generator=gen, device=dev).bfloat16()
+    last_neg = last.clone()
+    last.view(-1)[-1], last_neg.view(-1)[-1] = 50.0, -50.0  # +-amax in the last element
+    negzero = torch.randn((2, 8, 8, 32), generator=gen, device=dev).bfloat16()
+    negzero.view(-1)[::3] = -0.0
+    wz = torch.zeros((16, 3, 3, 32), device=dev).bfloat16()
+    wz[1:, 0, 0, 0] = -0.0
+    wz[3, 1, 1, 5] = 0.75  # one weight row with a value, the others all (negative) zero
+    fp16 = (torch.randn((1, 64, 64, 128), generator=gen, device=dev) * 3).half()
+    return [
+        ("ties", ties.reshape(2, 5, 8, 48).bfloat16(), w),
+        ("ties_fp16", ties.reshape(2, 5, 8, 48).half(), w.half()),
+        ("zero_x", torch.zeros((1, 16, 16, 64), device=dev).bfloat16(), w[..., :8].repeat(1, 1, 1, 8)),
+        ("amax_last", last, w[:, :, :, :1].repeat(1, 1, 1, 64)),
+        ("neg_amax_last", last_neg, w[:, :, :, :1].repeat(1, 1, 1, 64)),
+        ("negative_zero", negzero, wz),
+        ("fp16", fp16, (torch.randn((128, 3, 3, 128), generator=gen, device=dev) * 0.05).half()),
+        ("decoder_64x64_512", torch.randn((1, 64, 64, 512), generator=gen, device=dev).bfloat16(),
+         (torch.randn((512, 3, 3, 512), generator=gen, device=dev) * 0.02).bfloat16()),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_quantize_w8a8_bit_for_bit(cuda, case) -> None:
+    """The one-launch quantiser gives `w8a8_operands`' x8, w8 and combined
+    scale bit for bit: exact ties (half to even), an all-zero x, +-amax in the
+    last element, negative zeros, fp16."""
+    name, x, w = _quant_cases(cuda)[case]
+    before = C.quantize_w8a8.launches
+    got = C.quantize_w8a8(x, w)
+    assert C.quantize_w8a8.launches == before + 1
+    want = C.w8a8_operands(x, w)
+    for g, r, what in zip(got, want, ("x8", "w8", "scale")):
+        assert g.dtype == r.dtype and g.shape == r.shape, (name, what)
+        assert torch.equal(g, r), (name, what, (g.float() - r.float()).abs().max().item())
+    assert torch.equal(C.quantize_w8a8(x, w)[0], got[0])  # no atomics: the same bits again
+
+
+def test_w8a8_route_is_two_launches(cuda) -> None:
+    """On the card `conv3x3_w8a8` runs the quantiser's launch and the conv's,
+    and no other kernel (no PyTorch quantisation op), counted on both
+    wrappers and by `torch.profiler`."""
+    x = torch.randn((1, 64, 64, 512), generator=cuda, device="cuda").bfloat16()
+    wt = (torch.randn((512, 3, 3, 512), generator=cuda, device="cuda") * 0.02).bfloat16()
+    bias = torch.randn((512,), generator=cuda, device="cuda").bfloat16()
+    with torch.no_grad():
+        route = lambda: C.conv3x3_w8a8(x, wt, bias)  # noqa: E731
+        before = C.conv3x3_w8a8.launches, C.quantize_w8a8.launches
+        route()
+        assert (C.conv3x3_w8a8.launches, C.quantize_w8a8.launches) == (before[0] + 1, before[1] + 1)
+        names = _kernel_names(route)
+        assert len(names) == 2, names
+        assert sum("quantize_w8a8_kernel" in n for n in names) == 1, names
+        assert sum("conv3x3_w8a8_kernel" in n for n in names) == 1, names
 
 
 def test_w8a8_kernel_refuses_what_it_cannot_take(cuda) -> None:
     x = torch.randn((1, 8, 8, 72), generator=cuda, device="cuda").bfloat16()
     w = torch.randn((64, 3, 3, 72), generator=cuda, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="% 16"):
-        C.conv3x3_w8a8(x, w)
+        C.conv3x3_w8a8(x, w)  # the quantiser takes C % 8 == 0, the s8 wgmma's TMA boxes C % 16 == 0
+    with pytest.raises(ValueError, match="% 8"):
+        C.quantize_w8a8(x[..., :68], w[..., :68])
+    with pytest.raises(TypeError):
+        C.quantize_w8a8(x.float(), w.float())
     x8, w8, scale = C.w8a8_operands(x[..., :64], w[..., :64])
     with pytest.raises(TypeError):
         C.conv3x3_int8(x8, w8, scale, None, torch.float32)
+    with pytest.raises(ValueError, match="kernel"):
+        C.conv3x3_int8(x8, w8, scale, None, torch.bfloat16, kernel="nope")
+    big = C.W8A8_MAX_C + 16 - C.W8A8_MAX_C % 16  # the first C % 16 == 0 past the exact-sum limit
+    with pytest.raises(ValueError, match="exact"):
+        C.conv3x3_int8(torch.zeros((1, 2, 2, big), dtype=torch.int8, device="cuda"),
+                       torch.zeros((8, 3, 3, big), dtype=torch.int8, device="cuda"),
+                       torch.ones(8, device="cuda"), None, torch.bfloat16)
     with pytest.raises(RuntimeError, match="gradient"):
         C.conv3x3_w8a8(x[..., :64], w[..., :64].clone().requires_grad_())
 
@@ -354,14 +437,19 @@ def test_fold_kernel_matches_plain(cuda, shape, dtype) -> None:
     _close(out, C.conv3x3(x, wt, bias), 2.0**-6)
 
 
-def _kernels_launched(fn, key: str) -> int:
-    """How many kernels whose name holds `key` one call of `fn` launches on the card (torch.profiler)."""
+def _kernel_names(fn) -> list:
+    """The names of the kernels that one call of `fn` launches on the card (torch.profiler), in order."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if key in e.name and e.device_type == torch.autograd.DeviceType.CUDA)
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _kernels_launched(fn, key: str) -> int:
+    """How many kernels whose name holds `key` one call of `fn` launches on the card (torch.profiler)."""
+    return sum(key in name for name in _kernel_names(fn))
 
 
 # (shape, groups, dtype, route): the UNet's 64^2 x 960 at batch 2 and its 16^2 x 2560 (on chip), f32 and fp16 on
