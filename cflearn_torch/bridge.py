@@ -11,7 +11,12 @@ other way):
 * Conv `kernel` HWIO -> `weight` OIHW;
 * norm `scale` -> `weight`;
 * `Embed.embedding` -> `weight`;
-* `bias` and bare parameters (the positional table) are copied.
+* `bias` and bare parameters (the positional table, the VQ codebook's
+  `embedding`, which the port keeps under its JAX name) are copied.
+
+`nnx.List`s (the LPIPS tower's `convs`, a multi-scale discriminator's
+`nets`) are `nn.ModuleList`s of the same name: the list index is a path
+component on both sides.
 
 The bridge is strict: every JAX leaf maps to exactly one port tensor of the
 same shape, and every port parameter is covered. The noise-schedule buffers
@@ -19,7 +24,9 @@ are not parameters: the port recomputes them from the schedule spec.
 
 `nnx.BatchStat` leaves (BatchNorm's running `mean` and `var`) go across as
 buffers of the same name: `load_nnx_batch_stats` is strict in the same way
-over the module's BatchNorm layers. An `AEModel` needs no mapping of its own:
+over the module's BatchNorm layers. Other `nnx.Variable` leaves (LPIPS's
+`shift` and `scale`) go across by `load_nnx_buffers`, strict over the
+leaves it is given. An `AEModel` needs no mapping of its own:
 the port keeps the JAX model's attribute names (`m.*`, `discriminator.*`,
 `log_var`), so its paths map like any other.
 
@@ -71,6 +78,8 @@ def map_names(
     errors = []
     for path, shape in shapes.items():
         name, perm = port_name(path, len(shape))
+        if perm is None and path in targets:  # a parameter the port keeps under its JAX name
+            name = path
         port_shape = tuple(shape[i] for i in perm) if perm else tuple(shape)
         if name not in targets:
             errors.append(f"JAX leaf {path} -> {name}: no such port parameter")
@@ -146,7 +155,17 @@ def load_nnx_batch_stats(module: nn.Module, flat: Mapping[str, np.ndarray]) -> n
     if shapes != targets:
         odd = sorted(set(shapes.items()) ^ set(targets.items()))
         raise ValueError(f"BatchStat leaves and BatchNorm buffers differ, e.g. {odd[:6]}")
+    return load_nnx_buffers(module, flat)
+
+
+def load_nnx_buffers(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Module:
+    """Load `nnx.Variable` leaves (flattened to dotted paths) into the
+    module's buffers of the same paths, in place, in each buffer's dtype
+    (strict over the leaves: each names a buffer of its shape)."""
     buffers = dict(module.named_buffers())
+    odd = [k for k, v in flat.items() if k not in buffers or tuple(buffers[k].shape) != tuple(np.shape(v))]
+    if odd:
+        raise ValueError(f"leaves without a buffer of their shape: {odd[:6]}")
     with torch.no_grad():
         for name, value in flat.items():
             buffers[name].copy_(torch.from_numpy(np.array(value, dtype=np.float32)))

@@ -3,7 +3,11 @@
 `DDPMStep.loss_fn` is the p-loss: MSE against the eps / x0 / v target,
 reweighted by the (optionally learned) per-timestep log-variance, plus an
 optional VLB term. `DDPMModel` wraps a `DDPM` with an optional `EMA`, names
-the parameters a scope trains and runs the post-step update.
+the parameters a scope trains, runs the monitoring forward and the post-step
+update. The batch's input is what the model diffuses: x0 for a plain DDPM;
+for an LDM with a first stage, images, which the frozen first stage encodes
+to its scaled latents first, without a gradient (the JAX `stop_gradient`:
+the encoder's activations stay off the autograd tape).
 
 The JAX package draws t and the noise from the model's `nnx.Rngs`; here the
 draws take an explicit `torch.Generator`, or the caller passes `t` and
@@ -19,15 +23,19 @@ import torch.nn as nn
 
 from ...modules.common import EMA
 from ...modules.multimodal.diffusion.ddpm import DDPM
+from ...modules.multimodal.diffusion.ldm import LDM
 
 INPUT_KEY = "input"
 LOSS_KEY = "loss"
+PREDICTIONS_KEY = "predictions"
 
 
 def _to_diffusion_space(ddpm: DDPM, x0: torch.Tensor) -> torch.Tensor:
-    """The JAX package encodes an LDM's input with its frozen first stage
-    here. The encoder side of `AutoEncoderKL` is not ported yet, so the batch
-    holds x0 in the space the model diffuses in: latents for an LDM."""
+    """An LDM's images -> its first stage's scaled latents, without a
+    gradient; a plain DDPM's x0 as it is."""
+    if isinstance(ddpm, LDM) and ddpm.first_stage is not None:
+        with torch.no_grad():
+            return ddpm.encode_first_stage(x0)
     return x0
 
 
@@ -38,6 +46,8 @@ class DDPMStep:
 
     l_simple_weight: float = 1.0
     original_elbo_weight: float = 0.0
+    # the loss draws its own t and noise and reads no forward results
+    uses_forward_results = False
 
     def __init__(self, scope: str = "all") -> None:
         self.scope = scope
@@ -125,11 +135,29 @@ class DDPMModel(nn.Module):
             out.append((name, p))
         return out
 
-    def run(self, batch: Dict[str, Any], *, training: bool = False, **kwargs: Any) -> None:
-        """The JAX model's `run` is a forward for monitoring (a one-step
-        denoise at a fixed timestep) that the p-loss never reads; it is not
-        ported, so the forward results are None."""
-        return None
+    def run(
+        self,
+        batch: Dict[str, Any],
+        *,
+        training: bool = False,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+        **kwargs: Any,
+    ) -> Dict[str, torch.Tensor]:
+        """The forward for monitoring: one denoise of the input noised to
+        t = num_timesteps // 2 (noise from `generator`, or given). The p-loss
+        does not read it."""
+        self.train(training)
+        ddpm: DDPM = self.m
+        x0 = _to_diffusion_space(ddpm, batch[INPUT_KEY])
+        t = torch.full((x0.shape[0],), ddpm.num_timesteps // 2, dtype=torch.long, device=x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+        x_t = ddpm.q_sample(x0, t, noise)
+        cond = batch.get("cond")
+        if cond is not None:
+            cond = ddpm.get_cond(cond)
+        return {PREDICTIONS_KEY: ddpm.denoise(x_t, t, cond), "noise": noise, "timesteps": t}
 
     def post_step_update(self) -> None:
         if self.ema is not None:

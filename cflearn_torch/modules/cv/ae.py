@@ -1,7 +1,9 @@
-"""The SD first-stage KL autoencoder (counterpart of
-`cflearn_tpu/modules/cv/ae.py`: `AttnEncoder`, `AttnDecoder`,
-`AutoEncoderKL`): `encode` to the Gaussian posterior, `decode`, and the
-training forward that samples the posterior in between."""
+"""The first-stage autoencoders (counterpart of `cflearn_tpu/modules/cv/ae.py`:
+`AttnEncoder`, `AttnDecoder`, `AutoEncoderKL`, `AutoEncoderVQ`): the KL
+autoencoder's `encode` to the Gaussian posterior, `decode`, and the training
+forward that samples the posterior in between; the VQ autoencoder's encode
+through its codebook. Both are registered as `generators` ("ae_kl",
+"ae_vq"), the names an `LDM` takes for its first stage."""
 
 from typing import Any, Dict, List, Optional
 
@@ -13,7 +15,7 @@ from ..common import register_module
 from ..core.attentions import SpatialAttention
 from ..core.convs import Downsample, ResidualBlock, UpsampleConv2d
 from ..layers import Conv, GroupNorm
-from .common import GaussianDistribution
+from .common import GaussianDistribution, VQCodebook, VQCodebookOutput, generators
 
 
 class AttnEncoder(nn.Module):
@@ -109,6 +111,7 @@ class AttnDecoder(nn.Module):
 
 
 @register_module("ae_kl")
+@generators.register("ae_kl")
 class AutoEncoderKL(nn.Module):
     """SD first-stage KL autoencoder."""
 
@@ -162,3 +165,56 @@ class AutoEncoderKL(nn.Module):
         dist = self.encode(x)
         z = dist.sample(generator, noise=noise) if sample else dist.mode()
         return {"predictions": self.decode(z), "distribution": dist, "z": z}
+
+
+@register_module("ae_vq")
+@generators.register("ae_vq")
+class AutoEncoderVQ(nn.Module):
+    """VQ first-stage autoencoder: the encoder's single z, a 1x1 conv to the
+    code space, the codebook, and back through a 1x1 conv to the decoder."""
+
+    def __init__(
+        self,
+        *,
+        img_size: int = 256,
+        in_channels: int = 3,
+        out_channels: int = 3,
+        inner_channels: int = 128,
+        z_channels: int = 4,
+        embedding_channels: int = 4,
+        num_code: int = 16384,
+        channel_multipliers: Optional[List[int]] = None,
+        num_res_blocks: int = 2,
+        attention_resolutions: Optional[List[int]] = None,
+        apply_tanh: bool = False,
+    ) -> None:
+        super().__init__()
+        self.apply_tanh = apply_tanh
+        common: Any = dict(
+            img_size=img_size, inner_channels=inner_channels, z_channels=z_channels,
+            channel_multipliers=channel_multipliers, num_res_blocks=num_res_blocks,
+            attention_resolutions=attention_resolutions,
+        )
+        self.encoder = AttnEncoder(in_channels=in_channels, double_z=False, **common)
+        self.decoder = AttnDecoder(out_channels=out_channels, **common)
+        self.to_embedding = Conv(z_channels, embedding_channels, (1, 1))
+        self.from_embedding = Conv(embedding_channels, z_channels, (1, 1))
+        self.codebook = VQCodebook(num_code, embedding_channels)
+
+    def encode(self, x: torch.Tensor) -> VQCodebookOutput:
+        return self.codebook(self.to_embedding(self.encoder(x)))
+
+    def decode(self, z_q: torch.Tensor, *, apply_tanh: Optional[bool] = None) -> torch.Tensor:
+        net = self.decoder(self.from_embedding(z_q))
+        if self.apply_tanh if apply_tanh is None else apply_tanh:
+            net = torch.tanh(net)
+        return net
+
+    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
+        out = self.encode(x)
+        return {
+            "predictions": self.decode(out.z_q),
+            "codebook_loss": out.codebook_loss,
+            "commitment_loss": out.commitment_loss,
+            "indices": out.indices,
+        }

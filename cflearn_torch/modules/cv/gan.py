@@ -1,6 +1,6 @@
 """PatchGAN discriminators (counterpart of `cflearn_tpu/modules/cv/gan.py`:
-`NLayerDiscriminator`, `BasicDiscriminator`). The class-conditional head, the
-latent-noise generator and `MultiScaleDiscriminator` are not ported yet."""
+`NLayerDiscriminator`, `BasicDiscriminator`, `MultiScaleDiscriminator`). The
+class-conditional head and the latent-noise generator are not ported yet."""
 
 from typing import List, Optional
 
@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BatchNorm, Conv
+from ..layers import BatchNorm, Conv, resize_bilinear
 from .common import discriminators
 
 _PAD = [(1, 1), (1, 1)]
@@ -53,3 +53,28 @@ class NLayerDiscriminator(nn.Module):
 @discriminators.register("basic")
 class BasicDiscriminator(NLayerDiscriminator):
     pass
+
+
+@discriminators.register("multi_scale")
+class MultiScaleDiscriminator(nn.Module):
+    """`num_scales` PatchGANs, each on the image halved once more than the
+    last (`jax.image.resize` "bilinear", which antialiases when it shrinks);
+    returns their logit maps, largest first."""
+
+    def __init__(self, *, in_channels: int = 3, num_scales: int = 3, num_layers: int = 3, start_channels: int = 64) -> None:
+        super().__init__()
+        self.nets = nn.ModuleList(
+            [
+                NLayerDiscriminator(in_channels=in_channels, num_layers=num_layers, start_channels=start_channels)
+                for _ in range(num_scales)
+            ]
+        )
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        outs = []
+        net = x
+        for i, d in enumerate(self.nets):
+            outs.append(d(net))
+            if i != len(self.nets) - 1:
+                net = resize_bilinear(net, net.shape[1] // 2, net.shape[2] // 2)
+        return outs

@@ -1,7 +1,8 @@
 """Channel-last layers with flax `nnx` semantics.
 
 The port's counterparts of `nnx.Linear`, `nnx.Conv`, `nnx.LayerNorm`,
-`nnx.GroupNorm`, `nnx.BatchNorm` and `nnx.Embed`. Parameters carry PyTorch's names and
+`nnx.GroupNorm`, `nnx.BatchNorm` and `nnx.Embed`, and of `jax.image.resize`'s
+bilinear mode. Parameters carry PyTorch's names and
 layouts (`weight` (out, in) for Linear, OIHW for Conv); `cflearn_torch.bridge`
 maps the JAX package's parameters onto them. Like flax, each layer computes
 in the promoted dtype of its input and parameters (an f32 input meets bf16
@@ -165,3 +166,11 @@ class BatchNorm(nn.Module):
 
 class Embed(nn.Embedding):
     """`nnx.Embed`: a lookup in the table's dtype."""
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """`jax.image.resize(x, (b, h, w, c), "bilinear")` on NHWC: half-pixel
+    centres, and a triangle kernel widened by the scale where it shrinks
+    (antialiased), computed in f32 and returned in x's dtype."""
+    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=(h, w), mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).to(x.dtype)

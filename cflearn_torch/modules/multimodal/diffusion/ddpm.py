@@ -1,7 +1,9 @@
 """DDPM: noise schedule buffers, condition dispatch, the eps/v/x0
 parameterizations, the forward process and the DeepCache settings
-(counterpart of `cflearn_tpu/modules/multimodal/diffusion/ddpm.py`,
-cross-attention conditioning only, no ControlNet)."""
+(counterpart of `cflearn_tpu/modules/multimodal/diffusion/ddpm.py`, no
+ControlNet). The condition types: `cross_attn` (the UNet's context),
+`concat` (joined to the UNet's input on the channel axis), `hybrid` (a dict
+holding both) and `adm` (class labels, embedded into the time embedding)."""
 
 import math
 from typing import Any, Dict, Optional
@@ -12,8 +14,7 @@ import torch.nn as nn
 
 from ...common import register_module
 from .unet import UNetDiffuser
-
-CROSS_ATTN_TYPE = "cross_attn"
+from .utils import ADM_TYPE, CONCAT_TYPE, CROSS_ATTN_TYPE, HYBRID_TYPE
 
 
 def make_beta_schedule(
@@ -68,8 +69,8 @@ class DDPM(nn.Module):
         v_posterior: float = 0.0,
     ) -> None:
         super().__init__()
-        if condition_type != CROSS_ATTN_TYPE:
-            raise NotImplementedError(f"condition type '{condition_type}' is not ported yet")
+        if condition_type not in (CROSS_ATTN_TYPE, CONCAT_TYPE, HYBRID_TYPE, ADM_TYPE):
+            raise ValueError(f"unrecognized condition type '{condition_type}'")
         self.img_size = img_size
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -200,11 +201,24 @@ class DDPM(nn.Module):
         deep_cache: Optional[torch.Tensor] = None,
         return_cache: bool = False,
     ) -> Any:
-        """The UNet on `net` with `cond` as its cross-attention context. A
+        """The UNet on `net` with `cond` dispatched by the condition type: the
+        cross-attention context, channels joined to `net`, both (`hybrid`: a
+        dict with a "concat" and a "cross_attn" entry), or class labels. A
         DeepCache pass (`deep_cache` given, or `return_cache`) runs at the
         effective cut and returns (out, cache)."""
+        context = labels = None
+        if cond is not None:
+            if self.condition_type == CONCAT_TYPE:
+                net = torch.cat([net, cond], dim=-1)
+            elif self.condition_type == CROSS_ATTN_TYPE:
+                context = cond
+            elif self.condition_type == HYBRID_TYPE:
+                net = torch.cat([net, cond[CONCAT_TYPE]], dim=-1)
+                context = cond[CROSS_ATTN_TYPE]
+            else:
+                labels = cond
         use_cache = deep_cache is not None or return_cache
         return self.unet(
-            net, timesteps, cond, deep_cache=deep_cache,
+            net, timesteps, context, labels, deep_cache=deep_cache,
             cache_cut=self._effective_cache_cut() if use_cache else None, return_cache=return_cache,
         )

@@ -9,27 +9,68 @@ import torch.nn as nn
 from ....device import resolve_device
 from ...common import cast_parameters, init_parameters, register_module
 from ...cv.ae import AutoEncoderKL
+from ...cv.common import GaussianDistribution, VQCodebookOutput, generators
 from .cond_models import CLIPTextConditionModel
 from .ddpm import DDPM
 
 
 @register_module("ldm")
 class LDM(DDPM):
-    """Latent diffusion: DDPM over first-stage latents with a scale factor."""
+    """Latent diffusion: DDPM over the latents of a frozen first stage,
+    scaled by `latent_scale` (`first_stage_scale_factor` wins where given).
+
+    `first_stage` is a module, or a `generators` name ("ae_kl", "ae_vq")
+    built from `first_stage_config`; without either, `first_stage_config`
+    builds an `AutoEncoderKL`. With `use_first_stage_as_condition` the raw
+    condition goes through the first-stage encoder, without a gradient (the
+    semantic / super-resolution LDMs, which join it to the UNet's input:
+    the `concat` condition type)."""
 
     def __init__(
         self,
         *,
-        first_stage: Optional[nn.Module] = None,
+        first_stage: Optional[Any] = None,
         first_stage_config: Optional[Dict[str, Any]] = None,
+        first_stage_scale_factor: Optional[float] = None,
         latent_scale: float = 0.18215,
+        use_first_stage_as_condition: bool = False,
         **kwargs: Any,
     ) -> None:
+        if use_first_stage_as_condition and kwargs.get("condition_learnable"):
+            raise ValueError(
+                "should not set `condition_learnable` to True when `use_first_stage_as_condition` is True"
+            )
         super().__init__(**kwargs)
-        self.latent_scale = latent_scale
-        if first_stage is None and first_stage_config is not None:
+        self.latent_scale = latent_scale if first_stage_scale_factor is None else first_stage_scale_factor
+        self.use_first_stage_as_condition = use_first_stage_as_condition
+        if isinstance(first_stage, str):
+            if not generators.has(first_stage):
+                raise ValueError(
+                    f"first stage '{first_stage}' is not a generator ({generators.all}); zoo names are not ported"
+                )
+            cfg = dict(first_stage_config or {})
+            cfg.pop("prefix_module", None)
+            cfg.pop("pretrained", None)
+            first_stage = generators.build(first_stage, **cfg)
+        elif first_stage is None and first_stage_config is not None:
             first_stage = AutoEncoderKL(**first_stage_config)
         self.first_stage = first_stage
+
+    def encode_first_stage(
+        self, images: torch.Tensor, *, generator: Optional[torch.Generator] = None, deterministic: bool = True
+    ) -> torch.Tensor:
+        """Images -> scaled latents: a KL first stage's posterior mode (or,
+        not `deterministic`, a sample drawn from `generator`), a VQ first
+        stage's quantised z_q, any other first stage's output as it is."""
+        assert self.first_stage is not None
+        out = self.first_stage.encode(images)
+        if isinstance(out, GaussianDistribution):
+            z = out.mode() if deterministic else out.sample(generator)
+        elif isinstance(out, VQCodebookOutput):
+            z = out.z_q
+        else:
+            z = out
+        return z * self.latent_scale
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         assert self.first_stage is not None
@@ -38,6 +79,12 @@ class LDM(DDPM):
     def decode(self, z: torch.Tensor, *, clip_output: bool = True) -> torch.Tensor:
         out = self.decode_first_stage(z)
         return out.clamp(-1.0, 1.0) if clip_output else out
+
+    def get_cond(self, cond: Any) -> Any:
+        if self.use_first_stage_as_condition:
+            with torch.no_grad():
+                return self.encode_first_stage(cond)
+        return super().get_cond(cond)
 
 
 def sd_unet_config(version: str = "v1") -> Dict[str, Any]:

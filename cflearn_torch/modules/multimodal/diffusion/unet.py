@@ -13,7 +13,7 @@ from torch.utils.checkpoint import checkpoint
 from ...common import register_module, zero_module
 from ...core.convs import Downsample, ResidualBlockWithTimeEmbedding, UpsampleConv2d
 from ...core.mixed_stacks import SpatialTransformer
-from ...layers import Conv, GroupNorm, Linear
+from ...layers import Conv, Embed, GroupNorm, Linear
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, *, max_period: int = 10000) -> torch.Tensor:
@@ -53,7 +53,8 @@ class _InBlock(nn.Module):
 class UNetDiffuser(nn.Module):
     """SD UNet. SD-1.5: in/out 4 channels, start 320, multipliers
     (1, 2, 4, 4), attention at downsample rates (1, 2, 4), 8 heads, context
-    768."""
+    768. `num_classes`: a class-label embedding added to the time embedding
+    (the `adm` condition)."""
 
     def __init__(
         self,
@@ -71,6 +72,7 @@ class UNetDiffuser(nn.Module):
         use_linear_in_transformer: bool = False,
         use_scale_shift_norm: bool = False,
         use_checkpoint: Union[bool, str] = False,
+        num_classes: Optional[int] = None,
     ) -> None:
         super().__init__()
         if isinstance(use_checkpoint, str):
@@ -85,6 +87,8 @@ class UNetDiffuser(nn.Module):
         time_embed_dim = start_channels * 4
         self.time_fc1 = Linear(start_channels, time_embed_dim)
         self.time_fc2 = Linear(time_embed_dim, time_embed_dim)
+        self.num_classes = num_classes
+        self.label_embed = None if num_classes is None else Embed(num_classes, time_embed_dim)
 
         def make_attn(ch: int) -> nn.Module:
             if num_head_channels is not None:
@@ -164,6 +168,7 @@ class UNetDiffuser(nn.Module):
         net: torch.Tensor,
         timesteps: torch.Tensor,
         context: Optional[torch.Tensor] = None,
+        labels: Optional[torch.Tensor] = None,
         *,
         deep_cache: Optional[torch.Tensor] = None,
         cache_cut: Optional[int] = None,
@@ -174,12 +179,15 @@ class UNetDiffuser(nn.Module):
         feature entering `output_blocks[-(c+1)]`; a shallow pass (`deep_cache`
         given) runs only the first `c` input blocks and the last `c+1` output
         blocks around the cached deep feature, skipping the deep levels and
-        the mid block. With `return_cache` the result is (out, cache)."""
+        the mid block. With `return_cache` the result is (out, cache).
+        `labels` (B,) class ids add their embedding to the time embedding."""
         p_dtype = self.param_dtype
         net = net.to(p_dtype)
         if context is not None:
             context = context.to(p_dtype)
         time_embed = self.time_embed(timesteps)
+        if self.label_embed is not None and labels is not None:
+            time_embed = time_embed + self.label_embed(labels)
         net = self.conv_in(net)
         hs = [net]
         shallow = deep_cache is not None and cache_cut is not None

@@ -16,16 +16,32 @@ loss, gradient and optimizer, tells every train step which scopes are live
 (`step_actives`), prefixes the loss items with the scope and calls
 `post_step_update` once at the end.
 
-`Trainer.fit`, callbacks, monitors, schedulers, gradient accumulation,
-freezing masks, `steps_per_dispatch` and the mesh are not ported yet.
+A train step whose loss reads no forward results (`uses_forward_results =
+False`: the p-loss draws its own t and noise) gets none: in the JAX trainer
+XLA drops that unused forward from the compiled step.
+
+`default_optimizer_settings` and `build_optimizers` are the JAX `Trainer`'s
+`_default_optimizer_settings` and `_build_optimizers` as plain functions: the
+per-scope optimizer, its config, scheduler and scheduler config, from the
+trainer-wide defaults (Adam at 1e-3, behind a `warmup` x3 that hands off to
+`plateau`, starting at a third of the lr), then the dict settings, then the
+list packs; `"none"` turns a scheduler off. Clipping by the global norm is the
+step's `clip_norm`, applied ahead of the optimizer as optax's
+`clip_by_global_norm` is chained ahead of it.
+
+`Trainer.fit`, callbacks, monitors, gradient accumulation, per-epoch
+scheduler updates, freezing masks, `steps_per_dispatch` and the mesh are not
+ported yet.
 """
 
-from typing import Any, Dict, List, Mapping, Optional
+import copy
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
 from .optimizers import Optimizer, build_optimizer, clip_by_global_norm, global_norm
+from .schedulers import PlateauState, build_scheduler, scheduler_requires_metric
 
 INPUT_KEY = "input"
 LOSS_KEY = "loss"
@@ -65,7 +81,10 @@ class TrainStepFn:
     def _forward(self, batch: Dict[str, Any], forward_kwargs: Mapping[str, Any]) -> Any:
         """`model.run(batch, training=True)` with the input in the compute
         dtype; without a gradient where the train step asks for none (the
-        discriminator's view of the reconstruction)."""
+        discriminator's view of the reconstruction); nothing where its loss
+        reads no forward results."""
+        if not getattr(self.train_step, "uses_forward_results", True):
+            return {}
         x_in = batch.get(INPUT_KEY)
         if self.compute_dtype is not None and torch.is_tensor(x_in) and x_in.is_floating_point():
             batch = dict(batch)
@@ -195,3 +214,107 @@ def make_train_step(
 ) -> TrainStepFn:
     opt = build_optimizer(optimizer, lr)
     return TrainStepFn(model, opt, compute_dtype=compute_dtype, clip_norm=clip_norm)
+
+
+DEFAULT_LR = 1.0e-3
+
+
+def default_optimizer_settings(
+    *,
+    lr: Optional[float] = None,
+    optimizer_name: Optional[str] = None,
+    optimizer_config: Optional[Dict[str, Any]] = None,
+    scheduler_name: Optional[str] = None,
+    scheduler_config: Optional[Dict[str, Any]] = None,
+    optimizer_settings: Optional[Mapping[str, Any]] = None,
+    optimizer_packs: Optional[Iterable[Any]] = None,
+    batch_size: Optional[int] = None,
+    num_step_per_epoch: Optional[int] = None,
+) -> Dict[str, Dict[str, Any]]:
+    """{scope: {"optimizer", "optimizer_config" (with its "lr"), "scheduler",
+    "scheduler_config"}}, "all" for every scope not named, as the JAX
+    `Trainer._default_optimizer_settings` builds it from its config (the
+    keyword arguments carry the `TrainerConfig` fields of the same names).
+    With no `scheduler_name`: `warmup` with multiplier 3 over min(round(3e5 /
+    batch_size), 10 * num_step_per_epoch) updates (1000 without the two
+    counts) handing off to `plateau`, from lr / 3. `"none"`: no scheduler.
+    `optimizer_settings` ({scope: dict or `OptimizerPack`}) and then
+    `optimizer_packs` (a list of them, each naming its scope) override it."""
+    lr = lr if lr is not None else DEFAULT_LR
+    scheduler = scheduler_name
+    scheduler_config = dict(scheduler_config or {})
+    if scheduler is None:
+        scheduler = "warmup"
+        multiplier = scheduler_config.setdefault("multiplier", 3)
+        if batch_size is not None and num_step_per_epoch is not None:
+            warmup = min(int(round(3.0e5 / max(1, batch_size))), 10 * num_step_per_epoch)
+            scheduler_config.setdefault("warmup_step", warmup)
+        else:
+            scheduler_config.setdefault("warmup_step", 1000)
+        scheduler_config.setdefault("afterwards", "plateau")
+        lr = lr / multiplier
+    elif scheduler == "none":
+        scheduler = None
+    settings = {
+        "all": {
+            "optimizer": optimizer_name or "adam",
+            "optimizer_config": dict(optimizer_config or {}, lr=lr),
+            "scheduler": scheduler,
+            "scheduler_config": scheduler_config,
+        }
+    }
+
+    def merge(scope: str, sub: Any) -> None:
+        if sub is None:
+            return
+        if hasattr(sub, "_asdict"):  # an OptimizerPack
+            sub = sub._asdict()
+        sub = {k: v for k, v in dict(sub).items() if k != "scope" and v is not None}
+        if "optimizer_name" in sub:
+            sub["optimizer"] = sub.pop("optimizer_name")
+        if "scheduler_name" in sub:
+            sub["scheduler"] = sub.pop("scheduler_name")
+        merged = copy.deepcopy(settings.get(scope, settings["all"]))
+        merged.update(sub)
+        if "lr" in sub:
+            merged.setdefault("optimizer_config", {})
+            merged["optimizer_config"]["lr"] = sub["lr"]
+        if sub.get("scheduler") == "none":
+            merged["scheduler"] = None
+        settings[scope] = merged
+
+    for scope, sub in (optimizer_settings or {}).items():
+        merge(scope, sub)
+    # list-form packs after the dict settings: an explicit pack wins for its scope
+    for pack in optimizer_packs or ():
+        pack = pack._asdict() if hasattr(pack, "_asdict") else dict(pack)
+        merge(pack.get("scope", "all"), pack)
+    return settings
+
+
+def build_optimizers(
+    scopes: Iterable[str], settings: Mapping[str, Mapping[str, Any]], *, lr: Optional[float] = None
+) -> Tuple[Dict[str, Optimizer], Dict[str, PlateauState]]:
+    """One optimizer per scope from `settings` (`default_optimizer_settings`),
+    its learning rate a schedule where a scheduler is named; and a
+    `PlateauState` for each scope whose scheduler is metric-driven (`plateau`,
+    also behind `warmup`), whose scale the caller moves into the optimizer's
+    `lr_scale`. `lr` is the rate of a scope whose optimizer config names none
+    (default 1e-3)."""
+    optimizers: Dict[str, Optimizer] = {}
+    lr_scales: Dict[str, PlateauState] = {}
+    for scope in sorted(set(scopes)):
+        sub = settings.get(scope, settings["all"])
+        opt_config = dict(sub.get("optimizer_config") or {})
+        scope_lr = opt_config.pop("lr", lr or DEFAULT_LR)
+        name = sub.get("scheduler")
+        scheduler_config = dict(sub.get("scheduler_config") or {})
+        schedule: Any = scope_lr
+        if name is not None:
+            schedule = build_scheduler(name, scope_lr, **scheduler_config)
+            if name in scheduler_requires_metric or scheduler_config.get("afterwards") in scheduler_requires_metric:
+                allowed = {"mode", "factor", "patience", "threshold", "min_scale"}
+                plateau = scheduler_config.get("afterwards_config") or {}
+                lr_scales[scope] = PlateauState(**{k: v for k, v in plateau.items() if k in allowed})
+        optimizers[scope] = build_optimizer(sub.get("optimizer", "adam"), schedule, **opt_config)
+    return optimizers, lr_scales

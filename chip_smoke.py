@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
    flipped weights) and the weight-gradient kernel at every shape the
    autoencoder step routes; GroupNorm with and without SiLU at the UNet's, the
    VAE decoder's and the autoencoder step's shapes, plus f32 and odd group
-   widths. Prints max_abs_err and the kernel's, the plain version's and a
+   widths; the conv forward, GroupNorm and the flash forward at the
+   first-stage encoder's shapes of the ldm path (batch 8, 512px). Prints max_abs_err and the kernel's, the plain version's and a
    library call's ms (the library call is timed only), and the kernel's
    device time (`device_ms`: calls replayed from a CUDA graph, without the
    host's enqueue time). The flash forwards also run the mma.sync
@@ -79,11 +80,33 @@ Phases, in order; any failure exits non-zero:
    (`ae_parity`; `scripts/ae_parity_runs.py` repeats it over seeds); then
    the same step twice with the split attention backward: bit-identical
    gradients.
-9. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+9. ldm path — full-width SD-1.5 v1 (`StableDiffusion`, its `AutoEncoderKL`
+   first stage frozen, f32 masters, the text tower dropped), `finetune_unet`
+   at batch 8 on seeded 512x512x3 images in [-1, 1] with a 77x768
+   condition, bf16 compute, AdamW 1e-5: one warm-up step, then timed steps.
+   Checks that the UNet saw 64x64x4 latents, that the first stage came out
+   bit for bit unchanged, that every UNet parameter moved, the exact
+   launches (the encoder's flash, conv and GroupNorm calls added to the
+   finetune step's), ms per step and peak memory; then the encode through
+   the kernels against the plain versions, held to the plain path's drift
+   under a one-ulp move of the images (phase 4's measure).
+10. ae path at the JAX package's defaults — phase 7's workload with LPIPS
+   (random weights, the JAX package's warning printed), the adaptive
+   weight and the default optimizer settings (Adam behind a warm-up x3 from
+   lr / 3): the loss items with `core_perceptual`, each step's lr against
+   the schedule, a finite adaptive weight in [0, 0.5e4], LPIPS unchanged,
+   exact launches, ms per step and peak memory; phase 8's loss and
+   global-norm gates on this config's `core` step.
+11. ae_vq path — `ae_vq` at phase 7's widths (16384 codes of 4), batch 8:
+   finite losses with `core_vq`, indices in range, the codebook moved,
+   exact launches; printed, not gated, the share of code indices on which
+   the kernel and plain paths agree (argmin ties in bf16).
+12. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
-   the card's name and power limit, and last `{"ok": true, "device": {...}}`.
-   The per-shape rows also go to `chiprun_out/chip_smoke.json`.
+   the new training paths' readings on a line of their own, the card's name
+   and power limit, and last `{"ok": true, "device": {...}}`. The per-shape
+   rows also go to `chiprun_out/chip_smoke.json`.
 
 Imports nothing of JAX or of `cflearn_tpu`. Exits non-zero, printing no
 result, without a CUDA device or without the `cflearn_torch` package beside
@@ -91,6 +114,7 @@ this file.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -98,6 +122,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -207,6 +232,8 @@ FLASH_CASES = [
     ("f32", 1, 4, 1000, 777, 64, False, "float32", lambda s: 0),
     ("d640", 1, 2, 512, 512, 640, False, "bfloat16", lambda s: 0),
     ("ae_mid", AE_BATCH, 1, 1024, 1024, 512, False, "bfloat16", lambda s: 0),
+    # the first-stage encoder's mid-block attention on the ldm path (batch 8, 512px images), without a gradient
+    ("ldm_enc_mid", TRAIN_BATCH, 1, 4096, 4096, 512, False, "bfloat16", lambda s: 0),
 ]
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per finetune step)
 TRAIN_CASES = [
@@ -254,6 +281,28 @@ AE_CONV_CASES = [
     ("odd_3x33x47_64_136", 3, 33, 47, 64, 136, 0),
 ]
 AE_CONVS = sum(case[-1] for case in AE_CONV_CASES)  # 32
+# the ldm path: SD-1.5's first-stage encoder on 512px images at batch 8, without a gradient, once a finetune
+# step. (name, B, H, W, C, Co, kernel-routed convs of this shape per encode), found with a hook on the
+# dispatchers' predicates; its GroupNorm calls (H = W, C, SiLU fused, calls per encode), and one flash call
+ENCODER_CONV_CASES = [
+    ("enc_512x512_128_128", TRAIN_BATCH, 512, 512, 128, 128, 4),
+    ("enc_256x256_128_256", TRAIN_BATCH, 256, 256, 128, 256, 1),
+    ("enc_256x256_256_256", TRAIN_BATCH, 256, 256, 256, 256, 3),
+    ("enc_128x128_256_512", TRAIN_BATCH, 128, 128, 256, 512, 1),
+    ("enc_128x128_512_512", TRAIN_BATCH, 128, 128, 512, 512, 3),
+    ("enc_64x64_512_512", TRAIN_BATCH, 64, 64, 512, 512, 8),
+]
+ENCODER_CONVS = sum(case[-1] for case in ENCODER_CONV_CASES)  # 20
+ENCODER_GN = [
+    (512, 128, True, 4), (256, 128, True, 1), (256, 256, True, 3), (128, 256, True, 1), (128, 512, True, 3),
+    (64, 512, True, 8), (64, 512, False, 2),
+]
+GN_PER_ENCODE = sum(case[-1] for case in ENCODER_GN)  # 22
+ENCODER_FLASH = 1
+# the ae path at the JAX package's defaults (LPIPS with random weights, the adaptive weight, the default
+# optimizer settings), and the VQ autoencoder at the same widths
+AE_DEFAULTS_CONFIG = dict(AE_CONFIG, use_perceptual=True, use_adaptive_weight=True)
+AE_VQ_CONFIG = dict(AE_CONFIG, num_code=16384)
 AE_FLASH = 2  # the encoder's and the decoder's mid-block attention, B8 H1 L1024 d512
 # GroupNorm calls, (H = W, C, SiLU fused, launches): per UNet call at 512px (61), per VAE decode at
 # 512px (30) and per autoencoder forward at 256px (52; two forwards per train step)
@@ -722,6 +771,9 @@ def gn_cases():
     for h, c, silu, n in AE_GN:
         cases.append((f"ae_b{AE_BATCH}_{h}x{h}_{c}{'_silu' if silu else ''}", (AE_BATCH, h, h, c), 32, "bfloat16", silu,
                       {"ae": 2 * n}))
+    for h, c, silu, n in ENCODER_GN:
+        cases.append((f"enc_b{TRAIN_BATCH}_{h}x{h}_{c}{'_silu' if silu else ''}", (TRAIN_BATCH, h, h, c), 32, "bfloat16",
+                      silu, {"ldm": n}))
     for silu in (False, True):
         cases.append((f"f32_odd_width{'_silu' if silu else ''}", (2, 17, 13, 96), 32, "float32", silu, {}))  # 3 per group
         cases.append((f"fp16_unvectorised{'_silu' if silu else ''}", (2, 9, 7, 36), 4, "float16", silu, {}))  # 9 per group
@@ -801,6 +853,32 @@ def phase_ae_kernels(torch, F, Cv, Gn):
         check("conv3x3_wgrad", name, err, tol)
         rows["conv3x3_wgrad"].append(row)
         del x, dy, out, ref
+    torch.cuda.empty_cache()
+
+    # the forward at the first-stage encoder's shapes on the ldm path (no gradient there)
+    for name, b, hh, ww, c, co, per in ENCODER_CONV_CASES:
+        x = torch.randn((b, hh, ww, c), generator=gen, device="cuda").to(bf16)
+        w = (torch.randn((co, c, 3, 3), generator=gen, device="cuda") * (9 * c) ** -0.5).to(bf16)
+        bias = (torch.randn((co,), generator=gen, device="cuda") * 0.1).to(bf16)
+        wk = Cv.kernel_weight(w)
+        xc, wc = x.permute(0, 3, 1, 2), w.contiguous(memory_format=torch.channels_last)
+        run = lambda: Cv.conv3x3(x, wk, bias)  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        ref = Cv.conv3x3_plain(x, wk, bias)
+        err, tol = max_err(out, ref), CONV_REL * ref.float().abs().max().item()
+        del out, ref
+        m = b * hh * ww
+        bms, by = bound_ms(2.0 * m * c * co * 9, 2.0 * (m * c + 9 * c * co + co + m * co))
+        ms = time_ms(torch, run)
+        row = dict(case=name, shape=[b, hh, ww, c, co], max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms(torch, run),
+                   plain_ms=time_ms(torch, lambda: Cv.conv3x3_plain(x, wk, bias), 20.0),
+                   library_ms=time_ms(torch, lambda: F.conv2d(xc, wc, bias, padding=1)), bound_ms=bms, bound_by=by,
+                   per={"ldm": per}, bound_share=bms / ms)
+        print("conv3x3", json.dumps(row))
+        check("conv3x3", name, err, tol)
+        rows["conv3x3"].append(row)
+        del x, xc
     torch.cuda.empty_cache()
 
     for name, shape, groups, dtype, silu, per in gn_cases():
@@ -1173,6 +1251,8 @@ def main() -> int:
                 r["per"] = {MAIN_PATH[name]: r.pop("per_path")}
             if r["case"] == "ae_mid" and name in ("flash_attention", "flash_fwd_lse", "flash_bwd_fused"):
                 r["per"]["ae"] = AE_FLASH
+            if r["case"] == "ldm_enc_mid" and name == "flash_attention":
+                r["per"]["ldm"] = ENCODER_FLASH
     # the flash shapes of the lossy serving configurations: the 64x64 attentions at the merged length
     for config in ("faithful", "accelerated"):
         full = int(deepcache_refresh_mask(STEPS, SERVE_CONFIGS[config][1]).sum())
@@ -1643,8 +1723,224 @@ def main() -> int:
     del det_runs, rec_a, rec_b
     del ae_grads_a, ae_grads_b
     print(f"ae parity: done at {time.perf_counter() - t_start:.0f} s")
+    del ae, multi, core, images, images_b, z_noise
+    torch.cuda.empty_cache()
 
-    # 9. summary
+    # 9. ldm path: SD-1.5 finetuned on images, the frozen first stage encoding them in each step
+    t0 = time.perf_counter()
+    sd = cflearn_torch.build_sd("v1", device="cuda", dtype=torch.float32, seed=0)
+    sd.condition_model = None  # the condition is a precomputed 77x768 embedding
+    redraw_zero_init(sd, seed=1)
+    torch.cuda.synchronize()
+    print(f"ldm: built SD-1.5 v1 with its first stage, f32 masters, text tower dropped, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ldm_images = torch.rand((TRAIN_BATCH, 512, 512, 3), generator=gen, device="cuda") * 2.0 - 1.0
+    ldm_ctx = torch.randn((TRAIN_BATCH, 77, 768), generator=gen, device="cuda")
+    ldm_kw = dict(lr=1e-5, compute_dtype=torch.bfloat16, generator=gen)
+    first_stage = {n: p.detach().clone() for n, p in sd.first_stage.named_parameters()}
+    unet_seen = []
+    hook = sd.unet.register_forward_pre_hook(lambda mod, args: unet_seen.append(tuple(args[0].shape)))
+    ldm_checkpoint = False
+    try:
+        cflearn_torch.finetune_unet(sd, ldm_images, ldm_ctx, num_steps=1, use_checkpoint=False, **ldm_kw)  # warm-up
+    except torch.cuda.OutOfMemoryError:
+        ldm_checkpoint = True
+    if ldm_checkpoint:  # as in phase 5, outside the handler so that the failed step's tensors are freed
+        torch.cuda.empty_cache()
+        cflearn_torch.finetune_unet(sd, ldm_images, ldm_ctx, num_steps=1, use_checkpoint=True, **ldm_kw)
+    torch.cuda.synchronize()
+    unet_before = {n: p.detach().clone() for n, p in sd.unet.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A, Cv, Gn)
+    unet_seen.clear()
+    t0 = time.perf_counter()
+    result = cflearn_torch.finetune_unet(sd, ldm_images, ldm_ctx, num_steps=TRAIN_STEPS, use_checkpoint=ldm_checkpoint,
+                                         **ldm_kw)
+    torch.cuda.synchronize()
+    ldm_wall = time.perf_counter() - t0
+    ldm_launches = read_launches(A, Cv, Gn)
+    ldm_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    hook.remove()
+    ldm_losses = result["losses"].tolist()
+    ldm_step_ms = ldm_wall / TRAIN_STEPS * 1e3
+    print(f"ldm: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} on 512x512 images, {ldm_step_ms:.1f} ms per step, "
+          f"{TRAIN_BATCH / ldm_step_ms * 1e3:.2f} samples/s, peak memory {ldm_peak_gb:.2f} GiB, losses {ldm_losses}, "
+          f"use_checkpoint={ldm_checkpoint}, launches {json.dumps(ldm_launches)}")
+    twice = 2 if ldm_checkpoint else 1
+    want = dict.fromkeys(ldm_launches, 0)
+    want.update(flash_fwd_lse=FLASH_PER_UNET * TRAIN_STEPS * twice, flash_bwd_fused=FLASH_PER_UNET * TRAIN_STEPS,
+                flash_attention=ENCODER_FLASH * TRAIN_STEPS, conv3x3=ENCODER_CONVS * TRAIN_STEPS,
+                group_norm=(GN_PER_UNET * twice + GN_PER_ENCODE) * TRAIN_STEPS)
+    if ldm_launches != want:
+        return fail(f"ldm launches {ldm_launches} != {want}")
+    if not all(math.isfinite(x) for x in ldm_losses):
+        return fail(f"ldm: non-finite loss {ldm_losses}")
+    if set(unet_seen) != {(TRAIN_BATCH, 64, 64, 4)}:
+        return fail(f"ldm: the UNet saw {sorted(set(unet_seen))}, not 64x64x4 latents")
+    changed = [n for n, p in sd.first_stage.named_parameters() if not torch.equal(p, first_stage[n])]
+    still = [n for n, p in sd.unet.named_parameters() if torch.equal(p, unet_before[n])]
+    grads = result["step"].grads
+    bad = [n for n, g in grads.items() if not torch.isfinite(g).all() or not g.any()]
+    print(f"ldm: UNet inputs {sorted(set(unet_seen))}; first stage: {len(changed)} of {len(first_stage)} parameters "
+          f"changed; UNet: {len(still)} of {len(unet_before)} parameters unmoved, {len(bad)} of {len(grads)} gradients "
+          f"non-finite or all-zero")
+    if changed or still or bad:
+        return fail(f"ldm: first stage changed {changed[:3]}, unmoved {still[:3]}, bad gradients {bad[:3]}")
+    del unet_before, first_stage, result, grads
+    torch.cuda.empty_cache()
+    # the encode through the kernels against the plain versions, held to the plain path's drift under a
+    # one-ulp move of the images (phase 4's measure); the encoder in bf16, as the step's compute cast runs it
+    encoder = copy.deepcopy(sd.first_stage).to(torch.bfloat16)
+    del sd
+    torch.cuda.empty_cache()
+    images_b16 = ldm_images.to(torch.bfloat16).float()
+
+    def encode(x):
+        return encoder.encode(x).mode().float()
+
+    with torch.no_grad():
+        lat_k = encode(images_b16)
+        with plain_kernels(A, Cv, Gn):
+            lat_p = encode(images_b16)
+            drift_enc = rel_err(encode(bump_ulp(torch, images_b16)), lat_p)
+    rel_enc = rel_err(lat_k, lat_p)
+    tol_enc = PARITY_FACTOR * drift_enc
+    print(f"ldm parity: encoded latents {tuple(lat_k.shape)}, kernels vs plain max rel err {rel_enc:.3e} (tolerance "
+          f"{tol_enc:.3e}: {PARITY_FACTOR} x the plain path's drift under a one-ulp move of the images, {drift_enc:.3e})")
+    if tuple(lat_k.shape) != (TRAIN_BATCH, 64, 64, 4) or not rel_enc <= tol_enc:
+        return fail("the encode through the kernels disagrees with the plain path")
+    ldm_out = {"step_ms": ldm_step_ms, "samples_per_s": TRAIN_BATCH / ldm_step_ms * 1e3, "batch": TRAIN_BATCH,
+               "px": 512, "peak_memory_gib": ldm_peak_gb, "use_checkpoint": ldm_checkpoint, "losses": ldm_losses,
+               "encode_parity": {"kernels_vs_plain": rel_enc, "drift": drift_enc}}
+    del encoder, ldm_images, ldm_ctx, images_b16, lat_k, lat_p
+    torch.cuda.empty_cache()
+    print(f"ldm path: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 10. the ae path at the JAX package's defaults: LPIPS (random weights), the adaptive weight, the
+    # default optimizer settings (Adam behind a warm-up x3 from lr / 3 over min(3e5 / 8, 10) steps)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ae = cflearn_torch.build_ae(AE_DEFAULTS_CONFIG, device="cuda", seed=0)
+    for w in caught:
+        print(f"ae defaults: warning: {w.message}")
+    images = torch.randn((AE_BATCH, 256, 256, 3), generator=gen, device="cuda").clamp(-1.0, 1.0)
+    ae_kw = dict(compute_dtype=torch.bfloat16, generator=gen)
+    cflearn_torch.train_autoencoder(ae, images, num_steps=1, **ae_kw)  # warm-up
+    torch.cuda.synchronize()
+    lpips_before = {n: p.detach().clone() for n, p in ae.perceptual.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    result = cflearn_torch.train_autoencoder(ae, images, num_steps=AE_STEPS, **ae_kw)
+    torch.cuda.synchronize()
+    aed_step_ms = (time.perf_counter() - t0) / AE_STEPS * 1e3
+    aed_launches = read_launches(A, Cv, Gn)
+    aed_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    aed_losses = [{k: v.item() for k, v in step_losses.items()} for step_losses in result["losses"]]
+    aed_lrs = result["lrs"]
+    weight = result["steps"]["core"].train_step.adaptive_weight
+    weight = None if weight is None else weight.item()
+    print(f"ae defaults: {AE_STEPS} steps, {aed_step_ms:.1f} ms per step, {AE_BATCH / aed_step_ms * 1e3:.2f} samples/s, "
+          f"peak memory {aed_peak_gb:.2f} GiB, launches {json.dumps(aed_launches)}")
+    print(f"ae defaults: losses {json.dumps(aed_losses)}; lrs {json.dumps(aed_lrs)}; adaptive weight {weight}")
+    names = {"core_loss", "core_l1", "core_perceptual", "core_kl", "core_g", "discriminator_loss", "discriminator_d"}
+    for step_losses in aed_losses:
+        if set(step_losses) != names or not all(math.isfinite(v) for v in step_losses.values()):
+            return fail(f"ae defaults losses {step_losses}")
+    # the warm-up's lr at update k: (1e-3 / 3) (1 + 2 k / 10)
+    want_lrs = [dict.fromkeys(("core", "discriminator"), 1e-3 / 3 * (1 + 2 * k / 10)) for k in range(AE_STEPS)]
+    if len(aed_lrs) != AE_STEPS or any(set(got) != set(lr) or any(abs(got[s] - lr[s]) > 1e-12 * lr[s] for s in lr)
+                                       for got, lr in zip(aed_lrs, want_lrs)):
+        return fail(f"ae defaults: learning rates {aed_lrs} != the schedule's {want_lrs}")
+    if weight is None or not 0.0 <= weight <= 0.5e4:
+        return fail(f"ae defaults: adaptive weight {weight}")
+    lpips_moved = [n for n, p in ae.perceptual.named_parameters() if not torch.equal(p, lpips_before[n])]
+    want = {
+        "conv3x3": 3 * AE_CONVS * AE_STEPS, "conv3x3_wgrad": AE_CONVS * AE_STEPS,
+        "group_norm": 2 * GN_PER_AE_FORWARD * AE_STEPS, "flash_fwd_lse": AE_FLASH * AE_STEPS,
+        "flash_bwd_fused": AE_FLASH * AE_STEPS, "flash_attention": AE_FLASH * AE_STEPS,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "conv3x3_w8a8": 0, "quantize_w8a8": 0, "conv3x3_fold": 0,
+    }
+    if aed_launches != want or lpips_moved:
+        return fail(f"ae defaults: launches {aed_launches} != {want}, LPIPS parameters moved {lpips_moved[:3]}")
+    del result, lpips_before
+    torch.cuda.empty_cache()
+    # phase 8's loss and global-norm gates on this config's core step (its per-module gate stays on phase 8's config)
+    multi = MultiScopeStep(ae, {scope: build_optimizer("adam", 1e-4) for scope in ("core", "discriminator")},
+                           compute_dtype=torch.bfloat16)
+    core = multi.steps["core"]
+    core.train_step.step_actives = {"core": True, "discriminator": True}
+    z_noise = torch.randn((AE_BATCH, 32, 32, 4), generator=gen, device="cuda")
+    images_b = images.to(torch.bfloat16).float()
+
+    def aed_fwd_bwd(x=images_b):
+        losses = core.loss_and_grads({INPUT_KEY: x}, forward_kwargs={"noise": z_noise})
+        grads, core.grads = core.grads, {}
+        return losses[LOSS_KEY].item(), grads
+
+    aed_par = ae_parity(torch, aed_fwd_bwd, images_b, A, Cv, Gn)
+    print(f"ae defaults parity: loss kernels {aed_par['loss']['kernels']:.6f} plain {aed_par['loss']['plain']:.6f} "
+          f"(tolerance {aed_par['loss']['tolerance']:.3e}); drift {json.dumps(aed_par['drift'])}; kernels vs plain "
+          f"{json.dumps(aed_par['kernels_vs_plain'])} (tolerance {AE_PARITY_FACTOR} x the drift); per module, not "
+          f"gated here: {json.dumps(aed_par['modules'])}")
+    if not abs(aed_par["loss"]["kernels"] - aed_par["loss"]["plain"]) <= aed_par["loss"]["tolerance"]:
+        return fail("ae defaults: the loss through the kernels disagrees with the plain path")
+    if not aed_par["kernels_vs_plain"]["global_rel"] <= AE_PARITY_FACTOR * aed_par["drift"]["global_rel"]:
+        return fail("ae defaults: gradients through the kernels disagree with the plain path (global norm)")
+    aed_out = {"step_ms": aed_step_ms, "samples_per_s": AE_BATCH / aed_step_ms * 1e3, "batch": AE_BATCH, "px": 256,
+               "peak_memory_gib": aed_peak_gb, "losses": aed_losses, "lrs": aed_lrs, "adaptive_weight": weight,
+               "parity": {"drift": aed_par["drift"], "kernels_vs_plain": aed_par["kernels_vs_plain"],
+                          "modules": aed_par["modules"]}}
+    del ae, multi, core, aed_par, z_noise, images_b
+    torch.cuda.empty_cache()
+    print(f"ae defaults path: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 11. ae_vq path: the VQ autoencoder at phase 7's widths, 16384 codes
+    vq = cflearn_torch.build_ae(AE_VQ_CONFIG, model="ae_vq", device="cuda", seed=0)
+    cflearn_torch.train_autoencoder(vq, images, num_steps=1, **ae_kw)  # warm-up
+    torch.cuda.synchronize()
+    codes_before = vq.m.codebook.embedding.detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    result = cflearn_torch.train_autoencoder(vq, images, num_steps=AE_STEPS, **ae_kw)
+    torch.cuda.synchronize()
+    vq_step_ms = (time.perf_counter() - t0) / AE_STEPS * 1e3
+    vq_launches = read_launches(A, Cv, Gn)
+    vq_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    vq_losses = [{k: v.item() for k, v in step_losses.items()} for step_losses in result["losses"]]
+    names = {"core_loss", "core_l1", "core_vq", "core_g", "discriminator_loss", "discriminator_d"}
+    codes_moved = int((vq.m.codebook.embedding.detach() != codes_before).any(dim=1).sum())
+    # the codes of the images through the kernels and through the plain versions, in bf16 as the step computes
+    encoder = copy.deepcopy(vq.m).to(torch.bfloat16)
+    with torch.no_grad():
+        idx_k = encoder.encode(images).indices
+        with plain_kernels(A, Cv, Gn):
+            idx_p = encoder.encode(images).indices
+    agree = (idx_k == idx_p).float().mean().item()
+    in_range = 0 <= int(idx_k.min()) and int(idx_k.max()) < AE_VQ_CONFIG["num_code"]
+    print(f"ae_vq: {AE_STEPS} steps, {vq_step_ms:.1f} ms per step, {AE_BATCH / vq_step_ms * 1e3:.2f} samples/s, peak "
+          f"memory {vq_peak_gb:.2f} GiB, launches {json.dumps(vq_launches)}; losses {json.dumps(vq_losses)}; "
+          f"{codes_moved} of {AE_VQ_CONFIG['num_code']} codes moved; {len(torch.unique(idx_k))} distinct codes in "
+          f"range: {in_range}; kernel and plain paths agree on {agree:.2%} of the indices (printed, not gated: "
+          f"argmin ties in bf16)")
+    for step_losses in vq_losses:
+        if set(step_losses) != names or not all(math.isfinite(v) for v in step_losses.values()):
+            return fail(f"ae_vq losses {step_losses}")
+    if vq_launches != want:
+        return fail(f"ae_vq launches {vq_launches} != {want}")
+    if not in_range or not codes_moved:
+        return fail(f"ae_vq: indices in range {in_range}, codes moved {codes_moved}")
+    vq_out = {"step_ms": vq_step_ms, "samples_per_s": AE_BATCH / vq_step_ms * 1e3, "batch": AE_BATCH, "px": 256,
+              "peak_memory_gib": vq_peak_gb, "losses": vq_losses, "codes_moved": codes_moved,
+              "index_agreement": agree}
+    del vq, encoder, result, images, idx_k, idx_p
+    torch.cuda.empty_cache()
+    print(f"ae_vq path: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 12. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -1664,11 +1960,23 @@ def main() -> int:
     }
     path_launches = {"txt2img": launches, "finetune": train_launches, "ae": ae_launches, "w8a8": w8a8_launches,
                      "fold": fold_launches, "faithful": serve_out["faithful"]["launches"],
-                     "accelerated": serve_out["accelerated"]["launches"]}
+                     "accelerated": serve_out["accelerated"]["launches"], "ldm": ldm_launches,
+                     "ae_defaults": aed_launches, "ae_vq": vq_launches}
     path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
                  "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
-                 "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img"}
-    path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps")
+                 "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img",
+                 "ldm": "one finetune step on 512px images", "ae_defaults": "one autoencoder train step at the defaults",
+                 "ae_vq": "one ae_vq train step"}
+    path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps",
+                    ldm=f"{TRAIN_STEPS} finetune steps on 512px images",
+                    ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps")
+    # the new paths run the UNet step's and the autoencoder step's shapes too: their rows count for them where the
+    # path launched the kernel (the ldm step adds the encoder's rows of its own)
+    for name, cases in rows.items():
+        for r in cases:
+            for path, same in (("ldm", "finetune"), ("ae_defaults", "ae"), ("ae_vq", "ae")):
+                if r["per"].get(same, 0) > 0 and path_launches[path][name] > 0:
+                    r["per"][path] = r["per"][same]
     kernels = []
     for name, cases in rows.items():
         source, replaces = info[name]
@@ -1712,6 +2020,7 @@ def main() -> int:
     ae_out = {"ae_steps_per_s": 1e3 / ae_step_ms, "samples_per_s": AE_BATCH / ae_step_ms * 1e3, "step_ms": ae_step_ms,
               "batch": AE_BATCH, "px": 256, "peak_memory_gib": ae_peak_gb, "losses": ae_losses,
               "seconds_total": time.perf_counter() - t_start}
+    ae_out["seconds_total"] = time.perf_counter() - t_start
     # the per-shape rows printed above, once more in one file beside the checkout
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1719,6 +2028,7 @@ def main() -> int:
         json.dump({"card": card_line(), "kernels": kernels, "shapes": rows, "txt2img": serve, "finetune": train,
                    "autoencoder": ae_out, "serve_configs": serve_out,
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
+                   "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -1727,6 +2037,7 @@ def main() -> int:
     print(json.dumps(serve))
     print(json.dumps(train))
     print(json.dumps(ae_out))
+    print(json.dumps({"ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

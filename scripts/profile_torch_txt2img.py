@@ -3,6 +3,7 @@
     python scripts/profile_torch_txt2img.py [--steps 5] [--config lossless] [--w8a8] [--out ...]
     python scripts/profile_torch_txt2img.py --path finetune [--steps 2] [--checkpoint]
     python scripts/profile_torch_txt2img.py --path ae [--steps 2]
+    python scripts/profile_torch_txt2img.py --path ldm | ae_defaults | ae_vq [--steps 2]
 
 `--path txt2img` (default): builds full-width SD-1.5 v1 in bf16 from seeded
 random weights, runs one warm-up txt2img at 512px (batch 1, CFG batch 2, one
@@ -23,6 +24,13 @@ unless `--out` says otherwise.
 multipliers [1, 2, 4, 4], two res blocks, PatchGAN discriminator) with f32
 master parameters, runs warm-up `train_autoencoder` steps at batch 8 (bf16
 compute, Adam), then `--steps` steps under `torch.profiler`.
+
+`--path ldm`: the finetune step of full-width SD-1.5 v1 (its `AutoEncoderKL`
+first stage frozen, f32 masters, the text tower dropped) on seeded 512x512x3
+images at batch 8, which the first stage encodes in each step. `--path
+ae_defaults`: the `ae` workload at the JAX package's defaults (LPIPS with
+random weights, the adaptive weight, the warm-up schedule). `--path ae_vq`:
+the `ae_vq` model at the `ae` widths, 16384 codes.
 
 Prints the wall time, the summed device time of all kernels and the
 device's idle share over the wall, the device time by kernel group and the
@@ -65,7 +73,8 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--path", choices=("txt2img", "finetune", "ae"), default="txt2img")
+    parser.add_argument("--path", choices=("txt2img", "finetune", "ae", "ldm", "ae_defaults", "ae_vq"),
+                        default="txt2img")
     parser.add_argument("--steps", type=int, default=None, help="DDIM steps (default 5) or train steps (default 2)")
     parser.add_argument("--checkpoint", action="store_true", help="finetune: recompute each UNet block in the backward")
     parser.add_argument("--config", choices=("lossless", "faithful", "accelerated"), default="lossless",
@@ -109,17 +118,36 @@ def main() -> int:
             return out
 
         run()
-    elif args.path == "ae":
-        model = cflearn_torch.build_ae(
-            dict(img_size=256, in_channels=3, inner_channels=128, z_channels=4, embedding_channels=4,
-                 channel_multipliers=[1, 2, 4, 4], num_res_blocks=2, use_perceptual=False, d_loss_start_step=0),
-            device="cuda", seed=0,
-        )
+    elif args.path in ("ae", "ae_defaults", "ae_vq"):
+        config = dict(img_size=256, in_channels=3, inner_channels=128, z_channels=4, embedding_channels=4,
+                      channel_multipliers=[1, 2, 4, 4], num_res_blocks=2, use_perceptual=False, d_loss_start_step=0)
+        if args.path == "ae_defaults":
+            config.update(use_perceptual=True, use_adaptive_weight=True)
+        if args.path == "ae_vq":
+            config.update(num_code=16384)
+        model = cflearn_torch.build_ae(config, model="ae_vq" if args.path == "ae_vq" else "ae_kl", device="cuda", seed=0)
         images = torch.randn((8, 256, 256, 3), generator=gen, device="cuda").clamp(-1.0, 1.0)
 
         def run(steps=args.steps):
             out = cflearn_torch.train_autoencoder(
                 model, images, num_steps=steps, compute_dtype=torch.bfloat16, generator=gen
+            )["losses"]
+            torch.cuda.synchronize()
+            return out
+
+        run(1)
+        run(1)
+    elif args.path == "ldm":
+        model = cflearn_torch.build_sd("v1", device="cuda", dtype=torch.float32, seed=0)
+        model.condition_model = None
+        redraw_zero_init(model, seed=1)
+        images = torch.rand((8, 512, 512, 3), generator=gen, device="cuda") * 2.0 - 1.0
+        ctx = torch.randn((8, 77, 768), generator=gen, device="cuda")
+
+        def run(steps=args.steps):
+            out = cflearn_torch.finetune_unet(
+                model, images, ctx, num_steps=steps, lr=1e-5, compute_dtype=torch.bfloat16,
+                use_checkpoint=args.checkpoint, generator=gen,
             )["losses"]
             torch.cuda.synchronize()
             return out

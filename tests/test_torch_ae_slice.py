@@ -17,7 +17,8 @@ from flax import nnx
 
 from _torch_bridge_common import bridged, flat_params, rel_err
 from cflearn_torch.bridge import load_nnx_batch_stats, load_nnx_params, tree_from_nnx
-from cflearn_torch.models.cv.ae import AEModel
+from cflearn_torch.losses.lpips import LPIPS
+from cflearn_torch.models.cv.ae import AEModel, build_ae
 from cflearn_torch.models.cv.gan import gan_loss as t_gan_loss
 from cflearn_torch.modules.cv.ae import AutoEncoderKL as TAutoEncoderKL
 from cflearn_torch.modules.cv.common import GaussianDistribution as TGaussian
@@ -206,11 +207,21 @@ def test_ae_model_options() -> None:
     with_var = AEModel(dict(MODEL_CONFIG, log_var_init=0.5, use_discriminator=False))
     assert with_var.discriminator is None and [ts.scope for ts in with_var.train_steps] == ["core"]
     assert "log_var" in {n for n, _ in with_var.params_filter("core")} and float(with_var.log_var.detach()) == 0.5
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        AEModel(dict(AE_CONFIG))
-    step = AEModel(dict(MODEL_CONFIG, use_adaptive_weight=True)).train_steps[0]
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        step._adaptive_weight(model, torch.zeros(1))
+    # the JAX defaults: LPIPS with random weights (and the JAX package's warning), frozen
+    with pytest.warns(UserWarning, match="LPIPS pretrained weights unavailable"):
+        default = AEModel(dict(AE_CONFIG))
+    assert isinstance(default.perceptual, LPIPS) and default.train_steps[0].perceptual_weight == 1.0
+    core = {n for n, _ in default.params_filter("core")}
+    assert core and not [n for n in core if n.startswith(("perceptual.", "discriminator."))]
+    assert {n for n, _ in default.named_parameters()} - core - {n for n, _ in default.params_filter("discriminator")} == {
+        n for n, _ in default.named_parameters() if n.startswith("perceptual.")}
+    # the adaptive weight: a detached, finite ratio of gradient norms, times d_weight, in [0, 1e4 d_weight]
+    step = AEModel(dict(MODEL_CONFIG, use_adaptive_weight=True, d_weight=0.25)).train_steps[0]
+    recon = torch.randn(1, SIZE, SIZE, 3, requires_grad=True)
+    seeded = build_ae(dict(MODEL_CONFIG), device="cpu")
+    weight = step._adaptive_weight(seeded, lambda r: (r - 0.5).abs().mean(), recon)
+    assert not weight.requires_grad and 0.0 < float(weight) <= 0.25e4 and weight is step.adaptive_weight
+    assert seeded.discriminator.training and recon.grad is None
     # the discriminator waits for its start step; the generator term waits with it
     late = AEModel(dict(MODEL_CONFIG, d_loss_start_step=2))
     x = torch.from_numpy(np.random.RandomState(6).randn(1, SIZE, SIZE, 3).astype(np.float32))

@@ -65,7 +65,8 @@ def test_port_imports_no_transformers_at_import(path: Path) -> None:
 def test_serving_modules_are_scanned() -> None:
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("cflearn_torch/modules/nlp/tokenizers.py", "cflearn_torch/modules/core/tome.py",
-                "cflearn_torch/toolkit/quality.py"):
+                "cflearn_torch/toolkit/quality.py", "cflearn_torch/losses/__init__.py", "cflearn_torch/losses/lpips.py",
+                "cflearn_torch/schedulers.py"):
         assert rel in names
 
 

@@ -31,7 +31,7 @@ from cflearn_tpu.models.cv.diffusion import DDPMStep
 from cflearn_tpu.modules.common import EMA
 from cflearn_tpu.modules.multimodal.diffusion.ddpm import DDPM
 from cflearn_tpu.ops import attention as A
-from cflearn_tpu.optimizers import build_optimizer
+from cflearn_tpu.optimizers import _adamp_transform, build_optimizer
 
 UNET = dict(
     start_channels=32, num_res_blocks=1, channel_multipliers=(1, 2),
@@ -156,7 +156,21 @@ OPT_CASES = [
     ("adam", dict(weight_decay=1e-2), 0.0),
     ("adamw", dict(weight_decay=1e-2), 0.0),
     ("adamw", dict(weight_decay=1e-2), 0.5),  # clip by the global norm, then adamw
+    ("rmsprop", dict(alpha=0.9, weight_decay=1e-2), 0.0),
+    ("rmsprop", dict(momentum=0.9), 0.0),
+    ("nadam", dict(betas=(0.8, 0.99)), 0.0),
+    ("adamp", dict(weight_decay=1e-2, delta=0.5), 0.0),  # delta 0.5: the (4, 3) leaf's rows get projected
 ]
+
+
+def _jax_tx(name, lr, config):
+    """The JAX registry's optimizer; for `adamp` its transform followed by a
+    descent step of lr. The registry's `adamp` chains the transform, which
+    negates its step already, with `scale_by_learning_rate`, which negates it
+    again: it climbs the loss (`test_jax_adamp_climbs`)."""
+    if name == "adamp":
+        return optax.chain(_adamp_transform(**config), optax.scale_by_learning_rate(lr, flip_sign=False))
+    return build_optimizer(name, lr, **config)
 
 
 @pytest.mark.parametrize("name,config,clip", OPT_CASES, ids=lambda v: str(v))
@@ -170,7 +184,7 @@ def test_optimizers_match_optax(name, config, clip) -> None:
     shapes = [(4, 3), (7,), (2, 3, 3, 2)]
     params = [rng.randn(*s).astype(np.float32) for s in shapes]
     grads = [[(rng.randn(*s) * 3).astype(np.float32) for s in shapes] for _ in range(5)]
-    tx = build_optimizer(name, 1e-2, **config)
+    tx = _jax_tx(name, 1e-2, config)
     if clip > 0:
         tx = optax.chain(optax.clip_by_global_norm(clip), tx)
     jp = [jnp.asarray(p) for p in params]
@@ -188,10 +202,32 @@ def test_optimizers_match_optax(name, config, clip) -> None:
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-6, atol=1e-6)
 
 
+def test_jax_adamp_climbs() -> None:
+    """The reference's fault that `_jax_tx` corrects: on f(p) = |p|^2 the
+    JAX registry's `adamp` raises f where `adam` lowers it; the port's
+    `adamp` lowers it by the same steps."""
+    p0 = np.full((4, 3), 2.0, np.float32)
+
+    def run_jax(tx):
+        p = jnp.asarray(p0)
+        state = tx.init(p)
+        for _ in range(3):
+            updates, state = tx.update(2 * p, state, p)
+            p = optax.apply_updates(p, updates)
+        return float((p**2).sum())
+
+    start = float((p0**2).sum())
+    assert run_jax(build_optimizer("adamp", 0.1)) > start > run_jax(build_optimizer("adam", 0.1))
+    opt, tp = TO.build_optimizer("adamp", 0.1), [torch.from_numpy(p0.copy())]
+    for _ in range(3):
+        opt.step(tp, [2 * tp[0]])
+    assert float((tp[0] ** 2).sum()) == pytest.approx(run_jax(_jax_tx("adamp", 0.1, {})), rel=1e-5)
+
+
 def test_optimizer_registry() -> None:
-    assert {"sgd", "adam", "adamw"} <= set(TO.optimizer_dict)
+    assert set(TO.optimizer_dict) == {"sgd", "adam", "adamw", "rmsprop", "nadam", "adamp"}
     with pytest.raises(ValueError, match="not registered"):
-        TO.build_optimizer("adamp", 1e-3)
+        TO.build_optimizer("lamb", 1e-3)
     g = [torch.full((3,), 2.0), torch.full((4,), -2.0)]
     np.testing.assert_allclose(float(TO.global_norm(g)), np.sqrt(28.0), rtol=1e-6)
     assert all(torch.equal(a, b) for a, b in zip(TO.clip_by_global_norm(g, 100.0), g))  # below the limit: unchanged
