@@ -14,16 +14,21 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .api.multimodal.diffusion import ControlledDiffusionAPI, DiffusionAPI  # noqa: E402
 from .device import resolve_device  # noqa: E402
 from .models.cv.ae import AEModel, build_ae  # noqa: E402
 from .modules.multimodal.diffusion.ddpm import DDPM  # noqa: E402
-from .modules.multimodal.diffusion.ldm import LDM, StableDiffusion, build, build_sd, sd_unet_config  # noqa: E402
+from .modules.multimodal.diffusion.ldm import (  # noqa: E402
+    LDM, StableDiffusion, StableDiffusionInpainting, build, build_sd, sd_unet_config,
+)
+from .modules.multimodal.diffusion.unet import ControlNet  # noqa: E402
 from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
 from .pipeline import CONFIGS, configure, finetune_unet, train_autoencoder, txt2img  # noqa: E402
 from .toolkit.quality import QualityReport, compare_outputs  # noqa: E402
 
 __all__ = [
-    "AEModel", "CLIPTokenizer", "CONFIGS", "DDPM", "LDM", "QualityReport", "StableDiffusion", "build", "build_ae",
-    "build_sd", "compare_outputs", "configure", "finetune_unet", "resolve_device", "sd_unet_config",
-    "train_autoencoder", "txt2img",
+    "AEModel", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI", "DDPM", "DiffusionAPI", "LDM",
+    "QualityReport", "StableDiffusion", "StableDiffusionInpainting", "build", "build_ae", "build_sd",
+    "compare_outputs", "configure", "finetune_unet", "resolve_device", "sd_unet_config", "train_autoencoder",
+    "txt2img",
 ]

@@ -1,0 +1,831 @@
+"""`DiffusionAPI` and `ControlledDiffusionAPI` (counterpart of
+`cflearn_tpu/api/multimodal/diffusion.py`): txt2img with seeds, slerped
+variations, batching, a callback, clip skip and the high-resolution second
+pass; img2img; inpainting on a 9-channel inpainting UNet (NORMAL or MASKED:
+cropped to the mask's box) or by repaint on a plain one; every registered
+sampler; ToMe, DeepCache, LoRA packs, an SD weight pool; and multi-ControlNet
+sampling with per-hint scales and start / end gating.
+
+The JAX package compiles each call into one cached program; here the calls
+run the modules directly on the API's device (the CUDA card unless the
+caller asks for another), through the kernels where the modules route them.
+Images come back as uint8 NHWC numpy arrays. Inputs are numpy arrays (uint8,
+or floats in [-1, 1]); paths and PIL images are not taken.
+
+Every random draw of the API (the starting latents, the variations,
+inpainting's noise) goes through `DiffusionAPI._randn`, and the samplers'
+through `ISampler._randn`, each from a `torch.Generator` seeded by the
+call's seed.
+"""
+
+import collections
+from contextlib import contextmanager
+from dataclasses import dataclass
+from enum import Enum
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...device import resolve_device
+from ...modules.common import cast_parameters
+from ...modules.core.lora import LoRAManager, LoRAPack
+from ...modules.core.mixed_stacks import SpatialTransformer
+from ...modules.layers import resize_bilinear
+from ...modules.multimodal.diffusion.samplers import ISampler
+from ...modules.multimodal.diffusion.utils import CONCAT_TYPE, CROSS_ATTN_TYPE, HYBRID_TYPE
+from ...modules.nlp.tokenizers import CLIPTokenizer
+from ...pipeline import default_tokenizer
+from ...toolkit.misc import slerp
+
+TNumberPair = Optional[Union[int, Tuple[int, int]]]
+
+
+def _to_uint8(images: Union[torch.Tensor, np.ndarray]) -> np.ndarray:
+    """[-1, 1] floats -> uint8 (truncated), in the images' dtype."""
+    if isinstance(images, np.ndarray):
+        images = torch.from_numpy(images)
+    return ((images.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8).cpu().numpy()
+
+
+def _from_uint8(images: np.ndarray) -> np.ndarray:
+    return images.astype(np.float32) / 127.5 - 1.0
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} inputs are not ported: pass a uint8 or [-1, 1] float NHWC numpy array")
+
+
+def _is_path_or_pil(image: Any) -> bool:
+    return isinstance(image, str) or (not isinstance(image, np.ndarray) and hasattr(image, "getbands"))
+
+
+# ---------------------------------------------------------------------------
+# crop-to-mask inpainting, on the host (numpy; resizes by torch on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _pair(v: TNumberPair) -> Optional[Tuple[int, int]]:
+    if v is None:
+        return None
+    if isinstance(v, int):
+        return v, v
+    return int(v[0]), int(v[1])
+
+
+def _resize_np(arr: np.ndarray, wh: Tuple[int, int], method: str = "bilinear") -> np.ndarray:
+    """Resize an HW or HWC numpy array to (w, h) as `jax.image.resize` does:
+    bilinear with half-pixel centres (antialiased where it shrinks), or
+    nearest sampling pixel centres."""
+    w, h = wh
+    squeeze = arr.ndim == 2
+    if squeeze:
+        arr = arr[..., None]
+    x = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))[None]
+    if method == "nearest":
+        out = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="nearest-exact").permute(0, 2, 3, 1)
+    else:
+        out = resize_bilinear(x, h, w)
+    out = out[0].numpy()
+    return out[..., 0] if squeeze else out
+
+
+def _box_blur(mask: np.ndarray, blur: Tuple[int, int]) -> np.ndarray:
+    """Separable box blur of a 2-D float mask, edges replicated."""
+    bw, bh = blur
+    out = mask.astype(np.float32)
+    if bw > 1:
+        k = np.ones(bw, np.float32) / bw
+        out = np.apply_along_axis(
+            lambda r: np.convolve(np.pad(r, bw // 2, mode="edge"), k, "same")[bw // 2: bw // 2 + r.size], 1, out
+        )
+    if bh > 1:
+        k = np.ones(bh, np.float32) / bh
+        out = np.apply_along_axis(
+            lambda c: np.convolve(np.pad(c, bh // 2, mode="edge"), k, "same")[bh // 2: bh // 2 + c.size], 0, out
+        )
+    return out
+
+
+class ImageBox(NamedTuple):
+    """An l / t / r / b crop box."""
+
+    l: int
+    t: int
+    r: int
+    b: int
+
+    @classmethod
+    def from_mask(cls, mask: np.ndarray, threshold: float) -> "ImageBox":
+        ys, xs = np.nonzero(mask > threshold)
+        if ys.size == 0:
+            return cls(0, 0, mask.shape[1], mask.shape[0])
+        return cls(int(xs.min()), int(ys.min()), int(xs.max()) + 1, int(ys.max()) + 1)
+
+    def crop(self, arr: np.ndarray) -> np.ndarray:
+        return arr[self.t: self.b, self.l: self.r]
+
+
+def adjust_lt_rb(box: ImageBox, w: int, h: int, padding: TNumberPair) -> ImageBox:
+    """Pad the mask's box, then widen it so that the crop keeps the image's
+    aspect ratio."""
+    l, t, r, b = box
+    pad = _pair(padding)
+    if pad is not None:
+        l = max(0, l - pad[0])
+        t = max(0, t - pad[1])
+        r = min(w, r + pad[0])
+        b = min(h, b + pad[1])
+    ch, cw = b - t, r - l
+    if ch / cw > h / w:
+        dw, dh = (int(ch * w / h) - cw) // 2, 0
+    else:
+        dw, dh = 0, (int(cw * h / w) - ch) // 2
+    if dw > 0:
+        if l < dw:
+            l, r = 0, min(w, cw + dw * 2)
+        elif r + dw > w:
+            l, r = max(0, w - cw - dw * 2), w
+        else:
+            l, r = l - dw, r + dw
+    if dh > 0:
+        if t < dh:
+            t, b = 0, min(h, ch + dh * 2)
+        elif b + dh > h:
+            t, b = max(0, h - ch - dh * 2), h
+        else:
+            t, b = t - dh, b + dh
+    return ImageBox(l, t, r, b)
+
+
+class InpaintingMode(str, Enum):
+    NORMAL = "normal"
+    MASKED = "masked"
+
+
+@dataclass
+class InpaintingSettings:
+    """MASKED mode crops to the padded box of the mask, diffuses the crop at
+    the working resolution and pastes it back with a feathered blend."""
+
+    mode: InpaintingMode = InpaintingMode.NORMAL
+    mask_blur: TNumberPair = None
+    mask_padding: TNumberPair = 32
+    mask_binary_threshold: Optional[int] = 32
+    target_wh: TNumberPair = None
+
+
+class CropResponse(NamedTuple):
+    box: ImageBox
+    wh: Tuple[int, int]
+    original_image: np.ndarray  # (b, H, W, C) float [-1, 1]
+    cropped_mask: np.ndarray  # (ch, cw) float binary
+    image: np.ndarray  # (b, h, w, C) resized crop
+    mask: np.ndarray  # (b, h, w, 1) resized mask
+
+
+def _round64(v: int) -> int:
+    return max(64, int(round(v / 64)) * 64)
+
+
+def fidelity_start_step(fidelity: float, num_steps: int) -> int:
+    """Skip the first fidelity * n steps: fidelity 1 keeps the input, 0
+    regenerates it."""
+    return max(0, min(num_steps - 1, int(round(fidelity * num_steps))))
+
+
+def crop_masked_area(image: np.ndarray, mask: np.ndarray, settings: InpaintingSettings) -> CropResponse:
+    """`image` (b, H, W, C) float [-1, 1], `mask` (b, H, W, 1) float [0, 1];
+    the batch shares sample 0's mask box."""
+    b, h, w = image.shape[:3]
+    mask2d = mask[0, :, :, 0]
+    raw_threshold = settings.mask_binary_threshold
+    threshold = (32 if raw_threshold is None else raw_threshold) / 255.0
+    box = adjust_lt_rb(ImageBox.from_mask(mask2d, threshold), w, h, settings.mask_padding)
+    t_wh = _pair(settings.target_wh)
+    tw, th = t_wh if t_wh is not None else (w, h)
+    tw, th = _round64(tw), _round64(th)
+    cropped_mask = (box.crop(mask2d) > threshold).astype(np.float32)
+    resized_image = np.stack([_resize_np(box.crop(img), (tw, th)) for img in image])
+    resized_mask = _resize_np(cropped_mask, (tw, th), "nearest")
+    resized_mask = np.broadcast_to(resized_mask[None, :, :, None], (b, th, tw, 1)).copy()
+    return CropResponse(box, (tw, th), image, cropped_mask, resized_image, resized_mask)
+
+
+def recover_masked_area(
+    sampled: np.ndarray,
+    crop: CropResponse,
+    settings: InpaintingSettings,
+    original_u8: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Resize the diffused crop back, blend it with the (blurred) mask and
+    paste it into the original. uint8 NHWC; outside the box the pixels are
+    the input's, bit for bit, when `original_u8` is given."""
+    l, t, r, b = crop.box
+    ch, cw = b - t, r - l
+    blurred = crop.cropped_mask
+    pad = _pair(settings.mask_padding)
+    if pad is not None and pad[0] > 0 and pad[1] > 0:
+        blurred = _box_blur(blurred, pad)
+    blurred = blurred[..., None]
+    if original_u8 is None:
+        original_u8 = _to_uint8(crop.original_image)
+    out = original_u8.copy()
+    untouched = blurred[:, :, 0] == 0.0
+    for i, s in enumerate(sampled):
+        s = _resize_np(s, (cw, ch))
+        region = crop.original_image[i, t:b, l:r]
+        mixed_u8 = _to_uint8(np.ascontiguousarray(s * blurred + region * (1.0 - blurred)))
+        mixed_u8[untouched] = out[i, t:b, l:r][untouched]
+        out[i, t:b, l:r] = mixed_u8
+    return out
+
+
+class Weights:
+    """A named pool of state dicts with a size bound (-1: none)."""
+
+    def __init__(self, limit: int = -1) -> None:
+        self.limit = limit
+        self._pool: "collections.OrderedDict[str, Dict[str, Any]]" = collections.OrderedDict()
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._pool
+
+    def register(self, key: str, states: Dict[str, Any]) -> None:
+        self._pool[key] = states
+        self._pool.move_to_end(key)
+        if 0 < self.limit < len(self._pool):
+            self._pool.popitem(last=False)
+
+    def get(self, key: str) -> Optional[Dict[str, Any]]:
+        states = self._pool.get(key)
+        if states is not None:
+            self._pool.move_to_end(key)
+        return states
+
+    def keys(self) -> Any:
+        return self._pool.keys()
+
+
+class DiffusionAPI:
+    """txt2img / img2img / inpainting over an `LDM` (SD). `use_bf16` casts
+    its parameters to bf16 (the schedule buffers stay f32)."""
+
+    def __init__(
+        self,
+        m: Any,
+        *,
+        use_bf16: bool = False,
+        tokenizer: Optional[CLIPTokenizer] = None,
+        device: Any = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.m = m.to(self.device).eval()
+        self.use_bf16 = use_bf16
+        if use_bf16:
+            cast_parameters(self.m, torch.bfloat16)
+        self.tokenizer = tokenizer or default_tokenizer()
+        self.sampler_name = "ddim"
+        self.sampler_config: Dict[str, Any] = {}
+        self._sd_weights = Weights()
+        self._current_sd: Optional[str] = None
+        self.lora_manager = LoRAManager()
+
+    # ------------------------------------------------------------- switches
+
+    def switch_sampler(self, sampler: str, **sampler_config: Any) -> None:
+        if sampler not in ISampler.d:
+            raise ValueError(f"unknown sampler '{sampler}' (available: {sorted(ISampler.d)})")
+        self.sampler_name = sampler
+        self.sampler_config = sampler_config
+
+    def set_tome_ratio(self, ratio: float, *, merge_mlp: bool = False) -> None:
+        """ToMe token merging on every `SpatialTransformer` (`merge_mlp`: the
+        feed-forward runs on the merged tokens too)."""
+        for module in self.m.modules():
+            if isinstance(module, SpatialTransformer):
+                module.set_tome_ratio(ratio, merge_mlp=merge_mlp)
+
+    def set_deepcache(self, interval: Optional[int], *, cut: int = 3, center: Optional[float] = None) -> None:
+        """DeepCache (Ma et al. 2023): every `interval`-th step of a ddim /
+        basic sampler runs the full UNet and caches the deep feature, the
+        others run the shallowest `cut` input blocks and `cut` + 1 output
+        blocks around it (None or <= 1: off). `center` in [0, 1] places the
+        same number of full passes around that point of the whole loop."""
+        self.m.deepcache_interval = None if interval is not None and interval <= 1 else interval
+        self.m.deepcache_cut = cut
+        self.m.deepcache_center = center
+
+    @contextmanager
+    def _load_context(self, ignore_lora: bool) -> Iterator[Any]:
+        restored = None
+        if ignore_lora and self.lora_manager._active:
+            restored = dict(self.lora_manager._active)
+            self.lora_manager.deactivate(self.m)
+        try:
+            yield self.m
+        finally:
+            if restored:
+                # the weights may have been replaced inside: fuse on the new base
+                self.lora_manager.reset_base()
+                self.lora_manager.apply_lora(self.m, *restored.keys(), scales=restored)
+
+    def load_context(self, *, ignore_lora: bool = True) -> Any:
+        """A context yielding the bare model for weight loading: active LoRA
+        fusions are removed on entry and fused again, on the weights found
+        then, on exit."""
+        return self._load_context(ignore_lora)
+
+    # ----------------------------------------------------------------- lora
+
+    def load_sd_lora(self, key: str, *, path: Optional[str] = None, pack: Optional[LoRAPack] = None) -> None:
+        if pack is None:
+            assert path is not None, "either `path` or `pack` is required"
+            pack = LoRAManager.load_torch_lora(path)
+        self.lora_manager.load_pack_with(key, pack)
+
+    def inject_sd_lora(self, *keys: str) -> None:
+        self.lora_manager.apply_lora(self.m, *keys)
+
+    def set_sd_lora_scales(self, scales: Dict[str, float]) -> None:
+        self.lora_manager.set_scales(self.m, scales)
+
+    def cleanup_sd_lora(self) -> None:
+        self.lora_manager.deactivate(self.m)
+
+    # --------------------------------------------------------- weight pools
+
+    def prepare_sd(self, versions: Dict[str, Dict[str, Any]]) -> None:
+        """Register alternative SD weights: {tag: {parameter name: array}}."""
+        for tag, states in versions.items():
+            self._sd_weights.register(tag, states)
+
+    @torch.no_grad()
+    def switch_sd(self, tag: str) -> None:
+        states = self._sd_weights.get(tag)
+        if states is None:
+            raise ValueError(f"sd tag '{tag}' is not prepared")
+        if self._current_sd != tag:
+            params = dict(self.m.named_parameters())
+            unknown = sorted(set(states) - set(params))
+            if unknown:
+                raise ValueError(f"not parameters of the model: {unknown[:10]}")
+            for name, value in states.items():
+                params[name].copy_(torch.as_tensor(np.asarray(value)))
+            self._current_sd = tag
+
+    # ------------------------------------------------------------ internals
+
+    def _tokens(self, texts: List[str]) -> torch.Tensor:
+        return torch.as_tensor(self.tokenizer.tokenize(texts), dtype=torch.long, device=self.device)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _randn(self, shape: Tuple[int, ...], generator: torch.Generator, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """N(0, 1) on the API's device: every draw the API makes."""
+        return torch.randn(shape, generator=generator, device=self.device, dtype=dtype)
+
+    def _sampler(self) -> ISampler:
+        return ISampler.make(self.sampler_name, dict(self.sampler_config, model=self.m))
+
+    def _conds(self, tokens: torch.Tensor, uncond_tokens: torch.Tensor, guidance_scale: float) -> Tuple[Any, Any]:
+        cond = self.m.get_cond(tokens)
+        return cond, (self.m.get_cond(uncond_tokens) if guidance_scale != 1.0 else None)
+
+    def _make_noise(
+        self,
+        num_samples: int,
+        size: Tuple[int, int],
+        seed: Optional[int],
+        variations: Optional[List[Tuple[int, float]]],
+    ) -> torch.Tensor:
+        shape = (num_samples, size[0] // 8, size[1] // 8, self.m.out_channels)
+        if seed is None:
+            seed = np.random.randint(0, 2**31 - 1)
+        z = self._randn(shape, self._generator(seed))
+        for v_seed, strength in variations or []:
+            z = slerp(self._randn(shape, self._generator(v_seed)), z, strength)
+        return z
+
+    @staticmethod
+    def _prompts(cond: Optional[Union[str, List[str]]], n: int) -> List[str]:
+        prompts = cond if cond is not None else [""] * n
+        return [prompts] * n if isinstance(prompts, str) else list(prompts)
+
+    # ------------------------------------------------------------------ api
+
+    @torch.no_grad()
+    def sample(
+        self,
+        num_samples: int,
+        *,
+        cond: Optional[Union[str, List[str]]] = None,
+        negative_prompt: str = "",
+        size: Tuple[int, int] = (512, 512),
+        num_steps: int = 20,
+        guidance_scale: float = 7.5,
+        seed: Optional[int] = None,
+        variations: Optional[List[Tuple[int, float]]] = None,
+        variation_seed: Optional[int] = None,
+        variation_strength: Optional[float] = None,
+        z: Optional[Any] = None,
+        batch_size: Optional[int] = None,
+        callback: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+        clip_skip: Optional[int] = None,
+        highres_info: Optional[Dict[str, Any]] = None,
+        export_path: Optional[str] = None,
+        **kwargs: Any,
+    ) -> np.ndarray:
+        """txt2img. Returns uint8 NHWC images.
+
+        `z` gives the starting latents; otherwise they are drawn from `seed`
+        and slerped with each (seed, strength) of `variations`, then with
+        `variation_seed` at `variation_strength`. `batch_size` splits
+        `num_samples` into batches; `callback` maps the decoded float images
+        (numpy) before the uint8 cast; `clip_skip` sets the text encoder's
+        tap for this call; `highres_info` ({"upscale_factor", "fidelity"})
+        upscales the result and runs img2img on it."""
+        prompts = self._prompts(cond, num_samples)
+        if len(prompts) != num_samples:
+            raise ValueError(
+                f"`num_samples` ({num_samples}) should be identical with the number of `cond` ({len(prompts)})"
+            )
+        size = (_round64(size[0]), _round64(size[1]))
+        cm = getattr(self.m, "condition_model", None)
+        clip_skip_backup: Optional[int] = None
+        if clip_skip is not None and hasattr(cm, "clip_skip"):
+            clip_skip_backup = cm.clip_skip
+            cm.clip_skip = int(clip_skip)
+        try:
+            tokens = self._tokens(prompts)
+            uncond = self._tokens([negative_prompt] * num_samples)
+            if z is not None:
+                z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
+            else:
+                z = self._make_noise(num_samples, size, seed, variations)
+                if variation_seed is not None and variation_strength:
+                    z = slerp(self._randn(tuple(z.shape), self._generator(variation_seed)), z, variation_strength)
+            generator = self._generator(seed or 0)
+            chunk = batch_size or num_samples
+            outs = []
+            for lo in range(0, num_samples, chunk):
+                hi = min(num_samples, lo + chunk)
+                c, u = self._conds(tokens[lo:hi], uncond[lo:hi], guidance_scale)
+                latents = self._sampler().sample(
+                    z[lo:hi], cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator
+                )
+                outs.append(self.m.decode(latents))
+            images = torch.cat(outs, dim=0)
+        finally:
+            if clip_skip_backup is not None:
+                cm.clip_skip = clip_skip_backup
+        if callback is not None:
+            images = torch.as_tensor(callback(images.float().cpu().numpy()), device=self.device)
+        if highres_info:
+            upscale = highres_info.get("upscale_factor", 2.0)
+            hr_size = (int(size[0] * upscale), int(size[1] * upscale))
+            return self.img2img(
+                _to_uint8(resize_bilinear(images, *hr_size)), cond=prompts, negative_prompt=negative_prompt,
+                fidelity=highres_info.get("fidelity", 0.3), num_steps=num_steps, guidance_scale=guidance_scale,
+                seed=seed,
+            )
+        out = _to_uint8(images)
+        if export_path is not None:
+            self._export(out, export_path)
+        return out
+
+    def txt2img(self, txt: Union[str, List[str]], **kwargs: Any) -> np.ndarray:
+        prompts = [txt] if isinstance(txt, str) else list(txt)
+        return self.sample(len(prompts), cond=prompts, **kwargs)
+
+    @torch.no_grad()
+    def img2img(
+        self,
+        image: np.ndarray,
+        *,
+        cond: Optional[Union[str, List[str]]] = None,
+        negative_prompt: str = "",
+        fidelity: float = 0.2,
+        num_steps: int = 20,
+        guidance_scale: float = 7.5,
+        seed: Optional[int] = None,
+        export_path: Optional[str] = None,
+        **kwargs: Any,
+    ) -> np.ndarray:
+        """`image`: uint8 or [-1, 1] float NHWC. Sides that are not multiples
+        of 64 are resized up to the rounded size for sampling, and the
+        result back."""
+        image = self._norm_image(image)
+        b = image.shape[0]
+        original_hw = (image.shape[1], image.shape[2])
+        rounded_hw = (_round64(original_hw[0]), _round64(original_hw[1]))
+        x = torch.as_tensor(image, device=self.device)
+        if rounded_hw != original_hw:
+            x = resize_bilinear(x, *rounded_hw)
+        prompts = self._prompts(cond, b)
+        c, u = self._conds(self._tokens(prompts), self._tokens([negative_prompt] * b), guidance_scale)
+        # the latents in f32, as the JAX encoder leaves them for an f32 image
+        z0 = self.m.encode_first_stage(x).float()
+        latents = self._sampler().sample_from(
+            z0, cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps,
+            start_step=fidelity_start_step(fidelity, num_steps), generator=self._generator(seed or 0),
+        )
+        out = _to_uint8(self.m.decode(latents))
+        if rounded_hw != original_hw:
+            back = resize_bilinear(torch.from_numpy(out).float(), *original_hw)
+            out = back.round().clamp(0, 255).to(torch.uint8).numpy()
+        if export_path is not None:
+            self._export(out, export_path)
+        return out
+
+    def _inpaint(
+        self,
+        image: np.ndarray,
+        mask: np.ndarray,
+        tokens: torch.Tensor,
+        uncond_tokens: torch.Tensor,
+        *,
+        num_steps: int,
+        guidance_scale: float,
+        force_repaint: bool,
+        ref_fidelity: Optional[float],
+        seed: int,
+    ) -> torch.Tensor:
+        """The decoded inpainting (float NHWC). A 9-channel inpainting UNet
+        takes the mask and the masked image's latents joined to its input
+        (the hybrid condition; a concat-only LDM takes them as its
+        condition); a plain UNet samples freely and keeps the original
+        latents outside the mask (repaint). `ref_fidelity` starts from the
+        q-sampled original latents at that fidelity."""
+        m = self.m
+        x = torch.as_tensor(image, device=self.device)
+        mask_t = torch.as_tensor(mask, device=self.device)
+        text, text_u = self._conds(tokens, uncond_tokens, guidance_scale)
+        z0 = m.encode_first_stage(x).float()
+        b, lh, lw, _ = z0.shape
+        latent_mask = F.interpolate(mask_t.permute(0, 3, 1, 2), size=(lh, lw), mode="nearest-exact").permute(0, 2, 3, 1)
+        sampler = self._sampler()
+        generator = self._generator(seed)
+        z = self._randn(tuple(z0.shape), generator)
+        start_step = None if ref_fidelity is None else fidelity_start_step(ref_fidelity, num_steps)
+
+        def run_sampler(cond: Any, uncond: Any) -> torch.Tensor:
+            kw = dict(cond=cond, uncond=uncond, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator)
+            if start_step is None:
+                return sampler.sample(z, **kw)
+            return sampler.sample_from(z0, start_step=start_step, **kw)
+
+        if m.unet.in_channels > m.out_channels and not force_repaint:
+            if m.condition_type == CONCAT_TYPE:
+                # concat-only LDM inpainting: the masked image filled with -1,
+                # then the mask in [-1, 1]; no text, no CFG; the unmasked
+                # pixels come from the input
+                zmb = m.encode_first_stage(x * (1.0 - mask_t) - mask_t).float()
+                latents = run_sampler(torch.cat([zmb, latent_mask * 2.0 - 1.0], dim=-1), None)
+                return x * (1.0 - mask_t) + m.decode(latents) * mask_t
+            zm = m.encode_first_stage(x * (1.0 - mask_t)).float()
+            concat = torch.cat([latent_mask, zm], dim=-1)
+            cond = {CONCAT_TYPE: concat, CROSS_ATTN_TYPE: text}
+            uncond = None if text_u is None else {CONCAT_TYPE: concat, CROSS_ATTN_TYPE: text_u}
+            backup = m.condition_type
+            m.condition_type = HYBRID_TYPE
+            try:
+                latents = run_sampler(cond, uncond)
+            finally:
+                m.condition_type = backup
+        else:
+            latents = run_sampler(text, text_u)
+            latents = latents * latent_mask + z0 * (1.0 - latent_mask)
+        return m.decode(latents)
+
+    @torch.no_grad()
+    def inpainting(
+        self,
+        image: np.ndarray,
+        mask: np.ndarray,
+        *,
+        cond: Optional[Union[str, List[str]]] = None,
+        negative_prompt: str = "",
+        num_steps: int = 20,
+        guidance_scale: float = 7.5,
+        seed: Optional[int] = None,
+        export_path: Optional[str] = None,
+        inpainting_settings: Optional[InpaintingSettings] = None,
+        use_raw_inpainting: bool = False,
+        use_background_guidance: bool = False,
+        reference_fidelity: float = 0.2,
+        keep_original: bool = False,
+        keep_original_fade: int = 50,
+        **kwargs: Any,
+    ) -> np.ndarray:
+        """Masked generation (mask: 1 = regenerate). `inpainting_settings`
+        selects NORMAL (the whole canvas) or MASKED (the crop around the
+        mask); `use_raw_inpainting` forces repaint on a 9-channel UNet;
+        `use_background_guidance` (or `refine_fidelity`) starts from the
+        q-sampled original at `reference_fidelity`; `keep_original` pastes
+        the original's unmasked pixels back over a `keep_original_fade`
+        pixel band."""
+        refine_fidelity = kwargs.pop("refine_fidelity", None)
+        if refine_fidelity is not None:
+            use_background_guidance = True
+            reference_fidelity = float(refine_fidelity)
+        if _is_path_or_pil(image) or _is_path_or_pil(mask):
+            raise _not_ported("path and PIL")
+        raw = np.asarray(image)
+        if raw.ndim == 3:
+            raw = raw[None]
+        original_u8 = raw if raw.dtype == np.uint8 else None
+        image = self._norm_image(raw)
+        b = image.shape[0]
+        mask = np.asarray(mask).astype(np.float32)
+        if mask.ndim == 2:
+            mask = mask[None, :, :, None]
+        elif mask.ndim == 3:
+            mask = mask[..., None] if mask.shape[-1] not in (1,) else mask[None]
+        mask = (mask > 0.5).astype(np.float32)
+        full_mask = mask
+        settings = inpainting_settings
+        crop_ctx: Optional[CropResponse] = None
+        if settings is not None and settings.mode == InpaintingMode.MASKED:
+            crop_ctx = crop_masked_area(image, mask, settings)
+            image, mask = crop_ctx.image, crop_ctx.mask
+        if settings is not None:
+            blur = _pair(settings.mask_blur)
+            if blur is not None and blur[0] > 0 and blur[1] > 0:
+                mask = np.stack([_box_blur(mk[:, :, 0], blur)[:, :, None] for mk in mask])
+        prompts = self._prompts(cond, b)
+        sampled = self._inpaint(
+            image, mask, self._tokens(prompts), self._tokens([negative_prompt] * b), num_steps=num_steps,
+            guidance_scale=guidance_scale, force_repaint=use_raw_inpainting,
+            ref_fidelity=reference_fidelity if use_background_guidance else None, seed=seed or 0,
+        )
+        if crop_ctx is not None:
+            out = recover_masked_area(
+                np.clip(sampled.float().cpu().numpy(), -1.0, 1.0), crop_ctx, settings, original_u8=original_u8
+            )
+        else:
+            out = _to_uint8(sampled)
+        if keep_original:
+            if original_u8 is not None:
+                orig_u8 = original_u8
+            else:
+                orig_u8 = _to_uint8(crop_ctx.original_image if crop_ctx is not None else image)
+            alpha2d = full_mask[0, :, :, 0]
+            if keep_original_fade:
+                f = int(keep_original_fade)
+                alpha2d = _box_blur(alpha2d, (f, f))
+            alpha = alpha2d[None, :, :, None]
+            blended = out.astype(np.float32) * alpha + orig_u8.astype(np.float32) * (1.0 - alpha)
+            blended_u8 = np.clip(np.round(blended), 0, 255).astype(np.uint8)
+            untouched = alpha2d == 0.0
+            blended_u8[:, untouched] = orig_u8[:, untouched]
+            out = blended_u8
+        if export_path is not None:
+            self._export(out, export_path)
+        return out
+
+    def txt2img_inpainting(self, txt: Union[str, List[str]], image: np.ndarray, mask: np.ndarray, **kwargs: Any) -> np.ndarray:
+        """Text-guided inpainting: `inpainting` with `cond=txt`."""
+        return self.inpainting(image, mask, cond=txt, **kwargs)
+
+    # ---------------------------------------------------------------- utils
+
+    @staticmethod
+    def _norm_image(image: Any) -> np.ndarray:
+        """uint8 -> [-1, 1] f32; floats as they are; HWC gets a batch axis."""
+        if _is_path_or_pil(image):
+            raise _not_ported("path and PIL")
+        image = np.asarray(image)
+        if image.ndim == 3:
+            image = image[None]
+        if image.dtype == np.uint8:
+            image = _from_uint8(image)
+        return image.astype(np.float32)
+
+    @staticmethod
+    def _export(images: np.ndarray, path: str) -> None:
+        try:
+            from PIL import Image
+        except ImportError:
+            np.save(path + ".npy", images)
+            return
+        if images.shape[0] == 1:
+            Image.fromarray(images[0]).save(path)
+        else:
+            stem, _, suffix = path.rpartition(".")
+            for i, img in enumerate(images):
+                Image.fromarray(img).save(f"{stem}_{i}.{suffix}")
+
+    # ----------------------------------------------------------- construct
+
+    @classmethod
+    def from_sd(
+        cls,
+        version: str = "v1",
+        *,
+        pretrained: bool = False,
+        use_bf16: bool = True,
+        device: Any = None,
+        seed: int = 0,
+        **kwargs: Any,
+    ) -> "DiffusionAPI":
+        """SD with seeded random weights, built in bf16 (`use_bf16`) or f32
+        on `device` (the CUDA card unless the caller asks for another).
+        Versions ending in `_inpainting` build `StableDiffusionInpainting`;
+        the community tags ("v1.5", "anime*", "dreamlike*") are the v1
+        architecture. Pretrained weights are not in the repository and are
+        never downloaded."""
+        from ...modules.multimodal.diffusion.ldm import StableDiffusion, StableDiffusionInpainting, build
+
+        if pretrained:
+            raise ValueError("pretrained SD weights are not in the repository and are never downloaded")
+        arch = "v1" if version.startswith(("anime", "dreamlike")) or version == "v1.5" else version
+        inpainting = arch.endswith("_inpainting")
+        m = build(
+            StableDiffusionInpainting if inpainting else StableDiffusion, device=resolve_device(device),
+            dtype=torch.bfloat16 if use_bf16 else torch.float32, seed=seed,
+            version=arch.replace("_inpainting", ""),
+        )
+        return cls(m, use_bf16=use_bf16, device=device, **kwargs)
+
+    @classmethod
+    def from_sd_inpainting(cls, *, pretrained: bool = False, use_bf16: bool = True, **kwargs: Any) -> "DiffusionAPI":
+        return cls.from_sd("v1_inpainting", pretrained=pretrained, use_bf16=use_bf16, **kwargs)
+
+
+class ControlledDiffusionAPI(DiffusionAPI):
+    """Multi-ControlNet txt2img: control branches keyed by hint name, with
+    per-hint scales and start / end gating."""
+
+    def __init__(self, m: Any, **kwargs: Any) -> None:
+        super().__init__(m, **kwargs)
+        self.controls: Dict[str, Any] = {}
+        self.control_scales: Dict[str, float] = {}
+        self._control_enabled = True
+
+    def prepare_control(self, hint: str, control_net: Any) -> None:
+        """Register a ControlNet for a hint type (moved to the API's device)."""
+        self.controls[hint] = control_net.to(self.device).eval()
+        self.control_scales.setdefault(hint, 1.0)
+
+    def switch_control(self, *hints: str) -> None:
+        """Keep only the given hints' controls."""
+        self.controls = {h: c for h, c in self.controls.items() if h in hints}
+
+    def enable_control(self) -> None:
+        self._control_enabled = True
+
+    def disable_control(self) -> None:
+        """`sample_with_control` samples without control while disabled."""
+        self._control_enabled = False
+
+    @torch.no_grad()
+    def sample_with_control(
+        self,
+        num_samples: int,
+        hint_images: Dict[str, np.ndarray],
+        *,
+        cond: Optional[Union[str, List[str]]] = None,
+        negative_prompt: str = "",
+        size: Tuple[int, int] = (512, 512),
+        num_steps: int = 20,
+        guidance_scale: float = 7.5,
+        seed: Optional[int] = None,
+        hint_starts: Optional[Dict[str, float]] = None,
+        hint_ends: Optional[Dict[str, float]] = None,
+        **kwargs: Any,
+    ) -> np.ndarray:
+        """Every prepared hint of `hint_images` (uint8 or [-1, 1] NHWC, at
+        the image size) drives its ControlNet at once; the residuals are
+        summed at the per-hint scales, each hint on between its start and
+        end fractions of the loop."""
+        if not self._control_enabled:
+            return self.sample(
+                num_samples, cond=cond, negative_prompt=negative_prompt, size=size, num_steps=num_steps,
+                guidance_scale=guidance_scale, seed=seed, **kwargs,
+            )
+        names = list(hint_images)
+        nets = []
+        for name in names:
+            control_net = self.controls.get(name)
+            if control_net is None:
+                raise ValueError(f"control '{name}' is not prepared")
+            nets.append(control_net)
+        prompts = self._prompts(cond, num_samples)
+        c, u = self._conds(self._tokens(prompts), self._tokens([negative_prompt] * num_samples), guidance_scale)
+        hints = [torch.as_tensor(self._norm_image(hint_images[n]), device=self.device) for n in names]
+        n_levels = len(nets[0].unet.input_chans) + 2
+        scales = [[self.control_scales.get(n, 1.0)] * n_levels for n in names]
+        starts = [None if not hint_starts else hint_starts.get(n) for n in names]
+        ends = [None if not hint_ends else hint_ends.get(n) for n in names]
+        gating = any(s is not None for s in starts) or any(e is not None for e in ends)
+        gate_kw = {"control_hint_start": starts, "control_hint_end": ends} if gating else {}
+        generator = self._generator(seed or 0)
+        z = self._randn((num_samples, size[0] // 8, size[1] // 8, self.m.out_channels), generator)
+        latents = self._sampler().sample(
+            z, cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator,
+            control_net=nets, control_hint=hints, control_scales=scales, **gate_kw,
+        )
+        return _to_uint8(self.m.decode(latents))

@@ -30,6 +30,14 @@ leaves it is given. An `AEModel` needs no mapping of its own:
 the port keeps the JAX model's attribute names (`m.*`, `discriminator.*`,
 `log_var`), so its paths map like any other.
 
+A JAX `ControlNet` builds a whole `UNetDiffuser` and runs only its encoder
+half; the port's builds only that half. `control_net_params` leaves the
+decoder half's leaves out by name (`CONTROL_NET_UNUSED`), and the bridge
+stays strict over the rest. A JAX `LoRAPack`'s deltas, keyed by
+`tree_to_npd` paths with (in, out) kernels, go across by
+`lora_deltas_from_nnx`: the port's parameter names and the
+(rank, in) / (out, rank) layout of `nn.Linear`.
+
 Any tree shaped like the parameters goes the same way: `tree_from_nnx`
 carries the JAX gradients or updated parameters (flattened to the same
 dotted paths) into the port's names and layouts, in f32, so that a test can
@@ -170,3 +178,34 @@ def load_nnx_buffers(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Mo
         for name, value in flat.items():
             buffers[name].copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
     return module
+
+
+# the decoder half of a JAX `ControlNet`'s UNet copy, which its forward never runs
+CONTROL_NET_UNUSED = ("unet.output_blocks.", "unet.norm_out.", "unet.conv_out.")
+
+
+def control_net_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The leaves of a JAX `ControlNet` that the port's `ControlNet` holds."""
+    return {k: v for k, v in flat.items() if not k.startswith(CONTROL_NET_UNUSED)}
+
+
+def lora_path_to_port(path: str) -> str:
+    """A JAX LoRA path ("unet/mid/mods/1/blocks/0/attn1/to_q/kernel/value",
+    `tree_to_npd`'s form) -> the port's parameter name."""
+    dotted = path.replace("/", ".")
+    if dotted.endswith(".value"):
+        dotted = dotted[: -len(".value")]
+    return port_name(dotted, 2)[0]
+
+
+def lora_deltas_from_nnx(
+    deltas: Mapping[str, Tuple[np.ndarray, np.ndarray]]
+) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """JAX LoRA deltas {path: (down (in, rank), up (rank, out))} -> the
+    port's {name: (down (rank, in), up (out, rank))}, in f32."""
+    out: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    for path, (down, up) in deltas.items():
+        out[lora_path_to_port(path)] = tuple(
+            torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32).T)) for a in (down, up)
+        )
+    return out

@@ -1,12 +1,13 @@
 """DDPM: noise schedule buffers, condition dispatch, the eps/v/x0
-parameterizations, the forward process and the DeepCache settings
-(counterpart of `cflearn_tpu/modules/multimodal/diffusion/ddpm.py`, no
-ControlNet). The condition types: `cross_attn` (the UNet's context),
+parameterizations, the forward process, the DeepCache settings and the
+ControlNet injection (counterpart of
+`cflearn_tpu/modules/multimodal/diffusion/ddpm.py`; no style-reference
+hooks). The condition types: `cross_attn` (the UNet's context),
 `concat` (joined to the UNet's input on the channel axis), `hybrid` (a dict
 holding both) and `adm` (class labels, embedded into the time embedding)."""
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -198,6 +199,10 @@ class DDPM(nn.Module):
         timesteps: torch.Tensor,
         cond: Optional[Any] = None,
         *,
+        control_net: Optional[Any] = None,
+        control_hint: Optional[Any] = None,
+        control_scales: Optional[List[Any]] = None,
+        control_gates: Optional[Any] = None,
         deep_cache: Optional[torch.Tensor] = None,
         return_cache: bool = False,
     ) -> Any:
@@ -205,7 +210,15 @@ class DDPM(nn.Module):
         cross-attention context, channels joined to `net`, both (`hybrid`: a
         dict with a "concat" and a "cross_attn" entry), or class labels. A
         DeepCache pass (`deep_cache` given, or `return_cache`) runs at the
-        effective cut and returns (out, cache)."""
+        effective cut and returns (out, cache).
+
+        ControlNet: `control_net` / `control_hint` are one net and its hint,
+        or lists of them; each net's residuals are scaled by its entry of
+        `control_scales` (one list of per-level scales per net, or one list
+        for all), gated by its entry of `control_gates` (0 / 1 per net), and
+        summed. A control net with fewer input channels than `net` (4 on a
+        9-channel inpainting UNet) sees the leading channels. A shallow
+        DeepCache pass computes only the cut + 1 residuals it takes."""
         context = labels = None
         if cond is not None:
             if self.condition_type == CONCAT_TYPE:
@@ -217,8 +230,29 @@ class DDPM(nn.Module):
                 context = cond[CROSS_ATTN_TYPE]
             else:
                 labels = cond
+        control = None
+        if control_net is not None and control_hint is not None:
+            multi = isinstance(control_net, (list, tuple))
+            nets = list(control_net) if multi else [control_net]
+            hints = list(control_hint) if multi else [control_hint]
+            if control_scales is None:
+                scales_per: List[Optional[List[float]]] = [None] * len(nets)
+            elif isinstance(control_scales[0], (list, tuple)):
+                scales_per = list(control_scales)
+            else:
+                scales_per = [list(control_scales)] * len(nets)
+            levels = None if deep_cache is None else self._effective_cache_cut() + 1
+            for i, (cn, hint) in enumerate(zip(nets, hints)):
+                cn_in = cn.unet.in_channels
+                ci = cn(net if cn_in == net.shape[-1] else net[..., :cn_in], hint, timesteps, context, max_levels=levels)
+                sc = scales_per[i] if i < len(scales_per) else None
+                if sc is not None:
+                    ci = [c * s for c, s in zip(ci, sc)]
+                if control_gates is not None:
+                    ci = [c * control_gates[i] for c in ci]
+                control = ci if control is None else [a + b for a, b in zip(control, ci)]
         use_cache = deep_cache is not None or return_cache
         return self.unet(
-            net, timesteps, context, labels, deep_cache=deep_cache,
+            net, timesteps, context, labels, control=control, deep_cache=deep_cache,
             cache_cut=self._effective_cache_cut() if use_cache else None, return_cache=return_cache,
         )

@@ -1,6 +1,9 @@
 """LDM / Stable Diffusion (counterpart of
-`cflearn_tpu/modules/multimodal/diffusion/ldm.py`)."""
+`cflearn_tpu/modules/multimodal/diffusion/ldm.py`): `LDM`,
+`StableDiffusion`, `StableDiffusionInpainting`, `SDLoRAMode` and
+`convert_lora`."""
 
+from enum import Enum
 from typing import Any, Dict, Optional
 
 import torch
@@ -143,6 +146,32 @@ class StableDiffusion(LDM):
         self.version = version
 
 
+@register_module("sd_inpainting")
+class StableDiffusionInpainting(StableDiffusion):
+    """SD inpainting: the UNet takes 9 channels (the latents, the mask and
+    the masked image's latents); the latents stay 4."""
+
+    def __init__(self, **kwargs: Any) -> None:
+        kwargs.setdefault("in_channels", 9)
+        super().__init__(**kwargs)
+        self.out_channels = 4
+
+
+class SDLoRAMode(str, Enum):
+    """Which UNet layers LoRA attaches to."""
+
+    UNET = "unet"
+    UNET_EXTENDED = "unet_extended"
+
+
+def convert_lora(inp: Any) -> Any:
+    """A kohya / diffusers torch LoRA checkpoint (a path or a state dict)
+    as a `LoRAPack` over the port's UNet parameters."""
+    from ...core.lora import LoRAManager
+
+    return LoRAManager.load_torch_lora(inp)
+
+
 def build_sd(
     version: str = "v1",
     *,
@@ -158,13 +187,15 @@ def build_sd(
 
 
 def build(cls: type, *, device: Any = None, dtype: torch.dtype = torch.float32, seed: int = 0, **kwargs: Any) -> Any:
-    """Construct a DDPM-family model on `device` (CUDA unless the caller asks
-    for another device) with seeded random parameters cast to `dtype`."""
+    """Construct a DDPM-family model (or a `ControlNet`) on `device` (CUDA
+    unless the caller asks for another device) with seeded random parameters
+    cast to `dtype`."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = cls(**kwargs)
     if device.type != "meta":
         model = model.to_empty(device=device)
         init_parameters(model, seed)
-        model._rebuild_schedule()
+        if hasattr(model, "_rebuild_schedule"):
+            model._rebuild_schedule()
     return cast_parameters(model, dtype).eval()

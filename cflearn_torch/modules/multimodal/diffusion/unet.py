@@ -1,6 +1,7 @@
-"""`UNetDiffuser` — the SD UNet (counterpart of
-`cflearn_tpu/modules/multimodal/diffusion/unet.py`: the full pass and
-DeepCache's shallow pass; no ControlNet, no hooks). Channel-last NHWC."""
+"""`UNetDiffuser` — the SD UNet — and `ControlNet` (counterpart of
+`cflearn_tpu/modules/multimodal/diffusion/unet.py`: the full pass with the
+ControlNet residuals added, DeepCache's shallow pass; no hooks).
+Channel-last NHWC."""
 
 import math
 from typing import Any, List, Optional, Tuple, Union
@@ -54,7 +55,9 @@ class UNetDiffuser(nn.Module):
     """SD UNet. SD-1.5: in/out 4 channels, start 320, multipliers
     (1, 2, 4, 4), attention at downsample rates (1, 2, 4), 8 heads, context
     768. `num_classes`: a class-label embedding added to the time embedding
-    (the `adm` condition)."""
+    (the `adm` condition). `with_output_blocks=False` builds the encoder
+    half only (`conv_in`, the time embedding, the input blocks and the mid
+    block): what a `ControlNet` runs of its copy of the UNet."""
 
     def __init__(
         self,
@@ -73,6 +76,7 @@ class UNetDiffuser(nn.Module):
         use_scale_shift_norm: bool = False,
         use_checkpoint: Union[bool, str] = False,
         num_classes: Optional[int] = None,
+        with_output_blocks: bool = True,
     ) -> None:
         super().__init__()
         if isinstance(use_checkpoint, str):
@@ -124,8 +128,11 @@ class UNetDiffuser(nn.Module):
                 input_chans.append(ch)
                 ds *= 2
         self.input_blocks = nn.ModuleList(input_blocks)
+        self.input_chans = input_chans
 
         self.mid = _InBlock([resblock(ch, ch), make_attn(ch), resblock(ch, ch)])
+        if not with_output_blocks:
+            return
 
         output_blocks: List[_InBlock] = []
         chans = list(input_chans)
@@ -170,6 +177,7 @@ class UNetDiffuser(nn.Module):
         context: Optional[torch.Tensor] = None,
         labels: Optional[torch.Tensor] = None,
         *,
+        control: Optional[List[torch.Tensor]] = None,
         deep_cache: Optional[torch.Tensor] = None,
         cache_cut: Optional[int] = None,
         return_cache: bool = False,
@@ -180,7 +188,11 @@ class UNetDiffuser(nn.Module):
         given) runs only the first `c` input blocks and the last `c+1` output
         blocks around the cached deep feature, skipping the deep levels and
         the mid block. With `return_cache` the result is (out, cache).
-        `labels` (B,) class ids add their embedding to the time embedding."""
+        `labels` (B,) class ids add their embedding to the time embedding.
+        `control`: ControlNet residuals, one per skip (`conv_in` and each
+        input block) and one for the mid block (last): the mid block's
+        output and each skip get theirs added (a shallow pass takes the
+        first cut + 1)."""
         p_dtype = self.param_dtype
         net = net.to(p_dtype)
         if context is not None:
@@ -204,11 +216,101 @@ class UNetDiffuser(nn.Module):
                 net = self._run_block(block, net, time_embed, context)
                 hs.append(net)
             net = self.mid(net, time_embed, context)
+            if control is not None:
+                net = net + control[-1]
             out_blocks = list(self.output_blocks)
         capture_at = None if cache_cut is None else len(self.output_blocks) - (cache_cut + 1)
         for i, block in enumerate(out_blocks):
             if not shallow and return_cache and i == capture_at:
                 cache_out = net
-            net = self._run_block(block, torch.cat([net, hs.pop()], dim=-1), time_embed, context)
+            skip = hs.pop()
+            if control is not None:
+                skip = skip + control[len(hs)]
+            net = self._run_block(block, torch.cat([net, skip], dim=-1), time_embed, context)
         out = self.conv_out(F.silu(self.norm_out(net)))
         return (out, cache_out) if return_cache else out
+
+
+@register_module("diffusion/control_net")
+class ControlNet(nn.Module):
+    """The zero-conv control branch: a hint encoder (eight times down, by
+    stride-2 convs with padding 1 on both sides), `hint_out` (zero), a copy
+    of the UNet's encoder half fed the latents plus the encoded hint, and a
+    zero 1x1 conv per level (`zero_convs`, `mid_zero`). It returns the
+    residuals that `UNetDiffuser.forward(control=...)` adds. The convs are
+    plain `F.conv2d`, as `nnx.Conv` is in the JAX module (no kernel
+    route). Like the UNet, it runs in its parameters' dtype (the JAX module
+    promotes an f32 hint against bf16 parameters to f32).
+
+    The JAX module builds a whole `UNetDiffuser` and runs its encoder half;
+    this one builds only that half (`with_output_blocks=False`), and
+    `bridge.control_net_params` leaves the JAX module's unused leaves out."""
+
+    def __init__(
+        self,
+        *,
+        hint_channels: int = 3,
+        in_channels: int = 4,
+        start_channels: int = 320,
+        num_res_blocks: int = 2,
+        attention_downsample_rates: Tuple[int, ...] = (1, 2, 4),
+        channel_multipliers: Tuple[int, ...] = (1, 2, 4, 4),
+        num_heads: int = 8,
+        context_dim: Optional[int] = 768,
+        use_linear_in_transformer: bool = False,
+        num_transformer_layers: int = 1,
+    ) -> None:
+        super().__init__()
+        chs = [16, 16, 32, 32, 96, 96, 256]
+        strides = [1, 1, 2, 1, 2, 1, 2]
+        mods: List[nn.Module] = []
+        prev = hint_channels
+        for c, s in zip(chs, strides):
+            mods.append(Conv(prev, c, strides=(s, s), padding=((1, 1), (1, 1))))
+            prev = c
+        self.hint_blocks = nn.ModuleList(mods)
+        self.hint_out = zero_module(Conv(prev, start_channels))
+        self.unet = UNetDiffuser(
+            in_channels=in_channels, out_channels=in_channels, start_channels=start_channels,
+            num_res_blocks=num_res_blocks, attention_downsample_rates=attention_downsample_rates,
+            channel_multipliers=channel_multipliers, num_heads=num_heads, context_dim=context_dim,
+            use_linear_in_transformer=use_linear_in_transformer, num_transformer_layers=num_transformer_layers,
+            with_output_blocks=False,
+        )
+        self.zero_convs = nn.ModuleList([zero_module(Conv(c, c, (1, 1))) for c in self.unet.input_chans])
+        mid_ch = self.unet.input_chans[-1]
+        self.mid_zero = zero_module(Conv(mid_ch, mid_ch, (1, 1)))
+
+    def forward(
+        self,
+        net: torch.Tensor,
+        hint: torch.Tensor,
+        timesteps: torch.Tensor,
+        context: Optional[torch.Tensor] = None,
+        *,
+        max_levels: Optional[int] = None,
+    ) -> List[torch.Tensor]:
+        """net: (B, h, w, in_channels) latents; hint: (B, 8h, 8w,
+        hint_channels). `max_levels` cuts the residual list, and the compute
+        behind the deeper ones: a DeepCache shallow pass takes only the
+        first cut + 1."""
+        p_dtype = self.unet.param_dtype
+        time_embed = self.unet.time_embed(timesteps)
+        if context is not None:
+            context = context.to(p_dtype)
+        guided = hint.to(p_dtype)
+        for conv in self.hint_blocks:
+            guided = F.silu(conv(guided))
+        guided = self.hint_out(guided)
+        h = self.unet.conv_in(net.to(p_dtype)) + guided
+        outs = [self.zero_convs[0](h)]
+        if max_levels is not None and len(outs) >= max_levels:
+            return outs
+        for i, block in enumerate(self.unet.input_blocks):
+            h = block(h, time_embed, context)
+            outs.append(self.zero_convs[i + 1](h))
+            if max_levels is not None and len(outs) >= max_levels:
+                return outs
+        h = self.unet.mid(h, time_embed, context)
+        outs.append(self.mid_zero(h))
+        return outs

@@ -101,11 +101,30 @@ Phases, in order; any failure exits non-zero:
    finite losses with `core_vq`, indices in range, the codebook moved,
    exact launches; printed, not gated, the share of code indices on which
    the kernel and plain paths agree (argmin ties in bf16).
-12. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+12. DiffusionAPI path — SD-1.5 v1 served as a user of the JAX package
+   serves it, through `DiffusionAPI.from_sd` (bf16, seeded random weights,
+   zero-initialised convs redrawn) and `ControlledDiffusionAPI`, batch 1,
+   512px, CFG 7.5: `txt2img` with every registered sampler at the API's 20
+   steps (`lcm` at 4); `sample_with_control` with one full-width ControlNet
+   on a 512x512x3 hint, gated on for steps 2-18; `img2img` at fidelity 0.2;
+   repaint inpainting on the 4-channel model; a rank-4 LoRA pack over the
+   UNet's attention projections, fused, sampled with and removed; and
+   9-channel inpainting (`from_sd_inpainting`), NORMAL and MASKED. Each path
+   runs twice, first under a census of the serving kernels' calls, then
+   timed (ms per image on the host clock): exact launches (the encoder's
+   included), its UNet calls at the CFG batch, finite latents. Gates: one
+   UNet-plus-ControlNet call and the batch-1 encode through the kernels
+   against the plain versions within 1.5x the plain path's one-ulp drift
+   (phase 4's rule); every fused LoRA weight within one bf16 ulp of W +
+   s up down, the restore bit for bit. Each distinct kernel call of the
+   census is then timed alone by CUDA-graph replay: device ms per image by
+   kernel for every path.
+13. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
-   the new training paths' readings on a line of their own, the card's name
-   and power limit, and last `{"ok": true, "device": {...}}`. The per-shape
+   the new training paths' readings on a line of their own, the DiffusionAPI
+   path's on a line of their own, the card's name and power limit, and last
+   `{"ok": true, "device": {...}}`. The per-shape
    rows also go to `chiprun_out/chip_smoke.json`.
 
 Imports nothing of JAX or of `cflearn_tpu`. Exits non-zero, printing no
@@ -1177,6 +1196,262 @@ def ae_parity(torch, fwd_bwd, images, A, Cv, Gn, reference=None) -> dict:
             "ratio": ratio, "shares": shares, "accuracy": accuracy, "failure": failure}
 
 
+# 12. the DiffusionAPI path (the JAX package's serving entry point) at full SD-1.5 v1 width, batch 1, 512px,
+# CFG 7.5: every registered sampler at the API's 20 steps (lcm at its 4), ControlNet, img2img, inpainting, LoRA
+API_STEPS = 20
+LCM_STEPS = 4
+IMG2IMG_FIDELITY = 0.2
+# a ControlNet call: its input blocks' self-attentions at 64x64, 32x32 and 16x16, two each (the mid block's, at 8x8,
+# L = 64, stays on the library path), and a GroupNorm for each res block's two norms (8 blocks and the mid's 2) and
+# each transformer (6 and the mid's)
+FLASH_PER_CONTROL = 6
+GN_PER_CONTROL = 27
+
+
+def unet_calls(sampler: str, steps: int) -> int:
+    """UNet calls of one sampling loop: PLMS's improved-Euler first step evaluates twice, Heun's corrector once a
+    step but on the last (sigma 0, plain Euler)."""
+    return {"plms": steps + 1, "k_heun": 2 * steps - 1}.get(sampler, steps)
+
+
+def _call_spec(a):
+    return ("T", tuple(a.shape), str(a.dtype)) if hasattr(a, "shape") else a
+
+
+@contextlib.contextmanager
+def census(A, Cv, Gn, counts):
+    """Count each launch of the three serving kernels by the shapes and dtypes of its tensors and its other
+    arguments, in `counts` {(kernel, args, kwargs): launches}. The callers look the wrappers up as module globals;
+    each launch still counts on the wrapper's own `launches`."""
+    saved = A.flash_attention, Cv.conv3x3, Gn.group_norm_silu
+
+    def rec(name, fn):
+        def call(*args, **kw):
+            key = (name, tuple(_call_spec(a) for a in args), tuple(sorted(kw.items())))
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*args, **kw)
+
+        return call
+
+    A.flash_attention, Cv.conv3x3, Gn.group_norm_silu = (
+        rec("flash_attention", saved[0]), rec("conv3x3", saved[1]), rec("group_norm", saved[2]))
+    try:
+        yield
+    finally:
+        A.flash_attention, Cv.conv3x3, Gn.group_norm_silu = saved
+
+
+def bf16_ulp(torch, x):
+    """The bf16 spacing at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def phase_diffusion_api(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
+    """Drive `DiffusionAPI` / `ControlledDiffusionAPI` as a user would. Every path runs twice: under the census
+    (the warm-up), then timed on the host clock around the call and a synchronize, its launches counted and gated
+    exactly, its UNet calls counted at the CFG batch, its latents (caught at the decode) finite. Each distinct
+    kernel call of the census is then timed alone (`device_ms`), for each path's device ms by kernel."""
+    from cflearn_torch.api.multimodal.diffusion import InpaintingMode, InpaintingSettings, fidelity_start_step
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.modules.core.convs import ResidualBlockWithTimeEmbedding
+    from cflearn_torch.modules.core.lora import LoRAPack
+    from cflearn_torch.modules.core.mixed_stacks import SpatialTransformer
+    from cflearn_torch.modules.multimodal.diffusion.samplers import ISampler
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"diffusion api: {msg}")
+
+    kernels = {"flash_attention": A.flash_attention, "conv3x3": Cv.conv3x3, "group_norm": Gn.group_norm_silu}
+    out = {"samplers": {}, "paths": {}}
+    censuses = {}
+
+    def watch(model):
+        """Record the batch of every UNet call and the latents of every decode of `model`."""
+        seen = {"unet": [], "latents": []}
+        model.unet.register_forward_pre_hook(lambda mod, args: seen["unet"].append(args[0].shape[0]))
+        decode = model.decode
+
+        def caught(z, **kw):
+            seen["latents"].append(z.detach())
+            return decode(z, **kw)
+
+        model.decode = caught
+        return seen
+
+    def run_path(name, fn, seen, calls, want):
+        counts = {}
+        with census(A, Cv, Gn, counts):
+            fn()
+        torch.cuda.synchronize()
+        seen["unet"].clear()
+        seen["latents"].clear()
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(A, Cv, Gn)
+        expected = dict.fromkeys(got, 0)
+        expected.update(want)
+        by_kernel = {k: sum(n for key, n in counts.items() if key[0] == k) for k in kernels}
+        lat = seen["latents"][0].float() if len(seen["latents"]) == 1 else None
+        print(f"api[{name}]: {wall * 1e3:.1f} ms per image, {len(seen['unet'])} UNet calls, launches "
+              f"{json.dumps({k: v for k, v in got.items() if v})}, {len(counts)} distinct kernel calls"
+              + ("" if lat is None else f", latent std {lat.std().item():.4f} max |z| {lat.abs().max().item():.3f}"))
+        check(got == expected, f"{name}: launches {got} != {expected}")
+        check(by_kernel == {k: got[k] for k in kernels}, f"{name}: the census {by_kernel} disagrees with the counters")
+        check(seen["unet"] == [2] * calls, f"{name}: UNet calls {seen['unet']}, want {calls} at the CFG batch 2")
+        check(lat is not None and bool(torch.isfinite(lat).all()) and lat.abs().max().item() < 1e3,
+              f"{name}: latents not finite or out of range")
+        check(result.shape == (1, 512, 512, 3) and result.dtype == np.uint8, f"{name}: image {result.shape}")
+        censuses[name] = counts
+        out["paths"][name] = {"ms_per_image": wall * 1e3, "unet_calls": calls,
+                              "launches": {k: v for k, v in got.items() if v}, "latent_std": lat.std().item()}
+        return result
+
+    t0 = time.perf_counter()
+    api = cflearn_torch.DiffusionAPI.from_sd("v1", device="cuda", seed=0)
+    redraw_zero_init(api.m, seed=1)
+    seen = watch(api.m)
+    torch.cuda.synchronize()
+    print(f"api: DiffusionAPI.from_sd('v1') bf16 built in {time.perf_counter() - t0:.1f} s")
+
+    def serving(unets, encodes=0, controls=0):
+        return {"flash_attention": (FLASH_PER_UNET + FLASH_PER_CONTROL * controls) * unets + 1 + ENCODER_FLASH * encodes,
+                "conv3x3": DECODER_CONVS + ENCODER_CONVS * encodes,
+                "group_norm": (GN_PER_UNET + GN_PER_CONTROL * controls) * unets + GN_PER_DECODE + GN_PER_ENCODE * encodes}
+
+    images = {}
+    for sampler in sorted(ISampler.d):
+        steps = LCM_STEPS if sampler == "lcm" else API_STEPS
+        calls = unet_calls(sampler, steps)
+        api.switch_sampler(sampler)
+        images[sampler] = run_path(sampler, lambda: api.txt2img(PROMPT, num_steps=steps, seed=0), seen, calls,
+                                   serving(calls))
+        out["samplers"][sampler] = dict(out["paths"][sampler], steps=steps)
+    api.switch_sampler("ddim")
+    image = images["ddim"]
+
+    # ControlNet: one full-width net on a 512x512x3 hint, on for steps [2, 18] of 20
+    cn = cflearn_torch.build(cflearn_torch.ControlNet, device="cuda", dtype=torch.bfloat16, seed=2)
+    redraw_zero_init(cn, seed=3)
+    n_res = sum(isinstance(m, ResidualBlockWithTimeEmbedding) for m in cn.modules())
+    n_st = sum(isinstance(m, SpatialTransformer) for m in cn.modules())
+    check(GN_PER_CONTROL == 2 * n_res + n_st and FLASH_PER_CONTROL == n_st - 1,
+          f"the ControlNet holds {n_res} res blocks and {n_st} transformers")
+    capi = cflearn_torch.ControlledDiffusionAPI(api.m, device="cuda")
+    capi.prepare_control("canny", cn)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    hint = torch.randint(0, 256, (512, 512, 3), generator=gen, device="cuda").to(torch.uint8).cpu().numpy()
+    run_path("control", lambda: capi.sample_with_control(
+        1, {"canny": hint}, cond=PROMPT, num_steps=API_STEPS, seed=0, hint_starts={"canny": 0.1},
+        hint_ends={"canny": 0.9}), seen, API_STEPS, serving(API_STEPS, controls=1))
+    # one UNet-plus-control call through the kernels against the plain versions, held to the plain path's drift
+    # under a one-ulp move of its input (phase 4's rule)
+    with torch.no_grad():
+        tokens = api.tokenizer.tokenize([PROMPT, ""]).astype(np.int64)
+        cond = api.m.get_cond(torch.as_tensor(tokens, device="cuda"))
+        x2 = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").repeat(2, 1, 1, 1)
+        t2 = torch.full((2,), 981, dtype=torch.long, device="cuda")
+        hint2 = torch.as_tensor(hint, device="cuda").float().div(127.5).sub(1.0)[None].repeat(2, 1, 1, 1)
+
+        def controlled(x):
+            return api.m.denoise(x, t2, cond, control_net=cn, control_hint=hint2).float()
+
+        eps_k = controlled(x2)
+        with plain_kernels(A, Cv, Gn):
+            eps_p = controlled(x2)
+            drift = rel_err(controlled(bump_ulp(torch, x2)), eps_p)
+    rel = rel_err(eps_k, eps_p)
+    print(f"api parity: UNet + ControlNet call, kernels vs plain max rel err {rel:.3e} (tolerance "
+          f"{PARITY_FACTOR * drift:.3e}: {PARITY_FACTOR} x the one-ulp drift {drift:.3e})")
+    check(rel <= PARITY_FACTOR * drift, "the UNet + ControlNet call through the kernels disagrees with the plain path")
+    out["control_parity"] = {"kernels_vs_plain": rel, "drift": drift}
+    del capi, cn, eps_k, eps_p, cond
+
+    # img2img at fidelity 0.2 and repaint on the 4-channel model: the first-stage encode at batch 1 through the kernels
+    start = fidelity_start_step(IMG2IMG_FIDELITY, API_STEPS)
+    run_path("img2img", lambda: api.img2img(image, cond=PROMPT, fidelity=IMG2IMG_FIDELITY, num_steps=API_STEPS, seed=0),
+             seen, API_STEPS - start, serving(API_STEPS - start, encodes=1))
+    mask = np.zeros((512, 512), np.float32)
+    mask[128:320, 160:416] = 1.0
+    run_path("repaint", lambda: api.inpainting(image, mask, cond=PROMPT, num_steps=API_STEPS, seed=0), seen, API_STEPS,
+             serving(API_STEPS, encodes=1))
+    # the encode through the kernels against the plain versions (phase 9's rule, at batch 1)
+    with torch.no_grad():
+        x = torch.as_tensor(image, device="cuda").float().div(127.5).sub(1.0).to(torch.bfloat16).float()
+        lat_k = api.m.encode_first_stage(x).float()
+        with plain_kernels(A, Cv, Gn):
+            lat_p = api.m.encode_first_stage(x).float()
+            drift_enc = rel_err(api.m.encode_first_stage(bump_ulp(torch, x)).float(), lat_p)
+    rel_enc = rel_err(lat_k, lat_p)
+    print(f"api parity: encode at batch 1, kernels vs plain max rel err {rel_enc:.3e} (tolerance "
+          f"{PARITY_FACTOR * drift_enc:.3e}: {PARITY_FACTOR} x the one-ulp drift {drift_enc:.3e})")
+    check(rel_enc <= PARITY_FACTOR * drift_enc, "the encode through the kernels disagrees with the plain path")
+    out["encode_parity"] = {"kernels_vs_plain": rel_enc, "drift": drift_enc}
+
+    # LoRA: a rank-4 pack over the UNet's attention projections, fused, sampled with, removed
+    names = (r"unet\..*attn.*\.to_[qkv]\.weight", r"unet\..*attn.*\.to_out\.weight")
+    fresh = LoRAPack.create(api.m, rank=4, target_patterns=names, generator=gen)
+    deltas = {n: (d, (torch.randn(u.shape, generator=gen, device="cuda") * 0.05).to(u.dtype))
+              for n, (d, u) in fresh.deltas.items()}
+    params = dict(api.m.named_parameters())
+    base = {n: params[n].detach().clone() for n in deltas}
+    api.load_sd_lora("card", pack=LoRAPack(deltas, rank=4, alpha=2.0))
+    api.set_sd_lora_scales({"card": 0.8})
+    worst = 0.0
+    for n, (d, u) in deltas.items():
+        delta = 0.8 * 0.5 * (u.float() @ d.float())
+        exact = base[n].float() + delta
+        # the delta rounded to bf16, then the bf16 add: half an ulp of each, within one ulp at the larger of
+        # |delta| and |the fused weight|
+        room = bf16_ulp(torch, torch.maximum(delta.abs(), params[n].float().abs()))
+        worst = max(worst, ((params[n].float() - exact).abs() / room).max().item())
+    print(f"api lora: {len(deltas)} weights fused, the largest error {worst:.3f} bf16 ulps (at the larger of "
+          f"|s up down| and |the fused weight|) from W + s up down")
+    check(worst <= 1.0, f"a fused weight is {worst:.3f} ulps from W + s up down")
+    lora_image = run_path("lora", lambda: api.txt2img(PROMPT, num_steps=API_STEPS, seed=0), seen, API_STEPS,
+                          serving(API_STEPS))
+    api.cleanup_sd_lora()
+    restored = all(torch.equal(params[n], base[n]) for n in deltas)
+    moved = int(np.abs(lora_image.astype(np.int16) - image.astype(np.int16)).max())
+    print(f"api lora: restored bit for bit {restored}; the image moved by up to {moved} levels (printed, not gated)")
+    check(restored, "LoRA: the base weights are not restored bit for bit")
+    out["lora"] = {"weights": len(deltas), "max_ulps": worst, "restored": restored, "image_max_diff": moved}
+    del api, base, deltas, fresh, params
+
+    # 9-channel inpainting (`StableDiffusionInpainting`): the image and the masked image encoded, NORMAL and MASKED
+    iapi = cflearn_torch.DiffusionAPI.from_sd_inpainting(device="cuda", seed=4)
+    redraw_zero_init(iapi.m, seed=5)
+    iseen = watch(iapi.m)
+    check(iapi.m.unet.in_channels == 9 and iapi.m.unet.conv_in.weight.shape[1] == 9, "the inpainting UNet is not 9-channel")
+    run_path("inpaint_normal", lambda: iapi.inpainting(image, mask, cond=PROMPT, num_steps=API_STEPS, seed=0), iseen,
+             API_STEPS, serving(API_STEPS, encodes=2))
+    masked = InpaintingSettings(mode=InpaintingMode.MASKED, mask_padding=32)
+    run_path("inpaint_masked", lambda: iapi.inpainting(image, mask, cond=PROMPT, num_steps=API_STEPS, seed=0,
+                                                       inpainting_settings=masked), iseen, API_STEPS,
+             serving(API_STEPS, encodes=2))
+    del iapi
+    torch.cuda.empty_cache()
+
+    # each distinct kernel call, timed alone on random inputs of its shapes: every path's device ms by kernel
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    call_ms = {}
+    for key in sorted({key for counts in censuses.values() for key in counts}, key=str):
+        name, args, kw = key
+        inputs = [torch.randn(a[1], generator=gen, device="cuda").to(getattr(torch, a[2].split(".")[1]))
+                  if isinstance(a, tuple) and a[:1] == ("T",) else a for a in args]
+        call_ms[key] = device_ms(torch, lambda: kernels[name](*inputs, **dict(kw)), 5, 3)
+    for path, counts in censuses.items():
+        out["paths"][path]["device_ms"] = {k: sum(call_ms[key] * n for key, n in counts.items() if key[0] == k)
+                                           for k in kernels}
+    print(f"api: {len(call_ms)} distinct kernel calls timed; device ms per image by kernel: "
+          f"{json.dumps({p: v['device_ms'] for p, v in out['paths'].items()})}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1940,7 +2215,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"ae_vq path: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 12. summary
+    # 12. the DiffusionAPI path
+    api_out = phase_diffusion_api(torch, np, cflearn_torch, A, Cv, Gn)
+    print(f"diffusion api path: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 13. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -2028,7 +2307,7 @@ def main() -> int:
         json.dump({"card": card_line(), "kernels": kernels, "shapes": rows, "txt2img": serve, "finetune": train,
                    "autoencoder": ae_out, "serve_configs": serve_out,
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
-                   "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out,
+                   "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -2038,6 +2317,7 @@ def main() -> int:
     print(json.dumps(train))
     print(json.dumps(ae_out))
     print(json.dumps({"ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out}))
+    print(json.dumps({"diffusion_api": api_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -66,7 +66,8 @@ def test_serving_modules_are_scanned() -> None:
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("cflearn_torch/modules/nlp/tokenizers.py", "cflearn_torch/modules/core/tome.py",
                 "cflearn_torch/toolkit/quality.py", "cflearn_torch/losses/__init__.py", "cflearn_torch/losses/lpips.py",
-                "cflearn_torch/schedulers.py"):
+                "cflearn_torch/schedulers.py", "cflearn_torch/api/multimodal/diffusion.py",
+                "cflearn_torch/modules/core/lora.py", "cflearn_torch/toolkit/misc.py"):
         assert rel in names
 
 
