@@ -25,10 +25,15 @@ from .modules.multimodal.diffusion.unet import ControlNet  # noqa: E402
 from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
 from .pipeline import CONFIGS, configure, finetune_unet, train_autoencoder, txt2img  # noqa: E402
 from .toolkit.quality import QualityReport, compare_outputs  # noqa: E402
+from . import zoo  # noqa: E402
+from .zoo import (  # noqa: E402
+    ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, ldm_inpainting, ldm_semantic, ldm_vq,
+)
 
 __all__ = [
     "AEModel", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI", "DDPM", "DiffusionAPI", "LDM",
-    "QualityReport", "StableDiffusion", "StableDiffusionInpainting", "build", "build_ae", "build_sd",
-    "compare_outputs", "configure", "finetune_unet", "resolve_device", "sd_unet_config", "train_autoencoder",
-    "txt2img",
+    "QualityReport", "StableDiffusion", "StableDiffusionInpainting", "ae_kl_f4", "ae_kl_f8", "ae_kl_f16", "ae_vq_f4",
+    "ae_vq_f4_no_attn", "ae_vq_f8", "build", "build_ae", "build_sd", "compare_outputs", "configure",
+    "finetune_unet", "ldm_inpainting", "ldm_semantic", "ldm_vq", "resolve_device", "sd_unet_config",
+    "train_autoencoder", "txt2img", "zoo",
 ]

@@ -2,9 +2,12 @@
 `cflearn_tpu/api/multimodal/diffusion.py`): txt2img with seeds, slerped
 variations, batching, a callback, clip skip and the high-resolution second
 pass; img2img; inpainting on a 9-channel inpainting UNet (NORMAL or MASKED:
-cropped to the mask's box) or by repaint on a plain one; every registered
-sampler; ToMe, DeepCache, LoRA packs, an SD weight pool; and multi-ControlNet
-sampling with per-hint scales and start / end gating.
+cropped to the mask's box), on a concat-conditioned LDM, or by repaint on a
+plain one; outpainting; `semantic2img` and `sr` on concat-conditioned LDMs;
+every registered sampler; ToMe, DeepCache, LoRA packs, an SD weight pool;
+and multi-ControlNet sampling with per-hint scales and start / end gating.
+`from_sd` / `from_sd_inpainting`, `from_inpainting` and `from_semantic`
+build the zoo's models with seeded random weights.
 
 The JAX package compiles each call into one cached program; here the calls
 run the modules directly on the API's device (the CUDA card unless the
@@ -26,13 +29,12 @@ from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tu
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ...device import resolve_device
 from ...modules.common import cast_parameters
 from ...modules.core.lora import LoRAManager, LoRAPack
 from ...modules.core.mixed_stacks import SpatialTransformer
-from ...modules.layers import resize_bilinear
+from ...modules.layers import resize, resize_bilinear
 from ...modules.multimodal.diffusion.samplers import ISampler
 from ...modules.multimodal.diffusion.utils import CONCAT_TYPE, CROSS_ATTN_TYPE, HYBRID_TYPE
 from ...modules.nlp.tokenizers import CLIPTokenizer
@@ -83,11 +85,7 @@ def _resize_np(arr: np.ndarray, wh: Tuple[int, int], method: str = "bilinear") -
     if squeeze:
         arr = arr[..., None]
     x = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))[None]
-    if method == "nearest":
-        out = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="nearest-exact").permute(0, 2, 3, 1)
-    else:
-        out = resize_bilinear(x, h, w)
-    out = out[0].numpy()
+    out = resize(x, (h, w), method)[0].numpy()
     return out[..., 0] if squeeze else out
 
 
@@ -269,8 +267,9 @@ class Weights:
 
 
 class DiffusionAPI:
-    """txt2img / img2img / inpainting over an `LDM` (SD). `use_bf16` casts
-    its parameters to bf16 (the schedule buffers stay f32)."""
+    """txt2img / img2img / inpainting over an `LDM` (SD), and outpainting,
+    `semantic2img` and `sr` over the concat-conditioned LDMs. `use_bf16`
+    casts its parameters to bf16 (the schedule buffers stay f32)."""
 
     def __init__(
         self,
@@ -565,7 +564,7 @@ class DiffusionAPI:
         text, text_u = self._conds(tokens, uncond_tokens, guidance_scale)
         z0 = m.encode_first_stage(x).float()
         b, lh, lw, _ = z0.shape
-        latent_mask = F.interpolate(mask_t.permute(0, 3, 1, 2), size=(lh, lw), mode="nearest-exact").permute(0, 2, 3, 1)
+        latent_mask = resize(mask_t, (lh, lw), "nearest")
         sampler = self._sampler()
         generator = self._generator(seed)
         z = self._randn(tuple(z0.shape), generator)
@@ -690,6 +689,83 @@ class DiffusionAPI:
         """Text-guided inpainting: `inpainting` with `cond=txt`."""
         return self.inpainting(image, mask, cond=txt, **kwargs)
 
+    def _require_concat(self, what: str) -> None:
+        if self.m.condition_type != CONCAT_TYPE:
+            raise ValueError(f"`{what}` requires a concat-conditioned LDM")
+
+    @torch.no_grad()
+    def semantic2img(
+        self, semantic: np.ndarray, *, num_steps: int = 20, seed: Optional[int] = None, **kwargs: Any
+    ) -> np.ndarray:
+        """Segmentation map -> image through the concat condition. `semantic`
+        is a class-index map (an integer (H, W) or (B, H, W) array, one-hot
+        to the condition model's `in_channels`) or a one-hot (B, H, W, C)
+        array; values stay {0, 1}. A condition model (the semantic LDM's
+        `Rescaler`) takes the map at full resolution; without one the map is
+        resized (nearest) to h // 8 x w // 8, as the JAX package does for
+        any first stage."""
+        self._require_concat("semantic2img")
+        if _is_path_or_pil(semantic):
+            raise _not_ported("path and PIL")
+        semantic = np.asarray(semantic)
+        num_classes = getattr(self.m.condition_model, "in_channels", None)
+        # integer (..., C) arrays with C the condition model's channels are already one-hot
+        is_index_map = np.issubdtype(semantic.dtype, np.integer) and (
+            semantic.ndim <= 2 or (semantic.ndim == 3 and semantic.shape[-1] != (num_classes or -1))
+        )
+        if is_index_map:
+            if num_classes is None:
+                num_classes = int(semantic.max()) + 1
+            semantic = np.eye(num_classes, dtype=np.float32)[semantic]
+        if semantic.ndim == 3:
+            semantic = semantic[None]
+        sem = torch.as_tensor(semantic.astype(np.float32), device=self.device)
+        b, h, w, _ = sem.shape
+        if self.m.condition_model is None:
+            sem = resize(sem, (h // 8, w // 8), "nearest")
+        cond = self.m.get_cond(sem)
+        generator = self._generator(seed or 0)
+        z = self._randn((b, cond.shape[1], cond.shape[2], self.m.out_channels), generator)
+        latents = self._sampler().sample(z, cond=cond, num_steps=num_steps, generator=generator)
+        return _to_uint8(self.m.decode(latents))
+
+    @torch.no_grad()
+    def sr(self, image: np.ndarray, *, num_steps: int = 20, seed: Optional[int] = None, **kwargs: Any) -> np.ndarray:
+        """Diffusion super-resolution x4: the [-1, 1] image upsampled
+        (`jax.image.resize`'s bicubic) is the concat condition of latents at
+        the upsampled size, decoded by the first stage where there is one."""
+        self._require_concat("sr")
+        image = self._norm_image(image)
+        b, h, w, c = image.shape
+        up = 4
+        lr_up = resize(torch.as_tensor(image, device=self.device), (h * up, w * up), "bicubic")
+        generator = self._generator(seed or 0)
+        z = self._randn((b, h * up, w * up, self.m.out_channels), generator)
+        latents = self._sampler().sample(z, cond=lr_up, num_steps=num_steps, generator=generator)
+        return _to_uint8(self.m.decode(latents) if self.m.first_stage is not None else latents)
+
+    def outpainting(self, image: Any, second: Any = None, *, anchor: str = "center", **kwargs: Any) -> np.ndarray:
+        """Outpainting in two conventions: `outpainting(txt, rgba)` with an
+        RGBA uint8 array whose alpha is the mask (transparent = generate),
+        through `txt2img_inpainting`; or `outpainting(image, **kwargs)`,
+        which pads the canvas by a quarter of each side (zeros, mid-grey in
+        [-1, 1]) and inpaints the border."""
+        if isinstance(image, str) and second is not None:
+            if _is_path_or_pil(second):
+                raise _not_ported("path and PIL")
+            arr = np.asarray(second)
+            rgb, alpha = arr[..., :3], arr[..., 3]
+            mask = (255 - alpha.astype(np.int32)).astype(np.uint8)
+            return self.txt2img_inpainting(image, rgb, (mask > 127).astype(np.float32), **kwargs)
+        image = self._norm_image(image)
+        b, h, w, c = image.shape
+        pad_h, pad_w = h // 4, w // 4
+        canvas = np.zeros((b, h + 2 * pad_h, w + 2 * pad_w, c), dtype=np.float32)
+        canvas[:, pad_h: pad_h + h, pad_w: pad_w + w] = image
+        mask = np.ones((b, h + 2 * pad_h, w + 2 * pad_w, 1), dtype=np.float32)
+        mask[:, pad_h: pad_h + h, pad_w: pad_w + w] = 0.0
+        return self.inpainting(canvas, mask, **kwargs)
+
     # ---------------------------------------------------------------- utils
 
     @staticmethod
@@ -753,6 +829,40 @@ class DiffusionAPI:
     @classmethod
     def from_sd_inpainting(cls, *, pretrained: bool = False, use_bf16: bool = True, **kwargs: Any) -> "DiffusionAPI":
         return cls.from_sd("v1_inpainting", pretrained=pretrained, use_bf16=use_bf16, **kwargs)
+
+    @classmethod
+    def _from_zoo(
+        cls, factory: Callable[..., Any], pretrained: bool, use_bf16: bool, ldm_kwargs: Optional[Dict[str, Any]],
+        device: Any, seed: int, kwargs: Dict[str, Any],
+    ) -> "DiffusionAPI":
+        m = factory(
+            pretrained=pretrained, device=resolve_device(device), dtype=torch.bfloat16 if use_bf16 else torch.float32,
+            seed=seed, **(ldm_kwargs or {}),
+        )
+        return cls(m, use_bf16=use_bf16, device=device, **kwargs)
+
+    @classmethod
+    def from_inpainting(
+        cls, *, pretrained: bool = False, use_bf16: bool = True, ldm_kwargs: Optional[Dict[str, Any]] = None,
+        device: Any = None, seed: int = 0, **kwargs: Any,
+    ) -> "DiffusionAPI":
+        """The concat-conditioned LDM inpainting model (`zoo.ldm_inpainting`:
+        7 latent channels, an attention-free VQ first stage, resblock
+        resampling), seeded random weights; `ldm_kwargs` go to the zoo's constructor."""
+        from ...zoo.common import ldm_inpainting
+
+        return cls._from_zoo(ldm_inpainting, pretrained, use_bf16, ldm_kwargs, device, seed, kwargs)
+
+    @classmethod
+    def from_semantic(
+        cls, *, pretrained: bool = False, use_bf16: bool = True, ldm_kwargs: Optional[Dict[str, Any]] = None,
+        device: Any = None, seed: int = 0, **kwargs: Any,
+    ) -> "DiffusionAPI":
+        """The semantic-map LDM (`zoo.ldm_semantic`: 182-channel one-hot maps
+        through a `Rescaler`, the concat condition), seeded random weights."""
+        from ...zoo.common import ldm_semantic
+
+        return cls._from_zoo(ldm_semantic, pretrained, use_bf16, ldm_kwargs, device, seed, kwargs)
 
 
 class ControlledDiffusionAPI(DiffusionAPI):

@@ -57,26 +57,50 @@ class UpsampleConv2d(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv. The VAE convention pads (0, 1); the UNet passes
-    `symmetric=True` for (1, 1)."""
+    """Stride-2 3x3 conv, or with `use_conv=False` a 2x2 average pool. The
+    VAE convention pads (0, 1); the UNet passes `symmetric=True` for (1, 1)."""
 
-    def __init__(self, in_channels: int, out_channels: Optional[int] = None, *, symmetric: bool = False) -> None:
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: Optional[int] = None,
+        *,
+        use_conv: bool = True,
+        symmetric: bool = False,
+    ) -> None:
         super().__init__()
-        pad = (1, 1) if symmetric else (0, 1)
-        self.conv = Conv(in_channels, out_channels or in_channels, (3, 3), strides=(2, 2), padding=[pad, pad])
+        self.use_conv = use_conv
+        self.conv = None
+        if use_conv:
+            pad = (1, 1) if symmetric else (0, 1)
+            self.conv = Conv(in_channels, out_channels or in_channels, (3, 3), strides=(2, 2), padding=[pad, pad])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        return self.conv(x) if self.conv is not None else avg_pool2(x)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 window mean at stride 2 of NHWC `x` (odd trailing rows and columns
+    dropped), in x's dtype: the window sum times 0.25."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
 class ResidualBlock(nn.Module):
-    """GroupNorm -> SiLU -> conv, twice, with a skip (the VAE resblock)."""
+    """GroupNorm -> SiLU -> conv, twice, with a skip (the VAE resblock);
+    `dropout` before the second conv, in training mode."""
 
     def __init__(
-        self, in_channels: int, out_channels: Optional[int] = None, *, num_groups: int = 32, eps: float = 1e-6
+        self,
+        in_channels: int,
+        out_channels: Optional[int] = None,
+        *,
+        dropout: float = 0.0,
+        num_groups: int = 32,
+        eps: float = 1e-6,
     ) -> None:
         super().__init__()
         out_channels = out_channels or in_channels
+        self.dropout = dropout
         self.norm1 = GroupNorm(in_channels, num_groups=num_groups, eps=eps)
         self.conv1 = Conv(in_channels, out_channels)
         self.norm2 = GroupNorm(out_channels, num_groups=num_groups, eps=eps)
@@ -85,14 +109,18 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         net = conv_call(self.conv1, gn_call(self.norm1, x, silu=True))
-        net = conv_call(self.conv2, gn_call(self.norm2, net, silu=True))
+        net = F.dropout(gn_call(self.norm2, net, silu=True), self.dropout, self.training)
+        net = conv_call(self.conv2, net)
         skip = x if self.shortcut is None else self.shortcut(x)
         return skip + net
 
 
 class ResidualBlockWithTimeEmbedding(nn.Module):
     """Diffusion-UNet resblock: the time embedding is added between the convs.
-    `conv2` starts at zero, as in the JAX package."""
+    `conv2` starts at zero, as in the JAX package. `down` / `up` resample
+    both the branch (after the first norm and SiLU) and the skip, without a
+    conv: a 2x2 average pool or a nearest 2x resize. `dropout` before the
+    second conv, in training mode."""
 
     def __init__(
         self,
@@ -100,13 +128,19 @@ class ResidualBlockWithTimeEmbedding(nn.Module):
         out_channels: Optional[int] = None,
         *,
         time_embed_dim: int,
+        dropout: float = 0.0,
         num_groups: int = 32,
         eps: float = 1e-5,
         use_scale_shift_norm: bool = False,
+        up: bool = False,
+        down: bool = False,
     ) -> None:
         super().__init__()
         out_channels = out_channels or in_channels
         self.use_scale_shift_norm = use_scale_shift_norm
+        self.up = up
+        self.down = down
+        self.dropout = dropout
         self.norm1 = GroupNorm(in_channels, num_groups=num_groups, eps=eps)
         self.conv1 = Conv(in_channels, out_channels)
         self.time_proj = Linear(time_embed_dim, 2 * out_channels if use_scale_shift_norm else out_channels)
@@ -115,13 +149,18 @@ class ResidualBlockWithTimeEmbedding(nn.Module):
         self.shortcut = Conv(in_channels, out_channels, (1, 1)) if in_channels != out_channels else None
 
     def forward(self, x: torch.Tensor, time_embed: torch.Tensor) -> torch.Tensor:
-        net = conv_call(self.conv1, gn_call(self.norm1, x, silu=True))
+        net = gn_call(self.norm1, x, silu=True)
+        if self.down:
+            net, x = avg_pool2(net), avg_pool2(x)
+        elif self.up:
+            net, x = interpolate(net, factor=2.0), interpolate(x, factor=2.0)
+        net = conv_call(self.conv1, net)
         emb = self.time_proj(F.silu(time_embed))[:, None, None, :]
         if self.use_scale_shift_norm:
             scale, shift = emb.chunk(2, dim=-1)
             net = F.silu(gn_call(self.norm2, net) * (1.0 + scale) + shift)
         else:
             net = gn_call(self.norm2, net + emb, silu=True)
-        net = conv_call(self.conv2, net)
+        net = conv_call(self.conv2, F.dropout(net, self.dropout, self.training))
         skip = x if self.shortcut is None else self.shortcut(x)
         return skip + net

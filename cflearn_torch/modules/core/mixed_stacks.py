@@ -1,11 +1,13 @@
 """The SD UNet's transformer stack (counterpart of
 `cflearn_tpu/modules/core/mixed_stacks.py`: the plain branch and ToMe; the
-style-reference hooks are not ported)."""
+style-reference hooks are not ported). `dropout` acts in training mode
+only."""
 
 from typing import Any, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ...ops.group_norm import gn_call
 from ..layers import Conv, GroupNorm, LayerNorm, Linear
@@ -15,31 +17,36 @@ from .tome import compute_merge
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward (the `activation="geglu"` branch)."""
+    """GEGLU feed-forward (the `activation="geglu"` branch), dropout after
+    each layer."""
 
-    def __init__(self, in_dim: int, latent_dim: int) -> None:
+    def __init__(self, in_dim: int, latent_dim: int, dropout: float = 0.0) -> None:
         super().__init__()
         self.net1 = GEGLU(in_dim=in_dim, out_dim=latent_dim)
         self.linear2 = Linear(latent_dim, in_dim)
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(self.net1(x))
+        net = self.linear2(F.dropout(self.net1(x), self.dropout, self.training))
+        return F.dropout(net, self.dropout, self.training)
 
 
 class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn -> GEGLU FF, all pre-norm residual. The
     LayerNorms keep flax's default epsilon 1e-6."""
 
-    def __init__(self, query_dim: int, num_heads: int, head_dim: int, *, context_dim: Optional[int] = None) -> None:
+    def __init__(
+        self, query_dim: int, num_heads: int, head_dim: int, *, context_dim: Optional[int] = None, dropout: float = 0.0
+    ) -> None:
         super().__init__()
         self.norm1 = LayerNorm(query_dim)
-        self.attn1 = CrossAttention(query_dim=query_dim, heads=num_heads, dim_head=head_dim)
+        self.attn1 = CrossAttention(query_dim=query_dim, heads=num_heads, dim_head=head_dim, dropout=dropout)
         self.norm2 = LayerNorm(query_dim)
         self.attn2 = CrossAttention(
-            query_dim=query_dim, context_dim=context_dim, heads=num_heads, dim_head=head_dim
+            query_dim=query_dim, context_dim=context_dim, heads=num_heads, dim_head=head_dim, dropout=dropout
         )
         self.norm3 = LayerNorm(query_dim)
-        self.ff = FeedForward(query_dim, query_dim * 4)
+        self.ff = FeedForward(query_dim, query_dim * 4, dropout)
 
     def forward(
         self, x: torch.Tensor, context: Optional[torch.Tensor] = None, *, tome_info: Optional[Any] = None
@@ -71,6 +78,7 @@ class SpatialTransformer(nn.Module):
         *,
         num_layers: int = 1,
         context_dim: Optional[int] = None,
+        dropout: float = 0.0,
         use_linear: bool = False,
     ) -> None:
         super().__init__()
@@ -84,7 +92,7 @@ class SpatialTransformer(nn.Module):
             self.proj_in = Conv(in_channels, inner_dim, (1, 1))
             self.proj_out = Conv(inner_dim, in_channels, (1, 1))
         self.blocks = nn.ModuleList(
-            BasicTransformerBlock(inner_dim, num_heads, head_dim, context_dim=context_dim)
+            BasicTransformerBlock(inner_dim, num_heads, head_dim, context_dim=context_dim, dropout=dropout)
             for _ in range(num_layers)
         )
         # ToMe ratio (0 = off), set through `set_tome_ratio`

@@ -3,7 +3,10 @@
 autoencoder's `encode` to the Gaussian posterior, `decode`, and the training
 forward that samples the posterior in between; the VQ autoencoder's encode
 through its codebook. Both are registered as `generators` ("ae_kl",
-"ae_vq"), the names an `LDM` takes for its first stage."""
+"ae_vq"), the names an `LDM` takes for its first stage.
+`attention_type="none"` drops every attention (the mid block's too: the
+LDM-inpainting first stage), and `resample_with_conv=False` resamples by a
+2x2 average pool and a nearest 2x resize without a conv."""
 
 from typing import Any, Dict, List, Optional
 
@@ -13,9 +16,18 @@ import torch.nn.functional as F
 
 from ..common import register_module
 from ..core.attentions import SpatialAttention
-from ..core.convs import Downsample, ResidualBlock, UpsampleConv2d
+from ..core.convs import Downsample, ResidualBlock, UpsampleConv2d, interpolate
 from ..layers import Conv, GroupNorm
 from .common import GaussianDistribution, VQCodebook, VQCodebookOutput, generators
+
+
+def _mid(coder: nn.Module, net: torch.Tensor) -> torch.Tensor:
+    """The mid block of an encoder or decoder: res, attention (unless
+    `attention_type="none"`), res."""
+    net = coder.mid_res1(net)
+    if coder.mid_attn is not None:
+        net = coder.mid_attn(net)
+    return coder.mid_res2(net)
 
 
 class AttnEncoder(nn.Module):
@@ -31,28 +43,31 @@ class AttnEncoder(nn.Module):
         channel_multipliers: Optional[List[int]] = None,
         num_res_blocks: int = 2,
         attention_resolutions: Optional[List[int]] = None,
+        dropout: float = 0.0,
         double_z: bool = True,
+        attention_type: str = "spatial",
+        resample_with_conv: bool = True,
     ) -> None:
         super().__init__()
         channel_multipliers = channel_multipliers or [1, 2, 4, 4]
-        attention_resolutions = attention_resolutions or []
+        attention_resolutions = [] if attention_type == "none" else attention_resolutions or []
         self.conv_in = Conv(in_channels, inner_channels)
         blocks: List[nn.Module] = []
         ch, resolution = inner_channels, img_size
         for i, mult in enumerate(channel_multipliers):
             out_ch = inner_channels * mult
             for _ in range(num_res_blocks):
-                blocks.append(ResidualBlock(ch, out_ch))
+                blocks.append(ResidualBlock(ch, out_ch, dropout=dropout))
                 ch = out_ch
                 if resolution in attention_resolutions:
                     blocks.append(SpatialAttention(ch))
             if i != len(channel_multipliers) - 1:
-                blocks.append(Downsample(ch))
+                blocks.append(Downsample(ch, use_conv=resample_with_conv))
                 resolution //= 2
         self.blocks = nn.ModuleList(blocks)
-        self.mid_res1 = ResidualBlock(ch, ch)
-        self.mid_attn = SpatialAttention(ch)
-        self.mid_res2 = ResidualBlock(ch, ch)
+        self.mid_res1 = ResidualBlock(ch, ch, dropout=dropout)
+        self.mid_attn = SpatialAttention(ch) if attention_type != "none" else None
+        self.mid_res2 = ResidualBlock(ch, ch, dropout=dropout)
         self.norm_out = GroupNorm(ch, num_groups=32, eps=1e-6)
         self.conv_out = Conv(ch, 2 * z_channels if double_z else z_channels)
 
@@ -60,8 +75,7 @@ class AttnEncoder(nn.Module):
         net = self.conv_in(x.to(self.conv_in.weight.dtype))
         for block in self.blocks:
             net = block(net)
-        net = self.mid_res2(self.mid_attn(self.mid_res1(net)))
-        return self.conv_out(F.silu(self.norm_out(net)))
+        return self.conv_out(F.silu(self.norm_out(_mid(self, net))))
 
 
 class AttnDecoder(nn.Module):
@@ -77,37 +91,46 @@ class AttnDecoder(nn.Module):
         channel_multipliers: Optional[List[int]] = None,
         num_res_blocks: int = 2,
         attention_resolutions: Optional[List[int]] = None,
+        dropout: float = 0.0,
+        attention_type: str = "spatial",
+        resample_with_conv: bool = True,
     ) -> None:
         super().__init__()
         channel_multipliers = channel_multipliers or [1, 2, 4, 4]
-        attention_resolutions = attention_resolutions or []
+        attention_resolutions = [] if attention_type == "none" else attention_resolutions or []
         ch = inner_channels * channel_multipliers[-1]
         self.conv_in = Conv(z_channels, ch)
-        self.mid_res1 = ResidualBlock(ch, ch)
-        self.mid_attn = SpatialAttention(ch)
-        self.mid_res2 = ResidualBlock(ch, ch)
+        self.mid_res1 = ResidualBlock(ch, ch, dropout=dropout)
+        self.mid_attn = SpatialAttention(ch) if attention_type != "none" else None
+        self.mid_res2 = ResidualBlock(ch, ch, dropout=dropout)
         blocks: List[nn.Module] = []
         resolution = img_size // (2 ** (len(channel_multipliers) - 1))
         for i, mult in reversed(list(enumerate(channel_multipliers))):
             out_ch = inner_channels * mult
             for _ in range(num_res_blocks + 1):
-                blocks.append(ResidualBlock(ch, out_ch))
+                blocks.append(ResidualBlock(ch, out_ch, dropout=dropout))
                 ch = out_ch
                 if resolution in attention_resolutions:
                     blocks.append(SpatialAttention(ch))
             if i != 0:
-                blocks.append(UpsampleConv2d(ch, ch, factor=2.0))
+                blocks.append(UpsampleConv2d(ch, ch, factor=2.0) if resample_with_conv else Upsample2x())
                 resolution *= 2
         self.blocks = nn.ModuleList(blocks)
         self.norm_out = GroupNorm(ch, num_groups=32, eps=1e-6)
         self.conv_out = Conv(ch, out_channels)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        net = self.conv_in(z.to(self.conv_in.weight.dtype))
-        net = self.mid_res2(self.mid_attn(self.mid_res1(net)))
+        net = _mid(self, self.conv_in(z.to(self.conv_in.weight.dtype)))
         for block in self.blocks:
             net = block(net)
         return self.conv_out(F.silu(self.norm_out(net)))
+
+
+class Upsample2x(nn.Module):
+    """Conv-free nearest 2x upsample (the decoder with `resample_with_conv=False`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return interpolate(x, factor=2.0)
 
 
 @register_module("ae_kl")
@@ -127,14 +150,18 @@ class AutoEncoderKL(nn.Module):
         channel_multipliers: Optional[List[int]] = None,
         num_res_blocks: int = 2,
         attention_resolutions: Optional[List[int]] = None,
+        dropout: float = 0.0,
+        attention_type: str = "spatial",
         apply_tanh: bool = False,
+        resample_with_conv: bool = True,
     ) -> None:
         super().__init__()
         self.apply_tanh = apply_tanh
         common: Any = dict(
             img_size=img_size, inner_channels=inner_channels, z_channels=z_channels,
             channel_multipliers=channel_multipliers, num_res_blocks=num_res_blocks,
-            attention_resolutions=attention_resolutions,
+            attention_resolutions=attention_resolutions, dropout=dropout, attention_type=attention_type,
+            resample_with_conv=resample_with_conv,
         )
         self.encoder = AttnEncoder(in_channels=in_channels, **common)
         self.decoder = AttnDecoder(out_channels=out_channels, **common)
@@ -186,14 +213,18 @@ class AutoEncoderVQ(nn.Module):
         channel_multipliers: Optional[List[int]] = None,
         num_res_blocks: int = 2,
         attention_resolutions: Optional[List[int]] = None,
+        dropout: float = 0.0,
+        attention_type: str = "spatial",
         apply_tanh: bool = False,
+        resample_with_conv: bool = True,
     ) -> None:
         super().__init__()
         self.apply_tanh = apply_tanh
         common: Any = dict(
             img_size=img_size, inner_channels=inner_channels, z_channels=z_channels,
             channel_multipliers=channel_multipliers, num_res_blocks=num_res_blocks,
-            attention_resolutions=attention_resolutions,
+            attention_resolutions=attention_resolutions, dropout=dropout, attention_type=attention_type,
+            resample_with_conv=resample_with_conv,
         )
         self.encoder = AttnEncoder(in_channels=in_channels, double_z=False, **common)
         self.decoder = AttnDecoder(out_channels=out_channels, **common)

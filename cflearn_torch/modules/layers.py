@@ -1,8 +1,8 @@
 """Channel-last layers with flax `nnx` semantics.
 
 The port's counterparts of `nnx.Linear`, `nnx.Conv`, `nnx.LayerNorm`,
-`nnx.GroupNorm`, `nnx.BatchNorm` and `nnx.Embed`, and of `jax.image.resize`'s
-bilinear mode. Parameters carry PyTorch's names and
+`nnx.GroupNorm`, `nnx.BatchNorm` and `nnx.Embed`, and of `jax.image.resize`
+(`resize`: its nearest, linear and cubic methods). Parameters carry PyTorch's names and
 layouts (`weight` (out, in) for Linear, OIHW for Conv); `cflearn_torch.bridge`
 maps the JAX package's parameters onto them. Like flax, each layer computes
 in the promoted dtype of its input and parameters (an f32 input meets bf16
@@ -11,6 +11,7 @@ weights in f32), and the norms take their statistics in f32.
 
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -168,9 +169,70 @@ class Embed(nn.Embedding):
     """`nnx.Embed`: a lookup in the table's dtype."""
 
 
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5."""
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
+
+
+_RESIZE_KERNELS = {"linear": _triangle, "bilinear": _triangle, "trilinear": _triangle, "triangle": _triangle,
+                   "cubic": _keys_cubic, "bicubic": _keys_cubic, "tricubic": _keys_cubic}
+
+
+def resize_weights(in_size: int, out_size: int, method: str, antialias: bool = True) -> np.ndarray:
+    """(in_size, out_size) f32 weights of one axis of `jax.image.resize`
+    (`compute_weight_mat` of `jax._src.image.scale`, in f32 as there): the
+    kernel at the half-pixel sample positions, widened by 1 / scale where
+    the axis shrinks (`antialias`), each column normalised over the taps
+    inside the input, and zero where a sample falls outside it."""
+    kernel = _RESIZE_KERNELS[method]
+    inv_scale = np.float32(1.0) / np.float32(out_size / in_size)
+    kernel_scale = max(inv_scale, np.float32(1.0)) if antialias else np.float32(1.0)
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    weights = kernel(x.astype(np.float32))
+    total = weights.sum(axis=0, keepdims=True, dtype=np.float32)
+    ok = np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps)
+    weights = np.where(ok, weights / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= np.float32(in_size) - np.float32(0.5))
+    return np.where(inside[None, :], weights, np.float32(0.0)).astype(np.float32)
+
+
+def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """`jax.image.resize`'s nearest sample of each output pixel:
+    floor((i + 0.5) * in / out), in f32."""
+    offsets = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size) / np.float32(out_size)
+    return np.floor(offsets).astype(np.int64)
+
+
+def resize(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear", *, antialias: bool = True) -> torch.Tensor:
+    """`jax.image.resize(x, (b, h, w, c), method)` on NHWC `x`: "nearest"
+    gathers each output pixel's sample (`nearest_indices`); the linear and
+    cubic methods (Keys, a = -0.5) apply each changed axis's weights
+    (`resize_weights`, built on the host) as a product in x's floating
+    dtype (f32 for an integer x). Half-pixel centres throughout."""
+    out = x if x.is_floating_point() or method == "nearest" else x.float()
+    for axis, n in ((1, int(size[0])), (2, int(size[1]))):
+        m = out.shape[axis]
+        if m == n:
+            continue
+        if method == "nearest":
+            out = out.index_select(axis, torch.as_tensor(nearest_indices(m, n), device=x.device))
+            continue
+        if method not in _RESIZE_KERNELS:
+            raise ValueError(f"resize: unknown method '{method}'")
+        w = torch.as_tensor(resize_weights(m, n, method, antialias), device=x.device).to(out.dtype)
+        out = torch.einsum("bhwc,hH->bHwc" if axis == 1 else "bhwc,wW->bhWc", out, w)
+    return out
+
+
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """`jax.image.resize(x, (b, h, w, c), "bilinear")` on NHWC: half-pixel
     centres, and a triangle kernel widened by the scale where it shrinks
     (antialiased), computed in f32 and returned in x's dtype."""
-    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=(h, w), mode="bilinear", align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    return resize(x.float(), (h, w), "bilinear").to(x.dtype)

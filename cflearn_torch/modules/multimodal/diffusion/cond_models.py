@@ -1,14 +1,19 @@
 """Condition models (counterpart of
-`cflearn_tpu/modules/multimodal/diffusion/cond_models.py`). The input is
-token ids; the BPE tokenizer is a later slice."""
+`cflearn_tpu/modules/multimodal/diffusion/cond_models.py`): the CLIP text
+condition (token ids in) in `condition_models`, and `Rescaler` (the
+semantic LDM's spatial condition) in `specialized_condition_models`."""
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from ...common import PrefixModules
+from ...layers import Conv, resize
 from ..clip import TeTEncoder
 
 condition_models = PrefixModules("condition_models")
+specialized_condition_models = PrefixModules("specialized_condition_models")
 
 
 @condition_models.register("clip_text")
@@ -40,3 +45,44 @@ class CLIPTextConditionModel(nn.Module):
         if token_ids.is_floating_point():
             return token_ids  # an already-encoded context passes through
         return self.encoder(token_ids, clip_skip=self.clip_skip, apply_final_ln=True)
+
+
+@specialized_condition_models.register("rescaler")
+class Rescaler(nn.Module):
+    """Shrink a spatial NHWC condition by `multiplier` per stage with
+    `jax.image.resize`'s method (antialiased; the sizes by Python's
+    `round`, half to even, at least 1), then map its channels by a 1x1 conv
+    (`out_channels`; no bias unless `bias`). The semantic LDM runs two
+    stages over 182 one-hot channels to 3."""
+
+    def __init__(
+        self,
+        *,
+        in_channels: int = 3,
+        out_channels: Optional[int] = None,
+        num_stages: int = 1,
+        multiplier: float = 0.5,
+        method: str = "bilinear",
+        bias: bool = False,
+    ) -> None:
+        super().__init__()
+        supported = {"nearest", "linear", "bilinear", "trilinear", "bicubic"}
+        if method not in supported:
+            raise ValueError(f"`method` should be one of {supported}")
+        self.in_channels = in_channels
+        self.num_stages = num_stages
+        self.multiplier = multiplier
+        self.method = method
+        self.channel_mapper = None if out_channels is None else Conv(in_channels, out_channels, (1, 1), use_bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for _ in range(self.num_stages):
+            h, w = x.shape[1:3]
+            size = (max(1, int(round(h * self.multiplier))), max(1, int(round(w * self.multiplier))))
+            x = resize(x, size, self.method)
+        if self.channel_mapper is not None:
+            x = self.channel_mapper(x)
+        return x
+
+
+SpatialRescaler = Rescaler

@@ -4,7 +4,9 @@ ControlNet injection (counterpart of
 `cflearn_tpu/modules/multimodal/diffusion/ddpm.py`; no style-reference
 hooks). The condition types: `cross_attn` (the UNet's context),
 `concat` (joined to the UNet's input on the channel axis), `hybrid` (a dict
-holding both) and `adm` (class labels, embedded into the time embedding)."""
+holding both) and `adm` (class labels, embedded into the time embedding).
+`condition_model` is a module or a registered name (`make_condition_model`,
+with `condition_config`); `given_betas` replaces the beta schedule."""
 
 import math
 from typing import Any, Dict, List, Optional
@@ -16,6 +18,15 @@ import torch.nn as nn
 from ...common import register_module
 from .unet import UNetDiffuser
 from .utils import ADM_TYPE, CONCAT_TYPE, CROSS_ATTN_TYPE, HYBRID_TYPE
+
+
+def make_condition_model(key: str, config: Optional[Dict[str, Any]] = None) -> nn.Module:
+    """Build a condition model from its registered name: a specialized one
+    ("rescaler") wins over a generic encoder ("clip_text")."""
+    from .cond_models import condition_models, specialized_condition_models
+
+    registry = specialized_condition_models if specialized_condition_models.has(key) else condition_models
+    return registry.build(key, **dict(config or {}))
 
 
 def make_beta_schedule(
@@ -60,11 +71,13 @@ class DDPM(nn.Module):
         linear_start: float = 1e-4,
         linear_end: float = 2e-2,
         cosine_s: float = 8e-3,
+        given_betas: Optional[Any] = None,
         learn_log_var: bool = False,
         log_var_init: float = 0.0,
         parameterization: str = "eps",
         condition_type: str = CROSS_ATTN_TYPE,
-        condition_model: Optional[nn.Module] = None,
+        condition_model: Optional[Any] = None,
+        condition_config: Optional[Dict[str, Any]] = None,
         condition_learnable: bool = False,
         unet_config: Optional[Dict[str, Any]] = None,
         v_posterior: float = 0.0,
@@ -72,6 +85,12 @@ class DDPM(nn.Module):
         super().__init__()
         if condition_type not in (CROSS_ATTN_TYPE, CONCAT_TYPE, HYBRID_TYPE, ADM_TYPE):
             raise ValueError(f"unrecognized condition type '{condition_type}'")
+        if isinstance(condition_model, str):
+            condition_model = make_condition_model(condition_model, condition_config)
+        # the registered schedule's length: `given_betas` may override `num_timesteps`
+        self.given_betas = None if given_betas is None else np.asarray(given_betas, np.float64)
+        if self.given_betas is not None:
+            num_timesteps = len(self.given_betas)
         self.img_size = img_size
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -112,7 +131,7 @@ class DDPM(nn.Module):
         """(Re)compute the schedule buffers on the current device — also after
         `to_empty`, which leaves buffers uninitialised."""
         info = self.schedule_info
-        betas = make_beta_schedule(
+        betas = self.given_betas if self.given_betas is not None else make_beta_schedule(
             info["schedule"], info["num_timesteps"], linear_start=info["linear_start"],
             linear_end=info["linear_end"], cosine_s=info["cosine_s"],
         )

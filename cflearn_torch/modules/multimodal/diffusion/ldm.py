@@ -22,9 +22,10 @@ class LDM(DDPM):
     """Latent diffusion: DDPM over the latents of a frozen first stage,
     scaled by `latent_scale` (`first_stage_scale_factor` wins where given).
 
-    `first_stage` is a module, or a `generators` name ("ae_kl", "ae_vq")
-    built from `first_stage_config`; without either, `first_stage_config`
-    builds an `AutoEncoderKL`. With `use_first_stage_as_condition` the raw
+    `first_stage` is a module, a `generators` name ("ae_kl", "ae_vq") or
+    else a zoo preset name ("ae/vq.f4", `cflearn_torch.zoo`), built from
+    `first_stage_config` (random weights: a `pretrained` entry raises);
+    without either, `first_stage_config` builds an `AutoEncoderKL`. With `use_first_stage_as_condition` the raw
     condition goes through the first-stage encoder, without a gradient (the
     semantic / super-resolution LDMs, which join it to the UNet's input:
     the `concat` condition type)."""
@@ -47,14 +48,16 @@ class LDM(DDPM):
         self.latent_scale = latent_scale if first_stage_scale_factor is None else first_stage_scale_factor
         self.use_first_stage_as_condition = use_first_stage_as_condition
         if isinstance(first_stage, str):
-            if not generators.has(first_stage):
-                raise ValueError(
-                    f"first stage '{first_stage}' is not a generator ({generators.all}); zoo names are not ported"
-                )
             cfg = dict(first_stage_config or {})
             cfg.pop("prefix_module", None)
-            cfg.pop("pretrained", None)
-            first_stage = generators.build(first_stage, **cfg)
+            if cfg.pop("pretrained", False):
+                raise ValueError(f"pretrained weights of the first stage '{first_stage}' are not in the repository")
+            if generators.has(first_stage):
+                first_stage = generators.build(first_stage, **cfg)
+            else:
+                from ....zoo.common import build_module
+
+                first_stage = build_module(first_stage, **cfg)
         elif first_stage is None and first_stage_config is not None:
             first_stage = AutoEncoderKL(**first_stage_config)
         self.first_stage = first_stage

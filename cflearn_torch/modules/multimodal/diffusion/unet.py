@@ -1,7 +1,7 @@
-"""`UNetDiffuser` — the SD UNet — and `ControlNet` (counterpart of
-`cflearn_tpu/modules/multimodal/diffusion/unet.py`: the full pass with the
-ControlNet residuals added, DeepCache's shallow pass; no hooks).
-Channel-last NHWC."""
+"""`UNetDiffuser` — the SD UNet and the LDM UNets — and `ControlNet`
+(counterpart of `cflearn_tpu/modules/multimodal/diffusion/unet.py`: the full
+pass with the ControlNet residuals added, DeepCache's shallow pass; no
+hooks). Channel-last NHWC."""
 
 import math
 from typing import Any, List, Optional, Tuple, Union
@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...common import register_module, zero_module
+from ...core.attentions import MultiHeadSpatialAttention
 from ...core.convs import Downsample, ResidualBlockWithTimeEmbedding, UpsampleConv2d
 from ...core.mixed_stacks import SpatialTransformer
 from ...layers import Conv, Embed, GroupNorm, Linear
@@ -52,12 +53,19 @@ class _InBlock(nn.Module):
 
 @register_module("diffusion/unet")
 class UNetDiffuser(nn.Module):
-    """SD UNet. SD-1.5: in/out 4 channels, start 320, multipliers
+    """Diffusion UNet. SD-1.5: in/out 4 channels, start 320, multipliers
     (1, 2, 4, 4), attention at downsample rates (1, 2, 4), 8 heads, context
-    768. `num_classes`: a class-label embedding added to the time embedding
-    (the `adm` condition). `with_output_blocks=False` builds the encoder
-    half only (`conv_in`, the time embedding, the input blocks and the mid
-    block): what a `ControlNet` runs of its copy of the UNet."""
+    768. `use_spatial_transformer=False` puts a `MultiHeadSpatialAttention`
+    (no context) where SD has a transformer: the LDM UNets.
+    `resample_with_resblock` resamples by time-embedded resblocks with
+    `down` / `up` (the LDM-inpainting UNet), else a stride-2 conv
+    (`resample_with_conv`, or a 2x2 average pool without it) down and a
+    nearest 2x resize and conv up. `dropout` reaches every resblock (and the
+    transformers' blocks), in training mode. `num_classes`: a class-label
+    embedding added to the time embedding (the `adm` condition).
+    `with_output_blocks=False` builds the encoder half only (`conv_in`, the
+    time embedding, the input blocks and the mid block): what a `ControlNet`
+    runs of its copy of the UNet."""
 
     def __init__(
         self,
@@ -70,12 +78,16 @@ class UNetDiffuser(nn.Module):
         channel_multipliers: Tuple[int, ...] = (1, 2, 4, 4),
         num_heads: Optional[int] = 8,
         num_head_channels: Optional[int] = None,
+        use_spatial_transformer: bool = True,
         num_transformer_layers: int = 1,
         context_dim: Optional[int] = 768,
         use_linear_in_transformer: bool = False,
         use_scale_shift_norm: bool = False,
-        use_checkpoint: Union[bool, str] = False,
         num_classes: Optional[int] = None,
+        dropout: float = 0.0,
+        use_checkpoint: Union[bool, str] = False,
+        resample_with_conv: bool = True,
+        resample_with_resblock: bool = False,
         with_output_blocks: bool = True,
     ) -> None:
         super().__init__()
@@ -100,14 +112,17 @@ class UNetDiffuser(nn.Module):
             else:
                 heads = num_heads or 8
                 head_dim = ch // heads
+            if not use_spatial_transformer:
+                return MultiHeadSpatialAttention(ch, num_heads=heads)
             return SpatialTransformer(
                 ch, heads, head_dim, num_layers=num_transformer_layers, context_dim=context_dim,
-                use_linear=use_linear_in_transformer,
+                use_linear=use_linear_in_transformer, dropout=dropout,
             )
 
-        def resblock(cin: int, cout: int) -> nn.Module:
+        def resblock(cin: int, cout: int, **kw: Any) -> nn.Module:
             return ResidualBlockWithTimeEmbedding(
-                cin, cout, time_embed_dim=time_embed_dim, use_scale_shift_norm=use_scale_shift_norm
+                cin, cout, time_embed_dim=time_embed_dim, dropout=dropout, use_scale_shift_norm=use_scale_shift_norm,
+                **kw,
             )
 
         self.conv_in = Conv(in_channels, start_channels)
@@ -124,7 +139,11 @@ class UNetDiffuser(nn.Module):
                 input_blocks.append(_InBlock(mods))
                 input_chans.append(ch)
             if level != len(channel_multipliers) - 1:
-                input_blocks.append(_InBlock([Downsample(ch, symmetric=True)]))
+                if resample_with_resblock:
+                    down: nn.Module = resblock(ch, ch, down=True)
+                else:
+                    down = Downsample(ch, use_conv=resample_with_conv, symmetric=True)
+                input_blocks.append(_InBlock([down]))
                 input_chans.append(ch)
                 ds *= 2
         self.input_blocks = nn.ModuleList(input_blocks)
@@ -145,7 +164,7 @@ class UNetDiffuser(nn.Module):
                 if ds in attention_downsample_rates:
                     mods.append(make_attn(ch))
                 if level != 0 and i == num_res_blocks:
-                    mods.append(UpsampleConv2d(ch, ch, factor=2.0))
+                    mods.append(resblock(ch, ch, up=True) if resample_with_resblock else UpsampleConv2d(ch, ch, factor=2.0))
                     ds //= 2
                 output_blocks.append(_InBlock(mods))
         self.output_blocks = nn.ModuleList(output_blocks)
@@ -259,6 +278,7 @@ class ControlNet(nn.Module):
         context_dim: Optional[int] = 768,
         use_linear_in_transformer: bool = False,
         num_transformer_layers: int = 1,
+        dropout: float = 0.0,
     ) -> None:
         super().__init__()
         chs = [16, 16, 32, 32, 96, 96, 256]
@@ -275,7 +295,7 @@ class ControlNet(nn.Module):
             num_res_blocks=num_res_blocks, attention_downsample_rates=attention_downsample_rates,
             channel_multipliers=channel_multipliers, num_heads=num_heads, context_dim=context_dim,
             use_linear_in_transformer=use_linear_in_transformer, num_transformer_layers=num_transformer_layers,
-            with_output_blocks=False,
+            dropout=dropout, with_output_blocks=False,
         )
         self.zero_convs = nn.ModuleList([zero_module(Conv(c, c, (1, 1))) for c in self.unet.input_chans])
         mid_ch = self.unet.input_chans[-1]

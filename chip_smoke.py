@@ -119,12 +119,29 @@ Phases, in order; any failure exits non-zero:
    s up down, the restore bit for bit. Each distinct kernel call of the
    census is then timed alone by CUDA-graph replay: device ms per image by
    kernel for every path.
-13. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+13. VQ latent-diffusion path — the zoo's VQ family served through
+   `DiffusionAPI` at full width (bf16, seeded random weights, zero-initialised
+   convs redrawn), batch 1, 20 DDIM steps: `from_inpainting()` runs
+   `inpainting` on a 256px image with a centre mask and `outpainting` in pad
+   mode (a 384px canvas) and in the RGBA convention; `from_semantic()` runs
+   `semantic2img` on a 512px index map of 182 classes; `ldm_vq(6 input
+   channels, concat)` runs `sr` on a 32px image (128x128 latents, 512px out).
+   Each path runs under the census, then timed: exact launches (from the
+   architectures, `VQ_PER_CALL`), 20 UNet calls at batch 1, finite latents,
+   and for inpainting the unmasked pixels within one level of the input.
+   Every distinct kernel call of the census (flash at d = 32, 64, 96, 128
+   and 512; the conv at C = 224, 448, 672; GroupNorm at 7 to 64 channels a
+   group) is held against its plain version with phase 2's tolerances and
+   timed alone (device ms, its plain version's ms, the library call's
+   device ms, the bound). One UNet call of each architecture, the f4 encode
+   and the f4 decode agree with the plain path within 1.5x its one-ulp
+   drift (phase 4's rule).
+14. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
-   path's on a line of their own, the card's name and power limit, and last
-   `{"ok": true, "device": {...}}`. The per-shape
+   path's and the VQ family's on lines of their own, the card's name and
+   power limit, and last `{"ok": true, "device": {...}}`. The per-shape
    rows also go to `chiprun_out/chip_smoke.json`.
 
 Imports nothing of JAX or of `cflearn_tpu`. Exits non-zero, printing no
@@ -1241,6 +1258,55 @@ def census(A, Cv, Gn, counts):
         A.flash_attention, Cv.conv3x3, Gn.group_norm_silu = saved
 
 
+def watch(model):
+    """Record the input shape of every UNet call and the latents of every decode of `model`."""
+    seen = {"unet": [], "latents": []}
+    model.unet.register_forward_pre_hook(lambda mod, args: seen["unet"].append(tuple(args[0].shape)))
+    decode = model.decode
+
+    def caught(z, **kw):
+        seen["latents"].append(z.detach())
+        return decode(z, **kw)
+
+    model.decode = caught
+    return seen
+
+
+def drive_path(torch, A, Cv, Gn, label, name, fn, seen, want, censuses):
+    """Run `fn` under the census (the warm-up), then timed on the host clock with the launch counters reset at 0
+    and read just after: the launches equal `want` exactly, the census agrees with the counters, and one decode's
+    latents are finite. The census goes to `censuses[name]`. Returns (the result, the path's record)."""
+    kernels = ("flash_attention", "conv3x3", "group_norm")
+    counts = {}
+    with census(A, Cv, Gn, counts):
+        fn()
+    torch.cuda.synchronize()
+    seen["unet"].clear()
+    seen["latents"].clear()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches(A, Cv, Gn)
+    expected = dict.fromkeys(got, 0)
+    expected.update(want)
+    by_kernel = {k: sum(n for key, n in counts.items() if key[0] == k) for k in kernels}
+    lat = seen["latents"][0].float() if len(seen["latents"]) == 1 else None
+    print(f"{label}[{name}]: {wall * 1e3:.1f} ms per image, {len(seen['unet'])} UNet calls, launches "
+          f"{json.dumps({k: v for k, v in got.items() if v})}, {len(counts)} distinct kernel calls"
+          + ("" if lat is None else f", latent std {lat.std().item():.4f} max |z| {lat.abs().max().item():.3f}"))
+    if got != expected:
+        raise AssertionError(f"{label}: {name}: launches {got} != {expected}")
+    if by_kernel != {k: got[k] for k in kernels}:
+        raise AssertionError(f"{label}: {name}: the census {by_kernel} disagrees with the counters")
+    if lat is None or not bool(torch.isfinite(lat).all()) or lat.abs().max().item() >= 1e3:
+        raise AssertionError(f"{label}: {name}: latents not finite or out of range")
+    censuses[name] = counts
+    return result, {"ms_per_image": wall * 1e3, "unet_calls": len(seen["unet"]),
+                    "launches": {k: v for k, v in got.items() if v}, "latent_std": lat.std().item()}
+
+
 def bf16_ulp(torch, x):
     """The bf16 spacing at |x| (8 significant bits)."""
     _, e = torch.frexp(x.abs().float())
@@ -1267,48 +1333,11 @@ def phase_diffusion_api(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
     out = {"samplers": {}, "paths": {}}
     censuses = {}
 
-    def watch(model):
-        """Record the batch of every UNet call and the latents of every decode of `model`."""
-        seen = {"unet": [], "latents": []}
-        model.unet.register_forward_pre_hook(lambda mod, args: seen["unet"].append(args[0].shape[0]))
-        decode = model.decode
-
-        def caught(z, **kw):
-            seen["latents"].append(z.detach())
-            return decode(z, **kw)
-
-        model.decode = caught
-        return seen
-
     def run_path(name, fn, seen, calls, want):
-        counts = {}
-        with census(A, Cv, Gn, counts):
-            fn()
-        torch.cuda.synchronize()
-        seen["unet"].clear()
-        seen["latents"].clear()
-        reset_launches(A, Cv, Gn)
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = read_launches(A, Cv, Gn)
-        expected = dict.fromkeys(got, 0)
-        expected.update(want)
-        by_kernel = {k: sum(n for key, n in counts.items() if key[0] == k) for k in kernels}
-        lat = seen["latents"][0].float() if len(seen["latents"]) == 1 else None
-        print(f"api[{name}]: {wall * 1e3:.1f} ms per image, {len(seen['unet'])} UNet calls, launches "
-              f"{json.dumps({k: v for k, v in got.items() if v})}, {len(counts)} distinct kernel calls"
-              + ("" if lat is None else f", latent std {lat.std().item():.4f} max |z| {lat.abs().max().item():.3f}"))
-        check(got == expected, f"{name}: launches {got} != {expected}")
-        check(by_kernel == {k: got[k] for k in kernels}, f"{name}: the census {by_kernel} disagrees with the counters")
-        check(seen["unet"] == [2] * calls, f"{name}: UNet calls {seen['unet']}, want {calls} at the CFG batch 2")
-        check(lat is not None and bool(torch.isfinite(lat).all()) and lat.abs().max().item() < 1e3,
-              f"{name}: latents not finite or out of range")
+        result, out["paths"][name] = drive_path(torch, A, Cv, Gn, "api", name, fn, seen, want, censuses)
+        batches = [shape[0] for shape in seen["unet"]]
+        check(batches == [2] * calls, f"{name}: UNet calls at batches {batches}, want {calls} at the CFG batch 2")
         check(result.shape == (1, 512, 512, 3) and result.dtype == np.uint8, f"{name}: image {result.shape}")
-        censuses[name] = counts
-        out["paths"][name] = {"ms_per_image": wall * 1e3, "unet_calls": calls,
-                              "launches": {k: v for k, v in got.items() if v}, "latent_std": lat.std().item()}
         return result
 
     t0 = time.perf_counter()
@@ -1449,6 +1478,239 @@ def phase_diffusion_api(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
                                            for k in kernels}
     print(f"api: {len(call_ms)} distinct kernel calls timed; device ms per image by kernel: "
           f"{json.dumps({p: v['device_ms'] for p, v in out['paths'].items()})}")
+    return out
+
+
+# 13. the VQ latent-diffusion family through DiffusionAPI (the zoo's `ldm_inpainting`, `ldm_semantic` and `ldm_vq`
+# at full width, bf16), batch 1, no CFG, 20 DDIM steps
+VQ_STEPS = 20
+VQ_IMAGE = 256  # inpainting's and the outpainting conventions' image side
+SEMANTIC_SIDE, SEMANTIC_CLASSES = 512, 182
+SR_SIDE = 32  # sr's input side: 128x128 latents, a 512x512 image
+# launches (flash, conv3x3, group_norm) of one call of each kind, counted from the architectures by the routing
+# rules (flash: self-attention with L >= 256; conv3x3: 3x3 stride-1 convs with C, Co >= 64 at H * W >= 128^2 or the
+# pinned 64x64x512x512; GroupNorm: every norm). The UNets' norms are also counted from their modules below
+VQ_PER_CALL = {
+    "inpaint_unet": (10, 2, 73),  # 64x64 latents: 5 attentions at L 1024 (d 64) and 5 at L 256 (d 96); the up
+    # resblock's two 512-channel convs at 64x64 (the pinned shape)
+    "outpaint_unet": (10, 0, 73),  # 96x96 latents (the 384px canvas): L 2304 and 576; no level reaches 128^2
+    "semantic_unet": (1, 17, 36),  # 128x128 latents: only the mid block's attention (L 1024, d 128) routes
+    "sr_unet": (16, 11, 61),  # 128x128 latents, 32 channels a head: L 4096, 1024, 256 (5, 5, 6 calls)
+    "encode_256": (0, 15, 17),  # the attention-free f4 encoder on a 256px image (64x64x512 pinned)
+    "encode_384": (0, 8, 17),
+    "decode_64": (0, 24, 23),  # the attention-free f4 decoder to 256px
+    "decode_96": (0, 14, 23),
+    "decode_128": (1, 24, 24),  # the f4 decoder with its mid attention (L 16384, d 512) to 512px
+}
+
+
+def vq_launches(**calls) -> dict:
+    """{kernel: launches} of `calls` {kind: number of calls}."""
+    out = {"flash_attention": 0, "conv3x3": 0, "group_norm": 0}
+    for kind, n in calls.items():
+        for name, per in zip(out, VQ_PER_CALL[kind]):
+            out[name] += per * n
+    return out
+
+
+def check_call(torch, F, A, Cv, Gn, key, gen) -> dict:
+    """One distinct serving-kernel call of the census, on random inputs of its shapes: the kernel against its plain
+    version (phase 2's tolerances), its device ms (CUDA-graph replay), its plain version's ms, the library call's
+    device ms and the bound."""
+    name, args, kw = key
+    kw = dict(kw)
+    dt = getattr(torch, args[0][2].split(".")[1])
+    if name == "flash_attention":
+        q, k, v = (torch.randn(a[1], generator=gen, device="cuda").to(dt) for a in args[:3])
+        run = lambda: A.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: A.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        b, h, lq, d = q.shape
+        lk = k.shape[2]
+        bms, by = bound_ms(4.0 * b * h * lq * lk * d, q.element_size() * b * h * (2 * lq + 2 * lk) * d,
+                           exps=b * h * lq * lk)
+        tol_rel, shape = FLASH_REL, [b, h, lq, lk, d]
+    elif name == "conv3x3":
+        x = torch.randn(args[0][1], generator=gen, device="cuda").to(dt)
+        co, c = args[1][1][0], args[1][1][-1]
+        w = (torch.randn((co, c, 3, 3), generator=gen, device="cuda") * (9 * c) ** -0.5).to(dt)
+        wk = Cv.kernel_weight(w)
+        bias = None if args[2] is None else (torch.randn((co,), generator=gen, device="cuda") * 0.1).to(dt)
+        xc, wc = x.permute(0, 3, 1, 2), w.contiguous(memory_format=torch.channels_last)
+        run = lambda: Cv.conv3x3(x, wk, bias, **kw)  # noqa: E731
+        plain = lambda: Cv.conv3x3_plain(x, wk, bias)  # noqa: E731
+        lib = lambda: F.conv2d(xc, wc, bias, padding=1)  # noqa: E731
+        m = x.numel() // c
+        bms, by = bound_ms(2.0 * m * co * 9 * c, 2.0 * (m * c + 9 * c * co + co + m * co))
+        tol_rel, shape = CONV_REL, list(x.shape) + [co]
+    else:
+        shape = list(args[0][1])
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dt)
+        w = (1.0 + 0.2 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
+        bias = (0.2 * torch.randn((c,), generator=gen, device="cuda")).to(dt)
+        run = lambda: Gn.group_norm_silu(x, w, bias, **kw)  # noqa: E731
+        plain = lambda: Gn.group_norm_silu_plain(x, w, bias, **kw)  # noqa: E731
+        xn = x.permute(0, 3, 1, 2)
+
+        def lib():
+            y = F.group_norm(xn, kw["num_groups"], w, bias, kw["eps"])
+            return F.silu(y) if kw.get("apply_silu") else y
+
+        bms, by = bound_ms(0.0, x.element_size() * (2.0 * x.numel() + 2.0 * c))
+        tol_rel = GN_REL
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max_err(out, ref)
+    tol = tol_rel * ref.float().abs().max().item()
+    row = dict(kernel=name, shape=shape, kw=kw, max_abs_err=err, tol=tol, device_ms=device_ms(torch, run, 5, 3),
+               plain_ms=time_ms(torch, plain, 5.0), library_device_ms=device_ms(torch, lib, 5, 3), bound_ms=bms,
+               bound_by=by)
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"vq api: {name} {shape} {kw}: max_abs_err {err} > {tol}")
+    return row
+
+
+def phase_vq_api(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """Serve the VQ latent-diffusion family as a user of the JAX package does: `DiffusionAPI.from_inpainting()`
+    (inpainting, outpainting in pad mode and in the RGBA convention), `DiffusionAPI.from_semantic()`
+    (`semantic2img` on a 512px index map of 182 classes) and `DiffusionAPI(ldm_vq(latent_in_channels=6,
+    condition_type="concat"))` (`sr` on a 32px image), bf16 from seeds 0, 2, 4, the zero-initialised convs redrawn. Each
+    path runs under the census, then timed on the host clock: exact launches, its UNet calls at batch 1, finite
+    latents. Every distinct kernel call of the census is then held against its plain version and timed alone
+    (`check_call`); one UNet call of each architecture, the f4 encode (before the codebook) and the f4 decode
+    through the kernels against the plain versions within PARITY_FACTOR x the plain path's one-ulp drift."""
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.modules.core.attentions import MultiHeadSpatialAttention
+    from cflearn_torch.modules.core.convs import ResidualBlockWithTimeEmbedding
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"vq api: {msg}")
+
+    kernels = ("flash_attention", "conv3x3", "group_norm")
+    out = {"paths": {}, "parity": {}}
+    censuses = {}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def build(factory, seed):
+        t0 = time.perf_counter()
+        api = factory(seed)
+        redraw_zero_init(api.m, seed=seed + 1)
+        seen = watch(api.m)
+        unet = api.m.unet
+        n_res = sum(isinstance(m, ResidualBlockWithTimeEmbedding) for m in unet.modules())
+        n_attn = sum(isinstance(m, MultiHeadSpatialAttention) for m in unet.modules())
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in api.m.parameters())
+        print(f"vq api: {type(api.m).__name__} of {n_params:,} bf16 parameters built in {time.perf_counter() - t0:.1f} s "
+              f"({n_res} res blocks, {n_attn} multi-head attentions in the UNet)")
+        return api, seen, 2 * n_res + n_attn + 1
+
+    def run_path(name, fn, seen, latent, want, side):
+        result, out["paths"][name] = drive_path(torch, A, Cv, Gn, "vq api", name, fn, seen, want, censuses)
+        grids = [shape[:3] for shape in seen["unet"]]
+        check(grids == [(1, latent, latent)] * VQ_STEPS,
+              f"{name}: UNet calls at {sorted(set(grids))}, want {VQ_STEPS} at batch 1 and {latent}x{latent}")
+        check(result.shape == (1, side, side, 3) and result.dtype == np.uint8, f"{name}: image {result.shape}")
+        return result
+
+    def parity(label, fn, x):
+        """fn through the kernels against the plain versions, held to the plain path's drift under a one-ulp move
+        of x (phase 4's rule)."""
+        with torch.no_grad():
+            y_k = fn(x).float()
+            with plain_kernels(A, Cv, Gn):
+                y_p = fn(x).float()
+                drift = rel_err(fn(bump_ulp(torch, x)).float(), y_p)
+        rel = rel_err(y_k, y_p)
+        print(f"vq api parity: {label}, kernels vs plain max rel err {rel:.3e} (tolerance {PARITY_FACTOR * drift:.3e}: "
+              f"{PARITY_FACTOR} x the one-ulp drift {drift:.3e})")
+        check(rel <= PARITY_FACTOR * drift, f"{label} through the kernels disagrees with the plain path")
+        out["parity"][label] = {"kernels_vs_plain": rel, "drift": drift}
+
+    def unet_parity(label, m, latent, cond_channels):
+        x = torch.randn((1, latent, latent, m.out_channels), generator=gen, device="cuda").to(torch.bfloat16)
+        cond = torch.randn((1, latent, latent, cond_channels), generator=gen, device="cuda").to(torch.bfloat16)
+        t = torch.full((1,), 981, dtype=torch.long, device="cuda")
+        parity(f"{label} UNet call at {latent}x{latent}", lambda z: m.denoise(z, t, cond), x)
+
+    # the inpainting model: inpainting, outpainting (pad, RGBA) on a 256px image
+    iapi, iseen, gn_unet = build(lambda seed: cflearn_torch.DiffusionAPI.from_inpainting(device="cuda", seed=seed), 0)
+    check(iapi.m.unet.in_channels == 7 and iapi.m.first_stage.encoder.mid_attn is None and
+          gn_unet == VQ_PER_CALL["inpaint_unet"][2] == VQ_PER_CALL["outpaint_unet"][2],
+          f"the inpainting model: {iapi.m.unet.in_channels} UNet input channels, {gn_unet} norms a UNet call")
+    image = torch.randint(0, 256, (VQ_IMAGE // 8, VQ_IMAGE // 8, 3), generator=gen, device="cuda").to(torch.float32)
+    image = F.interpolate(image.permute(2, 0, 1)[None], scale_factor=8, mode="bilinear")[0].permute(1, 2, 0)
+    image = image.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+    mask = np.zeros((VQ_IMAGE, VQ_IMAGE), np.float32)
+    mask[64:192, 64:192] = 1.0
+    inpainted = run_path("inpainting", lambda: iapi.inpainting(image, mask, num_steps=VQ_STEPS, seed=0), iseen, 64,
+                         vq_launches(inpaint_unet=VQ_STEPS, encode_256=2, decode_64=1), VQ_IMAGE)
+    kept = inpainted[0][mask == 0].astype(np.int16) - image[mask == 0].astype(np.int16)
+    print(f"vq api[inpainting]: the unmasked pixels move by at most {int(np.abs(kept).max())} levels")
+    check(int(np.abs(kept).max()) <= 1, "inpainting changed the unmasked pixels")
+    side = VQ_IMAGE + 2 * (VQ_IMAGE // 4)
+    run_path("outpainting_pad", lambda: iapi.outpainting(image, num_steps=VQ_STEPS, seed=0), iseen, side // 4,
+             vq_launches(outpaint_unet=VQ_STEPS, encode_384=2, decode_96=1), side)
+    alpha = np.full((VQ_IMAGE, VQ_IMAGE, 1), 255, np.uint8)
+    alpha[:, 3 * VQ_IMAGE // 4:] = 0
+    rgba = np.concatenate([image, alpha], axis=-1)
+    run_path("outpainting_rgba", lambda: iapi.outpainting("", rgba, num_steps=VQ_STEPS, seed=0), iseen, 64,
+             vq_launches(inpaint_unet=VQ_STEPS, encode_256=2, decode_64=1), VQ_IMAGE)
+    unet_parity("ldm_inpainting", iapi.m, 64, 4)
+    x = torch.as_tensor(image, device="cuda").float().div(127.5).sub(1.0)[None].to(torch.bfloat16)
+    fs = iapi.m.first_stage
+    parity("the attention-free f4 encode at 256px (before the codebook)", lambda im: fs.to_embedding(fs.encoder(im)), x)
+    del iapi, iseen
+    torch.cuda.empty_cache()
+
+    # the semantic model: semantic2img on a 512px index map of 182 classes
+    sapi, sseen, gn_unet = build(lambda seed: cflearn_torch.DiffusionAPI.from_semantic(device="cuda", seed=seed), 2)
+    check(gn_unet == VQ_PER_CALL["semantic_unet"][2], f"the semantic UNet runs {gn_unet} norms a call")
+    labels = torch.randint(0, SEMANTIC_CLASSES, (SEMANTIC_SIDE // 16, SEMANTIC_SIDE // 16), generator=gen, device="cuda")
+    labels = labels.repeat_interleave(16, 0).repeat_interleave(16, 1).cpu().numpy()
+    run_path("semantic2img", lambda: sapi.semantic2img(labels, num_steps=VQ_STEPS, seed=0), sseen, 128,
+             vq_launches(semantic_unet=VQ_STEPS, decode_128=1), SEMANTIC_SIDE)
+    unet_parity("ldm_semantic", sapi.m, 128, 3)
+    del sapi, sseen
+    torch.cuda.empty_cache()
+
+    # the VQ LDM made concat-conditioned on 6 channels: sr on a 32px image
+    def sr_api(seed):
+        m = cflearn_torch.ldm_vq(latent_in_channels=6, condition_type="concat", device="cuda", dtype=torch.bfloat16,
+                                 seed=seed)
+        return cflearn_torch.DiffusionAPI(m, use_bf16=True, device="cuda")
+
+    rapi, rseen, gn_unet = build(sr_api, 4)
+    check(gn_unet == VQ_PER_CALL["sr_unet"][2], f"the sr UNet runs {gn_unet} norms a call")
+    small = torch.randint(0, 256, (SR_SIDE, SR_SIDE, 3), generator=gen, device="cuda").to(torch.uint8).cpu().numpy()
+    run_path("sr", lambda: rapi.sr(small, num_steps=VQ_STEPS, seed=0), rseen, 4 * SR_SIDE,
+             vq_launches(sr_unet=VQ_STEPS, decode_128=1), 16 * SR_SIDE)
+    unet_parity("ldm_vq (sr)", rapi.m, 128, 3)
+    z = torch.randn((1, 128, 128, 3), generator=gen, device="cuda").to(torch.bfloat16)
+    parity("the f4 decode from 128x128 latents (mid attention at L 16384)", lambda lat: rapi.m.decode_first_stage(lat), z)
+    del rapi, rseen, z
+    torch.cuda.empty_cache()
+
+    # every distinct kernel call of the census against its plain version, timed alone; each path's sums
+    t0 = time.perf_counter()
+    calls = {}
+    for key in sorted({key for counts in censuses.values() for key in counts}, key=str):
+        calls[key] = check_call(torch, F, A, Cv, Gn, key, gen)
+    out["calls"] = [dict(calls[key], launches={p: c[key] for p, c in censuses.items() if key in c})
+                    for key in sorted(calls, key=str)]
+    for path, counts in censuses.items():
+        out["paths"][path]["by_kernel"] = {
+            k: {f: sum(calls[key][f] * n for key, n in counts.items() if key[0] == k)
+                for f in ("device_ms", "plain_ms", "library_device_ms", "bound_ms")}
+            for k in kernels}
+    worst = {k: max((r["max_abs_err"] / r["tol"] for r in calls.values() if r["kernel"] == k), default=0.0)
+             for k in kernels}
+    print(f"vq api: {len(calls)} distinct kernel calls held against their plain versions in "
+          f"{time.perf_counter() - t0:.1f} s (largest error / tolerance by kernel {json.dumps(worst)}); device ms per "
+          f"image by kernel: {json.dumps({p: {k: v['device_ms'] for k, v in o['by_kernel'].items()} for p, o in out['paths'].items()})}")
     return out
 
 
@@ -2219,7 +2481,11 @@ def main() -> int:
     api_out = phase_diffusion_api(torch, np, cflearn_torch, A, Cv, Gn)
     print(f"diffusion api path: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 13. summary
+    # 13. the VQ latent-diffusion family through DiffusionAPI
+    vq_api_out = phase_vq_api(torch, np, F, cflearn_torch, A, Cv, Gn)
+    print(f"vq api path: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 14. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -2308,6 +2574,7 @@ def main() -> int:
                    "autoencoder": ae_out, "serve_configs": serve_out,
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
+                   "vq_api": vq_api_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -2318,6 +2585,7 @@ def main() -> int:
     print(json.dumps(ae_out))
     print(json.dumps({"ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out}))
     print(json.dumps({"diffusion_api": api_out}))
+    print(json.dumps({"vq_api": {k: v for k, v in vq_api_out.items() if k != "calls"}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -25,6 +25,14 @@ SHAPES = [
     (8, 256, 256, 128, 128), (8, 256, 256, 256, 128), (8, 128, 128, 128, 256), (8, 128, 128, 256, 256),
     (8, 128, 128, 512, 256), (8, 64, 64, 512, 512), (2, 129, 131, 64, 96), (3, 33, 47, 64, 136),
     (3, 20, 131, 24, 72), (2, 9, 40, 72, 24), (2, 128, 128, 64, 264), (1, 7, 131, 72, 264), (2, 5, 7, 96, 64),
+    # the VQ latent-diffusion paths' new shapes (batch 1): the f4 encoders and decoders at 256px and 384px, the
+    # ldm_semantic UNet at 128x128 (a 640-channel skip concatenation) and the sr UNet at 128x128, whose 224- and
+    # 672-channel convs are not multiples of 64
+    (1, 128, 128, 128, 128), (1, 128, 128, 128, 256), (1, 128, 128, 256, 128), (1, 128, 128, 256, 256),
+    (1, 128, 128, 512, 256), (1, 128, 128, 640, 128), (1, 128, 128, 224, 224), (1, 128, 128, 448, 224),
+    (1, 128, 128, 448, 448), (1, 128, 128, 672, 224), (1, 192, 192, 128, 256), (1, 192, 192, 256, 256),
+    (1, 192, 192, 512, 256), (1, 192, 192, 512, 512), (1, 256, 256, 128, 128), (1, 256, 256, 256, 128),
+    (1, 384, 384, 128, 128), (1, 384, 384, 256, 128), (1, 384, 384, 256, 256),
 ]
 SMS = [132, 114]  # an H100 SXM's SMs, and a PCIe card's
 

@@ -528,3 +528,65 @@ def test_fold_wgmma_kernel_and_its_yardstick_match_plain(cuda, shape) -> None:
     assert _kernels_launched(lambda: C.conv3x3_fold(x, wt, bias), "conv3x3_fold_kernel") == 1
     with pytest.raises(ValueError):
         C.conv3x3_fold(x, wt, bias, kernel="nope")
+
+
+# the VQ latent-diffusion family's new kernel shapes (batch 1): flash at d = 32, 64, 96 and 128 from the
+# multi-head attention's strided (per-head interleaved) q / k / v, the conv at C = 224, 448 and 672 (not all
+# multiples of the 64-channel box), GroupNorm at 7 and 21 channels a group
+VQ_FLASH = [(1, 14, 4096, 32), (1, 8, 1024, 64), (1, 8, 256, 96), (1, 8, 1024, 128)]
+
+
+@pytest.mark.parametrize("shape", VQ_FLASH)
+def test_flash_kernel_on_interleaved_qkv(cuda, shape) -> None:
+    b, h, l, d = shape
+    qkv = torch.randn((b, l, h, 3 * d), generator=cuda, device="cuda").bfloat16().transpose(1, 2)
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert A.flash_plan(b, h, l, l, d, torch.bfloat16).kernel == "sm90"
+    before = A.flash_attention.launches
+    out = A.flash_attention(q, k, v)
+    assert A.flash_attention.launches == before + 1
+    ref = A.flash_attention_plain(q, k, v)
+    _close(out, ref, 2.0**-6)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 128, 224, 224), (1, 128, 128, 672, 224), (1, 128, 128, 448, 448),
+                                   (1, 128, 128, 640, 128)])
+def test_conv_kernel_at_the_sr_unet_widths(cuda, shape) -> None:
+    b, h, w, c, co = shape
+    x = torch.randn((b, h, w, c), generator=cuda, device="cuda").bfloat16()
+    wt = (torch.randn((co, 3, 3, c), generator=cuda, device="cuda") * (9 * c) ** -0.5).bfloat16()
+    bias = (torch.randn((co,), generator=cuda, device="cuda") * 0.1).bfloat16()
+    out = C.conv3x3(x, wt, bias)
+    _close(out, C.conv3x3_plain(x, wt, bias), 2.0**-6)
+    assert torch.equal(out, C.conv3x3(x, wt, bias))
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", [(1, 128, 128, 224), (1, 16, 16, 672), (1, 32, 32, 1568)])
+def test_group_norm_kernel_at_odd_group_widths(cuda, silu, shape) -> None:
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).bfloat16()
+    w = (1 + 0.2 * torch.randn((shape[-1],), generator=cuda, device="cuda")).bfloat16()
+    b = (0.2 * torch.randn((shape[-1],), generator=cuda, device="cuda")).bfloat16()
+    out = G.group_norm_silu(x, w, b, num_groups=32, apply_silu=silu)
+    _close(out, G.group_norm_silu_plain(x, w, b, num_groups=32, apply_silu=silu), 2.0**-6)
+
+
+def test_multi_head_spatial_attention_on_the_card(cuda) -> None:
+    """The module on the card (GroupNorm and flash kernels, strided q / k / v) against the same module on the CPU
+    (the plain versions), both in f32 parameters with bf16 activations on the card."""
+    from cflearn_torch.modules.common import init_parameters
+    from cflearn_torch.modules.core.attentions import MultiHeadSpatialAttention
+
+    cpu = init_parameters(MultiHeadSpatialAttention(256, num_heads=8), seed=0)
+    for p in cpu.to_out.parameters():
+        p.data.normal_(0, 0.05, generator=torch.Generator().manual_seed(1))
+    card = MultiHeadSpatialAttention(256, num_heads=8).cuda()
+    card.load_state_dict(cpu.state_dict())
+    card.bfloat16()
+    x = torch.randn((1, 32, 32, 256), generator=torch.Generator().manual_seed(2)).bfloat16()
+    with torch.no_grad():
+        before = A.flash_attention.launches
+        out = card(x.cuda())
+        assert A.flash_attention.launches == before + 1
+        ref = cpu.bfloat16()(x)
+    _close(out.cpu(), ref, 2.0**-5)

@@ -7,7 +7,9 @@ rows and kv blocks each CTA takes, the TMA boxes and the shared memory are decid
 * every TMA box obeys TMA's limits: at most 256 elements per dimension and an inner extent of at most the
   swizzle's 128 bytes;
 * shared memory fits a block (232,448 bytes), and the register tiles the design counts on fit the consumers;
-* the UNet's shapes take the wgmma + TMA kernel; d = 512, d = 640 and f32 take the mma.sync kernels."""
+* the UNet's shapes take the wgmma + TMA kernel; d = 512, d = 640 and f32 take the mma.sync kernels;
+* the VQ latent-diffusion UNets' shapes (d = 32, 64, 96, 128) take the wgmma + TMA kernel, in the fewest steps
+  of 16 that cover d."""
 
 import numpy as np
 import pytest
@@ -25,7 +27,16 @@ SHAPES = [
     (8, 8, 256, 256, 160, BF16),
     (2, 8, 1024, 1024, 40, F16), (1, 2, 300, 777, 40, BF16), (1, 2, 300, 777, 80, F16), (1, 3, 200, 333, 160, BF16),
     (1, 1, 512, 512, 512, F16), (1, 2, 256, 256, 256, BF16), (1, 2, 256, 256, 160, F32), (1, 1, 200, 330, 640, F16),
+    # the VQ latent-diffusion UNets served through `DiffusionAPI` (batch 1): ldm_inpainting at 64x64 and 96x96
+    # latents (d 64, 96), ldm_semantic's mid block (d 128), sr on ldm_vq (32 channels a head), and the f4 decoder's
+    # mid attention at 128x128 latents
+    (1, 8, 1024, 1024, 64, BF16), (1, 8, 256, 256, 96, BF16), (1, 8, 2304, 2304, 64, BF16), (1, 8, 576, 576, 96, BF16),
+    (1, 8, 1024, 1024, 128, BF16), (1, 14, 4096, 4096, 32, BF16), (1, 21, 1024, 1024, 32, BF16),
+    (1, 28, 256, 256, 32, BF16), (1, 1, 16384, 16384, 512, BF16),
 ]
+# the VQ family's self-attentions, which take the wgmma + TMA kernel (d <= 256)
+VQ = [(1, 8, 1024, 64), (1, 8, 256, 96), (1, 8, 2304, 64), (1, 8, 576, 96), (1, 8, 1024, 128), (1, 14, 4096, 32),
+      (1, 21, 1024, 32), (1, 28, 256, 32)]
 # the UNet's self-attentions: 64x64 latents (and ToMe's merged L = 2048), 32x32, 16x16; CFG batch 2 and finetune 8
 UNET = [(b, 8, lq, lq, d) for b in (2, 8) for lq, d in ((4096, 40), (2048, 40), (1024, 80), (256, 160))]
 SMS = [132, 114]  # an H100 SXM's SMs, and a PCIe card's
@@ -145,3 +156,14 @@ def test_unet_transposed_views_reach_the_kernel_without_a_copy() -> None:
     # an expanded (stride 0) or odd-strided view is copied
     assert A._kernel_view(torch.randn((1, 1, 64, 40), dtype=BF16).expand(2, 8, 64, 40)).is_contiguous()
     assert A._kernel_view(torch.randn((2, 8, 64, 44), dtype=BF16)[..., :40]).is_contiguous()
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("shape", VQ, ids=lambda s: "x".join(map(str, s)))
+def test_vq_family_shapes_take_the_wgmma_kernel(shape, sms) -> None:
+    b, h, l, d = shape
+    plan = A.flash_plan(b, h, l, l, d, BF16, sms)
+    assert plan.kernel == "sm90"
+    assert plan.ksteps == {32: 2, 64: 4, 96: 6, 128: 8}[d] and 16 * plan.ksteps == d
+    assert plan.head_pad == A.BOX_COLS * -(-d // A.BOX_COLS)
+    assert plan.bk == 128 and plan.ctas == -(-l // plan.bq) * b * h

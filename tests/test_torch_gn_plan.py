@@ -3,7 +3,8 @@
 but which rows each CTA takes, what it keeps in shared memory and how many CTAs the
 cooperative grid has is decided here, in Python.
 
-* every shape of `chip_smoke.py`'s `gn_cases()` gets a route, one launch;
+* every shape of `chip_smoke.py`'s `gn_cases()`, and of the VQ latent-diffusion paths, gets a route, one
+  launch;
 * the slabs of rows cover each sample once, and in each wave of samples the
   CTAs walk every slab once;
 * the grid is at most one CTA per SM (all resident: the grid barrier);
@@ -35,12 +36,28 @@ def _smoke():
     return module
 
 
+# (side, channels) of the VQ latent-diffusion paths' GroupNorm calls at batch 1 in bf16 (`chip_smoke.py` phase
+# 13): the sr UNet's 224-channel multiples (7 to 63 channels a group), the other UNets' levels, the f4 encoders and
+# decoders at 256px, 384px and 512px
+VQ_GN = [
+    (8, 768), (8, 1024), (8, 1792), (8, 2048), (12, 768), (12, 1024), (12, 1792), (12, 2048), (16, 512), (16, 672),
+    (16, 768), (16, 896), (16, 1024), (16, 1280), (16, 1536), (16, 1568), (16, 1792), (24, 512), (24, 768),
+    (24, 1024), (24, 1280), (24, 1536), (24, 1792), (32, 256), (32, 448), (32, 512), (32, 672), (32, 768),
+    (32, 1024), (32, 1120), (32, 1280), (32, 1344), (32, 1536), (32, 1568), (32, 2048), (48, 256), (48, 512),
+    (48, 768), (48, 1024), (48, 1280), (64, 128), (64, 224), (64, 256), (64, 448), (64, 512), (64, 640), (64, 672),
+    (64, 768), (64, 896), (64, 1024), (64, 1120), (64, 1536), (96, 256), (96, 512), (96, 768), (128, 128),
+    (128, 224), (128, 256), (128, 448), (128, 512), (128, 640), (128, 672), (192, 128), (192, 256), (192, 512),
+    (256, 128), (256, 256), (256, 512), (384, 128), (384, 256), (512, 128), (512, 256),
+]
+
+
 def _cases():
-    """(id, batch, spatial, channels, groups, itemsize) of every `gn_cases()` shape."""
+    """(id, batch, spatial, channels, groups, itemsize) of every `gn_cases()` shape and of `VQ_GN`."""
     out = []
     for name, shape, groups, dtype, _silu, _per in _smoke().gn_cases():
         item = 4 if dtype == "float32" else 2
         out.append((name, shape[0], math.prod(shape[1:-1]), shape[-1], groups, item))
+    out += [(f"vq_b1_{side}x{side}_{c}", 1, side * side, c, 32, 2) for side, c in VQ_GN]
     return out
 
 

@@ -147,8 +147,9 @@ class _Identity(torch.nn.Module):
 
 def test_first_stage_by_registry_name_and_kind() -> None:
     """A `generators` name builds the first stage ("ae_vq": its z_q is the
-    latent, against the JAX package's); a zoo name is refused; any other
-    module's `encode` output is taken as it is."""
+    latent, against the JAX package's); any other name is a zoo preset
+    ("ae/kl.f8" builds the preset's `AutoEncoderKL`, an unknown one raises);
+    any other module's `encode` output is taken as it is."""
     vq = dict(FIRST_STAGE, num_code=16)
     jm, tm = _pair(LDM, TLDM, first_stage="ae_vq", first_stage_config=dict(vq, pretrained=False))
     assert isinstance(tm.first_stage, TAutoEncoderVQ)
@@ -158,8 +159,10 @@ def test_first_stage_by_registry_name_and_kind() -> None:
         z_q = tm.first_stage.encode(torch.from_numpy(x)).z_q
     torch.testing.assert_close(got, z_q * tm.latent_scale)
     assert rel_err(got.numpy(), jm.encode_first_stage(jnp.asarray(x))) < 1e-5
+    kl = cflearn_torch.build(TLDM, device="meta", img_size=LATENT, unet_config=UNET, first_stage="ae/kl.f8")
+    assert type(kl.first_stage).__name__ == "AutoEncoderKL" and kl.first_stage.from_embedding.weight.shape[1] == 4
     with pytest.raises(ValueError, match="zoo"):
-        cflearn_torch.build(TLDM, device="meta", img_size=LATENT, unet_config=UNET, first_stage="ae/kl.f8")
+        cflearn_torch.build(TLDM, device="meta", img_size=LATENT, unet_config=UNET, first_stage="ae/missing")
     plain = cflearn_torch.build(TLDM, device="cpu", img_size=LATENT, unet_config=UNET, first_stage=_Identity())
     y = torch.randn(B, LATENT, LATENT, 6)
     torch.testing.assert_close(plain.encode_first_stage(y), y[..., :4] * 2.0 * plain.latent_scale)
