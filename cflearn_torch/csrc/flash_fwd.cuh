@@ -1,8 +1,8 @@
 // Flash-attention forward on mma.sync tensor-core products (sm_90a): the
 // kernels that `flash_fwd_sm90.cuh`'s entry point runs for what its wgmma +
-// TMA kernel does not take (f32 inputs, d = 512 and d > 512; the planner
+// TMA kernels do not take (f32 inputs and d > 512; the planner
 // `ops/attention.py::flash_plan` decides), and on request for any shape, as
-// the yardstick of that kernel. Built into `flash_attention.cu` (inference
+// the yardstick of those kernels (at d = 512, of `flash_fwd_sm90_wide.cuh`). Built into `flash_attention.cu` (inference
 // forward) and `flash_fwd_lse.cu` (the same forward that also writes the
 // per-row logsumexp, the residual of the backward) through that header.
 //

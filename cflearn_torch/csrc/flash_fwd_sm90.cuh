@@ -4,8 +4,9 @@
 // logsumexp). The including file defines CFLEARN_FLASH_LSE (0 / 1) and
 // CFLEARN_FLASH_ENTRY (the exported C symbol). The entry runs the kernel the
 // host's planner chose (`ops/attention.py::flash_plan`): this one for bf16 /
-// fp16 with 8 | d <= 256, or the mma.sync kernels of `flash_fwd.cuh` (f32,
-// d = 512 and d > 512), which a caller may also ask for by name.
+// fp16 with 8 | d <= 256, the wide-head kernel of `flash_fwd_sm90_wide.cuh`
+// for bf16 / fp16 with 8 | d, 256 < d <= 512, or the mma.sync kernels of
+// `flash_fwd.cuh` (f32 and d > 512), which a caller may also ask for by name.
 //
 // Replaces: cflearn_tpu/ops/attention.py `_flash_kernel` (launched by
 // `flash_attention`) and `_flash_fwd_kernel` (launched by
@@ -441,20 +442,26 @@ cudaError_t dispatch_sm90(const FlashArgs& a, int batch, int ks, int bq, int bk,
 }  // namespace
 }  // namespace cflearn
 
+#include "flash_fwd_sm90_wide.cuh"
+
 // dtype: 0 = bf16, 1 = fp16, 2 = f32. Strides are in elements. `lse` is read
 // by the LSE build only. kernel: 0 = the mma.sync kernels of `flash_fwd.cuh`
 // (which of them by d and dtype), 1 = the wgmma + TMA kernel above (bf16 /
-// fp16, 8 | d <= 256, strides multiples of 8 elements). bq, bk: q rows a CTA
-// and kv rows a block, which must be those of the kernel the entry launches;
-// stages: the wgmma kernel's K / V ring; ksteps: its steps of 16 over the
-// head dim. Returns a cudaError_t.
+// fp16, 8 | d <= 256, strides multiples of 8 elements), 2 = the wide-head
+// wgmma + TMA kernel of `flash_fwd_sm90_wide.cuh` (bf16 / fp16, 8 | d, 256 <
+// d <= 512, the same strides). bq, bk: q rows a CTA and kv rows a block,
+// which must be those of the kernel the entry launches; stages: the wgmma
+// kernels' K / V ring; ksteps: their steps of 16 over the head dim; splits:
+// the wide kernel's parts of the kv blocks, combined by a second launch from
+// the f32 workspace `work` of splits x B x H x Lq x (head_pad + 2) values
+// (unused where splits = 1). Returns a cudaError_t.
 extern "C" int CFLEARN_FLASH_ENTRY(int dtype, const void* q, const void* k, const void* v, void* o,
                                    void* lse, long long q_sb, long long q_sh, long long q_sl,
                                    long long k_sb, long long k_sh, long long k_sl, long long v_sb,
                                    long long v_sh, long long v_sl, long long o_sb, long long o_sh,
                                    long long o_sl, int batch, int heads, int q_len, int kv_len,
                                    int d, int causal, float scale, int kernel, int bq, int bk, int stages,
-                                   int ksteps, void* stream) {
+                                   int ksteps, int splits, void* work, void* stream) {
   cflearn::FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
                        q_sb, q_sh, q_sl, k_sb, k_sh,
                        k_sl, v_sb, v_sh, v_sl, o_sb,
@@ -465,15 +472,26 @@ extern "C" int CFLEARN_FLASH_ENTRY(int dtype, const void* q, const void* k, cons
   if (d <= 0 || d % 8 != 0 || d > 1024 || q_len <= 0 || kv_len <= 0 || batch <= 0 || heads <= 0)
     return cudaErrorInvalidValue;
   if (kLse && lse == nullptr) return cudaErrorInvalidValue;
-  if (kernel == 1) {
+  if (kernel == 1 || kernel == 2) {
     using cflearn::sm90::aligned16;
     const long long strides[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl};
     for (long long st : strides)
       if (st <= 0 || st % 8 != 0) return cudaErrorInvalidValue;
     // the softmax takes the row max of the raw scores: it needs a positive scale
-    if (d > 256 || !(scale > 0.f) || !aligned16(q) || !aligned16(k) || !aligned16(v)) return cudaErrorInvalidValue;
-    if (dtype == 0) return cflearn::dispatch_sm90<__nv_bfloat16, kLse>(a, batch, ksteps, bq, bk, stages, s);
-    if (dtype == 1) return cflearn::dispatch_sm90<__half, kLse>(a, batch, ksteps, bq, bk, stages, s);
+    if (!(scale > 0.f) || !aligned16(q) || !aligned16(k) || !aligned16(v)) return cudaErrorInvalidValue;
+    if (kernel == 1) {
+      if (d > 256) return cudaErrorInvalidValue;
+      if (dtype == 0) return cflearn::dispatch_sm90<__nv_bfloat16, kLse>(a, batch, ksteps, bq, bk, stages, s);
+      if (dtype == 1) return cflearn::dispatch_sm90<__half, kLse>(a, batch, ksteps, bq, bk, stages, s);
+      return cudaErrorInvalidValue;
+    }
+    // the combining launch stores 8 values (16 bytes) at a time
+    if (d <= 256 || d > 512 ||
+        (splits > 1 && (!aligned16(o) || o_sb % 8 != 0 || o_sh % 8 != 0 || o_sl % 8 != 0 || !aligned16(work))))
+      return cudaErrorInvalidValue;
+    float* ws = static_cast<float*>(work);
+    if (dtype == 0) return cflearn::dispatch_wide<__nv_bfloat16, kLse>(a, batch, ksteps, bq, bk, stages, splits, ws, s);
+    if (dtype == 1) return cflearn::dispatch_wide<__half, kLse>(a, batch, ksteps, bq, bk, stages, splits, ws, s);
     return cudaErrorInvalidValue;
   }
   if (kernel != 0) return cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma + TMA kernels (sm_90a): the 3x3
 // conv kernels `conv3x3.cu`, `conv3x3_wgrad.cu`, `conv3x3_fold.cu` and the
 // int8 `conv3x3_w8a8.cu`, the
-// flash-attention forward `flash_fwd_sm90.cuh` and backward
+// flash-attention forwards `flash_fwd_sm90.cuh` and `flash_fwd_sm90_wide.cuh`
+// and backward
 // `flash_bwd_sm90.cuh`, and the bulk loads of `group_norm.cu`. TMA tile
 // loads that complete on shared-memory mbarriers, bulk copies and bulk
 // reduce-adds between global and shared memory, named barriers between

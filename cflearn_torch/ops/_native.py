@@ -38,7 +38,7 @@ SOURCES = {
 }
 _HEADERS = (
     "mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "sm90.cuh", "flash_fwd_sm90.cuh",
-    "flash_bwd_sm90.cuh",
+    "flash_fwd_sm90_wide.cuh", "flash_bwd_sm90.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,9 +51,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # forward: dtype, q, k, v, o, lse, 12 strides, batch, heads, q_len, kv_len, d, causal, scale, then the
-# planner's kernel (0 = mma.sync, 1 = wgmma + TMA), q rows a CTA, kv rows a block, ring stages, K steps of
-# 16 over the head dim, and stream
-_FWD = [_I] + [_P] * 5 + [_L] * 12 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P]
+# planner's kernel (0 = mma.sync, 1 = wgmma + TMA, 2 = the wide-head wgmma + TMA), q rows a CTA, kv rows a
+# block, ring stages, K steps of 16 over the head dim, kv splits, the splits' f32 workspace, and stream
+_FWD = [_I] + [_P] * 5 + [_L] * 12 + [_I] * 6 + [ctypes.c_float] + [_I] * 6 + [_P] * 2
 # backward: dtype, q, k, v, dO, lse, delta, dq, dk, dv, 12 strides, batch, heads, q_len, kv_len, d, causal,
 # scale, then the planner's kernel (0 = mma.sync, 1 = wgmma + TMA), outer rows a CTA, inner rows a tile, ring
 # stages, K steps of 16 over the head dim, and stream

@@ -8,6 +8,8 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
   logsumexp (`csrc/flash_fwd_lse.cu`, the TPU's `_flash_fwd_kernel`).
 * `flash_plan` — which forward kernel runs and with what tiles: the wgmma +
   TMA kernel (`csrc/flash_fwd_sm90.cuh`) for bf16 / fp16 with d <= 256, the
+  wide-head wgmma + TMA kernel (`csrc/flash_fwd_sm90_wide.cuh`) for bf16 /
+  fp16 with 256 < d <= 512 (the autoencoders' mid-block attention), the
   mma.sync kernels (`csrc/flash_fwd.cuh`) for the rest, or for any shape
   when a caller names them (`kernel="mma_sync"`).
 * `flash_bwd_fused`, `flash_bwd_dq`, `flash_bwd_dkv` — the backward kernels
@@ -106,6 +108,65 @@ def flash_attention_plain(
     return flash_fwd_with_lse_plain(q, k, v, causal=causal, sm_scale=sm_scale)[0]
 
 
+def flash_fwd_split_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    splits: int,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of the wide-head kernel's split kv range
+    (`csrc/flash_fwd_sm90_wide.cuh`) in plain PyTorch, for the tests: each
+    64-row q tile's kv blocks of `SM90_WIDE_BK` rows (with `causal`, those up
+    to the tile's last row) cut into `splits` parts of ceil(blocks / splits);
+    each part's f32 m_s (row max), l_s (row sum) and acc_s = cast(exp(s -
+    m_s)) V;
+    then M = max m_s, w_s = exp(m_s - M), o = (sum w_s acc_s) / max(sum w_s
+    l_s, 1e-30) cast once and lse = M + log(max(sum w_s l_s, 1e-30)), the
+    parts summed in order. A part without blocks has m = -1e30, l = acc = 0.
+    Returns (o, lse) as `flash_fwd_with_lse_plain` does."""
+    scale, bk = _scale(q.shape[-1], sm_scale), SM90_WIDE_BK
+    lq, lk = q.shape[-2], k.shape[-2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    for q0 in range(0, lq, 64):
+        rows = slice(q0, min(q0 + 64, lq))
+        n_kb = _cdiv(lk, bk)
+        if causal:
+            n_kb = min(n_kb, (q0 + 63) // bk + 1)
+        per = _cdiv(n_kb, splits)
+        parts = []
+        for sp in range(splits):
+            k0, k1 = sp * per * bk, min(n_kb, (sp + 1) * per) * bk
+            shape = q.shape[:-2] + (rows.stop - q0,)
+            if k0 >= k1:
+                parts.append((torch.full(shape, _NEG_INF, device=q.device), torch.zeros(shape, device=q.device),
+                              torch.zeros(shape + (v.shape[-1],), device=q.device)))
+                continue
+            k1 = min(k1, lk)
+            s = torch.matmul(qf[..., rows, :], kf[..., k0:k1, :].transpose(-1, -2)) * scale
+            if causal:
+                keep = (torch.arange(k0, k1, device=q.device)[None, :]
+                        <= torch.arange(q0, rows.stop, device=q.device)[:, None])
+                s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+            m = s.amax(dim=-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(dim=-1), torch.matmul(p.to(v.dtype).float(), vf[..., k0:k1, :])))
+        big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        l, acc = 0.0, 0.0
+        for m, l_s, acc_s in parts:
+            w = torch.exp(m - big)
+            l = l + w * l_s
+            acc = acc + w[..., None] * acc_s
+        l = l.clamp_min(1e-30)
+        o[..., rows, :] = (acc / l[..., None]).to(q.dtype)
+        lse[..., rows] = big + torch.log(l)
+    return o, lse
+
+
 def flash_bwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -157,32 +218,50 @@ BOX_COLS = 64  # head-dim columns per TMA box: 128 bytes of 16-bit values, the 1
 SWIZZLE_BYTES = 128
 SM90_MAX_STAGES = 4  # the K / V ring's barriers are sized for this many stages
 _SM90_BARRIER_BYTES = 8 * (1 + 4 * SM90_MAX_STAGES)
-_KERNEL_CODES = {"mma_sync": 0, "mma_sync_chunked": 0, "sm90": 1}
+_KERNEL_CODES = {"mma_sync": 0, "mma_sync_chunked": 0, "sm90": 1, "sm90_wide": 2}
 # the sm90 kernel's instantiated steps of 16 over the head dim (`dispatch_sm90`); 16 with one consumer only
 SM90_KSTEPS = (2, 3, 4, 5, 6, 8, 10, 12, 16)
 # the planner's estimate of how much faster a CTA of three consumer warpgroups computes its q rows than one
 # of two at d <= 64, where the softmax binds and a third warpgroup hides more of its latency (H100)
 _THREE_CONSUMER_RATE = 1.2
+# the wide-head kernel (`csrc/flash_fwd_sm90_wide.cuh`, bf16 / fp16, 256 < d <= 512): two consumer warpgroups on
+# the same 64 q rows, each with one half of the head dim; its instantiated steps of 16 over the head dim (two
+# halves of 12 or 16 steps, `dispatch_wide`), kv rows a block (one K and one V block of 64 rows fit beside the
+# 64 KB q tile), the registers `setmaxnreg` gives the producer and each consumer, and the most parts a kv range
+# is split into where the grid's tiles fill less than one wave of SMs
+SM90_WIDE_KSTEPS = (24, 32)
+SM90_WIDE_BK = 64
+SM90_WIDE_REGS = (24, 240)
+SM90_WIDE_MAX_SPLITS = 4
+_WIDE_MIN_SPLIT_BLOCKS = 4  # kv blocks a part keeps at least
 
 
 class FlashPlan(NamedTuple):
-    kernel: str  # "sm90" (wgmma + TMA), "mma_sync" or "mma_sync_chunked" (`flash_fwd.cuh`)
+    kernel: str  # "sm90", "sm90_wide" (wgmma + TMA), "mma_sync" or "mma_sync_chunked" (`flash_fwd.cuh`)
     bq: int  # q rows per CTA
     bk: int  # kv rows per block
     stages: int  # K / V ring stages (the mma.sync kernels: 2 = double-buffered, 1 = single)
-    consumers: int  # sm90: consumer warpgroups of 64 q rows (2, 3 = ping-pong); else 0
-    head_pad: int  # the head dim as shared memory holds it: whole 64-column boxes (sm90), or the kernel's DP
-    ksteps: int  # sm90: steps of 16 over the head dim in S = Q K^T (zero columns past d); else 0
-    boxes: Tuple[Tuple[int, int], ...]  # sm90: TMA boxes (columns, rows) of q and of k / v; else ()
-    swizzle: int  # bytes of the shared-memory swizzle (sm90); 0 for the cp.async kernels
+    consumers: int  # sm90: consumer warpgroups of 64 q rows (2, 3 = ping-pong); sm90_wide: 2 on the same rows; else 0
+    head_pad: int  # the head dim as shared memory holds it: whole 64-column boxes (sm90*), or the kernel's DP
+    ksteps: int  # sm90*: steps of 16 over the head dim in S = Q K^T (zero columns past d); else 0
+    boxes: Tuple[Tuple[int, int], ...]  # sm90*: TMA boxes (columns, rows) of q and of k / v; else ()
+    swizzle: int  # bytes of the shared-memory swizzle (sm90*); 0 for the cp.async kernels
     smem: int  # dynamic shared memory bytes of a CTA
     ctas: int  # CTAs of the grid
+    splits: int = 1  # sm90_wide: parts of each tile's kv blocks, combined by a second launch; else 1
 
 
 def _sm90_smem(slabs: int, bq: int, bk: int, stages: int) -> int:
     """`sm90_smem` of `csrc/flash_fwd_sm90.cuh`: 1024 bytes of alignment
     slack, the q tile, the K and V rings, the barriers."""
     return 1024 + slabs * SWIZZLE_BYTES * (bq + 2 * stages * bk) + _SM90_BARRIER_BYTES
+
+
+def _wide_smem(slabs: int) -> int:
+    """`wide_smem` of `csrc/flash_fwd_sm90_wide.cuh`: the alignment slack,
+    the 64-row q tile, one K and one V block of 64 rows, the two consumers'
+    partial S tiles (64 x 64 f32 each), five barriers."""
+    return 1024 + slabs * SWIZZLE_BYTES * 64 * 3 + 2 * 64 * 64 * 4 + 5 * 8
 
 
 def _mma_sync_tiles(d: int, size: int) -> Tuple[str, int, int, int, int, int]:
@@ -214,14 +293,35 @@ def flash_plan(
     two consumer warpgroups (128 q rows, ping-pong) unless that grid would
     leave more than half the SMs idle (then one, 64 rows), three (192 rows)
     at d <= 64 where their waves of CTAs finish sooner, and as many ring
-    stages (2..4) as shared memory holds. f32, d > 256, and `kernel="mma_sync"`
-    take the mma.sync kernels (`mma_sync_chunked` for f32 and d > 512)."""
-    if kernel not in (None, "sm90", "mma_sync"):
-        raise ValueError(f"flash_plan: kernel {kernel!r} is not 'sm90' or 'mma_sync'")
+    stages (2..4) as shared memory holds. bf16 / fp16 with 256 < d <= 512
+    take the wide-head kernel: 64 q rows a CTA, two consumers with a half of
+    the head dim each (`SM90_WIDE_KSTEPS` steps in all), one K and one V
+    block of `SM90_WIDE_BK` rows, and where the tiles fill less than one
+    wave of `sms`, the kv blocks split into as many parts (at most
+    `SM90_WIDE_MAX_SPLITS`, each of at least four blocks) as fill it. f32,
+    d > 512, and `kernel="mma_sync"` take the mma.sync kernels
+    (`mma_sync_chunked` for f32 and d > 512)."""
+    if kernel not in (None, "sm90", "sm90_wide", "mma_sync"):
+        raise ValueError(f"flash_plan: kernel {kernel!r} is not 'sm90', 'sm90_wide' or 'mma_sync'")
     size = torch.empty((), dtype=dtype).element_size()
-    sm90_ok = dtype in (torch.bfloat16, torch.float16) and d % 8 == 0 and d <= 256
+    half = dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
+    sm90_ok = half and d <= 256
+    wide_ok = half and 256 < d <= 512
     if kernel == "sm90" and not sm90_ok:
         raise ValueError(f"flash_plan: the sm90 kernel takes bf16 / fp16 with 8 | d <= 256; got {dtype}, d={d}")
+    if kernel == "sm90_wide" and not wide_ok:
+        raise ValueError(f"flash_plan: the sm90_wide kernel takes bf16 / fp16 with 8 | d, 256 < d <= 512; "
+                         f"got {dtype}, d={d}")
+    if kernel != "mma_sync" and wide_ok:
+        ksteps = next(k for k in SM90_WIDE_KSTEPS if 16 * k >= d)
+        slabs = 16 * ksteps // BOX_COLS
+        tiles = _cdiv(lq, 64) * b * h
+        splits = 1
+        if tiles < sms:
+            splits = max(1, min(SM90_WIDE_MAX_SPLITS, sms // tiles, _cdiv(lk, SM90_WIDE_BK) // _WIDE_MIN_SPLIT_BLOCKS))
+        return FlashPlan("sm90_wide", 64, SM90_WIDE_BK, 1, 2, BOX_COLS * slabs, ksteps,
+                         ((BOX_COLS, 64), (BOX_COLS, SM90_WIDE_BK)), SWIZZLE_BYTES, _wide_smem(slabs), tiles * splits,
+                         splits)
     if kernel == "mma_sync" or not sm90_ok:
         name, bq, bk, stages, pad, smem = _mma_sync_tiles(d, size)
         grid = _cdiv(lq, bq) * b * h * (_cdiv(d, pad) if name == "mma_sync_chunked" else 1)
@@ -369,20 +469,23 @@ def _launch_fwd(
     _check_qkv(name, q, k, v)
     b, h, q_len, d = q.shape
     scale = _scale(d, sm_scale)
-    # the sm90 kernel takes the row max of the raw scores, which needs a positive scale
+    # the wgmma kernels take the row max of the raw scores, which needs a positive scale
     plan = flash_plan(b, h, q_len, k.shape[2], d, q.dtype, sm_count(q.device.index),
                       "mma_sync" if kernel is None and scale <= 0 else kernel)
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     # (B, Lq, H, D) storage: merging heads afterwards is a free view
     out = torch.empty((b, q_len, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, q_len), dtype=torch.float32, device=q.device) if with_lse else None
+    # a split kv range: each part's f32 accumulator (head_pad columns), m and l, for the combining launch
+    work = (torch.empty(plan.splits * b * h * q_len * (plan.head_pad + 2), dtype=torch.float32, device=q.device)
+            if plan.splits > 1 else None)
     err = _native.library(name)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, h, q_len, k.shape[2], d, int(causal), scale,
-        _KERNEL_CODES[plan.kernel], plan.bq, plan.bk, plan.stages, plan.ksteps,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _KERNEL_CODES[plan.kernel], plan.bq, plan.bk, plan.stages, plan.ksteps, plan.splits,
+        None if work is None else work.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, f"{name} ({plan.kernel})")
     _count_launch(name)
@@ -400,9 +503,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention forward, no graph. q: (B, H, Lq, D), k/v:
     (B, H, Lk, D) -> (B, H, Lq, D). CPU tensors take the plain version; CUDA
-    tensors launch the kernel that `flash_plan` picks (or `kernel`, "sm90" or
-    "mma_sync", names) or raise. The result carries no `grad_fn`:
-    differentiable callers go through `flash_attention_trainable`."""
+    tensors launch the kernel that `flash_plan` picks (or `kernel`, "sm90",
+    "sm90_wide" or "mma_sync", names) or raise; a split kv range is one call
+    and one count, though it makes a second launch that combines the parts.
+    The result carries no `grad_fn`: differentiable callers go through
+    `flash_attention_trainable`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
     out, _ = _launch_fwd("flash_attention", q, k, v, causal, sm_scale, False, kernel)

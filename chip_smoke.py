@@ -16,8 +16,12 @@ Phases, in order; any failure exits non-zero:
    autoencoder step routes; GroupNorm with and without SiLU at the UNet's, the
    VAE decoder's and the autoencoder step's shapes, plus f32 and odd group
    widths; the conv forward, GroupNorm and the flash forward at the
-   first-stage encoder's shapes of the ldm path (batch 8, 512px). Prints max_abs_err and the kernel's, the plain version's and a
-   library call's ms (the library call is timed only), and the kernel's
+   first-stage encoder's shapes of the ldm path (batch 8, 512px); the d = 512
+   forward (the wide-head wgmma + TMA kernel) also at the f4 VQ decoder's
+   L = 16384 and at ragged and causal cases, each with its logsumexp held
+   against the plain forward's. Prints max_abs_err and the kernel's, the
+   plain version's and a library call's ms (the library call is timed
+   only), and the kernel's
    device time (`device_ms`: calls replayed from a CUDA graph, without the
    host's enqueue time). The flash forwards also run the mma.sync
    kernel of `flash_fwd.cuh` on request at every shape (checked and timed beside the
@@ -270,6 +274,12 @@ FLASH_CASES = [
     ("ae_mid", AE_BATCH, 1, 1024, 1024, 512, False, "bfloat16", lambda s: 0),
     # the first-stage encoder's mid-block attention on the ldm path (batch 8, 512px images), without a gradient
     ("ldm_enc_mid", TRAIN_BATCH, 1, 4096, 4096, 512, False, "bfloat16", lambda s: 0),
+    # the f4 VQ decoder's mid-block attention (128x128 latents: `semantic2img`, `sr`), and the wide-head kernel's
+    # ragged (a kv range split in three parts) and causal (a split whose first tiles' later parts hold no block)
+    # cases
+    ("vq_dec_mid", 1, 1, 16384, 16384, 512, False, "bfloat16", lambda s: 0),
+    ("ragged_d512", 1, 2, 1000, 777, 512, False, "bfloat16", lambda s: 0),
+    ("causal_d512", 1, 2, 1000, 1000, 512, True, "bfloat16", lambda s: 0),
 ]
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per finetune step)
 TRAIN_CASES = [
@@ -476,13 +486,16 @@ def bwd_registers(log: str) -> dict:
 
 
 def sm90_registers(log: str) -> dict:
-    """{"bf16 ks3 nc2": registers, ...} of the wgmma + TMA flash kernels in an `nvcc -Xptxas -v` log: the
-    count at launch, before `setmaxnreg` hands the producer's registers to the consumers."""
+    """{"bf16 ks3 nc2": registers, ...} of the wgmma + TMA flash kernels in an `nvcc -Xptxas -v` log (the
+    wide-head kernel's as "bf16 wide kh16"): the count at launch, before `setmaxnreg` hands the producer's
+    registers to the consumers."""
     out, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"flash_fwd_sm90_kernelI(\w+?)Li(\d+)ELi(\d+)E", ln)
-            key = f"{'bf16' if 'bfloat16' in m.group(1) else 'f16'} ks{m.group(2)} nc{m.group(3)}" if m else None
+            w = re.search(r"flash_fwd_wide_kernelI(\w+?)Li(\d+)E", ln)
+            key = (f"{'bf16' if 'bfloat16' in m.group(1) else 'f16'} ks{m.group(2)} nc{m.group(3)}" if m else
+                   f"{'bf16' if 'bfloat16' in w.group(1) else 'f16'} wide kh{w.group(2)}" if w else None)
         elif key and "Used " in ln:
             out[key] = int(ln.split("Used ")[1].split(" ")[0])
             key = None
@@ -552,13 +565,25 @@ def phase_kernels(torch, F, ops):
         peak = PEAK_BF16_FLOPS if q.element_size() == 2 else PEAK_TF32_FLOPS
         bms, by = bound_ms(4.0 * b * h * pairs * d, q.element_size() * b * h * (2 * lq + 2 * lk) * d, peak,
                            b * h * pairs)
-        row = dict(case=name, shape=[b, h, lq, lk, d], dtype=dtype, causal=causal,
-                   kernel=A.flash_plan(b, h, lq, lk, d, dt, torch.cuda.get_device_properties(0).multi_processor_count).kernel,
+        plan = A.flash_plan(b, h, lq, lk, d, dt, sms)
+        row = dict(case=name, shape=[b, h, lq, lk, d], dtype=dtype, causal=causal, kernel=plan.kernel,
                    max_abs_err=err, mma_sync_max_abs_err=err_old, tol=tol, ms=ms, device_ms=device_ms(torch, run),
                    mma_sync_ms=time_ms(torch, old, YARDSTICK_MS),
                    mma_sync_device_ms=device_ms(torch, old, *YARDSTICK_GRAPH), plain_ms=plain,
                    library_ms=time_ms(torch, lib_run), library_device_ms=device_ms(torch, lib_run), bound_ms=bms,
                    bound_by=by, per_path=per(STEPS))
+        if plan.kernel == "sm90_wide":
+            # the wide-head kernel's plan, and its build with the lse against the plain forward's: o at FLASH_REL,
+            # lse at LSE_TOL, and the same o as the build without it
+            o2, lse = A.flash_fwd_lse(q, k, v, causal=causal)
+            ref_o, ref_lse = A.flash_fwd_with_lse_plain(q, k, v, causal=causal)
+            row.update(plan=dict(bk=plan.bk, stages=plan.stages, splits=plan.splits, ctas=plan.ctas, smem=plan.smem),
+                       lse_max_abs_err=max_err(lse, ref_lse), lse_tol=LSE_TOL[2], lse_o_max_abs_err=max_err(o2, ref_o),
+                       lse_o_equal=torch.equal(o2, out))
+            del o2, lse, ref_o, ref_lse
+            if not (row["lse_max_abs_err"] <= LSE_TOL[2] and row["lse_o_max_abs_err"] <= tol and row["lse_o_equal"]):
+                raise AssertionError(f"flash_fwd_lse {name}: lse {row['lse_max_abs_err']} > {LSE_TOL[2]}, o "
+                                     f"{row['lse_o_max_abs_err']} > {tol}, or o unlike flash_attention's")
         print("flash", json.dumps(row))
         if not math.isfinite(err) or err > tol or not err_old <= tol:
             raise AssertionError(f"flash {name}: max_abs_err {err} (mma.sync {err_old}) > {tol}")
@@ -1801,8 +1826,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name in ("flash_attention", "flash_fwd_lse"):
         for r in rows[name]:
-            if r.get("kernel") == "sm90":
-                print(f"yardstick {name} {r['case']}: device ms sm90 {r['device_ms']:.4f}, mma.sync "
+            if r.get("kernel") in ("sm90", "sm90_wide"):
+                print(f"yardstick {name} {r['case']}: device ms {r['kernel']} {r['device_ms']:.4f}, mma.sync "
                       f"{r['mma_sync_device_ms']:.4f} ({r['mma_sync_device_ms'] / r['device_ms']:.2f}x), "
                       f"SDPA {r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
     for r in rows["conv3x3_fold"]:

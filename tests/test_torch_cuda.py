@@ -24,11 +24,12 @@ def cuda():
 
 
 # the UNet's d = 40 at L = 1024 and ToMe's L = 2048, d = 80 and 160 with a ragged kv, d = 40 with a ragged kv
-# (the kv tail that TMA zero-fills is masked) and with ragged q and kv on three consumer warpgroups, d = 512 (the
-# mma.sync kernel) and d = 256
+# (the kv tail that TMA zero-fills is masked) and with ragged q and kv on three consumer warpgroups, d = 512 and
+# d = 320 (the wide-head kernel; a ragged kv split into parts) and d = 256
 FWD_SHAPES = [
     (2, 8, 1024, 1024, 40), (2, 8, 2048, 2048, 40), (1, 2, 300, 777, 40), (8, 8, 1000, 777, 40), (1, 2, 300, 777, 80),
     (2, 8, 256, 256, 160), (1, 3, 200, 333, 160), (1, 1, 512, 512, 512), (1, 2, 256, 256, 256),
+    (1, 2, 1000, 777, 512), (1, 2, 300, 333, 320),
 ]
 
 
@@ -46,12 +47,12 @@ def _fwd_inputs(gen, shape, dtype, layout):
 
 
 def _expected_kernel(shape, dtype) -> str:
-    """The planner's choice: wgmma + TMA for 16-bit d <= 256, mma.sync for d = 512, the chunked kernel beyond
-    and for f32."""
+    """The planner's choice: wgmma + TMA for 16-bit d <= 256, the wide-head wgmma + TMA kernel for
+    256 < d <= 512, the chunked mma.sync kernel beyond and for f32."""
     d = shape[-1]
     if dtype == torch.float32 or d > 512:
         return "mma_sync_chunked"
-    return "sm90" if d <= 256 else "mma_sync"
+    return "sm90" if d <= 256 else "sm90_wide"
 
 
 @pytest.mark.parametrize("layout", ["bhld", "blhd"])
@@ -72,6 +73,29 @@ def test_flash_kernel_matches_plain(cuda, layout, causal, shape, dtype) -> None:
     # the mma.sync kernel, on request: the same function
     _close(A.flash_attention(q, k, v, causal=causal, kernel="mma_sync"), ref, _rel(dtype))
     assert torch.equal(out, A.flash_attention(q, k, v, causal=causal))  # no atomics: the same bits again
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(1, 1, 4096, 4096, 512), (1, 2, 1000, 777, 512), (1, 2, 1000, 1000, 320)])
+def test_flash_wide_split_kv_matches_plain(cuda, shape, causal) -> None:
+    """The wide-head kernel with its kv range split into parts and combined by a second launch (one counted
+    call): o and lse against the plain forward and against the parts' arithmetic in plain PyTorch
+    (`flash_fwd_split_plain`), the same bits again. With `causal`, some tiles' parts hold no kv block."""
+    q, k, v = _fwd_inputs(cuda, shape, torch.bfloat16, "bhld")
+    b, h, lq, lk, d = shape
+    plan = A.flash_plan(b, h, lq, lk, d, torch.bfloat16, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.kernel == "sm90_wide" and plan.splits > 1
+    before = A.flash_fwd_lse.launches
+    o, lse = A.flash_fwd_lse(q, k, v, causal=causal)
+    assert A.flash_fwd_lse.launches == before + 1
+    ref_o, ref_lse = A.flash_fwd_with_lse_plain(q, k, v, causal=causal)
+    _close(o, ref_o, _rel(torch.bfloat16))
+    assert (lse - ref_lse).abs().max() <= 1e-4
+    mirror_o, mirror_lse = A.flash_fwd_split_plain(q, k, v, plan.splits, causal=causal)
+    _close(o, mirror_o, _rel(torch.bfloat16))
+    assert (lse - mirror_lse).abs().max() <= 1e-4
+    o2, lse2 = A.flash_fwd_lse(q, k, v, causal=causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o, A.flash_attention(q, k, v, causal=causal))
 
 
 def test_flash_kernel_routes_a_non_positive_scale_to_mma_sync(cuda) -> None:
@@ -143,7 +167,8 @@ def _train_inputs(gen, shape, dtype):
 @pytest.mark.parametrize("layout", ["bhld", "blhd"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize(
-    "shape", TRAIN_SHAPES + [(2, 8, 2048, 2048, 40), (1, 2, 300, 777, 40), (8, 8, 1000, 777, 40), (2, 8, 256, 256, 160)]
+    "shape", TRAIN_SHAPES + [(2, 8, 2048, 2048, 40), (1, 2, 300, 777, 40), (8, 8, 1000, 777, 40), (2, 8, 256, 256, 160),
+                             (1, 2, 300, 777, 512)]
 )
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_flash_fwd_lse_kernel_matches_plain(cuda, layout, causal, shape, dtype) -> None:
