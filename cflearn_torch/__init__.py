@@ -14,9 +14,11 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .api.multimodal.diffusion import ControlledDiffusionAPI, DiffusionAPI  # noqa: E402
+from .api import APIPool, CLIPExtractor, ControlledDiffusionAPI, DiffusionAPI, IAPI, TranslatorAPI, Weights  # noqa: E402
 from .device import resolve_device  # noqa: E402
 from .models.cv.ae import AEModel, build_ae  # noqa: E402
+from .modules.cv.classifier import RRDBNet  # noqa: E402
+from .modules.multimodal.clip import CLIP, IPerceptor  # noqa: E402
 from .modules.multimodal.diffusion.ddpm import DDPM  # noqa: E402
 from .modules.multimodal.diffusion.ldm import (  # noqa: E402
     LDM, StableDiffusion, StableDiffusionInpainting, build, build_sd, sd_unet_config,
@@ -24,16 +26,19 @@ from .modules.multimodal.diffusion.ldm import (  # noqa: E402
 from .modules.multimodal.diffusion.unet import ControlNet  # noqa: E402
 from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
 from .pipeline import CONFIGS, configure, finetune_unet, train_autoencoder, txt2img  # noqa: E402
-from .toolkit.quality import QualityReport, compare_outputs  # noqa: E402
+from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs  # noqa: E402
 from . import zoo  # noqa: E402
 from .zoo import (  # noqa: E402
-    ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, ldm_inpainting, ldm_semantic, ldm_vq,
+    ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, clip, clip_large, esr, esr_anime,
+    ldm_inpainting, ldm_semantic, ldm_vq, open_clip_ViT_H_14,
 )
 
 __all__ = [
-    "AEModel", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI", "DDPM", "DiffusionAPI", "LDM",
-    "QualityReport", "StableDiffusion", "StableDiffusionInpainting", "ae_kl_f4", "ae_kl_f8", "ae_kl_f16", "ae_vq_f4",
-    "ae_vq_f4_no_attn", "ae_vq_f8", "build", "build_ae", "build_sd", "compare_outputs", "configure",
-    "finetune_unet", "ldm_inpainting", "ldm_semantic", "ldm_vq", "resolve_device", "sd_unet_config",
+    "AEModel", "APIPool", "CLIP", "CLIPExtractor", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI",
+    "DDPM", "DiffusionAPI", "IAPI", "IPerceptor", "LDM", "QualityReport", "RRDBNet", "StableDiffusion",
+    "StableDiffusionInpainting", "TranslatorAPI", "Weights", "ae_kl_f4", "ae_kl_f8", "ae_kl_f16", "ae_vq_f4",
+    "ae_vq_f4_no_attn", "ae_vq_f8", "build", "build_ae", "build_sd", "clip", "clip_large", "clip_score",
+    "clip_score_from_embeddings", "compare_outputs", "configure", "esr", "esr_anime", "finetune_unet",
+    "ldm_inpainting", "ldm_semantic", "ldm_vq", "open_clip_ViT_H_14", "resolve_device", "sd_unet_config",
     "train_autoencoder", "txt2img", "zoo",
 ]

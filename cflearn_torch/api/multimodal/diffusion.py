@@ -13,7 +13,7 @@ The JAX package compiles each call into one cached program; here the calls
 run the modules directly on the API's device (the CUDA card unless the
 caller asks for another), through the kernels where the modules route them.
 Images come back as uint8 NHWC numpy arrays. Inputs are numpy arrays (uint8,
-or floats in [-1, 1]); paths and PIL images are not taken.
+or floats in [-1, 1]), paths or PIL images (through `utils.read_image`).
 
 Every random draw of the API (the starting latents, the variations,
 inpainting's noise) goes through `DiffusionAPI._randn`, and the samplers'
@@ -21,7 +21,6 @@ through `ISampler._randn`, each from a `torch.Generator` seeded by the
 call's seed.
 """
 
-import collections
 from contextlib import contextmanager
 from dataclasses import dataclass
 from enum import Enum
@@ -40,6 +39,8 @@ from ...modules.multimodal.diffusion.utils import CONCAT_TYPE, CROSS_ATTN_TYPE, 
 from ...modules.nlp.tokenizers import CLIPTokenizer
 from ...pipeline import default_tokenizer
 from ...toolkit.misc import slerp
+from ..common import Weights
+from .utils import read_image
 
 TNumberPair = Optional[Union[int, Tuple[int, int]]]
 
@@ -53,10 +54,6 @@ def _to_uint8(images: Union[torch.Tensor, np.ndarray]) -> np.ndarray:
 
 def _from_uint8(images: np.ndarray) -> np.ndarray:
     return images.astype(np.float32) / 127.5 - 1.0
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} inputs are not ported: pass a uint8 or [-1, 1] float NHWC numpy array")
 
 
 def _is_path_or_pil(image: Any) -> bool:
@@ -238,32 +235,6 @@ def recover_masked_area(
         mixed_u8[untouched] = out[i, t:b, l:r][untouched]
         out[i, t:b, l:r] = mixed_u8
     return out
-
-
-class Weights:
-    """A named pool of state dicts with a size bound (-1: none)."""
-
-    def __init__(self, limit: int = -1) -> None:
-        self.limit = limit
-        self._pool: "collections.OrderedDict[str, Dict[str, Any]]" = collections.OrderedDict()
-
-    def __contains__(self, key: str) -> bool:
-        return key in self._pool
-
-    def register(self, key: str, states: Dict[str, Any]) -> None:
-        self._pool[key] = states
-        self._pool.move_to_end(key)
-        if 0 < self.limit < len(self._pool):
-            self._pool.popitem(last=False)
-
-    def get(self, key: str) -> Optional[Dict[str, Any]]:
-        states = self._pool.get(key)
-        if states is not None:
-            self._pool.move_to_end(key)
-        return states
-
-    def keys(self) -> Any:
-        return self._pool.keys()
 
 
 class DiffusionAPI:
@@ -513,15 +484,21 @@ class DiffusionAPI:
         export_path: Optional[str] = None,
         **kwargs: Any,
     ) -> np.ndarray:
-        """`image`: uint8 or [-1, 1] float NHWC. Sides that are not multiples
-        of 64 are resized up to the rounded size for sampling, and the
-        result back."""
-        image = self._norm_image(image)
+        """`image`: uint8 or [-1, 1] float NHWC, a path or a PIL image.
+        Sides that are not multiples of 64 are resized up to the rounded
+        size for sampling, and the result back (for a path or a PIL image:
+        to its size before `read_image` snapped it to the 64px grid)."""
+        if _is_path_or_pil(image):
+            res = read_image(image, None, anchor=64)
+            image = (res.image * 2.0 - 1.0).astype(np.float32)
+            original_hw = (res.original_size[1], res.original_size[0])  # read_image reports (w, h)
+        else:
+            image = self._norm_image(image)
+            original_hw = (image.shape[1], image.shape[2])
         b = image.shape[0]
-        original_hw = (image.shape[1], image.shape[2])
         rounded_hw = (_round64(original_hw[0]), _round64(original_hw[1]))
         x = torch.as_tensor(image, device=self.device)
-        if rounded_hw != original_hw:
+        if (image.shape[1], image.shape[2]) != rounded_hw:
             x = resize_bilinear(x, *rounded_hw)
         prompts = self._prompts(cond, b)
         c, u = self._conds(self._tokens(prompts), self._tokens([negative_prompt] * b), guidance_scale)
@@ -630,14 +607,16 @@ class DiffusionAPI:
         if refine_fidelity is not None:
             use_background_guidance = True
             reference_fidelity = float(refine_fidelity)
-        if _is_path_or_pil(image) or _is_path_or_pil(mask):
-            raise _not_ported("path and PIL")
+        if _is_path_or_pil(image):
+            image = self._norm_image(image)
         raw = np.asarray(image)
         if raw.ndim == 3:
             raw = raw[None]
         original_u8 = raw if raw.dtype == np.uint8 else None
         image = self._norm_image(raw)
         b = image.shape[0]
+        if _is_path_or_pil(mask):
+            mask = read_image(mask, None, anchor=None, to_mask=True).image[..., 0]
         mask = np.asarray(mask).astype(np.float32)
         if mask.ndim == 2:
             mask = mask[None, :, :, None]
@@ -706,7 +685,10 @@ class DiffusionAPI:
         any first stage."""
         self._require_concat("semantic2img")
         if _is_path_or_pil(semantic):
-            raise _not_ported("path and PIL")
+            from PIL import Image
+
+            img = Image.open(semantic) if isinstance(semantic, str) else semantic
+            semantic = np.asarray(img.convert("L"))
         semantic = np.asarray(semantic)
         num_classes = getattr(self.m.condition_model, "in_channels", None)
         # integer (..., C) arrays with C the condition model's channels are already one-hot
@@ -752,7 +734,11 @@ class DiffusionAPI:
         [-1, 1]) and inpaints the border."""
         if isinstance(image, str) and second is not None:
             if _is_path_or_pil(second):
-                raise _not_ported("path and PIL")
+                from PIL import Image
+
+                second = Image.open(second) if isinstance(second, str) else second
+                if second.mode != "RGBA":
+                    raise ValueError("`image` should be `RGBA` in outpainting")
             arr = np.asarray(second)
             rgb, alpha = arr[..., :3], arr[..., 3]
             mask = (255 - alpha.astype(np.int32)).astype(np.uint8)
@@ -770,9 +756,10 @@ class DiffusionAPI:
 
     @staticmethod
     def _norm_image(image: Any) -> np.ndarray:
-        """uint8 -> [-1, 1] f32; floats as they are; HWC gets a batch axis."""
+        """uint8 -> [-1, 1] f32; floats as they are; HWC gets a batch axis;
+        a path or a PIL image through `read_image`."""
         if _is_path_or_pil(image):
-            raise _not_ported("path and PIL")
+            return (read_image(image, None).image * 2.0 - 1.0).astype(np.float32)
         image = np.asarray(image)
         if image.ndim == 3:
             image = image[None]

@@ -21,13 +21,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ...constants import INPUT_KEY, LOSS_KEY, PREDICTIONS_KEY
 from ...modules.common import EMA
 from ...modules.multimodal.diffusion.ddpm import DDPM
 from ...modules.multimodal.diffusion.ldm import LDM
-
-INPUT_KEY = "input"
-LOSS_KEY = "loss"
-PREDICTIONS_KEY = "predictions"
 
 
 def _to_diffusion_space(ddpm: DDPM, x0: torch.Tensor) -> torch.Tensor:

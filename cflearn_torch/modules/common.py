@@ -72,8 +72,10 @@ def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init of every parameter, drawn on the parameter's own
     device by one explicit `torch.Generator`, in `named_parameters` order:
     weights of rank >= 2 ~ N(0, 1 / fan_in), 1-D norm scales = 1, other 1-D
-    tensors (biases) = 0, embeddings ~ N(0, 0.02^2) and the positional table
-    ~ N(0, 0.01^2). Modules marked by `zero_module` are zeroed."""
+    tensors (biases) = 0, embeddings (and a ViT's class embedding) ~ N(0,
+    0.02^2) and the positional table ~ N(0, 0.01^2). Modules marked by
+    `zero_module` are zeroed; a module with an `init_constants` method (CLIP's
+    logit scale) sets its constants last."""
     params = list(module.named_parameters())
     device = params[0][1].device if params else torch.device("cpu")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -85,6 +87,8 @@ def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
                     0.02 if "embedding" in name else p[0].numel() ** -0.5
                 )
                 p.copy_(torch.randn(p.shape, generator=gen, device=device) * std)
+            elif leaf == "class_embedding":
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
             elif leaf == "weight":
                 p.fill_(1.0)
             else:
@@ -93,6 +97,8 @@ def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
             if getattr(m, "zero_init", False):
                 for p in m.parameters():
                     p.zero_()
+            if hasattr(m, "init_constants"):
+                m.init_constants()
     return module
 
 

@@ -62,11 +62,12 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
         self._kernel_cache: Optional[Tuple[Any, torch.Tensor]] = None
 
-    def _pads(self) -> List[Tuple[int, int]]:
+    def _pads(self, size: Tuple[int, int]) -> List[Tuple[int, int]]:
         if self.padding == "SAME":
+            # XLA's "SAME": ceil(n / s) outputs, the padding they need split with the odd pixel at the end
             pads = []
-            for k, s in zip(self.weight.shape[2:], self.strides):
-                total = max(k - s, 0)  # XLA "SAME" for input sizes divisible by the stride
+            for n, k, s in zip(size, self.weight.shape[2:], self.strides):
+                total = max((-(-n // s) - 1) * s + k - n, 0)
                 pads.append((total // 2, total - total // 2))
             return pads
         if self.padding == "VALID":
@@ -75,7 +76,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = _promote(x, self.weight)
-        (pt, pb), (pl, pr) = self._pads()
+        (pt, pb), (pl, pr) = self._pads(x.shape[1:3])
         xc = x.to(dtype).permute(0, 3, 1, 2)
         if pt == pb and pl == pr:
             pad: Any = (pt, pl)

@@ -4,14 +4,17 @@
 Each lossy lever (ToMe, DeepCache, the guidance interval, the W8A8 decode)
 is measured by its output's deviation from the lossless pipeline on the same
 weights, seed and prompt: latent-space error and the decoded images' PSNR /
-SSIM. CLIP score needs pretrained CLIP weights and is not ported.
+SSIM. CLIPScore (`clip_score`) measures images against their prompts in a
+CLIP embedding space; absolute scores need pretrained CLIP weights, which
+are not in the repository.
 """
 
-from typing import Dict, NamedTuple
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 
-__all__ = ["psnr", "ssim", "latent_error", "QualityReport", "compare_outputs"]
+__all__ = ["psnr", "ssim", "latent_error", "clip_score_from_embeddings", "clip_score", "QualityReport",
+           "compare_outputs"]
 
 
 def psnr(ref: np.ndarray, x: np.ndarray, *, data_range: float = 1.0) -> float:
@@ -77,6 +80,45 @@ def latent_error(ref: np.ndarray, x: np.ndarray) -> Dict[str, float]:
     denom = float(np.linalg.norm(ref))
     rel = float(np.linalg.norm(ref - x)) / denom if denom > 0 else float("nan")
     return {"latent_mse": mse, "latent_rel_err": rel}
+
+
+def clip_score_from_embeddings(image_embeds: np.ndarray, text_embeds: np.ndarray, *, scale: float = 100.0) -> float:
+    """CLIPScore over paired (image_i, text_i) embeddings (Hessel et al.
+    2021, eq. 1): `scale * max(cos(E_I, E_C), 0)` averaged over the pairs,
+    in float64. `scale` is 100 (torchmetrics' convention; the paper's w is
+    2.5). The embeddings are L2-normalised here, so raw and normalised
+    embeddings score alike."""
+    img = np.asarray(image_embeds, np.float64)
+    txt = np.asarray(text_embeds, np.float64)
+    if img.shape != txt.shape:
+        raise ValueError(f"paired embeddings expected, got {img.shape} vs {txt.shape}")
+    img = img / np.maximum(np.linalg.norm(img, axis=-1, keepdims=True), 1e-12)
+    txt = txt / np.maximum(np.linalg.norm(txt, axis=-1, keepdims=True), 1e-12)
+    cos = np.sum(img * txt, axis=-1)
+    return float(scale * np.mean(np.maximum(cos, 0.0)))
+
+
+def clip_score(
+    images: Any, texts: Any, *, extractor: Any = None, scale: float = 100.0, batch_size: int = 64
+) -> float:
+    """CLIPScore of `images` (anything `CLIPExtractor.get_image_latent`
+    takes) against their prompts `texts` (one string broadcasts over the
+    batch). `extractor`: a `cflearn_torch.api.CLIPExtractor`; without one,
+    the zoo's pretrained ViT-B/32 is asked for, and its weights are not in
+    the repository, so that raises. Random weights give a deterministic but
+    arbitrary embedding space: scores compare runs, not models."""
+    if extractor is None:
+        from ..api.multimodal.clip import CLIPExtractor
+
+        extractor = CLIPExtractor.from_zoo(pretrained=True)
+    n = len(images)
+    if isinstance(texts, str):
+        texts = [texts] * n
+    if len(texts) != n:
+        raise ValueError(f"{n} images vs {len(texts)} texts")
+    img = extractor.get_image_latent(images, batch_size=batch_size)
+    txt = extractor.get_text_latent(list(texts), batch_size=batch_size)
+    return clip_score_from_embeddings(img, txt, scale=scale)
 
 
 class QualityReport(NamedTuple):

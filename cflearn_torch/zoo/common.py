@@ -1,8 +1,11 @@
 """Zoo presets (counterpart of `cflearn_tpu/zoo/common.py`): JSON presets
 under `configs/` (the port's own copies of the JAX package's `ae/kl.json`,
-`ae/vq.json` and `diffusion/ldm.json`), `parse_config`, `build_module` /
-`load_module` and the named constructors of the first stages and of the
-VQ latent-diffusion family (`ldm_vq`, `ldm_inpainting`, `ldm_semantic`).
+`ae/vq.json`, `diffusion/ldm.json`, `multimodal/clip.json` and
+`sr/esr.json`), `parse_config`, `build_module` / `load_module` and the named
+constructors of the first stages, of the VQ latent-diffusion family
+(`ldm_vq`, `ldm_inpainting`, `ldm_semantic`), of CLIP (`clip`: ViT-B/32,
+`clip_large`: ViT-L/14, `open_clip_ViT_H_14`) and of ESRGAN (`esr`,
+`esr_anime`). `chinese_clip` waits for the BERT text tower.
 
 Every module gets seeded random weights: no checkpoint is in the
 repository, and none is downloaded, so `pretrained=True` raises. Like the
@@ -18,6 +21,8 @@ import torch
 import torch.nn as nn
 
 from ..modules.common import module_registry
+from ..modules.cv import classifier as _classifier  # noqa: F401  (registers "rrdb")
+from ..modules.multimodal import clip as _clip  # noqa: F401  (registers "clip")
 from ..modules.multimodal.diffusion.ldm import build
 
 CONFIGS_DIR = Path(__file__).parent / "configs"
@@ -122,6 +127,34 @@ def ae_vq_f4_no_attn(pretrained: bool = False, **kwargs: Any) -> nn.Module:
 
 def ae_vq_f8(pretrained: bool = False, **kwargs: Any) -> nn.Module:
     return load_module("ae/vq.f8", pretrained=pretrained, **kwargs)
+
+
+# ESRGAN and CLIP
+
+
+def esr(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    """ESRGAN 4x: `RRDBNet` with 23 RRDB blocks of 64 channels."""
+    return load_module("sr/esr", pretrained=pretrained, **kwargs)
+
+
+def esr_anime(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    """ESRGAN 4x for anime images: 6 RRDB blocks."""
+    return load_module("sr/esr.anime", pretrained=pretrained, **kwargs)
+
+
+def clip(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    """CLIP ViT-B/32 at 224px (50 image tokens; 512-wide embeddings)."""
+    return load_module("multimodal/clip", pretrained=pretrained, **kwargs)
+
+
+def clip_large(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    """CLIP ViT-L/14 at 224px (257 image tokens, 16 heads of 64; 768-wide embeddings)."""
+    return load_module("multimodal/clip.large", pretrained=pretrained, **kwargs)
+
+
+def open_clip_ViT_H_14(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    """open_clip's ViT-H/14 at 224px (257 image tokens, 16 heads of 80; GELU; 1024-wide embeddings)."""
+    return load_module("multimodal/clip.open_clip_ViT_H_14", pretrained=pretrained, **kwargs)
 
 
 # the VQ latent-diffusion family

@@ -140,13 +140,37 @@ Phases, in order; any failure exits non-zero:
    device ms, the bound). One UNet call of each architecture, the f4 encode
    and the f4 decode agree with the plain path within 1.5x its one-ulp
    drift (phase 4's rule).
-14. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+14. CLIP and ESRGAN — the zoo's ViT-B/32, ViT-L/14 and ViT-H/14 (`clip`,
+   `clip_large`, `open_clip_ViT_H_14`, f32 from seed 0) through
+   `CLIPExtractor(use_bf16=True)` as its users run it: f32 images against
+   bf16 weights, so f32 compute, every /14 self-attention (L 257) on the
+   flash kernel's f32 route. `get_image_latent` on 64 uint8 224px images
+   (one chunk), `get_text_latent` on 8 prompts, `zero_shot_classify`,
+   `clip_score_from_embeddings`; then the /14 modules (as the API cast
+   them, bf16 parameters) on bf16 images straight into `encode_image`: the
+   wgmma route. Each run under the census, then with the counters at 0:
+   exact launches (0 for B/32 and for text, 24 a chunk for L/14, 32 for
+   H/14); finite embeddings of unit norm (1e-5; the bf16 text embeddings
+   within 2^-7); the score in [0, 100]; every distinct kernel call of the
+   census against its plain version with phase 2's tolerances, timed
+   alone beside SDPA, with its bound; the /14 image embeddings through the
+   kernels against the plain path within 1.5x its one-ulp drift (phase 4's
+   rule) in both dtypes; image- and text-embeds/s on the host clock (the
+   best of two windows of 5 chunks). ESRGAN: `TranslatorAPI.from_esr` (23
+   blocks) and `from_esr_anime` (6), bf16 weights, `sr` on a 128px RGB and
+   a 128px RGBA uint8 image: 512px uint8 outputs with 3 and 4 channels, the
+   network's f32 output finite, no hand-written kernel launched (the JAX
+   package routes none), img/s; `offload` frees the parameters' device
+   memory, `restore` takes it back, and the output after them is the same
+   bit for bit.
+15. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
-   path's and the VQ family's on lines of their own, the card's name and
-   power limit, and last `{"ok": true, "device": {...}}`. The per-shape
-   rows also go to `chiprun_out/chip_smoke.json`.
+   path's, the VQ family's and the CLIP and ESRGAN readings on lines of
+   their own, the card's name and power limit, and last `{"ok": true,
+   "device": {...}}`. The per-shape rows also go to
+   `chiprun_out/chip_smoke.json`.
 
 Imports nothing of JAX or of `cflearn_tpu`. Exits non-zero, printing no
 result, without a CUDA device or without the `cflearn_torch` package beside
@@ -1552,9 +1576,10 @@ def check_call(torch, F, A, Cv, Gn, key, gen) -> dict:
         lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
         b, h, lq, d = q.shape
         lk = k.shape[2]
+        # f32 inputs run the products in TF32: its peak, and phase 2's f32 tolerance
         bms, by = bound_ms(4.0 * b * h * lq * lk * d, q.element_size() * b * h * (2 * lq + 2 * lk) * d,
-                           exps=b * h * lq * lk)
-        tol_rel, shape = FLASH_REL, [b, h, lq, lk, d]
+                           PEAK_TF32_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS, exps=b * h * lq * lk)
+        tol_rel, shape = flash_rel(q.element_size()), [b, h, lq, lk, d]
     elif name == "conv3x3":
         x = torch.randn(args[0][1], generator=gen, device="cuda").to(dt)
         co, c = args[1][1][0], args[1][1][-1]
@@ -1589,11 +1614,12 @@ def check_call(torch, F, A, Cv, Gn, key, gen) -> dict:
     ref = plain()
     err = max_err(out, ref)
     tol = tol_rel * ref.float().abs().max().item()
-    row = dict(kernel=name, shape=shape, kw=kw, max_abs_err=err, tol=tol, device_ms=device_ms(torch, run, 5, 3),
+    row = dict(kernel=name, shape=shape, dtype=str(dt).split(".")[-1], kw=kw, max_abs_err=err, tol=tol,
+               device_ms=device_ms(torch, run, 5, 3),
                plain_ms=time_ms(torch, plain, 5.0), library_device_ms=device_ms(torch, lib, 5, 3), bound_ms=bms,
                bound_by=by)
     if not math.isfinite(err) or err > tol:
-        raise AssertionError(f"vq api: {name} {shape} {kw}: max_abs_err {err} > {tol}")
+        raise AssertionError(f"{name} {shape} {str(dt)} {kw}: max_abs_err {err} > {tol}")
     return row
 
 
@@ -1736,6 +1762,190 @@ def phase_vq_api(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     print(f"vq api: {len(calls)} distinct kernel calls held against their plain versions in "
           f"{time.perf_counter() - t0:.1f} s (largest error / tolerance by kernel {json.dumps(worst)}); device ms per "
           f"image by kernel: {json.dumps({p: {k: v['device_ms'] for k, v in o['by_kernel'].items()} for p, o in out['paths'].items()})}")
+    return out
+
+
+# the CLIP and ESRGAN phase: a chunk of images (the extractor's batch_size), the prompts, flash launches per chunk
+# (every self-attention of a /14 tower runs at L 257 and takes the kernel; ViT-B/32's L 50 and the text tower's L 77
+# stay on SDPA), the windows of chunks timed on the host clock, the ESRGAN input side
+CLIP_CHUNK = 64
+CLIP_PROMPTS = ["a photo of a cat", "a photo of a dog", "a red sports car", "a bowl of fruit on a table",
+                "a mountain lake at dawn", "an astronaut riding a horse", "a city street at night", "a plate of sushi"]
+CLIP_MODELS = {"clip": 0, "clip_large": 24, "open_clip_ViT_H_14": 32}
+CLIP_WINDOWS = (2, 5)  # windows, chunks a window: the best window's rate
+ESR_SIDE = 128
+ESR_WINDOWS = (2, 3)
+# the text embeddings come out in bf16 with `use_bf16`, as in the JAX package (the token table is looked up in
+# the weights' dtype): their norm is one within bf16 rounding of the norm and of each element
+TEXT_NORM_TOL = 2.0**-7
+
+
+def phase_clip_esrgan(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """CLIP ViT-B/32, ViT-L/14 and ViT-H/14 through `CLIPExtractor(use_bf16=True)` (f32 images against bf16
+    weights: f32 compute, the flash kernel's f32 route at L 257), and the /14 modules with bf16 images straight
+    into `encode_image` (the wgmma route); then ESRGAN and its anime preset through `TranslatorAPI.sr`. Each run
+    goes under the census, then again with the counters at 0 (exact launches), then timed on the host clock
+    (windows of chunks, the best). Gates: finite unit-norm embeddings, `zero_shot_classify` in range,
+    `clip_score_from_embeddings` in [0, 100], every distinct kernel call of the census against its plain version
+    (phase 2's tolerances), the /14 image embeddings through the kernels against the plain path within
+    PARITY_FACTOR x its one-bf16-ulp drift in both dtypes; ESRGAN's shapes and dtypes, its f32 output finite
+    before the clip, no hand-written kernel launched, and `offload` / `restore` (device memory falls by the
+    parameters' bytes and comes back; the same output bit for bit)."""
+    from cflearn_torch.api import CLIPExtractor, TranslatorAPI
+    from cflearn_torch.api.multimodal.clip import CLIP_MEAN, CLIP_STD
+    from cflearn_torch.toolkit.quality import clip_score_from_embeddings
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"clip / esrgan: {msg}")
+
+    def launches_of(fn, want, counts=None):
+        """fn under the census (into `counts`), then with the counters at 0: exact launches. Returns fn's result."""
+        with census(A, Cv, Gn, counts if counts is not None else {}):
+            fn()
+        torch.cuda.synchronize()
+        reset_launches(A, Cv, Gn)
+        result = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+        check(got == want, f"launches {got} != {want}")
+        return result
+
+    def best_rate(fn, items, windows):
+        rates = []
+        for _ in range(windows[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(windows[1]):
+                fn()
+            torch.cuda.synchronize()
+            rates.append(items * windows[1] / (time.perf_counter() - t0))
+        return max(rates)
+
+    def parity(label, fn, x):
+        """fn through the kernels against the plain versions, held to the plain path's drift under a one-ulp move
+        of x (x exactly representable in bf16: phase 4's rule)."""
+        with torch.no_grad():
+            y_k = fn(x).float()
+            with plain_kernels(A, Cv, Gn):
+                y_p = fn(x).float()
+                drift = rel_err(fn(bump_ulp(torch, x)).float(), y_p)
+        rel = rel_err(y_k, y_p)
+        print(f"clip parity: {label}, kernels vs plain max rel err {rel:.3e} (tolerance {PARITY_FACTOR * drift:.3e}: "
+              f"{PARITY_FACTOR} x the one-ulp drift {drift:.3e})")
+        check(rel <= PARITY_FACTOR * drift, f"{label} through the kernels disagrees with the plain path")
+        return {"kernels_vs_plain": rel, "drift": drift}
+
+    out = {"clip": {}, "esrgan": {}}
+    censuses = {}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    window = CLIP_WINDOWS[1] * CLIP_CHUNK  # images a window: one extractor call, chunk by chunk
+    pixels = torch.randint(0, 256, (window, 224, 224, 3), generator=gen, device="cuda").to(torch.uint8)
+    images = pixels.cpu().numpy()
+    mean, std = (torch.as_tensor(v, device="cuda") for v in (CLIP_MEAN, CLIP_STD))
+    # the extractor's own normalisation, on the card: the bf16 route's input, and the parity checks' (rounded to
+    # bf16, so that a one-ulp move is one)
+    normed = ((pixels[:CLIP_CHUNK].float() / 255.0 - mean) / std)
+    for name, flash in CLIP_MODELS.items():
+        t0 = time.perf_counter()
+        m = getattr(cflearn_torch, name)(device="cuda", seed=0)
+        n_params = sum(p.numel() for p in m.parameters())
+        api = CLIPExtractor(m, use_bf16=True, device="cuda")
+        torch.cuda.synchronize()
+        attn = m.vit.blocks[0].attn
+        print(f"clip[{name}]: {n_params:,} parameters (bf16 through the API) built in {time.perf_counter() - t0:.1f} s; "
+              f"{m.vit.positional_embedding.shape[0]} image tokens, {attn.num_heads} heads of "
+              f"{attn.q_proj.weight.shape[0] // attn.num_heads}")
+        rec = {"parameters": n_params, "flash_per_chunk": flash}
+        want = {"flash_attention": flash} if flash else {}
+        counts = censuses.setdefault(f"{name} f32", {})
+        img = launches_of(lambda: api.get_image_latent(images[:CLIP_CHUNK]), want, counts)
+        txt = launches_of(lambda: api.get_text_latent(CLIP_PROMPTS), {})
+        classes = api.zero_shot_classify(images[:len(CLIP_PROMPTS)], CLIP_PROMPTS)
+        score = clip_score_from_embeddings(img[:len(CLIP_PROMPTS)], txt)
+        img_norm = np.abs(np.linalg.norm(img.astype(np.float64), axis=-1) - 1.0).max()
+        txt_norm = np.abs(np.linalg.norm(txt.astype(np.float64), axis=-1) - 1.0).max()
+        check(img.shape == (CLIP_CHUNK, m.visual_projection.weight.shape[0]) and np.isfinite(img).all(),
+              f"{name}: image embeddings {img.shape}")
+        check(txt.shape == (len(CLIP_PROMPTS), img.shape[1]) and np.isfinite(txt).all(), f"{name}: text {txt.shape}")
+        check(img_norm <= 1e-5 and txt_norm <= TEXT_NORM_TOL, f"{name}: norms off one by {img_norm}, {txt_norm}")
+        check(classes.shape == (len(CLIP_PROMPTS),) and 0 <= classes.min() and classes.max() < len(CLIP_PROMPTS),
+              f"{name}: zero-shot classes {classes}")
+        check(0.0 <= score <= 100.0, f"{name}: clip score {score}")
+        rec.update(image_embeds_per_s=best_rate(lambda: api.get_image_latent(images), window, (CLIP_WINDOWS[0], 1)),
+                   text_embeds_per_s=best_rate(lambda: api.get_text_latent(CLIP_PROMPTS * 8), 64, CLIP_WINDOWS),
+                   image_norm_err=float(img_norm), text_norm_err=float(txt_norm), clip_score=score,
+                   zero_shot=classes.tolist())
+        if flash:
+            rec["parity_f32"] = parity(f"{name} image embeddings, f32 images", api.m.encode_image,
+                                       normed.to(torch.bfloat16).float())
+            # the module as the API cast it (bf16 parameters), fed bf16 images: the wgmma route
+            xb = normed.to(torch.bfloat16)
+            bf16 = censuses.setdefault(f"{name} bf16", {})
+            with torch.no_grad():
+                emb = launches_of(lambda: api.m.encode_image(xb), want, bf16)
+                check(emb.dtype == torch.bfloat16 and bool(torch.isfinite(emb).all()), f"{name}: bf16 embeddings")
+                rec["bf16_image_embeds_per_s"] = best_rate(lambda: api.m.encode_image(xb), CLIP_CHUNK, CLIP_WINDOWS)
+            rec["parity_bf16"] = parity(f"{name} image embeddings, bf16 images", api.m.encode_image, xb)
+        print(f"clip[{name}]: launches per chunk {json.dumps(want)}, image-embeds/s {rec['image_embeds_per_s']:.1f} "
+              f"(f32 images, bf16 weights)" + (f", {rec['bf16_image_embeds_per_s']:.1f} (bf16)" if flash else "")
+              + f", text-embeds/s {rec['text_embeds_per_s']:.1f}; norms off one by {img_norm:.2e} (image), "
+              f"{txt_norm:.2e} (text, bf16); clip score {score:.3f}; zero-shot {classes.tolist()}")
+        out["clip"][name] = rec
+        del api, m, img, txt
+        torch.cuda.empty_cache()
+
+    # every distinct kernel call of the census against its plain version, timed alone
+    calls = {}
+    for key in sorted({key for counts in censuses.values() for key in counts}, key=str):
+        calls[key] = check_call(torch, F, A, Cv, Gn, key, gen)
+    out["calls"] = [dict(calls[key], launches={p: c[key] for p, c in censuses.items() if key in c})
+                    for key in sorted(calls, key=str)]
+    for row in out["calls"]:
+        print(f"clip flash {row['shape']} {row['dtype']}: max_abs_err {row['max_abs_err']:.3e} (tol {row['tol']:.3e}), "
+              f"device {row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA device {row['library_device_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']}); launches {json.dumps(row['launches'])}")
+    del pixels, normed
+    torch.cuda.empty_cache()
+
+    # ESRGAN 4x through TranslatorAPI
+    rgb = torch.randint(0, 256, (ESR_SIDE, ESR_SIDE, 3), generator=gen, device="cuda").to(torch.uint8).cpu().numpy()
+    alpha = torch.randint(0, 256, (ESR_SIDE, ESR_SIDE, 1), generator=gen, device="cuda").to(torch.uint8).cpu().numpy()
+    rgba = np.concatenate([rgb, alpha], axis=-1)
+    side = 4 * ESR_SIDE
+    for name, factory in (("esr", TranslatorAPI.from_esr), ("esr_anime", TranslatorAPI.from_esr_anime)):
+        t0 = time.perf_counter()
+        api = factory(pretrained=False, use_bf16=True, device="cuda")
+        n_params = sum(p.numel() for p in api.m.parameters())
+        raw = []
+        hook = api.m.register_forward_hook(lambda mod, args, y: raw.append(y.detach()))
+        out_rgb = launches_of(lambda: api.sr(rgb), {})
+        out_rgba = launches_of(lambda: api.sr(rgba), {})
+        check(all(y.dtype == torch.float32 and bool(torch.isfinite(y).all()) for y in raw),
+              f"{name}: the network's output is not finite f32")
+        hook.remove()
+        check(out_rgb.shape == (side, side, 3) and out_rgba.shape == (side, side, 4)
+              and out_rgb.dtype == out_rgba.dtype == np.uint8, f"{name}: outputs {out_rgb.shape}, {out_rgba.shape}")
+        rate = best_rate(lambda: api.sr(rgb), 1, ESR_WINDOWS)
+        torch.cuda.synchronize()
+        param_bytes = sum(p.numel() * p.element_size() for p in api.m.parameters())
+        before = torch.cuda.memory_allocated()
+        api.offload()
+        offloaded = torch.cuda.memory_allocated()
+        api.restore()
+        restored = torch.cuda.memory_allocated()
+        again = api.sr(rgb)
+        print(f"esrgan[{name}]: {n_params:,} parameters (bf16) built in {time.perf_counter() - t0:.1f} s; {ESR_SIDE}px -> "
+              f"{side}px, {rate:.2f} img/s; no kernel launched; offload frees {before - offloaded:,} bytes (parameters "
+              f"{param_bytes:,}), restore takes back {restored - offloaded:,}; the same output after restore "
+              f"{bool(np.array_equal(again, out_rgb))}")
+        check(before - offloaded >= param_bytes and abs(restored - before) <= param_bytes // 100,
+              f"{name}: device memory {before} -> {offloaded} -> {restored} (parameters {param_bytes})")
+        check(np.array_equal(again, out_rgb), f"{name}: the output after offload / restore differs")
+        out["esrgan"][name] = {"parameters": n_params, "img_per_s": rate, "in_px": ESR_SIDE, "out_px": side,
+                               "offload_freed_bytes": before - offloaded, "parameter_bytes": param_bytes}
+        del api
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2510,7 +2720,11 @@ def main() -> int:
     vq_api_out = phase_vq_api(torch, np, F, cflearn_torch, A, Cv, Gn)
     print(f"vq api path: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 14. summary
+    # 14. CLIP embeddings and ESRGAN
+    clip_out = phase_clip_esrgan(torch, np, F, cflearn_torch, A, Cv, Gn)
+    print(f"clip and esrgan: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 15. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -2599,7 +2813,7 @@ def main() -> int:
                    "autoencoder": ae_out, "serve_configs": serve_out,
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
-                   "vq_api": vq_api_out,
+                   "vq_api": vq_api_out, "clip_esrgan": clip_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -2611,6 +2825,7 @@ def main() -> int:
     print(json.dumps({"ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out}))
     print(json.dumps({"diffusion_api": api_out}))
     print(json.dumps({"vq_api": {k: v for k, v in vq_api_out.items() if k != "calls"}}))
+    print(json.dumps({"clip_esrgan": clip_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

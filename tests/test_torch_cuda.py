@@ -615,3 +615,20 @@ def test_multi_head_spatial_attention_on_the_card(cuda) -> None:
         assert A.flash_attention.launches == before + 1
         ref = cpu.bfloat16()(x)
     _close(out.cpu(), ref, 2.0**-5)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_at_the_clip_tower_shapes(cuda, d, dtype) -> None:
+    """CLIP's /14 vision towers at 224px: 257 tokens (a ragged q and kv tail of one row), 16 heads of 64
+    (ViT-L/14) and 80 (ViT-H/14), q / k / v as transposed views of the projections' (B, L, H, D) storage. f32
+    (the APIs' images) takes the chunked mma.sync kernel, bf16 the wgmma kernel."""
+    shape = (4, 16, 257, 257, d)
+    q, k, v = _fwd_inputs(cuda, shape, dtype, "blhd")
+    plan = A.flash_plan(*shape, dtype, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.kernel == _expected_kernel(shape, dtype)
+    before = A.flash_attention.launches
+    out = A.flash_attention(q, k, v)
+    assert A.flash_attention.launches == before + 1
+    _close(out, A.flash_attention_plain(q, k, v), _rel(dtype))
+    assert torch.equal(out, A.flash_attention(q, k, v))

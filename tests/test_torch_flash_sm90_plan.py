@@ -10,6 +10,8 @@ rows and kv blocks each CTA takes, the TMA boxes and the shared memory are decid
 * the UNet's shapes take the wgmma + TMA kernel; d = 640 and f32 take the mma.sync kernels;
 * the VQ latent-diffusion UNets' shapes (d = 32, 64, 96, 128) take the wgmma + TMA kernel, in the fewest steps
   of 16 that cover d;
+* CLIP's /14 vision towers (B64 H16 L257, d 64 and 80): f32 (the APIs' images) takes the chunked mma.sync
+  kernel with a one-row last q tile, bf16 the wgmma kernel (at d = 80 P.V's N padded to two boxes);
 * 16-bit 256 < d <= 512 (the autoencoders' mid-block attention at d = 512) takes the wide-head wgmma + TMA
   kernel: two consumers on one 64-row tile, their register budget, and where the tiles fill less than one wave,
   a kv range split into parts that cover each key once; the parts' arithmetic (`flash_fwd_split_plain`) against
@@ -42,6 +44,9 @@ SHAPES = [
     # the wide-head kernel: `chip_smoke.py`'s ragged and causal d = 512 cases, d = 264 / 320 / 384, fp16
     (1, 2, 1000, 777, 512, BF16), (1, 2, 1000, 1000, 512, BF16), (1, 2, 300, 333, 264, BF16),
     (1, 2, 300, 300, 320, F16), (2, 3, 200, 700, 384, BF16), (2, 1, 1024, 1024, 512, F16),
+    # CLIP's /14 vision towers at 224px (a chunk of 64 images, 257 tokens): ViT-L/14 (d 64), ViT-H/14 (d 80)
+    (64, 16, 257, 257, 64, BF16), (64, 16, 257, 257, 80, BF16), (64, 16, 257, 257, 64, F32),
+    (64, 16, 257, 257, 80, F32),
 ]
 # the VQ family's self-attentions, which take the wgmma + TMA kernel (d <= 256)
 VQ = [(1, 8, 1024, 64), (1, 8, 256, 96), (1, 8, 2304, 64), (1, 8, 576, 96), (1, 8, 1024, 128), (1, 14, 4096, 32),
@@ -212,6 +217,27 @@ def test_vq_family_shapes_take_the_wgmma_kernel(shape, sms) -> None:
     assert plan.ksteps == {32: 2, 64: 4, 96: 6, 128: 8}[d] and 16 * plan.ksteps == d
     assert plan.head_pad == A.BOX_COLS * -(-d // A.BOX_COLS)
     assert plan.bk == 128 and plan.ctas == -(-l // plan.bq) * b * h
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_clip_vision_shapes(dtype, d, sms) -> None:
+    """257 tokens: four full 64-row tiles and one row. f32 takes the chunked mma.sync kernel (64 q rows and 64
+    kv rows a block, one chunk of the head dim: 64 columns at d = 64, 128 at d = 80); bf16 the wgmma kernel in
+    d / 16 steps over kv blocks of 128 rows, three consumers at d = 64 (192 rows: a 65-row last tile) and two at
+    d = 80 (a one-row last tile), whose two 64-column boxes pad P.V's N to 128."""
+    plan = A.flash_plan(64, 16, 257, 257, d, dtype, sms)
+    if dtype == F32:
+        assert (plan.kernel, plan.bq, plan.bk, plan.head_pad) == ("mma_sync_chunked", 64, 64, 64 if d == 64 else 128)
+        assert plan.ctas == 5 * 64 * 16
+    else:
+        assert plan.kernel == "sm90" and plan.ksteps == d // 16 and plan.head_pad == (64 if d == 64 else 128)
+        assert (plan.consumers, plan.bq) == ((3, 192) if d == 64 else (2, 128))
+        assert plan.bk == 128 and plan.ctas == _cdiv(257, plan.bq) * 64 * 16
+    last_tile = 257 - (_cdiv(257, plan.bq) - 1) * plan.bq
+    assert last_tile == {64: 1, 128: 1, 192: 65}[plan.bq]
+    assert (257 - 1) % plan.bk == 0  # the last kv block holds one key, the rest of it masked
 
 
 # the port's d = 512 shapes (`chip_smoke.py`): the VAE decode's mid attention, the ae steps' (forward with the

@@ -339,7 +339,7 @@ def test_presets_are_the_port_own_copies() -> None:
     with pytest.raises(ValueError, match="tag"):
         tzoo.parse_config("ae/vq.f32")
     with pytest.raises(ValueError, match="no zoo preset"):
-        tzoo.parse_config("sr/esr")
+        tzoo.parse_config("ae/none")
 
 
 @pytest.mark.parametrize("name,count", [("ldm_inpainting", 440_465_313), ("ldm_semantic", 270_552_643),
