@@ -4,8 +4,9 @@ variations, batching, a callback, clip skip and the high-resolution second
 pass; img2img; inpainting on a 9-channel inpainting UNet (NORMAL or MASKED:
 cropped to the mask's box), on a concat-conditioned LDM, or by repaint on a
 plain one; outpainting; `semantic2img` and `sr` on concat-conditioned LDMs;
-every registered sampler; ToMe, DeepCache, LoRA packs, an SD weight pool;
-and multi-ControlNet sampling with per-hint scales and start / end gating.
+every registered sampler; ToMe, DeepCache, style reference (`setup_hooks`),
+tiling mode (`switch_circular`), LoRA packs, an SD weight pool; and
+multi-ControlNet sampling with per-hint scales and start / end gating.
 `from_sd` / `from_sd_inpainting`, `from_inpainting` and `from_semantic`
 build the zoo's models with seeded random weights.
 
@@ -16,9 +17,10 @@ Images come back as uint8 NHWC numpy arrays. Inputs are numpy arrays (uint8,
 or floats in [-1, 1]), paths or PIL images (through `utils.read_image`).
 
 Every random draw of the API (the starting latents, the variations,
-inpainting's noise) goes through `DiffusionAPI._randn`, and the samplers'
-through `ISampler._randn`, each from a `torch.Generator` seeded by the
-call's seed.
+inpainting's noise) goes through `DiffusionAPI._randn`, the samplers'
+through `ISampler._randn` and style reference's through
+`SpatialTransformerHooks._randn`, each from a `torch.Generator` seeded by
+the call's seed.
 """
 
 from contextlib import contextmanager
@@ -31,10 +33,12 @@ import torch
 
 from ...device import resolve_device
 from ...modules.common import cast_parameters
+from ...modules.core.convs import Conv2d
 from ...modules.core.lora import LoRAManager, LoRAPack
-from ...modules.core.mixed_stacks import SpatialTransformer
+from ...modules.core.mixed_stacks import SpatialTransformer, SpatialTransformerHooks, StyleReferenceStates
 from ...modules.layers import resize, resize_bilinear
 from ...modules.multimodal.diffusion.samplers import ISampler
+from ...modules.multimodal.diffusion.unet import style_reference_write_gates
 from ...modules.multimodal.diffusion.utils import CONCAT_TYPE, CROSS_ATTN_TYPE, HYBRID_TYPE
 from ...modules.nlp.tokenizers import CLIPTokenizer
 from ...pipeline import default_tokenizer
@@ -261,6 +265,8 @@ class DiffusionAPI:
         self._sd_weights = Weights()
         self._current_sd: Optional[str] = None
         self.lora_manager = LoRAManager()
+        self._style_ref: Optional[Dict[str, Any]] = None
+        self._circular = False
 
     # ------------------------------------------------------------- switches
 
@@ -269,6 +275,16 @@ class DiffusionAPI:
             raise ValueError(f"unknown sampler '{sampler}' (available: {sorted(ISampler.d)})")
         self.sampler_name = sampler
         self.sampler_config = sampler_config
+
+    def switch_circular(self, enable: bool) -> None:
+        """Tiling mode: circular padding on every `Conv2d` of the model. As
+        in the JAX package that reaches only the `Conv2d` modules (in SD:
+        the UNet's and the VAE decoder's upsample convs); the other convs
+        keep zero padding."""
+        self._circular = enable
+        for module in self.m.modules():
+            if isinstance(module, Conv2d):
+                module.set_circular(enable)
 
     def set_tome_ratio(self, ratio: float, *, merge_mlp: bool = False) -> None:
         """ToMe token merging on every `SpatialTransformer` (`merge_mlp`: the
@@ -286,6 +302,55 @@ class DiffusionAPI:
         self.m.deepcache_interval = None if interval is not None and interval <= 1 else interval
         self.m.deepcache_cut = cut
         self.m.deepcache_center = center
+
+    def setup_hooks(
+        self,
+        *,
+        tome_info: Optional[Dict[str, Any]] = None,
+        style_reference_image: Optional[Any] = None,
+        style_reference_states: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        """ToMe (`tome_info`: {"ratio", "merge_mlp"}) and style reference
+        ("reference-only") for `txt2img`: each denoise step runs a WRITE UNet
+        pass over the q-sampled latent of `style_reference_image` (uint8 or
+        [-1, 1] NHWC / HWC, a path or a PIL image; sides rounded up to
+        multiples of 64) and lets self-attention READ the banked
+        activations. `style_reference_states` holds `StyleReferenceStates`'
+        settings. Without an image the style reference is cleared."""
+        if tome_info is not None:
+            self.set_tome_ratio(float(tome_info.get("ratio", 0.5)), merge_mlp=bool(tome_info.get("merge_mlp", False)))
+        if style_reference_image is None:
+            self._style_ref = None
+            return
+        states = StyleReferenceStates(**(style_reference_states or {}))
+        image = self._norm_image(style_reference_image)
+        h, w = image.shape[1:3]
+        th, tw = _round64(h), _round64(w)
+        if (th, tw) != (h, w):
+            image = np.stack([_resize_np(im, (tw, th)) for im in image])
+        gates = style_reference_write_gates(self.m.unet, states.reference_weight)
+        self._style_ref = {"states": states, "gates": tuple(gates), "image": image}
+
+    def _style_sig(self) -> Optional[Tuple[Any, ...]]:
+        """What the style reference is set to: (fidelity, weight, gates,
+        image shape), or None."""
+        if self._style_ref is None:
+            return None
+        s = self._style_ref["states"]
+        return (s.style_fidelity, s.reference_weight, self._style_ref["gates"], self._style_ref["image"].shape)
+
+    def _style_hooks(
+        self, ref_image: torch.Tensor, b: int, cfg: bool, generator: torch.Generator
+    ) -> SpatialTransformerHooks:
+        """The hooks of one txt2img batch of `b`: the reference encoded by
+        the first stage (its latents in f32), and under CFG the uncond rows
+        b..2b of the model's batch."""
+        style = self._style_ref
+        return SpatialTransformerHooks(
+            style=style["states"], write_gates=list(style["gates"]),
+            uncond_mask=(torch.arange(2 * b, device=self.device) >= b)[:, None, None] if cfg else None,
+            ref_latent=self.m.encode_first_stage(ref_image).float(), generator=generator,
+        )
 
     @contextmanager
     def _load_context(self, ignore_lora: bool) -> Iterator[Any]:
@@ -412,8 +477,9 @@ class DiffusionAPI:
 
         `z` gives the starting latents; otherwise they are drawn from `seed`
         and slerped with each (seed, strength) of `variations`, then with
-        `variation_seed` at `variation_strength`. `batch_size` splits
-        `num_samples` into batches; `callback` maps the decoded float images
+        `variation_seed` at `variation_strength`. With a style reference
+        (`setup_hooks`) every batch is sampled with its hooks. `batch_size`
+        splits `num_samples` into batches; `callback` maps the decoded float images
         (numpy) before the uint8 cast; `clip_skip` sets the text encoder's
         tap for this call; `highres_info` ({"upscale_factor", "fidelity"})
         upscales the result and runs img2img on it."""
@@ -439,12 +505,15 @@ class DiffusionAPI:
                     z = slerp(self._randn(tuple(z.shape), self._generator(variation_seed)), z, variation_strength)
             generator = self._generator(seed or 0)
             chunk = batch_size or num_samples
+            ref_image = None if self._style_ref is None else torch.as_tensor(self._style_ref["image"], device=self.device)
             outs = []
             for lo in range(0, num_samples, chunk):
                 hi = min(num_samples, lo + chunk)
                 c, u = self._conds(tokens[lo:hi], uncond[lo:hi], guidance_scale)
+                kw = {} if ref_image is None else {"hooks": self._style_hooks(ref_image, hi - lo, u is not None, generator)}
                 latents = self._sampler().sample(
-                    z[lo:hi], cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator
+                    z[lo:hi], cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator,
+                    **kw,
                 )
                 outs.append(self.m.decode(latents))
             images = torch.cat(outs, dim=0)

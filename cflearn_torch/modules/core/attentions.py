@@ -129,13 +129,21 @@ class CrossAttention(nn.Module):
         self.to_out = Linear(inner_dim, query_dim, bias=True)
 
     def forward(
-        self, x: torch.Tensor, context: Optional[torch.Tensor] = None, *, mask: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        context: Optional[torch.Tensor] = None,
+        *,
+        mask: Optional[torch.Tensor] = None,
+        hooks: Optional[Any] = None,
     ) -> torch.Tensor:
-        """`mask` marks slots to be masked OUT (True = drop)."""
+        """`mask` marks slots to be masked OUT (True = drop). `hooks`
+        (a `SpatialTransformerHooks`) may transform q, k and v before the
+        heads are split (`process_qkv`)."""
         context = x if context is None else context
-        qh = _split_heads(self.to_q(x), self.heads)
-        kh = _split_heads(self.to_k(context), self.heads)
-        vh = _split_heads(self.to_v(context), self.heads)
+        q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        if hooks is not None:
+            q, k, v = hooks.process_qkv(self, q, k, v)
+        qh, kh, vh = _split_heads(q, self.heads), _split_heads(k, self.heads), _split_heads(v, self.heads)
         keep = None if mask is None else torch.logical_not(mask)
         out = sdp_attn(qh, kh, vh, sm_scale=self.scale, mask=keep)
         return F.dropout(self.to_out(_merge_heads(out)), self.dropout, self.training)

@@ -1,7 +1,7 @@
 """Conv blocks on the SD path (counterpart of `cflearn_tpu/modules/core/convs.py`).
 Channel-last NHWC; 3x3 convs go through `cflearn_torch.ops.conv.conv_call`."""
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -13,20 +13,87 @@ from ..common import zero_module
 from ..layers import Conv, GroupNorm, Linear
 
 
+def _norm_padding(padding: Union[str, int, Tuple[int, int]]) -> Any:
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    return (tuple(padding), tuple(padding))
+
+
 class Conv2d(nn.Module):
-    """Plain-padding 2-D conv wrapper (the gain / circular / kernel-transform
-    options of the JAX module are not on this slice's path)."""
+    """2-D conv with the options of the JAX module: `padding` ("same",
+    "valid", an int or a (lo, hi) pair for both axes), `dilation`, `groups`,
+    `gain` (an init gain only: xavier-normal weights, set by
+    `init_constants`), `weight_scale` (a multiplier of the output),
+    `transform_kernel` (the kernel smoothed by [1, 2, 1] / 4: four shifted
+    copies of it padded by one, averaged, one wider) and circular padding
+    (`set_circular`, the tiling mode of the diffusion API). A plain call goes
+    through `conv_call` (the 3x3 kernel where it routes); with circular
+    padding or `transform_kernel` the JAX module runs XLA's conv on the
+    wrapped input with VALID padding, and this one `F.conv2d`."""
 
     def __init__(
-        self, in_channels: int, out_channels: int, *, kernel_size: int = 3, stride: int = 1, bias: bool = True
+        self,
+        in_channels: int,
+        out_channels: int,
+        *,
+        kernel_size: int = 3,
+        stride: int = 1,
+        padding: Union[str, int, Tuple[int, int]] = "same",
+        dilation: int = 1,
+        groups: int = 1,
+        bias: bool = True,
+        gain: float = 1.0,
+        weight_scale: Optional[float] = None,
+        transform_kernel: bool = False,
     ) -> None:
         super().__init__()
+        self.padding_mode = "zeros"
         self.conv = Conv(
-            in_channels, out_channels, (kernel_size, kernel_size), strides=(stride, stride), use_bias=bias
+            in_channels, out_channels, (kernel_size, kernel_size), strides=(stride, stride),
+            padding=_norm_padding(padding), use_bias=bias, dilation=(dilation, dilation), groups=groups,
         )
+        self.gain = gain
+        self.weight_scale = weight_scale
+        self.transform_kernel = transform_kernel
+
+    def init_constants(self) -> None:
+        """With a `gain`: the weight drawn N(0, 1 / fan_in) by
+        `init_parameters` rescaled to xavier-normal, std gain x sqrt(2 /
+        (fan_in + fan_out))."""
+        if self.gain == 1.0:
+            return
+        w = self.conv.weight
+        fan_in = w[0].numel()
+        std = self.gain * (2.0 / (fan_in + w.shape[0] * w[0, 0].numel())) ** 0.5
+        with torch.no_grad():
+            w.mul_(std * fan_in**0.5)
+
+    def set_circular(self, circular: bool) -> None:
+        self.padding_mode = "circular" if circular else "zeros"
+
+    def _kernel(self) -> torch.Tensor:
+        w = self.conv.weight
+        if self.transform_kernel:
+            w = F.pad(w, (1, 1, 1, 1))
+            w = (w[..., 1:, 1:] + w[..., :-1, 1:] + w[..., 1:, :-1] + w[..., :-1, :-1]) / 4.0
+        return w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_call(self.conv, x)
+        if self.transform_kernel or self.padding_mode == "circular":
+            kernel = self._kernel()
+            padding = self.conv.padding
+            if self.padding_mode == "circular":
+                ph, pw = kernel.shape[2] // 2, kernel.shape[3] // 2
+                x = F.pad(x.permute(0, 3, 1, 2), (pw, pw, ph, ph), mode="circular").permute(0, 2, 3, 1)
+                padding = "VALID"
+            out = self.conv.conv_with(x, kernel, padding)
+        else:
+            out = conv_call(self.conv, x)
+        if self.weight_scale is not None:
+            out = out * self.weight_scale
+        return out
 
 
 def interpolate(

@@ -38,8 +38,10 @@ class Linear(nn.Linear):
 
 
 class Conv(nn.Module):
-    """NHWC 2-D conv, OIHW weight. `padding` is "SAME" or JAX-style
-    ((top, bottom), (left, right))."""
+    """NHWC 2-D conv, OIHW weight ((out, in / groups, kh, kw)). `padding` is
+    "SAME", "VALID" or JAX-style ((top, bottom), (left, right));
+    `dilation` is the kernel's (`kernel_dilation`), `groups` flax's
+    `feature_group_count`."""
 
     def __init__(
         self,
@@ -50,33 +52,41 @@ class Conv(nn.Module):
         strides: Tuple[int, int] = (1, 1),
         padding: _Padding = "SAME",
         use_bias: bool = True,
+        dilation: Tuple[int, int] = (1, 1),
+        groups: int = 1,
     ) -> None:
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.strides = tuple(strides)
         self.padding = padding.upper() if isinstance(padding, str) else tuple(map(tuple, padding))
-        self.dilation = (1, 1)
-        self.groups = 1
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *kernel_size))
+        self.dilation = tuple(dilation)
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, *kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
         self._kernel_cache: Optional[Tuple[Any, torch.Tensor]] = None
 
-    def _pads(self, size: Tuple[int, int]) -> List[Tuple[int, int]]:
-        if self.padding == "SAME":
+    def _pads(self, size: Tuple[int, int], kernel: Tuple[int, int], padding: Any) -> List[Tuple[int, int]]:
+        if padding == "SAME":
             # XLA's "SAME": ceil(n / s) outputs, the padding they need split with the odd pixel at the end
             pads = []
-            for n, k, s in zip(size, self.weight.shape[2:], self.strides):
-                total = max((-(-n // s) - 1) * s + k - n, 0)
+            for n, k, s, d in zip(size, kernel, self.strides, self.dilation):
+                total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
                 pads.append((total // 2, total - total // 2))
             return pads
-        if self.padding == "VALID":
+        if padding == "VALID":
             return [(0, 0), (0, 0)]
-        return [tuple(p) for p in self.padding]
+        return [tuple(p) for p in padding]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = _promote(x, self.weight)
-        (pt, pb), (pl, pr) = self._pads(x.shape[1:3])
+        return self.conv_with(x, self.weight, self.padding)
+
+    def conv_with(self, x: torch.Tensor, weight: torch.Tensor, padding: Any) -> torch.Tensor:
+        """This conv's strides, dilation, groups and bias with another OIHW
+        `weight` and `padding` (`Conv2d`'s transformed kernel and wrapped
+        input)."""
+        dtype = _promote(x, weight)
+        (pt, pb), (pl, pr) = self._pads(x.shape[1:3], weight.shape[2:], padding)
         xc = x.to(dtype).permute(0, 3, 1, 2)
         if pt == pb and pl == pr:
             pad: Any = (pt, pl)
@@ -84,7 +94,8 @@ class Conv(nn.Module):
             xc = F.pad(xc, (pl, pr, pt, pb))
             pad = 0
         bias = None if self.bias is None else self.bias.to(dtype)
-        y = F.conv2d(xc, self.weight.to(dtype), bias, stride=self.strides, padding=pad)
+        y = F.conv2d(xc, weight.to(dtype), bias, stride=self.strides, padding=pad, dilation=self.dilation,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
     def kernel_weight(self) -> torch.Tensor:

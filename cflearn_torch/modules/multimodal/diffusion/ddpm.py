@@ -1,8 +1,7 @@
 """DDPM: noise schedule buffers, condition dispatch, the eps/v/x0
 parameterizations, the forward process, the DeepCache settings and the
-ControlNet injection (counterpart of
-`cflearn_tpu/modules/multimodal/diffusion/ddpm.py`; no style-reference
-hooks). The condition types: `cross_attn` (the UNet's context),
+ControlNet injection and the style-reference passes (counterpart of
+`cflearn_tpu/modules/multimodal/diffusion/ddpm.py`). The condition types: `cross_attn` (the UNet's context),
 `concat` (joined to the UNet's input on the channel axis), `hybrid` (a dict
 holding both) and `adm` (class labels, embedded into the time embedding).
 `condition_model` is a module or a registered name (`make_condition_model`,
@@ -222,6 +221,7 @@ class DDPM(nn.Module):
         control_hint: Optional[Any] = None,
         control_scales: Optional[List[Any]] = None,
         control_gates: Optional[Any] = None,
+        hooks: Optional[Any] = None,
         deep_cache: Optional[torch.Tensor] = None,
         return_cache: bool = False,
     ) -> Any:
@@ -237,7 +237,14 @@ class DDPM(nn.Module):
         for all), gated by its entry of `control_gates` (0 / 1 per net), and
         summed. A control net with fewer input channels than `net` (4 on a
         9-channel inpainting UNet) sees the leading channels. A shallow
-        DeepCache pass computes only the cut + 1 residuals it takes."""
+        DeepCache pass computes only the cut + 1 residuals it takes.
+
+        `hooks` (a `SpatialTransformerHooks`) reach the UNet's transformer
+        blocks. With a style reference (`hooks.style` and `hooks.ref_latent`)
+        the step first runs a full WRITE pass over the reference latent,
+        broadcast to the batch and q-sampled at `timesteps` with noise drawn
+        through `hooks._randn`, then the READ pass on `net` (with the
+        control residuals and DeepCache as given), and ends the passes."""
         context = labels = None
         if cond is not None:
             if self.condition_type == CONCAT_TYPE:
@@ -271,7 +278,16 @@ class DDPM(nn.Module):
                     ci = [c * control_gates[i] for c in ci]
                 control = ci if control is None else [a + b for a, b in zip(control, ci)]
         use_cache = deep_cache is not None or return_cache
-        return self.unet(
-            net, timesteps, context, labels, control=control, deep_cache=deep_cache,
-            cache_cut=self._effective_cache_cut() if use_cache else None, return_cache=return_cache,
-        )
+        kw = dict(control=control, hooks=hooks, deep_cache=deep_cache,
+                  cache_cut=self._effective_cache_cut() if use_cache else None, return_cache=return_cache)
+        if hooks is None or hooks.style is None or hooks.ref_latent is None:
+            return self.unet(net, timesteps, context, labels, **kw)
+        ref = hooks.ref_latent.to(net.dtype)
+        ref = ref.expand((net.shape[0],) + tuple(ref.shape[1:]))
+        ref_noisy = self.q_sample(ref, timesteps.long(), hooks._randn(ref.shape, ref))
+        hooks.begin("write")
+        self.unet(ref_noisy, timesteps, context, labels, hooks=hooks)
+        hooks.begin("read")
+        out = self.unet(net, timesteps, context, labels, **kw)
+        hooks.begin(None)
+        return out

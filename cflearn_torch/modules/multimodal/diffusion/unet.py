@@ -1,11 +1,13 @@
 """`UNetDiffuser` — the SD UNet and the LDM UNets — and `ControlNet`
 (counterpart of `cflearn_tpu/modules/multimodal/diffusion/unet.py`: the full
-pass with the ControlNet residuals added, DeepCache's shallow pass; no
-hooks). Channel-last NHWC."""
+pass with the ControlNet residuals added, DeepCache's shallow pass, the
+transformer hooks of style reference, and per-block checkpointing under a
+`jax.checkpoint_policies` name). Channel-last NHWC."""
 
 import math
 from typing import Any, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -14,8 +16,33 @@ from torch.utils.checkpoint import checkpoint
 from ...common import register_module, zero_module
 from ...core.attentions import MultiHeadSpatialAttention
 from ...core.convs import Downsample, ResidualBlockWithTimeEmbedding, UpsampleConv2d
-from ...core.mixed_stacks import SpatialTransformer
+from ...core.mixed_stacks import BasicTransformerBlock, SpatialTransformer, SpatialTransformerHooks
 from ...layers import Conv, Embed, GroupNorm, Linear
+from ....toolkit.misc import checkpoint_context_fn, resolve_checkpoint_policy
+
+
+def walk_transformer_blocks(unet: "UNetDiffuser") -> List[BasicTransformerBlock]:
+    """The `BasicTransformerBlock`s in the order a full forward calls them:
+    the input blocks', the mid block's, the output blocks'."""
+    blocks: List[BasicTransformerBlock] = []
+    for stage in list(unet.input_blocks) + [unet.mid] + list(getattr(unet, "output_blocks", [])):
+        for mod in stage.mods:
+            if isinstance(mod, SpatialTransformer):
+                blocks.extend(mod.blocks)
+    return blocks
+
+
+def style_reference_write_gates(unet: "UNetDiffuser", reference_weight: float) -> List[bool]:
+    """Per-block bank gates of style reference, in call order: the blocks
+    sorted by width, widest first (a stable sort, so equal widths keep their
+    call order), and the first `reference_weight` fraction of them on."""
+    blocks = walk_transformer_blocks(unet)
+    order = np.argsort(np.asarray([-b.norm1.weight.shape[0] for b in blocks]), kind="stable")
+    n = max(1, len(blocks))
+    gates = [False] * len(blocks)
+    for rank, call_idx in enumerate(order):
+        gates[call_idx] = reference_weight > rank / n
+    return gates
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, *, max_period: int = 10000) -> torch.Tensor:
@@ -39,13 +66,18 @@ class _InBlock(nn.Module):
         self.mods = nn.ModuleList(modules)
 
     def forward(
-        self, net: torch.Tensor, time_embed: torch.Tensor, context: Optional[torch.Tensor] = None
+        self,
+        net: torch.Tensor,
+        time_embed: torch.Tensor,
+        context: Optional[torch.Tensor] = None,
+        *,
+        hooks: Optional[SpatialTransformerHooks] = None,
     ) -> torch.Tensor:
         for mod in self.mods:
             if isinstance(mod, ResidualBlockWithTimeEmbedding):
                 net = mod(net, time_embed)
             elif isinstance(mod, SpatialTransformer):
-                net = mod(net, context)
+                net = mod(net, context, hooks=hooks)
             else:
                 net = mod(net)
         return net
@@ -65,7 +97,13 @@ class UNetDiffuser(nn.Module):
     embedding added to the time embedding (the `adm` condition).
     `with_output_blocks=False` builds the encoder half only (`conv_in`, the
     time embedding, the input blocks and the mid block): what a `ControlNet`
-    runs of its copy of the UNet."""
+    runs of its copy of the UNet.
+
+    `use_checkpoint`: True recomputes each input and output block in the
+    backward (the mid block is not checkpointed, as in the JAX module); a
+    `jax.checkpoint_policies` name keeps what that policy keeps
+    (`toolkit.misc.resolve_checkpoint_policy`) and recomputes the rest. An
+    unknown name raises `ValueError` when it is set."""
 
     def __init__(
         self,
@@ -91,11 +129,6 @@ class UNetDiffuser(nn.Module):
         with_output_blocks: bool = True,
     ) -> None:
         super().__init__()
-        if isinstance(use_checkpoint, str):
-            raise NotImplementedError(
-                f"use_checkpoint='{use_checkpoint}': the selective policies choose XLA residuals "
-                "and are not ported; pass True to recompute each block in the backward"
-            )
         self.use_checkpoint = use_checkpoint
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -173,6 +206,17 @@ class UNetDiffuser(nn.Module):
         self.conv_out = zero_module(Conv(ch, out_channels))
 
     @property
+    def use_checkpoint(self) -> Union[bool, str]:
+        return self._use_checkpoint
+
+    @use_checkpoint.setter
+    def use_checkpoint(self, value: Union[bool, str]) -> None:
+        # a policy name is checked now, not at the first step with a gradient
+        if isinstance(value, str):
+            resolve_checkpoint_policy(value)
+        self._use_checkpoint = value
+
+    @property
     def param_dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
 
@@ -181,13 +225,15 @@ class UNetDiffuser(nn.Module):
         emb = timestep_embedding(timesteps, self.start_channels).to(self.param_dtype)
         return self.time_fc2(F.silu(self.time_fc1(emb)))
 
-    def _run_block(self, block: nn.Module, *args: Any) -> torch.Tensor:
+    def _run_block(self, block: nn.Module, *args: Any, **kwargs: Any) -> torch.Tensor:
         """With `use_checkpoint`, an input / output block keeps only its
-        inputs and is computed again in the backward (the mid block is not
-        checkpointed, as in the JAX module)."""
+        inputs (and, under a policy name, the outputs the policy keeps) and
+        is computed again in the backward."""
         if self.use_checkpoint and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
-        return block(*args)
+            if isinstance(self.use_checkpoint, str):
+                kwargs["context_fn"] = checkpoint_context_fn(self.use_checkpoint)
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
 
     def forward(
         self,
@@ -197,6 +243,7 @@ class UNetDiffuser(nn.Module):
         labels: Optional[torch.Tensor] = None,
         *,
         control: Optional[List[torch.Tensor]] = None,
+        hooks: Optional[SpatialTransformerHooks] = None,
         deep_cache: Optional[torch.Tensor] = None,
         cache_cut: Optional[int] = None,
         return_cache: bool = False,
@@ -211,7 +258,8 @@ class UNetDiffuser(nn.Module):
         `control`: ControlNet residuals, one per skip (`conv_in` and each
         input block) and one for the mid block (last): the mid block's
         output and each skip get theirs added (a shallow pass takes the
-        first cut + 1)."""
+        first cut + 1). `hooks` reach every transformer block (style
+        reference's WRITE and READ passes)."""
         p_dtype = self.param_dtype
         net = net.to(p_dtype)
         if context is not None:
@@ -225,16 +273,16 @@ class UNetDiffuser(nn.Module):
         cache_out = None
         if shallow:
             for block in self.input_blocks[:cache_cut]:
-                net = self._run_block(block, net, time_embed, context)
+                net = self._run_block(block, net, time_embed, context, hooks=hooks)
                 hs.append(net)
             net = deep_cache.to(p_dtype)
             out_blocks = list(self.output_blocks)[-(cache_cut + 1):]
             cache_out = deep_cache
         else:
             for block in self.input_blocks:
-                net = self._run_block(block, net, time_embed, context)
+                net = self._run_block(block, net, time_embed, context, hooks=hooks)
                 hs.append(net)
-            net = self.mid(net, time_embed, context)
+            net = self.mid(net, time_embed, context, hooks=hooks)
             if control is not None:
                 net = net + control[-1]
             out_blocks = list(self.output_blocks)
@@ -245,7 +293,7 @@ class UNetDiffuser(nn.Module):
             skip = hs.pop()
             if control is not None:
                 skip = skip + control[len(hs)]
-            net = self._run_block(block, torch.cat([net, skip], dim=-1), time_embed, context)
+            net = self._run_block(block, torch.cat([net, skip], dim=-1), time_embed, context, hooks=hooks)
         out = self.conv_out(F.silu(self.norm_out(net)))
         return (out, cache_out) if return_cache else out
 

@@ -21,7 +21,9 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
   for the rest, or for any shape when a caller names it
   (`kernel="mma_sync"`).
 * `flash_attention_trainable` — the `torch.autograd.Function` over them
-  (the JAX package's custom VJP of the same name).
+  (the JAX package's custom VJP of the same name); its forward goes through
+  `flash_fwd_lse_op`, an operation of PyTorch's dispatcher that a
+  selective-checkpoint policy can keep.
 * `xla_attention` — what the JAX package leaves to XLA (masks, biases, short
   kv such as SD cross-attention at kv = 77); here
   `F.scaled_dot_product_attention`.
@@ -538,6 +540,19 @@ def flash_fwd_lse(
 flash_fwd_lse.launches = 0
 
 
+@torch.library.custom_op("cflearn_torch::flash_fwd_lse", mutates_args=())
+def flash_fwd_lse_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sm_scale: Optional[float]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_fwd_lse` as one operation of PyTorch's dispatcher. A
+    selective-checkpoint policy sees it as such and can keep its outputs
+    (`everything_saveable`), where a kernel launched from inside an
+    autograd function's forward would be invisible to it and so always
+    launched again in the backward. The gradient stays with
+    `FlashAttentionTrainable`."""
+    return flash_fwd_lse(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
 def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in f32, (B, H, Lq): a bandwidth pass that the
     JAX package also leaves outside its kernels."""
@@ -681,7 +696,9 @@ class FlashAttentionTrainable(torch.autograd.Function):
     """Differentiable flash attention: the kernels' forward and backward.
     When no input needs a gradient the forward is the inference kernel, as
     the JAX custom VJP's primal is. Otherwise it
-    runs `flash_fwd_lse` and saves q, k, v, o, lse; the backward runs the
+    runs `flash_fwd_lse` (through `flash_fwd_lse_op`, which a
+    selective-checkpoint policy can keep) and saves q, k, v, o, lse; the
+    backward runs the
     fused kernel, or the split pair when `FUSED_BWD` is false or
     `torch.are_deterministic_algorithms_enabled()`."""
 
@@ -689,7 +706,7 @@ class FlashAttentionTrainable(torch.autograd.Function):
     def forward(ctx, q, k, v, causal=False, sm_scale=None):  # type: ignore[override]
         if not any(ctx.needs_input_grad[:3]):
             return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
-        o, lse = flash_fwd_lse(q, k, v, causal=causal, sm_scale=sm_scale)
+        o, lse = flash_fwd_lse_op(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o

@@ -22,7 +22,9 @@ Counterpart of `cflearn_tpu/ops/group_norm.py`:
 * `FusedGroupNorm` / `fused_group_norm` — the differentiable entry, as the JAX
   package's `fused_group_norm`: the kernel forward, the backward recomputed
   through the plain version. The JAX package has no backward kernel, so the
-  port has none.
+  port has none. Its forward calls the kernel through `group_norm_silu_op`,
+  an operation of PyTorch's dispatcher that a selective-checkpoint policy
+  can keep.
 * `gn_call` / `module_call` — what the modules call.
 
 The JAX package keeps its kernel opt-in because XLA fuses GroupNorm into its
@@ -296,6 +298,17 @@ group_norm_silu.launches = 0
 _WRAPPER = group_norm_silu
 
 
+@torch.library.custom_op("cflearn_torch::group_norm_silu", mutates_args=())
+def group_norm_silu_op(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float, apply_silu: bool
+) -> torch.Tensor:
+    """`group_norm_silu` as one operation of PyTorch's dispatcher, so that a
+    selective-checkpoint policy can keep its output (`everything_saveable`)
+    instead of launching the kernel again in the backward. The gradient
+    stays with `FusedGroupNorm`."""
+    return group_norm_silu(x, weight, bias, num_groups=num_groups, eps=eps, apply_silu=apply_silu)
+
+
 class FusedGroupNorm(torch.autograd.Function):
     """Differentiable GroupNorm (+ SiLU): `group_norm_silu` forward; the
     backward recomputes the plain version on the saved inputs and takes its
@@ -305,7 +318,7 @@ class FusedGroupNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, num_groups, eps, apply_silu):  # type: ignore[override]
         ctx.save_for_backward(x, weight, bias)
         ctx.args = (num_groups, eps, apply_silu)
-        return group_norm_silu(x, weight, bias, num_groups=num_groups, eps=eps, apply_silu=apply_silu)
+        return group_norm_silu_op(x, weight, bias, num_groups, float(eps), apply_silu)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

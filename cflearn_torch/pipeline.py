@@ -21,7 +21,7 @@ off to `plateau`.
 """
 
 from functools import lru_cache
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -146,7 +146,7 @@ def finetune_unet(
     lr: float = 1e-5,
     optimizer_settings: Optional[Dict[str, Any]] = None,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-    use_checkpoint: bool = False,
+    use_checkpoint: Union[bool, str] = False,
     generator: Optional[torch.Generator] = None,
     device: Any = None,
 ) -> Dict[str, Any]:
@@ -160,7 +160,10 @@ def finetune_unet(
     model: the precomputed text embedding (B, 77, ctx); class ids for `adm`;
     images for `use_first_stage_as_condition`), or None. Each step draws t
     and the noise from `generator` (seed 0 when not given) and computes in
-    `compute_dtype` with gradients back to the f32 masters. The optimizer is
+    `compute_dtype` with gradients back to the f32 masters. `use_checkpoint`
+    goes to the UNet as it is: True recomputes each input and output block
+    in the backward, a `jax.checkpoint_policies` name keeps what that policy
+    keeps (an unknown name raises `ValueError`). The optimizer is
     AdamW at a constant `lr` (weight decay 1e-2), unless
     `optimizer_settings` ({"all": dict or `OptimizerPack`}, as the JAX
     `TrainerConfig.optimizer_settings`) names another optimizer, its config
@@ -174,7 +177,7 @@ def finetune_unet(
     device = resolve_device(device)
     wrapped = model if isinstance(model, DDPMModel) else DDPMModel(model)
     wrapped.to(device)
-    wrapped.m.unet.use_checkpoint = bool(use_checkpoint)
+    wrapped.m.unet.use_checkpoint = use_checkpoint
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     batch = {INPUT_KEY: _batch_value(inputs, device), "cond": _batch_value(cond, device)}

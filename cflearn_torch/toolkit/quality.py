@@ -6,15 +6,16 @@ is measured by its output's deviation from the lossless pipeline on the same
 weights, seed and prompt: latent-space error and the decoded images' PSNR /
 SSIM. CLIPScore (`clip_score`) measures images against their prompts in a
 CLIP embedding space; absolute scores need pretrained CLIP weights, which
-are not in the repository.
+are not in the repository. `make_txt2img_with_latents` is the txt2img that
+such measurements run.
 """
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 __all__ = ["psnr", "ssim", "latent_error", "clip_score_from_embeddings", "clip_score", "QualityReport",
-           "compare_outputs"]
+           "compare_outputs", "make_txt2img_with_latents"]
 
 
 def psnr(ref: np.ndarray, x: np.ndarray, *, data_range: float = 1.0) -> float:
@@ -151,3 +152,35 @@ def compare_outputs(
         image_ssim=ssim(ref_img, img),
         image_max_abs=float(np.max(np.abs(ref_img - img))),
     )
+
+
+def make_txt2img_with_latents(
+    model: Any,
+    *,
+    sampler: str = "ddim",
+    sampler_config: Optional[Dict[str, Any]] = None,
+    num_steps: int = 20,
+    guidance_scale: float = 7.5,
+) -> Callable[..., Tuple[Any, Any]]:
+    """txt2img that returns (latents, float images): the measurement version
+    of the serving pipeline (cond and uncond tokens through one text encode,
+    the sampler, the decode). `model` is an LDM / `StableDiffusion` whose
+    levers (ToMe, the `deepcache_*` attributes) are read at each call.
+    Returns `txt2img(tokens, uncond_tokens, z, generator=None)`; it runs
+    without a gradient, on the tensors' device."""
+    import torch
+
+    from ..modules.multimodal.diffusion.samplers import ISampler
+
+    config = dict(sampler_config or {})
+
+    @torch.no_grad()
+    def txt2img(tokens: Any, uncond_tokens: Any, z: Any, generator: Any = None) -> Tuple[Any, Any]:
+        cond, uncond = model.get_cond(torch.cat([tokens, uncond_tokens], dim=0)).chunk(2, dim=0)
+        s = ISampler.make(sampler, {"model": model, **config})
+        latents = s.sample(
+            z, cond=cond, uncond=uncond, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator
+        )
+        return latents, model.decode(latents)
+
+    return txt2img

@@ -163,12 +163,39 @@ Phases, in order; any failure exits non-zero:
    package routes none), img/s; `offload` frees the parameters' device
    memory, `restore` takes it back, and the output after them is the same
    bit for bit.
-15. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+15. checkpoint policies — the full-width UNet finetune step (phase 5's
+   inputs, batch 8) through `finetune_unet(use_checkpoint=...)` under False,
+   True and the `jax.checkpoint_policies` names `nothing_saveable`,
+   `dots_saveable`, `dots_with_no_batch_dims_saveable` and
+   `everything_saveable`: the first step's loss and gradients against the
+   unchecked step within phase 8's loss and global-norm gates; one warm-up
+   and three timed steps each, exact launches (each checkpointed block's
+   flash forward and GroupNorms twice, unless the policy keeps the kernels'
+   outputs: `everything_saveable`), ms per step and peak memory (printed);
+   the same at batch 16 for True, `dots_saveable` and False (printed; an
+   out-of-memory is reported).
+16. style reference and tiling — `DiffusionAPI.from_sd("v1")`, bf16, batch
+   1, 512px, DDIM 20 steps, CFG 7.5: `setup_hooks(style_reference_image=`
+   a seeded 512px uint8 image`)` then `txt2img` at fidelity 0.5 and
+   reference weight 1, then at weight 0.5 with a guidance interval (0.25,
+   0.75); `setup_hooks()` clearing it (phase 12's DDIM launches);
+   `switch_circular(True)` then `txt2img` (the decoder's three routed
+   upsample convs on `F.conv2d`), and `switch_circular(False)` giving back
+   the never-switched image bit for bit. Each path under the census, then
+   timed: exact launches (each step's WRITE and READ passes, the reference's
+   encode), UNet calls and batches, finite latents, ms per image. Every
+   distinct kernel call of the census, the three kv = 2q flash shapes of
+   the READ pass included, against its plain version with phase 2's
+   tolerances, timed alone beside SDPA with its bound; one READ-mode denoise
+   and one circular decode against the plain path within 1.5x its one-ulp
+   drift (phase 4's rule).
+17. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
-   path's, the VQ family's and the CLIP and ESRGAN readings on lines of
-   their own, the card's name and power limit, and last `{"ok": true,
+   path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies'
+   and the style and tiling readings on lines of their own, the card's name
+   and power limit, and last `{"ok": true,
    "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
 
@@ -1949,6 +1976,318 @@ def phase_clip_esrgan(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     return out
 
 
+# 15. the UNet finetune step under each checkpoint policy at full SD-1.5 width, batch 8, phase 5's inputs. A policy
+# that keeps no kernel output runs each checkpointed block's forward again in the backward: the input and output
+# blocks hold all 15 routed self-attentions and 55 of the 61 GroupNorms (two a res block, one a transformer: 22 in
+# the input blocks, 33 in the output blocks); the mid block (two res blocks and a transformer at 8x8, on the library
+# path) and norm_out are not checkpointed. `everything_saveable` keeps the kernels' outputs (dispatcher operations,
+# `flash_fwd_lse_op` and `group_norm_silu_op`), so nothing is launched again: as in the JAX package, where only
+# `everything_saveable` keeps a `pallas_call`'s outputs (`tests/test_torch_checkpoint_policies.py` counts the JAX
+# step's kernel calls under each policy)
+POLICIES = (False, True, "nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable",
+            "everything_saveable")
+POLICY_BIG_BATCH = 16  # where the JAX package's own sweep (`docs/remat_policy_sweep.json`) needed full remat
+POLICIES_BIG = (True, "dots_saveable", False)
+GN_CHECKPOINTED = 55
+
+
+def policy_launches(policy, steps: int) -> dict:
+    """The finetune step's launches under `policy`: each routed attention's forward with lse and each checkpointed
+    GroupNorm twice where the policy keeps no kernel output."""
+    again = policy not in (False, "everything_saveable")
+    return {"flash_fwd_lse": FLASH_PER_UNET * (2 if again else 1) * steps, "flash_bwd_fused": FLASH_PER_UNET * steps,
+            "group_norm": (GN_PER_UNET + (GN_CHECKPOINTED if again else 0)) * steps}
+
+
+def phase_checkpoint_policies(torch, cflearn_torch, A, Cv, Gn, build_unet) -> dict:
+    """`finetune_unet(use_checkpoint=...)` under each policy: the first step's loss and gradients against the
+    unchecked step within phase 8's loss and global-norm gates (AE_PARITY_FACTOR x the unchecked step's drift under
+    a one-ulp move of x0, up and down); then one warm-up and TRAIN_STEPS timed steps each, exact launches, ms per
+    step and peak memory; the same at batch 16 for three policies (printed; an out-of-memory is reported)."""
+    from cflearn_torch.models.cv.diffusion import INPUT_KEY, LOSS_KEY
+    from cflearn_torch.modules.core.convs import ResidualBlockWithTimeEmbedding
+    from cflearn_torch.modules.core.mixed_stacks import SpatialTransformer
+    from cflearn_torch.trainer import make_train_step
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"checkpoint policies: {msg}")
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x0 = torch.randn((TRAIN_BATCH, 64, 64, 4), generator=gen, device="cuda")  # phase 5's inputs
+    ctx = torch.randn((TRAIN_BATCH, 77, 768), generator=gen, device="cuda")
+    tmodel = build_unet()
+    unet = tmodel.m.unet
+    n_gn = sum(2 * isinstance(m, ResidualBlockWithTimeEmbedding) + isinstance(m, SpatialTransformer)
+               for block in list(unet.input_blocks) + list(unet.output_blocks) for m in block.modules())
+    check(n_gn == GN_CHECKPOINTED, f"{n_gn} GroupNorms in the checkpointed blocks")
+    out = {"parity": {}, "batch8": {}, "batch16": {}}
+
+    # the first step's gradients under each policy against the unchecked step's
+    step = make_train_step(tmodel, lr=1e-5, compute_dtype=torch.bfloat16)
+    t_fix = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device="cuda")
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    x0_b = x0.to(torch.bfloat16).float()
+
+    def fwd_bwd(policy, x=x0_b):
+        unet.use_checkpoint = policy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        loss = step.loss_and_grads({INPUT_KEY: x, "cond": ctx}, t=t_fix, noise=noise)[LOSS_KEY].item()
+        torch.cuda.synchronize()
+        # the forward + backward's peak above what was resident before it: the activations the policy keeps,
+        # the recomputation's and the gradients (no optimizer state: it is not stepped)
+        above[str(policy)] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        grads, step.grads = step.grads, {}
+        return loss, grads
+
+    above = {}
+    loss_0, grads_0 = fwd_bwd(False)
+    above_0 = above["False"]
+    up = bump_ulp(torch, x0_b)
+    drift_loss = drift_global = 0.0
+    for x in (up, x0_b - (up - x0_b)):
+        loss_u, grads_u = fwd_bwd(False, x)
+        drift_loss = max(drift_loss, abs(loss_u - loss_0))
+        drift_global = max(drift_global, grad_errors(grads_u, grads_0)["global_rel"])
+        del grads_u
+    tol_loss = max(AE_PARITY_FACTOR * drift_loss, 2.0**-10 * abs(loss_0))
+    print(f"policies: unchecked step loss {loss_0:.6f}; its drift under a one-ulp move of x0: loss {drift_loss:.3e}, "
+          f"global {drift_global:.3e} (tolerances {tol_loss:.3e} and {AE_PARITY_FACTOR * drift_global:.3e})")
+    for policy in POLICIES[1:]:
+        loss, grads = fwd_bwd(policy)
+        err = grad_errors(grads, grads_0)
+        del grads
+        print(f"policies[{policy}]: loss {loss:.6f} (off {abs(loss - loss_0):.3e}), gradients against the unchecked "
+              f"step {json.dumps(err)}; forward + backward peak {above[str(policy)]:.2f} GiB above the resident "
+              f"state (unchecked {above_0:.2f})")
+        check(abs(loss - loss_0) <= tol_loss, f"{policy}: the loss moved from the unchecked step's")
+        check(err["global_rel"] <= AE_PARITY_FACTOR * drift_global, f"{policy}: the gradients moved (global norm)")
+        out["parity"][str(policy)] = {"loss_err": abs(loss - loss_0), "global_rel": err["global_rel"],
+                                      "leaf_max_rel": err["leaf_max_rel"], "fwd_bwd_peak_gib": above[str(policy)]}
+    out["parity"]["False"] = {"fwd_bwd_peak_gib": above_0}
+    out["drift"] = {"loss": drift_loss, "global_rel": drift_global, "loss_tolerance": tol_loss}
+    unet.use_checkpoint = False
+    del step, grads_0
+    torch.cuda.empty_cache()
+
+    # one warm-up and TRAIN_STEPS timed steps under each policy
+    x16 = torch.randn((POLICY_BIG_BATCH, 64, 64, 4), generator=gen, device="cuda")
+    ctx16 = torch.randn((POLICY_BIG_BATCH, 77, 768), generator=gen, device="cuda")
+    for key, xb, cb, policies in (("batch8", x0, ctx, POLICIES), ("batch16", x16, ctx16, POLICIES_BIG)):
+        for policy in policies:
+            kw = dict(lr=1e-5, compute_dtype=torch.bfloat16, use_checkpoint=policy,
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+            oom = False
+            try:
+                cflearn_torch.finetune_unet(tmodel, xb, cb, num_steps=1, **kw)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches(A, Cv, Gn)
+                t0 = time.perf_counter()
+                result = cflearn_torch.finetune_unet(tmodel, xb, cb, num_steps=TRAIN_STEPS, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            except torch.cuda.OutOfMemoryError:
+                check(key == "batch16", f"{policy}: out of memory at batch {TRAIN_BATCH}")
+                oom = True
+            if oom:  # outside the handler, so that the failed step's tensors are freed
+                torch.cuda.empty_cache()
+                print(f"policies[{policy}] at batch {POLICY_BIG_BATCH}: out of memory")
+                out[key][str(policy)] = {"oom": True}
+                continue
+            launches = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            losses = result["losses"].tolist()
+            del result
+            step_ms = wall / TRAIN_STEPS * 1e3
+            print(f"policies[{policy}] at batch {xb.shape[0]}: {step_ms:.1f} ms per step, peak memory {peak:.2f} GiB, "
+                  f"launches {json.dumps(launches)}, losses {losses}")
+            check(all(math.isfinite(v) for v in losses), f"{policy}: losses {losses}")
+            check(launches == policy_launches(policy, TRAIN_STEPS),
+                  f"{policy}: launches {launches} != {policy_launches(policy, TRAIN_STEPS)}")
+            out[key][str(policy)] = {"step_ms": step_ms, "samples_per_s": xb.shape[0] / step_ms * 1e3,
+                                     "peak_memory_gib": peak, "launches_per_step": policy_launches(policy, 1)}
+    unet.use_checkpoint = False
+    del tmodel, unet
+    torch.cuda.empty_cache()
+    return out
+
+
+# 16. style reference and tiling through DiffusionAPI at full SD-1.5 v1 width, bf16, batch 1 (CFG batch 2), 512px,
+# DDIM 20 steps, CFG 7.5
+STYLE_STATES = {"style_fidelity": 0.5, "reference_weight": 1.0}
+STYLE_HALF = {"style_fidelity": 0.5, "reference_weight": 0.5}
+STYLE_INTERVAL = (0.25, 0.75)  # the second run's guidance interval: CFG on steps 5-14 of 20, batch 1 outside
+# the SD-1.5 UNet's transformer blocks in call order at 64x64 latents: (width, tokens)
+STYLE_BLOCKS = ([(320, 4096)] * 2 + [(640, 1024)] * 2 + [(1280, 256)] * 2 + [(1280, 64)] + [(1280, 256)] * 3
+                + [(640, 1024)] * 3 + [(320, 4096)] * 3)
+# tiling mode: circular padding moves every `Conv2d` to `F.conv2d`. Those are the UNet's three upsample convs (at
+# 16^2, 32^2 and 64^2: never routed) and the decoder's three (128^2 x 512, 256^2 x 512, 512^2 x 256: routed)
+CIRCULAR_UNROUTED = 3
+
+
+def style_flash_per_step(gates, fidelity: float, cfg: bool) -> int:
+    """Flash launches of one style-reference denoise step: the WRITE pass's self-attentions with L >= 256 (the mid
+    block's, L 64, is on the library path); then the READ pass's: a block with a bank attends over [self, bank]
+    (kv = 2 L), and on a CFG call with fidelity > 1e-5 plainly once more for the uncond rows' mix; a block without
+    one attends plainly."""
+    routed = [tokens >= 256 for _, tokens in STYLE_BLOCKS]
+    read = sum((2 if fidelity > 1e-5 and cfg else 1) if gate else 1 for r, gate in zip(routed, gates) if r)
+    return sum(routed) + read
+
+
+def phase_style_tiling(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """`DiffusionAPI.setup_hooks(style_reference_image=...)` then `txt2img` (fidelity 0.5, reference weight 1; then
+    weight 0.5 with a guidance interval), `setup_hooks()` clearing it, `switch_circular(True)` then `txt2img`, and
+    `switch_circular(False)` giving back, bit for bit, the image of the model that never switched. Each path under
+    the census, then timed: exact launches (`style_flash_per_step`, the encode of the reference each call), its
+    UNet calls and their batches, finite latents. Every distinct kernel call of the census against its plain version
+    and timed alone (`check_call`; the three kv = 2 q flash shapes in a table of their own); one READ-mode denoise
+    (WRITE then READ) and one circular decode through the kernels against the plain path within PARITY_FACTOR x its
+    one-ulp drift."""
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.modules.core.convs import Conv2d
+    from cflearn_torch.modules.core.mixed_stacks import SpatialTransformerHooks, StyleReferenceStates
+    from cflearn_torch.modules.multimodal.diffusion.unet import style_reference_write_gates, walk_transformer_blocks
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"style / tiling: {msg}")
+
+    out = {"paths": {}}
+    censuses = {}
+    t0 = time.perf_counter()
+    api = cflearn_torch.DiffusionAPI.from_sd("v1", device="cuda", seed=0)
+    redraw_zero_init(api.m, seed=1)
+    seen = watch(api.m)
+    print(f"style: DiffusionAPI.from_sd('v1') bf16 built in {time.perf_counter() - t0:.1f} s")
+    widths = [b.norm1.weight.shape[0] for b in walk_transformer_blocks(api.m.unet)]
+    check(widths == [w for w, _ in STYLE_BLOCKS], f"transformer widths {widths}")
+    n_conv2d = sum(isinstance(m, Conv2d) for m in api.m.modules())
+    n_unet_conv2d = sum(isinstance(m, Conv2d) for m in api.m.unet.modules())
+    check((n_conv2d, n_unet_conv2d) == (6, 3), f"{n_conv2d} Conv2d modules, {n_unet_conv2d} in the UNet")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    reference = torch.randint(0, 256, (512, 512, 3), generator=gen, device="cuda").to(torch.uint8).cpu().numpy()
+
+    def run_path(name, fn, batches, want):
+        result, out["paths"][name] = drive_path(torch, A, Cv, Gn, "style", name, fn, seen, want, censuses)
+        got = [shape[0] for shape in seen["unet"]]
+        check(got == batches, f"{name}: UNet calls at batches {got}, want {batches}")
+        check(result.shape == (1, 512, 512, 3) and result.dtype == np.uint8, f"{name}: image {result.shape}")
+        return result
+
+    def launches(flash_steps, unets, encodes, convs=DECODER_CONVS):
+        return {"flash_attention": flash_steps + 1 + ENCODER_FLASH * encodes, "conv3x3": convs + ENCODER_CONVS * encodes,
+                "group_norm": GN_PER_UNET * unets + GN_PER_DECODE + GN_PER_ENCODE * encodes}
+
+    txt2img = lambda: api.txt2img(PROMPT, num_steps=API_STEPS, seed=0)  # noqa: E731
+    # fidelity 0.5, every block banks
+    api.setup_hooks(style_reference_image=reference, style_reference_states=STYLE_STATES)
+    gates = style_reference_write_gates(api.m.unet, STYLE_STATES["reference_weight"])
+    check(all(gates), f"gates at weight 1: {gates}")
+    per_step = style_flash_per_step(gates, STYLE_STATES["style_fidelity"], True)
+    run_path("style", txt2img, [2] * 2 * API_STEPS, launches(per_step * API_STEPS, 2 * API_STEPS, 1))
+    # weight 0.5 (the widest half banks) and a guidance interval: outside the band batch 1, no uncond rows to mix
+    api.setup_hooks(style_reference_image=reference, style_reference_states=STYLE_HALF)
+    api.switch_sampler("ddim", guidance_interval=STYLE_INTERVAL)
+    half = style_reference_write_gates(api.m.unet, STYLE_HALF["reference_weight"])
+    s0, s1 = (int(round(f * API_STEPS)) for f in STYLE_INTERVAL)
+    band = s1 - s0
+    flash = (style_flash_per_step(half, STYLE_HALF["style_fidelity"], True) * band
+             + style_flash_per_step(half, STYLE_HALF["style_fidelity"], False) * (API_STEPS - band))
+    batches = [1] * 2 * s0 + [2] * 2 * band + [1] * 2 * (API_STEPS - s1)
+    run_path("style_half_interval", txt2img, batches, launches(flash, 2 * API_STEPS, 1))
+    api.switch_sampler("ddim")
+    # cleared: phase 12's DDIM path
+    api.setup_hooks()
+    plain_image = run_path("cleared", txt2img, [2] * API_STEPS, launches(FLASH_PER_UNET * API_STEPS, API_STEPS, 0))
+    # tiling: the decoder's three routed upsample convs go to F.conv2d
+    api.switch_circular(True)
+    run_path("circular", txt2img, [2] * API_STEPS,
+             launches(FLASH_PER_UNET * API_STEPS, API_STEPS, 0, DECODER_CONVS - CIRCULAR_UNROUTED))
+    circular_latents = seen["latents"][0]
+    api.switch_circular(False)
+    back = txt2img()
+    same = bool(np.array_equal(back, plain_image))
+    print(f"style: after switch_circular(False) the image equals the never-switched one bit for bit: {same}")
+    check(same, "switch_circular(False) does not give back the never-switched image")
+    ms = {name: out["paths"][name]["ms_per_image"] for name in out["paths"]}
+    out["style_over_plain"] = ms["style"] / ms["cleared"]
+    print(f"style: ms per image {json.dumps(ms)}; style reference over plain txt2img {out['style_over_plain']:.2f}x")
+
+    # parity: one READ-mode denoise (WRITE then READ) and one circular decode, kernels against the plain versions
+    with torch.no_grad():
+        tokens = api.tokenizer.tokenize([PROMPT, ""]).astype(np.int64)
+        cond = api.m.get_cond(torch.as_tensor(tokens, device="cuda"))
+        x2 = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").repeat(2, 1, 1, 1)
+        t2 = torch.full((2,), 981, dtype=torch.long, device="cuda")
+        ref_z = api.m.encode_first_stage(torch.as_tensor(api._norm_image(reference), device="cuda")).float()
+        mask = (torch.arange(2, device="cuda") >= 1)[:, None, None]
+
+        def styled(x):
+            hooks = SpatialTransformerHooks(
+                style=StyleReferenceStates(**STYLE_STATES), write_gates=gates, uncond_mask=mask, ref_latent=ref_z,
+                generator=torch.Generator(device="cuda").manual_seed(12),
+            )
+            return api.m.denoise(x, t2, cond, hooks=hooks).float()
+
+        eps_k = styled(x2)
+        with plain_kernels(A, Cv, Gn):
+            eps_p = styled(x2)
+            drift = rel_err(styled(bump_ulp(torch, x2)), eps_p)
+        rel = rel_err(eps_k, eps_p)
+        api.switch_circular(True)
+        lat = circular_latents.to(torch.bfloat16).float()
+        dec_k = api.m.decode(lat).float()
+        with plain_kernels(A, Cv, Gn):
+            dec_p = api.m.decode(lat).float()
+            drift_dec = rel_err(api.m.decode(bump_ulp(torch, lat)).float(), dec_p)
+        api.switch_circular(False)
+        rel_dec = rel_err(dec_k, dec_p)
+    print(f"style parity: READ-mode denoise, kernels vs plain max rel err {rel:.3e} (tolerance "
+          f"{PARITY_FACTOR * drift:.3e}: {PARITY_FACTOR} x the one-ulp drift {drift:.3e})")
+    print(f"style parity: circular decode, kernels vs plain max rel err {rel_dec:.3e} (tolerance "
+          f"{PARITY_FACTOR * drift_dec:.3e}: {PARITY_FACTOR} x the one-ulp drift {drift_dec:.3e})")
+    check(rel <= PARITY_FACTOR * drift, "the READ-mode denoise through the kernels disagrees with the plain path")
+    check(rel_dec <= PARITY_FACTOR * drift_dec, "the circular decode through the kernels disagrees with the plain path")
+    out["read_parity"] = {"kernels_vs_plain": rel, "drift": drift}
+    out["circular_decode_parity"] = {"kernels_vs_plain": rel_dec, "drift": drift_dec}
+    del api, cond, eps_k, eps_p, dec_k, dec_p
+    torch.cuda.empty_cache()
+
+    # every distinct kernel call of the census against its plain version, timed alone
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    calls = {}
+    for key in sorted({key for counts in censuses.values() for key in counts}, key=str):
+        calls[key] = check_call(torch, F, A, Cv, Gn, key, gen)
+    for path, counts in censuses.items():
+        out["paths"][path]["device_ms"] = {
+            k: sum(calls[key]["device_ms"] * n for key, n in counts.items() if key[0] == k)
+            for k in ("flash_attention", "conv3x3", "group_norm")}
+    worst = max(r["max_abs_err"] / r["tol"] for r in calls.values())
+    print(f"style: {len(calls)} distinct kernel calls within their tolerances (at most {worst:.2f} of it); device ms "
+          f"per image by kernel {json.dumps({p: v['device_ms'] for p, v in out['paths'].items()})}")
+    out["kv2q"] = []
+    for key, r in calls.items():
+        if r["kernel"] == "flash_attention" and r["shape"][3] == 2 * r["shape"][2]:
+            per_image = censuses["style"].get(key, 0)
+            row = dict(shape=r["shape"], device_ms=r["device_ms"], sdpa_device_ms=r["library_device_ms"],
+                       bound_ms=r["bound_ms"], bound_by=r["bound_by"], share=r["bound_ms"] / r["device_ms"],
+                       plain_ms=r["plain_ms"], max_abs_err=r["max_abs_err"], tol=r["tol"], launches_style=per_image)
+            out["kv2q"].append(row)
+            print(f"style kv = 2q: B{r['shape'][0]} H{r['shape'][1]} Lq{r['shape'][2]} Lk{r['shape'][3]} "
+                  f"d{r['shape'][4]}: device {r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}, {row['share']:.0%}), plain {r['plain_ms']:.3f}, "
+                  f"{per_image} a style image, err {r['max_abs_err']:.3e} (tolerance {r['tol']:.3e})")
+    # the READ pass's three shapes at the CFG batch (the guidance interval's batch-1 steps add their own)
+    at_cfg = sorted(tuple(r["shape"][2:]) for r in out["kv2q"] if r["shape"][0] == 2)
+    check(at_cfg == [(256, 512, 160), (1024, 2048, 80), (4096, 8192, 40)], f"kv = 2q flash shapes at batch 2: {at_cfg}")
+    out["calls"] = list(calls.values())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2263,16 +2602,12 @@ def main() -> int:
           f"peak memory {peak_gb:.2f} GiB, losses {losses}, launches {json.dumps(train_launches)}")
     if not all(math.isfinite(x) for x in losses):
         return fail(f"non-finite loss: {losses}")
-    # non-reentrant checkpointing runs the first forward with a graph too, so
-    # each routed attention takes the forward-with-lse kernel twice per step
+    # non-reentrant checkpointing runs the first forward with a graph too, so each routed attention
+    # takes the forward-with-lse kernel twice per step, and each checkpointed block's norms run twice
+    # (the forward's norms; their backward recomputes the plain version)
     want = {
-        "flash_fwd_lse": FLASH_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
-        "flash_bwd_fused": FLASH_PER_UNET * TRAIN_STEPS,
         "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_attention": 0, "conv3x3": 0, "conv3x3_wgrad": 0,
-        "conv3x3_w8a8": 0, "quantize_w8a8": 0, "conv3x3_fold": 0,
-        # the forward's norms; their backward recomputes the plain version. A checkpointed block's
-        # forward runs twice
-        "group_norm": GN_PER_UNET * TRAIN_STEPS * (2 if use_checkpoint else 1),
+        "conv3x3_w8a8": 0, "quantize_w8a8": 0, "conv3x3_fold": 0, **policy_launches(use_checkpoint, TRAIN_STEPS),
     }
     if train_launches != want:
         return fail(f"train launches {train_launches} != {want}")
@@ -2724,7 +3059,15 @@ def main() -> int:
     clip_out = phase_clip_esrgan(torch, np, F, cflearn_torch, A, Cv, Gn)
     print(f"clip and esrgan: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 15. summary
+    # 15. the finetune step under each checkpoint policy
+    policies_out = phase_checkpoint_policies(torch, cflearn_torch, A, Cv, Gn, build_unet)
+    print(f"checkpoint policies: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 16. style reference and tiling through DiffusionAPI
+    style_out = phase_style_tiling(torch, np, F, cflearn_torch, A, Cv, Gn)
+    print(f"style and tiling: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 17. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -2813,7 +3156,8 @@ def main() -> int:
                    "autoencoder": ae_out, "serve_configs": serve_out,
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
-                   "vq_api": vq_api_out, "clip_esrgan": clip_out,
+                   "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
+                   "style_tiling": style_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -2826,6 +3170,8 @@ def main() -> int:
     print(json.dumps({"diffusion_api": api_out}))
     print(json.dumps({"vq_api": {k: v for k, v in vq_api_out.items() if k != "calls"}}))
     print(json.dumps({"clip_esrgan": clip_out}))
+    print(json.dumps({"checkpoint_policies": policies_out}))
+    print(json.dumps({"style_tiling": {k: v for k, v in style_out.items() if k != "calls"}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

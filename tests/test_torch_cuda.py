@@ -632,3 +632,55 @@ def test_flash_kernel_at_the_clip_tower_shapes(cuda, d, dtype) -> None:
     assert A.flash_attention.launches == before + 1
     _close(out, A.flash_attention_plain(q, k, v), _rel(dtype))
     assert torch.equal(out, A.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 4096, 8192, 40), (2, 8, 1024, 2048, 80), (2, 8, 256, 512, 160)])
+def test_flash_kernel_at_the_style_reference_shapes(cuda, shape) -> None:
+    """Style reference's READ pass at SD-1.5 512px (CFG batch 2, 8 heads): the self-attention's keys are
+    [self, reference], kv = 2 q, as transposed views of the projections' (B, L, H, D) storage."""
+    q, k, v = _fwd_inputs(cuda, shape, torch.bfloat16, "blhd")
+    before = A.flash_attention.launches
+    out = A.flash_attention(q, k, v)
+    assert A.flash_attention.launches == before + 1
+    _close(out, A.flash_attention_plain(q, k, v), _rel(torch.bfloat16))
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable", "everything_saveable"])
+def test_kernel_ops_under_selective_checkpointing(cuda, policy) -> None:
+    """The kernels' forwards as operations of the dispatcher (`flash_fwd_lse_op`, `group_norm_silu_op`):
+    forward and backward against the plain versions, and launched again in the backward unless the
+    policy keeps their outputs (`everything_saveable`)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from cflearn_torch.toolkit.misc import checkpoint_context_fn
+
+    q, k, v, do = _train_inputs(cuda, (2, 4, 512, 512, 64), torch.bfloat16)
+    x = torch.randn((2, 16, 16, 256), generator=cuda, device="cuda").bfloat16()
+    w = torch.linspace(0.5, 1.5, 256, device="cuda")
+    b = torch.linspace(-0.2, 0.2, 256, device="cuda")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, x, w, b)]
+
+    def block(q_, k_, v_, x_, w_, b_):
+        y = G.FusedGroupNorm.apply(x_, w_, b_, 32, 1e-6, True)
+        return A.sdp_attn(q_, k_, v_), y
+
+    counts = (A.flash_fwd_lse.launches, G.group_norm_silu.launches)
+    o, y = checkpoint(block, *leaves, use_reentrant=False, context_fn=checkpoint_context_fn(policy))
+    grads = torch.autograd.grad((o, y), leaves, (do, torch.ones_like(y)))
+    again = 1 if policy == "everything_saveable" else 2
+    assert (A.flash_fwd_lse.launches - counts[0], G.group_norm_silu.launches - counts[1]) == (again, again)
+    # the operations alone, against the plain versions
+    o_op, lse_op = A.flash_fwd_lse_op(q, k, v, False, None)
+    o_ref, lse_ref = A.flash_fwd_with_lse_plain(q, k, v)
+    _close(o_op, o_ref, _rel(torch.bfloat16))
+    torch.testing.assert_close(lse_op, lse_ref, atol=1e-3, rtol=0)
+    _close(G.group_norm_silu_op(x, w, b, 32, 1e-6, True), G.group_norm_silu_plain(x, w, b, num_groups=32,
+                                                                                  apply_silu=True), 2.0**-6)
+    _close(o, o_ref, _rel(torch.bfloat16))
+    for got, r in zip(grads[:3], A.flash_bwd_plain(q, k, v, o_ref, lse_ref, do)):
+        _close(got, r, _rel(torch.bfloat16))
+    xr, wr, br = (t.detach().float().requires_grad_() for t in (x, w, b))
+    ref = torch.autograd.grad(G.group_norm_silu_plain(xr, wr, br, num_groups=32, apply_silu=True), (xr, wr, br),
+                              torch.ones_like(y).float())
+    for got, r in zip(grads[3:], ref):
+        _close(got.float(), r, 2.0**-6)

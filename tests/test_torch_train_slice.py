@@ -393,8 +393,13 @@ def test_train_step_clips_by_the_global_norm(slice_pair) -> None:
 
 
 def test_checkpoint_policy_strings_are_not_ported() -> None:
-    with pytest.raises(NotImplementedError, match="use_checkpoint"):
-        cflearn_torch.build(TDDPM, device="meta", unet_config=dict(UNET, use_checkpoint="dots_saveable"))
+    """The policy names are ported now (`test_torch_checkpoint_policies.py`
+    holds their steps against the JAX package's): a name builds, a name that
+    is not a policy raises as in the JAX package."""
+    tm = cflearn_torch.build(TDDPM, device="meta", unet_config=dict(UNET, use_checkpoint="dots_saveable"))
+    assert tm.unet.use_checkpoint == "dots_saveable"
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        cflearn_torch.build(TDDPM, device="meta", unet_config=dict(UNET, use_checkpoint="dots"))
 
 
 def test_params_filter_and_post_step_update() -> None:
