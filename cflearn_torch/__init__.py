@@ -16,7 +16,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .api import APIPool, CLIPExtractor, ControlledDiffusionAPI, DiffusionAPI, IAPI, TranslatorAPI, Weights  # noqa: E402
 from .device import resolve_device  # noqa: E402
-from .models.cv.ae import AEModel, build_ae  # noqa: E402
+from .models import CommonDLModel, DDPMModel, DLEnsembleModel  # noqa: E402
+from .models.cv.ae import AEModel, AEVQModel, build_ae  # noqa: E402
 from .modules.cv.classifier import RRDBNet  # noqa: E402
 from .modules.multimodal.clip import CLIP, IPerceptor  # noqa: E402
 from .modules.multimodal.diffusion.ddpm import DDPM  # noqa: E402
@@ -25,6 +26,7 @@ from .modules.multimodal.diffusion.ldm import (  # noqa: E402
 )
 from .modules.multimodal.diffusion.unet import ControlNet  # noqa: E402
 from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
+from .schema import DLConfig, IDLModel, ILoss, TrainStep  # noqa: E402
 from .pipeline import CONFIGS, configure, finetune_unet, train_autoencoder, txt2img  # noqa: E402
 from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs  # noqa: E402
 from . import zoo  # noqa: E402
@@ -34,7 +36,8 @@ from .zoo import (  # noqa: E402
 )
 
 __all__ = [
-    "AEModel", "APIPool", "CLIP", "CLIPExtractor", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI",
+    "AEModel", "AEVQModel", "APIPool", "CommonDLModel", "DDPMModel", "DLConfig", "DLEnsembleModel", "IDLModel",
+    "ILoss", "TrainStep", "CLIP", "CLIPExtractor", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI",
     "DDPM", "DiffusionAPI", "IAPI", "IPerceptor", "LDM", "QualityReport", "RRDBNet", "StableDiffusion",
     "StableDiffusionInpainting", "TranslatorAPI", "Weights", "ae_kl_f4", "ae_kl_f8", "ae_kl_f16", "ae_vq_f4",
     "ae_vq_f4_no_attn", "ae_vq_f8", "build", "build_ae", "build_sd", "clip", "clip_large", "clip_score",

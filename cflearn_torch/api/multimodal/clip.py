@@ -27,7 +27,7 @@ class CLIPExtractor(IAPI):
             if getattr(m, "context_length", 77) == 512:
                 raise NotImplementedError(
                     "ChineseCLIP (a 512-token BERT text tower and its tokenizer) is not ported yet "
-                    "(ROADMAP.md, Queue 1 item 9)"
+                    "(ROADMAP.md, Queue 1 item 6)"
                 )
             tokenizer = CLIPTokenizer()
         super().__init__(m, use_bf16=use_bf16, device=device)

@@ -863,22 +863,18 @@ class DiffusionAPI:
         seed: int = 0,
         **kwargs: Any,
     ) -> "DiffusionAPI":
-        """SD with seeded random weights, built in bf16 (`use_bf16`) or f32
-        on `device` (the CUDA card unless the caller asks for another).
-        Versions ending in `_inpainting` build `StableDiffusionInpainting`;
-        the community tags ("v1.5", "anime*", "dreamlike*") are the v1
-        architecture. Pretrained weights are not in the repository and are
-        never downloaded."""
-        from ...modules.multimodal.diffusion.ldm import StableDiffusion, StableDiffusionInpainting, build
+        """SD of `version` through the zoo's `load_sd`, with seeded random
+        weights, built in bf16 (`use_bf16`) or f32 on `device` (the CUDA
+        card unless the caller asks for another). Versions ending in
+        `_inpainting` build `StableDiffusionInpainting`; the community tags
+        ("v1.5", "anime*", "dreamlike*") are the v1 architecture; "v2_v" is
+        the v-prediction model. Pretrained weights are not in the repository
+        and are never downloaded."""
+        from ...zoo.common import load_sd
 
-        if pretrained:
-            raise ValueError("pretrained SD weights are not in the repository and are never downloaded")
-        arch = "v1" if version.startswith(("anime", "dreamlike")) or version == "v1.5" else version
-        inpainting = arch.endswith("_inpainting")
-        m = build(
-            StableDiffusionInpainting if inpainting else StableDiffusion, device=resolve_device(device),
+        m = load_sd(
+            version, pretrained=pretrained, device=resolve_device(device),
             dtype=torch.bfloat16 if use_bf16 else torch.float32, seed=seed,
-            version=arch.replace("_inpainting", ""),
         )
         return cls(m, use_bf16=use_bf16, device=device, **kwargs)
 

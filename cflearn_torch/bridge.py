@@ -43,6 +43,14 @@ carries the JAX gradients or updated parameters (flattened to the same
 dotted paths) into the port's names and layouts, in f32, so that a test can
 compare them leaf by leaf. `names` restricts the port side to the parameters
 that tree covers (the trained ones); a leaf outside it still raises.
+
+A JAX `IDLModel.state_dict()` (every `nnx.Variable` of the model by
+"/"-joined path, each ending in "/value") goes across by
+`state_dict_from_jax`: parameters as above, an `EMA`'s shadows into the
+port's shadow buffers (in the port's layout), the other variables into the
+buffers of the same paths. The noise schedule's leaves are left out: the
+port recomputes them; so are the `nnx.Rngs` streams (a key and a count
+under each `rngs.<stream>`): the port's draws come from `torch.Generator`s.
 """
 
 from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
@@ -208,4 +216,53 @@ def lora_deltas_from_nnx(
         out[lora_path_to_port(path)] = tuple(
             torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32).T)) for a in (down, up)
         )
+    return out
+
+
+# the JAX DDPM's noise-schedule variables, which the port computes from the schedule's spec
+SCHEDULE_LEAVES = frozenset((
+    "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+    "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+    "posterior_log_variance_clipped", "posterior_mean_coef1", "posterior_mean_coef2", "lvlb_weights",
+))
+
+
+def state_dict_from_jax(npd: Mapping[str, np.ndarray], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX `IDLModel.state_dict()` -> a state dict of `module` (the port's
+    counterpart): parameters through `tree_from_nnx` (strict), EMA shadows
+    (`.../shadow/<path>`) into `shadow__<port name>` buffers, other leaves
+    into the persistent buffers of the same paths; the random streams, the
+    noise schedule's leaves and the port's own non-persistent buffers left
+    out. Any other leaf raises."""
+    leaves = {}
+    for key, value in npd.items():
+        path = key[: -len("/value")] if key.endswith("/value") else key
+        if "/rngs/" in f"/{path}":
+            continue
+        leaves[path.replace("/", ".")] = np.asarray(value)
+    params = set(name for name, _ in module.named_parameters())
+    buffers = dict(module.named_buffers())
+    persistent = set(module.state_dict())
+    out: Dict[str, torch.Tensor] = {}
+    param_leaves, errors = {}, []
+    for path, value in leaves.items():
+        prefix, shadow, inner = path.partition(".shadow.") if ".shadow." in path else ("", "", path)
+        if shadow:
+            name, perm = port_name(inner, value.ndim)
+            target = f"{prefix}.shadow__{name.replace('.', '__')}"
+            if target not in buffers:
+                errors.append(f"EMA leaf {path}: no buffer {target}")
+                continue
+            out[target] = torch.from_numpy(np.array(np.transpose(value, perm) if perm else value))
+        elif port_name(path, value.ndim)[0] in params or path in params:
+            param_leaves[path] = value
+        elif path in persistent:
+            out[path] = torch.from_numpy(np.array(value))
+        elif path.rpartition(".")[2] in SCHEDULE_LEAVES or path in buffers:
+            continue
+        else:
+            errors.append(f"JAX leaf {path}: no port parameter or buffer")
+    if errors:
+        raise ValueError(f"{len(errors)} bridge errors, e.g.\n" + "\n".join(errors[:10]))
+    out.update(tree_from_nnx(param_leaves, module))
     return out

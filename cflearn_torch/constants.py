@@ -2,5 +2,7 @@
 that it uses)."""
 
 INPUT_KEY = "input"
-LOSS_KEY = "loss"
+LABEL_KEY = "labels"
 PREDICTIONS_KEY = "predictions"
+LOSS_KEY = "loss"
+AUX_LOSS_KEY = "aux_loss"

@@ -18,23 +18,28 @@ discriminator runs in eval mode for it (its BatchNorm statistics untouched).
 LPIPS (`use_perceptual`, on by default as in the JAX package) is frozen: the
 `core` scope does not train it. Its pretrained weights are not in the
 repository, so the model takes random ones with the JAX package's warning.
-The schema classes (`IDLModel`, `TrainStep`, `DLConfig`) are not ported: the
-class, method and option names are kept for them.
+
+`AEModel` and `AEVQModel` are the `IDLModel`s registered as "ae_kl" and
+"ae_vq": `IDLModel.from_config(DLConfig(model="ae_kl", module_config=...))`
+builds them with seeded parameters (`build_ae` is that call);
+`AEModel(module_config)` constructs the modules with their own initial
+parameters.
 """
 
 import math
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
-from ...device import resolve_device
 from ...losses.lpips import LPIPS
-from ...modules.common import cast_parameters, init_parameters
+from ...modules.common import init_parameters
 from ...modules.cv.ae import AutoEncoderKL, AutoEncoderVQ  # noqa: F401  (register the generators)
 from ...modules.cv.common import discriminators, generators
 from ...modules.cv.gan import NLayerDiscriminator  # noqa: F401  (registers "basic")
+from ...schema.config import DLConfig
+from ...schema.model import IDLModel, TrainStep
 from .diffusion import INPUT_KEY, LOSS_KEY, PREDICTIONS_KEY
 from .gan import gan_loss
 
@@ -46,10 +51,7 @@ def _g_loss(logits: Any) -> torch.Tensor:
     return -logits.mean()
 
 
-class AEGeneratorStep:
-    scope = "core"
-    requires_grad_in_forward = True
-
+class AEGeneratorStep(TrainStep):
     def __init__(
         self,
         *,
@@ -60,20 +62,15 @@ class AEGeneratorStep:
         d_loss: str = "hinge",
         use_adaptive_weight: bool = False,
     ) -> None:
+        super().__init__("core")
         self.kl_weight = kl_weight
         self.perceptual_weight = perceptual_weight
         self.d_weight = d_weight
         self.d_factor = d_factor
         self.d_loss = d_loss
         self.use_adaptive_weight = use_adaptive_weight
-        # scope -> whether that scope's step runs in this train step; set by
-        # the trainer before every step
-        self.step_actives: Dict[str, bool] = {}
         # the adversarial weight of the last loss (detached), with use_adaptive_weight
         self.adaptive_weight: Optional[torch.Tensor] = None
-
-    def should_skip(self, m: "AEModel", state: Any) -> bool:
-        return False
 
     def loss_fn(
         self, m: "AEModel", batch: Dict[str, Any], forward_results: Dict[str, Any], **kwargs: Any
@@ -135,14 +132,11 @@ class AEGeneratorStep:
         return self.adaptive_weight
 
 
-class AEDiscriminatorStep:
-    scope = "discriminator"
-    requires_grad_in_forward = False
-
+class AEDiscriminatorStep(TrainStep):
     def __init__(self, *, d_factor: float = 1.0, d_loss: str = "hinge") -> None:
+        super().__init__("discriminator", requires_new_forward=True, requires_grad_in_forward=False)
         self.d_factor = d_factor
         self.d_loss = d_loss
-        self.step_actives: Dict[str, bool] = {}
 
     def should_skip(self, m: "AEModel", state: Any) -> bool:
         # the adversarial game starts at `d_loss_start_step`
@@ -159,7 +153,8 @@ class AEDiscriminatorStep:
         return {LOSS_KEY: d_loss, "d": d_loss}
 
 
-class AEModel(nn.Module):
+@IDLModel.register("ae_kl")
+class AEModel(IDLModel):
     """`ae_kl` with its PatchGAN discriminator and LPIPS. `module_config` is
     the generator's config plus the training options the JAX model pops
     from it (`use_discriminator`, `use_perceptual`, `kl_weight`,
@@ -168,9 +163,28 @@ class AEModel(nn.Module):
 
     module_name = "ae_kl"
 
-    def __init__(self, module_config: Optional[Dict[str, Any]] = None) -> None:
-        super().__init__()
-        module_config = dict(module_config or {})
+    def __init__(self, config: Union[DLConfig, Dict[str, Any], None] = None) -> None:
+        if isinstance(config, DLConfig):  # `from_config` builds it
+            super().__init__(config)
+            return
+        super().__init__(DLConfig(model=self.__identifier__, module_name=self.module_name, module_config=config))
+        self._construct(self.config)
+
+    def build(self, config: DLConfig) -> None:
+        """The modules, then every parameter drawn from the `params`
+        generator (`init_parameters`), `log_var` keeping its initial value."""
+        rngs = self.make_rngs()
+        self._construct(config)
+        if self.build_device.type == "meta":
+            return
+        log_var = None if self.log_var is None else self.log_var.detach().clone()
+        init_parameters(self, generator=rngs["params"])
+        if log_var is not None:
+            with torch.no_grad():
+                self.log_var.copy_(log_var)
+
+    def _construct(self, config: DLConfig) -> None:
+        module_config = dict(config.module_config or {})
         use_discriminator = module_config.pop("use_discriminator", True)
         use_perceptual = module_config.pop("use_perceptual", True)
         self.kl_weight = module_config.pop("kl_weight", 1.0e-6)
@@ -182,7 +196,7 @@ class AEModel(nn.Module):
         self.use_adaptive_weight = module_config.pop("use_adaptive_weight", False)
         log_var_init = module_config.pop("log_var_init", None)
         self.log_var = None if log_var_init is None else nn.Parameter(torch.tensor(float(log_var_init)))
-        self.m = generators.build(self.module_name, **module_config)
+        self.m = generators.build(config.module_name or "ae_kl", **module_config)
         if use_discriminator:
             # cap the PatchGAN depth by the image size: each layer halves the
             # map, and a zero-sized output turns the hinge means into NaN
@@ -221,21 +235,24 @@ class AEModel(nn.Module):
     def run(self, batch: Dict[str, Any], *, training: bool = False, **kwargs: Any) -> Dict[str, Any]:
         """The forward of a step: the autoencoder on the batch's input.
         `kwargs` (`sample`, `generator`, `noise`) reach `AutoEncoderKL.forward`."""
-        self.train(training)
+        self.set_mode(training)
         return self.m(batch[INPUT_KEY], **kwargs)
 
-    def post_step_update(self) -> None:
-        pass
+    @property
+    def all_modules(self) -> List[nn.Module]:
+        return [m for m in (self.m, self.discriminator, self.perceptual) if m is not None]
 
 
+@IDLModel.register("ae_vq")
 class AEVQModel(AEModel):
     """`ae_vq`: the VQ autoencoder, its `vq` loss term (codebook + 0.25 x
     commitment) in place of the KL."""
 
     module_name = "ae_vq"
 
-
-ae_models = {"ae_kl": AEModel, "ae_vq": AEVQModel}
+    def build(self, config: DLConfig) -> None:
+        config.module_name = config.module_name or "ae_vq"
+        super().build(config)
 
 
 def build_ae(
@@ -245,15 +262,8 @@ def build_ae(
     """Entry point: an `AEModel` ("ae_kl") or `AEVQModel` ("ae_vq") with
     seeded random parameters in `dtype` (buffers: BatchNorm's running
     statistics and LPIPS's constants stay f32) on `device`: CUDA unless the
-    caller asks for another device."""
-    if model not in ae_models:
-        raise ValueError(f"autoencoder model '{model}' is not one of {sorted(ae_models)}")
-    device = resolve_device(device)
-    with torch.device(device):
-        ae = ae_models[model](module_config)
-    log_var = None if ae.log_var is None else ae.log_var.detach().clone()
-    init_parameters(ae, seed)
-    if log_var is not None:
-        with torch.no_grad():
-            ae.log_var.copy_(log_var)
-    return cast_parameters(ae, dtype)
+    caller asks for another device. `IDLModel.from_config` of that model."""
+    if model not in ("ae_kl", "ae_vq"):
+        raise ValueError(f"autoencoder model '{model}' is not one of ['ae_kl', 'ae_vq']")
+    config = DLConfig(model=model, module_name=model, module_config=dict(module_config or {}), seed=seed)
+    return IDLModel.from_config(config, device=device, dtype=dtype)

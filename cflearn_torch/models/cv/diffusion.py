@@ -9,22 +9,30 @@ for an LDM with a first stage, images, which the frozen first stage encodes
 to its scaled latents first, without a gradient (the JAX `stop_gradient`:
 the encoder's activations stay off the autograd tape).
 
+`DDPMModel` is the `IDLModel` registered as "ddpm": `IDLModel.from_config(
+DLConfig(model="ddpm", module_name="sd", module_config={...}))` builds the
+registered module from `module_config` (its `ema_decay` entry adds the EMA)
+and takes the loss weights from `loss_config`; `DDPMModel(module)` wraps a
+module built already.
+
 The JAX package draws t and the noise from the model's `nnx.Rngs`; here the
-draws take an explicit `torch.Generator`, or the caller passes `t` and
-`noise`, so that a test can feed both packages the same draws. The schema
-classes (`IDLModel`, `TrainStep`, `DLConfig`) are not ported yet: the class
-and method names are kept for them.
+draws take an explicit `torch.Generator` (by default the model's `default`
+generator, which `from_config` seeds, else PyTorch's global one), or the
+caller passes `t` and `noise`, so that a test can feed both packages the
+same draws.
 """
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from ...constants import INPUT_KEY, LOSS_KEY, PREDICTIONS_KEY
-from ...modules.common import EMA
+from ...modules.common import EMA, build_module
 from ...modules.multimodal.diffusion.ddpm import DDPM
 from ...modules.multimodal.diffusion.ldm import LDM
+from ...schema.config import DLConfig
+from ...schema.model import IDLModel, TrainStep
 
 
 def _to_diffusion_space(ddpm: DDPM, x0: torch.Tensor) -> torch.Tensor:
@@ -36,7 +44,7 @@ def _to_diffusion_space(ddpm: DDPM, x0: torch.Tensor) -> torch.Tensor:
     return x0
 
 
-class DDPMStep:
+class DDPMStep(TrainStep):
     """p-losses: per-sample simple loss reweighted by the (optionally
     learned) per-timestep log-variance, plus an optional VLB term
     (`original_elbo_weight`)."""
@@ -45,9 +53,6 @@ class DDPMStep:
     original_elbo_weight: float = 0.0
     # the loss draws its own t and noise and reads no forward results
     uses_forward_results = False
-
-    def __init__(self, scope: str = "all") -> None:
-        self.scope = scope
 
     def loss_fn(
         self,
@@ -62,6 +67,8 @@ class DDPMStep:
         ddpm: DDPM = m.m
         x0 = _to_diffusion_space(ddpm, batch[INPUT_KEY])
         b = x0.shape[0]
+        if generator is None:
+            generator = getattr(m, "rngs", {}).get("default")
         if t is None:
             t = torch.randint(0, ddpm.num_timesteps, (b,), generator=generator, device=x0.device)
         if noise is None:
@@ -93,18 +100,38 @@ class DDPMStep:
         return losses
 
 
-class DDPMModel(nn.Module):
-    """DDPM wrapper with optional EMA."""
+@IDLModel.register("ddpm")
+class DDPMModel(IDLModel):
+    """A DDPM-family module with an optional EMA of its parameters."""
 
     def __init__(
         self,
-        m: DDPM,
+        m: Union[DDPM, DLConfig, None] = None,
         *,
         ema_decay: Optional[float] = None,
         l_simple_weight: float = 1.0,
         original_elbo_weight: float = 0.0,
     ) -> None:
-        super().__init__()
+        if m is None or isinstance(m, DLConfig):  # `from_config` builds it
+            super().__init__(m)
+            return
+        super().__init__(DLConfig(model="ddpm"))
+        self._setup(m, ema_decay, l_simple_weight, original_elbo_weight)
+
+    def build(self, config: DLConfig) -> None:
+        self.rngs = self.make_rngs()
+        module_config = dict(config.module_config or {})
+        ema_decay = module_config.pop("ema_decay", None)
+        m = build_module(
+            config.module_name or "ddpm", config=module_config, device=self.build_device,
+            generator=self.rngs["params"],
+        )
+        loss_config = dict(config.loss_config or {})
+        self._setup(
+            m, ema_decay, loss_config.get("l_simple_weight", 1.0), loss_config.get("original_elbo_weight", 0.0)
+        )
+
+    def _setup(self, m: DDPM, ema_decay: Optional[float], l_simple_weight: float, original_elbo_weight: float) -> None:
         self.m = m
         self._l_simple_weight = float(l_simple_weight)
         self._original_elbo_weight = float(original_elbo_weight)
@@ -144,12 +171,14 @@ class DDPMModel(nn.Module):
         """The forward for monitoring: one denoise of the input noised to
         t = num_timesteps // 2 (noise from `generator`, or given). The p-loss
         does not read it."""
-        self.train(training)
+        self.set_mode(training)
         ddpm: DDPM = self.m
         x0 = _to_diffusion_space(ddpm, batch[INPUT_KEY])
         t = torch.full((x0.shape[0],), ddpm.num_timesteps // 2, dtype=torch.long, device=x0.device)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+            noise = torch.randn(
+                x0.shape, generator=generator or self.rngs.get("default"), device=x0.device, dtype=x0.dtype
+            )
         x_t = ddpm.q_sample(x0, t, noise)
         cond = batch.get("cond")
         if cond is not None:
@@ -159,3 +188,7 @@ class DDPMModel(nn.Module):
     def post_step_update(self) -> None:
         if self.ema is not None:
             self.ema.update(self.m)
+
+    @property
+    def all_modules(self) -> List[nn.Module]:
+        return [self.m] if self.ema is None else [self.m, self.ema]

@@ -1,13 +1,15 @@
 """Registry and shared helpers (counterpart of `cflearn_tpu/modules/common.py`).
 
-A minimal copy: a name -> class registry with prefixed views, `zero_module`,
-the seeded initialisers and `EMA`.
+A minimal copy: a name -> class registry with prefixed views,
+`build_module`, `zero_module`, the seeded initialisers and `EMA`.
 """
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn as nn
+
+from ..device import resolve_device
 
 module_registry: Dict[str, type] = {}
 
@@ -20,6 +22,36 @@ def register_module(name: str, *, allow_duplicate: bool = False) -> Callable[[ty
         return cls
 
     return wrap
+
+
+def build_module(
+    name: Union[str, type],
+    *,
+    config: Optional[Dict[str, Any]] = None,
+    device: Any = None,
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    generator: Optional[torch.Generator] = None,
+    **kwargs: Any,
+) -> nn.Module:
+    """A registered module (by name, or its class) built from `config` and
+    `kwargs`: constructed on "meta", materialised on `device` (CUDA unless
+    the caller asks for another device), its parameters drawn by
+    `init_parameters` from `generator` (one seeded with `seed` when not
+    given) and cast to `dtype`. A module with a noise schedule recomputes
+    its buffers there. On "meta" nothing is allocated or drawn."""
+    cls = name if isinstance(name, type) else module_registry.get(name)
+    if cls is None:
+        raise ValueError(f"module '{name}' is not registered (available: {sorted(module_registry)})")
+    device = resolve_device(device)
+    with torch.device("meta"):
+        module = cls(**dict(config or {}, **kwargs))
+    if device.type != "meta":
+        module = module.to_empty(device=device)
+        init_parameters(module, seed, generator=generator)
+        if hasattr(module, "_rebuild_schedule"):
+            module._rebuild_schedule()
+    return cast_parameters(module, dtype)
 
 
 class PrefixModules:
@@ -68,9 +100,10 @@ def cast_parameters(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
-def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
+def init_parameters(module: nn.Module, seed: int = 0, *, generator: Optional[torch.Generator] = None) -> nn.Module:
     """Seeded random init of every parameter, drawn on the parameter's own
-    device by one explicit `torch.Generator`, in `named_parameters` order:
+    device by one explicit `torch.Generator` (`generator`, or one seeded
+    with `seed`), in `named_parameters` order:
     weights of rank >= 2 ~ N(0, 1 / fan_in), 1-D norm scales = 1, other 1-D
     tensors (biases) = 0, embeddings (and a ViT's class embedding) ~ N(0,
     0.02^2) and the positional table ~ N(0, 0.01^2). Modules marked by
@@ -78,7 +111,7 @@ def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
     logit scale) sets its constants last."""
     params = list(module.named_parameters())
     device = params[0][1].device if params else torch.device("cpu")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator if generator is not None else torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in params:
             leaf = name.rsplit(".", 1)[-1]

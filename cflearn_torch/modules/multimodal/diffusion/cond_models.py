@@ -3,7 +3,7 @@
 condition (token ids in) in `condition_models`, and `Rescaler` (the
 semantic LDM's spatial condition) in `specialized_condition_models`."""
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -45,6 +45,19 @@ class CLIPTextConditionModel(nn.Module):
         if token_ids.is_floating_point():
             return token_ids  # an already-encoded context passes through
         return self.encoder(token_ids, clip_skip=self.clip_skip, apply_final_ln=True)
+
+    def encode_with_custom_embeddings(
+        self, token_ids: torch.Tensor, custom_embeddings: Optional[Dict[int, Any]] = None
+    ) -> torch.Tensor:
+        """Textual inversion: the rows of `token_ids` equal to a key of
+        `custom_embeddings` take that embedding (a (D,) vector) in place of
+        the table's, then the tower runs on the embeddings with the final
+        LayerNorm (`clip_skip` does not apply)."""
+        embeddings = self.encoder.token_embedding(token_ids)
+        for token_id, embed in (custom_embeddings or {}).items():
+            embed = torch.as_tensor(embed, dtype=embeddings.dtype, device=embeddings.device)
+            embeddings = torch.where((token_ids == token_id)[..., None], embed, embeddings)
+        return self.encoder.embed_with(embeddings)
 
 
 @specialized_condition_models.register("rescaler")

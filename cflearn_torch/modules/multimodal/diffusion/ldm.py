@@ -7,10 +7,8 @@ from enum import Enum
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn as nn
 
-from ....device import resolve_device
-from ...common import cast_parameters, init_parameters, register_module
+from ...common import build_module, register_module
 from ...cv.ae import AutoEncoderKL
 from ...cv.common import GaussianDistribution, VQCodebookOutput, generators
 from .cond_models import CLIPTextConditionModel
@@ -192,13 +190,5 @@ def build_sd(
 def build(cls: type, *, device: Any = None, dtype: torch.dtype = torch.float32, seed: int = 0, **kwargs: Any) -> Any:
     """Construct a DDPM-family model (or a `ControlNet`) on `device` (CUDA
     unless the caller asks for another device) with seeded random parameters
-    cast to `dtype`."""
-    device = resolve_device(device)
-    with torch.device("meta"):
-        model = cls(**kwargs)
-    if device.type != "meta":
-        model = model.to_empty(device=device)
-        init_parameters(model, seed)
-        if hasattr(model, "_rebuild_schedule"):
-            model._rebuild_schedule()
-    return cast_parameters(model, dtype).eval()
+    cast to `dtype`, in eval mode (`build_module`)."""
+    return build_module(cls, device=device, dtype=dtype, seed=seed, **kwargs).eval()

@@ -1,0 +1,163 @@
+"""The configs (counterpart of `cflearn_tpu/schema/config.py`):
+`TrainerConfig`, `Config` and `DLConfig`, dataclasses with the JAX
+package's fields and defaults, so that a config's `to_info()` goes across
+either way. The trainer's fields are data here: the port's `Trainer`, which
+reads them, is not ported yet. `MLConfig` belongs to the tabular side."""
+
+import dataclasses
+import json
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+
+
+def _jsonify(value: Any) -> Any:
+    if isinstance(value, np.ndarray):
+        return value.tolist()
+    if isinstance(value, np.integer):
+        return int(value)
+    if isinstance(value, np.floating):
+        return float(value)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return {f.name: _jsonify(getattr(value, f.name)) for f in dataclasses.fields(value)}
+    if isinstance(value, dict):
+        return {k: _jsonify(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_jsonify(v) for v in value]
+    return value
+
+
+class DataClassBase:
+    """A dataclass that goes to and from a JSON-able dict."""
+
+    @property
+    def fields(self) -> Any:
+        return dataclasses.fields(self)
+
+    def to_info(self) -> Dict[str, Any]:
+        return {f.name: _jsonify(getattr(self, f.name)) for f in self.fields}
+
+    def from_info(self, info: Dict[str, Any]) -> None:
+        """Set the fields named in `info`; other keys are ignored."""
+        names = {f.name for f in self.fields}
+        for k, v in info.items():
+            if k in names:
+                setattr(self, k, v)
+
+    def copy(self) -> "DataClassBase":
+        new = self.__class__()
+        new.from_info(json.loads(json.dumps(self.to_info())))
+        return new
+
+
+@dataclasses.dataclass(eq=False)
+class TrainerConfig(DataClassBase):
+    workspace: str = "_logs"
+    create_sub_workspace: bool = True
+    state_config: Optional[Dict[str, Any]] = None
+    num_epoch: int = 40
+    max_epoch: int = 1000
+    fixed_epoch: Optional[int] = None
+    fixed_steps: Optional[int] = None
+    log_steps: Optional[int] = None
+    valid_portion: float = 1.0
+    clip_norm: float = 0.0
+    grad_accumulate: int = 1
+    # "no" | "fp16" | "bf16": either of the last two computes in bf16
+    mixed_precision: str = "no"
+    optimizer_name: Optional[str] = None
+    scheduler_name: Optional[str] = None
+    optimizer_config: Optional[Dict[str, Any]] = None
+    scheduler_config: Optional[Dict[str, Any]] = None
+    update_scheduler_per_epoch: bool = False
+    optimizer_settings: Optional[Dict[str, Optional[Dict[str, Any]]]] = None
+    use_incrementer_for_train_loss: bool = True
+    metric_names: Optional[Union[str, List[str]]] = None
+    metric_configs: Optional[Dict[str, Any]] = None
+    metric_weights: Optional[Dict[str, float]] = None
+    metric_forward_kwargs: Optional[Dict[str, Any]] = None
+    use_losses_as_metrics: Optional[bool] = None
+    loss_metrics_weights: Optional[Dict[str, float]] = None
+    recompute_train_losses_in_eval: bool = True
+    validation_split: Optional[float] = None
+    monitor_names: Optional[Union[str, List[str]]] = None
+    monitor_configs: Optional[Dict[str, Any]] = None
+    auto_callback: bool = True
+    callback_names: Optional[Union[str, List[str]]] = None
+    callback_configs: Optional[Dict[str, Any]] = None
+    lr: Optional[float] = None
+    optimizer_packs: Optional[List[Dict[str, Any]]] = None
+    use_zero: bool = False
+    shard_optimizer_states: bool = False
+    finetune_config: Optional[Dict[str, Any]] = None
+    save_pipeline_in_realtime: bool = False
+    max_snapshot_file: int = 25
+    min_num_sample: int = 3000
+    num_snapshot_per_epoch: float = 2.0
+    max_step_per_snapshot: int = 1000
+    min_snapshot_epoch_gap: int = 0
+    mesh: Optional[Dict[str, int]] = None
+    donate_buffers: bool = True
+    steps_per_dispatch: int = 1
+    # activation checkpointing: False, True (every block) or a checkpoint policy name
+    remat: Union[bool, str] = False
+    profile_steps: Optional[List[int]] = None
+    tqdm_settings: Optional[Dict[str, Any]] = None
+    debug_nans: bool = False
+    transfer_guard: Optional[str] = None
+    async_checkpointing: bool = True
+    save_on_preemption: bool = True
+    resume_from_preemption: bool = True
+
+    @property
+    def is_debug(self) -> bool:
+        return self.fixed_steps == 1
+
+    @property
+    def compute_dtype(self) -> str:
+        return "bfloat16" if self.mixed_precision in ("fp16", "bf16") else "float32"
+
+
+@dataclasses.dataclass(eq=False)
+class Config(TrainerConfig):
+    """+ the loss."""
+
+    loss_name: Optional[str] = None
+    loss_config: Optional[Dict[str, Any]] = None
+    in_loading: bool = False
+    cudnn_benchmark: bool = False
+
+    def to_debug(self) -> "Config":
+        self.fixed_steps = 1
+        self.valid_portion = 1.0e-4
+        return self
+
+    def sanity_check(self) -> None:
+        if self.fixed_steps is not None and self.fixed_steps <= 0:
+            raise ValueError("`fixed_steps` should be positive when provided")
+
+
+@dataclasses.dataclass(eq=False)
+class DLConfig(Config):
+    """+ the model (an `IDLModel` name) and its module (a registered module
+    name and its config)."""
+
+    model: str = "common"
+    model_config: Optional[Dict[str, Any]] = None
+    module_name: str = ""
+    module_config: Optional[Dict[str, Any]] = None
+    num_repeat: Optional[int] = None
+    inference_type: str = "dl"
+    seed: Optional[int] = None
+
+    def sanity_check(self) -> None:
+        super().sanity_check()
+        if not self.module_name:
+            raise ValueError("`module_name` should be provided")
+
+    @property
+    def model_name(self) -> str:
+        return self.model
+
+
+config_registry: Dict[str, type] = {"trainer": TrainerConfig, "config": Config, "dl": DLConfig}

@@ -5,7 +5,9 @@ under `configs/` (the port's own copies of the JAX package's `ae/kl.json`,
 constructors of the first stages, of the VQ latent-diffusion family
 (`ldm_vq`, `ldm_inpainting`, `ldm_semantic`), of CLIP (`clip`: ViT-B/32,
 `clip_large`: ViT-L/14, `open_clip_ViT_H_14`) and of ESRGAN (`esr`,
-`esr_anime`). `chinese_clip` waits for the BERT text tower.
+`esr_anime`), and of Stable Diffusion (`load_sd`, `ldm_sd`, `ldm_sd_v2`,
+`ldm_sd_inpainting`, `load_control_net`, with `SDVersions` and
+`get_sd_tag`). `chinese_clip` waits for the BERT text tower.
 
 Every module gets seeded random weights: no checkpoint is in the
 repository, and none is downloaded, so `pretrained=True` raises. Like the
@@ -23,7 +25,8 @@ import torch.nn as nn
 from ..modules.common import module_registry
 from ..modules.cv import classifier as _classifier  # noqa: F401  (registers "rrdb")
 from ..modules.multimodal import clip as _clip  # noqa: F401  (registers "clip")
-from ..modules.multimodal.diffusion.ldm import build
+from ..modules.multimodal.diffusion.ldm import StableDiffusion, StableDiffusionInpainting, build, sd_unet_config
+from ..modules.multimodal.diffusion.unet import ControlNet
 
 CONFIGS_DIR = Path(__file__).parent / "configs"
 
@@ -220,3 +223,89 @@ def ldm_semantic(pretrained: bool = False, **kwargs: Any) -> nn.Module:
     kwargs.setdefault("latent_size", 128)
     kwargs.setdefault("latent_in_channels", 6)
     return ldm_vq(pretrained=pretrained, tag="cflearn_ldm_semantic", **kwargs)
+
+
+# Stable Diffusion
+
+
+def load_sd(
+    version: str = "v1",
+    *,
+    pretrained: bool = False,
+    device: Any = None,
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+) -> nn.Module:
+    """SD of `version` ("v1", "v2", "v2_v", "v2_base", or one of them with
+    "_inpainting" for the 9-channel model; "v1.5" and the community tags
+    "anime*" and "dreamlike*" are the v1 architecture) with seeded random
+    weights in `dtype` on `device`. "v2_v" alone is a v-prediction model;
+    "v2" is an eps model, though the JAX package files both under the
+    `sd_v2.1` checkpoint. No checkpoint is in the repository:
+    `pretrained=True` raises."""
+    if pretrained:
+        raise _no_weights(f"sd {version}")
+    arch = "v1" if version.startswith(("anime", "dreamlike")) or version == "v1.5" else version
+    cls = StableDiffusionInpainting if version.endswith("_inpainting") else StableDiffusion
+    return build(cls, device=device, dtype=dtype, seed=seed, version=arch.replace("_inpainting", ""))
+
+
+def load_control_net(
+    hint: str,
+    *,
+    pretrained: bool = False,
+    device: Any = None,
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+) -> nn.Module:
+    """An SD-1.5-scale `ControlNet` for a hint type ("canny", "depth",
+    ...): the v1 UNet's encoder half on a 3-channel hint, seeded random
+    weights. `pretrained=True` raises."""
+    if pretrained:
+        raise _no_weights(f"controlnet_v11_{hint}")
+    cfg = dict(sd_unet_config("v1"))
+    cfg.pop("out_channels", None)  # the control branch has no output head
+    return build(ControlNet, device=device, dtype=dtype, seed=seed, hint_channels=3, **cfg)
+
+
+def ldm_sd(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    return load_sd("v1", pretrained=pretrained, **kwargs)
+
+
+def ldm_sd_v2(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    return load_sd("v2", pretrained=pretrained, **kwargs)
+
+
+def ldm_sd_inpainting(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    return load_sd("v1_inpainting", pretrained=pretrained, **kwargs)
+
+
+class SDVersions:
+    """The SD version tags. The anime and dreamlike tags name community
+    finetunes of SD-1.5: the v1 architecture (`load_sd`), their weights
+    swapped in by `DiffusionAPI.prepare_sd` / `switch_sd`."""
+
+    v1 = "v1"
+    v1_5 = "v1.5"
+    v2 = "v2"
+    v2_v = "v2_v"
+    ANIME = "anime"
+    ANIME_ANYTHING = "anime_anything"
+    ANIME_HYBRID = "anime_hybrid"
+    ANIME_GUOFENG = "anime_guofeng"
+    ANIME_ORANGE = "anime_orange"
+    DREAMLIKE = "dreamlike_v1"
+
+
+def get_sd_tag(version: Optional[str]) -> str:
+    """A version's checkpoint tag: "v1.5" for none, "" and "v1"; the
+    community tags' versioned names; any other version as it is."""
+    if version is None or version in ("", "v1", "v1.5"):
+        return "v1.5"
+    return {
+        SDVersions.ANIME: "anime_nai",
+        SDVersions.ANIME_ANYTHING: "anime_anything_v3",
+        SDVersions.ANIME_HYBRID: "anime_hybrid_v1",
+        SDVersions.ANIME_GUOFENG: "anime_guofeng3",
+        SDVersions.ANIME_ORANGE: "anime_orange2",
+    }.get(version, version)

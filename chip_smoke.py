@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
 2. kernels — hold each kernel against its plain PyTorch version: the
    forward and the conv at every shape SD-1.5 512px txt2img gives them, the
    forward-with-logsumexp and the three backward kernels at the three shapes
-   of the UNet finetune step (batch 8), plus ragged, causal, f32, d = 640 and
-   odd-width cases; the conv forward, its dx (the forward kernel on dy with
+   of the UNet finetune step (batch 8) and of the SD v2 step (phase 18:
+   batch 4, 64 channels a head, L 9216 / 2304 / 576), plus ragged, causal,
+   f32, d = 640 and odd-width cases; the conv forward, its dx (the forward kernel on dy with
    flipped weights) and the weight-gradient kernel at every shape the
    autoencoder step routes; GroupNorm with and without SiLU at the UNet's, the
    VAE decoder's and the autoencoder step's shapes, plus f32 and odd group
@@ -189,12 +190,37 @@ Phases, in order; any failure exits non-zero:
    tolerances, timed alone beside SDPA with its bound; one READ-mode denoise
    and one circular decode against the plain path within 1.5x its one-ulp
    drift (phase 4's rule).
-17. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+17. SD v2 — `DiffusionAPI.from_sd("v2_v")` (the 768-v model, bf16, seeded
+   random weights, zero-initialised convs redrawn), batch 1, CFG 7.5, 20
+   steps: txt2img at 768x768 by DDIM and by `k_euler`; `from_sd("v2_base")`
+   at 512x512 by DDIM. Each path under the census, then timed twice (the
+   best kept): exact launches (15 routed self-attentions a UNet call at 64
+   channels a head, 5 / 10 / 20 heads; 61 GroupNorms; the decoder's 21
+   routed convs at 96x96 latents, 31 at 64x64), 20 UNet calls at the CFG
+   batch, finite latents, a uint8 image of the size asked. Every distinct
+   kernel call of the census (flash at L 9216 / 2304 / 576 and the decoder's
+   d = 512 at L 9216; GroupNorm and the conv at 768^2) against its plain
+   version with phase 2's tolerances, timed alone beside SDPA / cuDNN with
+   its bound; one v-prediction UNet call at 96x96 latents and one 768^2
+   decode against the plain path within 1.5x its one-ulp drift (phase 4's
+   rule).
+18. v2_v finetune through the model core — `IDLModel.from_config(DLConfig(
+   model="ddpm", module_name="sd", module_config={"version": "v2_v",
+   "with_first_stage": False}))`, f32 masters, bf16 compute, AdamW 1e-5, on
+   96x96x4 latents at batch 4 with a 77x1024 condition, the v target: the
+   first step's loss and gradients against the plain path within phase 8's
+   loss and global-norm gates; `finetune_unet` on the model, one warm-up and
+   three timed steps: exact launches of the forward with the logsumexp, the
+   fused backward and GroupNorm, every trained parameter moved, ms per step
+   and peak memory (an out-of-memory fails). Phase 2 holds the step's
+   attention kernels at its three shapes.
+19. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
-   path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies'
-   and the style and tiling readings on lines of their own, the card's name
+   path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
+   the style and tiling, and the SD v2 and v2 finetune readings on lines of
+   their own, the card's name
    and power limit, and last `{"ok": true,
    "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
@@ -310,6 +336,7 @@ W8A8_FLOOR = (30.0, 0.98)  # the W8A8 decode against the bf16 decode: PSNR dB, S
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
 AE_BATCH = 8
+V2_TRAIN_BATCH = 4  # the v2_v finetune step's batch (phase 18)
 
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per txt2img as a function of steps)
 FLASH_CASES = [
@@ -342,6 +369,10 @@ TRAIN_CASES = [
     ("f32", 1, 4, 1000, 777, 64, False, "float32", 0),
     ("d640", 1, 2, 512, 512, 640, False, "bfloat16", 0),
     ("ae_mid", AE_BATCH, 1, 1024, 1024, 512, False, "bfloat16", 0),
+    # the SD v2 UNet's self-attentions at 96x96 latents, 64 channels a head (5 calls a v2_v finetune step each)
+    ("v2_96x96", V2_TRAIN_BATCH, 5, 9216, 9216, 64, False, "bfloat16", 0),
+    ("v2_48x48", V2_TRAIN_BATCH, 10, 2304, 2304, 64, False, "bfloat16", 0),
+    ("v2_24x24", V2_TRAIN_BATCH, 20, 576, 576, 64, False, "bfloat16", 0),
 ]
 # (name, B, H, W, C, Co, launches per decode)
 CONV_CASES = [
@@ -2288,6 +2319,237 @@ def phase_style_tiling(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     return out
 
 
+# 17. SD v2 served through DiffusionAPI at full width, bf16, batch 1 (CFG batch 2), CFG 7.5, 20 steps: v2_v (the
+# 768-v model) at 768x768 by DDIM and by k_euler, and v2_base at 512x512 by DDIM. The v2 UNet has v1's blocks: 15
+# self-attentions with L >= 256 a call (the mid block's, at 12x12 or 8x8 latents, stays on SDPA), now 64 channels a
+# head (5, 10 and 20 heads), and 61 GroupNorms. The decoder routes its 3x3 convs at >= 128^2 (and the pinned
+# 64^2 x 512 level): 21 at 96x96 latents (the upsample conv and the three res blocks' six at 192^2, 384^2 and 768^2),
+# 31 at 64x64 (phase 3's)
+V2_STEPS = 20
+V2_PATHS = (("v2_v", "ddim", 768), ("v2_v", "k_euler", 768), ("v2_base", "ddim", 512))
+V2_DECODER_CONVS = {96: 21, 64: DECODER_CONVS}
+
+
+def phase_sd_v2(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """`DiffusionAPI.from_sd("v2_v")` txt2img at 768x768 by DDIM and by k_euler, and `from_sd("v2_base")` at
+    512x512 by DDIM, bf16 from seeds 0 and 2, the zero-initialised convs redrawn. Each path runs under the census,
+    then timed twice on the host clock (the best kept): exact launches, 20 UNet calls at the CFG batch 2, finite
+    latents, a uint8 image of the asked size. Every distinct kernel call of the census against its plain version
+    (phase 2's tolerances), timed alone beside SDPA / cuDNN with its bound (`check_call`); one v-prediction UNet call
+    at 96x96 latents and one 768^2 decode through the kernels against the plain path within PARITY_FACTOR x its
+    one-ulp drift (phase 4's rule)."""
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.modules.core.convs import ResidualBlockWithTimeEmbedding
+    from cflearn_torch.modules.core.mixed_stacks import SpatialTransformer
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"sd v2: {msg}")
+
+    kernels = ("flash_attention", "conv3x3", "group_norm")
+    out = {"paths": {}, "parity": {}}
+    censuses = {}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    apis = {}
+    for version, seed in (("v2_v", 0), ("v2_base", 2)):
+        t0 = time.perf_counter()
+        api = cflearn_torch.DiffusionAPI.from_sd(version, device="cuda", seed=seed)
+        redraw_zero_init(api.m, seed=seed + 1)
+        unet = api.m.unet
+        n_res = sum(isinstance(m, ResidualBlockWithTimeEmbedding) for m in unet.modules())
+        n_st = sum(isinstance(m, SpatialTransformer) for m in unet.modules())
+        heads = sorted({b.attn1.heads for m in unet.modules() if isinstance(m, SpatialTransformer) for b in m.blocks})
+        torch.cuda.synchronize()
+        n_unet = sum(p.numel() for p in unet.parameters())
+        print(f"sd v2: DiffusionAPI.from_sd('{version}') bf16 built in {time.perf_counter() - t0:.1f} s: "
+              f"{sum(p.numel() for p in api.m.parameters()):,} parameters, UNet {n_unet:,}, "
+              f"parameterization {api.m.parameterization}, heads {heads}")
+        check(api.m.parameterization == ("v" if version == "v2_v" else "eps"), f"{version}: {api.m.parameterization}")
+        check(2 * n_res + n_st + 1 == GN_PER_UNET and n_st - 1 == FLASH_PER_UNET and heads == [5, 10, 20],
+              f"{version}: {n_res} res blocks, {n_st} transformers, heads {heads}")
+        out[version] = {"parameters": sum(p.numel() for p in api.m.parameters()), "unet_parameters": n_unet}
+        apis[version] = (api, watch(api.m))
+
+    for version, sampler, side in V2_PATHS:
+        api, seen = apis[version]
+        latent = side // 8
+        name = f"{version}_{sampler}_{side}"
+        api.switch_sampler(sampler)
+        calls = unet_calls(sampler, V2_STEPS)
+        want = {"flash_attention": FLASH_PER_UNET * calls + 1, "conv3x3": V2_DECODER_CONVS[latent],
+                "group_norm": GN_PER_UNET * calls + GN_PER_DECODE}
+        fn = lambda: api.txt2img(PROMPT, size=(side, side), num_steps=V2_STEPS, seed=0)  # noqa: E731
+        image, record = drive_path(torch, A, Cv, Gn, "sd v2", name, fn, seen, want, censuses)
+        grids = [shape[:3] for shape in seen["unet"]]
+        check(grids == [(2, latent, latent)] * calls, f"{name}: UNet calls at {sorted(set(grids))}")
+        check(image.shape == (1, side, side, 3) and image.dtype == np.uint8, f"{name}: image {image.shape}")
+        # a second timed run, with its launches read again: the best of the two on the host clock
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        again = (time.perf_counter() - t0) * 1e3
+        check({k: v for k, v in read_launches(A, Cv, Gn).items() if v} == record["launches"], f"{name}: launches moved")
+        record.update(ms_runs=[record["ms_per_image"], again], ms_per_image=min(record["ms_per_image"], again),
+                      latents=seen["latents"][-1] if name == "v2_v_ddim_768" else None)
+        print(f"sd v2[{name}]: {record['ms_per_image']:.1f} ms per image (best of {record['ms_runs']})")
+        out["paths"][name] = record
+    api.switch_sampler("ddim")
+
+    def parity(label, fn, x):
+        with torch.no_grad():
+            y_k = fn(x).float()
+            with plain_kernels(A, Cv, Gn):
+                y_p = fn(x).float()
+                drift = rel_err(fn(bump_ulp(torch, x)).float(), y_p)
+        rel = rel_err(y_k, y_p)
+        print(f"sd v2 parity: {label}, kernels vs plain max rel err {rel:.3e} (tolerance {PARITY_FACTOR * drift:.3e}: "
+              f"{PARITY_FACTOR} x the one-ulp drift {drift:.3e})")
+        check(rel <= PARITY_FACTOR * drift, f"{label} through the kernels disagrees with the plain path")
+        out["parity"][label] = {"kernels_vs_plain": rel, "drift": drift}
+
+    api = apis["v2_v"][0]
+    with torch.no_grad():
+        tokens = api.tokenizer.tokenize([PROMPT, ""]).astype(np.int64)
+        cond = api.m.get_cond(torch.as_tensor(tokens, device="cuda"))
+    x2 = torch.randn((1, 96, 96, 4), generator=gen, device="cuda").to(torch.bfloat16).repeat(2, 1, 1, 1)
+    t2 = torch.full((2,), 981, dtype=torch.long, device="cuda")
+    parity("v-prediction UNet call at 96x96 latents", lambda x: api.m.denoise(x, t2, cond), x2)
+    lat = out["paths"]["v2_v_ddim_768"]["latents"].to(torch.bfloat16)
+    parity("768x768 decode", lambda z: api.m.decode(z), lat)
+    for name in out["paths"]:
+        out["paths"][name].pop("latents", None)
+    del apis, api, cond, x2, lat
+    torch.cuda.empty_cache()
+
+    # every distinct kernel call of the census against its plain version, timed alone; each path's sums
+    t0 = time.perf_counter()
+    calls = {}
+    for key in sorted({key for counts in censuses.values() for key in counts}, key=str):
+        calls[key] = check_call(torch, F, A, Cv, Gn, key, gen)
+    out["calls"] = [dict(calls[key], launches={p: c[key] for p, c in censuses.items() if key in c})
+                    for key in sorted(calls, key=str)]
+    for path, counts in censuses.items():
+        out["paths"][path]["by_kernel"] = {
+            k: {f: sum(calls[key][f] * n for key, n in counts.items() if key[0] == k)
+                for f in ("device_ms", "plain_ms", "library_device_ms", "bound_ms")}
+            for k in kernels}
+    worst = {k: max((r["max_abs_err"] / r["tol"] for r in calls.values() if r["kernel"] == k), default=0.0)
+             for k in kernels}
+    print(f"sd v2: {len(calls)} distinct kernel calls held against their plain versions in "
+          f"{time.perf_counter() - t0:.1f} s (largest error / tolerance by kernel {json.dumps(worst)})")
+    print(f"sd v2: device ms per image by kernel "
+          f"{json.dumps({p: {k: v['device_ms'] for k, v in o['by_kernel'].items()} for p, o in out['paths'].items()})}")
+    return out
+
+
+# 18. the v2_v finetune step through the model core: `IDLModel.from_config(DLConfig(model="ddpm", module_name="sd",
+# module_config={"version": "v2_v", "with_first_stage": False}))`, f32 masters, bf16 compute, AdamW 1e-5, on 96x96x4
+# latents at batch 4 with a precomputed 77x1024 condition (phase 5's settings: the text tower is not run), the v
+# target. Each routed attention (L 9216, 2304, 576 at 64 channels a head) takes the forward with the logsumexp and
+# the fused backward once a step, each GroupNorm one launch; phase 2 holds those kernels at these shapes (`v2_*`
+# of TRAIN_CASES)
+def phase_v2_finetune(torch, cflearn_torch, A, Cv, Gn) -> dict:
+    """The v2_v UNet's finetune step through `IDLModel.from_config`: the first step's loss and gradients through
+    the kernels against the plain path within phase 8's loss and global-norm gates (AE_PARITY_FACTOR x the plain
+    path's drift under a one-ulp move of the latents, up and down); then `finetune_unet` on the model, one warm-up
+    and TRAIN_STEPS timed steps: exact launches of the forward with the logsumexp, the fused backward and GroupNorm,
+    finite losses, every trained parameter moved, ms per step and peak memory. An out-of-memory fails."""
+    from cflearn_torch.constants import INPUT_KEY, LOSS_KEY
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.trainer import make_train_step
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"v2 finetune: {msg}")
+
+    t0 = time.perf_counter()
+    config = cflearn_torch.DLConfig(model="ddpm", module_name="sd", seed=0,
+                                    module_config={"version": "v2_v", "with_first_stage": False})
+    model = cflearn_torch.IDLModel.from_config(config, device="cuda")
+    redraw_zero_init(model.m, seed=1)
+    trained = model.params_filter("all")
+    n_trained = sum(p.numel() for _, p in trained)
+    torch.cuda.synchronize()
+    print(f"v2 finetune: IDLModel.from_config built {type(model).__name__}({type(model.m).__name__} v2_v, "
+          f"parameterization {model.m.parameterization}) in {time.perf_counter() - t0:.1f} s: {model.num_params:,} "
+          f"f32 parameters, {n_trained:,} trained (the UNet)")
+    check(isinstance(model, cflearn_torch.DDPMModel) and model.m.parameterization == "v", "not the v2_v DDPMModel")
+    check(all(n.startswith("m.unet.") for n, _ in trained), "the trained scope reaches beyond the UNet")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x0 = torch.randn((V2_TRAIN_BATCH, 96, 96, 4), generator=gen, device="cuda")
+    ctx = torch.randn((V2_TRAIN_BATCH, 77, 1024), generator=gen, device="cuda")
+    out = {"parameters": model.num_params, "trained_parameters": n_trained, "batch": V2_TRAIN_BATCH, "latent": 96}
+
+    # the first step's loss and gradients: kernels against the plain path, held to the plain path's one-ulp drift
+    step = make_train_step(model, lr=1e-5, compute_dtype=torch.bfloat16)
+    t_fix = torch.randint(0, 1000, (V2_TRAIN_BATCH,), generator=gen, device="cuda")
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    x0_b = x0.to(torch.bfloat16).float()
+
+    def fwd_bwd(x):
+        loss = step.loss_and_grads({INPUT_KEY: x, "cond": ctx}, t=t_fix, noise=noise)[LOSS_KEY].item()
+        grads, step.grads = step.grads, {}
+        return loss, grads
+
+    with plain_kernels(A, Cv, Gn):
+        loss_p, grads_p = fwd_bwd(x0_b)
+        up = bump_ulp(torch, x0_b)
+        drift_loss = drift_global = 0.0
+        for x in (up, x0_b - (up - x0_b)):
+            loss_u, grads_u = fwd_bwd(x)
+            drift_loss = max(drift_loss, abs(loss_u - loss_p))
+            drift_global = max(drift_global, grad_errors(grads_u, grads_p)["global_rel"])
+            del grads_u
+    reset_launches(A, Cv, Gn)
+    loss_k, grads_k = fwd_bwd(x0_b)
+    one = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+    err = grad_errors(grads_k, grads_p)
+    del grads_k, grads_p
+    tol_loss = max(AE_PARITY_FACTOR * drift_loss, 2.0**-10 * abs(loss_p))
+    print(f"v2 finetune parity: loss kernels {loss_k:.6f} plain {loss_p:.6f} (off {abs(loss_k - loss_p):.3e}, "
+          f"tolerance {tol_loss:.3e}); gradients {json.dumps(err)} (global tolerance "
+          f"{AE_PARITY_FACTOR * drift_global:.3e}: {AE_PARITY_FACTOR} x the one-ulp drift {drift_global:.3e}); "
+          f"launches of the forward + backward {json.dumps(one)}")
+    check(abs(loss_k - loss_p) <= tol_loss, "the loss through the kernels disagrees with the plain path")
+    check(err["global_rel"] <= AE_PARITY_FACTOR * drift_global, "the gradients disagree with the plain path")
+    check(one == {k: v for k, v in policy_launches(False, 1).items() if v}, f"one forward + backward launched {one}")
+    out["parity"] = {"loss_err": abs(loss_k - loss_p), "loss_tolerance": tol_loss, "global_rel": err["global_rel"],
+                     "leaf_max_rel": err["leaf_max_rel"], "drift_loss": drift_loss, "drift_global": drift_global}
+    del step
+    torch.cuda.empty_cache()
+
+    # one warm-up and TRAIN_STEPS timed steps through `finetune_unet` on the IDLModel
+    kw = dict(lr=1e-5, compute_dtype=torch.bfloat16, generator=torch.Generator(device="cuda").manual_seed(23))
+    cflearn_torch.finetune_unet(model, x0, ctx, num_steps=1, **kw)
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for _, p in trained]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    result = cflearn_torch.finetune_unet(model, x0, ctx, num_steps=TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(A, Cv, Gn)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = result["losses"].tolist()
+    want = dict.fromkeys(launches, 0)
+    want.update(policy_launches(False, TRAIN_STEPS))
+    still = sum(torch.equal(p, old) for (_, p), old in zip(trained, before))
+    step_ms = wall / TRAIN_STEPS * 1e3
+    print(f"v2 finetune: {TRAIN_STEPS} steps at batch {V2_TRAIN_BATCH} on 96x96x4 latents, {step_ms:.1f} ms per step, "
+          f"{V2_TRAIN_BATCH / step_ms * 1e3:.2f} samples/s, peak memory {peak:.2f} GiB, losses {losses}, launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}, {still} trained parameters unmoved")
+    check(result["model"] is model, "finetune_unet did not train the IDLModel it was given")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(launches == want, f"launches {launches} != {want}")
+    check(still == 0, f"{still} trained parameters did not move")
+    out.update(step_ms=step_ms, samples_per_s=V2_TRAIN_BATCH / step_ms * 1e3, peak_memory_gib=peak, losses=losses,
+               launches=launches, launches_per_step=policy_launches(False, 1))
+    del result, before, model, trained
+    torch.cuda.empty_cache()
+    return out
+
 def main() -> int:
     import torch
 
@@ -2362,6 +2624,8 @@ def main() -> int:
                 r["per"] = {MAIN_PATH[name]: r.pop("per_path")}
             if r["case"] == "ae_mid" and name in ("flash_attention", "flash_fwd_lse", "flash_bwd_fused"):
                 r["per"]["ae"] = AE_FLASH
+            if r["case"].startswith("v2_") and name in ("flash_fwd_lse", "flash_bwd_fused"):
+                r["per"]["v2_finetune"] = 5
             if r["case"] == "ldm_enc_mid" and name == "flash_attention":
                 r["per"]["ldm"] = ENCODER_FLASH
     # the flash shapes of the lossy serving configurations: the 64x64 attentions at the merged length
@@ -3067,7 +3331,15 @@ def main() -> int:
     style_out = phase_style_tiling(torch, np, F, cflearn_torch, A, Cv, Gn)
     print(f"style and tiling: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 17. summary
+    # 17. SD v2 / v2_v served through DiffusionAPI
+    v2_out = phase_sd_v2(torch, np, F, cflearn_torch, A, Cv, Gn)
+    print(f"sd v2: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 18. the v2_v finetune step through the model core
+    v2_train_out = phase_v2_finetune(torch, cflearn_torch, A, Cv, Gn)
+    print(f"v2 finetune: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 19. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -3088,15 +3360,16 @@ def main() -> int:
     path_launches = {"txt2img": launches, "finetune": train_launches, "ae": ae_launches, "w8a8": w8a8_launches,
                      "fold": fold_launches, "faithful": serve_out["faithful"]["launches"],
                      "accelerated": serve_out["accelerated"]["launches"], "ldm": ldm_launches,
-                     "ae_defaults": aed_launches, "ae_vq": vq_launches}
+                     "ae_defaults": aed_launches, "ae_vq": vq_launches, "v2_finetune": v2_train_out["launches"]}
     path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
                  "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
                  "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img",
                  "ldm": "one finetune step on 512px images", "ae_defaults": "one autoencoder train step at the defaults",
-                 "ae_vq": "one ae_vq train step"}
+                 "ae_vq": "one ae_vq train step", "v2_finetune": "one v2_v finetune step (batch 4, 96x96 latents)"}
     path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps",
                     ldm=f"{TRAIN_STEPS} finetune steps on 512px images",
-                    ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps")
+                    ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps",
+                    v2_finetune=f"{TRAIN_STEPS} v2_v finetune steps")
     # the new paths run the UNet step's and the autoencoder step's shapes too: their rows count for them where the
     # path launched the kernel (the ldm step adds the encoder's rows of its own)
     for name, cases in rows.items():
@@ -3157,7 +3430,7 @@ def main() -> int:
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
-                   "style_tiling": style_out,
+                   "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -3172,6 +3445,8 @@ def main() -> int:
     print(json.dumps({"clip_esrgan": clip_out}))
     print(json.dumps({"checkpoint_policies": policies_out}))
     print(json.dumps({"style_tiling": {k: v for k, v in style_out.items() if k != "calls"}}))
+    print(json.dumps({"sd_v2": {k: v for k, v in v2_out.items() if k != "calls"},
+                      "v2_finetune": {k: v for k, v in v2_train_out.items() if k != "calls"}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
