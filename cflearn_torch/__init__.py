@@ -16,9 +16,17 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .api import APIPool, CLIPExtractor, ControlledDiffusionAPI, DiffusionAPI, IAPI, TranslatorAPI, Weights  # noqa: E402
 from .device import resolve_device  # noqa: E402
-from .models import CommonDLModel, DDPMModel, DLEnsembleModel  # noqa: E402
+from .models import (  # noqa: E402
+    AutoRegressorModel, CommonDLModel, DDPMModel, DLEnsembleModel, GANModel, VAEModel, VQVAEModel,
+)
 from .models.cv.ae import AEModel, AEVQModel, build_ae  # noqa: E402
-from .modules.cv.classifier import RRDBNet  # noqa: E402
+from .modules.cv.classifier import ImageClassifier, ImgSiren, PixelCNN, RRDBNet, Siren  # noqa: E402
+from .modules.cv.encoder import (  # noqa: E402
+    Backbone, BackboneEncoder, BackboneEncoder1D, MixViT, RepVGG, ViTEncoder, mix_vit, mix_vit_large, mix_vit_lite,
+    rep_vgg, rep_vgg_large, rep_vgg_lite,
+)
+from .modules.cv.gan import VanillaGenerator  # noqa: E402
+from .modules.cv.vae import VQVAE, VanillaVAE  # noqa: E402
 from .modules.multimodal.clip import CLIP, IPerceptor  # noqa: E402
 from .modules.multimodal.diffusion.ddpm import DDPM  # noqa: E402
 from .modules.multimodal.diffusion.ldm import (  # noqa: E402
@@ -36,7 +44,11 @@ from .zoo import (  # noqa: E402
 )
 
 __all__ = [
-    "AEModel", "AEVQModel", "APIPool", "CommonDLModel", "DDPMModel", "DLConfig", "DLEnsembleModel", "IDLModel",
+    "AEModel", "AEVQModel", "APIPool", "AutoRegressorModel", "Backbone", "BackboneEncoder", "BackboneEncoder1D",
+    "GANModel", "ImageClassifier", "ImgSiren", "MixViT", "PixelCNN", "RepVGG", "Siren", "VAEModel", "VQVAE",
+    "VQVAEModel", "VanillaGenerator", "VanillaVAE", "ViTEncoder", "mix_vit", "mix_vit_large", "mix_vit_lite",
+    "rep_vgg", "rep_vgg_large", "rep_vgg_lite",
+    "CommonDLModel", "DDPMModel", "DLConfig", "DLEnsembleModel", "IDLModel",
     "ILoss", "TrainStep", "CLIP", "CLIPExtractor", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI",
     "DDPM", "DiffusionAPI", "IAPI", "IPerceptor", "LDM", "QualityReport", "RRDBNet", "StableDiffusion",
     "StableDiffusionInpainting", "TranslatorAPI", "Weights", "ae_kl_f4", "ae_kl_f8", "ae_kl_f16", "ae_vq_f4",

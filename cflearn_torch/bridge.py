@@ -8,10 +8,12 @@ name and layout change (the rules of `cflearn_tpu/zoo/convert.py`, run the
 other way):
 
 * Linear `kernel` (in, out) -> `weight` (out, in);
-* Conv `kernel` HWIO -> `weight` OIHW;
+* Conv `kernel` HWIO -> `weight` OIHW (a 1-D conv's (k, in, out) -> (out,
+  in, k), a 3-D conv's DHWIO -> OIDHW);
 * norm `scale` -> `weight`;
 * `Embed.embedding` -> `weight`;
-* `bias` and bare parameters (the positional table, the VQ codebook's
+* `bias` and bare parameters (the positional table, a ViT's `head_token`
+  and `pos_encoding`, `ChannelPadding`'s `latent_map`, the VQ codebook's
   `embedding`, which the port keeps under its JAX name) are copied.
 
 `nnx.List`s (the LPIPS tower's `convs`, a multi-scale discriminator's
@@ -25,10 +27,13 @@ are not parameters: the port recomputes them from the schedule spec.
 `nnx.BatchStat` leaves (BatchNorm's running `mean` and `var`) go across as
 buffers of the same name: `load_nnx_batch_stats` is strict in the same way
 over the module's BatchNorm layers. Other `nnx.Variable` leaves (LPIPS's
-`shift` and `scale`) go across by `load_nnx_buffers`, strict over the
-leaves it is given. An `AEModel` needs no mapping of its own:
-the port keeps the JAX model's attribute names (`m.*`, `discriminator.*`,
-`log_var`), so its paths map like any other.
+`shift` and `scale`, PixelCNN's masks, `GaussianBlur3`'s kernel, which the
+port keeps as buffers in the JAX layout) go across by `load_nnx_buffers`,
+strict over the leaves it is given. A RepVGG block after
+`switch_to_deploy` holds only `conv_fused` (a 3x3 conv with a bias) and its
+squeeze-excite on both sides, and maps like any conv. An `AEModel` needs no
+mapping of its own: the port keeps the JAX model's attribute names (`m.*`,
+`discriminator.*`, `log_var`), so its paths map like any other.
 
 A JAX `ControlNet` builds a whole `UNetDiffuser` and runs only its encoder
 half; the port's builds only that half. `control_net_params` leaves the
@@ -60,7 +65,8 @@ import torch
 import torch.nn as nn
 
 
-_PERM = {2: (1, 0), 4: (3, 2, 0, 1)}  # kernel rank -> transpose to the port layout
+# kernel rank -> transpose to the port layout: Linear (in, out); 1-D conv (k, in, out); 2-D conv HWIO; 3-D conv DHWIO
+_PERM = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def port_name(path: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:

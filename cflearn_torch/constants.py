@@ -5,4 +5,5 @@ INPUT_KEY = "input"
 LABEL_KEY = "labels"
 PREDICTIONS_KEY = "predictions"
 LOSS_KEY = "loss"
+LATENT_KEY = "latent"
 AUX_LOSS_KEY = "aux_loss"

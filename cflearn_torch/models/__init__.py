@@ -1,11 +1,15 @@
 """Training-side models (counterpart of `cflearn_tpu/models/`), each an
 `IDLModel` registered by name: "common", "ensemble", "ddpm", "ae_kl",
-"ae_vq"."""
+"ae_vq", "gan", "vae", "vq_vae", "ar"."""
 
 from .common import CommonDLModel, CommonTrainStep, DLEnsembleModel
-from .cv import AEDiscriminatorStep, AEGeneratorStep, AEModel, AEVQModel, DDPMModel, DDPMStep
+from .cv import (
+    AEDiscriminatorStep, AEGeneratorStep, AEModel, AEVQModel, AutoRegressorModel, DDPMModel, DDPMStep,
+    DiscriminatorStep, GANModel, GeneratorStep, VAEModel, VQVAEModel,
+)
 
 __all__ = [
-    "AEDiscriminatorStep", "AEGeneratorStep", "AEModel", "AEVQModel", "CommonDLModel", "CommonTrainStep",
-    "DDPMModel", "DDPMStep", "DLEnsembleModel",
+    "AEDiscriminatorStep", "AEGeneratorStep", "AEModel", "AEVQModel", "AutoRegressorModel", "CommonDLModel",
+    "CommonTrainStep", "DDPMModel", "DDPMStep", "DLEnsembleModel", "DiscriminatorStep", "GANModel", "GeneratorStep",
+    "VAEModel", "VQVAEModel",
 ]

@@ -40,13 +40,27 @@ def _build_loss(config: DLConfig) -> Optional[ILoss]:
     return None if config.loss_name is None else build_loss(config.loss_name, config.loss_config)
 
 
+def attach_generator(module: nn.Module, generator: torch.Generator) -> None:
+    """Give every drawing module under `module` (an `IConditional`: the
+    VAEs, the GAN generator, PixelCNN) `generator` for its draws."""
+    from ..modules.cv.common import IConditional
+
+    for sub in module.modules():
+        if isinstance(sub, IConditional):
+            sub.generator = generator
+
+
 @IDLModel.register("common")
 class CommonDLModel(IDLModel):
+    """A registered module and a registered loss; the module draws (where
+    it does) from the model's "default" generator."""
+
     def build(self, config: DLConfig) -> None:
-        rngs = self.make_rngs()
+        self.rngs = self.make_rngs()
         self.m = build_module(
-            config.module_name, config=config.module_config, device=self.build_device, generator=rngs["params"]
+            config.module_name, config=config.module_config, device=self.build_device, generator=self.rngs["params"]
         )
+        attach_generator(self.m, self.rngs["default"])
         self.loss = _build_loss(config)
 
     @property

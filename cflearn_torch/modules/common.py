@@ -107,8 +107,11 @@ def init_parameters(module: nn.Module, seed: int = 0, *, generator: Optional[tor
     weights of rank >= 2 ~ N(0, 1 / fan_in), 1-D norm scales = 1, other 1-D
     tensors (biases) = 0, embeddings (and a ViT's class embedding) ~ N(0,
     0.02^2) and the positional table ~ N(0, 0.01^2). Modules marked by
-    `zero_module` are zeroed; a module with an `init_constants` method (CLIP's
-    logit scale) sets its constants last."""
+    `zero_module` are zeroed; a module with a `reset_buffers` method
+    (BatchNorm's running statistics, fixed kernels and masks, which a module
+    materialised from "meta" holds uninitialised) sets its buffers; a module
+    with an `init_constants` method (CLIP's logit scale) sets its constants
+    last."""
     params = list(module.named_parameters())
     device = params[0][1].device if params else torch.device("cpu")
     gen = generator if generator is not None else torch.Generator(device=device).manual_seed(seed)
@@ -127,6 +130,8 @@ def init_parameters(module: nn.Module, seed: int = 0, *, generator: Optional[tor
             else:
                 p.zero_()
         for m in module.modules():
+            if hasattr(m, "reset_buffers"):
+                m.reset_buffers()
             if getattr(m, "zero_init", False):
                 for p in m.parameters():
                     p.zero_()

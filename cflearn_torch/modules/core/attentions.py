@@ -240,7 +240,13 @@ class DecayedAttention(Attention):
 
     def __init__(self, input_dim: int, num_heads: int = 1, *, seq_len: int, dropout: float = 0.0, **kwargs: Any) -> None:
         super().__init__(input_dim, num_heads, dropout=dropout, **kwargs)
+        self.seq_len = seq_len
         self.register_buffer("decay_bias", torch.from_numpy(np_decay_log_bias(seq_len, num_heads)), persistent=False)
+
+    def reset_buffers(self) -> None:
+        """The bias again, on the buffer's device (`build_module` materialises a module from "meta")."""
+        if self.decay_bias.device.type != "meta":
+            self.decay_bias.copy_(torch.from_numpy(np_decay_log_bias(self.seq_len, self.num_heads)))
 
     def forward(
         self, q: torch.Tensor, k: Optional[torch.Tensor] = None, v: Optional[torch.Tensor] = None, **kwargs: Any

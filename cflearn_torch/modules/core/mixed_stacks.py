@@ -1,7 +1,18 @@
-"""The SD UNet's transformer stack (counterpart of
-`cflearn_tpu/modules/core/mixed_stacks.py`: the plain branch, ToMe, and the
-hooks of LoRA-style q / k / v transforms and style reference). `dropout`
-acts in training mode only."""
+"""Mixed-stack transformers (counterpart of
+`cflearn_tpu/modules/core/mixed_stacks.py`).
+
+The token- and channel-mixer registries (`token_mixers`, `channel_mixers`)
+with the "attention" token mixer (the port's `Attention`, so `sdp_attn`
+and the flash kernels where the shape routes there) and the "ff" and
+"mix_ff" channel mixers; `PositionalEncoding`, `MixingBlock` and
+`MixedStackedEncoder`, the stack behind the ViT encoder (an optional head
+token, a learned positional table, a mean pooler). The fourier, mlp, pool
+and rwkv token mixers, the rwkv and moe channel mixers, the poolers and the
+pipeline-parallel stack are not ported yet.
+
+The SD UNet's transformer stack: the plain branch, ToMe, and the hooks of
+LoRA-style q / k / v transforms and style reference. `dropout` acts in
+training mode only."""
 
 from typing import Any, Callable, Dict, List, Optional
 
@@ -10,25 +21,224 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.group_norm import gn_call
-from ..layers import Conv, GroupNorm, LayerNorm, Linear
-from .activations import GEGLU
-from .attentions import CrossAttention
+from ..common import PrefixModules
+from ..layers import Conv, ConvN, GroupNorm, LayerNorm, Linear
+from .activations import GEGLU, build_activation, gelu
+from .attentions import Attention, CrossAttention
 from .tome import compute_merge
 
+token_mixers = PrefixModules("token_mixer")
+channel_mixers = PrefixModules("channel_mixer")
 
-class FeedForward(nn.Module):
-    """GEGLU feed-forward (the `activation="geglu"` branch), dropout after
-    each layer."""
 
-    def __init__(self, in_dim: int, latent_dim: int, dropout: float = 0.0) -> None:
+def build_token_mixer(name: str, *args: Any, **kwargs: Any) -> nn.Module:
+    return token_mixers.build(name, *args, **kwargs)
+
+
+def build_channel_mixer(name: str, *args: Any, **kwargs: Any) -> nn.Module:
+    return channel_mixers.build(name, *args, **kwargs)
+
+
+register_token_mixer = token_mixers.register
+register_channel_mixer = channel_mixers.register
+
+
+@token_mixers.register("attention")
+class AttentionTokenMixer(nn.Module):
+    """Self-attention over the tokens: one `in_proj` to 3 x `latent_dim`
+    (so a head is latent_dim / num_heads wide), `out_proj` back to
+    `in_dim`."""
+
+    def __init__(self, in_dim: int, num_tokens: int, latent_dim: int, *, num_heads: int = 8, dropout: float = 0.0) -> None:
         super().__init__()
-        self.net1 = GEGLU(in_dim=in_dim, out_dim=latent_dim)
+        self.net = Attention(
+            in_dim, num_heads, embed_dim=latent_dim, out_dim=in_dim, dropout=dropout, is_self_attention=True
+        )
+
+    def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        return self.net(x, **kwargs)
+
+
+@channel_mixers.register("ff")
+class FeedForward(nn.Module):
+    """Two linear layers with `activation` between them (GEGLU's own
+    projection for "geglu", the SD transformer's), dropout after each in
+    training mode (after the second only with `add_last_dropout`)."""
+
+    def __init__(
+        self, in_dim: int, latent_dim: int, dropout: float = 0.0, *, activation: str = "gelu",
+        add_last_dropout: bool = True,
+    ) -> None:
+        super().__init__()
+        self.net1 = GEGLU(in_dim=in_dim, out_dim=latent_dim) if activation == "geglu" else None
+        if self.net1 is None:
+            self.linear1 = Linear(in_dim, latent_dim)
+            self.act = build_activation(activation)
         self.linear2 = Linear(latent_dim, in_dim)
+        self.dropout = dropout
+        self.last_dropout = dropout if add_last_dropout else 0.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        net = self.act(self.linear1(x)) if self.net1 is None else self.net1(x)
+        net = self.linear2(F.dropout(net, self.dropout, self.training))
+        return F.dropout(net, self.last_dropout, self.training)
+
+
+@channel_mixers.register("mix_ff")
+class MixFeedForward(nn.Module):
+    """fc1 -> a depthwise 3-wide conv along the tokens (SAME) -> GELU ->
+    dropout -> fc2."""
+
+    def __init__(self, in_dim: int, latent_dim: int, dropout: float = 0.0, **kwargs: Any) -> None:
+        super().__init__()
+        self.fc1 = Linear(in_dim, latent_dim)
+        self.conv = ConvN(latent_dim, latent_dim, (3,), groups=latent_dim)
+        self.fc2 = Linear(latent_dim, in_dim)
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        net = self.linear2(F.dropout(self.net1(x), self.dropout, self.training))
-        return F.dropout(net, self.dropout, self.training)
+        net = gelu(self.conv(self.fc1(x)))
+        return self.fc2(F.dropout(net, self.dropout, self.training))
+
+
+class PositionalEncoding(nn.Module):
+    """A learned positional table (1, num_tokens + num_head_tokens, dim),
+    drawn N(0, 0.02^2), added to the first tokens; dropout after it in
+    training mode. With `is_trainable=False` the table is a buffer."""
+
+    def __init__(
+        self, dim: int, num_tokens: int, *, num_head_tokens: int = 0, is_trainable: bool = True, dropout: float = 0.0
+    ) -> None:
+        super().__init__()
+        table = torch.empty(1, num_tokens + num_head_tokens, dim)
+        if is_trainable:
+            self.pos_encoding = nn.Parameter(table)
+        else:
+            self.register_buffer("pos_encoding", table)
+        self.dropout = dropout
+
+    def init_constants(self) -> None:
+        """The table ~ N(0, 0.02^2): `init_parameters`' N(0, 1 / fan_in)
+        draw rescaled, or, for a buffer, one drawn from a generator seeded 0."""
+        t = self.pos_encoding
+        with torch.no_grad():
+            if isinstance(t, nn.Parameter):
+                t.mul_(0.02 * t[0].numel() ** 0.5)
+            elif t.device.type != "meta":
+                gen = torch.Generator(device=t.device).manual_seed(0)
+                t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * 0.02)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.pos_encoding[:, : x.shape[1]].to(x.dtype)
+        return F.dropout(x, self.dropout, self.training)
+
+
+class MixingBlock(nn.Module):
+    """x + token_mixer(norm(x)), then + channel_mixer(norm(x))."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        num_tokens: int,
+        latent_dim: int,
+        *,
+        token_mixing_type: str,
+        token_mixing_config: Optional[dict] = None,
+        channel_mixing_type: str = "ff",
+        channel_mixing_config: Optional[dict] = None,
+        dropout: float = 0.0,
+        drop_path: float = 0.0,
+        norm_type: str = "layer_norm",
+    ) -> None:
+        super().__init__()
+        from .norms import NormFactory
+
+        self.token_norm = NormFactory(norm_type).make(in_dim)
+        self.token_mixer = token_mixers.build(token_mixing_type, in_dim, num_tokens, latent_dim, **(token_mixing_config or {}))
+        self.channel_norm = NormFactory(norm_type).make(in_dim)
+        cm_config = dict(channel_mixing_config or {})
+        cm_config.setdefault("dropout", dropout)
+        self.channel_mixer = channel_mixers.build(channel_mixing_type, in_dim, latent_dim, **cm_config)
+
+    def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        x = x + self.token_mixer(self.token_norm(x), **kwargs)
+        return x + self.channel_mixer(self.channel_norm(x))
+
+
+class MixedStackedEncoder(nn.Module):
+    """`num_layers` `MixingBlock`s of width `in_dim` (mixers `latent_ratio`
+    x wider), behind an optional head token (`head_token`, N(0, 0.02^2),
+    prepended) and positional table, then a norm. Returns the head token's
+    row, else the tokens' mean (`head_pooler="mean"`), else every token;
+    `return_tokens` returns every token."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        num_tokens: int,
+        *,
+        token_mixing_type: str,
+        token_mixing_config: Optional[dict] = None,
+        channel_mixing_type: str = "ff",
+        channel_mixing_config: Optional[dict] = None,
+        num_layers: int = 4,
+        dropout: float = 0.0,
+        norm_type: str = "layer_norm",
+        latent_ratio: float = 4.0,
+        use_head_token: bool = False,
+        use_positional_encoding: bool = False,
+        head_pooler: Optional[str] = "mean",
+        pipeline_parallel: bool = False,
+        pp_microbatches: Optional[int] = None,
+    ) -> None:
+        super().__init__()
+        if pipeline_parallel:
+            raise NotImplementedError(
+                "pipeline_parallel waits for the port's parallel slice (ROADMAP Queue 1 item 5)"
+            )
+        from .norms import NormFactory
+
+        latent_dim = int(round(in_dim * latent_ratio))
+        self.use_head_token = use_head_token
+        self.head_token = nn.Parameter(torch.empty(1, 1, in_dim)) if use_head_token else None
+        self.pos_encoding = (
+            PositionalEncoding(in_dim, num_tokens, num_head_tokens=int(use_head_token), dropout=dropout)
+            if use_positional_encoding
+            else None
+        )
+        self.blocks = nn.ModuleList(
+            MixingBlock(
+                in_dim, num_tokens + int(use_head_token), latent_dim,
+                token_mixing_type=token_mixing_type, token_mixing_config=token_mixing_config,
+                channel_mixing_type=channel_mixing_type, channel_mixing_config=channel_mixing_config,
+                dropout=dropout, norm_type=norm_type,
+            )
+            for _ in range(num_layers)
+        )
+        self.head_norm = NormFactory(norm_type).make(in_dim)
+        self.head_pooler = head_pooler
+
+    def init_constants(self) -> None:
+        if self.head_token is not None:
+            with torch.no_grad():
+                self.head_token.mul_(0.02 * self.head_token[0].numel() ** 0.5)
+
+    def forward(self, x: torch.Tensor, *, return_tokens: bool = False, **kwargs: Any) -> torch.Tensor:
+        if self.head_token is not None:
+            head = self.head_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
+            x = torch.cat([head, x], dim=1)
+        if self.pos_encoding is not None:
+            x = self.pos_encoding(x)
+        for block in self.blocks:
+            x = block(x, **kwargs)
+        x = self.head_norm(x)
+        if return_tokens:
+            return x
+        if self.head_token is not None:
+            return x[:, 0]
+        if self.head_pooler == "mean":
+            return x.mean(dim=1)
+        return x
 
 
 class StyleReferenceStates:
@@ -116,7 +326,7 @@ class BasicTransformerBlock(nn.Module):
             query_dim=query_dim, context_dim=context_dim, heads=num_heads, dim_head=head_dim, dropout=dropout
         )
         self.norm3 = LayerNorm(query_dim)
-        self.ff = FeedForward(query_dim, query_dim * 4, dropout)
+        self.ff = FeedForward(query_dim, query_dim * 4, dropout, activation="geglu")
 
     def forward(
         self,

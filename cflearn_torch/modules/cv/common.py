@@ -1,19 +1,61 @@
-"""Shared generative machinery (counterpart of
-`cflearn_tpu/modules/cv/common.py`): the `generators` and `discriminators`
-registries, `GaussianDistribution`, the diagonal Gaussian over the KL
-autoencoder's latents, and `VQCodebook`, the VQ autoencoder's codebook. The
-other registries and the interface bases are not ported yet."""
+"""CV interfaces and shared generative machinery (counterpart of
+`cflearn_tpu/modules/cv/common.py`): the `encoders`, `decoders`,
+`generators`, `discriminators` and `auto_regressors` registries with their
+`build_*` / `register_*` functions, `DecoderInputs`, `GaussianDistribution`
+(the diagonal Gaussian over a latent), `VQCodebook`, the interface bases
+(`IEncoder`, `IConditional`, `IDecoder`, `IGenerator`, `IGaussianGenerator`,
+`IDiscriminator`, `IAutoRegressor`), `EncoderDecoder` and
+`get_latent_resolution`.
+
+The random draws of the generative modules (a VAE's posterior sample, a
+GAN's z, a conditional decoder's labels, PixelCNN's categorical samples)
+(and a GAN's gradient-penalty mix) go through the `_randn` / `_randint` /
+`_uniform` / `_gumbel` methods of `IConditional`,
+from the module's `generator` (the `IDLModel`'s "default" generator, which
+`from_config` seeds), or PyTorch's global one when it has none. The parity
+tests replace these methods on an instance to feed the JAX side's draws."""
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..common import PrefixModules
 
+encoders = PrefixModules("encoders")
+decoders = PrefixModules("decoders")
 generators = PrefixModules("generators")
 discriminators = PrefixModules("discriminators")
+auto_regressors = PrefixModules("auto_regressors")
+
+
+def _make_build(registry: PrefixModules) -> Any:
+    def build(name: str, *, config: Optional[Dict[str, Any]] = None, **kwargs: Any) -> nn.Module:
+        return registry.build(name, **{**(config or {}), **kwargs})
+
+    return build
+
+
+build_encoder = _make_build(encoders)
+build_decoder = _make_build(decoders)
+build_generator = _make_build(generators)
+build_discriminator = _make_build(discriminators)
+build_auto_regressor = _make_build(auto_regressors)
+register_encoder = encoders.register
+register_decoder = decoders.register
+register_generator = generators.register
+register_discriminator = discriminators.register
+register_auto_regressor = auto_regressors.register
+
+
+@dataclasses.dataclass
+class DecoderInputs:
+    z: torch.Tensor
+    labels: Optional[torch.Tensor] = None
+    deterministic: bool = False
+    apply_tanh: Optional[bool] = None
+    kwargs: Optional[Dict[str, Any]] = None
 
 _LOG_2PI = 1.8378770664093453
 
@@ -109,3 +151,117 @@ class VQCodebook(nn.Module):
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:
         return self.embedding[indices]
+
+
+class IEncoder(nn.Module):
+    """Image -> latent."""
+
+    in_channels: int = 3
+
+    def encode(self, net: torch.Tensor) -> torch.Tensor:
+        return self(net)
+
+
+class IConditional(nn.Module):
+    """Optional class conditioning, and the random draws of a generative
+    module (see the module docstring)."""
+
+    num_classes: Optional[int] = None
+    generator: Optional[torch.Generator] = None
+
+    @property
+    def is_conditional(self) -> bool:
+        return self.num_classes is not None
+
+    def _device(self) -> torch.device:
+        p = next(self.parameters(), None)
+        return p.device if p is not None else torch.device("cpu")
+
+    def _randn(self, shape: Sequence[int]) -> torch.Tensor:
+        """N(0, 1) of `shape`, f32, on the module's device."""
+        return torch.randn(tuple(shape), generator=self.generator, device=self._device())
+
+    def _randint(self, high: int, shape: Sequence[int]) -> torch.Tensor:
+        """Integers in [0, high) of `shape`, on the module's device."""
+        return torch.randint(0, high, tuple(shape), generator=self.generator, device=self._device())
+
+    def _uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """U[0, 1) of `shape`, f32, on the module's device."""
+        return torch.rand(tuple(shape), generator=self.generator, device=self._device())
+
+    def _gumbel(self, shape: Sequence[int]) -> torch.Tensor:
+        """Standard Gumbel noise of `shape`, f32: a categorical sample is the
+        argmax of the logits plus it, as `jax.random.categorical` draws."""
+        u = torch.rand(tuple(shape), generator=self.generator, device=self._device())
+        tiny = torch.finfo(torch.float32).tiny
+        return -torch.log(-torch.log(u.clamp(tiny, 1.0)))
+
+    def get_sample_labels(self, num_samples: int, class_idx: Optional[int] = None) -> Optional[torch.Tensor]:
+        """None for an unconditional module; else `class_idx` for every
+        sample, or labels drawn at random (`_randint`; the JAX base class
+        draws these from a fixed key, PixelCNN's from its stream)."""
+        if self.num_classes is None:
+            return None
+        if class_idx is not None:
+            return torch.full((num_samples,), class_idx, dtype=torch.int32, device=self._device())
+        return self._randint(self.num_classes, (num_samples,))
+
+
+class IDecoder(IConditional):
+    """Latent -> image."""
+
+    img_size: Optional[int] = None
+    latent_channels: Optional[int] = None
+    latent_resolution: Optional[int] = None
+
+    def decode(self, inputs: DecoderInputs) -> torch.Tensor:
+        return self(inputs)
+
+
+class IGenerator(IConditional):
+    """A sampling module: `sample(num_samples, labels=...)`."""
+
+
+class IGaussianGenerator(IGenerator):
+    """A generator sampling from a Gaussian latent (the VAE family)."""
+
+
+class IDiscriminator(nn.Module):
+    """Image -> realness logits."""
+
+
+class IAutoRegressor(IConditional):
+    """An autoregressive model over discrete codes."""
+
+
+class EncoderDecoder(nn.Module):
+    """An encoder and a decoder built by name from their registries."""
+
+    def __init__(
+        self,
+        *,
+        encoder: str = "vanilla",
+        decoder: str = "vanilla",
+        encoder_config: Optional[Dict[str, Any]] = None,
+        decoder_config: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        super().__init__()
+        self.encoder = build_encoder(encoder, config=encoder_config)
+        self.decoder = build_decoder(decoder, config=decoder_config)
+
+
+@torch.no_grad()
+def get_latent_resolution(encoder: nn.Module, img_size: int) -> int:
+    """The spatial size of `encoder.encode`'s latent on an `img_size` image:
+    one zero image through it in eval mode (no BatchNorm statistic moves),
+    on its device; the JAX package traces it abstractly."""
+    in_channels = getattr(encoder, "in_channels", 3)
+    p = next(encoder.parameters(), None)
+    device = p.device if p is not None else torch.device("cpu")
+    training = encoder.training
+    encoder.eval()
+    try:
+        net = encoder.encode(torch.zeros((1, img_size, img_size, in_channels), device=device))
+    finally:
+        encoder.train(training)
+    return net.shape[1]

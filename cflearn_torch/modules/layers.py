@@ -1,6 +1,7 @@
 """Channel-last layers with flax `nnx` semantics.
 
-The port's counterparts of `nnx.Linear`, `nnx.Conv`, `nnx.LayerNorm`,
+The port's counterparts of `nnx.Linear`, `nnx.Conv` (`Conv` at rank 2,
+`ConvN` at ranks 1 and 3), `nnx.LayerNorm`,
 `nnx.GroupNorm`, `nnx.BatchNorm` and `nnx.Embed`, and of `jax.image.resize`
 (`resize`: its nearest, linear and cubic methods). Parameters carry PyTorch's names and
 layouts (`weight` (out, in) for Linear, OIHW for Conv); `cflearn_torch.bridge`
@@ -68,12 +69,7 @@ class Conv(nn.Module):
 
     def _pads(self, size: Tuple[int, int], kernel: Tuple[int, int], padding: Any) -> List[Tuple[int, int]]:
         if padding == "SAME":
-            # XLA's "SAME": ceil(n / s) outputs, the padding they need split with the odd pixel at the end
-            pads = []
-            for n, k, s, d in zip(size, kernel, self.strides, self.dilation):
-                total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
-                pads.append((total // 2, total - total // 2))
-            return pads
+            return same_pads(size, kernel, self.strides, self.dilation)
         if padding == "VALID":
             return [(0, 0), (0, 0)]
         return [tuple(p) for p in padding]
@@ -108,6 +104,58 @@ class Conv(nn.Module):
         if self._kernel_cache is None or self._kernel_cache[0] != key:
             self._kernel_cache = (key, kernel_weight(self.weight.detach()))
         return self._kernel_cache[1]
+
+
+def same_pads(size: Sequence[int], kernel: Sequence[int], strides: Sequence[int], dilation: Sequence[int]) -> List[Tuple[int, int]]:
+    """XLA's "SAME" along each axis: ceil(n / s) outputs, the padding they need split with the odd pixel at
+    the end: a 4x4 stride-2 conv pads 28 px by (1, 1), 7 px by (1, 2)."""
+    pads = []
+    for n, k, s, d in zip(size, kernel, strides, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+class ConvN(nn.Module):
+    """`nnx.Conv` of rank 1 or 3 on a channel-last input (B, *spatial, C):
+    weight (out, in / groups, *kernel), `padding` "SAME", "VALID" or one
+    (lo, hi) pair per spatial axis. The rank-2 conv is `Conv`."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Tuple[int, ...],
+        *,
+        strides: Optional[Tuple[int, ...]] = None,
+        padding: _Padding = "SAME",
+        use_bias: bool = True,
+        groups: int = 1,
+    ) -> None:
+        super().__init__()
+        self.rank = len(kernel_size)
+        if self.rank not in (1, 3):
+            raise ValueError(f"ConvN takes rank 1 or 3, not {self.rank} (rank 2 is `Conv`)")
+        self.strides = tuple(strides or (1,) * self.rank)
+        self.padding = padding.upper() if isinstance(padding, str) else tuple(map(tuple, padding))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = _promote(x, self.weight)
+        n = self.rank
+        if self.padding == "SAME":
+            pads = same_pads(x.shape[1:1 + n], self.weight.shape[2:], self.strides, (1,) * n)
+        elif self.padding == "VALID":
+            pads = [(0, 0)] * n
+        else:
+            pads = list(self.padding)
+        xc = x.to(dtype).movedim(-1, 1)
+        xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
+        conv = F.conv1d if n == 1 else F.conv3d
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return conv(xc, self.weight.to(dtype), bias, stride=self.strides, groups=self.groups).movedim(1, -1)
 
 
 class LayerNorm(nn.Module):
@@ -159,6 +207,10 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+
+    def reset_buffers(self) -> None:
+        self.mean.zero_()
+        self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = _promote(x, self.mean, self.var, self.weight, self.bias)

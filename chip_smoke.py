@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero:
    first-stage encoder's shapes of the ldm path (batch 8, 512px); the d = 512
    forward (the wide-head wgmma + TMA kernel) also at the f4 VQ decoder's
    L = 16384 and at ragged and causal cases, each with its logsumexp held
-   against the plain forward's. Prints max_abs_err and the kernel's, the
+   against the plain forward's; the forward at the ViT-S/16 classifier's
+   384 px shape (phase 19: B64 H6 L577 d256, f32 and bf16) and the
+   forward-with-logsumexp and backward kernels at its training step's
+   (B32, f32 and bf16). Prints max_abs_err and the kernel's, the
    plain version's and a library call's ms (the library call is timed
    only), and the kernel's
    device time (`device_ms`: calls replayed from a CUDA graph, without the
@@ -214,13 +217,30 @@ Phases, in order; any failure exits non-zero:
    fused backward and GroupNorm, every trained parameter moved, ms per step
    and peak memory (an out-of-memory fails). Phase 2 holds the step's
    attention kernels at its three shapes.
-19. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+19. CV models through the model core — `IDLModel.from_config` at the JAX
+   modules' defaults, f32, seeded random weights, `MultiScopeStep` with Adam
+   1e-4: "gan" (vanilla, wgangp with its gradient penalty, conditional on 10
+   classes), "vae" and conditional "vae", "vq_vae" (512 codes of 128), all
+   at 64 px and batch 64, then "ar" (PixelCNN over the VQ-VAE's 8x8 code
+   maps of the images) and one `sample` of 16 maps; "clf" with the ViT-S/16
+   encoder (latent 384, 6 heads of 256, 1000 classes) at 224 px (197
+   tokens: SDPA) and 384 px (577 tokens: rows 1, 3, 4), classifying 64
+   images and training at batch 32. Each: one warm-up step and two windows
+   of three (ms a step, the best window, host clock), peak memory, finite
+   losses, every trained parameter moved, exact launches (none but the
+   384 px ViT's 12 flash forwards a classify, 12 forwards with the
+   logsumexp and 12 fused backwards a step, counted by the census in the
+   classify), and one forward + backward of the first scope through the
+   kernels against the plain path within TRAIN_PARITY_FACTOR x its drift
+   under a one-ulp move of the input (the images; the GAN's z; PixelCNN's
+   first masked conv weight). About 10 s.
+20. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
-   the style and tiling, and the SD v2 and v2 finetune readings on lines of
-   their own, the card's name
+   the style and tiling, the SD v2 and v2 finetune, and the CV models'
+   readings on lines of their own, the card's name
    and power limit, and last `{"ok": true,
    "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
@@ -337,6 +357,14 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 3
 AE_BATCH = 8
 V2_TRAIN_BATCH = 4  # the v2_v finetune step's batch (phase 18)
+# phase 19: the CV models at the JAX modules' defaults (64 px, latent 128; 512 codes of 128), f32
+CV_BATCH = 64  # the GAN / VAE / VQ-VAE / PixelCNN steps and the ViT classifier's classify batch
+CV_STEPS = 3  # timed steps a window; two windows, the best kept
+VIT_TRAIN_BATCH = 32  # the ViT-S/16 training steps at 384 px
+VIT_LAYERS = 12  # ViT-S/16: one routed self-attention a layer at 384 px (577 tokens), none at 224 px (197)
+VIT_HEADS, VIT_DIM = 6, 256  # the JAX package's ViT: 6 heads over 4 x 384 = 1536 channels
+VIT_TOKENS = {224: 197, 384: 577}
+PIXEL_CNN_SAMPLES = 16
 
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per txt2img as a function of steps)
 FLASH_CASES = [
@@ -358,6 +386,10 @@ FLASH_CASES = [
     ("vq_dec_mid", 1, 1, 16384, 16384, 512, False, "bfloat16", lambda s: 0),
     ("ragged_d512", 1, 2, 1000, 777, 512, False, "bfloat16", lambda s: 0),
     ("causal_d512", 1, 2, 1000, 1000, 512, True, "bfloat16", lambda s: 0),
+    # the ViT-S/16 classifier at 384 px (phase 19): 577 tokens, 6 heads of 256, classifying 64 images; f32 as the
+    # JAX default runs it (the mma.sync chunked kernel), bf16 on the wgmma + TMA kernel at its widest head
+    ("vit384_f32", CV_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "float32", lambda s: 0),
+    ("vit384_bf16", CV_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "bfloat16", lambda s: 0),
 ]
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per finetune step)
 TRAIN_CASES = [
@@ -373,6 +405,9 @@ TRAIN_CASES = [
     ("v2_96x96", V2_TRAIN_BATCH, 5, 9216, 9216, 64, False, "bfloat16", 0),
     ("v2_48x48", V2_TRAIN_BATCH, 10, 2304, 2304, 64, False, "bfloat16", 0),
     ("v2_24x24", V2_TRAIN_BATCH, 20, 576, 576, 64, False, "bfloat16", 0),
+    # the ViT-S/16 training step at 384 px, batch 32 (phase 19: 12 calls a step each), f32 and bf16
+    ("vit384_f32", VIT_TRAIN_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "float32", 0),
+    ("vit384_bf16", VIT_TRAIN_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "bfloat16", 0),
 ]
 # (name, B, H, W, C, Co, launches per decode)
 CONV_CASES = [
@@ -2550,6 +2585,249 @@ def phase_v2_finetune(torch, cflearn_torch, A, Cv, Gn) -> dict:
     torch.cuda.empty_cache()
     return out
 
+# 19. the CV models through the model core, at the JAX modules' defaults, f32, seeded random weights: "gan" (vanilla,
+# wgangp with its gradient penalty, conditional on 10 classes with the PatchGAN's class head), "vae" and conditional
+# "vae", "vq_vae" (512 codes of 128) and "ar" (PixelCNN over the VQ-VAE's 8x8 code maps, trained on the codes of the
+# images, then sampled), all at 64 px and batch 64; and "clf" with the ViT-S/16 encoder (latent 384, 6 heads of
+# 4 x 384 / 6 = 256, 1000 classes) at 224 px (197 tokens: the library path) and at 384 px (577 tokens: the flash
+# kernels). Phase 2 holds the 384 px attention shapes (`vit384_*`)
+CV_MODELS = [
+    # (name, DLConfig keyword arguments, the batch has labels of this many classes)
+    ("gan", dict(model="gan", module_name="gan"), None),
+    ("gan_wgangp", dict(model="gan", module_name="gan", loss_config={"gan_mode": "wgangp"}), None),
+    ("gan_conditional", dict(model="gan", module_name="gan", module_config={"num_classes": 10}), 10),
+    ("vae", dict(model="vae", module_name="vae"), None),
+    ("vae_conditional", dict(model="vae", module_name="vae", module_config={"num_classes": 10}), 10),
+    ("vq_vae", dict(model="vq_vae", module_name="vq_vae"), None),
+]
+
+
+def vit_config(size: int) -> dict:
+    return dict(model="common", module_name="clf", loss_name="cross_entropy", module_config=dict(
+        img_size=size, in_channels=3, num_classes=1000, encoder="vit", latent_dim=384))
+
+
+def phase_cv_models(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
+    """Each model built by `IDLModel.from_config` on the card (f32), its train steps through `MultiScopeStep`
+    (Adam 1e-4): one warm-up step, then two windows of CV_STEPS steps on the host clock (the best window's ms per
+    step kept), peak memory, finite loss items, every trained parameter moved, exact launches (none for the
+    GAN, VAE, VQ-VAE and PixelCNN, whose convs run in f32 and which have no attention or GroupNorm; 12 flash
+    forwards with the logsumexp and 12 fused backwards a ViT step at 384 px). One forward + backward of each
+    model's first scope through the kernels against the plain path within TRAIN_PARITY_FACTOR x the plain
+    path's drift under a one-ulp move of its input (the images; the GAN generator's z; PixelCNN's first
+    masked conv weight, its input being integer codes), the loss and the gradient's global norm, its draws
+    held fixed. PixelCNN samples 16 code maps. The ViT classifies 64 images
+    at 224 and at 384 px under the census (none and 12 flash calls), the best of two on the host clock."""
+    from cflearn_torch.constants import INPUT_KEY, LABEL_KEY, LOSS_KEY
+    from cflearn_torch.optimizers import build_optimizer
+    from cflearn_torch.trainer import MultiScopeStep
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"cv models: {msg}")
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    images = torch.rand((CV_BATCH, 64, 64, 3), generator=gen, device="cuda") * 2.0 - 1.0
+    out = {}
+
+    def fixed_draws(model):
+        """The module's draws made once a shape and then repeated: the kernel and the plain runs see the same."""
+        made = {}
+        model.m._randn = lambda shape: made.setdefault(("n",) + tuple(shape), torch.randn(
+            tuple(shape), generator=gen, device="cuda"))
+        model.m._uniform = lambda shape: made.setdefault(("u",) + tuple(shape), torch.rand(
+            tuple(shape), generator=gen, device="cuda"))
+        return made
+
+    def parity(name, model, batch):
+        """The first scope's loss and gradients through the kernels against the plain path (TRAIN_PARITY_FACTOR
+        x its one-ulp drift, up and down), with the draws fixed; returns the launches of the kernel run."""
+        made = fixed_draws(model)
+        step = MultiScopeStep(model, {ts.scope: build_optimizer("sgd", 0.0) for ts in model.train_steps})
+        core = next(iter(step.steps.values()))
+        core.train_step.step_actives = {ts.scope: True for ts in model.train_steps}
+        # the input that moves one ulp: the generator's z for a GAN (its core loss does not read the images), the
+        # first masked conv's weight for PixelCNN (whose input is integer codes), the images otherwise
+        z_key = ("n", CV_BATCH, getattr(model.m, "latent_dim", 0))
+        if name.startswith("gan"):
+            made[z_key] = torch.randn(z_key[1:], generator=gen, device="cuda").to(torch.bfloat16).float()
+            x0 = made[z_key]
+        elif name == "ar":
+            weight = model.m.convs[0].conv.weight
+            with torch.no_grad():
+                weight.copy_(weight.to(torch.bfloat16).float())
+            x0 = weight.detach().clone()
+        else:
+            x0 = batch[INPUT_KEY].to(torch.bfloat16).float()
+
+        def fwd_bwd(x):
+            b = batch
+            if name.startswith("gan"):
+                made[z_key] = x
+            elif name == "ar":
+                with torch.no_grad():
+                    weight.copy_(x)
+            else:
+                b = dict(batch, **{INPUT_KEY: x})
+            loss = core.loss_and_grads(b)[LOSS_KEY].item()
+            grads, core.grads = core.grads, {}
+            return loss, grads
+
+        with plain_kernels(A, Cv, Gn):
+            loss_p, grads_p = fwd_bwd(x0)
+            up = bump_ulp(torch, x0)
+            drift_loss = drift_global = 0.0
+            for x in (up, x0 - (up - x0)):
+                loss_u, grads_u = fwd_bwd(x)
+                drift_loss = max(drift_loss, abs(loss_u - loss_p))
+                drift_global = max(drift_global, grad_errors(grads_u, grads_p)["global_rel"])
+        reset_launches(A, Cv, Gn)
+        loss_k, grads_k = fwd_bwd(x0)
+        launches = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+        err = grad_errors(grads_k, grads_p)
+        tol_loss = max(TRAIN_PARITY_FACTOR * drift_loss, 1e-6 * abs(loss_p))
+        print(f"cv models parity[{name}]: {core.scope} loss kernels {loss_k:.6f} plain {loss_p:.6f} (off "
+              f"{abs(loss_k - loss_p):.3e}, tolerance {tol_loss:.3e}); gradients {json.dumps(err)} (global tolerance "
+              f"{TRAIN_PARITY_FACTOR * drift_global:.3e}: {TRAIN_PARITY_FACTOR} x the one-ulp drift "
+              f"{drift_global:.3e}); launches {json.dumps(launches)}")
+        check(abs(loss_k - loss_p) <= tol_loss, f"{name}: the loss through the kernels disagrees with the plain path")
+        check(err["global_rel"] <= TRAIN_PARITY_FACTOR * drift_global,
+              f"{name}: the gradients through the kernels disagree with the plain path")
+        for attr in ("_randn", "_uniform"):
+            vars(model.m).pop(attr, None)
+        if name == "ar":
+            with torch.no_grad():
+                weight.copy_(x0)
+        return launches, {"loss_err": abs(loss_k - loss_p), "loss_tolerance": tol_loss, "drift_loss": drift_loss,
+                          "global_rel": err["global_rel"], "leaf_max_rel": err["leaf_max_rel"],
+                          "drift_global": drift_global}
+
+    def train(name, config, batch, per_step):
+        """Warm-up, two timed windows, the checks; `per_step` the launches of one step."""
+        t0 = time.perf_counter()
+        model = cflearn_torch.IDLModel.from_config(cflearn_torch.DLConfig(seed=0, **config), device="cuda")
+        torch.cuda.synchronize()
+        scopes = [ts.scope for ts in model.train_steps]
+        print(f"cv models[{name}]: IDLModel.from_config built {type(model).__name__}({type(model.m).__name__}) in "
+              f"{time.perf_counter() - t0:.2f} s: {model.num_params:,} f32 parameters, scopes {scopes}")
+        parity_launches, par = parity(name, model, batch)
+        check(parity_launches == {k: v for k, v in per_step.items() if v},
+              f"{name}: one forward + backward launched {parity_launches}")
+        step = MultiScopeStep(model, {s: build_optimizer("adam", 1e-4) for s in scopes})
+        step.step(batch)  # warm-up
+        torch.cuda.synchronize()
+        trained = [(n, p) for s in scopes for n, p in model.params_filter(s)]
+        before = [p.detach().clone() for _, p in trained]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(A, Cv, Gn)
+        windows, losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(CV_STEPS):
+                losses.append({k: v.item() for k, v in step.step(batch).items()})
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) / CV_STEPS * 1e3)
+        launches = read_launches(A, Cv, Gn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = dict.fromkeys(launches, 0)
+        want.update({k: v * 2 * CV_STEPS for k, v in per_step.items()})
+        unmoved = [n for (n, p), old in zip(trained, before) if torch.equal(p, old)]
+        # wgangp: the patch logits' bias cancels between the real and the fake mean, and the penalty does not
+        # read it: its gradient is exactly zero, in the JAX package too
+        still = len(set(unmoved) - ({"discriminator.conv_out.bias"} if name == "gan_wgangp" else set()))
+        step_ms = min(windows)
+        bsz = batch[INPUT_KEY].shape[0]
+        print(f"cv models[{name}]: {step_ms:.2f} ms per step (best of windows {[round(w, 2) for w in windows]}), "
+              f"{bsz / step_ms * 1e3:.1f} samples/s, peak memory {peak:.2f} GiB, last losses {json.dumps(losses[-1])}, "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}, {still} trained parameters unmoved")
+        check(all(math.isfinite(v) for items in losses for v in items.values()), f"{name}: losses {losses[-1]}")
+        check(launches == want, f"{name}: launches {launches} != {want}")
+        check(still == 0, f"{name}: trained parameters did not move: {unmoved}")
+        record = {"parameters": model.num_params, "batch": bsz, "step_ms": step_ms, "windows_ms": windows,
+                  "samples_per_s": bsz / step_ms * 1e3, "peak_memory_gib": peak, "losses": losses[-1],
+                  "launches": {k: v for k, v in launches.items() if v}, "launches_per_step": per_step, "parity": par}
+        return model, record
+
+    for name, config, classes in CV_MODELS:
+        batch = {INPUT_KEY: images}
+        if classes:
+            batch[LABEL_KEY] = torch.randint(0, classes, (CV_BATCH, 1), generator=gen, device="cuda")
+        model, out[name] = train(name, config, batch, {})
+        if name == "vq_vae":
+            model.eval()
+            with torch.no_grad():
+                codes = model.m.get_code_indices(images)
+            check(codes.shape == (CV_BATCH, 8, 8) and 0 <= int(codes.min()) and int(codes.max()) < 512,
+                  f"vq_vae codes {tuple(codes.shape)}")
+            out[name]["distinct_codes"] = len(torch.unique(codes))
+        del model
+        torch.cuda.empty_cache()
+
+    # PixelCNN over the VQ-VAE's code maps, then sampled
+    ar_config = dict(model="ar", module_name="pixel_cnn", module_config={"num_codes": 512, "img_size": 8,
+                                                                       "in_channels": 1})
+    model, out["ar"] = train("ar", ar_config, {INPUT_KEY: codes[..., None]}, {})
+    model.eval()
+    model.m.generator = torch.Generator(device="cuda").manual_seed(32)
+    reset_launches(A, Cv, Gn)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sampled = model.m.sample(PIXEL_CNN_SAMPLES)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    sample_launches = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+    print(f"cv models[ar]: sample of {PIXEL_CNN_SAMPLES} 8x8 code maps ({64} forwards) in {min(runs):.1f} ms (best of "
+          f"{[round(r, 1) for r in runs]}), {len(torch.unique(sampled))} distinct codes, launches {sample_launches}")
+    check(sampled.shape == (PIXEL_CNN_SAMPLES, 8, 8, 1) and 0 <= int(sampled.min()) and int(sampled.max()) < 512,
+          f"ar sample {tuple(sampled.shape)}")
+    check(not sample_launches, f"ar sample launched {sample_launches}")
+    out["ar"].update(sample_ms=min(runs), sample_runs_ms=runs, sample_distinct_codes=len(torch.unique(sampled)))
+    del model, codes, sampled
+    torch.cuda.empty_cache()
+
+    # the ViT-S/16 classifier at 224 and 384 px
+    for size in (224, 384):
+        name = f"clf_vit_{size}"
+        routed = VIT_TOKENS[size] >= 256
+        x = torch.rand((CV_BATCH, size, size, 3), generator=gen, device="cuda") * 2.0 - 1.0
+        y = torch.randint(0, 1000, (VIT_TRAIN_BATCH, 1), generator=gen, device="cuda")
+        per_step = {"flash_fwd_lse": VIT_LAYERS, "flash_bwd_fused": VIT_LAYERS} if routed else {}
+        model, out[name] = train(name, vit_config(size), {INPUT_KEY: x[:VIT_TRAIN_BATCH], LABEL_KEY: y}, per_step)
+        attn = model.m.encoder.encoder.blocks[0].token_mixer.net
+        check((attn.num_heads, attn.head_dim, len(model.m.encoder.encoder.blocks)) == (VIT_HEADS, VIT_DIM, VIT_LAYERS),
+              f"{name}: {attn.num_heads} heads of {attn.head_dim}")
+        model.eval()
+        counts = {}
+        with torch.no_grad(), census(A, Cv, Gn, counts):
+            logits = model.run({INPUT_KEY: x})["predictions"]
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(2):
+            reset_launches(A, Cv, Gn)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.run({INPUT_KEY: x})
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        got = read_launches(A, Cv, Gn)
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = VIT_LAYERS if routed else 0
+        shapes = sorted({str(key[1][0]) for key in counts if key[0] == "flash_attention"})
+        print(f"cv models[{name}]: classify {CV_BATCH} images in {min(runs):.1f} ms (best of "
+              f"{[round(r, 1) for r in runs]}), {CV_BATCH / min(runs) * 1e3:.1f} img/s, logits {tuple(logits.shape)}, "
+              f"launches {json.dumps({k: v for k, v in got.items() if v})}, census flash calls "
+              f"{sum(n for k, n in counts.items() if k[0] == 'flash_attention')} at {shapes}")
+        check(logits.shape == (CV_BATCH, 1000) and bool(torch.isfinite(logits).all()), f"{name}: logits")
+        check(got == want, f"{name}: classify launches {got} != {want}")
+        check(sum(counts.values()) == want["flash_attention"], f"{name}: the census {counts} disagrees")
+        out[name].update(classify_ms=min(runs), classify_runs_ms=runs, classify_img_per_s=CV_BATCH / min(runs) * 1e3,
+                         classify_launches=got, tokens=VIT_TOKENS[size])
+        del model, x, logits
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2626,6 +2904,11 @@ def main() -> int:
                 r["per"]["ae"] = AE_FLASH
             if r["case"].startswith("v2_") and name in ("flash_fwd_lse", "flash_bwd_fused"):
                 r["per"]["v2_finetune"] = 5
+            if r["case"] == "vit384_f32":
+                if name == "flash_attention":
+                    r["per"]["vit_classify"] = VIT_LAYERS
+                elif name in ("flash_fwd_lse", "flash_bwd_fused"):
+                    r["per"]["vit_train"] = VIT_LAYERS
             if r["case"] == "ldm_enc_mid" and name == "flash_attention":
                 r["per"]["ldm"] = ENCODER_FLASH
     # the flash shapes of the lossy serving configurations: the 64x64 attentions at the merged length
@@ -3339,7 +3622,11 @@ def main() -> int:
     v2_train_out = phase_v2_finetune(torch, cflearn_torch, A, Cv, Gn)
     print(f"v2 finetune: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 19. summary
+    # 19. the CV models through the model core
+    cv_out = phase_cv_models(torch, np, cflearn_torch, A, Cv, Gn)
+    print(f"cv models: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 20. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -3360,16 +3647,21 @@ def main() -> int:
     path_launches = {"txt2img": launches, "finetune": train_launches, "ae": ae_launches, "w8a8": w8a8_launches,
                      "fold": fold_launches, "faithful": serve_out["faithful"]["launches"],
                      "accelerated": serve_out["accelerated"]["launches"], "ldm": ldm_launches,
-                     "ae_defaults": aed_launches, "ae_vq": vq_launches, "v2_finetune": v2_train_out["launches"]}
+                     "ae_defaults": aed_launches, "ae_vq": vq_launches, "v2_finetune": v2_train_out["launches"],
+                     "vit_classify": cv_out["clf_vit_384"]["classify_launches"],
+                     "vit_train": cv_out["clf_vit_384"]["launches"]}
     path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
                  "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
                  "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img",
                  "ldm": "one finetune step on 512px images", "ae_defaults": "one autoencoder train step at the defaults",
-                 "ae_vq": "one ae_vq train step", "v2_finetune": "one v2_v finetune step (batch 4, 96x96 latents)"}
+                 "ae_vq": "one ae_vq train step", "v2_finetune": "one v2_v finetune step (batch 4, 96x96 latents)",
+                 "vit_classify": f"one ViT-S/16 classify of {CV_BATCH} images at 384 px (f32)",
+                 "vit_train": f"one ViT-S/16 train step at 384 px, batch {VIT_TRAIN_BATCH} (f32)"}
     path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps",
                     ldm=f"{TRAIN_STEPS} finetune steps on 512px images",
                     ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps",
-                    v2_finetune=f"{TRAIN_STEPS} v2_v finetune steps")
+                    v2_finetune=f"{TRAIN_STEPS} v2_v finetune steps",
+                    vit_train=f"{2 * CV_STEPS} ViT-S/16 train steps at 384 px (two windows)")
     # the new paths run the UNet step's and the autoencoder step's shapes too: their rows count for them where the
     # path launched the kernel (the ldm step adds the encoder's rows of its own)
     for name, cases in rows.items():
@@ -3430,7 +3722,7 @@ def main() -> int:
                    "serve_parity": {"unet": rel_unet, "unet_drift": drift_unet, "vae": rel_vae, "vae_drift": drift_vae},
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
-                   "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out,
+                   "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -3447,6 +3739,7 @@ def main() -> int:
     print(json.dumps({"style_tiling": {k: v for k, v in style_out.items() if k != "calls"}}))
     print(json.dumps({"sd_v2": {k: v for k, v in v2_out.items() if k != "calls"},
                       "v2_finetune": {k: v for k, v in v2_train_out.items() if k != "calls"}}))
+    print(json.dumps({"cv_models": cv_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
