@@ -14,7 +14,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .api import APIPool, CLIPExtractor, ControlledDiffusionAPI, DiffusionAPI, IAPI, TranslatorAPI, Weights  # noqa: E402
+from .api import (  # noqa: E402
+    APIPool, CLIPExtractor, ControlledDiffusionAPI, DiffusionAPI, Evaluator, IAPI, TranslatorAPI, Weights, evaluate,
+    fit_array, load_evaluation, load_inference, load_training, make_metric, make_model, pack, save, supported_losses,
+    supported_metrics, supported_modules, supported_optimizers, supported_samplers, supported_schedulers,
+)
+from .data import ArrayData, ArrayDictData  # noqa: E402
 from .device import resolve_device  # noqa: E402
 from .models import (  # noqa: E402
     AutoRegressorModel, CommonDLModel, DDPMModel, DLEnsembleModel, GANModel, VAEModel, VQVAEModel,
@@ -35,7 +40,12 @@ from .modules.multimodal.diffusion.ldm import (  # noqa: E402
 from .modules.multimodal.diffusion.unet import ControlNet  # noqa: E402
 from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
 from .schema import DLConfig, IDLModel, ILoss, TrainStep  # noqa: E402
-from .pipeline import CONFIGS, configure, finetune_unet, train_autoencoder, txt2img  # noqa: E402
+from .schema.data import DataConfig  # noqa: E402
+from .pipeline import (  # noqa: E402
+    CONFIGS, DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline, configure,
+    finetune_unet, train_autoencoder, txt2img,
+)
+from .trainer import Trainer  # noqa: E402
 from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs  # noqa: E402
 from . import zoo  # noqa: E402
 from .zoo import (  # noqa: E402
@@ -44,6 +54,10 @@ from .zoo import (  # noqa: E402
 )
 
 __all__ = [
+    "ArrayData", "ArrayDictData", "DLEvaluationPipeline", "DLInferencePipeline", "DLPipelineSerializer",
+    "DLTrainingPipeline", "DataConfig", "Evaluator", "Trainer", "evaluate", "fit_array", "load_evaluation",
+    "load_inference", "load_training", "make_metric", "make_model", "pack", "save", "supported_losses",
+    "supported_metrics", "supported_modules", "supported_optimizers", "supported_samplers", "supported_schedulers",
     "AEModel", "AEVQModel", "APIPool", "AutoRegressorModel", "Backbone", "BackboneEncoder", "BackboneEncoder1D",
     "GANModel", "ImageClassifier", "ImgSiren", "MixViT", "PixelCNN", "RepVGG", "Siren", "VAEModel", "VQVAE",
     "VQVAEModel", "VanillaGenerator", "VanillaVAE", "ViTEncoder", "mix_vit", "mix_vit_large", "mix_vit_lite",

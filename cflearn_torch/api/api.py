@@ -1,0 +1,159 @@
+"""The functional API (counterpart of `cflearn_tpu/api/api.py`):
+`fit_array`, `save` / `pack` / `load_training` / `load_inference` /
+`load_evaluation`, `Evaluator` / `evaluate`, `make_model`, `make_metric` and
+the `supported_*` registry views.
+
+`fit_array(x, y, config=DLConfig(...))` is `ArrayData` then
+`DLTrainingPipeline.init(config).fit(data)`, on the CUDA card unless
+`device` names another ("cpu" runs the plain PyTorch path); without a card
+and without a device it raises. The tabular entry points (`fit_ml`,
+`repeat_ml`, `make_toy_ml_model`, `run_multiple`) and the ensembles
+(`fuse_inference`, `fuse_evaluation`) wait for their slices.
+"""
+
+from typing import Any, Dict, List, Optional, Union
+
+from ..data.array import ArrayData
+from ..pipeline.api import DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline
+from ..pipeline.api import TrainingPipeline
+from ..schema.config import DLConfig
+from ..schema.data import DataConfig
+from ..schema.losses_schema import ILoss
+from ..schema.metrics_schema import IMetric, MetricsOutputs
+from ..schema.model import IDLModel
+from ..toolkit.misc import check_is_ci
+
+
+def fit_array(
+    x_train: Any,
+    y_train: Any = None,
+    x_valid: Any = None,
+    y_valid: Any = None,
+    *,
+    config: DLConfig,
+    data_config: Optional[DataConfig] = None,
+    debug: bool = False,
+    device: Any = None,
+    **kwargs: Any,
+) -> TrainingPipeline:
+    """Array training with no preprocessing: the fitted pipeline, also saved
+    to `<workspace>/pipeline`. `debug` (or the `CI` flag) turns `config` into
+    a one-step run, as in the JAX package."""
+    if debug or check_is_ci():
+        config.to_debug()
+    data = ArrayData.init(data_config).fit(x_train, y_train, x_valid, y_valid)
+    return DLTrainingPipeline.init(config, device=device).fit(data, **kwargs)
+
+
+def save(pipeline: TrainingPipeline, folder: str) -> str:
+    DLPipelineSerializer.save(pipeline, folder)
+    return folder
+
+
+def pack(workspace: str, export_folder: str, **kwargs: Any) -> str:
+    return DLPipelineSerializer.pack(workspace, export_folder, **kwargs)
+
+
+def load_training(folder: str, *, device: Any = None) -> TrainingPipeline:
+    return DLPipelineSerializer.load_training(folder, device=device)
+
+
+def load_inference(folder: str, *, device: Any = None) -> DLInferencePipeline:
+    return DLPipelineSerializer.load_inference(folder, device=device)
+
+
+def load_evaluation(folder: str, *, device: Any = None) -> DLEvaluationPipeline:
+    return DLPipelineSerializer.load_evaluation(folder, device=device)
+
+
+class Evaluator:
+    """The same metrics over several pipelines, and a table of them."""
+
+    def __init__(self, metrics: Union[str, List[str]], *, metric_configs: Optional[Dict[str, Any]] = None) -> None:
+        self.metric = IMetric.fuse(metrics, metric_configs)
+
+    def evaluate(
+        self, pipelines: Dict[str, Any], x: Any, y: Any = None, *, batch_size: int = 128
+    ) -> Dict[str, MetricsOutputs]:
+        results: Dict[str, MetricsOutputs] = {}
+        for name, pipeline in pipelines.items():
+            loader = pipeline._as_loader(x, y, batch_size)
+            outputs = pipeline.inference.get_outputs(loader, metrics=self.metric, return_outputs=False)
+            assert outputs.metric_outputs is not None
+            results[name] = outputs.metric_outputs
+        return results
+
+    @staticmethod
+    def report(results: Dict[str, MetricsOutputs]) -> str:
+        """One row a pipeline (the best marked "*"), one column a metric, and the score."""
+        names = sorted(results)
+        metric_keys = sorted({k for r in results.values() for k in r.metric_values})
+        lines = [" | ".join(["pipeline".ljust(24)] + [k.ljust(12) for k in metric_keys] + ["score".ljust(12)])]
+        best = max(results.items(), key=lambda kv: kv[1].final_score)[0]
+        for name in names:
+            r = results[name]
+            mark = "*" if name == best else " "
+            cells = [f"{mark}{name}".ljust(24)]
+            cells += [f"{r.metric_values.get(k, float('nan')):.6f}".ljust(12) for k in metric_keys]
+            cells.append(f"{r.final_score:.6f}".ljust(12))
+            lines.append(" | ".join(cells))
+        return "\n".join(lines)
+
+
+def evaluate(
+    pipelines: Union[Any, Dict[str, Any]],
+    x: Any,
+    y: Any = None,
+    *,
+    metrics: Union[str, List[str]] = "acc",
+    verbose: bool = True,
+    **kwargs: Any,
+) -> Dict[str, MetricsOutputs]:
+    if not isinstance(pipelines, dict):
+        pipelines = {"pipeline": pipelines}
+    results = Evaluator(metrics).evaluate(pipelines, x, y, **kwargs)
+    if verbose:
+        print(Evaluator.report(results))
+    return results
+
+
+def make_model(name: str, config: Optional[DLConfig] = None, *, device: Any = None, **kwargs: Any) -> IDLModel:
+    if config is None:
+        config = DLConfig(module_name=name, **kwargs)
+    return IDLModel.from_config(config, device=device)
+
+
+def make_metric(name: str, **kwargs: Any) -> IMetric:
+    return IMetric.make(name, kwargs)
+
+
+def supported_losses() -> List[str]:
+    return sorted(ILoss.d)
+
+
+def supported_metrics() -> List[str]:
+    return sorted(IMetric.d)
+
+
+def supported_modules() -> List[str]:
+    from ..modules.common import module_registry
+
+    return sorted(module_registry)
+
+
+def supported_samplers() -> List[str]:
+    from ..modules.multimodal.diffusion.samplers import ISampler
+
+    return sorted(ISampler.d)
+
+
+def supported_optimizers() -> List[str]:
+    from ..optimizers import optimizer_dict
+
+    return sorted(optimizer_dict)
+
+
+def supported_schedulers() -> List[str]:
+    from ..schedulers import scheduler_dict
+
+    return sorted(scheduler_dict)

@@ -272,3 +272,23 @@ def state_dict_from_jax(npd: Mapping[str, np.ndarray], module: nn.Module) -> Dic
         raise ValueError(f"{len(errors)} bridge errors, e.g.\n" + "\n".join(errors[:10]))
     out.update(tree_from_nnx(param_leaves, module))
     return out
+
+
+def jax_param_names(module: nn.Module) -> Dict[str, str]:
+    """{port parameter name: the JAX package's key of that parameter}, the
+    key as `tree_to_npd(nnx.state(model, nnx.Param))` writes it
+    ("m/head/kernel/value"): `port_name` run backwards. A `weight` is an
+    `Embed`'s `embedding`, a norm's `scale` (1-D) or a kernel (2-D and up);
+    every other parameter keeps its name."""
+    owners = dict(module.named_modules())
+    out: Dict[str, str] = {}
+    for name, p in module.named_parameters():
+        prefix, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            if isinstance(owners.get(prefix), nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = "kernel" if p.ndim >= 2 else "scale"
+        path = f"{prefix}.{leaf}" if prefix else leaf
+        out[name] = path.replace(".", "/") + "/value"
+    return out

@@ -7,3 +7,9 @@ PREDICTIONS_KEY = "predictions"
 LOSS_KEY = "loss"
 LATENT_KEY = "latent"
 AUX_LOSS_KEY = "aux_loss"
+BATCH_INDICES_KEY = "batch_indices"
+
+# checkpoints: `<CKPT_PREFIX><step>.npz` under `<workspace>/<CHECKPOINTS_FOLDER>`, scored in `SCORES_FILE`
+CKPT_PREFIX = "model_"
+SCORES_FILE = "scores.json"
+CHECKPOINTS_FOLDER = "checkpoints"

@@ -1,7 +1,14 @@
-"""Losses (counterpart of `cflearn_tpu/losses/`): the LPIPS perceptual
-distance and "cross_entropy"."""
+"""Losses (counterpart of `cflearn_tpu/losses/`): the registry of
+`losses/basic.py` and the LPIPS perceptual distance."""
 
-from .basic import CrossEntropyLoss
+from .basic import (
+    BCELoss, CorrelationLoss, CrossEntropyLoss, FocalLoss, IOULoss, LabelSmoothCrossEntropyLoss, MAELoss, MSELoss,
+    QuantileLoss, ReconstructionLoss, SigmoidMAELoss,
+)
 from .lpips import LPIPS, LPIPSLoss, VGG16Features, load_lpips
 
-__all__ = ["CrossEntropyLoss", "LPIPS", "LPIPSLoss", "VGG16Features", "load_lpips"]
+__all__ = [
+    "BCELoss", "CorrelationLoss", "CrossEntropyLoss", "FocalLoss", "IOULoss", "LPIPS", "LPIPSLoss",
+    "LabelSmoothCrossEntropyLoss", "MAELoss", "MSELoss", "QuantileLoss", "ReconstructionLoss", "SigmoidMAELoss",
+    "VGG16Features", "load_lpips",
+]

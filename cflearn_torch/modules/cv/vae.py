@@ -6,25 +6,17 @@ and `reparameterize`. Their random draws go through `IConditional`'s
 `_randn` / `_randint`: a conditional decode without labels draws them, as
 in the JAX package."""
 
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ...constants import PREDICTIONS_KEY
+from ...toolkit.contexts import auto_num_layers
 from ..common import register_module
 from ..core.high_level import ChannelPadding
 from .common import DecoderInputs, GaussianDistribution, IConditional, VQCodebook, VQCodebookOutput, generators
 from .decoder import VanillaDecoder, VanillaDecoder1D
 from .encoder import VanillaEncoder, VanillaEncoder1D
-
-
-def auto_num_layers(img_size: int, *, min_size: int = 4, max_layers: Optional[int] = None) -> int:
-    """The number of halvings that take `img_size` to `min_size` (rounded, at least one)."""
-    num = int(round(math.log2(img_size / min_size)))
-    if max_layers is not None:
-        num = min(num, max_layers)
-    return max(1, num)
 
 
 @register_module("vae")

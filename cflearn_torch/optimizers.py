@@ -11,7 +11,9 @@ updates. Weight decay of `sgd` / `adam` / `rmsprop` is added to the gradient
 parameter inside the update. Adam's step is mu_hat / (sqrt(nu_hat) + eps)
 with both moments bias-corrected; `nadam` takes optax's Nesterov mu_hat.
 Moments are kept in the parameters' dtype (f32 masters -> f32 moments).
-`clip_by_global_norm` is `optax.clip_by_global_norm`.
+`clip_by_global_norm` is `optax.clip_by_global_norm`; `GradAccumulation` is
+`optax.MultiSteps`. An optimizer's `state_dict()` / `load_state_dict()` carry
+its update count and slots as numpy arrays (a checkpoint's optimizer file).
 
 `adamp` is the JAX package's AdamP transform (Adam, then per row of the
 parameter's leading axis the radial component removed where the update is
@@ -22,8 +24,9 @@ climbs the loss. The port descends by the same distance.
 """
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .schedulers import Schedule
@@ -82,6 +85,92 @@ class Optimizer:
         params = list(params)
         u = self.updates(params, [g.to(p.dtype) for g, p in zip(grads, params)], lr)
         torch._foreach_add_(params, u, alpha=self.lr_scale)
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """The update count and every slot, as {"count", "<slot>/<index>"}
+        numpy arrays (what a checkpoint of the optimizer holds)."""
+        npd = {"count": np.asarray(self.count, dtype=np.int64)}
+        for name, slots in self.state.items():
+            npd.update({f"{name}/{i}": t.detach().float().cpu().numpy() for i, t in enumerate(slots)})
+        return npd
+
+    def load_state_dict(self, npd: Mapping[str, np.ndarray], params: Sequence[torch.Tensor]) -> None:
+        """What `state_dict` gave, for the optimizer of `params`; raises
+        `KeyError` where the slots do not match the parameters."""
+        params = list(params)
+        state: Dict[str, List[torch.Tensor]] = {}
+        for key in npd:
+            if key != "count":
+                state.setdefault(key.split("/")[0], [])
+        for name in state:
+            for i, p in enumerate(params):
+                value = npd.get(f"{name}/{i}")
+                if value is None or tuple(value.shape) != tuple(p.shape):
+                    raise KeyError(f"slot {name}/{i} does not match the parameter of shape {tuple(p.shape)}")
+                state[name].append(torch.from_numpy(np.array(value)).to(device=p.device, dtype=p.dtype))
+        if len(npd) != 1 + len(state) * len(params):
+            raise KeyError("the slots hold more entries than there are parameters")
+        self.count = int(npd["count"])
+        self.state = state
+
+
+class GradAccumulation:
+    """optax's `MultiSteps` around `inner`: the gradients of `every_k` calls
+    averaged (acc += (g - acc) / (n + 1)), clipped by their global norm where
+    `clip_norm` > 0 (the clip chained inside, as the JAX trainer chains it),
+    and one step of `inner` on the k-th call; the other calls change nothing.
+    The learning rate, its scale and the update count are the inner
+    optimizer's."""
+
+    def __init__(self, inner: Optimizer, every_k: int, *, clip_norm: float = 0.0) -> None:
+        self.inner = inner
+        self.every_k = every_k
+        self.clip_norm = clip_norm
+        self.mini_step = 0
+        self.acc: List[torch.Tensor] = []
+
+    def __getattr__(self, name: str) -> Any:
+        # lr, count, last_lr, lr_at, state: the inner optimizer's
+        return getattr(self.__dict__["inner"], name)
+
+    @property
+    def lr_scale(self) -> float:
+        return self.inner.lr_scale
+
+    @lr_scale.setter
+    def lr_scale(self, value: float) -> None:
+        self.inner.lr_scale = value
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor]) -> None:
+        params = list(params)
+        if not self.acc:
+            self.acc = [torch.zeros_like(p) for p in params]
+        grads = [g.to(p.dtype) for g, p in zip(grads, params)]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        if self.mini_step == self.every_k - 1:
+            acc = clip_by_global_norm(self.acc, self.clip_norm) if self.clip_norm > 0.0 else self.acc
+            self.inner.step(params, acc)
+            torch._foreach_zero_(self.acc)
+        self.mini_step = (self.mini_step + 1) % self.every_k
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        npd = {f"inner/{k}": v for k, v in self.inner.state_dict().items()}
+        npd["mini_step"] = np.asarray(self.mini_step, dtype=np.int64)
+        npd.update({f"acc/{i}": t.detach().float().cpu().numpy() for i, t in enumerate(self.acc)})
+        return npd
+
+    def load_state_dict(self, npd: Mapping[str, np.ndarray], params: Sequence[torch.Tensor]) -> None:
+        params = list(params)
+        self.inner.load_state_dict({k[len("inner/"):]: v for k, v in npd.items() if k.startswith("inner/")}, params)
+        acc = [npd.get(f"acc/{i}") for i in range(len(params))]
+        if any(a is None for a in acc) and any(a is not None for a in acc):
+            raise KeyError("the accumulated gradients do not match the parameters")
+        self.acc = [] if acc and acc[0] is None else [
+            torch.from_numpy(np.array(a)).to(device=p.device, dtype=p.dtype) for a, p in zip(acc, params)]
+        self.mini_step = int(npd["mini_step"])
 
 
 def _decayed(grads: List[torch.Tensor], params: List[torch.Tensor], weight_decay: float) -> List[torch.Tensor]:

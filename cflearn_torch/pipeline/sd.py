@@ -1,4 +1,4 @@
-"""The port's entry points.
+"""The SD family's entry points (`cflearn_torch.pipeline` re-exports them).
 
 `txt2img`: the serving path, as `bench.py`'s jitted closure runs it — the
 prompts through the CLIP tokenizer, one batched text encode for cond and
@@ -25,14 +25,14 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from .device import resolve_device
-from .models.cv.ae import AEModel
-from .models.cv.diffusion import INPUT_KEY, LOSS_KEY, DDPMModel
-from .modules.core.mixed_stacks import SpatialTransformer
-from .modules.cv.ae import AutoEncoderKL
-from .modules.multimodal.diffusion.samplers import ISampler
-from .modules.nlp.tokenizers import CLIPTokenizer
-from .trainer import DEFAULT_LR, MultiScopeStep, TrainStepFn, build_optimizers, default_optimizer_settings
+from ..device import resolve_device
+from ..models.cv.ae import AEModel
+from ..models.cv.diffusion import INPUT_KEY, LOSS_KEY, DDPMModel
+from ..modules.core.mixed_stacks import SpatialTransformer
+from ..modules.cv.ae import AutoEncoderKL
+from ..modules.multimodal.diffusion.samplers import ISampler
+from ..modules.nlp.tokenizers import CLIPTokenizer
+from ..trainer import DEFAULT_LR, MultiScopeStep, TrainStepFn, build_optimizers, default_optimizer_settings
 
 # `bench.py`'s serving configurations: ToMe-SD's standard ratio, merging at
 # the 64x64 self-attention only; DeepCache (interval, cut): the paper's N=3

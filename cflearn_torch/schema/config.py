@@ -1,53 +1,13 @@
 """The configs (counterpart of `cflearn_tpu/schema/config.py`):
 `TrainerConfig`, `Config` and `DLConfig`, dataclasses with the JAX
 package's fields and defaults, so that a config's `to_info()` goes across
-either way. The trainer's fields are data here: the port's `Trainer`, which
-reads them, is not ported yet. `MLConfig` belongs to the tabular side."""
+either way; the port's `Trainer` reads them (the JAX placement options
+among them are documented there). `MLConfig` belongs to the tabular side."""
 
 import dataclasses
-import json
 from typing import Any, Dict, List, Optional, Union
 
-import numpy as np
-
-
-def _jsonify(value: Any) -> Any:
-    if isinstance(value, np.ndarray):
-        return value.tolist()
-    if isinstance(value, np.integer):
-        return int(value)
-    if isinstance(value, np.floating):
-        return float(value)
-    if dataclasses.is_dataclass(value) and not isinstance(value, type):
-        return {f.name: _jsonify(getattr(value, f.name)) for f in dataclasses.fields(value)}
-    if isinstance(value, dict):
-        return {k: _jsonify(v) for k, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return [_jsonify(v) for v in value]
-    return value
-
-
-class DataClassBase:
-    """A dataclass that goes to and from a JSON-able dict."""
-
-    @property
-    def fields(self) -> Any:
-        return dataclasses.fields(self)
-
-    def to_info(self) -> Dict[str, Any]:
-        return {f.name: _jsonify(getattr(self, f.name)) for f in self.fields}
-
-    def from_info(self, info: Dict[str, Any]) -> None:
-        """Set the fields named in `info`; other keys are ignored."""
-        names = {f.name for f in self.fields}
-        for k, v in info.items():
-            if k in names:
-                setattr(self, k, v)
-
-    def copy(self) -> "DataClassBase":
-        new = self.__class__()
-        new.from_info(json.loads(json.dumps(self.to_info())))
-        return new
+from ..toolkit.serialization import DataClassBase
 
 
 @dataclasses.dataclass(eq=False)

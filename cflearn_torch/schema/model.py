@@ -205,9 +205,12 @@ class IDLModel(nn.Module, WithRegister):
         arrays = npd_to_tree({k: v for k, v in state_dict.items() if isinstance(v, np.ndarray)})
         return super().load_state_dict(dict(state_dict, **arrays), strict=strict, assign=assign)
 
-    def save(self, path: str) -> None:
+    def save(self, path: str, *, states: Optional[Mapping[str, torch.Tensor]] = None) -> None:
         """The config, the model's name, its parameters' dtype and its
-        states in one npz file."""
+        states (`states`, a copy taken earlier, where given) in one npz file,
+        uncompressed: float weights gain little from zlib, whose compression
+        would run on the host at every checkpoint write, and `np.load` reads
+        either kind, so both packages read it."""
         folder = os.path.dirname(os.path.abspath(path))
         os.makedirs(folder, exist_ok=True)
         config_type = "dl"
@@ -220,7 +223,8 @@ class IDLModel(nn.Module, WithRegister):
             "type": getattr(self, "__identifier__", "common"),
             "dtype": str(dtypes.pop()).split(".")[-1] if len(dtypes) == 1 else "float32",
         })
-        np.savez_compressed(path, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8), **tree_to_npd(self.state_dict()))
+        npd = tree_to_npd(self.state_dict() if states is None else states)
+        np.savez(path, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8), **npd)
 
     @classmethod
     def load(cls, path: str, *, device: Any = None) -> "IDLModel":

@@ -1,11 +1,43 @@
 """Small helpers (counterpart of part of `cflearn_tpu/toolkit/misc.py`):
-`slerp`, and the `jax.checkpoint_policies` names as selective-checkpoint
-policies (`resolve_checkpoint_policy`, `checkpoint_context_fn`)."""
+`slerp`, the `jax.checkpoint_policies` names as selective-checkpoint
+policies (`resolve_checkpoint_policy`, `checkpoint_context_fn`), and the
+framework's `check_is_ci`, `timestamp`, `sort_dict_by_value` and
+`truncate_string_to_length`."""
 
 import functools
+import os
+import time
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+np_dict_type = Dict[str, Union[np.ndarray, Any]]
+
+
+def check_is_ci() -> bool:
+    """The `CI` environment flag, which turns a fit into a one-step debug run."""
+    return bool(int(os.environ.get("CI", "0")))
+
+
+def timestamp(*, simplify: bool = False, ensure_different: bool = False) -> str:
+    """The local time as "%Y-%m-%d_%H-%M-%S"; with `ensure_different`, and a
+    microsecond suffix."""
+    s = time.strftime("%Y-%m-%d_%H-%M-%S", time.localtime())
+    if not simplify and ensure_different:
+        s = f"{s}-{int((time.time() % 1) * 1e6):06d}"
+    return s
+
+
+def sort_dict_by_value(d: Dict[Any, Any], *, reverse: bool = False) -> Dict[Any, Any]:
+    return dict(sorted(d.items(), key=lambda kv: kv[1], reverse=reverse))
+
+
+def truncate_string_to_length(string: str, length: int) -> str:
+    if len(string) <= length:
+        return string
+    half = (length - 3) // 2
+    return string[:half] + "..." + string[-half:]
 
 
 def slerp(
@@ -136,3 +168,11 @@ def checkpoint_context_fn(name: str) -> Callable:
     from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
     return functools.partial(create_selective_checkpoint_contexts, resolve_checkpoint_policy(name))
+
+
+def is_local_rank_0() -> bool:
+    """True in a single process, and in the process of rank 0 of an
+    initialised `torch.distributed` group."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0

@@ -1,15 +1,15 @@
-"""The core of one train step (counterpart of `_build_step_fn` in
-`cflearn_tpu/trainer.py`).
+"""The Trainer (counterpart of `cflearn_tpu/trainer.py`) and the core of
+its step.
 
-`TrainStepFn` is one scope's part of it and keeps f32 master parameters. It
-casts every floating parameter to the compute dtype inside the loss
+`TrainStepFn` is one scope's part of a step and keeps f32 master parameters.
+It casts every floating parameter to the compute dtype inside the loss
 (`torch.func.functional_call` on the cast copies, so the gradients flow
 through the cast back to the masters; parameters outside the scope are cast
 for compute too and stay untouched f32 masters), runs the model's forward on
 the batch with its input cast to the compute dtype, takes the loss of the
 scope's train step on the original batch, clips by the global norm where
-asked and runs the optimizer on the scope's masters. Buffers (the noise
-schedule, BatchNorm's running statistics) stay f32.
+asked and runs the optimizer on the scope's masters, less the frozen ones.
+Buffers (the noise schedule, BatchNorm's running statistics) stay f32.
 
 `MultiScopeStep` runs a model's scopes in order, each with its own forward,
 loss, gradient and optimizer, tells every train step which scopes are live
@@ -29,22 +29,69 @@ list packs; `"none"` turns a scheduler off. Clipping by the global norm is the
 step's `clip_norm`, applied ahead of the optimizer as optax's
 `clip_by_global_norm` is chained ahead of it.
 
-`Trainer.fit`, callbacks, monitors, gradient accumulation, per-epoch
-scheduler updates, freezing masks, `steps_per_dispatch` and the mesh are not
-ported yet.
+`Trainer.fit(data, model)` is the JAX `Trainer`'s loop around one
+`MultiScopeStep`: epochs of the data's train loader, its numpy batches moved
+to the model's device by a `DeviceBatcher`; the loss window and its logs;
+monitors at the snapshot cadence, scoring the validation loader's metrics
+(or the losses) through `DLInference`; the plateau scales; top-k
+checkpoints by score with `scores.json`; the rollback to the best one and
+the final evaluation; callbacks at every hook. Its options:
+
+- `grad_accumulate` (or a train step's own): `GradAccumulation`, optax's
+  `MultiSteps`, with the clip inside it; `update_scheduler_per_epoch`: the
+  schedule fed the epoch, not the update count;
+- `finetune_config`: `pretrained_ckpt` (a model file of either package; the
+  JAX one through the bridge) and `freeze` / `freeze_except`, regexes over
+  the JAX package's parameter paths (`bridge.jax_param_names`), so that one
+  config freezes the same parameters in both;
+- `save_on_preemption` / `resume_from_preemption`: SIGTERM finishes the step
+  in flight and dumps the model, the optimizers and the counters to
+  `<workspace root>/preemption/`; the next fit against that root resumes
+  from the dump, and a fit that ends normally removes it;
+- `async_checkpointing`: checkpoint files written on one background thread
+  from a copy of the states; `fit` waits for them and shuts the thread
+  down before it returns or raises;
+- `profile_steps`: a `torch.profiler` trace of each of those steps in
+  `<workspace>/traces`;
+- `debug_nans`: every step's loss items and gradients checked finite,
+  `FloatingPointError` where not;
+- `mixed_precision` "bf16" / "fp16": bf16 compute on f32 masters.
+
+The JAX package's placement options mean nothing here and are accepted as
+they are: `steps_per_dispatch` (the JAX trainer fuses up to k steps into
+one `lax.scan` dispatch; the port launches each step's kernels as they come,
+so k steps run as k steps at k = 1 would, until the steps are captured in a
+CUDA graph), `donate_buffers` (PyTorch updates the parameters in place, so no
+buffer is copied to donate), `transfer_guard` (no implicit transfer happens:
+batches move once, by the batcher) and a `mesh` of one device. A mesh of
+more than one device raises: the parallel slice (`torch.distributed`) is
+not ported yet. `remat` raises too: the modules' `use_checkpoint` flags
+recompute blocks in the backward.
 """
 
 import copy
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+import json
+import os
+import re
+import shutil
+import time
+from typing import Any, Collection, Dict, Iterable, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
-from .optimizers import Optimizer, build_optimizer, clip_by_global_norm, global_norm
+from .constants import CHECKPOINTS_FOLDER, CKPT_PREFIX, INPUT_KEY, LOSS_KEY, SCORES_FILE
+from .data.utils import DeviceBatcher, to_numpy
+from .inference import DLInference
+from .optimizers import GradAccumulation, Optimizer, build_optimizer, clip_by_global_norm, global_norm
 from .schedulers import PlateauState, build_scheduler, scheduler_requires_metric
-
-INPUT_KEY = "input"
-LOSS_KEY = "loss"
+from .schema.config import TrainerConfig
+from .schema.data import IData
+from .schema.metrics_schema import IMetric, MetricsOutputs, weighted_loss_score
+from .schema.model import IDLModel, StepOutputs
+from .schema.train_schema import ITrainer, MonitorResults, TrainerCallback, TrainerMonitor, TrainerState
+from .toolkit.misc import is_local_rank_0, sort_dict_by_value, timestamp
 
 
 class TrainStepFn:
@@ -62,6 +109,7 @@ class TrainStepFn:
         compute_dtype: Optional[torch.dtype] = None,
         clip_norm: float = 0.0,
         scope: str = "all",
+        frozen: Collection[str] = (),
     ) -> None:
         steps = [ts for ts in model.train_steps if ts.scope == scope]
         if len(steps) != 1:
@@ -75,6 +123,9 @@ class TrainStepFn:
         named = model.params_filter(scope)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        # the optimizer's share: the parameters not frozen (a frozen one keeps its gradient, which is not used)
+        frozen = set(frozen)
+        self.trained = [i for i, n in enumerate(self.names) if n not in frozen]
         self.grads: Dict[str, torch.Tensor] = {}
         self.grad_norm: Optional[torch.Tensor] = None
 
@@ -122,12 +173,16 @@ class TrainStepFn:
         return functional_call(_Call(self.model, run), cast, (batch,))
 
     def update(self) -> None:
-        """Clip `grads` where asked and run the optimizer on the masters."""
+        """Clip `grads` where asked and run the optimizer on the masters (the
+        ones not frozen: a frozen parameter's gradient counts as zero in the
+        norm, and its update is none, as the JAX trainer's masks make them)."""
         grads: List[torch.Tensor] = list(self.grads.values())
+        if len(self.trained) < len(grads):
+            grads = [grads[i] for i in self.trained]
         self.grad_norm = global_norm(grads)
         if self.clip_norm > 0.0:
             grads = clip_by_global_norm(grads, self.clip_norm, self.grad_norm)
-        self.optimizer.step(self.params, grads)
+        self.optimizer.step([self.params[i] for i in self.trained], grads)
 
     def step(
         self, batch: Dict[str, Any], *, forward_kwargs: Optional[Mapping[str, Any]] = None, **loss_kwargs: Any
@@ -140,7 +195,8 @@ class TrainStepFn:
 
 
 class StepState:
-    """What `should_skip` reads: the count of finished train steps."""
+    """What `should_skip` reads: the number of the step being run (1 at the
+    first), as the JAX `Trainer`'s state counts it."""
 
     def __init__(self) -> None:
         self.step = 0
@@ -158,36 +214,48 @@ class MultiScopeStep:
         *,
         compute_dtype: Optional[torch.dtype] = None,
         clip_norm: float = 0.0,
+        frozen: Collection[str] = (),
     ) -> None:
         self.model = model
         self.state = StepState()
         self.steps: Dict[str, TrainStepFn] = {
             ts.scope: TrainStepFn(
-                model, optimizers[ts.scope], compute_dtype=compute_dtype, clip_norm=clip_norm, scope=ts.scope
+                model, optimizers[ts.scope], compute_dtype=compute_dtype, clip_norm=clip_norm, scope=ts.scope,
+                frozen=frozen,
             )
             for ts in model.train_steps
         }
 
     def step(
-        self, batch: Dict[str, Any], *, forward_kwargs: Optional[Mapping[str, Mapping[str, Any]]] = None
+        self,
+        batch: Dict[str, Any],
+        *,
+        forward_kwargs: Optional[Mapping[str, Mapping[str, Any]]] = None,
+        loss_kwargs: Optional[Mapping[str, Any]] = None,
+        state: Any = None,
     ) -> Dict[str, torch.Tensor]:
         """`forward_kwargs` maps a scope to the keyword arguments of its
-        forward (`model.run`). Returns the loss items, each prefixed with its
-        scope when there is more than one."""
+        forward (`model.run`); `loss_kwargs` go to every scope's loss.
+        `should_skip` reads `state` where it is given (the `Trainer`'s
+        `TrainerState`, whose `step` counts this step already), else this
+        object's own count, which this step moves first. Returns the loss
+        items, each prefixed with its scope when there is more than one."""
         train_steps = [fn.train_step for fn in self.steps.values()]
-        actives = {ts.scope: not ts.should_skip(self.model, self.state) for ts in train_steps}
+        if state is None:
+            self.state.step += 1
+            state = self.state
+        actives = {ts.scope: not ts.should_skip(self.model, state) for ts in train_steps}
         for ts in train_steps:
             ts.step_actives = actives
         loss_items: Dict[str, torch.Tensor] = {}
         for scope, fn in self.steps.items():
             if not actives[scope]:
                 continue
-            losses = fn.loss_and_grads(batch, forward_kwargs=(forward_kwargs or {}).get(scope))
+            losses = fn.loss_and_grads(batch, forward_kwargs=(forward_kwargs or {}).get(scope), **(loss_kwargs or {}))
             fn.update()
             prefix = "" if len(self.steps) == 1 else f"{scope}_"
             loss_items.update({prefix + k: v for k, v in losses.items()})
         self.model.post_step_update()
-        self.state.step += 1
         return loss_items
 
 
@@ -318,3 +386,537 @@ def build_optimizers(
                 lr_scales[scope] = PlateauState(**{k: v for k, v in plateau.items() if k in allowed})
         optimizers[scope] = build_optimizer(sub.get("optimizer", "adam"), schedule, **opt_config)
     return optimizers, lr_scales
+
+
+# --------------------------------------------------------------------------
+# the Trainer
+# --------------------------------------------------------------------------
+
+
+def get_scores(checkpoint_folder: str) -> Dict[str, float]:
+    scores_path = os.path.join(checkpoint_folder, SCORES_FILE)
+    if not os.path.isfile(scores_path):
+        return {}
+    with open(scores_path, "r") as f:
+        return json.load(f)
+
+
+def get_sorted_checkpoints(checkpoint_folder: str) -> List[str]:
+    """The checkpoint files of `scores.json`, best first."""
+    return list(sort_dict_by_value(get_scores(checkpoint_folder), reverse=True).keys())
+
+
+def read_states(path: str) -> Dict[str, np.ndarray]:
+    """The states of a model file (`IDLModel.save`'s npz, of either package)."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files if k != "__meta__"}
+
+
+class Trainer(ITrainer):
+    model: IDLModel
+
+    def __init__(
+        self,
+        config: TrainerConfig,
+        *,
+        metrics: Optional[IMetric] = None,
+        monitors: Optional[List[TrainerMonitor]] = None,
+        callbacks: Optional[List[TrainerCallback]] = None,
+        inference: Optional[DLInference] = None,
+    ) -> None:
+        self.config = config
+        self.metrics = metrics
+        self.monitors = monitors or []
+        if callbacks is None and config.callback_names:
+            # a bare Trainer honours `callback_names` as the pipeline's BuildCallbacksBlock does
+            names = [config.callback_names] if isinstance(config.callback_names, str) else config.callback_names
+            callbacks = [
+                TrainerCallback.make(n, (config.callback_configs or {}).get(n, {}))
+                for n in names
+                if TrainerCallback.has(n)
+            ]
+        self.callbacks = callbacks or []
+        self.inference = inference or DLInference()
+        self.state: Optional[TrainerState] = None
+        self.intermediate: Optional[MetricsOutputs] = None
+        self.final_results: Optional[MetricsOutputs] = None
+        self.checkpoint_scores: Dict[str, float] = {}
+        self.optimizers: Dict[str, Any] = {}
+        self.lr_scales: Dict[str, PlateauState] = {}
+        self.step_fn: Optional[MultiScopeStep] = None
+        self.frozen: set = set()
+        self._workspace: Optional[str] = None
+        self._preloaded_opt_npd: Optional[Dict[str, Any]] = None
+        self._loss_window: Dict[str, List[torch.Tensor]] = {}
+        self._ckpt_futures: List[Any] = []
+        self._ckpt_executor: Optional[Any] = None
+        self._preempted = False
+        self._preemption_dumped = False
+
+    # setup
+
+    @property
+    def workspace(self) -> str:
+        assert self._workspace is not None, "`fit` should be called first"
+        return self._workspace
+
+    @property
+    def checkpoint_folder(self) -> str:
+        return os.path.join(self.workspace, CHECKPOINTS_FOLDER)
+
+    @property
+    def preemption_folder(self) -> str:
+        # the workspace root, not the timestamped sub-workspace: a fit against the same root finds the dump
+        return os.path.join(self.config.workspace, "preemption")
+
+    @property
+    def metrics_log_path(self) -> str:
+        return os.path.join(self.workspace, "metrics.txt")
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _prepare_workspace(self) -> None:
+        workspace = self.config.workspace
+        if self.config.create_sub_workspace:
+            workspace = os.path.join(workspace, timestamp(ensure_different=True))
+        self._workspace = workspace
+        if is_local_rank_0():
+            os.makedirs(self.checkpoint_folder, exist_ok=True)
+            with open(os.path.join(workspace, "trainer_config.json"), "w") as f:
+                json.dump(self.config.to_info(), f, indent=2)
+
+    def _check_options(self) -> None:
+        mesh = self.config.mesh or {}
+        if any(int(size) > 1 for size in mesh.values()):
+            raise NotImplementedError(
+                f"mesh {mesh} spans more than one device: the port trains on one device "
+                "(the parallel slice, on torch.distributed, is not ported yet)"
+            )
+        if self.config.remat:
+            raise NotImplementedError(
+                "`remat` is not ported: set the modules' `use_checkpoint` to recompute blocks in the backward"
+            )
+
+    def _build_optimizers(self, model: IDLModel) -> None:
+        """One optimizer per scope from the config (the JAX `Trainer`'s
+        `_build_optimizers`): the schedule fed the epoch under
+        `update_scheduler_per_epoch`, `GradAccumulation` where a scope
+        accumulates (with the clip inside it)."""
+        c, state = self.config, self.state
+        assert state is not None
+        settings = default_optimizer_settings(
+            lr=c.lr, optimizer_name=c.optimizer_name, optimizer_config=c.optimizer_config,
+            scheduler_name=c.scheduler_name, scheduler_config=c.scheduler_config,
+            optimizer_settings=c.optimizer_settings, optimizer_packs=c.optimizer_packs,
+            batch_size=state.batch_size, num_step_per_epoch=state.num_step_per_epoch,
+        )
+        scopes = [ts.scope for ts in model.train_steps]
+        optimizers, self.lr_scales = build_optimizers(scopes, settings, lr=c.lr)
+        accumulating = set()
+        for scope, opt in optimizers.items():
+            if c.update_scheduler_per_epoch and callable(opt.lr):
+                opt.lr = lambda count, _b=opt.lr, _n=max(1, state.num_step_per_epoch): _b(count // _n)
+            accumulate = c.grad_accumulate
+            for ts in model.train_steps:
+                if ts.scope == scope and ts.grad_accumulate is not None:
+                    accumulate = ts.grad_accumulate
+            if accumulate and accumulate > 1:
+                optimizers[scope] = GradAccumulation(opt, accumulate, clip_norm=c.clip_norm)
+                accumulating.add(scope)
+        self.optimizers = optimizers
+        compute_dtype = torch.bfloat16 if c.compute_dtype == "bfloat16" else None
+        self.step_fn = MultiScopeStep(
+            model, optimizers, compute_dtype=compute_dtype, clip_norm=c.clip_norm, frozen=self.frozen
+        )
+        for scope in accumulating:
+            self.step_fn.steps[scope].clip_norm = 0.0
+        if self._preloaded_opt_npd:
+            # a resume: the optimizers' states as the dump (or the pipeline folder) holds them; a structure
+            # that does not match starts them afresh, as in the JAX package
+            for scope, opt in optimizers.items():
+                sub = {k[len(scope) + 2:]: v for k, v in self._preloaded_opt_npd.items() if k.startswith(scope + "::")}
+                if sub:
+                    fn = self.step_fn.steps[scope]
+                    try:
+                        opt.load_state_dict(sub, [fn.params[i] for i in fn.trained])
+                    except KeyError:
+                        pass
+
+    def optimizer_states(self) -> Dict[str, np.ndarray]:
+        """Every scope's optimizer state as {"<scope>::<key>": array}."""
+        npd: Dict[str, np.ndarray] = {}
+        for scope, opt in self.optimizers.items():
+            npd.update({f"{scope}::{k}": v for k, v in opt.state_dict().items()})
+        return npd
+
+    # fit
+
+    def fit(
+        self,
+        data: IData,
+        model: IDLModel,
+        *,
+        config_export_file: Optional[str] = None,
+        skip_final_evaluation: bool = False,
+        cuda: Any = None,
+    ) -> "Trainer":
+        """Train `model` (on its device) on `data`. The checkpoint writer's
+        thread is shut down before this returns or raises."""
+        try:
+            return self._fit_impl(data, model, skip_final_evaluation=skip_final_evaluation)
+        finally:
+            executor, self._ckpt_executor = self._ckpt_executor, None
+            if executor is not None:
+                executor.shutdown(wait=True)
+
+    def _fit_impl(self, data: IData, model: IDLModel, *, skip_final_evaluation: bool = False) -> "Trainer":
+        self._check_options()
+        self.model = model
+        self._prepare_workspace()
+
+        # a resume from a preemption dump: meta.json is written last, so a dump without it is incomplete
+        self._resume_meta: Optional[Dict[str, Any]] = None
+        pre_folder = self.preemption_folder
+        if (
+            self.config.resume_from_preemption
+            and os.path.isfile(os.path.join(pre_folder, "model.npz"))
+            and os.path.isfile(os.path.join(pre_folder, "meta.json"))
+        ):
+            model.load_state_dict(read_states(os.path.join(pre_folder, "model.npz")))
+            opt_path = os.path.join(pre_folder, "optimizers.npz")
+            if self._preloaded_opt_npd is None and os.path.isfile(opt_path):
+                self._preloaded_opt_npd = dict(np.load(opt_path, allow_pickle=False))
+            with open(os.path.join(pre_folder, "meta.json"), "r") as f:
+                self._resume_meta = json.load(f)
+            print(f"> resuming from preemption dump at step {self._resume_meta['step']}")
+
+        v_split = self.config.validation_split
+        if v_split and getattr(data, "bundle", None) is not None and data.bundle.x_valid is None:
+            data.split_validation(v_split, seed=getattr(self.config, "seed", None) or 0)
+
+        train_loader, valid_loader = data.get_loaders()
+        self.train_loader = train_loader
+        self.valid_loader = valid_loader
+        state = TrainerState.from_config(
+            self.config, num_step_per_epoch=len(train_loader), batch_size=train_loader.batch_size
+        )
+        if self._resume_meta is not None:
+            state.step = int(self._resume_meta.get("step", 0))
+            state.epoch = int(self._resume_meta.get("epoch", 0))
+        self.state = state
+
+        self.frozen = set()
+        if self.config.finetune_config:
+            self._init_finetune(model)
+        self._build_optimizers(model)
+        self.inference.bind(self)
+
+        if is_local_rank_0():
+            try:
+                from .toolkit.init_summary import summary
+
+                with open(os.path.join(self.workspace, "summary.txt"), "w") as f:
+                    f.write(summary(model, return_only=True))
+                with open(os.path.join(self.workspace, "model.txt"), "w") as f:
+                    f.write(repr(model))
+            except Exception:  # noqa: BLE001 — the summary files must not break a fit
+                pass
+
+        for callback in self.callbacks:
+            callback.initialize()
+        for callback in self.callbacks:
+            callback.before_loop(self)
+
+        batcher = DeviceBatcher(train_loader, device=self.device)
+        terminate = False
+        has_ckpt = self._has_ckpt = False
+        start_t = time.time()
+
+        # SIGTERM (preemption) finishes the step in flight, dumps a resumable snapshot and stops
+        self._preempted = False
+        self._preemption_dumped = False
+        prev_sigterm: Any = None
+        if self.config.save_on_preemption:
+            import signal
+            import threading
+
+            if threading.current_thread() is threading.main_thread():
+
+                def _on_sigterm(signum: int, frame: Any) -> None:
+                    self._preempted = True
+
+                prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+        try:
+            terminate, has_ckpt = self._loop(state, batcher, model, terminate, has_ckpt)
+        except KeyboardInterrupt:
+            print("> keyboard interrupt — terminating gracefully")
+            has_ckpt = self._has_ckpt
+        finally:
+            if prev_sigterm is not None:
+                import signal
+
+                signal.signal(signal.SIGTERM, prev_sigterm)
+
+        # a SIGTERM outside the loop's check (during the last monitor, or after the last step) still dumps
+        if self._preempted and not self._preemption_dumped:
+            self.dump_preemption()
+            print(f"> SIGTERM — preemption dump written at step {state.step}")
+        if has_ckpt and not self._preempted:
+            self.restore_checkpoint()
+        if not skip_final_evaluation and not self._preempted:
+            with state.disable_logging:
+                self.final_results = self._get_metrics(portion=self.config.valid_portion)
+        if self.final_results is not None:
+            self._log_metrics_msg(self.final_results)
+        if not has_ckpt and not self._preempted and is_local_rank_0():
+            score = self.final_results.final_score if self.final_results is not None else 0.0
+            self.save_checkpoint(score)
+        self._drain_checkpoints()
+        if not self._preempted and is_local_rank_0():
+            # a fit that ended normally invalidates a preemption dump
+            shutil.rmtree(self.preemption_folder, ignore_errors=True)
+        for callback in self.callbacks:
+            callback.finalize(self)
+        self._fit_wall_time = time.time() - start_t
+        return self
+
+    def _train_step(self, batch: Dict[str, Any], state: TrainerState) -> Dict[str, torch.Tensor]:
+        assert self.step_fn is not None
+        for scope, plateau in self.lr_scales.items():
+            self.optimizers[scope].lr_scale = plateau.scale
+        forward_kwargs: Dict[str, Any] = {}
+        loss_kwargs: Dict[str, Any] = {}
+        for callback in self.callbacks:
+            callback.mutate_train_forward_kwargs(forward_kwargs, self)
+            callback.mutate_train_loss_kwargs(loss_kwargs, self)
+        loss_items = self.step_fn.step(
+            batch, forward_kwargs=dict.fromkeys(self.step_fn.steps, forward_kwargs), loss_kwargs=loss_kwargs,
+            state=state,
+        )
+        if self.config.debug_nans:
+            bad = [k for k, v in loss_items.items() if not bool(torch.isfinite(v).all())]
+            for scope, fn in self.step_fn.steps.items():
+                bad += [f"{scope} gradient {n}" for n, g in fn.grads.items() if not bool(torch.isfinite(g).all())]
+            if bad:
+                raise FloatingPointError(f"non-finite values at step {state.step}: {bad[:10]}")
+        return loss_items
+
+    def _loop(
+        self, state: TrainerState, batcher: DeviceBatcher, model: IDLModel, terminate: bool, has_ckpt: bool
+    ) -> Tuple[bool, bool]:
+        while state.should_train and not terminate:
+            state.epoch += 1
+            for batch in batcher:
+                if not state.should_train:
+                    break
+                profiler = None
+                if self.config.profile_steps and state.step + 1 in self.config.profile_steps:
+                    profiler = self._start_profile()
+                state.step += 1
+                loss_items = self._train_step(batch, state)
+                if profiler is not None:
+                    self._stop_profile(profiler, state.step)
+                if self._preempted:
+                    # the step in flight when SIGTERM came has finished: dump and stop
+                    self.dump_preemption()
+                    print(f"> SIGTERM — preemption dump written at step {state.step}")
+                    return True, has_ckpt
+                for k, v in loss_items.items():
+                    window = self._loss_window.setdefault(k, [])
+                    window.append(v)
+                    if len(window) > 64:
+                        del window[:-64]
+
+                # monitor before the log drains the window: a train-loss score peeks it
+                if state.should_monitor:
+                    monitor_results = self._monitor_step(state)
+                    if monitor_results.save_checkpoint and is_local_rank_0():
+                        assert monitor_results.metric_outputs is not None
+                        self.save_checkpoint(monitor_results.metric_outputs.final_score)
+                        has_ckpt = self._has_ckpt = True
+                    for callback in self.callbacks:
+                        callback.after_monitor(monitor_results, state)
+                    if monitor_results.terminate:
+                        terminate = True
+                if state.should_log_losses:
+                    host_losses = self._drain_loss_window()
+                    for callback in self.callbacks:
+                        callback.after_step(StepOutputs(None, host_losses), state)
+                if state.should_log_artifacts:
+                    for callback in self.callbacks:
+                        callback.log_artifacts(self)
+                if terminate:
+                    break
+        return terminate, has_ckpt
+
+    def _start_profile(self) -> Any:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+        return profiler
+
+    def _stop_profile(self, profiler: Any, step: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.__exit__(None, None, None)
+        folder = os.path.join(self.workspace, "traces")
+        os.makedirs(folder, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(folder, f"step_{step}.json"))
+
+    def _init_finetune(self, model: IDLModel) -> None:
+        """`pretrained_ckpt` loaded (not strictly), and `freeze` /
+        `freeze_except` matched against the JAX parameter paths."""
+        from .bridge import jax_param_names
+
+        cfg = dict(self.config.finetune_config or {})
+        ckpt = cfg.get("pretrained_ckpt")
+        if ckpt:
+            model.load_state_dict(read_states(ckpt if str(ckpt).endswith(".npz") else f"{ckpt}.npz"), strict=False)
+        freeze = cfg.get("freeze", "")
+        freeze_except = cfg.get("freeze_except", "")
+        if freeze and freeze_except:
+            raise ValueError("`freeze` & `freeze_except` should not be provided together")
+        if freeze or freeze_except:
+            pattern = re.compile(freeze or freeze_except)
+            for name, key in jax_param_names(model).items():
+                hit = bool(pattern.search(key))
+                if (freeze and hit) or (freeze_except and not hit):
+                    self.frozen.add(name)
+
+    # monitoring
+
+    def _drain_loss_window(self) -> Dict[str, float]:
+        out = self._peek_loss_window()
+        self._loss_window = {}
+        return out
+
+    def _peek_loss_window(self) -> Dict[str, float]:
+        return {k: float(np.mean([to_numpy(v) for v in vs[-8:]])) for k, vs in self._loss_window.items() if vs}
+
+    def _get_metrics(self, *, portion: float = 1.0) -> MetricsOutputs:
+        loader = self.valid_loader if self.valid_loader is not None else self.train_loader
+        outputs = self.inference.get_outputs(
+            loader,
+            portion=portion,
+            metrics=self.metrics,
+            use_losses_as_metrics=self._use_losses_as_metrics,
+            return_outputs=False,
+        )
+        metric_outputs = outputs.metric_outputs
+        if metric_outputs is None:
+            score = weighted_loss_score(outputs.loss_items or {}, self.config.loss_metrics_weights)
+            metric_outputs = MetricsOutputs(score, dict(outputs.loss_items or {}), {})
+        self.intermediate = metric_outputs
+        return metric_outputs
+
+    @property
+    def _use_losses_as_metrics(self) -> bool:
+        if self.config.use_losses_as_metrics is not None:
+            return self.config.use_losses_as_metrics
+        return self.metrics is None
+
+    def _monitor_step(self, state: TrainerState) -> MonitorResults:
+        terminate = False
+        save_checkpoint = False
+        if self.valid_loader is None and self._use_losses_as_metrics:
+            # no validation set: the score of the running train loss, or of a pass where the window is drained
+            host_losses = self._peek_loss_window()
+            if not host_losses:
+                metric_outputs = self._get_metrics(portion=self.config.valid_portion)
+            else:
+                score = weighted_loss_score(host_losses, self.config.loss_metrics_weights)
+                metric_outputs = MetricsOutputs(score, host_losses, {})
+            self.intermediate = metric_outputs
+        else:
+            metric_outputs = self._get_metrics(portion=self.config.valid_portion)
+        score = metric_outputs.final_score
+        for plateau in self.lr_scales.values():
+            plateau.update(score)
+        if state.should_start_snapshot:
+            for monitor in self.monitors:
+                monitor.handle_extension(state)
+                if monitor.should_snapshot(score) and state.can_snapshot:
+                    state.update_snapshot_epoch()
+                    save_checkpoint = True
+                if monitor.should_terminate(score):
+                    terminate = True
+        if state.reached_max_epoch:
+            terminate = True
+        if state.should_log_metrics_msg:
+            self._log_metrics_msg(metric_outputs)
+        return MonitorResults(terminate, save_checkpoint, metric_outputs)
+
+    def _log_metrics_msg(self, metric_outputs: MetricsOutputs) -> None:
+        for callback in self.callbacks:
+            callback.log_metrics(metric_outputs, self.state)
+            callback.log_metrics_msg(metric_outputs, self.metrics_log_path, self.state)
+
+    # checkpoints
+
+    def save_checkpoint(self, score: float, folder: Optional[str] = None, *, no_history: bool = False) -> None:
+        """`model_<step>.npz` and its score in `scores.json`, keeping the best
+        `max_snapshot_file`. Under `async_checkpointing` the file is written
+        on a background thread from a copy of the states taken now."""
+        if folder is None:
+            folder = self.checkpoint_folder
+        os.makedirs(folder, exist_ok=True)
+        step = self.state.step if self.state is not None else 0
+        file = f"{CKPT_PREFIX}{step}.npz"
+        path = os.path.join(folder, file)
+        if self.config.async_checkpointing:
+            from concurrent.futures import ThreadPoolExecutor
+
+            if self._ckpt_executor is None:
+                self._ckpt_executor = ThreadPoolExecutor(max_workers=1)
+            states = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            self._ckpt_futures.append(self._ckpt_executor.submit(self.model.save, path, states=states))
+        else:
+            self.model.save(path)
+        scores = {} if no_history else get_scores(folder)
+        scores[file] = score
+        for stale in list(sort_dict_by_value(scores, reverse=True))[self.config.max_snapshot_file:]:
+            self._drain_checkpoints()
+            stale_path = os.path.join(folder, stale)
+            if os.path.isfile(stale_path):
+                os.remove(stale_path)
+            scores.pop(stale, None)
+        with open(os.path.join(folder, SCORES_FILE), "w") as f:
+            json.dump(scores, f, indent=2)
+        self.checkpoint_scores = scores
+
+    def dump_preemption(self) -> str:
+        """The model, the optimizers and the step / epoch counters, written
+        now to the workspace root's `preemption/`; `meta.json` last, by a
+        rename, so that its presence marks a complete dump."""
+        folder = self.preemption_folder
+        self._drain_checkpoints()
+        if is_local_rank_0():
+            os.makedirs(folder, exist_ok=True)
+            self.model.save(os.path.join(folder, "model.npz"))
+            np.savez(os.path.join(folder, "optimizers.npz"), **self.optimizer_states())
+            meta_path = os.path.join(folder, "meta.json")
+            with open(meta_path + ".tmp", "w") as f:
+                json.dump({"step": self.state.step if self.state else 0, "epoch": self.state.epoch if self.state else 0}, f)
+            os.replace(meta_path + ".tmp", meta_path)
+        self._preemption_dumped = True
+        return folder
+
+    def _drain_checkpoints(self) -> None:
+        """Wait for the checkpoint files in flight (their errors raise here)."""
+        futures, self._ckpt_futures = self._ckpt_futures, []
+        for fut in futures:
+            fut.result()
+
+    def restore_checkpoint(self, folder: Optional[str] = None) -> bool:
+        """Roll the model back to the best checkpoint of `scores.json`."""
+        self._drain_checkpoints()
+        folder = folder or self.checkpoint_folder
+        best = get_sorted_checkpoints(folder)
+        if not best or not os.path.isfile(os.path.join(folder, best[0])):
+            return False
+        self.model.load_state_dict(read_states(os.path.join(folder, best[0])))
+        return True

@@ -234,13 +234,29 @@ Phases, in order; any failure exits non-zero:
    kernels against the plain path within TRAIN_PARITY_FACTOR x its drift
    under a one-ulp move of the input (the images; the GAN's z; PixelCNN's
    first masked conv weight). About 10 s.
-20. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+20. framework — `cflearn_torch.fit_array` on the ViT-S/16 at 384 px (f32, 128
+   training and 64 validation images from a seed, batch 32, "acc" on the
+   validation set every 2 steps, 8 steps at the `Trainer`'s defaults: top-k
+   checkpoints, the rollback, the final evaluation), then `save`,
+   `load_inference`, `predict` and `evaluate` on the 64 validation images:
+   finite losses, every trained parameter moved, `scores.json` and its
+   checkpoints on disk, the model after the fit bit for bit its best
+   checkpoint, the loaded pipeline's predictions bit for bit the trained
+   one's, exact launches (12 `flash_fwd_lse` and 12 `flash_bwd_fused` a
+   step, 12 `flash_attention` a 64-image evaluation or predict batch,
+   counted from the run's steps and batches), and the first step's loss
+   and gradients through the kernels against the plain path (phase 19's
+   rule); ms a step through the `Trainer` beside phase 19's bare step,
+   the evaluation pass's ms, peak memory. Then `ae_kl` through
+   `fit_array` at phase 7's workload (256 px, batch 8, bf16 compute, 3
+   steps): phase 7's launches a step, exactly.
+21. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
-   the style and tiling, the SD v2 and v2 finetune, and the CV models'
-   readings on lines of their own, the card's name
+   the style and tiling, the SD v2 and v2 finetune, the CV models' and the
+   framework's readings on lines of their own, the card's name
    and power limit, and last `{"ok": true,
    "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
@@ -2828,6 +2844,288 @@ def phase_cv_models(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
     return out
 
 
+# 20. the framework: the ViT-S/16 classifier at 384 px through `fit_array` (phase 19's model, f32), then the
+# pipeline saved, loaded and predicting; and `ae_kl` at phase 7's workload through `fit_array`
+FW_SIZE = 384
+FW_TRAIN, FW_VALID = 128, 64  # images; batch 32 (4 steps an epoch), the validation set in one batch of 64
+FW_BATCH, FW_VALID_BATCH = 32, 64
+FW_STEPS = 8  # a monitor (and a snapshot) every 2 steps: 4 validation passes and the final one
+FW_CLASSES = 4  # the labels' classes, each image offset by its class, so that the scores move between monitors
+FW_KEEP = 2  # max_snapshot_file: of the 4 snapshots, the best 2 stay
+FW_AE_IMAGES = 24
+
+
+def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) -> dict:
+    """`cflearn_torch.fit_array` on the ViT-S/16 at 384 px (f32, seeded random weights; 128 training and 64
+    validation images made from a seed, bf16-representable so that a one-ulp move is defined, labelled with 4
+    classes whose images are offset by their class): 8 steps at the `Trainer`'s defaults (Adam behind the
+    warm-up), "acc" and "auc" on the validation set every 2 steps, a snapshot at every monitor ("conservative")
+    with the best 2 kept, the rollback, the final evaluation; then `save`, `load_inference`, `predict` on the 64
+    validation images and `evaluate`. Gates: finite loss items, every trained parameter moved, 4 snapshots
+    written with at least two scores, the 2 kept in `scores.json` and on disk ranking at or above the removed
+    ones (scores may tie), the model after the fit bit for bit the best-scored of them, the loaded pipeline's
+    predictions bit for bit the
+    trained one's, exact launches (12 `flash_fwd_lse` and 12 `flash_bwd_fused` a step, 12 `flash_attention` a
+    64-image evaluation or predict batch, counted from the steps and the batches the run made), and the first
+    step's loss and gradient (kernels) against the plain path on its state and batch within TRAIN_PARITY_FACTOR x
+    the plain path's drift under a one-ulp move of the images (phase 19's rule). Reports the ms a step through the
+    `Trainer` (between a monitor's checkpoint, its writer thread drained, and the next monitor: the loop's host
+    work included) beside phase 19's bare `MultiScopeStep`, the ms of each checkpoint's write, the evaluation
+    pass's ms and peak memory. Then `ae_kl` through `fit_array` at phase 7's workload (256 px, batch 8,
+    bf16 compute), 3 steps, no validation set and no final evaluation: phase 7's launches a step, exactly."""
+    import shutil
+    import tempfile
+
+    from cflearn_torch.constants import INPUT_KEY, LABEL_KEY, LOSS_KEY
+    from cflearn_torch.inference import DLInference
+    from cflearn_torch.optimizers import build_optimizer
+    from cflearn_torch.trainer import Trainer, TrainStepFn, get_sorted_checkpoints, read_states
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"framework: {msg}")
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="framework_")
+    gen = torch.Generator().manual_seed(41)
+    vit = vit_config(FW_SIZE)
+    classes = vit["module_config"]["num_classes"]
+    y = torch.randint(0, FW_CLASSES, (FW_TRAIN + FW_VALID, 1), generator=gen)
+    x = torch.rand((FW_TRAIN + FW_VALID, FW_SIZE, FW_SIZE, 3), generator=gen) * 1.6 - 1.0
+    x = (x + 0.1 * y.view(-1, 1, 1, 1)).to(torch.bfloat16).float().numpy()
+    y = y.numpy()
+    xt, yt, xv, yv = x[:FW_TRAIN], y[:FW_TRAIN], x[FW_TRAIN:], y[FW_TRAIN:]
+
+    # what the run makes, read through the Trainer's own methods: the first step's state, batch, loss and
+    # gradients; the monitors' edges (synchronised, where the monitor's evaluation syncs anyway); the evaluation
+    # passes; the batches the inference ran; the snapshots written, with their scores
+    rec = {"items": [], "edges": [], "evals": [], "batches": 0, "snapshots": {}, "writes": [], "saved_at": {}}
+    originals = (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
+                 Trainer.save_checkpoint)
+
+    def train_step(self, batch, state):
+        if not rec["items"]:
+            rec["state0"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            rec["batch0"] = {k: v.clone() for k, v in batch.items() if torch.is_tensor(v)}
+        items = originals[0](self, batch, state)
+        if not rec["items"]:
+            rec["loss0"] = items[LOSS_KEY].item()
+            rec["grads0"] = {n: g.detach().clone() for n, g in self.step_fn.steps["all"].grads.items()}
+        rec["items"].append(items)
+        return items
+
+    def monitor_step(self, state):
+        torch.cuda.synchronize()
+        rec["edges"].append(("in", state.step, time.perf_counter()))
+        result = originals[1](self, state)
+        torch.cuda.synchronize()
+        rec["edges"].append(("out", state.step, time.perf_counter()))
+        return result
+
+    def get_metrics(self, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = originals[2](self, **kwargs)
+        torch.cuda.synchronize()
+        rec["evals"].append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    def run_eval(self, *args, **kwargs):
+        rec["batches"] += 1
+        return originals[3](self, *args, **kwargs)
+
+    def save_checkpoint(self, score, *args, **kwargs):
+        # the writer thread drained here, so that a file's write is timed alone and the windows hold the steps alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["snapshots"][f"model_{self.state.step}.npz"] = score
+        result = originals[4](self, score, *args, **kwargs)
+        self._drain_checkpoints()
+        rec["saved_at"][self.state.step] = time.perf_counter()
+        rec["writes"].append((rec["saved_at"][self.state.step] - t0) * 1e3)
+        return result
+
+    (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
+     Trainer.save_checkpoint) = (train_step, monitor_step, get_metrics, run_eval, save_checkpoint)
+    try:
+        config = cflearn_torch.DLConfig(
+            **vit, seed=0, workspace=os.path.join(root, "vit"), metric_names=["acc", "auc"], min_num_sample=0,
+            num_snapshot_per_epoch=2, fixed_steps=FW_STEPS, monitor_names="conservative",
+            max_snapshot_file=FW_KEEP,
+        )
+        data_config = cflearn_torch.DataConfig()
+        data_config.batch_size, data_config.valid_batch_size = FW_BATCH, FW_VALID_BATCH
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        p = cflearn_torch.fit_array(xt, yt, xv, yv, config=config, data_config=data_config)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = read_launches(A, Cv, Gn)
+    finally:
+        (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
+         Trainer.save_checkpoint) = originals
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer, model = p.trainer, p.model
+    steps, eval_batches = trainer.state.step, rec["batches"]
+    monitors = steps // trainer.state.num_step_per_snapshot
+    want = dict.fromkeys(fit_launches, 0)
+    want.update(flash_fwd_lse=VIT_LAYERS * steps, flash_bwd_fused=VIT_LAYERS * steps,
+                flash_attention=VIT_LAYERS * eval_batches)
+    losses = [{k: v.item() for k, v in items.items()} for items in rec["items"]]
+    folder = trainer.checkpoint_folder
+    scores = get_sorted_checkpoints(folder)
+    on_disk = sorted(f for f in os.listdir(folder) if f.endswith(".npz"))
+    written = rec["snapshots"]
+    evicted = [f for f in written if f not in scores]
+    best = read_states(os.path.join(folder, scores[0])) if scores else {}
+    rolled_back = bool(best) and all(
+        torch.equal(v.cpu(), torch.from_numpy(best[k]).to(v.dtype)) for k, v in model.state_dict().items())
+    trained = [n for n, _ in model.params_filter("all")]
+    state = model.state_dict()
+    unmoved = [n for n in trained if torch.equal(state[n], rec["state0"][n])]
+    # between the exit of one monitor (and its checkpoint's write) and the entry of the next: the steps of the
+    # loop, synchronised at both ends
+    edges = rec["edges"]
+    windows = [((t_in - rec["saved_at"].get(s_out, t_out)) * 1e3 / (s_in - s_out))
+               for (k_out, s_out, t_out), (k_in, s_in, t_in) in zip(edges[1::2], edges[2::2])
+               if k_out == "out" and k_in == "in" and s_in > s_out]
+    step_ms = min(windows) if windows else float("nan")
+    print(f"framework[vit]: fit_array ViT-S/16 {FW_SIZE} px, {steps} steps at batch {FW_BATCH}, {monitors} monitors and "
+          f"{len(rec['evals'])} evaluation passes ({eval_batches} batches of {FW_VALID_BATCH}) in {fit_s:.2f} s; "
+          f"{step_ms:.2f} ms a step through the Trainer (best of {[round(w, 2) for w in windows]}) against "
+          f"{bare_step_ms:.2f} ms for phase 19's bare MultiScopeStep: {step_ms - bare_step_ms:.2f} ms of the loop a "
+          f"step; evaluation pass {min(rec['evals']):.1f} ms (of {[round(e, 1) for e in rec['evals']]}); checkpoint "
+          f"writes {[round(w, 1) for w in rec['writes']]} ms; peak memory "
+          f"{peak:.2f} GiB; launches {json.dumps({k: v for k, v in fit_launches.items() if v})}")
+    print(f"framework[vit]: snapshots written {json.dumps(written)}; scores.json {json.dumps(trainer.checkpoint_scores)}, "
+          f"checkpoints on disk {on_disk}, rolled back to {scores[:1]}: {rolled_back}; final {json.dumps(trainer.final_results.metric_values)}; last losses "
+          f"{json.dumps(losses[-1])}; {len(unmoved)} of {len(trained)} trained parameters unmoved")
+    check(steps == FW_STEPS and len(losses) == steps, f"{steps} steps, {len(losses)} recorded")
+    check(all(math.isfinite(v) for items in losses for v in items.values()), f"losses {losses}")
+    check(eval_batches == monitors + 1 and len(rec["evals"]) == monitors + 1,
+          f"{eval_batches} evaluation batches in {len(rec['evals'])} passes, {monitors} monitors")
+    check(fit_launches == want, f"fit launches {fit_launches} != {want}")
+    # scores may tie (the accuracy moves by 1/64, the AUC saturates): the kept ones rank at or above the evicted
+    check(len(written) == monitors and len(set(written.values())) >= 2,
+          f"{monitors} monitors, snapshots {written}: one a monitor, at least two scores")
+    check(len(scores) == FW_KEEP and set(scores) <= set(written)
+          and min(written[f] for f in scores) >= max(written[f] for f in evicted)
+          and written[scores[0]] == max(written.values()),
+          f"scores.json {scores} is not the best {FW_KEEP} of the snapshots {written}, best first")
+    check(on_disk == sorted(scores), f"scores {scores} against the files {on_disk}")
+    check(rolled_back, f"the model after the fit is not its best checkpoint {scores[:1]}")
+    check(not unmoved, f"trained parameters did not move: {unmoved[:5]}")
+    out["vit"] = {"steps": steps, "batch": FW_BATCH, "fit_s": fit_s, "trainer_step_ms": step_ms,
+                  "trainer_step_windows_ms": windows, "bare_step_ms": bare_step_ms,
+                  "loop_ms_per_step": step_ms - bare_step_ms, "eval_pass_ms": min(rec["evals"]),
+                  "eval_passes_ms": rec["evals"], "checkpoint_writes_ms": rec["writes"], "eval_batches": eval_batches, "monitors": monitors,
+                  "peak_memory_gib": peak, "launches": {k: v for k, v in fit_launches.items() if v},
+                  "launches_per_step": {"flash_fwd_lse": VIT_LAYERS, "flash_bwd_fused": VIT_LAYERS},
+                  "launches_per_eval_batch": {"flash_attention": VIT_LAYERS}, "checkpoints": on_disk,
+                  "snapshots": written, "scores": trainer.checkpoint_scores, "rolled_back_to": scores[0], "final_metrics": trainer.final_results.metric_values,
+                  "losses": losses}
+
+    # save, load, predict, evaluate: 12 flash forwards a batch of 64
+    saved = cflearn_torch.save(p, os.path.join(root, "saved"))
+    loaded = cflearn_torch.load_inference(saved)
+    calls = {}
+    for name, fn in (("predict", lambda: p.predict(xv, batch_size=FW_VALID_BATCH)["predictions"]),
+                     ("loaded_predict", lambda: loaded.predict(xv, batch_size=FW_VALID_BATCH)["predictions"]),
+                     ("evaluate", lambda: cflearn_torch.evaluate(
+                         loaded, xv, yv, metrics="acc", verbose=False, batch_size=FW_VALID_BATCH)["pipeline"])):
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        got = read_launches(A, Cv, Gn)
+        calls[name] = (result, (time.perf_counter() - t0) * 1e3, got)
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = VIT_LAYERS
+        check(got == want, f"{name} launches {got} != {want}")
+    pred, pred_loaded = calls["predict"][0], calls["loaded_predict"][0]
+    same = bool(np.array_equal(pred, pred_loaded))
+    acc = calls["evaluate"][0].metric_values["acc"]
+    print(f"framework[vit]: saved to {sorted(os.listdir(saved))}; predict {pred.shape} in "
+          f"{calls['predict'][1]:.1f} ms, loaded {calls['loaded_predict'][1]:.1f} ms, bit for bit: {same}; evaluate "
+          f"acc {acc:.4f} in {calls['evaluate'][1]:.1f} ms; launches {VIT_LAYERS} flash_attention each")
+    check(pred.shape == (FW_VALID, classes) and bool(np.isfinite(pred).all()), f"predictions {pred.shape}")
+    check(same, "the loaded pipeline's predictions differ from the trained pipeline's")
+    check(acc == float(np.mean(np.argmax(pred, -1) == yv[:, 0])), "evaluate's accuracy")
+    out["vit"].update(predict_ms=calls["predict"][1], loaded_predict_ms=calls["loaded_predict"][1],
+                      evaluate_ms=calls["evaluate"][1], predictions_bit_equal=same, evaluate_acc=acc)
+    del loaded, calls, pred, pred_loaded
+
+    # the first step through the kernels (in the fit) against the plain path on its state and batch
+    model.load_state_dict(rec["state0"])
+    core = TrainStepFn(model, build_optimizer("sgd", 0.0))
+    batch0 = rec["batch0"]
+    x0 = batch0[INPUT_KEY]
+
+    def fwd_bwd(images):
+        loss = core.loss_and_grads(dict(batch0, **{INPUT_KEY: images}))[LOSS_KEY].item()
+        grads, core.grads = core.grads, {}
+        return loss, grads
+
+    with plain_kernels(A, Cv, Gn):
+        loss_p, grads_p = fwd_bwd(x0)
+        up = bump_ulp(torch, x0)
+        drift_loss = drift_global = 0.0
+        for moved in (up, x0 - (up - x0)):
+            loss_u, grads_u = fwd_bwd(moved)
+            drift_loss = max(drift_loss, abs(loss_u - loss_p))
+            drift_global = max(drift_global, grad_errors(grads_u, grads_p)["global_rel"])
+    err = grad_errors(rec["grads0"], grads_p)
+    tol_loss = max(TRAIN_PARITY_FACTOR * drift_loss, 1e-6 * abs(loss_p))
+    print(f"framework parity: first step's loss through the kernels {rec['loss0']:.6f}, plain {loss_p:.6f} (off "
+          f"{abs(rec['loss0'] - loss_p):.3e}, tolerance {tol_loss:.3e}); gradients {json.dumps(err)} (global "
+          f"tolerance {TRAIN_PARITY_FACTOR * drift_global:.3e}: {TRAIN_PARITY_FACTOR} x the one-ulp drift "
+          f"{drift_global:.3e})")
+    check(abs(rec["loss0"] - loss_p) <= tol_loss, "the first step's loss disagrees with the plain path")
+    check(err["global_rel"] <= TRAIN_PARITY_FACTOR * drift_global, "the first step's gradients disagree")
+    out["vit"]["parity"] = {"loss_err": abs(rec["loss0"] - loss_p), "loss_tolerance": tol_loss,
+                            "drift_loss": drift_loss, "global_rel": err["global_rel"],
+                            "leaf_max_rel": err["leaf_max_rel"], "drift_global": drift_global}
+    del p, trainer, model, core, rec, grads_p, x, xt, xv
+    torch.cuda.empty_cache()
+
+    # ae_kl at phase 7's workload through fit_array: the two scopes' kernels, phase 7's launches a step
+    side = AE_CONFIG["img_size"]
+    images = (torch.rand((FW_AE_IMAGES, side, side, 3), generator=gen) * 2.0 - 1.0).numpy()
+    ae_config = cflearn_torch.DLConfig(
+        model="ae_kl", module_name="ae_kl", module_config=dict(AE_CONFIG), seed=0, mixed_precision="bf16",
+        fixed_steps=AE_STEPS, workspace=os.path.join(root, "ae"), callback_names=[],
+    )
+    ae_data = cflearn_torch.DataConfig()
+    ae_data.batch_size = AE_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    ae_p = cflearn_torch.fit_array(images, config=ae_config, data_config=ae_data, skip_final_evaluation=True)
+    torch.cuda.synchronize()
+    ae_s = time.perf_counter() - t0
+    ae_launches = read_launches(A, Cv, Gn)
+    ae_steps = ae_p.trainer.state.step
+    want = dict.fromkeys(ae_launches, 0)
+    want.update(conv3x3=3 * AE_CONVS * ae_steps, conv3x3_wgrad=AE_CONVS * ae_steps,
+                group_norm=2 * GN_PER_AE_FORWARD * ae_steps, flash_fwd_lse=AE_FLASH * ae_steps,
+                flash_bwd_fused=AE_FLASH * ae_steps, flash_attention=AE_FLASH * ae_steps)
+    ae_losses = ae_p.trainer.intermediate.metric_values if ae_p.trainer.intermediate else {}
+    ae_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"framework[ae_kl]: fit_array at {side} px, batch {AE_BATCH}, bf16 compute, {ae_steps} steps in {ae_s:.2f} s "
+          f"(the model's build and files included), peak memory {ae_peak:.2f} GiB, monitored losses "
+          f"{json.dumps(ae_losses)}, launches {json.dumps({k: v for k, v in ae_launches.items() if v})}")
+    check(ae_steps == AE_STEPS, f"ae_kl: {ae_steps} steps")
+    check(ae_losses and all(math.isfinite(v) for v in ae_losses.values()), f"ae_kl losses {ae_losses}")
+    check(ae_launches == want, f"ae_kl launches {ae_launches} != {want}")
+    out["ae_kl"] = {"steps": ae_steps, "batch": AE_BATCH, "fit_s": ae_s, "peak_memory_gib": ae_peak,
+                    "losses": ae_losses, "launches": {k: v for k, v in ae_launches.items() if v}}
+    del ae_p
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3626,7 +3924,11 @@ def main() -> int:
     cv_out = phase_cv_models(torch, np, cflearn_torch, A, Cv, Gn)
     print(f"cv models: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 20. summary
+    # 20. the framework: fit_array, the Trainer, save / load_inference / predict
+    fw_out = phase_framework(torch, np, cflearn_torch, A, Cv, Gn, cv_out["clf_vit_384"]["step_ms"])
+    print(f"framework: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 21. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -3723,6 +4025,7 @@ def main() -> int:
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
+                   "framework": fw_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -3740,6 +4043,7 @@ def main() -> int:
     print(json.dumps({"sd_v2": {k: v for k, v in v2_out.items() if k != "calls"},
                       "v2_finetune": {k: v for k, v in v2_train_out.items() if k != "calls"}}))
     print(json.dumps({"cv_models": cv_out}))
+    print(json.dumps({"framework": {k: {kk: vv for kk, vv in v.items() if kk != "losses"} for k, v in fw_out.items()}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Helpers for the port's parity tests: carry a JAX module's parameters into
 its `cflearn_torch` counterpart and feed both the same numpy inputs."""
 
+import contextlib
 from typing import Dict
 
 import jax.numpy as jnp
@@ -9,6 +10,25 @@ import torch
 from flax import nnx
 
 from cflearn_torch.bridge import load_nnx_params
+
+# The CPU parity tests run several processes to a machine (pytest-xdist). PyTorch's intra-op pool, one thread
+# per core in each process, then oversubscribes the cores, and a tiny model's many small ops wait on descheduled
+# threads: one CPU training test took 54 s in a six-worker run and 0.8 s alone. One intra-op thread per test
+# process. An xdist worker imports every test module when it collects, so this holds for every file it runs.
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def default_threads():
+    """PyTorch's own intra-op thread count (one per core) inside the block: for a comparison that holds only
+    under the summation order of that count (see `tests/test_torch_serve_slice.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def flat_params(module: nnx.Module) -> Dict[str, np.ndarray]:

@@ -684,3 +684,41 @@ def test_kernel_ops_under_selective_checkpointing(cuda, policy) -> None:
                               torch.ones_like(y).float())
     for got, r in zip(grads[3:], ref):
         _close(got.float(), r, 2.0**-6)
+
+
+def test_fit_array_on_the_card(cuda, tmp_path, monkeypatch) -> None:
+    """A 2-step `fit_array` of a small ViT on the card (64 px in patches of 4: 257 tokens, so that its attention
+    takes the kernels): one `flash_fwd_lse` and one `flash_bwd_fused` a layer a step, one `flash_attention` a layer
+    a validation batch, counted from the run's steps and batches; finite losses; the saved pipeline loaded on the
+    card predicts bit for bit what the trained one predicts."""
+    import numpy as np
+
+    import cflearn_torch
+    from cflearn_torch.inference import DLInference
+
+    batches = []
+    run_eval = DLInference._eval
+    monkeypatch.setattr(DLInference, "_eval", lambda self, *a, **k: batches.append(1) or run_eval(self, *a, **k))
+    rs = np.random.RandomState(0)
+    x = rs.uniform(-1, 1, (24, 64, 64, 3)).astype(np.float32)
+    y = rs.randint(0, 5, (24, 1))
+    config = cflearn_torch.DLConfig(
+        model="common", module_name="clf", loss_name="cross_entropy", module_config=dict(
+            img_size=64, in_channels=3, num_classes=5, encoder="vit", latent_dim=32,
+            encoder_config=dict(patch_size=4, num_layers=2, num_heads=2)),
+        workspace=str(tmp_path), fixed_steps=2, min_num_sample=0, metric_names="acc", callback_names=[],
+    )
+    data = cflearn_torch.DataConfig()
+    data.batch_size = data.valid_batch_size = 8
+    names = ("flash_attention", "flash_fwd_lse", "flash_bwd_fused")
+    for name in names:
+        getattr(A, name).launches = 0
+    p = cflearn_torch.fit_array(x[:16], y[:16], x[16:], y[16:], config=config, data_config=data)
+    torch.cuda.synchronize()
+    steps = p.trainer.state.step
+    assert steps == 2 and next(p.model.parameters()).is_cuda
+    assert {n: getattr(A, n).launches for n in names} == {
+        "flash_attention": 2 * len(batches), "flash_fwd_lse": 2 * steps, "flash_bwd_fused": 2 * steps}
+    assert batches and all(np.isfinite(v) for v in p.trainer.final_results.metric_values.values())
+    loaded = cflearn_torch.load_inference(cflearn_torch.save(p, str(tmp_path / "saved")))
+    assert np.array_equal(loaded.predict(x[16:])["predictions"], p.predict(x[16:])["predictions"])

@@ -21,7 +21,7 @@ import pytest
 import torch
 from flax import nnx
 
-from _torch_bridge_common import bridged, dezero, rel_err
+from _torch_bridge_common import bridged, default_threads, dezero, rel_err
 import cflearn_torch
 from cflearn_torch.modules.multimodal.diffusion.cond_models import CLIPTextConditionModel as TCLIPText
 from cflearn_torch.pipeline import ACCEL_DC, FAITHFUL_DC, GUIDANCE_INTERVAL, TOME_RATIO, configure
@@ -112,11 +112,15 @@ def runs():
         ref = _jax_txt2img(jm, tokens, uncond, jnp.asarray(z), gi)
         configure(tm, config)
         tm.deepcache_center = center
-        images, latents = cflearn_torch.txt2img(
-            tm, PROMPT, num_steps=STEPS, guidance_scale=7.5, z=z, guidance_interval=gi, return_latents=True,
-        )
-        with torch.no_grad():
-            decoded = tm.decode(latents).numpy()
+        # the accelerated configuration meets a near-tie in ToMe's matching: under one, two or four intra-op
+        # threads the port's own summation order flips a merge and its latents move 1.5e-3 from the JAX
+        # package's (2e-6 at the default count)
+        with default_threads():
+            images, latents = cflearn_torch.txt2img(
+                tm, PROMPT, num_steps=STEPS, guidance_scale=7.5, z=z, guidance_interval=gi, return_latents=True,
+            )
+            with torch.no_grad():
+                decoded = tm.decode(latents).numpy()
         out[name] = (ref, (latents.numpy(), decoded, images.numpy()))
     return out, tm
 
