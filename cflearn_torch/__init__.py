@@ -16,13 +16,29 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .api import (  # noqa: E402
     APIPool, CLIPExtractor, ControlledDiffusionAPI, DiffusionAPI, Evaluator, IAPI, TranslatorAPI, Weights, evaluate,
-    fit_array, load_evaluation, load_inference, load_training, make_metric, make_model, pack, save, supported_losses,
-    supported_metrics, supported_modules, supported_optimizers, supported_samplers, supported_schedulers,
+    fit_array, fit_ml, load_evaluation, load_inference, load_training, make_metric, make_model, make_toy_ml_model,
+    pack, save, supported_losses, supported_metrics, supported_modules, supported_optimizers, supported_samplers,
+    supported_schedulers,
 )
-from .data import ArrayData, ArrayDictData  # noqa: E402
+from .api import ml  # noqa: E402
+from .api.ml import DDRPredictor, DDRVisualizer, IntegratedGradients, Interpreter, integrated_gradients  # noqa: E402
+from .data import ArrayData, ArrayDictData, MLData  # noqa: E402
+from .data.blocks.ml import (  # noqa: E402
+    DataSplitter, FileParserBlock, GatherBlock, NanHandlerBlock, PreProcessorBlock, RecognizerBlock, SplitterBlock,
+)
+from .data.ml.api import MLBundledProcessorConfig, MLDataProcessor  # noqa: E402
 from .device import resolve_device  # noqa: E402
 from .models import (  # noqa: E402
-    AutoRegressorModel, CommonDLModel, DDPMModel, DLEnsembleModel, GANModel, VAEModel, VQVAEModel,
+    AutoRegressorModel, CommonDLModel, CommonMLModel, DDPMModel, DDRModel, DLEnsembleModel, GANModel, TemporalMLModel,
+    VAEModel, VQVAEModel, WideAndDeepModel,
+)
+from .modules.core.customs import DNDF, DropPath, Pruner  # noqa: E402
+from .modules.core.ml_encoder import Encoder, MLEncodePack  # noqa: E402
+from .modules.ml.ddr import DDR, DDRLoss  # noqa: E402
+from .modules.ml.fcnn import FCNN  # noqa: E402
+from .modules.ml.linear import LinearModule  # noqa: E402
+from .modules.ml.nets import (  # noqa: E402
+    NBM, NDT, RNN, FNet, MixedStackedModule, Mixer, PoolFormer, TabTransformer, Transformer, WideAndDeep,
 )
 from .models.cv.ae import AEModel, AEVQModel, build_ae  # noqa: E402
 from .modules.cv.classifier import ImageClassifier, ImgSiren, PixelCNN, RRDBNet, Siren  # noqa: E402
@@ -39,11 +55,11 @@ from .modules.multimodal.diffusion.ldm import (  # noqa: E402
 )
 from .modules.multimodal.diffusion.unet import ControlNet  # noqa: E402
 from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
-from .schema import DLConfig, IDLModel, ILoss, TrainStep  # noqa: E402
+from .schema import DLConfig, IDLModel, ILoss, MLConfig, TrainStep  # noqa: E402
 from .schema.data import DataConfig  # noqa: E402
 from .pipeline import (  # noqa: E402
-    CONFIGS, DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline, configure,
-    finetune_unet, train_autoencoder, txt2img,
+    CONFIGS, DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline, MLEvaluationPipeline,
+    MLInferencePipeline, MLTrainingPipeline, configure, finetune_unet, train_autoencoder, txt2img,
 )
 from .trainer import Trainer  # noqa: E402
 from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs  # noqa: E402
@@ -54,6 +70,13 @@ from .zoo import (  # noqa: E402
 )
 
 __all__ = [
+    "CommonMLModel", "DDR", "DDRLoss", "DDRModel", "DDRPredictor", "DDRVisualizer", "DNDF", "DataSplitter", "DropPath",
+    "Encoder", "FCNN", "FNet", "FileParserBlock", "GatherBlock", "IntegratedGradients", "Interpreter", "LinearModule",
+    "MLBundledProcessorConfig", "MLConfig", "MLData", "MLDataProcessor", "MLEncodePack", "MLEvaluationPipeline",
+    "MLInferencePipeline", "MLTrainingPipeline", "MixedStackedModule", "Mixer", "NBM", "NDT", "NanHandlerBlock",
+    "PoolFormer", "PreProcessorBlock", "Pruner", "RNN", "RecognizerBlock", "SplitterBlock", "TabTransformer",
+    "TemporalMLModel", "Transformer", "WideAndDeep", "WideAndDeepModel", "fit_ml", "integrated_gradients",
+    "make_toy_ml_model", "ml",
     "ArrayData", "ArrayDictData", "DLEvaluationPipeline", "DLInferencePipeline", "DLPipelineSerializer",
     "DLTrainingPipeline", "DataConfig", "Evaluator", "Trainer", "evaluate", "fit_array", "load_evaluation",
     "load_inference", "load_training", "make_metric", "make_model", "pack", "save", "supported_losses",

@@ -1,8 +1,9 @@
 from .api import (
-    Evaluator, evaluate, fit_array, load_evaluation, load_inference, load_training, make_metric, make_model, pack, save,
-    supported_losses, supported_metrics, supported_modules, supported_optimizers, supported_samplers,
-    supported_schedulers,
+    Evaluator, evaluate, fit_array, fit_ml, load_evaluation, load_inference, load_training, make_metric, make_model,
+    make_toy_ml_model, pack, save, supported_losses, supported_metrics, supported_modules, supported_optimizers,
+    supported_samplers, supported_schedulers,
 )
+from . import ml
 from .common import APIPool, IAPI, Weights
 from .cv.translator import TranslatorAPI
 from .multimodal.clip import CLIPExtractor
@@ -10,7 +11,7 @@ from .multimodal.diffusion import ControlledDiffusionAPI, DiffusionAPI
 
 __all__ = [
     "APIPool", "CLIPExtractor", "ControlledDiffusionAPI", "DiffusionAPI", "Evaluator", "IAPI", "TranslatorAPI",
-    "Weights", "evaluate", "fit_array", "load_evaluation", "load_inference", "load_training", "make_metric",
-    "make_model", "pack", "save", "supported_losses", "supported_metrics", "supported_modules", "supported_optimizers",
-    "supported_samplers", "supported_schedulers",
+    "Weights", "evaluate", "fit_array", "fit_ml", "load_evaluation", "load_inference", "load_training", "make_metric",
+    "make_model", "make_toy_ml_model", "ml", "pack", "save", "supported_losses", "supported_metrics",
+    "supported_modules", "supported_optimizers", "supported_samplers", "supported_schedulers",
 ]

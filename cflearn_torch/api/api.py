@@ -1,27 +1,82 @@
 """The functional API (counterpart of `cflearn_tpu/api/api.py`):
-`fit_array`, `save` / `pack` / `load_training` / `load_inference` /
-`load_evaluation`, `Evaluator` / `evaluate`, `make_model`, `make_metric` and
-the `supported_*` registry views.
+`fit_ml`, `fit_array`, `make_toy_ml_model`, `save` / `pack` /
+`load_training` / `load_inference` / `load_evaluation`, `Evaluator` /
+`evaluate`, `make_model`, `make_metric` and the `supported_*` registry
+views.
 
-`fit_array(x, y, config=DLConfig(...))` is `ArrayData` then
-`DLTrainingPipeline.init(config).fit(data)`, on the CUDA card unless
-`device` names another ("cpu" runs the plain PyTorch path); without a card
-and without a device it raises. The tabular entry points (`fit_ml`,
-`repeat_ml`, `make_toy_ml_model`, `run_multiple`) and the ensembles
-(`fuse_inference`, `fuse_evaluation`) wait for their slices.
+`fit_ml(x, y, config=MLConfig(...))` is `MLData` (the tabular block stack)
+then `MLTrainingPipeline.init(config).fit(data)`; `fit_array(x, y,
+config=DLConfig(...))` is `ArrayData` then `DLTrainingPipeline`. Both run
+on the CUDA card unless `device` names another ("cpu" runs the plain
+PyTorch path); without a card and without a device they raise. `repeat_ml`
+and `run_multiple` (which need the experiment runner of `dist/`) and the
+ensembles (`fuse_inference`, `fuse_evaluation`) wait for their slices.
 """
 
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
+
 from ..data.array import ArrayData
+from ..data.ml.api import MLData
 from ..pipeline.api import DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline
-from ..pipeline.api import TrainingPipeline
-from ..schema.config import DLConfig
-from ..schema.data import DataConfig
+from ..pipeline.api import MLTrainingPipeline, TrainingPipeline
+from ..schema.config import DLConfig, MLConfig
+from ..schema.data import DataConfig, DataProcessorConfig
 from ..schema.losses_schema import ILoss
 from ..schema.metrics_schema import IMetric, MetricsOutputs
 from ..schema.model import IDLModel
 from ..toolkit.misc import check_is_ci
+
+
+def _make_ml_data(
+    x_train: Any,
+    y_train: Any = None,
+    x_valid: Any = None,
+    y_valid: Any = None,
+    *,
+    data_config: Optional[DataConfig] = None,
+    processor_config: Optional[DataProcessorConfig] = None,
+    sample_weights: Optional[np.ndarray] = None,
+) -> MLData:
+    data = MLData.init(data_config, processor_config)
+    data.fit(x_train, y_train, x_valid, y_valid)
+    if sample_weights is not None:
+        data.set_sample_weights(sample_weights)
+    return data
+
+
+def fit_ml(
+    x_train: Any,
+    y_train: Any = None,
+    x_valid: Any = None,
+    y_valid: Any = None,
+    *,
+    config: Optional[MLConfig] = None,
+    data_config: Optional[DataConfig] = None,
+    processor_config: Optional[DataProcessorConfig] = None,
+    sample_weights: Optional[np.ndarray] = None,
+    debug: bool = False,
+    device: Any = None,
+    **kwargs: Any,
+) -> MLTrainingPipeline:
+    """Tabular training: numpy or CSV in (strings, NaN cells and categorical
+    columns recognised and encoded), the fitted pipeline out, also saved to
+    `<workspace>/pipeline`. `config` (`MLConfig(module_name="fcnn")` by
+    default) is copied, never changed; a "common" model becomes
+    "ml.<module>" where one is registered, else "ml.common". `debug` (or the
+    `CI` flag) turns the copy into a one-step run."""
+    config = MLConfig(module_name="fcnn") if config is None else config.copy()
+    if config.model == "common":
+        specialized = f"ml.{config.module_name}"
+        config.model = specialized if IDLModel.has(specialized) else "ml.common"
+    if debug or check_is_ci():
+        config.to_debug()
+    data = _make_ml_data(
+        x_train, y_train, x_valid, y_valid, data_config=data_config, processor_config=processor_config,
+        sample_weights=sample_weights,
+    )
+    return MLTrainingPipeline.init(config, device=device).fit(data, **kwargs)
 
 
 def fit_array(
@@ -43,6 +98,18 @@ def fit_array(
         config.to_debug()
     data = ArrayData.init(data_config).fit(x_train, y_train, x_valid, y_valid)
     return DLTrainingPipeline.init(config, device=device).fit(data, **kwargs)
+
+
+def make_toy_ml_model(config: Optional[MLConfig] = None, *, device: Any = None, **kwargs: Any) -> MLTrainingPipeline:
+    """A two-step fit of a tiny FCNN on 16 random rows of 4 features and a
+    binary label (numpy's global generator), for tests."""
+    if config is None:
+        config = MLConfig(module_name="fcnn", module_config={"hidden_units": [8]})
+    config.fixed_steps = 2
+    config.num_epoch = 1
+    x = np.random.randn(16, 4).astype(np.float32)
+    y = (x.sum(1, keepdims=True) > 0).astype(np.int64)
+    return fit_ml(x, y, config=config, device=device, **kwargs)
 
 
 def save(pipeline: TrainingPipeline, folder: str) -> str:

@@ -55,7 +55,18 @@ A JAX `IDLModel.state_dict()` (every `nnx.Variable` of the model by
 port's shadow buffers (in the port's layout), the other variables into the
 buffers of the same paths. The noise schedule's leaves are left out: the
 port recomputes them; so are the `nnx.Rngs` streams (a key and a count
-under each `rngs.<stream>`): the port's draws come from `torch.Generator`s.
+under each `rngs.<stream>`): the port's draws come from `torch.Generator`s;
+and so is an `aux_loss` leaf (the MoE mixer's last recorded objective,
+which each forward writes anew).
+
+The tabular modules need no rule of their own: the categorical `Encoder`'s
+`nnx.Embed` tables (`embeds.<column>.embedding`) map like any embedding, a
+BatchNorm on (B, d) features keeps its scale, bias and running statistics
+under the same names, NBM's (units, bases, out) `weights`, DNDF's `leaves`
+and the MoE experts' tensors are bare parameters copied in their layout
+(DNDF's path and sign masks are buffers of the same names), and the
+recurrent cells are flax's (`cell.dense_i`, `cell.dense_h`: Linear
+kernels) in the port too.
 """
 
 from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
@@ -243,7 +254,7 @@ def state_dict_from_jax(npd: Mapping[str, np.ndarray], module: nn.Module) -> Dic
     leaves = {}
     for key, value in npd.items():
         path = key[: -len("/value")] if key.endswith("/value") else key
-        if "/rngs/" in f"/{path}":
+        if "/rngs/" in f"/{path}" or path.rpartition("/")[2] == "aux_loss":
             continue
         leaves[path.replace("/", ".")] = np.asarray(value)
     params = set(name for name, _ in module.named_parameters())

@@ -2,18 +2,23 @@
 `cflearn_tpu/modules/core/mixed_stacks.py`).
 
 The token- and channel-mixer registries (`token_mixers`, `channel_mixers`)
-with the "attention" token mixer (the port's `Attention`, so `sdp_attn`
-and the flash kernels where the shape routes there) and the "ff" and
-"mix_ff" channel mixers; `PositionalEncoding`, `MixingBlock` and
-`MixedStackedEncoder`, the stack behind the ViT encoder (an optional head
-token, a learned positional table, a mean pooler). The fourier, mlp, pool
-and rwkv token mixers, the rwkv and moe channel mixers, the poolers and the
-pipeline-parallel stack are not ported yet.
+with the token mixers "attention" (the port's `Attention`, so `sdp_attn`
+and the flash kernels where the shape routes there), "fourier" (FNet: the
+real part of a 2-D FFT), "mlp" (MLP-Mixer), "pool" (PoolFormer) and "rwkv"
+(the unstabilised exp(k) recurrence, as in the JAX package), and the
+channel mixers "ff", "mix_ff", "rwkv" and "moe" (top-k routing with
+capacity-bounded dense dispatch on one device, its load-balancing loss
+recorded as an `AuxLossVariable`); `PositionalEncoding`, `MixingBlock` and
+`MixedStackedEncoder`, the stack behind the ViT encoder and the tabular
+mixed-stack nets (an optional head token, a learned positional table, a
+mean pooler); `BertPooler` and `SequencePooler`. The pipeline-parallel
+stack and the MoE's expert-parallel sharding wait for the parallel slice.
 
 The SD UNet's transformer stack: the plain branch, ToMe, and the hooks of
 LoRA-style q / k / v transforms and style reference. `dropout` acts in
 training mode only."""
 
+import math
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 
 from ...ops.group_norm import gn_call
 from ..common import PrefixModules
+from ...schema.model import AuxLossVariable
 from ..layers import Conv, ConvN, GroupNorm, LayerNorm, Linear
 from .activations import GEGLU, build_activation, gelu
 from .attentions import Attention, CrossAttention
@@ -57,6 +63,90 @@ class AttentionTokenMixer(nn.Module):
 
     def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
         return self.net(x, **kwargs)
+
+
+@token_mixers.register("fourier")
+class FourierTokenMixer(nn.Module):
+    """FNet: the real part of the FFT over the channels, then over the
+    tokens, in the input's dtype."""
+
+    def __init__(self, in_dim: int, num_tokens: int, latent_dim: int, **kwargs: Any) -> None:
+        super().__init__()
+
+    def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        return torch.fft.fft(torch.fft.fft(x, dim=-1), dim=-2).real.to(x.dtype)
+
+
+@token_mixers.register("mlp")
+class MLPTokenMixer(nn.Module):
+    """MLP-Mixer: two linear layers across the tokens, GELU between."""
+
+    def __init__(self, in_dim: int, num_tokens: int, latent_dim: int, *, dropout: float = 0.0) -> None:
+        super().__init__()
+        self.fc1 = Linear(num_tokens, num_tokens)
+        self.fc2 = Linear(num_tokens, num_tokens)
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        net = F.dropout(gelu(self.fc1(x.transpose(-1, -2))), self.dropout, self.training)
+        return self.fc2(net).transpose(-1, -2)
+
+
+@token_mixers.register("pool")
+class PoolTokenMixer(nn.Module):
+    """PoolFormer: the mean over a `pool_size` window of tokens (the ends
+    padded with the edge tokens), minus the token."""
+
+    def __init__(self, in_dim: int, num_tokens: int, latent_dim: int, *, pool_size: int = 3, **kwargs: Any) -> None:
+        super().__init__()
+        self.pool_size = pool_size
+
+    def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        k, n = self.pool_size, x.shape[1]
+        pad = k // 2
+        padded = torch.cat([x[:, :1].expand(-1, pad, -1), x, x[:, -1:].expand(-1, pad, -1)], dim=1)
+        total = padded[:, 0:n]
+        for i in range(1, k):
+            total = total + padded[:, i:i + n]
+        return total / float(k) - x
+
+
+@token_mixers.register("rwkv")
+class RWKVTokenMixer(nn.Module):
+    """RWKV time mixing: a token-by-token recurrence over exp(k) with the
+    learned decay exp(-exp(`time_decay`)) and bonus `time_first`, gated by
+    sigmoid(r). The recurrence is the JAX package's as written, with no
+    stabilisation. At init `time_decay` is -1 and `time_first` 0 (the JAX
+    package draws them around those values with a spread of 0.1)."""
+
+    def __init__(self, in_dim: int, num_tokens: int, latent_dim: int, **kwargs: Any) -> None:
+        super().__init__()
+        self.time_decay = nn.Parameter(torch.empty(in_dim))
+        self.time_first = nn.Parameter(torch.empty(in_dim))
+        self.to_k = Linear(in_dim, in_dim, bias=False)
+        self.to_v = Linear(in_dim, in_dim, bias=False)
+        self.to_r = Linear(in_dim, in_dim, bias=False)
+        self.to_out = Linear(in_dim, in_dim, bias=False)
+
+    def init_constants(self) -> None:
+        with torch.no_grad():
+            self.time_decay.fill_(-1.0)
+            self.time_first.zero_()
+
+    def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        k, v, r = self.to_k(x), self.to_v(x), torch.sigmoid(self.to_r(x))
+        decay = torch.exp(-torch.exp(self.time_decay))
+        u = self.time_first
+        num = torch.zeros_like(k[:, 0])
+        den = torch.zeros_like(k[:, 0])
+        outs = []
+        for t in range(x.shape[1]):
+            kt, vt = k[:, t], v[:, t]
+            ek, euk = torch.exp(kt), torch.exp(u + kt)
+            outs.append((num + euk * vt) / torch.clamp_min(den + euk, 1e-8))
+            num = decay * num + ek * vt
+            den = decay * den + ek
+        return self.to_out(r * torch.stack(outs, dim=1))
 
 
 @channel_mixers.register("ff")
@@ -99,6 +189,108 @@ class MixFeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         net = gelu(self.conv(self.fc1(x)))
         return self.fc2(F.dropout(net, self.dropout, self.training))
+
+
+@channel_mixers.register("rwkv")
+class RWKVChannelMixer(nn.Module):
+    """RWKV channel mixing: sigmoid(r(x)) * v(relu(k(x))^2)."""
+
+    def __init__(self, in_dim: int, latent_dim: int, dropout: float = 0.0, **kwargs: Any) -> None:
+        super().__init__()
+        self.to_k = Linear(in_dim, latent_dim, bias=False)
+        self.to_r = Linear(in_dim, in_dim, bias=False)
+        self.to_v = Linear(latent_dim, in_dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = torch.square(F.relu(self.to_k(x)))
+        return torch.sigmoid(self.to_r(x)) * self.to_v(k)
+
+
+@channel_mixers.register("moe")
+class MoEChannelMixer(nn.Module):
+    """A mixture of `num_experts` GELU feed-forwards: each token goes to its
+    `top_k` experts by the router's softmax (taken one argmax at a time, the
+    lower index first among equal scores), at most `capacity` tokens an
+    expert (ceil(n x `capacity_factor` x top_k / num_experts), capped at n);
+    a token past an expert's capacity, in token order and the first choice's
+    round before the second's, is dropped there and falls through to the
+    residual. The kept gates are renormalised to sum to 1. Dispatch and
+    combine are one-hot products, computed in f32. Each forward records the
+    Switch load-balancing loss E x sum_e f_e P_e (f: the top-1 dispatch
+    fraction, P: the mean router probability) times `aux_loss_weight` in
+    `aux_loss`. The experts' tensors lead with the expert axis; they live on
+    one device here."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        latent_dim: int,
+        dropout: float = 0.0,
+        *,
+        num_experts: int = 4,
+        top_k: int = 2,
+        capacity_factor: float = 1.5,
+        aux_loss_weight: float = 0.01,
+    ) -> None:
+        super().__init__()
+        if not 1 <= top_k <= num_experts:
+            raise ValueError(f"top_k={top_k} must be in [1, num_experts={num_experts}]")
+        self.router = Linear(in_dim, num_experts, bias=False)
+        self.experts_w1 = nn.Parameter(torch.empty(num_experts, in_dim, latent_dim))
+        self.experts_b1 = nn.Parameter(torch.empty(num_experts, latent_dim))
+        self.experts_w2 = nn.Parameter(torch.empty(num_experts, latent_dim, in_dim))
+        self.experts_b2 = nn.Parameter(torch.empty(num_experts, in_dim))
+        self.num_experts = num_experts
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.aux_loss_weight = aux_loss_weight
+        self.dropout = dropout
+        self.aux_loss = AuxLossVariable(torch.zeros(()))
+
+    def init_constants(self) -> None:
+        """The experts' kernels ~ N(0, 1 / fan_in) over their input axis, the
+        biases 0 (`init_parameters` drew over the whole expert slice)."""
+        with torch.no_grad():
+            self.experts_w1.mul_(self.experts_w1.shape[2] ** 0.5)
+            self.experts_w2.mul_(self.experts_w2.shape[2] ** 0.5)
+            self.experts_b1.zero_()
+            self.experts_b2.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, c = x.shape
+        n, e = b * t, self.num_experts
+        xf = x.reshape(n, c)
+        cap = min(n, max(1, int(math.ceil(n * self.capacity_factor * self.top_k / e))))
+        probs = torch.softmax(self.router(xf).float(), dim=-1)
+        top1 = F.one_hot(probs.argmax(dim=-1), e).float()
+        lb = e * torch.sum(top1.mean(dim=0) * probs.mean(dim=0))
+        self.aux_loss = AuxLossVariable(self.aux_loss_weight * lb)
+
+        dispatch = probs.new_zeros((n, e, cap))
+        combine = probs.new_zeros((n, e, cap))
+        used = torch.zeros((e,), dtype=torch.int64, device=x.device)
+        remaining = probs
+        gate_total = probs.new_zeros((n,))
+        for _ in range(self.top_k):
+            onehot = F.one_hot(remaining.argmax(dim=-1), e)
+            gate = torch.sum(remaining * onehot, dim=-1)
+            pos = torch.sum((torch.cumsum(onehot, dim=0) - 1 + used[None]) * onehot, dim=-1)
+            keep = (pos < cap).float()
+            slot = F.one_hot(pos.clamp(0, cap - 1), cap).float()
+            assign = onehot.float()[:, :, None] * slot[:, None, :] * keep[:, None, None]
+            dispatch = dispatch + assign
+            combine = combine + gate[:, None, None] * assign
+            gate_total = gate_total + gate * keep
+            used = used + torch.sum(onehot * keep[:, None].to(torch.int64), dim=0)
+            remaining = remaining * (1 - onehot.float())
+        combine = combine / torch.clamp_min(gate_total, 1e-9)[:, None, None]
+
+        ex_in = torch.einsum("nec,nd->ecd", dispatch, xf.float())
+        h = gelu(torch.einsum("ecd,edh->ech", ex_in, self.experts_w1) + self.experts_b1[:, None])
+        h = F.dropout(h, self.dropout, self.training)
+        out_e = torch.einsum("ech,ehd->ecd", h, self.experts_w2) + self.experts_b2[:, None]
+        y = torch.einsum("nec,ecd->nd", combine, out_e)
+        return y.to(x.dtype).reshape(b, t, c)
 
 
 class PositionalEncoding(nn.Module):
@@ -431,6 +623,40 @@ class SpatialTransformer(nn.Module):
         else:
             net = self.proj_out(net.reshape(b, h, w, -1))
         return x + net
+
+
+class ITokenMixer(nn.Module):
+    """The token-mixer interface: `forward(net, **kwargs) -> net`."""
+
+
+class IChannelMixer(nn.Module):
+    """The channel-mixer interface: `forward(net) -> net`."""
+
+
+class BertPooler(nn.Module):
+    """The first token -> linear -> tanh."""
+
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.linear = Linear(dim, dim)
+
+    def forward(self, net: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.linear(net[:, 0]))
+
+
+class SequencePooler(nn.Module):
+    """A softmax over the tokens of a learned projection weighs the tokens:
+    one pooled row, or one for each of `aux_heads` as well."""
+
+    def __init__(self, dim: int, aux_heads: Optional[List[str]] = None, bias: bool = True) -> None:
+        super().__init__()
+        self.out_dim = 1 + (0 if aux_heads is None else len(aux_heads))
+        self.projection = Linear(dim, self.out_dim, bias=bias)
+
+    def forward(self, net: torch.Tensor) -> torch.Tensor:
+        weights = torch.softmax(self.projection(net), dim=1)
+        net = weights.transpose(-1, -2) @ net
+        return net if self.out_dim > 1 else net.squeeze(-2)
 
 
 def walk_spatial_transformer_blocks(m: nn.Module, fn: Callable[[BasicTransformerBlock], Any]) -> None:

@@ -6,7 +6,10 @@ whose names stay importable from `cflearn_torch.pipeline`. The export of a
 model (`pipeline/export.py`, whose counterpart is `torch.export`) and the
 third-party pipelines are still to be ported."""
 
-from .api import DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline, TrainingPipeline
+from .api import (
+    DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline, MLEvaluationPipeline,
+    MLInferencePipeline, MLTrainingPipeline, TrainingPipeline,
+)
 from .blocks import Block
 from .common import Pipeline
 from .sd import (
@@ -16,6 +19,7 @@ from .sd import (
 
 __all__ = [
     "ACCEL_DC", "AE_DEFAULT_LR", "Block", "CONFIGS", "DEFAULT_LR", "DLEvaluationPipeline", "DLInferencePipeline",
-    "DLPipelineSerializer", "DLTrainingPipeline", "FAITHFUL_DC", "GUIDANCE_INTERVAL", "Pipeline", "TOME_RATIO", "TrainingPipeline", "configure", "default_tokenizer", "finetune_unet",
+    "DLPipelineSerializer", "DLTrainingPipeline", "FAITHFUL_DC", "MLEvaluationPipeline", "MLInferencePipeline",
+    "MLTrainingPipeline", "GUIDANCE_INTERVAL", "Pipeline", "TOME_RATIO", "TrainingPipeline", "configure", "default_tokenizer", "finetune_unet",
     "train_autoencoder", "txt2img",
 ]

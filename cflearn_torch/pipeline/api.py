@@ -3,13 +3,14 @@
 (the blocks, then the pipeline folder in `<workspace>/pipeline`),
 `DLTrainingPipeline`, `DLInferencePipeline.predict` (classes, probabilities,
 label recovery), `DLEvaluationPipeline.evaluate` and `DLPipelineSerializer`
-(save, pack, load_training / load_inference / load_evaluation). A folder the
-JAX package wrote loads here (its model through the bridge), and the port's
-folders keep the JAX layout and file names. Every load takes the `device`
-of the model (the CUDA card unless named).
+(save, pack, load_training / load_inference / load_evaluation), and the
+tabular `MLTrainingPipeline` ("ml.training": `SetMLDefaultsBlock` first),
+`MLInferencePipeline` and `MLEvaluationPipeline`. A folder the JAX package
+wrote loads here (its model through the bridge), `dl.*` and `ml.*` alike,
+and the port's folders keep the JAX layout and file names. Every load takes
+the `device` of the model (the CUDA card unless named).
 
-The ensembles (`fuse_inference` / `fuse_evaluation`) and the tabular
-pipelines wait for their slices.
+The ensembles (`fuse_inference` / `fuse_evaluation`) wait for their slice.
 """
 
 import json
@@ -20,6 +21,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..constants import PREDICTIONS_KEY
+from ..data import ml as _ml_data  # noqa: F401  (registers MLData and the tabular blocks)
 from ..inference import DLInference
 from ..schema.data import IData, IDataLoader
 from ..schema.metrics_schema import IMetric, MetricsOutputs
@@ -40,6 +42,7 @@ from .blocks import (
     SerializeModelBlock,
     SerializeOptimizerBlock,
     SetDefaultsBlock,
+    SetMLDefaultsBlock,
     TrainingBlock,
 )
 from .common import Block, Pipeline
@@ -181,6 +184,13 @@ class DLTrainingPipeline(TrainingPipeline):
     pass
 
 
+@Pipeline.register("ml.training")
+class MLTrainingPipeline(TrainingPipeline):
+    @property
+    def set_defaults_block(self) -> Block:
+        return SetMLDefaultsBlock()
+
+
 @Pipeline.register("dl.inference")
 class DLInferencePipeline(_InferencePipelineMixin, Pipeline):
     is_built: bool = False
@@ -209,6 +219,11 @@ class DLInferencePipeline(_InferencePipelineMixin, Pipeline):
         return self
 
 
+@Pipeline.register("ml.inference")
+class MLInferencePipeline(DLInferencePipeline):
+    pass
+
+
 @Pipeline.register("dl.evaluation")
 class DLEvaluationPipeline(DLInferencePipeline):
     def evaluate(self, loader_or_x: Any, y: Any = None, **kwargs: Any) -> MetricsOutputs:
@@ -222,6 +237,11 @@ class DLEvaluationPipeline(DLInferencePipeline):
         outputs = self.inference.get_outputs(loader, metrics=metrics, return_outputs=False)
         assert outputs.metric_outputs is not None
         return outputs.metric_outputs
+
+
+@Pipeline.register("ml.evaluation")
+class MLEvaluationPipeline(DLEvaluationPipeline):
+    pass
 
 
 class DLPipelineSerializer:

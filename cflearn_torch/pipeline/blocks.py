@@ -1,5 +1,7 @@
 """The blocks of the training and inference pipelines (counterpart of
-`cflearn_tpu/pipeline/blocks.py`): defaults, the workspace, the model (built
+`cflearn_tpu/pipeline/blocks.py`): defaults (and the tabular defaults read
+from the fitted data: input and output dims, the loss, the metrics, the
+categorical encoder's settings), the workspace, the model (built
 on the pipeline's device by `IDLModel.from_config`), metrics, inference,
 monitors, callbacks, optimizer defaults, the `Trainer`, the sample counts,
 `report.txt`, the training itself, and the data, model and optimizer files
@@ -15,7 +17,7 @@ import numpy as np
 
 from .. import callbacks, metrics, monitors  # noqa: F401  (register the callbacks, metrics and monitors)
 from ..inference import DLInference
-from ..schema.config import DLConfig
+from ..schema.config import DLConfig, MLConfig
 from ..schema.data import IData
 from ..schema.metrics_schema import IMetric
 from ..schema.model import IDLModel
@@ -45,6 +47,48 @@ class SetDefaultsBlock(Block):
             config.callback_names = ["log_metrics_msg"]
             self._defaults["callback_names"] = config.callback_names
 
+
+@Block.register("set_ml_defaults")
+class SetMLDefaultsBlock(SetDefaultsBlock):
+    """The tabular defaults: the loss "mse" where none is named, then, from
+    the fitted data, the module's `input_dim` and `output_dim`,
+    "cross_entropy" for a classification whose loss was defaulted, the
+    metrics ("acc", or "mae" and "mse"), and the recogniser's encoder
+    settings (which turn a "common" model into "ml.common")."""
+
+    def build(self, config: DLConfig) -> None:
+        super().build(config)
+        if config.loss_name is None:
+            config.loss_name = "mse"
+            self._defaults["loss_name"] = "mse"
+
+    def run(self, data: IData, **kwargs: Any) -> None:
+        config = self.pipeline.config if self.pipeline is not None else None
+        if config is None:
+            return
+        is_clf = getattr(data, "is_classification", None)
+        module_config = dict(config.module_config or {})
+        num_features = getattr(data, "num_features", None)
+        num_labels = getattr(data, "num_labels", None)
+        if num_features is not None:
+            module_config.setdefault("input_dim", num_features)
+        if num_labels is not None:
+            module_config.setdefault("output_dim", num_labels)
+        config.module_config = module_config
+        if is_clf is not None:
+            if is_clf and config.loss_name in (None, "mse") and "loss_name" in self._defaults:
+                config.loss_name = "cross_entropy"
+                self._defaults["loss_name"] = "cross_entropy"
+            if config.metric_names is None:
+                config.metric_names = ["acc"] if is_clf else ["mae", "mse"]
+                self._defaults["metric_names"] = config.metric_names
+        if isinstance(config, MLConfig) and config.infer_encoder_settings:
+            settings = getattr(data, "encoder_settings", None)
+            if settings:
+                config.encoder_settings = settings
+                if config.model == "common":
+                    config.model = "ml.common"
+                self._defaults["encoder_settings"] = list(settings)
 
 @Block.register("prepare_workspace")
 class PrepareWorkplaceBlock(Block):

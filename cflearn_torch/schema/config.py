@@ -2,7 +2,9 @@
 `TrainerConfig`, `Config` and `DLConfig`, dataclasses with the JAX
 package's fields and defaults, so that a config's `to_info()` goes across
 either way; the port's `Trainer` reads them (the JAX placement options
-among them are documented there). `MLConfig` belongs to the tabular side."""
+among them are documented there). `MLConfig` adds the tabular fields (the
+categorical columns' encoder settings), with `MLEncoderSettings` and
+`MLGlobalEncoderSettings` accepted where it takes plain dicts."""
 
 import dataclasses
 from typing import Any, Dict, List, Optional, Union
@@ -120,4 +122,56 @@ class DLConfig(Config):
         return self.model
 
 
-config_registry: Dict[str, type] = {"trainer": TrainerConfig, "config": Config, "dl": DLConfig}
+@dataclasses.dataclass(eq=False)
+class MLConfig(DLConfig):
+    """+ the tabular fields: `encoder_settings` {column index: {"dim": number
+    of values, "methods": "embedding" | "one_hot"}} (inferred from the data
+    by `SetMLDefaultsBlock` where `infer_encoder_settings`), the global
+    encoder settings (`embedding_dim`, `dropout`) and the recogniser's
+    `index_mapping`."""
+
+    encoder_settings: Optional[Dict[str, Dict[str, Any]]] = None
+    global_encoder_settings: Optional[Dict[str, Any]] = None
+    index_mapping: Optional[Dict[str, int]] = None
+    infer_encoder_settings: bool = True
+
+    def __post_init__(self) -> None:
+        if self.encoder_settings:
+            self.encoder_settings = {
+                k: dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v for k, v in self.encoder_settings.items()
+            }
+        if dataclasses.is_dataclass(self.global_encoder_settings):
+            self.global_encoder_settings = dataclasses.asdict(self.global_encoder_settings)
+
+    @classmethod
+    def inherit_from(cls, config: DLConfig) -> "MLConfig":
+        obj = cls()
+        obj.from_info(config.to_info())
+        return obj
+
+
+config_registry: Dict[str, type] = {"trainer": TrainerConfig, "config": Config, "dl": DLConfig, "ml": MLConfig}
+
+
+@dataclasses.dataclass
+class MLEncoderSettings(DataClassBase):
+    """One categorical column's encoding: `dim` values, by "embedding" and / or
+    "one_hot"."""
+
+    dim: int
+    methods: Union[str, List[str]] = "embedding"
+    method_configs: Optional[Dict[str, Any]] = None
+
+    @property
+    def use_one_hot(self) -> bool:
+        return "one_hot" in (self.methods if isinstance(self.methods, list) else [self.methods])
+
+    @property
+    def use_embedding(self) -> bool:
+        return "embedding" in (self.methods if isinstance(self.methods, list) else [self.methods])
+
+
+@dataclasses.dataclass
+class MLGlobalEncoderSettings(DataClassBase):
+    embedding_dim: Optional[int] = None
+    embedding_dropout: Optional[float] = None

@@ -23,7 +23,8 @@ Phases, in order; any failure exits non-zero:
    against the plain forward's; the forward at the ViT-S/16 classifier's
    384 px shape (phase 19: B64 H6 L577 d256, f32 and bf16) and the
    forward-with-logsumexp and backward kernels at its training step's
-   (B32, f32 and bf16). Prints max_abs_err and the kernel's, the
+   (B32, f32 and bf16), and the tabular transformer's (phase 21: B128 H8 L785
+   d16, f32). Prints max_abs_err and the kernel's, the
    plain version's and a library call's ms (the library call is timed
    only), and the kernel's
    device time (`device_ms`: calls replayed from a CUDA graph, without the
@@ -250,13 +251,36 @@ Phases, in order; any failure exits non-zero:
    the evaluation pass's ms, peak memory. Then `ae_kl` through
    `fit_array` at phase 7's workload (256 px, batch 8, bf16 compute, 3
    steps): phase 7's launches a step, exactly.
-21. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+21. tabular — `cflearn_torch.fit_ml` as its users call it, at the JAX
+   package's defaults: (a) `MLConfig(module_name="fcnn")` (hidden [64, 64],
+   BatchNorm, batch 128) on a table of UCI Covertype's raw shape made from a
+   seed (581,012 rows: 10 float columns with 1% NaN cells, a 4-value and a
+   40-value string column, 7 classes), 150 steps with a monitor every 50 (the
+   last 50 traced by `torch.profiler` for the device's idle share), `save`,
+   `load_inference`, `predict`, `evaluate`: the two string columns
+   recognised categorical and encoded by "ml.common", finite losses, every
+   trained parameter moved, no kernel launched, the loaded predictions bit
+   for bit, the first step's loss and gradients against the plain path
+   (phase 19's rule); the block stack's host seconds by block, ms a step
+   through the `Trainer`, each monitor's ms with its evaluation pass's and
+   its checkpoint write's, predict rows/s. (b) the "transformer" at its
+   defaults (4 layers, 8 heads of 16, f32) on MNIST's shape (70,000 rows of
+   784 columns, 10 classes; 785 tokens), 12 steps with a monitor every 4
+   (the last 4 traced by `torch.profiler` for the flash kernels' share of a
+   step): exact launches (4 `flash_fwd_lse`
+   and 4 `flash_bwd_fused` a step, 4 `flash_attention` an evaluation or
+   predict batch), each distinct forward call of the fit's census against
+   its plain version and timed beside SDPA with its bound (phase 2 holds the
+   train step's shape, `tab785_f32`), the first step's parity (its drift
+   also counting the plain path with the attention's operands rounded to
+   TF32, the f32 kernels' own rounding), the loaded predictions bit for bit.
+22. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
-   the style and tiling, the SD v2 and v2 finetune, the CV models' and the
-   framework's readings on lines of their own, the card's name
+   the style and tiling, the SD v2 and v2 finetune, the CV models', the
+   framework's and the tabular readings on lines of their own, the card's name
    and power limit, and last `{"ok": true,
    "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
@@ -406,6 +430,9 @@ FLASH_CASES = [
     # JAX default runs it (the mma.sync chunked kernel), bf16 on the wgmma + TMA kernel at its widest head
     ("vit384_f32", CV_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "float32", lambda s: 0),
     ("vit384_bf16", CV_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "bfloat16", lambda s: 0),
+    # the tabular transformer at its defaults on MNIST's 784 columns (phase 21): 785 tokens, 8 heads of 16, f32,
+    # predicting a batch of 128
+    ("tab785_f32", 128, 8, 785, 785, 16, False, "float32", lambda s: 0),
 ]
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per finetune step)
 TRAIN_CASES = [
@@ -424,6 +451,8 @@ TRAIN_CASES = [
     # the ViT-S/16 training step at 384 px, batch 32 (phase 19: 12 calls a step each), f32 and bf16
     ("vit384_f32", VIT_TRAIN_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "float32", 0),
     ("vit384_bf16", VIT_TRAIN_BATCH, VIT_HEADS, 577, 577, VIT_DIM, False, "bfloat16", 0),
+    # the tabular transformer's train step at batch 128 (phase 21: 4 calls a step each)
+    ("tab785_f32", 128, 8, 785, 785, 16, False, "float32", 0),
 ]
 # (name, B, H, W, C, Co, launches per decode)
 CONV_CASES = [
@@ -2876,10 +2905,7 @@ def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) ->
     import shutil
     import tempfile
 
-    from cflearn_torch.constants import INPUT_KEY, LABEL_KEY, LOSS_KEY
-    from cflearn_torch.inference import DLInference
-    from cflearn_torch.optimizers import build_optimizer
-    from cflearn_torch.trainer import Trainer, TrainStepFn, get_sorted_checkpoints, read_states
+    from cflearn_torch.trainer import get_sorted_checkpoints, read_states
 
     def check(ok, msg):
         if not ok:
@@ -2897,57 +2923,10 @@ def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) ->
     xt, yt, xv, yv = x[:FW_TRAIN], y[:FW_TRAIN], x[FW_TRAIN:], y[FW_TRAIN:]
 
     # what the run makes, read through the Trainer's own methods: the first step's state, batch, loss and
-    # gradients; the monitors' edges (synchronised, where the monitor's evaluation syncs anyway); the evaluation
-    # passes; the batches the inference ran; the snapshots written, with their scores
-    rec = {"items": [], "edges": [], "evals": [], "batches": 0, "snapshots": {}, "writes": [], "saved_at": {}}
-    originals = (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
-                 Trainer.save_checkpoint)
-
-    def train_step(self, batch, state):
-        if not rec["items"]:
-            rec["state0"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
-            rec["batch0"] = {k: v.clone() for k, v in batch.items() if torch.is_tensor(v)}
-        items = originals[0](self, batch, state)
-        if not rec["items"]:
-            rec["loss0"] = items[LOSS_KEY].item()
-            rec["grads0"] = {n: g.detach().clone() for n, g in self.step_fn.steps["all"].grads.items()}
-        rec["items"].append(items)
-        return items
-
-    def monitor_step(self, state):
-        torch.cuda.synchronize()
-        rec["edges"].append(("in", state.step, time.perf_counter()))
-        result = originals[1](self, state)
-        torch.cuda.synchronize()
-        rec["edges"].append(("out", state.step, time.perf_counter()))
-        return result
-
-    def get_metrics(self, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = originals[2](self, **kwargs)
-        torch.cuda.synchronize()
-        rec["evals"].append((time.perf_counter() - t0) * 1e3)
-        return result
-
-    def run_eval(self, *args, **kwargs):
-        rec["batches"] += 1
-        return originals[3](self, *args, **kwargs)
-
-    def save_checkpoint(self, score, *args, **kwargs):
-        # the writer thread drained here, so that a file's write is timed alone and the windows hold the steps alone
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rec["snapshots"][f"model_{self.state.step}.npz"] = score
-        result = originals[4](self, score, *args, **kwargs)
-        self._drain_checkpoints()
-        rec["saved_at"][self.state.step] = time.perf_counter()
-        rec["writes"].append((rec["saved_at"][self.state.step] - t0) * 1e3)
-        return result
-
-    (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
-     Trainer.save_checkpoint) = (train_step, monitor_step, get_metrics, run_eval, save_checkpoint)
-    try:
+    # gradients; the monitors' edges; the evaluation passes; the batches the inference ran; the snapshots written,
+    # with their scores
+    rec = {}
+    with recording_fit(torch, rec):
         config = cflearn_torch.DLConfig(
             **vit, seed=0, workspace=os.path.join(root, "vit"), metric_names=["acc", "auc"], min_num_sample=0,
             num_snapshot_per_epoch=2, fixed_steps=FW_STEPS, monitor_names="conservative",
@@ -2962,9 +2941,6 @@ def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) ->
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_launches = read_launches(A, Cv, Gn)
-    finally:
-        (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
-         Trainer.save_checkpoint) = originals
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer, model = p.trainer, p.model
     steps, eval_batches = trainer.state.step, rec["batches"]
@@ -2984,12 +2960,7 @@ def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) ->
     trained = [n for n, _ in model.params_filter("all")]
     state = model.state_dict()
     unmoved = [n for n in trained if torch.equal(state[n], rec["state0"][n])]
-    # between the exit of one monitor (and its checkpoint's write) and the entry of the next: the steps of the
-    # loop, synchronised at both ends
-    edges = rec["edges"]
-    windows = [((t_in - rec["saved_at"].get(s_out, t_out)) * 1e3 / (s_in - s_out))
-               for (k_out, s_out, t_out), (k_in, s_in, t_in) in zip(edges[1::2], edges[2::2])
-               if k_out == "out" and k_in == "in" and s_in > s_out]
+    windows = rec["windows"]
     step_ms = min(windows) if windows else float("nan")
     print(f"framework[vit]: fit_array ViT-S/16 {FW_SIZE} px, {steps} steps at batch {FW_BATCH}, {monitors} monitors and "
           f"{len(rec['evals'])} evaluation passes ({eval_batches} batches of {FW_VALID_BATCH}) in {fit_s:.2f} s; "
@@ -3057,36 +3028,16 @@ def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) ->
     del loaded, calls, pred, pred_loaded
 
     # the first step through the kernels (in the fit) against the plain path on its state and batch
-    model.load_state_dict(rec["state0"])
-    core = TrainStepFn(model, build_optimizer("sgd", 0.0))
-    batch0 = rec["batch0"]
-    x0 = batch0[INPUT_KEY]
-
-    def fwd_bwd(images):
-        loss = core.loss_and_grads(dict(batch0, **{INPUT_KEY: images}))[LOSS_KEY].item()
-        grads, core.grads = core.grads, {}
-        return loss, grads
-
-    with plain_kernels(A, Cv, Gn):
-        loss_p, grads_p = fwd_bwd(x0)
-        up = bump_ulp(torch, x0)
-        drift_loss = drift_global = 0.0
-        for moved in (up, x0 - (up - x0)):
-            loss_u, grads_u = fwd_bwd(moved)
-            drift_loss = max(drift_loss, abs(loss_u - loss_p))
-            drift_global = max(drift_global, grad_errors(grads_u, grads_p)["global_rel"])
-    err = grad_errors(rec["grads0"], grads_p)
-    tol_loss = max(TRAIN_PARITY_FACTOR * drift_loss, 1e-6 * abs(loss_p))
-    print(f"framework parity: first step's loss through the kernels {rec['loss0']:.6f}, plain {loss_p:.6f} (off "
-          f"{abs(rec['loss0'] - loss_p):.3e}, tolerance {tol_loss:.3e}); gradients {json.dumps(err)} (global "
-          f"tolerance {TRAIN_PARITY_FACTOR * drift_global:.3e}: {TRAIN_PARITY_FACTOR} x the one-ulp drift "
-          f"{drift_global:.3e})")
-    check(abs(rec["loss0"] - loss_p) <= tol_loss, "the first step's loss disagrees with the plain path")
-    check(err["global_rel"] <= TRAIN_PARITY_FACTOR * drift_global, "the first step's gradients disagree")
-    out["vit"]["parity"] = {"loss_err": abs(rec["loss0"] - loss_p), "loss_tolerance": tol_loss,
-                            "drift_loss": drift_loss, "global_rel": err["global_rel"],
-                            "leaf_max_rel": err["leaf_max_rel"], "drift_global": drift_global}
-    del p, trainer, model, core, rec, grads_p, x, xt, xv
+    parity = first_step_parity(torch, model, rec, A, Cv, Gn, random_moves=False)
+    print(f"framework parity: first step's loss through the kernels {parity['loss']:.6f}, plain "
+          f"{parity['loss_plain']:.6f} (off {parity['loss_err']:.3e}, tolerance {parity['loss_tolerance']:.3e}); "
+          f"gradients global {parity['global_rel']:.3e}, leaf max {parity['leaf_max_rel']:.3e} (global tolerance "
+          f"{parity['global_tolerance']:.3e}: {TRAIN_PARITY_FACTOR} x the one-ulp drift {parity['drift_global']:.3e})")
+    check(parity["loss_err"] <= parity["loss_tolerance"], "the first step's loss disagrees with the plain path")
+    check(parity["global_rel"] <= parity["global_tolerance"], "the first step's gradients disagree")
+    out["vit"]["parity"] = {k: parity[k] for k in ("loss_err", "loss_tolerance", "drift_loss", "global_rel",
+                                                   "leaf_max_rel", "drift_global")}
+    del p, trainer, model, rec, x, xt, xv
     torch.cuda.empty_cache()
 
     # ae_kl at phase 7's workload through fit_array: the two scopes' kernels, phase 7's launches a step
@@ -3121,6 +3072,458 @@ def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) ->
     out["ae_kl"] = {"steps": ae_steps, "batch": AE_BATCH, "fit_s": ae_s, "peak_memory_gib": ae_peak,
                     "losses": ae_losses, "launches": {k: v for k, v in ae_launches.items() if v}}
     del ae_p
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# phase 21: the tabular side at the JAX package's defaults
+COVTYPE_ROWS = 581012  # UCI Covertype: 10 float columns, wilderness area (4 values), soil type (40), 7 classes
+COVTYPE_CLASSES = 7
+COVTYPE_NAN = 0.01  # NaN cells among the float columns
+TAB_FCNN_STEPS = 150  # a monitor every TAB_FCNN_WINDOW steps: the first window timed, the second profiled
+TAB_FCNN_WINDOW = 50
+MNIST_ROWS, MNIST_COLUMNS, MNIST_CLASSES = 70000, 784, 10
+TAB_LAYERS, TAB_HEADS, TAB_HEAD_DIM = 4, 8, 16  # the "transformer" defaults: latent 32, mixers 4 x 32 over 8 heads
+TAB_TOKENS = MNIST_COLUMNS + 1  # the features and the head token
+TAB_BATCH = 128  # `MLConfig`'s and `DataConfig`'s default batch
+TAB_TF_STEPS, TAB_TF_WINDOW = 12, 4  # a monitor every 4 steps: the second window timed, the third profiled
+TAB_PREDICT_ROWS = 1024
+
+
+def covtype_table(np, seed: int):
+    """Covertype's raw shape from a seed (no file is read): an object table of 10 float columns (1% NaN cells),
+    the wilderness area as one of 4 strings and the soil type as one of 40, and 7 classes labelled by a seeded
+    linear rule of the features, so that the loss can fall."""
+    rs = np.random.RandomState(seed)
+    n = COVTYPE_ROWS
+    floats = rs.randn(n, 10) * rs.uniform(0.5, 200.0, 10) + rs.uniform(-10.0, 3000.0, 10)
+    area, soil = rs.randint(0, 4, n), rs.randint(0, 40, n)
+    score = ((floats - floats.mean(0)) / floats.std(0)) @ rs.randn(10, COVTYPE_CLASSES)
+    score += rs.randn(4, COVTYPE_CLASSES)[area] + 0.5 * rs.randn(40, COVTYPE_CLASSES)[soil]
+    y = score.argmax(1)[:, None]
+    floats[rs.rand(n, 10) < COVTYPE_NAN] = np.nan
+    x = np.empty((n, 12), dtype=object)
+    x[:, :10] = floats
+    x[:, 10] = np.array([f"Wilderness_Area{i + 1}" for i in range(4)], dtype=object)[area]
+    x[:, 11] = np.array([f"Soil_Type{i + 1}" for i in range(40)], dtype=object)[soil]
+    return x, y
+
+
+def mnist_table(np, seed: int):
+    """MNIST's shape from a seed: 70,000 rows of 784 pixel columns in [0, 1] (bf16-representable, so that a
+    one-ulp move is defined), labelled 0-9 by a seeded linear rule."""
+    rs = np.random.RandomState(seed)
+    x = rs.randint(0, 256, (MNIST_ROWS, MNIST_COLUMNS)).astype(np.float32) / 255.0
+    x = x.astype(np.float32)
+    w = rs.randn(MNIST_COLUMNS, MNIST_CLASSES).astype(np.float32)
+    y = ((x - 0.5) @ w).argmax(1)[:, None]
+    return x, y
+
+
+@contextlib.contextmanager
+def recording_fit(torch, rec, *, block_classes=(), profile_window=None):
+    """Record in `rec` what a fit makes, through the `Trainer`'s, the inference's and the blocks' own methods:
+    the first step's state, batch, loss and gradients (`state0`, `batch0`, `loss0`, `grads0`); every step's loss
+    items (`items`); the monitors' edges, synchronised (`edges`: ("in" or "out", step, host s)); each evaluation
+    pass's ms, synchronised (`evals`), and the batches the inference ran (`batches`); each snapshot with its score
+    (`snapshots`), its write's ms with the writer thread drained (`writes`: the windows then hold the steps alone)
+    and when it ended (`saved_at`); each of `block_classes`' host seconds (`blocks`: its `fit_transform`, the
+    transform inside it included); for the steps in `profile_window` (first, last), a `torch.profiler` trace of
+    the device's kernels (`profile`). The methods are the originals again when the block exits."""
+    from cflearn_torch.constants import LOSS_KEY
+    from cflearn_torch.inference import DLInference
+    from cflearn_torch.trainer import Trainer
+
+    rec.update(items=[], edges=[], evals=[], batches=0, snapshots={}, writes=[], saved_at={}, blocks={}, profile=None)
+    originals = (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
+                 Trainer.save_checkpoint)
+    block_originals = {cls: cls.fit_transform for cls in block_classes}
+
+    def timed_block(cls):
+        def fit_transform(self, bundle):
+            t0 = time.perf_counter()
+            out = block_originals[cls](self, bundle)
+            rec["blocks"][cls.__name__] = rec["blocks"].get(cls.__name__, 0.0) + time.perf_counter() - t0
+            return out
+
+        return fit_transform
+
+    def train_step(self, batch, state):
+        step = state.step  # the step this call runs (the loop counts it first)
+        if not rec["items"]:
+            rec["state0"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            rec["batch0"] = {k: v.clone() for k, v in batch.items() if torch.is_tensor(v)}
+        if profile_window and step == profile_window[0]:
+            torch.cuda.synchronize()
+            rec["profiler"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            rec["profiler"].__enter__()
+            rec["profile_t0"] = time.perf_counter()
+        items = originals[0](self, batch, state)
+        if not rec["items"]:
+            rec["loss0"] = items[LOSS_KEY].item()
+            rec["grads0"] = {n: g.detach().clone() for n, g in self.step_fn.steps["all"].grads.items()}
+        if profile_window and step == profile_window[1]:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - rec["profile_t0"]) * 1e3
+            prof = rec.pop("profiler")
+            prof.__exit__(None, None, None)
+            kernels = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+            device = sum(e.self_device_time_total for e in kernels) / 1e3
+            flash = sum(e.self_device_time_total for e in kernels if "flash" in e.key) / 1e3
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+            rec["profile"] = {"steps": profile_window[1] - profile_window[0] + 1, "wall_ms": wall, "device_ms": device,
+                              "idle_share": 1.0 - device / wall if wall > 0 else float("nan"),
+                              "kernel_launches": sum(e.count for e in kernels), "flash_device_ms": flash,
+                              "flash_launches": sum(e.count for e in kernels if "flash" in e.key),
+                              "flash_share_of_wall": flash / wall if wall > 0 else float("nan"),
+                              "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
+        rec["items"].append(items)
+        return items
+
+    def monitor_step(self, state):
+        torch.cuda.synchronize()
+        rec["edges"].append(("in", state.step, time.perf_counter()))
+        result = originals[1](self, state)
+        torch.cuda.synchronize()
+        rec["edges"].append(("out", state.step, time.perf_counter()))
+        return result
+
+    def get_metrics(self, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = originals[2](self, **kwargs)
+        torch.cuda.synchronize()
+        rec["evals"].append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    def run_eval(self, *args, **kwargs):
+        rec["batches"] += 1
+        return originals[3](self, *args, **kwargs)
+
+    def save_checkpoint(self, score, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["snapshots"][f"model_{self.state.step}.npz"] = score
+        result = originals[4](self, score, *args, **kwargs)
+        self._drain_checkpoints()
+        rec["saved_at"][self.state.step] = time.perf_counter()
+        rec["writes"].append((rec["saved_at"][self.state.step] - t0) * 1e3)
+        return result
+
+    (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
+     Trainer.save_checkpoint) = (train_step, monitor_step, get_metrics, run_eval, save_checkpoint)
+    for cls in block_classes:
+        cls.fit_transform = timed_block(cls)
+    try:
+        yield rec
+    finally:
+        (Trainer._train_step, Trainer._monitor_step, Trainer._get_metrics, DLInference._eval,
+         Trainer.save_checkpoint) = originals
+        for cls, fn in block_originals.items():
+            cls.fit_transform = fn
+        edges = rec["edges"]
+        # between the exit of one monitor (its checkpoint's write included) and the entry of the next: the steps
+        # of the loop, synchronised at both ends; and each monitor from its entry to its exit
+        rec["windows"] = [(t_in - rec["saved_at"].get(s_out, t_out)) * 1e3 / (s_in - s_out)
+                          for (k_out, s_out, t_out), (k_in, s_in, t_in) in zip(edges[1::2], edges[2::2])
+                          if k_out == "out" and k_in == "in" and s_in > s_out]
+        rec["monitors_ms"] = [(t_out - t_in) * 1e3 for (k_in, _, t_in), (k_out, _, t_out) in zip(edges[::2], edges[1::2])
+                              if k_in == "in" and k_out == "out"]
+
+
+def fit_ml_recorded(torch, np, cflearn_torch, A, Cv, Gn, x, y, config, *, profile_window=None, counts=None):
+    """`cflearn_torch.fit_ml(x, y, config=config)` on the card under `recording_fit`, each ML block's host
+    seconds included, and, into `counts` where given, the census of the serving kernels' calls (the launch
+    counters are reset before the census starts and read after it ends: it swaps the wrappers). Returns
+    (pipeline, record, launches of the fit, seconds of the fit)."""
+    from cflearn_torch.data.blocks import ml as blocks
+
+    block_classes = (blocks.FileParserBlock, blocks.RecognizerBlock, blocks.NanHandlerBlock, blocks.SplitterBlock,
+                     blocks.PreProcessorBlock, blocks.GatherBlock)
+    rec = {}
+    with recording_fit(torch, rec, block_classes=block_classes, profile_window=profile_window):
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        with census(A, Cv, Gn, counts) if counts is not None else contextlib.nullcontext():
+            p = cflearn_torch.fit_ml(x, y, config=config)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_launches(A, Cv, Gn)
+    return p, rec, launches, fit_s
+
+
+def tf32(torch, t):
+    """f32 `t` rounded to TF32 (10 mantissa bits), to nearest with ties away from zero: `cvt.rna.tf32.f32`, as
+    the f32 flash kernels round their products' operands (`csrc/mma_common.cuh`)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def flash_fwd_lse_tf32(torch, A):
+    """The plain forward-with-logsumexp with the f32 kernels' rounding: q, k, v and the probabilities rounded
+    to TF32 before their products, the sums and the softmax in f32."""
+
+    def fwd(q, k, v, causal=False, sm_scale=None, **kwargs):
+        if q.dtype != torch.float32:
+            return A.flash_fwd_with_lse_plain(q, k, v, causal=causal, sm_scale=sm_scale, **kwargs)
+        scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+        scores = (tf32(torch, q) @ tf32(torch, k).transpose(-1, -2)) * scale
+        if causal:
+            keep = torch.ones(scores.shape[-2:], dtype=torch.bool, device=q.device).tril(scores.shape[-1] - scores.shape[-2])
+            scores = scores.masked_fill(~keep, float("-inf"))
+        lse = torch.logsumexp(scores, dim=-1)
+        return tf32(torch, torch.exp(scores - lse[..., None])) @ tf32(torch, v), lse
+
+    return fwd
+
+
+def first_step_parity(torch, model, rec, A, Cv, Gn, columns=None, random_moves=True, tf32_attention=False):
+    """The first step's loss and gradients (through the kernels, in the fit) against the plain path on its
+    state and batch, within TRAIN_PARITY_FACTOR x the plain path's drift (phase 19's rule). The drift is the
+    largest of one-bf16-ulp moves of the input's `columns` (all where None; the categorical columns are indices
+    and stay put): every value away from zero and towards zero (phase 20's), and with `random_moves` twice in
+    directions drawn at random (phase 8's four). With `tf32_attention` it also counts the plain path with its
+    attention's operands rounded to TF32 (`flash_fwd_lse_tf32`), the rounding that the f32 flash kernels make
+    by design: at the tabular transformer's random initialisation the loss barely moves under a move of the
+    input (its bias-free token map and LayerNorm keep little of the input's scale), so an input move alone
+    measures less than the kernels' own specified arithmetic; the kernels' distance from that TF32-rounded
+    plain path is reported beside it (`kernel_vs_tf32`), and each error's share of its gate (`margins`)."""
+    from cflearn_torch.constants import INPUT_KEY, LOSS_KEY
+    from cflearn_torch.optimizers import build_optimizer
+    from cflearn_torch.trainer import TrainStepFn
+
+    model.load_state_dict(rec["state0"])
+    core = TrainStepFn(model, build_optimizer("sgd", 0.0))
+    batch0 = rec["batch0"]
+    x0 = batch0[INPUT_KEY]
+    mask = torch.zeros_like(x0, dtype=torch.bool)
+    mask[..., slice(None) if columns is None else columns] = True
+
+    def fwd_bwd(inputs):
+        loss = core.loss_and_grads(dict(batch0, **{INPUT_KEY: inputs}))[LOSS_KEY].item()
+        grads, core.grads = core.grads, {}
+        return loss, grads
+
+    with plain_kernels(A, Cv, Gn):
+        loss_p, grads_p = fwd_bwd(x0)
+        up = bump_ulp(torch, x0)
+        moves = {"away": up, "towards": x0 - (up - x0)}
+        if random_moves:
+            moves.update({f"random{seed}": bump_ulp_random(torch, x0, seed) for seed in AE_DRIFT_SEEDS})
+        drifts = {}
+        for label, moved in moves.items():
+            loss_u, grads_u = fwd_bwd(torch.where(mask, moved, x0))
+            drifts[label] = (abs(loss_u - loss_p), grad_errors(grads_u, grads_p)["global_rel"])
+        if tf32_attention:
+            A.flash_fwd_lse = flash_fwd_lse_tf32(torch, A)
+            loss_u, grads_u = fwd_bwd(x0)
+            drifts["tf32_attention"] = (abs(loss_u - loss_p), grad_errors(grads_u, grads_p)["global_rel"])
+            kernel_vs_tf32 = {"loss": abs(rec["loss0"] - loss_u),
+                              "global_rel": grad_errors(rec["grads0"], grads_u)["global_rel"]}
+    drift_loss = max(d[0] for d in drifts.values())
+    drift_global = max(d[1] for d in drifts.values())
+    err = grad_errors(rec["grads0"], grads_p)
+    tol_loss = max(TRAIN_PARITY_FACTOR * drift_loss, 1e-6 * abs(loss_p))
+    tol_global = TRAIN_PARITY_FACTOR * drift_global
+    loss_err = abs(rec["loss0"] - loss_p)
+    out = {"loss": rec["loss0"], "loss_plain": loss_p, "loss_err": loss_err, "loss_tolerance": tol_loss,
+           "drift_loss": drift_loss, "global_rel": err["global_rel"], "leaf_max_rel": err["leaf_max_rel"],
+           "drift_global": drift_global, "global_tolerance": tol_global, "drifts": drifts,
+           "margins": {"loss": loss_err / tol_loss, "global_rel": err["global_rel"] / tol_global if tol_global else
+                       float("inf") if err["global_rel"] else 0.0},
+           "ok": loss_err <= tol_loss and err["global_rel"] <= tol_global}
+    if tf32_attention:
+        out["kernel_vs_tf32"] = kernel_vs_tf32
+    return out
+
+
+def phase_tabular(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """The tabular side as its users drive it, on the card. (a) `cflearn_torch.fit_ml` at the JAX package's
+    defaults (`MLConfig(module_name="fcnn")`: hidden [64, 64], BatchNorm, batch 128, Adam behind the warm-up) on
+    a table of Covertype's raw shape (581,012 rows: 10 float columns with 1% NaN cells, a 4-value and a 40-value
+    string column, 7 classes), the bundled block stack splitting off 10% for validation, TAB_FCNN_STEPS steps
+    with a monitor every TAB_FCNN_WINDOW (the second window traced by `torch.profiler` for the device's idle
+    share), then `save`, `load_inference`, `predict` on the validation rows and `evaluate`. Gates: the recogniser
+    marks the two string columns categorical and "ml.common" builds its `Encoder`; finite losses; every trained
+    parameter moved; the loaded pipeline's predictions bit for bit the trained one's; the first step's loss and
+    gradients against the plain path (phase 19's rule; no kernel runs on this path, so both are the same
+    PyTorch ops); no kernel launched. (b) the "transformer" at its defaults (4 layers, latent 32, 8 heads of
+    16, f32) on a table of MNIST's shape (70,000 rows of 784 columns, 10 classes): 785 tokens, so rows 1, 3 and
+    4 at d = 16, TAB_TF_STEPS steps with a monitor every TAB_TF_WINDOW (the last window traced by
+    `torch.profiler` for the flash kernels' share of the step). Gates: exact launches (4 `flash_fwd_lse` and 4
+    `flash_bwd_fused` a step, 4 `flash_attention` an evaluation or predict batch), each distinct `flash_attention` call of the census against its plain
+    version with phase 2's tolerances (phase 2 holds the train shapes), the first step's loss and gradients
+    against the plain path (phase 19's rule; the drift also counts the plain path with TF32 attention operands,
+    `first_step_parity`), the loaded pipeline's predictions bit for bit. Prints the block stack's host seconds
+    by block, ms a step through the `Trainer`, each monitor's ms with its evaluation pass's and its checkpoint
+    write's, and predict rows/s."""
+    import shutil
+    import tempfile
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"tabular: {msg}")
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="tabular_")
+
+    # (a) fcnn at the defaults on Covertype's shape
+    t0 = time.perf_counter()
+    x, y = covtype_table(np, 51)
+    make_s = time.perf_counter() - t0
+    config = cflearn_torch.MLConfig(
+        module_name="fcnn", workspace=os.path.join(root, "fcnn"), fixed_steps=TAB_FCNN_STEPS,
+        max_step_per_snapshot=TAB_FCNN_WINDOW, callback_names=[],
+    )
+    np.random.seed(0)
+    p, rec, launches, fit_s = fit_ml_recorded(
+        torch, np, cflearn_torch, A, Cv, Gn, x, y, config,
+        profile_window=(TAB_FCNN_WINDOW * 2 + 1, TAB_FCNN_WINDOW * 3))
+    model, trainer = p.model, p.trainer
+    recognizer = p.data.processor.try_get_block(cflearn_torch.RecognizerBlock)
+    types = recognizer.column_types
+    steps = trainer.state.step
+    losses = [{k: v.item() for k, v in items.items()} for items in rec["items"]]
+    state = model.state_dict()
+    trained = [n for n, _ in model.params_filter("all")]
+    unmoved = [n for n in trained if torch.equal(state[n], rec["state0"][n])]
+    n_params = sum(p_.numel() for _, p_ in model.named_parameters())
+    blocks_s = rec["blocks"]
+    step_ms = rec["windows"][0] if rec["windows"] else float("nan")
+    eval_batch_ms = sum(rec["evals"]) / rec["batches"] if rec["batches"] else float("nan")
+    print(f"tabular[fcnn]: Covertype's shape {x.shape} made in {make_s:.2f} s; fit_ml {steps} steps (fixed_steps "
+          f"{config.fixed_steps}, CI flag {os.environ.get('CI', '0')}) in {fit_s:.2f} s; block stack host s "
+          f"{json.dumps({k: round(v, 3) for k, v in blocks_s.items()})} (total {sum(blocks_s.values()):.2f}); "
+          f"{p.data.num_train} train / {p.data.num_valid} valid rows; column types {json.dumps(types)}; encoder "
+          f"{json.dumps(model.config.encoder_settings)}; {n_params} parameters; ms a step through the Trainer "
+          f"{step_ms:.3f} (windows {[round(w, 3) for w in rec['windows']]}, the second under torch.profiler); "
+          f"profiled window {json.dumps(rec['profile'])}; monitors in to out ms {[round(m, 1) for m in rec['monitors_ms']]}"
+          f", of which evaluation passes ms {[round(e, 1) for e in rec['evals']]} ({rec['batches']} batches: "
+          f"{eval_batch_ms:.3f} ms a batch of {TAB_BATCH}) and checkpoint writes ms "
+          f"{[round(w, 1) for w in rec['writes']]}; last losses {json.dumps(losses[-1])}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check(steps == TAB_FCNN_STEPS and len(losses) == steps, f"{steps} steps")
+    check(types["10"] == types["11"] == "categorical" and all(types[str(j)] == "numerical" for j in range(10)),
+          f"column types {types}")
+    check(model.config.model == "ml.common" and model.encoder is not None
+          and sorted(model.encoder.embeds) == ["10", "11"], "ml.common did not build the encoder")
+    check(all(math.isfinite(v) for items in losses for v in items.values()), f"losses {losses[-3:]}")
+    check(not unmoved, f"trained parameters did not move: {unmoved}")
+    check(not any(launches.values()), f"kernels launched on the fcnn path: {launches}")
+    # save, load, predict as many raw rows as the validation set holds (through the block stack), evaluate
+    valid_x = x[: p.data.num_valid]
+    saved = cflearn_torch.save(p, os.path.join(root, "fcnn_saved"))
+    loaded = cflearn_torch.load_inference(saved)
+    t0 = time.perf_counter()
+    pred = p.predict(valid_x)["predictions"]
+    predict_s = time.perf_counter() - t0
+    pred_loaded = loaded.predict(valid_x)["predictions"]
+    same = bool(np.array_equal(pred, pred_loaded))
+    t0 = time.perf_counter()
+    acc = cflearn_torch.evaluate(loaded, valid_x, y[: p.data.num_valid], metrics="acc", verbose=False)[
+        "pipeline"].metric_values["acc"]
+    evaluate_s = time.perf_counter() - t0
+    parity = first_step_parity(torch, model, rec, A, Cv, Gn, columns=slice(0, 10))
+    print(f"tabular[fcnn]: predict {pred.shape} in {predict_s:.3f} s ({len(valid_x) / predict_s:.0f} rows/s, the "
+          f"block stack's transform included), loaded bit for bit: {same}; evaluate acc {acc:.4f} in "
+          f"{evaluate_s:.3f} s; first step parity {json.dumps(parity)}")
+    check(pred.shape == (len(valid_x), COVTYPE_CLASSES) and bool(np.isfinite(pred).all()), f"predictions {pred.shape}")
+    check(same, "the loaded pipeline's predictions differ from the trained pipeline's")
+    check(parity["ok"], "the first step's loss or gradients disagree with the plain path")
+    out["fcnn"] = {"rows": int(x.shape[0]), "columns": int(x.shape[1]), "steps": steps, "batch": TAB_BATCH,
+                   "fit_s": fit_s, "block_stack_s": blocks_s, "trainer_step_ms": step_ms, "windows_ms": rec["windows"],
+                   "profiled_window": rec["profile"], "monitors_ms": rec["monitors_ms"], "eval_passes_ms": rec["evals"],
+                   "eval_batches": rec["batches"], "eval_batch_ms": eval_batch_ms,
+                   "checkpoint_writes_ms": rec["writes"], "params": n_params, "num_train": p.data.num_train,
+                   "num_valid": p.data.num_valid, "predict_rows_per_s": len(valid_x) / predict_s,
+                   "predict_s": predict_s, "evaluate_s": evaluate_s, "evaluate_acc": acc,
+                   "predictions_bit_equal": same, "parity": parity, "last_losses": losses[-1]}
+    del p, loaded, model, trainer, rec, x, valid_x
+    torch.cuda.empty_cache()
+
+    # (b) the transformer at its defaults on MNIST's shape
+    t0 = time.perf_counter()
+    x, y = mnist_table(np, 52)
+    make_s = time.perf_counter() - t0
+    config = cflearn_torch.MLConfig(
+        module_name="transformer", workspace=os.path.join(root, "transformer"), fixed_steps=TAB_TF_STEPS,
+        max_step_per_snapshot=TAB_TF_WINDOW, callback_names=[],
+    )
+    counts = {}
+    np.random.seed(1)
+    p, rec, launches, fit_s = fit_ml_recorded(torch, np, cflearn_torch, A, Cv, Gn, x, y, config, counts=counts,
+                                              profile_window=(TAB_TF_WINDOW * 2 + 1, TAB_TF_WINDOW * 3))
+    model, trainer = p.model, p.trainer
+    steps, eval_batches = trainer.state.step, rec["batches"]
+    attn = model.m.encoder.blocks[0].token_mixer.net
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd_lse=TAB_LAYERS * steps, flash_bwd_fused=TAB_LAYERS * steps,
+                flash_attention=TAB_LAYERS * eval_batches)
+    losses = [{k: v.item() for k, v in items.items()} for items in rec["items"]]
+    state = model.state_dict()
+    trained = [n for n, _ in model.params_filter("all")]
+    unmoved = [n for n in trained if torch.equal(state[n], rec["state0"][n])]
+    n_params = sum(p_.numel() for _, p_ in model.named_parameters())
+    step_ms = rec["windows"][0] if rec["windows"] else float("nan")
+    blocks_s = rec["blocks"]
+    print(f"tabular[transformer]: MNIST's shape {x.shape} made in {make_s:.2f} s; fit_ml {steps} steps in "
+          f"{fit_s:.2f} s; block stack host s {json.dumps({k: round(v, 3) for k, v in blocks_s.items()})} (total "
+          f"{sum(blocks_s.values()):.2f}); {len(model.m.encoder.blocks)} layers, {attn.num_heads} heads of "
+          f"{attn.head_dim}, {n_params} parameters; ms a step through the Trainer {step_ms:.2f} (windows "
+          f"{[round(w, 2) for w in rec['windows']]}, the second under torch.profiler); profiled window "
+          f"{json.dumps(rec['profile'])}; monitors in to out ms {[round(m, 1) for m in rec['monitors_ms']]}, of "
+          f"which evaluation passes ms {[round(e, 1) for e in rec['evals']]}; {eval_batches} evaluation batches; "
+          f"last losses "
+          f"{json.dumps(losses[-1])}; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    check((len(model.m.encoder.blocks), attn.num_heads, attn.head_dim) == (TAB_LAYERS, TAB_HEADS, TAB_HEAD_DIM),
+          "the transformer's defaults")
+    check(steps == TAB_TF_STEPS and all(math.isfinite(v) for items in losses for v in items.values()),
+          f"{steps} steps, losses {losses}")
+    check(launches == want, f"fit launches {launches} != {want}")
+    census_total = sum(n for key, n in counts.items() if key[0] == "flash_attention")
+    check(census_total == launches["flash_attention"], f"the census counts {census_total} forward calls")
+    check(not unmoved, f"trained parameters did not move: {unmoved[:5]}")
+    # every distinct forward call of the fit's census against its plain version, timed beside SDPA
+    calls = [check_call(torch, F, A, Cv, Gn, key, torch.Generator(device="cuda").manual_seed(7))
+             for key in sorted(counts) if key[0] == "flash_attention"]
+    for row in calls:
+        print(f"tabular[transformer] call: {json.dumps(row)}")
+    check(calls and all(r["shape"][2:] == [TAB_TOKENS, TAB_TOKENS, TAB_HEAD_DIM] for r in calls),
+          f"census shapes {[r['shape'] for r in calls]}")
+    # predict a batch-aligned slice, save, load, predict again
+    rows = x[:TAB_PREDICT_ROWS]
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    pred = p.predict(rows, batch_size=TAB_BATCH)["predictions"]
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    got = read_launches(A, Cv, Gn)
+    want = dict.fromkeys(got, 0)
+    want["flash_attention"] = TAB_LAYERS * (TAB_PREDICT_ROWS // TAB_BATCH)
+    loaded = cflearn_torch.load_inference(cflearn_torch.save(p, os.path.join(root, "transformer_saved")))
+    same = bool(np.array_equal(loaded.predict(rows, batch_size=TAB_BATCH)["predictions"], pred))
+    parity = first_step_parity(torch, model, rec, A, Cv, Gn, tf32_attention=True)
+    print(f"tabular[transformer]: predict {pred.shape} in {predict_s:.3f} s ({len(rows) / predict_s:.0f} rows/s), "
+          f"launches {json.dumps({k: v for k, v in got.items() if v})}, loaded bit for bit: {same}; first step "
+          f"parity {json.dumps(parity)}")
+    check(got == want, f"predict launches {got} != {want}")
+    check(pred.shape == (len(rows), MNIST_CLASSES) and bool(np.isfinite(pred).all()), f"predictions {pred.shape}")
+    check(same, "the loaded pipeline's predictions differ from the trained pipeline's")
+    check(parity["ok"], "the first step's loss or gradients disagree with the plain path")
+    out["transformer"] = {"rows": int(x.shape[0]), "columns": int(x.shape[1]), "tokens": TAB_TOKENS, "steps": steps,
+                          "batch": TAB_BATCH, "fit_s": fit_s, "block_stack_s": blocks_s, "trainer_step_ms": step_ms,
+                          "windows_ms": rec["windows"], "profiled_window": rec["profile"],
+                          "monitors_ms": rec["monitors_ms"], "eval_passes_ms": rec["evals"], "params": n_params,
+                          "eval_batches": eval_batches,
+                          "launches": {k: v for k, v in launches.items() if v},
+                          "launches_per_step": {"flash_fwd_lse": TAB_LAYERS, "flash_bwd_fused": TAB_LAYERS},
+                          "launches_per_eval_batch": {"flash_attention": TAB_LAYERS},
+                          "predict_launches": {k: v for k, v in got.items() if v}, "predict_launches_all": got,
+                          "launches_all": launches,
+                          "predict_rows_per_s": len(rows) / predict_s, "predictions_bit_equal": same,
+                          "calls": calls, "parity": parity, "last_losses": losses[-1]}
+    del p, loaded, model, trainer, rec, x
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -3209,6 +3612,11 @@ def main() -> int:
                     r["per"]["vit_train"] = VIT_LAYERS
             if r["case"] == "ldm_enc_mid" and name == "flash_attention":
                 r["per"]["ldm"] = ENCODER_FLASH
+            if r["case"] == "tab785_f32":
+                if name == "flash_attention":
+                    r["per"]["tab_predict"] = TAB_LAYERS
+                elif name in ("flash_fwd_lse", "flash_bwd_fused"):
+                    r["per"]["tab_train"] = TAB_LAYERS
     # the flash shapes of the lossy serving configurations: the 64x64 attentions at the merged length
     for config in ("faithful", "accelerated"):
         full = int(deepcache_refresh_mask(STEPS, SERVE_CONFIGS[config][1]).sum())
@@ -3928,7 +4336,11 @@ def main() -> int:
     fw_out = phase_framework(torch, np, cflearn_torch, A, Cv, Gn, cv_out["clf_vit_384"]["step_ms"])
     print(f"framework: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 21. summary
+    # 21. the tabular side: fit_ml, the ML block stack, ml.common / the transformer, save / load / predict
+    tab_out = phase_tabular(torch, np, F, cflearn_torch, A, Cv, Gn)
+    print(f"tabular: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 22. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -3951,19 +4363,25 @@ def main() -> int:
                      "accelerated": serve_out["accelerated"]["launches"], "ldm": ldm_launches,
                      "ae_defaults": aed_launches, "ae_vq": vq_launches, "v2_finetune": v2_train_out["launches"],
                      "vit_classify": cv_out["clf_vit_384"]["classify_launches"],
-                     "vit_train": cv_out["clf_vit_384"]["launches"]}
+                     "vit_train": cv_out["clf_vit_384"]["launches"],
+                     "tab_predict": tab_out["transformer"]["predict_launches_all"],
+                     "tab_train": tab_out["transformer"]["launches_all"]}
     path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
                  "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
                  "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img",
                  "ldm": "one finetune step on 512px images", "ae_defaults": "one autoencoder train step at the defaults",
                  "ae_vq": "one ae_vq train step", "v2_finetune": "one v2_v finetune step (batch 4, 96x96 latents)",
                  "vit_classify": f"one ViT-S/16 classify of {CV_BATCH} images at 384 px (f32)",
-                 "vit_train": f"one ViT-S/16 train step at 384 px, batch {VIT_TRAIN_BATCH} (f32)"}
+                 "vit_train": f"one ViT-S/16 train step at 384 px, batch {VIT_TRAIN_BATCH} (f32)",
+                 "tab_predict": f"one tabular transformer predict batch of {TAB_BATCH} rows at {TAB_TOKENS} tokens (f32)",
+                 "tab_train": f"one tabular transformer train step at batch {TAB_BATCH}, {TAB_TOKENS} tokens (f32)"}
     path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps",
                     ldm=f"{TRAIN_STEPS} finetune steps on 512px images",
                     ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps",
                     v2_finetune=f"{TRAIN_STEPS} v2_v finetune steps",
-                    vit_train=f"{2 * CV_STEPS} ViT-S/16 train steps at 384 px (two windows)")
+                    vit_train=f"{2 * CV_STEPS} ViT-S/16 train steps at 384 px (two windows)",
+                    tab_predict=f"one tabular transformer predict of {TAB_PREDICT_ROWS} rows",
+                    tab_train=f"one tabular transformer fit_ml: {TAB_TF_STEPS} steps and its evaluation batches")
     # the new paths run the UNet step's and the autoencoder step's shapes too: their rows count for them where the
     # path launched the kernel (the ldm step adds the encoder's rows of its own)
     for name, cases in rows.items():
@@ -4025,7 +4443,7 @@ def main() -> int:
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
-                   "framework": fw_out,
+                   "framework": fw_out, "tabular": tab_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -4044,6 +4462,9 @@ def main() -> int:
                       "v2_finetune": {k: v for k, v in v2_train_out.items() if k != "calls"}}))
     print(json.dumps({"cv_models": cv_out}))
     print(json.dumps({"framework": {k: {kk: vv for kk, vv in v.items() if kk != "losses"} for k, v in fw_out.items()}}))
+    print(json.dumps({"tabular": {k: {kk: vv for kk, vv in v.items() if kk not in ("calls", "launches_all",
+                                                                                   "predict_launches_all")}
+                                  for k, v in tab_out.items()}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

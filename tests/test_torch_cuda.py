@@ -722,3 +722,69 @@ def test_fit_array_on_the_card(cuda, tmp_path, monkeypatch) -> None:
     assert batches and all(np.isfinite(v) for v in p.trainer.final_results.metric_values.values())
     loaded = cflearn_torch.load_inference(cflearn_torch.save(p, str(tmp_path / "saved")))
     assert np.array_equal(loaded.predict(x[16:])["predictions"], p.predict(x[16:])["predictions"])
+
+
+# the tabular transformer at its defaults: 8 heads of 16 in f32 over the feature tokens and the head token (MNIST's
+# 784 columns: 785 tokens), and a ragged 300 x 257 case
+TAB_SHAPES = [(8, 8, 785, 785, 16), (2, 8, 300, 257, 16)]
+
+
+@pytest.mark.parametrize("row", ["flash_attention", "flash_fwd_lse", "flash_bwd_fused"])
+@pytest.mark.parametrize("shape", TAB_SHAPES)
+def test_flash_kernels_at_the_tabular_head_dim(cuda, row, shape) -> None:
+    """Rows 1, 3 and 4 at d = 16 in f32 (the chunked mma.sync kernels: one chunk, its columns past 16 zero),
+    q / k / v as transposed views of the projection's (B, L, H, D) storage, against the plain versions, one
+    launch a call."""
+    q, k, v = _fwd_inputs(cuda, shape, torch.float32, "blhd")
+    b, h, lq, lk, d = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert A.flash_plan(b, h, lq, lk, d, torch.float32, sms).kernel == "mma_sync_chunked"
+    fn = getattr(A, row)
+    before = fn.launches
+    if row == "flash_attention":
+        _close(A.flash_attention(q, k, v), A.flash_attention_plain(q, k, v), _rel(torch.float32))
+    elif row == "flash_fwd_lse":
+        o, lse = A.flash_fwd_lse(q, k, v)
+        ref_o, ref_lse = A.flash_fwd_with_lse_plain(q, k, v)
+        _close(o, ref_o, _rel(torch.float32))
+        assert (lse - ref_lse).abs().max() <= 4e-3
+    else:
+        _, _, _, do = _train_inputs(cuda, shape, torch.float32)
+        o, lse = A.flash_fwd_with_lse_plain(q, k, v)
+        for got, ref in zip(A.flash_bwd_fused(q, k, v, o, lse, do), A.flash_bwd_plain(q, k, v, o, lse, do)):
+            _close(got, ref, _rel(torch.float32))
+    assert fn.launches == before + 1
+
+
+def test_fit_ml_transformer_on_the_card(cuda, tmp_path, monkeypatch) -> None:
+    """A 2-step `fit_ml` of a one-layer tabular transformer on a 300-column table (301 tokens with the head
+    token, so its attention takes the kernels at d = 16): one `flash_fwd_lse` and one `flash_bwd_fused` a step,
+    one `flash_attention` a validation or predict batch; finite losses; the saved pipeline loaded on the card
+    predicts bit for bit what the trained one predicts."""
+    import numpy as np
+
+    import cflearn_torch
+    from cflearn_torch.inference import DLInference
+
+    batches = []
+    run_eval = DLInference._eval
+    monkeypatch.setattr(DLInference, "_eval", lambda self, *a, **k: batches.append(1) or run_eval(self, *a, **k))
+    rs = np.random.RandomState(0)
+    x = rs.randn(64, 300).astype(np.float32)
+    y = (x[:, :3].sum(1) > 0).astype(np.int64)[:, None]
+    config = cflearn_torch.MLConfig(module_name="transformer", module_config={"num_layers": 1},
+                                    workspace=str(tmp_path), fixed_steps=2, min_num_sample=0, callback_names=[])
+    data = cflearn_torch.DataConfig()
+    data.batch_size = data.valid_batch_size = 16
+    names = ("flash_attention", "flash_fwd_lse", "flash_bwd_fused")
+    for name in names:
+        getattr(A, name).launches = 0
+    p = cflearn_torch.fit_ml(x, y, config=config, data_config=data)
+    torch.cuda.synchronize()
+    steps = p.trainer.state.step
+    assert steps == 2 and next(p.model.parameters()).is_cuda
+    assert {n: getattr(A, n).launches for n in names} == {
+        "flash_attention": len(batches), "flash_fwd_lse": steps, "flash_bwd_fused": steps}
+    assert all(np.isfinite(v) for v in p.trainer.final_results.metric_values.values())
+    loaded = cflearn_torch.load_inference(cflearn_torch.save(p, str(tmp_path / "saved")))
+    assert np.array_equal(loaded.predict(x[:20])["predictions"], p.predict(x[:20])["predictions"])
