@@ -16,13 +16,21 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .api import (  # noqa: E402
     APIPool, CLIPExtractor, ControlledDiffusionAPI, DiffusionAPI, Evaluator, IAPI, TranslatorAPI, Weights, evaluate,
-    fit_array, fit_ml, load_evaluation, load_inference, load_training, make_metric, make_model, make_toy_ml_model,
-    pack, save, supported_losses, supported_metrics, supported_modules, supported_optimizers, supported_samplers,
+    fit_array, fit_ml, fuse_evaluation, fuse_inference, load_evaluation, load_inference, load_training, make_metric,
+    make_model, make_toy_ml_model, pack, save, supported_losses, supported_metrics, supported_modules, supported_optimizers, supported_samplers,
     supported_schedulers,
 )
 from .api import ml  # noqa: E402
 from .api.ml import DDRPredictor, DDRVisualizer, IntegratedGradients, Interpreter, integrated_gradients  # noqa: E402
-from .data import ArrayData, ArrayDictData, MLData  # noqa: E402
+from .api.cv import VQVAEInference  # noqa: E402
+from .callbacks import (  # noqa: E402
+    GeneratorCallback, ImageCallback, ImageClassificationCallback, SigmoidCallback, VQVAECallback, save_image_grid,
+)
+from .data import (  # noqa: E402
+    ArrayData, ArrayDictData, DefaultPreparation, ExternalData, ExternalDataset, ImageFolderData, IPreparation, MLData,
+    ResizedPreparation, prepare_image_folder,
+)
+from .data.cv import ImageFolderBlock, collect_images  # noqa: E402
 from .data.blocks.ml import (  # noqa: E402
     DataSplitter, FileParserBlock, GatherBlock, NanHandlerBlock, PreProcessorBlock, RecognizerBlock, SplitterBlock,
 )
@@ -58,8 +66,10 @@ from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
 from .schema import DLConfig, IDLModel, ILoss, MLConfig, TrainStep  # noqa: E402
 from .schema.data import DataConfig  # noqa: E402
 from .pipeline import (  # noqa: E402
-    CONFIGS, DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline, MLEvaluationPipeline,
-    MLInferencePipeline, MLTrainingPipeline, configure, finetune_unet, train_autoencoder, txt2img,
+    CONFIGS, DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline,
+    FusedEvaluationPipeline, FusedInferencePipeline, GeneralEvaluationPipeline, IPredictor, MLEvaluationPipeline,
+    MLInferencePipeline, MLTrainingPipeline, SKLearnClassifier, aot_compile, configure, export_model, finetune_unet,
+    load_exported, pack_exported, pack_stablehlo, train_autoencoder, txt2img,
 )
 from .trainer import Trainer  # noqa: E402
 from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs  # noqa: E402
@@ -70,6 +80,12 @@ from .zoo import (  # noqa: E402
 )
 
 __all__ = [
+    "DefaultPreparation", "ExternalData", "ExternalDataset", "FusedEvaluationPipeline", "FusedInferencePipeline",
+    "GeneralEvaluationPipeline", "GeneratorCallback", "IPredictor", "ImageCallback", "ImageClassificationCallback",
+    "ImageFolderBlock", "ImageFolderData", "IPreparation", "ResizedPreparation", "SKLearnClassifier",
+    "SigmoidCallback", "VQVAECallback", "VQVAEInference", "aot_compile", "collect_images", "export_model",
+    "fuse_evaluation", "fuse_inference", "load_exported", "pack_exported", "pack_stablehlo", "prepare_image_folder",
+    "save_image_grid",
     "CommonMLModel", "DDR", "DDRLoss", "DDRModel", "DDRPredictor", "DDRVisualizer", "DNDF", "DataSplitter", "DropPath",
     "Encoder", "FCNN", "FNet", "FileParserBlock", "GatherBlock", "IntegratedGradients", "Interpreter", "LinearModule",
     "MLBundledProcessorConfig", "MLConfig", "MLData", "MLDataProcessor", "MLEncodePack", "MLEvaluationPipeline",

@@ -1,7 +1,7 @@
 from .api import (
-    Evaluator, evaluate, fit_array, fit_ml, load_evaluation, load_inference, load_training, make_metric, make_model,
-    make_toy_ml_model, pack, save, supported_losses, supported_metrics, supported_modules, supported_optimizers,
-    supported_samplers, supported_schedulers,
+    Evaluator, evaluate, fit_array, fit_ml, fuse_evaluation, fuse_inference, load_evaluation, load_inference,
+    load_training, make_metric, make_model, make_toy_ml_model, pack, save, supported_losses, supported_metrics,
+    supported_modules, supported_optimizers, supported_samplers, supported_schedulers,
 )
 from . import ml
 from .common import APIPool, IAPI, Weights
@@ -11,7 +11,8 @@ from .multimodal.diffusion import ControlledDiffusionAPI, DiffusionAPI
 
 __all__ = [
     "APIPool", "CLIPExtractor", "ControlledDiffusionAPI", "DiffusionAPI", "Evaluator", "IAPI", "TranslatorAPI",
-    "Weights", "evaluate", "fit_array", "fit_ml", "load_evaluation", "load_inference", "load_training", "make_metric",
-    "make_model", "make_toy_ml_model", "ml", "pack", "save", "supported_losses", "supported_metrics",
-    "supported_modules", "supported_optimizers", "supported_samplers", "supported_schedulers",
+    "Weights", "evaluate", "fit_array", "fit_ml", "fuse_evaluation", "fuse_inference", "load_evaluation",
+    "load_inference", "load_training", "make_metric", "make_model", "make_toy_ml_model", "ml", "pack", "save",
+    "supported_losses", "supported_metrics", "supported_modules", "supported_optimizers", "supported_samplers",
+    "supported_schedulers",
 ]

@@ -9,8 +9,9 @@ then `MLTrainingPipeline.init(config).fit(data)`; `fit_array(x, y,
 config=DLConfig(...))` is `ArrayData` then `DLTrainingPipeline`. Both run
 on the CUDA card unless `device` names another ("cpu" runs the plain
 PyTorch path); without a card and without a device they raise. `repeat_ml`
-and `run_multiple` (which need the experiment runner of `dist/`) and the
-ensembles (`fuse_inference`, `fuse_evaluation`) wait for their slices.
+and `run_multiple` (which need the experiment runner of `dist/`) wait for
+their slice. `fuse_inference` / `fuse_evaluation` load an ensemble of
+pipeline folders (`pipeline/api.py`).
 """
 
 from typing import Any, Dict, List, Optional, Union
@@ -131,6 +132,16 @@ def load_inference(folder: str, *, device: Any = None) -> DLInferencePipeline:
 
 def load_evaluation(folder: str, *, device: Any = None) -> DLEvaluationPipeline:
     return DLPipelineSerializer.load_evaluation(folder, device=device)
+
+
+def fuse_inference(src_folders: List[str], **kwargs: Any) -> Any:
+    """The pipelines in `src_folders` as one ensemble (`num_picked`, `device`)."""
+    return DLPipelineSerializer.fuse_inference(src_folders, **kwargs)
+
+
+def fuse_evaluation(src_folders: List[str], **kwargs: Any) -> Any:
+    """The ensemble of `fuse_inference` with `evaluate` on its fused outputs."""
+    return DLPipelineSerializer.fuse_evaluation(src_folders, **kwargs)
 
 
 class Evaluator:

@@ -1,4 +1,4 @@
 """Data blocks (counterpart of `cflearn_tpu/data/blocks/`): the tabular
-blocks. The CV blocks are still to be ported."""
+blocks (`ml.py`) and the CV blocks (`cv.py`)."""
 
-from . import ml
+from . import cv, ml

@@ -12,10 +12,12 @@ with numpy and cached per (h, w, sx, sy, device), so no `nonzero` on a CUDA
 tensor synchronises the host. The src tokens are ranked by a stable
 descending sort, which puts the lower index first among equal scores as
 `jax.lax.top_k` does; `argmax` takes the first maximum in both frameworks.
+`match_tokens` makes the matching; `bipartite_soft_matching_random2d` builds
+the merge and unmerge from it.
 """
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +48,35 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+class Matching(NamedTuple):
+    """One bipartite matching: each src token's most similar dst token
+    (`best_dst`, (B, num_src)), the src tokens in descending order of that
+    similarity (`merge_order`, positions into the src indices), the number
+    merged (`r`: the first r of the order) and the scores, (B, num_src,
+    num_dst)."""
+
+    best_dst: torch.Tensor
+    merge_order: torch.Tensor
+    r: int
+    scores: torch.Tensor
+
+
+def match_tokens(metric: torch.Tensor, h: int, w: int, *, ratio: float = 0.5, sx: int = 2, sy: int = 2) -> Matching:
+    """The matching of `bipartite_soft_matching_random2d`: cosine scores of
+    every src token against every dst token, each src's argmax (the first
+    maximum) and the src tokens ranked by their best score, lower index first
+    among ties."""
+    n = metric.shape[1]
+    assert n == h * w
+    dst_idx, src_idx = dst_src_indices(h, w, sx, sy, metric.device)
+    r = min(src_idx.numel(), int(n * ratio))
+    metric_n = metric / (torch.linalg.vector_norm(metric, dim=-1, keepdim=True) + 1e-6)
+    scores = metric_n[:, src_idx] @ metric_n[:, dst_idx].transpose(1, 2)  # (B, num_src, num_dst)
+    best_score = scores.amax(dim=-1)
+    merge_order = torch.sort(best_score, dim=-1, descending=True, stable=True).indices
+    return Matching(scores.argmax(dim=-1), merge_order, r, scores)
+
+
 def bipartite_soft_matching_random2d(
     metric: torch.Tensor,
     h: int,
@@ -56,22 +87,12 @@ def bipartite_soft_matching_random2d(
     sy: int = 2,
 ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], Callable[[torch.Tensor], torch.Tensor], int]:
     """Build (merge, unmerge) for (B, N, C) token tensors from the (B, N, C)
-    similarity `metric`. Returns (merge_fn, unmerge_fn, num_remaining)."""
-    b, n, _ = metric.shape
-    assert n == h * w
+    similarity `metric` (`match_tokens`). Returns (merge_fn, unmerge_fn,
+    num_remaining)."""
+    n = metric.shape[1]
     dst_idx, src_idx = dst_src_indices(h, w, sx, sy, metric.device)
     num_dst = dst_idx.numel()
-    num_src = n - num_dst
-    r = min(num_src, int(n * ratio))
-
-    metric_n = metric / (torch.linalg.vector_norm(metric, dim=-1, keepdim=True) + 1e-6)
-    src = metric_n[:, src_idx]  # (B, num_src, C)
-    dst = metric_n[:, dst_idx]  # (B, num_dst, C)
-    scores = src @ dst.transpose(1, 2)  # (B, num_src, num_dst)
-    best_score = scores.amax(dim=-1)
-    best_dst = scores.argmax(dim=-1)
-    # the src tokens in descending order of their best score, lower index first among ties
-    merge_order = torch.sort(best_score, dim=-1, descending=True, stable=True).indices
+    best_dst, merge_order, r, _ = match_tokens(metric, h, w, ratio=ratio, sx=sx, sy=sy)
     merged_src_pos = merge_order[:, :r]  # positions into src_idx
     kept_src_pos = merge_order[:, r:]
     merged_tgt = torch.gather(best_dst, 1, merged_src_pos)  # (B, r)

@@ -97,8 +97,10 @@ class Conv(nn.Module):
     def kernel_weight(self) -> torch.Tensor:
         """The weight in the conv kernel's (Co, 3, 3, C) layout, rearranged
         once and cached until the parameter changes. Where the weight carries
-        a gradient the rearrangement stays on the graph and is not cached."""
-        if torch.is_grad_enabled() and self.weight.requires_grad:
+        a gradient the rearrangement stays on the graph and is not cached, nor
+        under tracing."""
+        # a traced weight (`torch.export`'s fake tensors) has no storage to key the cache by
+        if (torch.is_grad_enabled() and self.weight.requires_grad) or torch.compiler.is_compiling():
             return kernel_weight(self.weight)
         key = (self.weight.data_ptr(), self.weight._version, self.weight.dtype, self.weight.device)
         if self._kernel_cache is None or self._kernel_cache[0] != key:

@@ -20,10 +20,17 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
   d <= 128 (d <= 192 for dq), the mma.sync kernel (`csrc/flash_bwd.cuh`)
   for the rest, or for any shape when a caller names it
   (`kernel="mma_sync"`).
+* `flash_attention_op`, `flash_fwd_lse_op` — the two forwards as
+  operations of PyTorch's dispatcher (`torch.library.custom_op`): the plain
+  version registered for the CPU, the kernel for CUDA, and a fake
+  implementation for tracing, so that `torch.export` keeps them in its
+  graph on either device and a selective-checkpoint policy can keep their
+  outputs. Each implementation calls the wrapper, `flash_attention` or
+  `flash_fwd_lse`. The modules' route calls `flash_fwd_lse_op` where a
+  gradient is carried; the inference forward calls its operation only under
+  a trace, and the wrapper itself in an eager call.
 * `flash_attention_trainable` — the `torch.autograd.Function` over them
-  (the JAX package's custom VJP of the same name); its forward goes through
-  `flash_fwd_lse_op`, an operation of PyTorch's dispatcher that a
-  selective-checkpoint policy can keep.
+  (the JAX package's custom VJP of the same name).
 * `xla_attention` — what the JAX package leaves to XLA (masks, biases, short
   kv such as SD cross-attention at kv = 77); here
   `F.scaled_dot_product_attention`.
@@ -540,17 +547,70 @@ def flash_fwd_lse(
 flash_fwd_lse.launches = 0
 
 
-@torch.library.custom_op("cflearn_torch::flash_fwd_lse", mutates_args=())
+def _fwd_out(q: torch.Tensor) -> torch.Tensor:
+    """An empty forward output in the kernels' layout: (B, H, Lq, D) over
+    (B, Lq, H, D) storage, so that merging the heads afterwards is a free
+    view."""
+    b, h, q_len, d = q.shape
+    return q.new_empty((b, q_len, h, d)).transpose(1, 2)
+
+
+# The two forwards as operations of PyTorch's dispatcher, each with an implementation for the CPU (the plain
+# version, in the kernels' output layout), one for CUDA (the kernel) and a fake one (shapes and dtypes only), so
+# that `torch.export` keeps the same operation in its graph on either device and a selective-checkpoint policy
+# can keep its outputs (`everything_saveable`) where a launch from inside an autograd function's forward would be
+# invisible to it. Both implementations reach the kernel through its wrapper, looked up as a module global, so
+# that a wrapper swapped for its plain version (or for a recorder) is what the operation runs; the wrapper counts
+# the launch, inside an exported program too. The gradient stays with `FlashAttentionTrainable`.
+
+
+@torch.library.custom_op("cflearn_torch::flash_attention", mutates_args=(), device_types="cpu")
+def flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sm_scale: Optional[float]
+) -> torch.Tensor:
+    """`flash_attention` as one operation of the dispatcher."""
+    return _fwd_out(q).copy_(flash_attention(q, k, v, causal=causal, sm_scale=sm_scale))
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, causal, sm_scale):  # type: ignore[no-untyped-def]
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, sm_scale):  # type: ignore[no-untyped-def]
+    return _fwd_out(q)
+
+
+@torch.library.custom_op("cflearn_torch::flash_fwd_lse", mutates_args=(), device_types="cpu")
 def flash_fwd_lse_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sm_scale: Optional[float]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`flash_fwd_lse` as one operation of PyTorch's dispatcher. A
-    selective-checkpoint policy sees it as such and can keep its outputs
-    (`everything_saveable`), where a kernel launched from inside an
-    autograd function's forward would be invisible to it and so always
-    launched again in the backward. The gradient stays with
-    `FlashAttentionTrainable`."""
+    """`flash_fwd_lse` as one operation of the dispatcher."""
+    o, lse = flash_fwd_lse(q, k, v, causal=causal, sm_scale=sm_scale)
+    return _fwd_out(q).copy_(o), lse
+
+
+@flash_fwd_lse_op.register_kernel("cuda")
+def _flash_fwd_lse_cuda(q, k, v, causal, sm_scale):  # type: ignore[no-untyped-def]
     return flash_fwd_lse(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+@flash_fwd_lse_op.register_fake
+def _flash_fwd_lse_fake(q, k, v, causal, sm_scale):  # type: ignore[no-untyped-def]
+    b, h, q_len, _ = q.shape
+    return _fwd_out(q), q.new_empty((b, h, q_len), dtype=torch.float32)
+
+
+def _inference_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sm_scale: Optional[float]
+) -> torch.Tensor:
+    """The inference forward: the wrapper itself, or under a trace
+    (`torch.export`, `torch.compile`) its operation, which the trace keeps
+    as one node. An eager call pays no dispatcher round trip."""
+    if torch.compiler.is_compiling():
+        return flash_attention_op(q, k, v, causal, sm_scale)
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
 def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -695,17 +755,16 @@ _WRAPPERS = {
 class FlashAttentionTrainable(torch.autograd.Function):
     """Differentiable flash attention: the kernels' forward and backward.
     When no input needs a gradient the forward is the inference kernel, as
-    the JAX custom VJP's primal is. Otherwise it
-    runs `flash_fwd_lse` (through `flash_fwd_lse_op`, which a
+    the JAX custom VJP's primal is (`_inference_forward`). Otherwise
+    it runs `flash_fwd_lse` (through `flash_fwd_lse_op`, which a
     selective-checkpoint policy can keep) and saves q, k, v, o, lse; the
-    backward runs the
-    fused kernel, or the split pair when `FUSED_BWD` is false or
-    `torch.are_deterministic_algorithms_enabled()`."""
+    backward runs the fused kernel, or the split pair when `FUSED_BWD` is
+    false or `torch.are_deterministic_algorithms_enabled()`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=False, sm_scale=None):  # type: ignore[override]
         if not any(ctx.needs_input_grad[:3]):
-            return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+            return _inference_forward(q, k, v, causal, sm_scale)
         o, lse = flash_fwd_lse_op(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
@@ -734,9 +793,9 @@ def flash_attention_trainable(
     """`FlashAttentionTrainable.apply` with the JAX function's signature.
     Under `torch.no_grad()` no graph is wanted whatever the inputs say (the
     function's forward cannot see the grad mode), so the inference kernel
-    runs directly."""
+    runs directly (`_inference_forward`)."""
     if not torch.is_grad_enabled():
-        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        return _inference_forward(q, k, v, causal, sm_scale)
     return FlashAttentionTrainable.apply(q, k, v, causal, sm_scale)
 
 

@@ -5,12 +5,15 @@ Counterpart of `cflearn_tpu/ops/conv.py`:
 * `conv3x3` — wrapper of the hand-written Hopper kernel
   (`csrc/conv3x3.cu`: wgmma fed by TMA, see `conv3x3_plan`), which
   replaces the TPU's `_conv3x3_kernel`
-  (`conv3x3_pallas`, fold=False). On a CPU tensor it runs `conv3x3_plain`,
-  the same 9 shifted f32 matmuls in plain PyTorch; on a CUDA tensor it
-  launches the kernel or raises. Where an input needs a gradient it goes
-  through `Conv3x3Function`, the JAX package's conv VJP: dx is the forward
-  kernel on dy with `flip_weights(w)`, dw the weight-gradient kernel, db a sum
-  of dy in f32.
+  (`conv3x3_pallas`, fold=False). On a CPU tensor it runs
+  `conv3x3_plain`, the same 9 shifted f32 matmuls in plain PyTorch; on a
+  CUDA tensor it launches the kernel or raises. Under a trace it goes
+  through `conv3x3_op`, an operation of PyTorch's dispatcher (plain version
+  for the CPU, kernel for CUDA, a fake implementation) that `torch.export`
+  keeps. Where an input needs a gradient it goes through
+  `Conv3x3Function`, the JAX package's conv VJP: dx is the forward kernel
+  on dy with `flip_weights(w)`, dw the weight-gradient kernel, db a sum of
+  dy in f32.
 * `conv3x3_wgrad` — wrapper of the weight-gradient kernel
   (`csrc/conv3x3_wgrad.cu`: wgmma fed by TMA, see `wgrad_plan`), which
   replaces `_conv3x3_wgrad_kernel`
@@ -376,8 +379,17 @@ def _conv3x3_tiles(b: int, h: int, w: int, c: int, co: int, device: torch.device
     return p.th, p.tw, p.bn, p.ctas
 
 
-def _launch_conv3x3(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+def _kernel_conv3x3(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     return _launch_forward("conv3x3", _WRAPPER, x, w_ohwi, bias, _conv3x3_tiles)
+
+
+def _launch_conv3x3(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The conv kernel on CUDA tensors (any other device raises): launched
+    directly, or under a trace (`torch.export`, `torch.compile`) through
+    `conv3x3_op`, which the trace keeps as one node."""
+    if torch.compiler.is_compiling():
+        return conv3x3_op(x, w_ohwi, bias)
+    return _kernel_conv3x3(x, w_ohwi, bias)
 
 
 def _fold_tiles(b: int, h: int, w: int, c: int, co: int, device: torch.device) -> Tuple[int, ...]:
@@ -400,18 +412,41 @@ def _launch_conv3x3_fold(
 FOLD = False
 
 
+@torch.library.custom_op("cflearn_torch::conv3x3", mutates_args=(), device_types="cpu")
+def conv3x3_op(x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The conv forward as one operation of PyTorch's dispatcher: the plain
+    version registered for the CPU, the kernel for CUDA (which counts the
+    launch) and a fake implementation for tracing, so that `torch.export`
+    keeps it in its graph on either device."""
+    return conv3x3_plain(x, w_ohwi, bias)
+
+
+@conv3x3_op.register_kernel("cuda")
+def _conv3x3_cuda(x, w_ohwi, bias):  # type: ignore[no-untyped-def]
+    return _kernel_conv3x3(x, w_ohwi, bias)
+
+
+@conv3x3_op.register_fake
+def _conv3x3_fake(x, w_ohwi, bias):  # type: ignore[no-untyped-def]
+    return x.new_empty((*x.shape[:3], w_ohwi.shape[0]))
+
+
 def conv3x3(
     x: torch.Tensor, w_ohwi: torch.Tensor, bias: Optional[torch.Tensor] = None, fold: Optional[bool] = None
 ) -> torch.Tensor:
     """3x3 stride-1 SAME conv. x: (B, H, W, C), w: (Co, 3, 3, C), bias:
-    (Co,) -> (B, H, W, Co). CPU tensors take the plain version (autograd runs
-    through it); CUDA tensors launch the kernel (bf16 / fp16, C % 8 == 0,
-    Co % 8 == 0) or raise. On the card a call whose inputs need a gradient
-    goes through `Conv3x3Function`. `fold` (default `FOLD`) takes the
-    dj-folded kernel, `conv3x3_fold`."""
+    (Co,) -> (B, H, W, Co). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 / fp16, C % 8 == 0, Co % 8 == 0); any
+    other device raises. Under a trace a call without a gradient goes
+    through `conv3x3_op` on either device. A call whose inputs need a
+    gradient goes through `Conv3x3Function` on the card and through the
+    plain version (autograd runs through it) on the CPU. `fold` (default
+    `FOLD`) takes the dj-folded kernel, `conv3x3_fold`."""
     if FOLD if fold is None else fold:
         return conv3x3_fold(x, w_ohwi, bias)
     if x.device.type == "cpu":
+        if torch.compiler.is_compiling() and not _needs_grad(x, w_ohwi, bias):
+            return conv3x3_op(x, w_ohwi, bias)
         return conv3x3_plain(x, w_ohwi, bias)
     if _needs_grad(x, w_ohwi, bias):
         return Conv3x3Function.apply(x, w_ohwi, bias)

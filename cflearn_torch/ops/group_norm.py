@@ -22,9 +22,12 @@ Counterpart of `cflearn_tpu/ops/group_norm.py`:
 * `FusedGroupNorm` / `fused_group_norm` — the differentiable entry, as the JAX
   package's `fused_group_norm`: the kernel forward, the backward recomputed
   through the plain version. The JAX package has no backward kernel, so the
-  port has none. Its forward calls the kernel through `group_norm_silu_op`,
-  an operation of PyTorch's dispatcher that a selective-checkpoint policy
-  can keep.
+  port has none. Its forward, and `fused_group_norm` without a gradient
+  under a trace, call the kernel through `group_norm_silu_op`, an operation
+  of PyTorch's dispatcher (the plain version registered for the CPU, the
+  kernel for CUDA, a fake implementation for tracing) that `torch.export`
+  keeps and a selective-checkpoint policy can keep; an eager call without a
+  gradient calls the wrapper itself.
 * `gn_call` / `module_call` — what the modules call.
 
 The JAX package keeps its kernel opt-in because XLA fuses GroupNorm into its
@@ -298,15 +301,30 @@ group_norm_silu.launches = 0
 _WRAPPER = group_norm_silu
 
 
-@torch.library.custom_op("cflearn_torch::group_norm_silu", mutates_args=())
+@torch.library.custom_op("cflearn_torch::group_norm_silu", mutates_args=(), device_types="cpu")
 def group_norm_silu_op(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float, apply_silu: bool
 ) -> torch.Tensor:
-    """`group_norm_silu` as one operation of PyTorch's dispatcher, so that a
-    selective-checkpoint policy can keep its output (`everything_saveable`)
-    instead of launching the kernel again in the backward. The gradient
-    stays with `FusedGroupNorm`."""
+    """`group_norm_silu` as one operation of PyTorch's dispatcher: its CPU
+    implementation is the plain version, its CUDA one the kernel, and its fake
+    one gives the output's shape and dtype, so that `torch.export` keeps the
+    same operation in its graph on either device and a selective-checkpoint
+    policy can keep its output (`everything_saveable`) instead of launching
+    the kernel again in the backward. Both implementations call the wrapper,
+    looked up as a module global (a wrapper swapped for its plain version is
+    what runs); it counts the launch, inside an exported program too. The
+    gradient stays with `FusedGroupNorm`."""
     return group_norm_silu(x, weight, bias, num_groups=num_groups, eps=eps, apply_silu=apply_silu)
+
+
+@group_norm_silu_op.register_kernel("cuda")
+def _group_norm_silu_cuda(x, weight, bias, num_groups, eps, apply_silu):  # type: ignore[no-untyped-def]
+    return group_norm_silu(x, weight, bias, num_groups=num_groups, eps=eps, apply_silu=apply_silu)
+
+
+@group_norm_silu_op.register_fake
+def _group_norm_silu_fake(x, weight, bias, num_groups, eps, apply_silu):  # type: ignore[no-untyped-def]
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 class FusedGroupNorm(torch.autograd.Function):
@@ -343,9 +361,12 @@ def fused_group_norm(
 ) -> torch.Tensor:
     """`FusedGroupNorm.apply` with the JAX function's signature. Without a
     gradient to carry (no input needs one, or under `torch.no_grad()`) it is
-    the kernel's wrapper alone."""
+    the kernel's wrapper alone, or under a trace (`torch.export`,
+    `torch.compile`) its operation, which the trace keeps as one node."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
         return FusedGroupNorm.apply(x, weight, bias, num_groups, eps, apply_silu)
+    if torch.compiler.is_compiling():
+        return group_norm_silu_op(x, weight, bias, num_groups, float(eps), apply_silu)
     return group_norm_silu(x, weight, bias, num_groups=num_groups, eps=eps, apply_silu=apply_silu)
 
 

@@ -10,7 +10,11 @@ wrote loads here (its model through the bridge), `dl.*` and `ml.*` alike,
 and the port's folders keep the JAX layout and file names. Every load takes
 the `device` of the model (the CUDA card unless named).
 
-The ensembles (`fuse_inference` / `fuse_evaluation`) wait for their slice.
+The ensembles: `DLPipelineSerializer.fuse_inference` / `fuse_evaluation`
+load N folders (the best `num_picked` by their checkpoint scores) into a
+`FusedInferencePipeline` / `FusedEvaluationPipeline`, which average the
+members' raw predictions (each member through its own data processor) and
+derive classes, probabilities and metrics from the average.
 """
 
 import json
@@ -20,9 +24,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..constants import PREDICTIONS_KEY
+from ..constants import CHECKPOINTS_FOLDER, LABEL_KEY, PREDICTIONS_KEY, SCORES_FILE
 from ..data import ml as _ml_data  # noqa: F401  (registers MLData and the tabular blocks)
-from ..inference import DLInference
+from ..inference import DLInference, InferenceOutputs
 from ..schema.data import IData, IDataLoader
 from ..schema.metrics_schema import IMetric, MetricsOutputs
 from ..schema.model import IDLModel
@@ -327,3 +331,121 @@ class DLPipelineSerializer:
             shutil.rmtree(export_folder)
             return archive
         return export_folder
+
+    # fuse: an ensemble of trained pipelines
+
+    @staticmethod
+    def _pick_folders(src_folders: List[str], num_picked: Any) -> List[str]:
+        """`num_picked` (an int, or a fraction of the folders) keeps the best
+        folders by their best recorded checkpoint score; folders without
+        scores rank last, in their given order."""
+        if num_picked is None:
+            return list(src_folders)
+
+        def score_of(folder: str) -> float:
+            path = os.path.join(folder, CHECKPOINTS_FOLDER, SCORES_FILE)
+            if not os.path.isfile(path):
+                path = os.path.join(folder, SCORES_FILE)
+            if os.path.isfile(path):
+                with open(path, "r") as f:
+                    scores = json.load(f)
+                if scores:
+                    return max(float(v) for v in scores.values())
+            return float("-inf")
+
+        n = num_picked if isinstance(num_picked, int) else max(1, round(num_picked * len(src_folders)))
+        return sorted(src_folders, key=score_of, reverse=True)[:n]
+
+    @classmethod
+    def fuse_inference(
+        cls, src_folders: List[str], *, num_picked: Any = None, device: Any = None,
+    ) -> "FusedInferencePipeline":
+        """The members' inference pipelines, loaded on `device` (the JAX
+        package's `cuda`), fused."""
+        folders = cls._pick_folders(src_folders, num_picked)
+        return FusedInferencePipeline([cls.load_inference(f, device=device) for f in folders])
+
+    @classmethod
+    def fuse_evaluation(
+        cls, src_folders: List[str], *, num_picked: Any = None, device: Any = None,
+    ) -> "FusedEvaluationPipeline":
+        """The members' evaluation pipelines, loaded on `device`, fused;
+        `evaluate` scores the fused predictions."""
+        folders = cls._pick_folders(src_folders, num_picked)
+        return FusedEvaluationPipeline([cls.load_evaluation(f, device=device) for f in folders])
+
+
+class FusedInferencePipeline(_InferencePipelineMixin):
+    """The mean of N pipelines' raw predictions. Each member runs its own data
+    processor, so that `fused.predict(x)` is the mean of the members' own
+    `predict(x)` even where they were fitted with different statistics."""
+
+    def __init__(self, pipelines: List[DLInferencePipeline]) -> None:
+        self.pipelines = pipelines
+        self.data = pipelines[0].data
+
+    def predict(
+        self,
+        loader_or_x: Any,
+        y: Any = None,
+        *,
+        batch_size: int = 128,
+        return_classes: bool = False,
+        binary_threshold: float = 0.5,
+        return_probabilities: bool = False,
+        recover_labels: bool = True,
+        **kwargs: Any,
+    ) -> Dict[str, np.ndarray]:
+        # the raw predictions fused first, then classes / probabilities from the mean: averaging each member's
+        # class indices would make classes that no member predicted
+        members = [
+            p.predict(loader_or_x, y, batch_size=batch_size, recover_labels=False, **kwargs) for p in self.pipelines
+        ]
+        fused = {k: np.mean([r[k] for r in members], axis=0) for k in members[0]}
+        return _postprocess_predictions(
+            fused,
+            return_classes=return_classes,
+            binary_threshold=binary_threshold,
+            return_probabilities=return_probabilities,
+            recover_labels=recover_labels,
+            data=self.data,
+        )
+
+    @property
+    def inference(self) -> "FusedInference":
+        return FusedInference(self.pipelines)
+
+
+class FusedEvaluationPipeline(FusedInferencePipeline):
+    """`evaluate`: the first member's metrics on the fused predictions."""
+
+    def evaluate(self, loader_or_x: Any, y: Any = None, **kwargs: Any) -> MetricsOutputs:
+        config = self.pipelines[0].config
+        metrics = IMetric.fuse(config.metric_names or "acc", config.metric_configs,
+                               metric_weights=config.metric_weights)
+        loader = self.pipelines[0]._as_loader(loader_or_x, y, 128)
+        outputs = self.inference.get_outputs(loader, metrics=metrics, return_outputs=False)
+        assert outputs.metric_outputs is not None
+        return outputs.metric_outputs
+
+
+class FusedInference:
+    """Loader-level fusion: every member runs on a copy of the same loader,
+    the outputs are averaged, and the metrics scored on the average."""
+
+    def __init__(self, pipelines: List[DLInferencePipeline]) -> None:
+        self.pipelines = pipelines
+        self.model = pipelines[0].model
+
+    def get_outputs(self, loader: IDataLoader, **kwargs: Any) -> InferenceOutputs:
+        metrics = kwargs.pop("metrics", None)
+        sub_kwargs = dict(kwargs, return_outputs=True)
+        if metrics is not None:
+            sub_kwargs["return_labels"] = True
+        members = [p.inference.get_outputs(loader.copy(), **sub_kwargs) for p in self.pipelines]
+        fused = {k: np.mean([o.forward_results[k] for o in members], axis=0) for k in members[0].forward_results}
+        first = members[0]
+        metric_outputs = first.metric_outputs
+        if metrics is not None:
+            metric_outputs = metrics.evaluate({LABEL_KEY: first.labels}, fused)
+        return InferenceOutputs(fused, first.labels, metric_outputs, first.loss_items)

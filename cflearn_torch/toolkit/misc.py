@@ -176,3 +176,28 @@ def is_local_rank_0() -> bool:
     import torch.distributed as dist
 
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def random_hash() -> str:
+    """A short unique id (for temporary registrations)."""
+    import uuid
+
+    return uuid.uuid4().hex
+
+
+def make_indices_visualization_map(indices: Any) -> np.ndarray:
+    """Each index rendered as a 28 x 28 white tile with its number drawn in
+    the centre (a VQ-VAE codebook's visualisation), as float NHWC in
+    [-1, 1]. Needs PIL."""
+    from PIL import Image, ImageDraw
+
+    tiles = []
+    for idx in np.asarray(indices).reshape(-1):
+        img = Image.new("L", (28, 28), 255)
+        draw = ImageDraw.Draw(img)
+        text = str(int(idx))
+        bbox = draw.textbbox((0, 0), text)
+        tw, th = bbox[2] - bbox[0], bbox[3] - bbox[1]
+        draw.text(((28 - tw) / 2 - bbox[0], (28 - th) / 2 - bbox[1]), text, fill=0)
+        tiles.append(np.asarray(img, np.float32) / 127.5 - 1.0)
+    return np.stack(tiles)[..., None]

@@ -274,15 +274,32 @@ Phases, in order; any failure exits non-zero:
    train step's shape, `tab785_f32`), the first step's parity (its drift
    also counting the plain path with the attention's operands rounded to
    TF32, the f32 kernels' own rounding), the loaded predictions bit for bit.
-22. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+22. the rest of the framework — `prepare_image_folder` packs 512 seeded
+   JPEGs (400-480 px, 10 classes) at 384 px into rcache stores built from the
+   port's own source; three ViT-S/16 "clf" members train from the packed
+   folder through `ImageFolderData`, the normalize blocks and
+   `DLTrainingPipeline.fit` (batch 32, 16 steps, `ImageClassificationCallback`
+   writing its grids), exact launches; `fuse_inference` over their folders
+   predicts the members' mean bit for bit and `fuse_evaluation` scores it;
+   member 0 and phase 20's `ae_kl` (bf16, posterior mode) through
+   `export_model` / `load_exported` on the card (the program's kernel
+   operation nodes equal to the eager forward's launches, one call launching
+   them, outputs bit for bit) and `aot_compile` (CUDA-graph replays bit for
+   bit, launches = captures x replays); `GeneralEvaluationPipeline` over a
+   predictor of member 0 scoring what its `evaluate` scores; `VQVAEInference`
+   over a 64 px `vq_vae` (the code export, a PixelCNN prior, samples, no
+   kernel). Prints the prepare's seconds, ms a step, each write's and
+   callback's ms, the fused predict's rows/s beside a member's, the exports'
+   trace seconds and the eager, exported and captured forwards' device ms.
+23. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
    the style and tiling, the SD v2 and v2 finetune, the CV models', the
-   framework's and the tabular readings on lines of their own, the card's name
-   and power limit, and last `{"ok": true,
-   "device": {...}}`. The per-shape rows also go to
+   framework's, the tabular and the rest of the framework's readings on
+   lines of their own, the card's name and power limit, and last `{"ok":
+   true, "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
 
 Imports nothing of JAX or of `cflearn_tpu`. Exits non-zero, printing no
@@ -3069,8 +3086,12 @@ def phase_framework(torch, np, cflearn_torch, A, Cv, Gn, bare_step_ms: float) ->
     check(ae_steps == AE_STEPS, f"ae_kl: {ae_steps} steps")
     check(ae_losses and all(math.isfinite(v) for v in ae_losses.values()), f"ae_kl losses {ae_losses}")
     check(ae_launches == want, f"ae_kl launches {ae_launches} != {want}")
+    # the trained model, kept for phase 22's export (which removes it)
+    ae_saved = os.path.join(tempfile.mkdtemp(prefix="framework_ae_"), "ae_kl.npz")
+    ae_p.model.save(ae_saved)
     out["ae_kl"] = {"steps": ae_steps, "batch": AE_BATCH, "fit_s": ae_s, "peak_memory_gib": ae_peak,
-                    "losses": ae_losses, "launches": {k: v for k, v in ae_launches.items() if v}}
+                    "losses": ae_losses, "launches": {k: v for k, v in ae_launches.items() if v},
+                    "saved_model": ae_saved}
     del ae_p
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
@@ -3524,6 +3545,386 @@ def phase_tabular(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
                           "predict_rows_per_s": len(rows) / predict_s, "predictions_bit_equal": same,
                           "calls": calls, "parity": parity, "last_losses": losses[-1]}
     del p, loaded, model, trainer, rec, x
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# phase 22: the rest of the framework — image folders, the CV blocks, fit, the image callbacks, ensembles, export,
+# CUDA-graph capture, third-party evaluation, VQVAEInference
+
+CVF_IMAGES = 512  # seeded images in CVF_CLASSES class folders, sides in CVF_SIDES
+CVF_CLASSES = 10
+CVF_SIDES = (400, 480)
+CVF_SIZE = 384  # ResizedPreparation(384): the ViT-S/16 at 384 px (H6 L577 d256: rows 1, 3, 4)
+CVF_BATCH = 32
+CVF_STEPS = 16
+CVF_MEMBERS = (0, 1, 2)  # the ensemble's seeds
+CVF_VALID_SPLIT = 0.1  # 51 validation images
+CVF_BLOCKS = {"block_names": ["static_normalize", "affine_normalize"],
+              "block_configs": {"affine_normalize": {"center": 0.5, "scale": 0.5}}}  # uint8 -> [-1, 1]
+CVF_REPLAYS = 3
+VQI_IMAGES, VQI_SIZE, VQI_BATCH, VQI_STEPS, VQI_SAMPLES = 256, 64, 64, 4, 16
+
+
+def make_image_folder(np, src: str, seed: int) -> bool:
+    """CVF_IMAGES images in CVF_CLASSES class folders, sides drawn from CVF_SIDES, each a class colour over a
+    smooth ramp plus noise in 4 x 4 blocks; JPEG (quality 95) where PIL imports (returns True), else `.npy`
+    arrays (returns False)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    rs = np.random.RandomState(seed)
+    colours = rs.randint(40, 216, (CVF_CLASSES, 3))
+    for i in range(CVF_IMAGES):
+        c = i % CVF_CLASSES
+        folder = os.path.join(src, f"class_{c}")
+        os.makedirs(folder, exist_ok=True)
+        h, w = rs.randint(CVF_SIDES[0], CVF_SIDES[1] + 1, 2)
+        ramp = np.linspace(-30.0, 30.0, w)[None, :, None] + np.linspace(-20.0, 20.0, h)[:, None, None]
+        noise = rs.randint(-40, 41, (-(-h // 4), -(-w // 4), 3)).repeat(4, 0).repeat(4, 1)[:h, :w]
+        img = np.clip(colours[c] + ramp + noise, 0, 255).astype(np.uint8)
+        if Image is None:
+            np.save(os.path.join(folder, f"{i:04d}.npy"), img)
+        else:
+            Image.fromarray(img).save(os.path.join(folder, f"{i:04d}.jpg"), quality=95)
+    return Image is not None
+
+
+def phase_cv_framework(torch, np, cflearn_torch, A, Cv, Gn, ae_saved: str) -> dict:
+    """The rest of the framework as its users run it, at full width, f32 unless said:
+    1. an image folder made from a seed (CVF_IMAGES images of 400-480 px in 10 classes, JPEG), packed by
+       `prepare_image_folder` at 384 px (`ResizedPreparation(384)`) into rcache stores built from the port's
+       own source (`cflearn_torch/native/rcache.cpp`); without PIL the same arrays are written as `.npy` and
+       packed by the same step (a line says so);
+    2. three members trained from it: `ImageFolderData` -> the CV blocks (`static_normalize`,
+       `affine_normalize`: [-1, 1]) -> `DLTrainingPipeline.fit` of "clf" with the ViT-S/16 encoder (phase 19's
+       config) at batch 32, CVF_STEPS steps, "acc" every monitor, `ImageClassificationCallback` writing its
+       grid, each from its own seed; then `save`. Gates: finite losses, exact launches (12 `flash_fwd_lse` and
+       12 `flash_bwd_fused` a step, 12 `flash_attention` an evaluation batch), the callback's grid on disk;
+    3. `fuse_inference` over the three folders: `predict` on the valid split equals the mean of the members'
+       own raw predictions, bit for bit; `fuse_evaluation` scores the fused outputs (its accuracy that of the
+       fused predictions);
+    4. member 0 exported (`export_model`, then `load_exported` on the card): exactly the flash operation nodes
+       the eager forward launches (12), one call moving the launch counter by as many, the outputs bit for bit
+       the eager `predict`'s at the export's batch (else within PARITY_FACTOR x the one-ulp drift);
+    5. phase 20's trained `ae_kl` (bf16 compute, its posterior mode) exported the same way: the conv, GroupNorm
+       and flash operation nodes equal to its eager forward's launches, one call launching them, bit for bit;
+    6. `aot_compile` of member 0 and of the `ae_kl`: the CUDA-graph replay bit for bit the eager forward, the
+       capture's launches the eager forward's, the counters still during replays (launches = captures x
+       replays);
+    7. `GeneralEvaluationPipeline` over an `IPredictor` that returns member 0's predictions: the accuracy that
+       `load_evaluation(...).evaluate` gives member 0;
+    8. `VQVAEInference` over a "vq_vae" at 64 px (phase 19's config) fitted by `fit_array`: the code export,
+       a "pixel_cnn" prior fitted VQI_STEPS steps on the codes, `sample`; no kernel launched.
+    Reports the prepare's seconds, ms a step through the `Trainer`, each write's and callback's ms, the fused
+    predict's rows/s beside a member's own, the export's trace seconds, and the eager, exported and captured
+    forwards' device ms (CUDA-graph replay; the captured one by its own replay)."""
+    import shutil
+    import tempfile
+
+    from cflearn_torch.callbacks.generator import ImageClassificationCallback
+    from cflearn_torch.data.cv import image_folder as IF
+    from cflearn_torch.data.utils import ArrayDataset, ArrayLoader
+    from cflearn_torch.native import has_native
+    from cflearn_torch.pipeline.export import KERNEL_OPS
+    from cflearn_torch.schema.data import DataProcessorConfig
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"cv framework: {msg}")
+
+    out = {"card": card_line()}
+    root = tempfile.mkdtemp(prefix="cv_framework_")
+    src, packed = os.path.join(root, "images"), os.path.join(root, "packed")
+
+    # 1. the image folder, packed
+    t0 = time.perf_counter()
+    pil = make_image_folder(np, src, 20)
+    made_s = time.perf_counter() - t0
+    check(has_native(), "the rcache library did not build from cflearn_torch/native/rcache.cpp")
+    preparation = IF.ResizedPreparation(CVF_SIZE)
+    saved_loader = IF._load_image
+    if not pil:
+        print("cv framework: PIL is not importable here: the seeded images are written as .npy arrays and "
+              "packed by the same prepare_image_folder step (its decode reads the arrays)")
+        preparation.is_ready = lambda path: path.endswith(".npy")
+        IF._load_image = np.load
+    np.random.seed(20)
+    t0 = time.perf_counter()
+    try:
+        cflearn_torch.prepare_image_folder(src, packed, preparation=preparation, valid_split=CVF_VALID_SPLIT)
+    finally:
+        IF._load_image = saved_loader
+    prepare_s = time.perf_counter() - t0
+    with open(os.path.join(packed, "meta.json")) as f:
+        meta = json.load(f)
+    counts = {k: sum(s["num"] for s in v) for k, v in meta["shards"].items()}
+    print(f"cv framework: {CVF_IMAGES} images ({'JPEG' if pil else 'npy'}) made in {made_s:.2f} s, packed at "
+          f"{CVF_SIZE} px into rcache stores in {prepare_s:.2f} s ({prepare_s / CVF_IMAGES * 1e3:.1f} ms an image: "
+          f"decode, resize on the host, write), splits {counts}, {len(meta['classes'])} classes [{out['card']}]")
+    check(meta["native"] and meta["image_shape"] == [CVF_SIZE, CVF_SIZE, 3] and sum(counts.values()) == CVF_IMAGES
+          and len(meta["classes"]) == CVF_CLASSES, f"packed folder {meta}")
+    out["prepare"] = {"images": CVF_IMAGES, "pil": pil, "make_s": made_s, "prepare_s": prepare_s, "splits": counts}
+
+    def image_data(batch_size):
+        config = cflearn_torch.DataConfig()
+        config.batch_size = config.valid_batch_size = batch_size
+        return cflearn_torch.ImageFolderData.from_folder(packed, config=config,
+                                                         processor_config=DataProcessorConfig(**CVF_BLOCKS))
+
+    # 2. three members trained from the folder, each written with its callback's grids
+    callback_ms = []
+    log_artifacts = ImageClassificationCallback.log_artifacts
+
+    def timed_log_artifacts(self, trainer):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        log_artifacts(self, trainer)
+        callback_ms.append((time.perf_counter() - t) * 1e3)
+
+    folders, members_out = [], []
+    ImageClassificationCallback.log_artifacts = timed_log_artifacts
+    try:
+        for seed in CVF_MEMBERS:
+            rec = {}
+            callback_ms.clear()
+            with recording_fit(torch, rec):
+                config = cflearn_torch.DLConfig(
+                    **vit_config(CVF_SIZE), seed=seed, workspace=os.path.join(root, f"member_{seed}"),
+                    metric_names=["acc"], min_num_sample=0, num_snapshot_per_epoch=2, fixed_steps=CVF_STEPS,
+                    max_snapshot_file=1, callback_names=["image_classification"],
+                )
+                reset_launches(A, Cv, Gn)
+                np.random.seed(seed)
+                t0 = time.perf_counter()
+                p = cflearn_torch.DLTrainingPipeline.init(config).fit(image_data(CVF_BATCH))
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+                launches = read_launches(A, Cv, Gn)
+            steps = p.trainer.state.step
+            want = dict.fromkeys(launches, 0)
+            want.update(flash_fwd_lse=VIT_LAYERS * steps, flash_bwd_fused=VIT_LAYERS * steps,
+                        flash_attention=VIT_LAYERS * rec["batches"])
+            losses = [v.item() for items in rec["items"] for v in items.values()]
+            grids = sorted(os.path.relpath(os.path.join(r, f), p.trainer.workspace)
+                           for r, _, fs in os.walk(os.path.join(p.trainer.workspace, "images")) for f in fs)
+            t0 = time.perf_counter()
+            saved = cflearn_torch.save(p, os.path.join(root, f"saved_{seed}"))
+            save_ms = (time.perf_counter() - t0) * 1e3
+            step_ms = min(rec["windows"]) if rec["windows"] else float("nan")
+            print(f"cv framework[member {seed}]: {steps} steps at batch {CVF_BATCH} in {fit_s:.2f} s, {step_ms:.2f} ms "
+                  f"a step through the Trainer (of {[round(w, 2) for w in rec['windows']]}), evaluation passes "
+                  f"{[round(e, 1) for e in rec['evals']]} ms ({rec['batches']} batches), checkpoint writes "
+                  f"{[round(w, 1) for w in rec['writes']]} ms, image_classification callback "
+                  f"{[round(c, 1) for c in callback_ms]} ms ({grids}), save {save_ms:.1f} ms; launches "
+                  f"{json.dumps({k: v for k, v in launches.items() if v})} [{out['card']}]")
+            check(steps == CVF_STEPS and losses and all(math.isfinite(v) for v in losses), f"member {seed}: losses")
+            check(launches == want, f"member {seed}: launches {launches} != {want}")
+            check(grids and all(g.endswith("batch.png") for g in grids) and len(grids) == len(callback_ms),
+                  f"member {seed}: the callback's grids {grids}")
+            folders.append(saved)
+            members_out.append({"seed": seed, "steps": steps, "fit_s": fit_s, "trainer_step_ms": step_ms,
+                                "step_windows_ms": rec["windows"], "eval_passes_ms": rec["evals"],
+                                "checkpoint_writes_ms": rec["writes"], "callback_ms": list(callback_ms),
+                                "save_ms": save_ms, "grids": grids,
+                                "launches": {k: v for k, v in launches.items() if v}})
+            del p, rec
+            torch.cuda.empty_cache()
+    finally:
+        ImageClassificationCallback.log_artifacts = log_artifacts
+    out["members"] = members_out
+
+    # 3. the ensemble: the fused predict is the members' mean, bit for bit
+    valid_loader = image_data(CVF_BATCH).get_loaders()[1]
+    n_valid = len(valid_loader.dataset)
+    members = [cflearn_torch.load_inference(f) for f in folders]
+    own = []
+    for m in members:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        own.append(m.predict(valid_loader)["predictions"])
+        torch.cuda.synchronize()
+        member_s = time.perf_counter() - t0
+    fused = cflearn_torch.fuse_inference(folders)
+    fused.predict(valid_loader)
+    reset_launches(A, Cv, Gn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_pred = fused.predict(valid_loader)["predictions"]
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_launches = read_launches(A, Cv, Gn)
+    mean = np.mean(own, axis=0)
+    same = bool(np.array_equal(fused_pred, mean))
+    evaluation = cflearn_torch.fuse_evaluation(folders).evaluate(valid_loader)
+    labels = valid_loader.get_full_batch()["labels"][:, 0]
+    fused_acc = float(np.mean(np.argmax(mean, -1) == labels))
+    valid_batches = -(-n_valid // CVF_BATCH)
+    print(f"cv framework[fuse]: {len(folders)} members, predict of the {n_valid} validation images "
+          f"{fused_s * 1e3:.1f} ms "
+          f"({n_valid / fused_s:.1f} rows/s; a member alone {member_s * 1e3:.1f} ms, {n_valid / member_s:.1f} rows/s), "
+          f"the members' mean bit for bit: {same}; fuse_evaluation {json.dumps(evaluation.metric_values)} (accuracy of "
+          f"the fused predictions {fused_acc:.4f}); launches "
+          f"{json.dumps({k: v for k, v in fused_launches.items() if v})} "
+          f"[{out['card']}]")
+    check(same, "the fused predictions are not the members' mean")
+    check(abs(evaluation.metric_values["acc"] - fused_acc) <= 1e-12,
+          "fuse_evaluation does not score the fused predictions")
+    want = dict.fromkeys(fused_launches, 0)
+    want["flash_attention"] = VIT_LAYERS * valid_batches * len(folders)
+    check(fused_launches == want, f"fused predict launches {fused_launches} != {want}")
+    out["fuse"] = {"members": len(folders), "rows": n_valid, "fused_ms": fused_s * 1e3,
+                   "fused_rows_per_s": n_valid / fused_s,
+                   "member_ms": member_s * 1e3, "member_rows_per_s": n_valid / member_s, "mean_bit_for_bit": same,
+                   "evaluation": evaluation.metric_values, "launches": {k: v for k, v in fused_launches.items() if v}}
+
+    def kernel_launches(fn):
+        reset_launches(A, Cv, Gn)
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+
+    def export_case(label, model, batch, forward_kwargs, eager_reference):
+        """export_model -> load_exported of `model` at `batch`; aot_compile; the gates of steps 4-6."""
+        with torch.no_grad():
+            eager, eager_launches = kernel_launches(lambda: model.run(
+                {k: v.clone() for k, v in batch.items()}, training=False, **forward_kwargs))
+        folder = os.path.join(root, f"export_{label}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cflearn_torch.export_model(model, batch, folder, forward_kwargs=forward_kwargs)
+        export_s = time.perf_counter() - t0
+        exported = cflearn_torch.load_exported(folder, device="cuda")
+        ops = exported.op_counts()
+        node_launches = {KERNEL_OPS[k]: v for k, v in ops.items()}
+        got, exported_launches = kernel_launches(lambda: exported(batch))
+        reference = eager_reference if eager_reference is not None else eager["predictions"]
+        bit = bool(torch.equal(got["predictions"], reference))
+        if not bit:
+            with torch.no_grad():
+                moved = model.run({k: bump_ulp(torch, v) if v.is_floating_point() else v for k, v in batch.items()},
+                                  training=False, **forward_kwargs)["predictions"]
+            drift = rel_err(moved.float(), eager["predictions"].float())
+            off = rel_err(got["predictions"].float(), reference.float())
+            print(f"cv framework[{label}]: the exported forward is {off:.3e} from the eager one (the one-ulp drift "
+                  f"{drift:.3e}); the program's non-kernel nodes are torch.export's: "
+                  f"{sorted({str(n.target) for n in exported.program.graph.nodes if n.op == 'call_function'})[:12]}")
+            check(off <= PARITY_FACTOR * drift, f"{label}: the exported forward disagrees with the eager one")
+        compiled = cflearn_torch.aot_compile(model, batch, forward_kwargs=forward_kwargs)
+        reset_launches(A, Cv, Gn)
+        replayed = [compiled(batch)["predictions"] for _ in range(CVF_REPLAYS)]
+        torch.cuda.synchronize()
+        during_replays = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+        replay_bit = all(torch.equal(r, reference) for r in replayed)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CVF_REPLAYS):
+            compiled.replay()
+        end.record()
+        torch.cuda.synchronize()
+        captured_ms = start.elapsed_time(end) / CVF_REPLAYS
+        with torch.no_grad():
+            eager_ms = device_ms(torch, lambda: model.run(batch, training=False, **forward_kwargs), calls=2, replays=2)
+            exported_ms = device_ms(torch, lambda: exported.module(batch), calls=2, replays=2)
+        print(f"cv framework[{label}]: export traced and saved in {export_s:.2f} s; program nodes {json.dumps(ops)}, "
+              f"eager launches {json.dumps(eager_launches)}, one exported call {json.dumps(exported_launches)}; "
+              f"outputs bit for bit: {bit}; aot_compile: {compiled.replays} replays bit for bit: {replay_bit}, the "
+              f"capture's launches {json.dumps(compiled.launches_per_replay)} x {compiled.replays} replays, counters "
+              f"during the replays {json.dumps(during_replays)}; device ms a forward (CUDA-graph replay): eager "
+              f"{eager_ms:.3f}, exported {exported_ms:.3f}, aot_compile {captured_ms:.3f} [{out['card']}]")
+        check(node_launches == eager_launches, f"{label}: program nodes {ops} against eager launches {eager_launches}")
+        check(exported_launches == eager_launches, f"{label}: an exported call launched {exported_launches}")
+        check(compiled.launches_per_replay == eager_launches and compiled.replays == 2 * CVF_REPLAYS
+              and not during_replays, f"{label}: the capture launched {compiled.launches_per_replay}, replays moved "
+              f"the counters {during_replays}")
+        check(replay_bit, f"{label}: the CUDA-graph replay differs from the eager forward")
+        return {"export_s": export_s, "program_ops": ops, "eager_launches": eager_launches,
+                "exported_launches": exported_launches, "bit_for_bit": bit, "aot_bit_for_bit": replay_bit,
+                "aot_launches_per_replay": compiled.launches_per_replay, "aot_replays": compiled.replays,
+                "device_ms": {"eager": eager_ms, "exported": exported_ms, "aot_compile": captured_ms}}
+
+    # 4. member 0 exported at the validation loader's first batch; its predict's rows for it as the reference
+    model = members[0].model
+    first = next(iter(valid_loader))
+    vit_batch = {"input": torch.from_numpy(first["input"]).cuda()}
+    out["export_vit"] = export_case("vit", model, vit_batch, {}, torch.from_numpy(own[0][:CVF_BATCH]).cuda())
+    check(out["export_vit"]["program_ops"] == {"cflearn_torch::flash_attention": VIT_LAYERS},
+          f"the exported ViT holds {out['export_vit']['program_ops']}")
+
+    # 5. phase 20's ae_kl, bf16 compute, the posterior's mode
+    ae = cflearn_torch.IDLModel.load(ae_saved, device="cuda")
+    ae.m.to(torch.bfloat16)
+    side = AE_CONFIG["img_size"]
+    ae_x = (torch.rand((AE_BATCH, side, side, 3), generator=torch.Generator().manual_seed(22)) * 2 - 1)
+    ae_batch = {"input": ae_x.to("cuda", torch.bfloat16)}
+    out["export_ae_kl"] = export_case("ae_kl", ae, ae_batch, {"sample": False}, None)
+    check(set(out["export_ae_kl"]["program_ops"]) == {"cflearn_torch::conv3x3", "cflearn_torch::group_norm_silu",
+                                                      "cflearn_torch::flash_attention"},
+          f"the exported ae_kl holds {out['export_ae_kl']['program_ops']}")
+    del ae, ae_batch
+    shutil.rmtree(os.path.dirname(ae_saved), ignore_errors=True)
+
+    # 7. a third-party predictor scored by the framework's metrics: member 0's own predictions
+    class MemberPredictor(cflearn_torch.IPredictor):
+        def predict(self, x):
+            return members[0].predict(ArrayLoader(ArrayDataset({"input": x}), batch_size=CVF_BATCH))["predictions"]
+
+    general = cflearn_torch.GeneralEvaluationPipeline(cflearn_torch.DLConfig(metric_names=["acc"]), MemberPredictor())
+    third = general.evaluate(valid_loader).metric_values
+    own_eval = cflearn_torch.load_evaluation(folders[0]).evaluate(valid_loader).metric_values
+    print(f"cv framework[third party]: GeneralEvaluationPipeline {json.dumps(third)}, member 0's evaluate "
+          f"{json.dumps(own_eval)}")
+    # one accuracy of the full batch against the batches' accuracies weighted by their sizes: equal to rounding
+    check(abs(third["acc"] - own_eval["acc"]) <= 1e-12, "the third-party score differs from the member's own")
+    out["third_party"] = {"general": third, "member": own_eval}
+    del members, fused, model
+    torch.cuda.empty_cache()
+
+    # 8. VQVAEInference over a 64 px vq_vae: the code export, a PixelCNN prior, samples; no kernel on this path
+    gen = torch.Generator().manual_seed(23)
+    vq_x = (torch.rand((VQI_IMAGES, VQI_SIZE, VQI_SIZE, 3), generator=gen) * 2 - 1).numpy()
+    data_config = cflearn_torch.DataConfig()
+    data_config.batch_size = VQI_BATCH
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    vq = cflearn_torch.fit_array(vq_x[:192], None, vq_x[192:], config=cflearn_torch.DLConfig(
+        model="vq_vae", module_name="vq_vae", workspace=os.path.join(root, "vq"), fixed_steps=VQI_STEPS,
+        min_num_sample=0, callback_names=[], metric_names=None), data_config=data_config, skip_final_evaluation=True)
+    torch.cuda.synchronize()
+    vq_fit_ms = (time.perf_counter() - t0) * 1e3
+    prior_config = cflearn_torch.DLConfig(model="ar", module_name="pixel_cnn", module_config={
+        "num_codes": vq.model.m.num_codes, "img_size": vq.model.m.latent_resolution, "in_channels": 1},
+        workspace=os.path.join(root, "prior"), fixed_steps=VQI_STEPS, min_num_sample=0, callback_names=[])
+    t0 = time.perf_counter()
+    inference = cflearn_torch.VQVAEInference(prior_config, workspace=os.path.join(root, "vq_inference"),
+                                             vqvae_log_folder=vq.trainer.workspace)
+    codes_data = cflearn_torch.ArrayData.init(data_config).fit(vq_x[:192], None, vq_x[192:])
+    inference.export_code_indices(codes_data, inference.code_export_folder)
+    torch.cuda.synchronize()
+    codes_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    inference.fit(codes_data, data_config)
+    torch.cuda.synchronize()
+    prior_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    samples = inference.sample(VQI_SAMPLES)
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    vq_launches = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+    codes = np.load(os.path.join(inference.code_export_folder, "train.npy"))
+    print(f"cv framework[vq_vae inference]: vq_vae fit_array {VQI_STEPS} steps at {VQI_SIZE} px {vq_fit_ms:.1f} ms; "
+          f"pack, load and the code export of {VQI_IMAGES} images {codes_ms:.1f} ms (codes {codes.shape}); the "
+          f"pixel_cnn prior fit {VQI_STEPS} steps {prior_ms:.1f} ms; sample {VQI_SAMPLES} images {sample_ms:.1f} ms "
+          f"{samples.shape}; launches {json.dumps(vq_launches)} [{out['card']}]")
+    check(codes.shape[1:] == (inference.vqvae.latent_resolution,) * 2 and codes.max() < inference.vqvae.num_codes,
+          f"codes {codes.shape}")
+    check(samples.shape == (VQI_SAMPLES, VQI_SIZE, VQI_SIZE, 3) and bool(np.isfinite(samples).all()), "samples")
+    check(not vq_launches, f"kernels launched on the VQ-VAE path: {vq_launches}")
+    out["vq_vae_inference"] = {"vq_fit_ms": vq_fit_ms, "codes_ms": codes_ms, "prior_fit_ms": prior_ms,
+                               "sample_ms": sample_ms, "codes_shape": list(codes.shape)}
+    del vq, inference
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4340,7 +4741,11 @@ def main() -> int:
     tab_out = phase_tabular(torch, np, F, cflearn_torch, A, Cv, Gn)
     print(f"tabular: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 22. summary
+    # 22. the rest of the framework: image folders, the CV blocks, ensembles, export, aot_compile, VQVAEInference
+    cvf_out = phase_cv_framework(torch, np, cflearn_torch, A, Cv, Gn, fw_out["ae_kl"]["saved_model"])
+    print(f"cv framework: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 23. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -4443,7 +4848,7 @@ def main() -> int:
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
-                   "framework": fw_out, "tabular": tab_out,
+                   "framework": fw_out, "tabular": tab_out, "cv_framework": cvf_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -4465,6 +4870,7 @@ def main() -> int:
     print(json.dumps({"tabular": {k: {kk: vv for kk, vv in v.items() if kk not in ("calls", "launches_all",
                                                                                    "predict_launches_all")}
                                   for k, v in tab_out.items()}}))
+    print(json.dumps({"cv_framework": cvf_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -788,3 +788,80 @@ def test_fit_ml_transformer_on_the_card(cuda, tmp_path, monkeypatch) -> None:
     assert all(np.isfinite(v) for v in p.trainer.final_results.metric_values.values())
     loaded = cflearn_torch.load_inference(cflearn_torch.save(p, str(tmp_path / "saved")))
     assert np.array_equal(loaded.predict(x[:20])["predictions"], p.predict(x[:20])["predictions"])
+
+
+def _small_vit(cuda_device: str = "cuda"):
+    import cflearn_torch
+
+    return cflearn_torch.IDLModel.from_config(cflearn_torch.DLConfig(
+        model="common", module_name="clf", loss_name="cross_entropy", module_config=dict(
+            img_size=64, in_channels=3, num_classes=5, encoder="vit", latent_dim=32,
+            encoder_config=dict(patch_size=4, num_layers=2, num_heads=2))), device=cuda_device)
+
+
+def _launches():
+    from cflearn_torch.ops import launch_counts
+
+    return launch_counts()
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+
+
+@pytest.mark.parametrize("model", ["vit", "ae_kl"])
+def test_export_carries_the_kernel_operations(cuda, tmp_path, model) -> None:
+    """`export_model` -> `load_exported` on the card: a small ViT (257 tokens: the flash operation) and a small
+    `ae_kl` in bf16 at 128 px (64 channels at 128^2: the conv; GroupNorm; the 32^2 mid-block attention), its
+    posterior's mode. The program holds one kernel operation node for each launch of the eager forward, one
+    call of it launches the same kernels, and its outputs are the eager forward's bit for bit."""
+    import cflearn_torch
+    from cflearn_torch.pipeline.export import KERNEL_OPS
+
+    if model == "vit":
+        m, kwargs = _small_vit(), {}
+        batch = {"input": torch.rand((4, 64, 64, 3), generator=cuda, device="cuda") * 2 - 1}
+    else:
+        m = cflearn_torch.build_ae(dict(img_size=128, inner_channels=64, channel_multipliers=[1, 2, 2],
+                                        num_res_blocks=1, use_perceptual=False), device="cuda", dtype=torch.bfloat16)
+        kwargs = {"sample": False}
+        batch = {"input": (torch.rand((2, 128, 128, 3), generator=cuda, device="cuda") * 2 - 1).bfloat16()}
+    before = _launches()
+    with torch.no_grad():
+        eager = m.run(batch, training=False, **kwargs)["predictions"]
+    torch.cuda.synchronize()
+    eager_launches = _moved(before)
+    exported = cflearn_torch.load_exported(
+        cflearn_torch.export_model(m, batch, str(tmp_path), forward_kwargs=kwargs), device="cuda")
+    before = _launches()
+    out = exported(batch)["predictions"]
+    torch.cuda.synchronize()
+    assert _moved(before) == eager_launches
+    assert {KERNEL_OPS[k]: v for k, v in exported.op_counts().items()} == eager_launches
+    want = {"flash_attention"} if model == "vit" else {"flash_attention", "conv3x3", "group_norm"}
+    assert set(eager_launches) == want
+    assert torch.equal(out, eager)
+
+
+def test_aot_compile_replays_the_forward(cuda) -> None:
+    """`aot_compile` of a small ViT on the card: the capture launches what the eager forward launches, a replay
+    moves no counter (launches = captures x replays), and every replay gives the eager forward bit for bit, on
+    new inputs too."""
+    import cflearn_torch
+
+    m = _small_vit()
+    x1 = torch.rand((4, 64, 64, 3), generator=cuda, device="cuda")
+    x2 = torch.rand((4, 64, 64, 3), generator=cuda, device="cuda")
+    before = _launches()
+    with torch.no_grad():
+        eager = [m.run({"input": x}, training=False)["predictions"] for x in (x1, x2)]
+    torch.cuda.synchronize()
+    per_forward = {k: v // 2 for k, v in _moved(before).items()}
+    compiled = cflearn_torch.aot_compile(m, {"input": x1})
+    assert compiled.graph is not None and compiled.launches_per_replay == per_forward == {"flash_attention": 2}
+    before = _launches()
+    for _ in range(2):
+        for x, ref in zip((x1, x2), eager):
+            assert torch.equal(compiled({"input": x})["predictions"], ref)
+    torch.cuda.synchronize()
+    assert _moved(before) == {} and compiled.replays == 4
