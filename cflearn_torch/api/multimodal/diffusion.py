@@ -8,7 +8,19 @@ every registered sampler; ToMe, DeepCache, style reference (`setup_hooks`),
 tiling mode (`switch_circular`), LoRA packs, an SD weight pool; and
 multi-ControlNet sampling with per-hint scales and start / end gating.
 `from_sd` / `from_sd_inpainting`, `from_inpainting` and `from_semantic`
-build the zoo's models with seeded random weights.
+build the zoo's models with seeded random weights. `ControlledDiffusionAPI`
+also runs the hint annotators (`get_hint_of`).
+
+`compile(num_samples, size, ...)` is the JAX package's ahead-of-time
+compile of one shape bucket, here as CUDA graphs: in a compiled bucket each
+distinct UNet call of the sampler loop (the full pass, and DeepCache's
+shallow pass) is captured once (`ops.graphs.CapturedCall`, the graphs of an
+API sharing one memory pool) and replayed on every later call; DeepCache's
+feature stays in the full graph's static output, which the shallow graph
+reads in place. Every switch that would make the JAX package drop its
+compiled programs drops the graphs, and the next call in the bucket
+captures them again. On the CPU `compile` captures nothing and the calls
+run eagerly.
 
 The JAX package compiles each call into one cached program; here the calls
 run the modules directly on the API's device (the CUDA card unless the
@@ -41,6 +53,7 @@ from ...modules.multimodal.diffusion.samplers import ISampler
 from ...modules.multimodal.diffusion.unet import style_reference_write_gates
 from ...modules.multimodal.diffusion.utils import CONCAT_TYPE, CROSS_ATTN_TYPE, HYBRID_TYPE
 from ...modules.nlp.tokenizers import CLIPTokenizer
+from ...ops.graphs import CapturedCall
 from ...pipeline import default_tokenizer
 from ...toolkit.misc import slerp
 from ..common import Weights
@@ -241,6 +254,74 @@ def recover_masked_area(
     return out
 
 
+def _signature(tree: Any) -> Any:
+    """The shapes and dtypes of a tensor, a dict of them, or None."""
+    if torch.is_tensor(tree):
+        return tuple(tree.shape), tree.dtype
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(tree.items()))
+    return tree
+
+
+def _clone(tree: Any) -> Any:
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree
+
+
+class _GraphedModel:
+    """The model as a sampler sees it in a compiled bucket: every attribute
+    is the model's, and `denoise` replays the CUDA graph of its signature
+    (captured at its first call). The eps output is copied out of the
+    graph's static tensor, since the next replay overwrites it and the
+    multistep samplers keep past outputs; DeepCache's feature is handed on
+    as the full graph's static output, which the shallow graph reads in
+    place. A call with more than the UNet (controls, hooks) raises: a
+    compiled bucket never runs part of its loop eagerly."""
+
+    def __init__(self, api: "DiffusionAPI") -> None:
+        self._api = api
+        self._m = api.m
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._m, name)
+
+    def _static_cache(self, cache: torch.Tensor) -> bool:
+        return any(isinstance(c.static_outputs, tuple) and c.static_outputs[1] is cache for c in self._api._graphs.values())
+
+    def denoise(
+        self,
+        net: torch.Tensor,
+        timesteps: torch.Tensor,
+        cond: Optional[Any] = None,
+        *,
+        deep_cache: Optional[torch.Tensor] = None,
+        return_cache: bool = False,
+        **kwargs: Any,
+    ) -> Any:
+        if kwargs:
+            raise NotImplementedError(f"a compiled bucket captures the UNet call alone, not with {sorted(kwargs)}")
+        api = self._api
+        inputs: Dict[str, Any] = {"net": net, "timesteps": timesteps, "cond": cond}
+        if deep_cache is not None:
+            inputs["deep_cache"] = deep_cache
+        key = tuple((k, _signature(v)) for k, v in inputs.items()) + (return_cache,)
+        call = api._graphs.get(key)
+        if call is None:
+            static = {k: (v if k == "deep_cache" and self._static_cache(v) else _clone(v)) for k, v in inputs.items()}
+            if api._graph_pool is None:
+                api._graph_pool = torch.cuda.graph_pool_handle()
+            m = self._m
+            call = CapturedCall(lambda **kw: m.denoise(**kw, return_cache=return_cache), static, pool=api._graph_pool)
+            api._graphs[key] = call
+        out = call(**inputs)
+        if deep_cache is not None or return_cache:
+            return out[0].clone(), out[1]
+        return out.clone()
+
+
 class DiffusionAPI:
     """txt2img / img2img / inpainting over an `LDM` (SD), and outpainting,
     `semantic2img` and `sr` over the concat-conditioned LDMs. `use_bf16`
@@ -267,14 +348,26 @@ class DiffusionAPI:
         self.lora_manager = LoRAManager()
         self._style_ref: Optional[Dict[str, Any]] = None
         self._circular = False
+        # `compile`: the buckets (UNet batch, image size), their UNet calls' graphs by signature, one memory pool
+        self._compiled: set = set()
+        self._graphs: Dict[Any, CapturedCall] = {}
+        self._graph_pool: Any = None
 
     # ------------------------------------------------------------- switches
+
+    def _drop_graphs(self) -> None:
+        """Forget the captured UNet calls (where the JAX package clears its
+        compiled programs); the compiled buckets capture again at their next
+        call."""
+        self._graphs.clear()
+        self._graph_pool = None
 
     def switch_sampler(self, sampler: str, **sampler_config: Any) -> None:
         if sampler not in ISampler.d:
             raise ValueError(f"unknown sampler '{sampler}' (available: {sorted(ISampler.d)})")
         self.sampler_name = sampler
         self.sampler_config = sampler_config
+        self._drop_graphs()
 
     def switch_circular(self, enable: bool) -> None:
         """Tiling mode: circular padding on every `Conv2d` of the model. As
@@ -285,6 +378,7 @@ class DiffusionAPI:
         for module in self.m.modules():
             if isinstance(module, Conv2d):
                 module.set_circular(enable)
+        self._drop_graphs()
 
     def set_tome_ratio(self, ratio: float, *, merge_mlp: bool = False) -> None:
         """ToMe token merging on every `SpatialTransformer` (`merge_mlp`: the
@@ -292,6 +386,7 @@ class DiffusionAPI:
         for module in self.m.modules():
             if isinstance(module, SpatialTransformer):
                 module.set_tome_ratio(ratio, merge_mlp=merge_mlp)
+        self._drop_graphs()
 
     def set_deepcache(self, interval: Optional[int], *, cut: int = 3, center: Optional[float] = None) -> None:
         """DeepCache (Ma et al. 2023): every `interval`-th step of a ddim /
@@ -302,6 +397,7 @@ class DiffusionAPI:
         self.m.deepcache_interval = None if interval is not None and interval <= 1 else interval
         self.m.deepcache_cut = cut
         self.m.deepcache_center = center
+        self._drop_graphs()
 
     def setup_hooks(
         self,
@@ -316,12 +412,16 @@ class DiffusionAPI:
         [-1, 1] NHWC / HWC, a path or a PIL image; sides rounded up to
         multiples of 64) and lets self-attention READ the banked
         activations. `style_reference_states` holds `StyleReferenceStates`'
-        settings. Without an image the style reference is cleared."""
+        settings. Without an image the style reference is cleared. A style
+        reference cannot be compiled (`compile`): setting one also forgets
+        the compiled buckets."""
         if tome_info is not None:
             self.set_tome_ratio(float(tome_info.get("ratio", 0.5)), merge_mlp=bool(tome_info.get("merge_mlp", False)))
+        self._drop_graphs()
         if style_reference_image is None:
             self._style_ref = None
             return
+        self._compiled.clear()
         states = StyleReferenceStates(**(style_reference_states or {}))
         image = self._norm_image(style_reference_image)
         h, w = image.shape[1:3]
@@ -365,6 +465,7 @@ class DiffusionAPI:
                 # the weights may have been replaced inside: fuse on the new base
                 self.lora_manager.reset_base()
                 self.lora_manager.apply_lora(self.m, *restored.keys(), scales=restored)
+            self._drop_graphs()
 
     def load_context(self, *, ignore_lora: bool = True) -> Any:
         """A context yielding the bare model for weight loading: active LoRA
@@ -382,12 +483,15 @@ class DiffusionAPI:
 
     def inject_sd_lora(self, *keys: str) -> None:
         self.lora_manager.apply_lora(self.m, *keys)
+        self._drop_graphs()
 
     def set_sd_lora_scales(self, scales: Dict[str, float]) -> None:
         self.lora_manager.set_scales(self.m, scales)
+        self._drop_graphs()
 
     def cleanup_sd_lora(self) -> None:
         self.lora_manager.deactivate(self.m)
+        self._drop_graphs()
 
     # --------------------------------------------------------- weight pools
 
@@ -409,6 +513,7 @@ class DiffusionAPI:
             for name, value in states.items():
                 params[name].copy_(torch.as_tensor(np.asarray(value)))
             self._current_sd = tag
+            self._drop_graphs()
 
     # ------------------------------------------------------------ internals
 
@@ -422,8 +527,52 @@ class DiffusionAPI:
         """N(0, 1) on the API's device: every draw the API makes."""
         return torch.randn(shape, generator=generator, device=self.device, dtype=dtype)
 
-    def _sampler(self) -> ISampler:
-        return ISampler.make(self.sampler_name, dict(self.sampler_config, model=self.m))
+    def _sampler(self, graphed: bool = False) -> ISampler:
+        """The sampler over the model, or over `_GraphedModel` (the UNet
+        calls replayed from CUDA graphs) in a compiled bucket."""
+        model = _GraphedModel(self) if graphed else self.m
+        return ISampler.make(self.sampler_name, dict(self.sampler_config, model=model))
+
+    def _in_compiled_bucket(self, rows: int, size: Tuple[int, int]) -> bool:
+        return self.device.type == "cuda" and self._style_ref is None and (rows, size) in self._compiled
+
+    def compile(
+        self,
+        *,
+        num_samples: int = 1,
+        size: Tuple[int, int] = (512, 512),
+        num_steps: int = 20,
+        guidance_scale: float = 7.5,
+    ) -> None:
+        """Compile txt2img for the bucket of `num_samples` images at `size`
+        (sides rounded up to multiples of 64) ahead of its first call: on
+        the card one txt2img in the bucket runs here and captures each UNet
+        call of its loop in a CUDA graph (with CFG, 2 x `num_samples` rows;
+        with DeepCache, the full and the shallow pass); later `sample` /
+        `txt2img` calls in the bucket replay them, other shapes run eagerly.
+        On the CPU nothing is captured. A style reference cannot be
+        captured: its WRITE pass draws the reference's noise inside each
+        UNet call and hands the banked activations between two passes
+        through host-side hooks, so `compile` raises with one set."""
+        if self._style_ref is not None:
+            raise NotImplementedError(
+                "compile with a style reference: its WRITE pass draws noise and banks activations through "
+                "host-side hooks inside each UNet call, which a CUDA graph does not capture; clear it with "
+                "`setup_hooks()` first"
+            )
+        size = (_round64(size[0]), _round64(size[1]))
+        self._compiled.add((num_samples, size))
+        if self.device.type == "cuda":
+            self.sample(num_samples, size=size, num_steps=num_steps, guidance_scale=guidance_scale, seed=0)
+
+    def graph_launches(self) -> Dict[str, int]:
+        """{kernel: launches made by replays} over the captured UNet calls:
+        each graph's launches per replay times its replays."""
+        out: Dict[str, int] = {}
+        for call in self._graphs.values():
+            for k, n in call.launches().items():
+                out[k] = out.get(k, 0) + n
+        return out
 
     def _conds(self, tokens: torch.Tensor, uncond_tokens: torch.Tensor, guidance_scale: float) -> Tuple[Any, Any]:
         cond = self.m.get_cond(tokens)
@@ -511,7 +660,7 @@ class DiffusionAPI:
                 hi = min(num_samples, lo + chunk)
                 c, u = self._conds(tokens[lo:hi], uncond[lo:hi], guidance_scale)
                 kw = {} if ref_image is None else {"hooks": self._style_hooks(ref_image, hi - lo, u is not None, generator)}
-                latents = self._sampler().sample(
+                latents = self._sampler(self._in_compiled_bucket(hi - lo, size)).sample(
                     z[lo:hi], cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator,
                     **kw,
                 )
@@ -925,6 +1074,7 @@ class ControlledDiffusionAPI(DiffusionAPI):
         super().__init__(m, **kwargs)
         self.controls: Dict[str, Any] = {}
         self.control_scales: Dict[str, float] = {}
+        self.annotators: Dict[str, Any] = {}
         self._control_enabled = True
 
     def prepare_control(self, hint: str, control_net: Any) -> None:
@@ -935,6 +1085,7 @@ class ControlledDiffusionAPI(DiffusionAPI):
     def switch_control(self, *hints: str) -> None:
         """Keep only the given hints' controls."""
         self.controls = {h: c for h, c in self.controls.items() if h in hints}
+        self._drop_graphs()
 
     def enable_control(self) -> None:
         self._control_enabled = True
@@ -942,6 +1093,30 @@ class ControlledDiffusionAPI(DiffusionAPI):
     def disable_control(self) -> None:
         """`sample_with_control` samples without control while disabled."""
         self._control_enabled = False
+
+    def prepare_annotator(self, hint: str, **kwargs: Any) -> None:
+        """Build the annotator of a hint type once (`Annotator.make(hint,
+        kwargs)`: a checkpoint, a model type, a device), so that later
+        `get_hint_of` calls reuse its loaded net."""
+        from ..cv.annotator import Annotator
+
+        if hint not in self.annotators:
+            self.annotators[hint] = Annotator.make(hint, kwargs)
+
+    def prepare_annotators(self) -> None:
+        """Prepare the annotator of every prepared control's hint type that
+        names one (a control under a name of its own has none)."""
+        from ..cv.annotator import Annotator
+
+        for hint in self.controls:
+            if Annotator.has(hint):
+                self.prepare_annotator(hint)
+
+    def get_hint_of(self, hint: str, image: np.ndarray, **kwargs: Any) -> np.ndarray:
+        """The hint of `image` by the hint type's annotator (prepared with
+        its defaults if it is not yet); `kwargs` go to `annotate`."""
+        self.prepare_annotator(hint)
+        return self.annotators[hint].annotate(image, **kwargs)
 
     @torch.no_grad()
     def sample_with_control(

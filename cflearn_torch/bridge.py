@@ -303,3 +303,161 @@ def jax_param_names(module: nn.Module) -> Dict[str, str]:
         path = f"{prefix}.{leaf}" if prefix else leaf
         out[name] = path.replace(".", "/") + "/value"
     return out
+
+
+# ---- the annotator nets: JAX npd -> the port's (upstream-named) state dict ----
+#
+# Each function takes `tree_to_npd(nnx.state(net, nnx.Param))` of the JAX net
+# ("/"-joined paths ending in "/value"; M-LSD also its `nnx.BatchStat`s) and
+# gives the port net's state dict: the JAX package's `convert_*` run the
+# other way. Every leaf must be placed; `load_state_dict(strict=True)` then
+# holds the result to the port net.
+
+
+def _annotator_leaves(npd: Mapping[str, np.ndarray], prefixes: Mapping[str, str]) -> Dict[str, torch.Tensor]:
+    """Leaves under each JAX prefix ("blocks/0/qkv") to the port's module
+    path ("pretrained.model.blocks.0.attn.qkv"): kernels to `weight` in the
+    port's layout (conv HWIO -> OIHW, linear (in, out) -> (out, in)),
+    `scale` to `weight`, BatchNorm's `mean` / `var` to the running
+    statistics (with `num_batches_tracked` at 0), `bias` as it is."""
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+    for jp, pp in prefixes.items():
+        for leaf in ("kernel", "bias", "scale", "mean", "var"):
+            key = f"{jp}/{leaf}/value"
+            if key not in npd:
+                continue
+            arr = np.asarray(npd[key], dtype=np.float32)
+            if leaf == "kernel":
+                arr = np.transpose(arr, _PERM[arr.ndim])
+            name = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+            out[f"{pp}.{name}"] = torch.from_numpy(np.ascontiguousarray(arr))
+            used.add(key)
+            if leaf == "mean":
+                out[f"{pp}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    left = sorted(set(npd) - used)
+    if left:
+        raise ValueError(f"JAX leaves the annotator bridge places nowhere: {left[:10]}")
+    return out
+
+
+def dpt_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `DPTDepth` -> the port's (`convert_midas` inverted): the
+    ConvTranspose kernels are flipped back and laid out (in, out, kh, kw)."""
+    npd = dict(npd)
+    p = "pretrained.model"
+    out: Dict[str, torch.Tensor] = {}
+    for leaf in ("cls_token", "pos_embed"):
+        out[f"{p}.{leaf}"] = torch.from_numpy(np.asarray(npd.pop(f"{leaf}/value"), dtype=np.float32))
+    for name in ("resample1", "resample2"):
+        w = np.asarray(npd.pop(f"{name}/kernel/value"), dtype=np.float32)[::-1, ::-1]
+        i = name[-1]
+        out[f"pretrained.act_postprocess{i}.4.weight"] = torch.from_numpy(np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))))
+        out[f"pretrained.act_postprocess{i}.4.bias"] = torch.from_numpy(np.asarray(npd.pop(f"{name}/bias/value"), dtype=np.float32))
+    prefixes = {"patch_embed": f"{p}.patch_embed.proj", "resample4": "pretrained.act_postprocess4.4",
+                "head_conv1": "scratch.output_conv.0", "head_conv2": "scratch.output_conv.2",
+                "head_conv3": "scratch.output_conv.4"}
+    for i in sorted({int(k.split("/")[1]) for k in npd if k.startswith("blocks/")}):
+        for ours, theirs in (("norm1", "norm1"), ("norm2", "norm2"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            prefixes[f"blocks/{i}/{ours}"] = f"{p}.blocks.{i}.{theirs}"
+    for i in range(4):
+        prefixes[f"readouts/{i}/project"] = f"pretrained.act_postprocess{i + 1}.0.project.0"
+        prefixes[f"projects/{i}"] = f"pretrained.act_postprocess{i + 1}.3"
+        prefixes[f"layer_rn/{i}"] = f"scratch.layer{i + 1}_rn"
+        for ours, theirs in (("out_conv", "out_conv"), ("res1/conv1", "resConfUnit1.conv1"),
+                             ("res1/conv2", "resConfUnit1.conv2"), ("res2/conv1", "resConfUnit2.conv1"),
+                             ("res2/conv2", "resConfUnit2.conv2")):
+            prefixes[f"refine/{i}/{ours}"] = f"scratch.refinenet{i + 1}.{theirs}"
+    return {**out, **_annotator_leaves(npd, prefixes)}
+
+
+def hed_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `HED` -> the port's (`convert_hed` inverted)."""
+    npd = dict(npd)
+    norm = np.asarray(npd.pop("norm/value"), dtype=np.float32).reshape(1, 3, 1, 1)
+    prefixes = {}
+    for k in npd:
+        parts = k.split("/")  # blocks/{b}/convs/{c}/kernel/value or blocks/{b}/projection/...
+        block = f"block{int(parts[1]) + 1}"
+        if parts[2] == "convs":
+            prefixes["/".join(parts[:4])] = f"{block}.convs.{parts[3]}"
+        else:
+            prefixes["/".join(parts[:3])] = f"{block}.projection"
+    return {"norm": torch.from_numpy(norm), **_annotator_leaves(npd, prefixes)}
+
+
+def pidi_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `PiDiNet` (its pdc convs already folded) -> the port's."""
+    from .api.cv.third_party.pidi import BLOCK_NAMES
+
+    prefixes = {"init_block": "init_block", "classifier": "classifier"}
+    for bi, (name, _) in enumerate(BLOCK_NAMES):
+        for part in ("conv1", "conv2", "shortcut"):
+            prefixes[f"blocks/{bi}/{part}"] = f"{name}.{part}"
+    for i in range(4):
+        prefixes[f"dilations/{i}/conv1"] = f"dilations.{i}.conv1"
+        for j in range(4):
+            prefixes[f"dilations/{i}/dilated/{j}"] = f"dilations.{i}.conv2_{j + 1}"
+        prefixes[f"attentions/{i}/conv1"] = f"attentions.{i}.conv1"
+        prefixes[f"attentions/{i}/conv2"] = f"attentions.{i}.conv2"
+        prefixes[f"conv_reduces/{i}"] = f"conv_reduces.{i}.conv"
+    return _annotator_leaves(npd, prefixes)
+
+
+def mlsd_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `MLSD` (parameters and batch statistics) -> the port's
+    (`convert_mlsd` inverted)."""
+    from .api.cv.third_party.mlsd import IR_SETTING
+
+    prefixes = {"features/0/conv": "backbone.features.0.0", "features/0/bn": "backbone.features.0.1"}
+    fi = 1
+    for t, _, n, _ in IR_SETTING:
+        for _ in range(n):
+            p, o = f"backbone.features.{fi}.conv", f"features/{fi}"
+            layers = [0, 1] if t != 1 else [0]
+            for li in layers:
+                prefixes[f"{o}/layers/{li}/conv"] = f"{p}.{li}.0"
+                prefixes[f"{o}/layers/{li}/bn"] = f"{p}.{li}.1"
+            prefixes[f"{o}/project"] = f"{p}.{len(layers)}"
+            prefixes[f"{o}/project_bn"] = f"{p}.{len(layers) + 1}"
+            fi += 1
+    for i in range(15, 24):
+        for j in (1, 2):
+            prefixes[f"block{i}/conv{j}"] = f"block{i}.conv{j}.0"
+            prefixes[f"block{i}/bn{j}"] = f"block{i}.conv{j}.1"
+    prefixes["block23/conv3"] = "block23.conv3"
+    return _annotator_leaves(npd, prefixes)
+
+
+def _openpose_prefixes(stem: str, stem_names: Iterable[str], stages: Mapping[str, Tuple[str, Iterable[str]]]) -> Dict[str, str]:
+    prefixes = {f"stem/{i}": f"{stem}.{name}" for i, name in enumerate(stem_names)}
+    for ours, (module, names) in stages.items():
+        for ci, name in enumerate(names):
+            prefixes[f"{ours}/convs/{ci}"] = f"{module}.{name}"
+    return prefixes
+
+
+def openpose_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `OpenPoseBody` -> the port's (`convert_openpose` inverted)."""
+    from .api.cv.third_party.openpose import _BODY_STEM
+
+    stages = {}
+    for s in range(1, 7):
+        for b, ours in ((1, "stages_l1"), (2, "stages_l2")):
+            names = ([f"conv5_{j}_CPM_L{b}" for j in range(1, 6)] if s == 1 else
+                     [f"Mconv{j}_stage{s}_L{b}" for j in range(1, 8)])
+            stages[f"{ours}/{s - 1}"] = (f"model{s}_{b}", names)
+    stem = [item[0] for item in _BODY_STEM if item != "pool"]
+    return _annotator_leaves(npd, _openpose_prefixes("model0", stem, stages))
+
+
+def hand_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `OpenPoseHand` -> the port's (`convert_hand` inverted)."""
+    from .api.cv.third_party.openpose import _HAND_STEM
+
+    stages = {"head": ("model1_1", ["conv6_1_CPM", "conv6_2_CPM"])}
+    for s in range(2, 7):
+        stages[f"stages/{s - 2}"] = (f"model{s}", [f"Mconv{j}_stage{s}" for j in range(1, 8)])
+    stem = [item[0] for item in _HAND_STEM if item != "pool"]
+    return _annotator_leaves(npd, _openpose_prefixes("model1_0", stem, stages))

@@ -1,4 +1,4 @@
-// Flash-attention backward on mma.sync (m16n8k16, and m16n8k8 TF32 for f32):
+// Flash-attention backward on mma.sync (m16n8k16, and m16n8k8 3xTF32 for f32):
 // one kernel template in three modes. It is the path for f32, for head dims
 // the wgmma + TMA kernels of `flash_bwd_sm90.cuh` cannot hold in registers
 // (d > 128 for dk.dv and the fused backward, d > 192 for dq: the UNet's
@@ -46,7 +46,7 @@
 // sum in a fixed order and are.
 //
 // f32 inputs: tiles stay f32 in shared memory and the tensor-core products
-// round their operands to TF32 (10-bit mantissa); sums stay f32.
+// run 3xTF32 (`Frag<float>` in `mma_common.cuh`); sums stay f32.
 //
 // Layout: q/k/v/dO are (B, H, L, D) with arbitrary B/H/L strides (elements,
 // multiples of 8) and contiguous D, D % 8 == 0, D <= 1024. lse and delta are
@@ -180,12 +180,12 @@ __global__ void __launch_bounds__(256) flash_bwd_kernel(const BwdArgs a) {
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < DC; kk += F::KS) {
-        uint32_t aq[4], ao[4];
+        uint32_t aq[F::AR], ao[F::AR];
         F::load_a(aq, Qs, LD, wm * 16, kk, lane);
         F::load_a(ao, dOs, LD, wm * 16, kk, lane);
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          uint32_t bk[2], bv[2];
+          uint32_t bk[F::BR], bv[F::BR];
           F::load_b(bk, Ks, LD, wn * 32 + n * 8, kk, lane);
           F::load_b(bv, Vs, LD, wn * 32 + n * 8, kk, lane);
           F::mma(s[n], aq, bk);
@@ -234,12 +234,12 @@ __global__ void __launch_bounds__(256) flash_bwd_kernel(const BwdArgs a) {
       // dv += p^T dO, dk += ds^T q: rows are kv, the contraction runs over q
 #pragma unroll
       for (int kk = 0; kk < BT; kk += F::KS) {
-        uint32_t ap[4], ad[4];
+        uint32_t ap[F::AR], ad[F::AR];
         F::load_a_t(ap, Ps, LDP, wm * 16, kk, lane);
         F::load_a_t(ad, dSs, LDP, wm * 16, kk, lane);
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
-          uint32_t bo[2], bq[2];
+          uint32_t bo[F::BR], bq[F::BR];
           F::load_b_t(bo, dOs, LD, wn * (DC / 2) + n * 8, kk, lane);
           F::load_b_t(bq, Qs, LD, wn * (DC / 2) + n * 8, kk, lane);
           F::mma(acc_v[n], ap, bo);
@@ -255,11 +255,11 @@ __global__ void __launch_bounds__(256) flash_bwd_kernel(const BwdArgs a) {
       }
 #pragma unroll
       for (int kk = 0; kk < BT; kk += F::KS) {
-        uint32_t ad[4];
+        uint32_t ad[F::AR];
         F::load_a(ad, dSs, LDP, wm * 16, kk, lane);
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
-          uint32_t bk[2];
+          uint32_t bk[F::BR];
           F::load_b_t(bk, Ks, LD, wn * (DC / 2) + n * 8, kk, lane);
           F::mma(acc_q[n], ad, bk);
         }

@@ -32,6 +32,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "mma_common.cuh"
 #include "sm90.cuh"
 
@@ -297,7 +299,7 @@ __global__ void __launch_bounds__(WQ* WD * 32) flash_fwd_kernel(const FlashArgs 
 // dim in chunks of DC to build S = Q K^T (so S is recomputed by each of the
 // ceil(D / DC) CTAs of a q tile), runs the same online softmax, passes P to
 // the P.V product through shared memory, and accumulates O[:, chunk]. f32
-// operands are rounded to TF32 by the tensor-core product; sums stay f32.
+// operands go through the 3xTF32 product of `Frag<float>`; sums stay f32.
 template <typename T, int DC>
 struct ChunkCfg {
   static constexpr int BQ = 64, BK = 64, THREADS = 128;
@@ -357,11 +359,11 @@ __global__ void __launch_bounds__(128) flash_fwd_chunked_kernel(const FlashArgs 
       __syncthreads();
 #pragma unroll
       for (int k0 = 0; k0 < DC; k0 += F::KS) {
-        uint32_t af[4];
+        uint32_t af[F::AR];
         F::load_a(af, Qs, LD, warp * 16, k0, lane);
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          uint32_t bf[2];
+          uint32_t bf[F::BR];
           F::load_b(bf, Ks, LD, n * 8, k0, lane);
           F::mma(s[n], af, bf);
         }
@@ -416,15 +418,35 @@ __global__ void __launch_bounds__(128) flash_fwd_chunked_kernel(const FlashArgs 
       acc[n][3] *= al1;
     }
     __syncthreads();
+    // f32: this block's P.V in fresh registers, added to acc by the FP32 unit, so that the tensor core's
+    // accumulation runs over one block's products and not over the whole kv range (its error grew with L)
+    float pv[std::is_same<T, float>::value ? NO : 1][4];
+    if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+    }
 #pragma unroll
     for (int k0 = 0; k0 < BK; k0 += F::KS) {
-      uint32_t pf[4];
+      uint32_t pf[F::AR];
       F::load_a(pf, Ps, LDP, warp * 16, k0, lane);
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        uint32_t bf[2];
+        uint32_t bf[F::BR];
         F::load_b_t(bf, Vs, LD, n * 8, k0, lane);
-        F::mma(acc[n], pf, bf);
+        if constexpr (std::is_same<T, float>::value) {
+          F::mma(pv[n], pf, bf);
+        } else {
+          F::mma(acc[n], pf, bf);
+        }
+      }
+    }
+    if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] += pv[n][0];
+        acc[n][1] += pv[n][1];
+        acc[n][2] += pv[n][2];
+        acc[n][3] += pv[n][3];
       }
     }
     __syncthreads();  // Ks, Vs and Ps may be overwritten from here on

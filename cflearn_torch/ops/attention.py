@@ -40,8 +40,8 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
 Every kernel wrapper runs its plain PyTorch version (`*_plain`, the same
 arithmetic) on a CPU tensor; on a CUDA tensor it launches the kernel or
 raises, and counts the launch in its `launches` attribute. The kernels take
-bf16, fp16 and f32 (f32 products round their operands to TF32 in the tensor
-cores; sums are f32), D % 8 == 0 and D <= 1024.
+bf16, fp16 and f32 (f32 products run as three TF32 products on split
+operands, 3xTF32, to f32 accuracy; sums are f32), D % 8 == 0 and D <= 1024.
 
 Layout is (B, H, L, D) throughout. The ring-attention branch belongs to a
 later slice.

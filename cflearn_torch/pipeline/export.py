@@ -18,7 +18,8 @@
 * `pack_exported` (also named `pack_stablehlo`, the JAX name) — a training
   workspace's pipeline, loaded, exported into a folder.
 * `aot_compile` — the inference forward captured in a CUDA graph at the
-  example batch's shapes and replayed on every call (`CapturedForward`); on
+  example batch's shapes and replayed on every call (`CapturedForward`, on
+  `ops.graphs.CapturedCall`, which `DiffusionAPI.compile` shares); on
   a model that the caller put on the CPU it runs eagerly. A replay runs the
   captured kernels without entering their wrappers, so the counters do not
   move: `launches_per_replay` holds the launches of the capture and
@@ -34,7 +35,7 @@ import torch
 from torch import nn
 
 from ..data.utils import convert
-from ..ops import launch_counts
+from ..ops.graphs import CapturedCall
 from ..schema.model import IDLModel
 
 # the operations that carry a kernel, by the launch counter each one moves
@@ -182,11 +183,11 @@ pack_stablehlo = pack_exported
 
 
 class CapturedForward:
-    """The inference forward at fixed shapes: on the card, captured once in
-    a CUDA graph (after warm-up calls on a side stream) and replayed on
-    every call, the inputs copied into the graph's static tensors; on the
-    CPU, the eager forward. `launches_per_replay` holds the kernels launched
-    by the capture; the counters do not move on a replay."""
+    """The inference forward at fixed shapes: on the card, one
+    `ops.graphs.CapturedCall` of it, replayed on every call with the inputs
+    copied into the graph's static tensors; on the CPU, the eager forward.
+    `launches_per_replay` holds the kernels launched by the capture; the
+    counters do not move on a replay."""
 
     def __init__(
         self, model: IDLModel, example_batch: Dict[str, Any], *, forward_kwargs: Optional[Dict[str, Any]] = None,
@@ -197,40 +198,33 @@ class CapturedForward:
         self.device = _device_of(model)
         # the graph's own input tensors: a caller's tensor is never written into
         self.static_inputs = {k: v.clone() for k, v in _as_batch(example_batch, self.device).items()}
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launches_per_replay: Dict[str, int] = {}
-        self.replays = 0
-        if self.device.type != "cuda":
-            return
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.no_grad(), torch.cuda.stream(stream):
-            for _ in range(warmup):
-                self.forward(self.static_inputs)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        torch.cuda.synchronize(self.device)
-        before = launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph):
-            self.static_outputs = self.forward(self.static_inputs)
-        after = launch_counts()
-        self.launches_per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.call: Optional[CapturedCall] = None
+        if self.device.type == "cuda":
+            self.call = CapturedCall(lambda batch: self.forward(batch), {"batch": self.static_inputs}, warmup=warmup)
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        return None if self.call is None else self.call.graph
+
+    @property
+    def launches_per_replay(self) -> Dict[str, int]:
+        return {} if self.call is None else self.call.launches_per_replay
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.call is None else self.call.replays
 
     def replay(self) -> None:
         """One replay of the captured graph on the current inputs."""
-        assert self.graph is not None
-        self.graph.replay()
-        self.replays += 1
+        assert self.call is not None
+        self.call.replay()
 
     def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         inputs = _as_batch(batch, self.device)
-        if self.graph is None:
+        if self.call is None:
             with torch.no_grad():
                 return self.forward(inputs)
-        for k, v in inputs.items():
-            self.static_inputs[k].copy_(v)
-        self.replay()
-        return {k: v.clone() for k, v in self.static_outputs.items()}
+        return {k: v.clone() for k, v in self.call(batch=inputs).items()}
 
 
 def aot_compile(

@@ -23,8 +23,9 @@ Phases, in order; any failure exits non-zero:
    against the plain forward's; the forward at the ViT-S/16 classifier's
    384 px shape (phase 19: B64 H6 L577 d256, f32 and bf16) and the
    forward-with-logsumexp and backward kernels at its training step's
-   (B32, f32 and bf16), and the tabular transformer's (phase 21: B128 H8 L785
-   d16, f32). Prints max_abs_err and the kernel's, the
+   (B32, f32 and bf16), the tabular transformer's (phase 21: B128 H8 L785
+   d16, f32), and DPT-Large's (phase 23: B1 H16 L1025 d64, f32, with a
+   `yardstick` line). Prints max_abs_err and the kernel's, the
    plain version's and a library call's ms (the library call is timed
    only), and the kernel's
    device time (`device_ms`: calls replayed from a CUDA graph, without the
@@ -271,9 +272,8 @@ Phases, in order; any failure exits non-zero:
    and 4 `flash_bwd_fused` a step, 4 `flash_attention` an evaluation or
    predict batch), each distinct forward call of the fit's census against
    its plain version and timed beside SDPA with its bound (phase 2 holds the
-   train step's shape, `tab785_f32`), the first step's parity (its drift
-   also counting the plain path with the attention's operands rounded to
-   TF32, the f32 kernels' own rounding), the loaded predictions bit for bit.
+   train step's shape, `tab785_f32`), the first step's parity against the
+   plain f32 path (phase 19's rule), the loaded predictions bit for bit.
 22. the rest of the framework — `prepare_image_folder` packs 512 seeded
    JPEGs (400-480 px, 10 classes) at 384 px into rcache stores built from the
    port's own source; three ViT-S/16 "clf" members train from the packed
@@ -291,14 +291,30 @@ Phases, in order; any failure exits non-zero:
    kernel). Prints the prepare's seconds, ms a step, each write's and
    callback's ms, the fused predict's rows/s beside a member's, the exports'
    trace seconds and the eager, exported and captured forwards' device ms.
-23. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+23. the ControlNet annotators and `compile` — a seeded DPT-Large
+   checkpoint in the upstream layout through `Annotator.make("depth",
+   {"ckpt": ...})` on a 512² image: 24 flash launches a forward (B1 H16
+   L1025 d64 f32, phase 2's `dpt_large_f32` row), the forward held to the
+   plain route within PARITY_FACTOR x its f32 drift (a one-f32-ulp move of
+   the image, or the library's f32 attention in place of the plain one,
+   whichever moves it more); HED, PiDiNet,
+   M-LSD and OpenPose (body, hand) seeded at full width on the card against
+   the same nets on the CPU, each annotator's host ms an image, whether cv2
+   imports; `get_hint_of("depth")` feeding `sample_with_control` on SD-1.5
+   with one full-width ControlNet at 512², 20 steps, exact launches (the
+   controlled path's plus 24); `DiffusionAPI.compile` at 512², batch 1, 20
+   steps in the lossless, faithful and accelerated configurations: the
+   compiled txt2img bit for bit the eager one, launches = the counters' plus
+   the graphs' captures x replays = the eager run's, host ms an image eager
+   and compiled, and each one's device idle share.
+24. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
    the style and tiling, the SD v2 and v2 finetune, the CV models', the
-   framework's, the tabular and the rest of the framework's readings on
-   lines of their own, the card's name and power limit, and last `{"ok":
+   framework's, the tabular, the rest of the framework's and the
+   annotators and compile readings on lines of their own, the card's name and power limit, and last `{"ok":
    true, "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
 
@@ -322,7 +338,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 / fp16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
-PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 rate: what the f32 flash kernels' products run in
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 rate
+# the fastest f32-accurate product on the card: three TF32 products a multiply-add (3xTF32), what the f32 flash
+# kernels run (`csrc/mma_common.cuh`)
+PEAK_F32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 # the special-function unit's exponentials (ex2) per clock on one SM, compute capability 9.0 (CUDA C
 # Programming Guide, arithmetic instruction throughput): with the SM count and the card's SM clock
@@ -338,13 +357,14 @@ EXP_PER_S = None  # set in `main`: SMs x EX2_PER_CLOCK_PER_SM x the SM clock in 
 # `- delta`, a skipped kv tile or a missing scale on dq exceeds it
 # (`tests/test_torch_train_ops.py`).
 FLASH_REL = 2.0**-6
-# f32 inputs: the kernels' products round their operands to TF32 (10-bit
-# mantissa, relative 2^-11 per operand), the plain version multiplies in full
-# f32. Over a d-long dot product of N(0, 1) values that is ~1e-3 of the
-# result (measured 5e-4..7e-4 of max|ref|), so the limit is 2^-8 of max|ref|.
+# f32 inputs: the limit from when the kernels' products rounded their operands
+# to TF32 (~1e-3 of the result over a d-long dot product of N(0, 1) values),
+# 2^-8 of max|ref|; with 3xTF32 the error is at f32 level, far inside it
+# (`tests/test_torch_cuda.py` holds the product to f32 level itself).
 FLASH_REL_TF32 = 2.0**-8
 # lse = m + log l in f32 from both: bf16 products are exact in f32, so only
-# the summation order differs; TF32 rounds the scores (|s| up to ~5) by 2^-11.
+# the summation order differs; f32's limit dates from the TF32 products, which rounded the scores (|s| up to
+# ~5) by 2^-11.
 LSE_TOL = {2: 1e-4, 4: 4e-3}  # by input element size
 CONV_TOL = 6.25e-2  # 2 bf16 ulps at |y| < 8 (y ~ N(0, 1)); both round the same f32 sum
 # the conv at the autoencoder step's shapes (forward, and dx with flipped weights, whose outputs
@@ -450,6 +470,8 @@ FLASH_CASES = [
     # the tabular transformer at its defaults on MNIST's 784 columns (phase 21): 785 tokens, 8 heads of 16, f32,
     # predicting a batch of 128
     ("tab785_f32", 128, 8, 785, 785, 16, False, "float32", lambda s: 0),
+    # DPT-Large's self-attention on a 512x512 depth hint (phase 23): 1025 tokens, 16 heads of 64, f32, 24 a forward
+    ("dpt_large_f32", 1, 16, 1025, 1025, 64, False, "float32", lambda s: 0),
 ]
 # (name, B, H, Lq, Lk, D, causal, dtype, launches per finetune step)
 TRAIN_CASES = [
@@ -741,7 +763,7 @@ def phase_kernels(torch, F, ops):
         ms = time_ms(torch, run)
         plain = time_ms(torch, lambda: A.flash_attention_plain(q, k, v, causal=causal), 20.0)
         pairs = lq * (lq + 1) / 2 if causal else lq * lk
-        peak = PEAK_BF16_FLOPS if q.element_size() == 2 else PEAK_TF32_FLOPS
+        peak = PEAK_BF16_FLOPS if q.element_size() == 2 else PEAK_F32_FLOPS
         bms, by = bound_ms(4.0 * b * h * pairs * d, q.element_size() * b * h * (2 * lq + 2 * lk) * d, peak,
                            b * h * pairs)
         plan = A.flash_plan(b, h, lq, lk, d, dt, sms)
@@ -908,7 +930,7 @@ def phase_train_kernels(torch, F, A):
         size = q.element_size()
         rel = flash_rel(size)
         pairs = lq * (lq + 1) / 2 if causal else lq * lk
-        peak = PEAK_BF16_FLOPS if size == 2 else PEAK_TF32_FLOPS
+        peak = PEAK_BF16_FLOPS if size == 2 else PEAK_F32_FLOPS
         qo, kv, rows_q = b * h * lq * d * size, b * h * lk * d * size, b * h * lq * 4
         nbytes = {
             "flash_fwd_lse": 2 * qo + 2 * kv + rows_q,  # q, k, v in; o, lse out
@@ -1517,6 +1539,14 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
+def serving(unets, encodes=0, controls=0):
+    """The launches of one SD-1.5 sampling path: `unets` UNet calls (each with `controls` ControlNets), the decode,
+    and `encodes` first-stage encodes."""
+    return {"flash_attention": (FLASH_PER_UNET + FLASH_PER_CONTROL * controls) * unets + 1 + ENCODER_FLASH * encodes,
+            "conv3x3": DECODER_CONVS + ENCODER_CONVS * encodes,
+            "group_norm": (GN_PER_UNET + GN_PER_CONTROL * controls) * unets + GN_PER_DECODE + GN_PER_ENCODE * encodes}
+
+
 def phase_diffusion_api(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
     """Drive `DiffusionAPI` / `ControlledDiffusionAPI` as a user would. Every path runs twice: under the census
     (the warm-up), then timed on the host clock around the call and a synchronize, its launches counted and gated
@@ -1550,11 +1580,6 @@ def phase_diffusion_api(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
     seen = watch(api.m)
     torch.cuda.synchronize()
     print(f"api: DiffusionAPI.from_sd('v1') bf16 built in {time.perf_counter() - t0:.1f} s")
-
-    def serving(unets, encodes=0, controls=0):
-        return {"flash_attention": (FLASH_PER_UNET + FLASH_PER_CONTROL * controls) * unets + 1 + ENCODER_FLASH * encodes,
-                "conv3x3": DECODER_CONVS + ENCODER_CONVS * encodes,
-                "group_norm": (GN_PER_UNET + GN_PER_CONTROL * controls) * unets + GN_PER_DECODE + GN_PER_ENCODE * encodes}
 
     images = {}
     for sampler in sorted(ISampler.d):
@@ -1731,9 +1756,9 @@ def check_call(torch, F, A, Cv, Gn, key, gen) -> dict:
         lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
         b, h, lq, d = q.shape
         lk = k.shape[2]
-        # f32 inputs run the products in TF32: its peak, and phase 2's f32 tolerance
+        # f32 inputs run the products in 3xTF32: its rate, and phase 2's f32 tolerance
         bms, by = bound_ms(4.0 * b * h * lq * lk * d, q.element_size() * b * h * (2 * lq + 2 * lk) * d,
-                           PEAK_TF32_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS, exps=b * h * lq * lk)
+                           PEAK_F32_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS, exps=b * h * lq * lk)
         tol_rel, shape = flash_rel(q.element_size()), [b, h, lq, lk, d]
     elif name == "conv3x3":
         x = torch.randn(args[0][1], generator=gen, device="cuda").to(dt)
@@ -3274,42 +3299,12 @@ def fit_ml_recorded(torch, np, cflearn_torch, A, Cv, Gn, x, y, config, *, profil
     return p, rec, launches, fit_s
 
 
-def tf32(torch, t):
-    """f32 `t` rounded to TF32 (10 mantissa bits), to nearest with ties away from zero: `cvt.rna.tf32.f32`, as
-    the f32 flash kernels round their products' operands (`csrc/mma_common.cuh`)."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def flash_fwd_lse_tf32(torch, A):
-    """The plain forward-with-logsumexp with the f32 kernels' rounding: q, k, v and the probabilities rounded
-    to TF32 before their products, the sums and the softmax in f32."""
-
-    def fwd(q, k, v, causal=False, sm_scale=None, **kwargs):
-        if q.dtype != torch.float32:
-            return A.flash_fwd_with_lse_plain(q, k, v, causal=causal, sm_scale=sm_scale, **kwargs)
-        scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-        scores = (tf32(torch, q) @ tf32(torch, k).transpose(-1, -2)) * scale
-        if causal:
-            keep = torch.ones(scores.shape[-2:], dtype=torch.bool, device=q.device).tril(scores.shape[-1] - scores.shape[-2])
-            scores = scores.masked_fill(~keep, float("-inf"))
-        lse = torch.logsumexp(scores, dim=-1)
-        return tf32(torch, torch.exp(scores - lse[..., None])) @ tf32(torch, v), lse
-
-    return fwd
-
-
-def first_step_parity(torch, model, rec, A, Cv, Gn, columns=None, random_moves=True, tf32_attention=False):
+def first_step_parity(torch, model, rec, A, Cv, Gn, columns=None, random_moves=True):
     """The first step's loss and gradients (through the kernels, in the fit) against the plain path on its
     state and batch, within TRAIN_PARITY_FACTOR x the plain path's drift (phase 19's rule). The drift is the
     largest of one-bf16-ulp moves of the input's `columns` (all where None; the categorical columns are indices
     and stay put): every value away from zero and towards zero (phase 20's), and with `random_moves` twice in
-    directions drawn at random (phase 8's four). With `tf32_attention` it also counts the plain path with its
-    attention's operands rounded to TF32 (`flash_fwd_lse_tf32`), the rounding that the f32 flash kernels make
-    by design: at the tabular transformer's random initialisation the loss barely moves under a move of the
-    input (its bias-free token map and LayerNorm keep little of the input's scale), so an input move alone
-    measures less than the kernels' own specified arithmetic; the kernels' distance from that TF32-rounded
-    plain path is reported beside it (`kernel_vs_tf32`), and each error's share of its gate (`margins`)."""
+    directions drawn at random (phase 8's four). Each error's share of its gate is in `margins`."""
     from cflearn_torch.constants import INPUT_KEY, LOSS_KEY
     from cflearn_torch.optimizers import build_optimizer
     from cflearn_torch.trainer import TrainStepFn
@@ -3336,12 +3331,6 @@ def first_step_parity(torch, model, rec, A, Cv, Gn, columns=None, random_moves=T
         for label, moved in moves.items():
             loss_u, grads_u = fwd_bwd(torch.where(mask, moved, x0))
             drifts[label] = (abs(loss_u - loss_p), grad_errors(grads_u, grads_p)["global_rel"])
-        if tf32_attention:
-            A.flash_fwd_lse = flash_fwd_lse_tf32(torch, A)
-            loss_u, grads_u = fwd_bwd(x0)
-            drifts["tf32_attention"] = (abs(loss_u - loss_p), grad_errors(grads_u, grads_p)["global_rel"])
-            kernel_vs_tf32 = {"loss": abs(rec["loss0"] - loss_u),
-                              "global_rel": grad_errors(rec["grads0"], grads_u)["global_rel"]}
     drift_loss = max(d[0] for d in drifts.values())
     drift_global = max(d[1] for d in drifts.values())
     err = grad_errors(rec["grads0"], grads_p)
@@ -3354,8 +3343,6 @@ def first_step_parity(torch, model, rec, A, Cv, Gn, columns=None, random_moves=T
            "margins": {"loss": loss_err / tol_loss, "global_rel": err["global_rel"] / tol_global if tol_global else
                        float("inf") if err["global_rel"] else 0.0},
            "ok": loss_err <= tol_loss and err["global_rel"] <= tol_global}
-    if tf32_attention:
-        out["kernel_vs_tf32"] = kernel_vs_tf32
     return out
 
 
@@ -3375,8 +3362,7 @@ def phase_tabular(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     `torch.profiler` for the flash kernels' share of the step). Gates: exact launches (4 `flash_fwd_lse` and 4
     `flash_bwd_fused` a step, 4 `flash_attention` an evaluation or predict batch), each distinct `flash_attention` call of the census against its plain
     version with phase 2's tolerances (phase 2 holds the train shapes), the first step's loss and gradients
-    against the plain path (phase 19's rule; the drift also counts the plain path with TF32 attention operands,
-    `first_step_parity`), the loaded pipeline's predictions bit for bit. Prints the block stack's host seconds
+    against the plain f32 path (phase 19's rule, `first_step_parity`), the loaded pipeline's predictions bit for bit. Prints the block stack's host seconds
     by block, ms a step through the `Trainer`, each monitor's ms with its evaluation pass's and its checkpoint
     write's, and predict rows/s."""
     import shutil
@@ -3524,7 +3510,7 @@ def phase_tabular(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     want["flash_attention"] = TAB_LAYERS * (TAB_PREDICT_ROWS // TAB_BATCH)
     loaded = cflearn_torch.load_inference(cflearn_torch.save(p, os.path.join(root, "transformer_saved")))
     same = bool(np.array_equal(loaded.predict(rows, batch_size=TAB_BATCH)["predictions"], pred))
-    parity = first_step_parity(torch, model, rec, A, Cv, Gn, tf32_attention=True)
+    parity = first_step_parity(torch, model, rec, A, Cv, Gn)
     print(f"tabular[transformer]: predict {pred.shape} in {predict_s:.3f} s ({len(rows) / predict_s:.0f} rows/s), "
           f"launches {json.dumps({k: v for k, v in got.items() if v})}, loaded bit for bit: {same}; first step "
           f"parity {json.dumps(parity)}")
@@ -3930,6 +3916,313 @@ def phase_cv_framework(torch, np, cflearn_torch, A, Cv, Gn, ae_saved: str) -> di
     return out
 
 
+# 23. the ControlNet annotators and DiffusionAPI.compile: DPT-Large (24 blocks, 16 heads of 64) on a 512x512
+# image is L = 32 x 32 + 1 = 1025 tokens, f32; the other nets at full width; SD-1.5 at 512px, batch 1, 20 steps
+DPT_FLASH = 24
+ANNOTATOR_SIDE = 512
+HAND_BOX = 368  # `detect_hand_peaks`'s crop side
+NET_REL = 1e-4  # an f32 net on the card against the same net on the CPU: summation order (TF32 is off)
+COMPILE_CONFIGS = ("lossless", "faithful", "accelerated")
+
+
+def bump_ulp_f32(torch, x):
+    """x moved one f32 ulp away from zero."""
+    return (x.float().view(torch.int32) + 1).view(torch.float32)
+
+
+def seeded_(torch, net, seed: int):
+    """Fill `net`'s parameters in place from a generator on their device: weights ~ N(0, 1 / fan_in), 1-D
+    parameters at 0 (biases) or 1 (norm weights), the position and class tokens ~ N(0, 0.02^2)."""
+    gen = torch.Generator(device=next(net.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(("pos_embed", "cls_token")):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
+            elif p.ndim > 1:
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * p[0].numel() ** -0.5)
+            else:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+    return net
+
+
+def dpt_large_checkpoint(torch, TM, folder: str, image, seed: int = 0) -> str:
+    """A seeded DPT-Large state dict in the upstream layout, written to `folder`/dpt_large.pt. The depth head's
+    last bias is set so that its map on `image` sits above the head's ReLU (1 above its least value there)."""
+    with torch.device("meta"):
+        net = TM.DPTDepth("dpt_large")
+    net = seeded_(torch, net.to_empty(device="cuda"), seed).eval()
+    head = net.scratch.output_conv[4]
+    pre = []
+    hook = head.register_forward_hook(lambda mod, args, out: pre.append(out.detach()))
+    with torch.no_grad():
+        net(torch.as_tensor(image[None], device="cuda").float().div(127.5).sub(1.0))
+    hook.remove()
+    with torch.no_grad():
+        head.bias.fill_(1.0 - pre[0].min().item())
+    path = os.path.join(folder, "dpt_large.pt")
+    torch.save({k: v.cpu() for k, v in net.state_dict().items()}, path)
+    return path
+
+
+def compile_configs(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
+    """Phase 23 (d): `DiffusionAPI.compile(num_samples=1, size=(512, 512), num_steps=20)` in the lossless,
+    faithful and accelerated configurations against the eager txt2img of the same API, seed and prompt."""
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.modules.multimodal.diffusion.samplers import deepcache_refresh_mask
+    from cflearn_torch.pipeline.sd import ACCEL_DC, FAITHFUL_DC, TOME_RATIO
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"compile: {msg}")
+
+    api = cflearn_torch.DiffusionAPI.from_sd("v1", device="cuda", seed=0)
+    redraw_zero_init(api.m, seed=1)
+    kw = dict(num_steps=API_STEPS, guidance_scale=7.5, seed=0)
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        device = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        return (1.0 - device / wall) if device > 0 else None
+
+    out = {}
+    for config in COMPILE_CONFIGS:
+        interval, cut = {"lossless": (None, 1), "faithful": FAITHFUL_DC, "accelerated": ACCEL_DC}[config]
+        api.set_tome_ratio(0.0 if config == "lossless" else TOME_RATIO)
+        api.set_deepcache(interval, cut=cut)
+        api._compiled.clear()  # the previous configuration's bucket: this one's eager run first
+        api.txt2img(PROMPT, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        eager = api.txt2img(PROMPT, **kw)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        eager_launches = read_launches(A, Cv, Gn)
+        full = API_STEPS if interval is None else int(deepcache_refresh_mask(API_STEPS, interval).sum())
+        shallow = API_STEPS - full
+        want = dict.fromkeys(eager_launches, 0)
+        want.update(flash_attention=FLASH_PER_UNET * full + FLASH_PER_SHALLOW * shallow + 1, conv3x3=DECODER_CONVS,
+                    group_norm=GN_PER_UNET * full + GN_PER_SHALLOW * shallow + GN_PER_DECODE)
+        check(eager_launches == want, f"{config}: eager launches {eager_launches} != {want}")
+        t0 = time.perf_counter()
+        api.compile(num_samples=1, size=(512, 512), num_steps=API_STEPS)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        graphs = len(api._graphs)
+        api.txt2img(PROMPT, **kw)  # the first replays
+        torch.cuda.synchronize()
+        reset_launches(A, Cv, Gn)
+        before = api.graph_launches()
+        t0 = time.perf_counter()
+        compiled = api.txt2img(PROMPT, **kw)
+        torch.cuda.synchronize()
+        compiled_ms = (time.perf_counter() - t0) * 1e3
+        counted = read_launches(A, Cv, Gn)
+        replayed = {k: n - before.get(k, 0) for k, n in api.graph_launches().items()}
+        total = {k: counted[k] + replayed.get(k, 0) for k in counted}
+        per_replay = {("shallow" if "deep_cache" in dict(key[:-1]) else "full"): call.launches_per_replay
+                      for key, call in api._graphs.items()}
+        same = bool(np.array_equal(compiled, eager))
+        idle_compiled = profiled(lambda: api.txt2img(PROMPT, **kw))
+        api._compiled.clear()  # the bucket forgotten: txt2img runs eagerly again
+        idle_eager = profiled(lambda: api.txt2img(PROMPT, **kw))
+        fmt = lambda v: "not measured" if v is None else f"{v:.3f}"  # noqa: E731
+        print(f"compile[{config}]: {graphs} graphs captured in {compile_s:.1f} s (with one txt2img), launches per "
+              f"replay {json.dumps(per_replay)}; eager {eager_ms:.1f} ms an image, compiled {compiled_ms:.1f} ms "
+              f"({eager_ms / compiled_ms:.2f}x); idle share eager {fmt(idle_eager)}, compiled {fmt(idle_compiled)}; "
+              f"launches eager {json.dumps({k: v for k, v in eager_launches.items() if v})}, compiled (counters + "
+              f"replays) {json.dumps({k: v for k, v in total.items() if v})}; image bit for bit: {same} "
+              f"[{card_line()}]")
+        check(same, f"{config}: the compiled txt2img differs from the eager one")
+        check(total == eager_launches, f"{config}: compiled launches {total} != eager {eager_launches}")
+        check(counted == dict(want, flash_attention=1, group_norm=GN_PER_DECODE),
+              f"{config}: outside the graphs the run launched {counted}, want the decode's alone")
+        out[config] = {"graphs": graphs, "compile_s": compile_s, "eager_ms": eager_ms, "compiled_ms": compiled_ms,
+                       "idle_share_eager": idle_eager, "idle_share_compiled": idle_compiled, "launches": total,
+                       "bit_for_bit": same}
+    del api
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_annotators_compile(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """Drive the annotators, `get_hint_of` into `sample_with_control`, and `DiffusionAPI.compile` as a user would.
+
+    (a) depth: a seeded DPT-Large checkpoint (upstream layout) through `Annotator.make("depth", {"ckpt": ...})`
+    on a 512² image: exactly 24 flash launches a forward (B1 H16 L1025 d64 f32), the raw depth through the kernels
+    against the plain route within PARITY_FACTOR x the plain route's f32 drift: the larger of its move under a
+    one-f32-ulp move of the image and its distance from the same forward with the library's f32 attention.
+    (b) HED, PiDiNet, M-LSD and OpenPose (body, and hand on a 368² crop), seeded, at full width on the card against
+    the same nets on the CPU (NET_REL), no kernel launched; each annotator's host ms an image.
+    (c) `get_hint_of("depth")` -> `sample_with_control` on SD-1.5 with one full-width ControlNet, 512², 20 steps:
+    exact launches (the controlled path's plus 24).
+    (d) `compile(num_samples=1, size=(512, 512), num_steps=20)` in the lossless, faithful and accelerated
+    configurations: the compiled txt2img bit for bit the eager one, its launches (the counters' and the graphs'
+    launches per replay x replays) the eager run's exactly; host ms an image eager and compiled, and each one's
+    device idle share from `torch.profiler`."""
+    import tempfile
+
+    from cflearn_torch.api.cv import annotator as TAnn
+    from cflearn_torch.api.cv import third_party as TP
+    from cflearn_torch.api.cv.third_party import midas as TM
+    from cflearn_torch.modules.common import redraw_zero_init
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"annotators / compile: {msg}")
+
+    out = {}
+    try:
+        import cv2  # noqa: F401
+
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    print(f"annotators: cv2 imports: {has_cv2}" + ("" if has_cv2 else " (the nets run; the pose and mlsd annotate "
+                                                                       "steps, which draw with cv2, are not run)"))
+    out["cv2"] = has_cv2
+    rng = np.random.RandomState(0)
+    low = rng.uniform(0, 255, (ANNOTATOR_SIDE // 32, ANNOTATOR_SIDE // 32, 3))
+    image = np.clip(np.kron(low, np.ones((32, 32, 1))) + rng.uniform(-20, 20, (ANNOTATOR_SIDE, ANNOTATOR_SIDE, 3)),
+                    0, 255).astype(np.uint8)
+
+    def host_ms(fn, runs=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / runs * 1e3
+
+    with tempfile.TemporaryDirectory() as folder:
+        # (a) DPT-Large depth
+        t0 = time.perf_counter()
+        ckpt = dpt_large_checkpoint(torch, TM, folder, image)
+        t_ckpt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        depth = TAnn.Annotator.make("depth", {"ckpt": ckpt})
+        t_load = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in depth._net.parameters())
+        hint = depth.annotate(image)
+        torch.cuda.synchronize()
+        reset_launches(A, Cv, Gn)
+        hint = depth.annotate(image)
+        torch.cuda.synchronize()
+        launches = read_launches(A, Cv, Gn)
+        want = dict.fromkeys(launches, 0)
+        want["flash_attention"] = DPT_FLASH
+        check(launches == want, f"a DPT-Large forward launched {launches}, want {want}")
+        check(hint.shape == (ANNOTATOR_SIDE, ANNOTATOR_SIDE, 3) and hint.dtype == np.uint8 and hint.max() == 255,
+              f"depth hint {hint.shape} {hint.dtype} max {hint.max()}")
+        x = torch.as_tensor(image[None], device="cuda").float().div(127.5).sub(1.0)
+        with torch.no_grad():
+            d_k = depth._net(x)
+            with plain_kernels(A, Cv, Gn):
+                d_p = depth._net(x)
+                drifts = {"image_one_f32_ulp": rel_err(depth._net(bump_ulp_f32(torch, x)), d_p)}
+                # the same forward with the library's f32 attention: exact f32 arithmetic in another order, as the
+                # kernel's (a one-ulp move of the image alone stays under what f32 rounding at each of the 24
+                # attentions reaches)
+                A.flash_attention = lambda q, k, v, causal=False, sm_scale=None: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=sm_scale)
+                drifts["library_f32_attention"] = rel_err(depth._net(x), d_p)
+        drift = max(drifts.values())
+        rel = rel_err(d_k, d_p)
+        print(f"depth: DPT-Large ({n_params / 1e6:.1f} M parameters) checkpoint written in {t_ckpt:.1f} s, loaded in "
+              f"{t_load:.1f} s; launches {json.dumps({k: v for k, v in launches.items() if v})} a forward; kernels vs "
+              f"plain max rel err {rel:.3e} (tolerance {PARITY_FACTOR * drift:.3e}: {PARITY_FACTOR} x the plain "
+              f"route's f32 drift, the larger of {json.dumps(drifts)}); depth range [{d_k.min().item():.3f}, "
+              f"{d_k.max().item():.3f}]")
+        check(bool(torch.isfinite(d_k).all()) and rel <= PARITY_FACTOR * drift,
+              "the DPT-Large forward through the kernels disagrees with the plain route")
+        ms = {"depth": host_ms(lambda: depth.annotate(image))}
+        out["depth"] = {"parameters": n_params, "launches": launches, "kernels_vs_plain": rel,
+                        "drifts": drifts, "checkpoint_s": t_ckpt, "load_s": t_load}
+        del d_k, d_p
+
+        # (b) HED, PiDiNet, M-LSD, OpenPose at full width, the card against the CPU
+        img_f = image.astype(np.float32)
+        nets = {
+            "hed": (TP.HED, img_f[None], lambda a: a),
+            "pidi": (TP.PiDiNet, img_f[None] / 255.0, lambda a: a),
+            "mlsd": (TP.MLSD, np.concatenate([img_f, np.ones_like(img_f[..., :1])], -1)[None] / 127.5 - 1.0,
+                     lambda a: a),
+            "openpose_body": (TP.OpenPoseBody, img_f[None] / 255.0 - 0.5, lambda a: a[1]),
+            "openpose_hand": (TP.OpenPoseHand, img_f[None, :HAND_BOX, :HAND_BOX] / 256.0 - 0.5, lambda a: a),
+        }
+        cards = {}
+        out["nets"] = {}
+        for i, (name, (ctor, xin, pick)) in enumerate(nets.items()):
+            cpu = seeded_(torch, ctor(), 10 + i).eval()
+            card = copy.deepcopy(cpu).to("cuda")
+            with torch.no_grad():
+                ref = pick(cpu(torch.from_numpy(np.ascontiguousarray(xin))))
+                reset_launches(A, Cv, Gn)
+                got = pick(card(torch.from_numpy(np.ascontiguousarray(xin)).cuda()))
+                torch.cuda.synchronize()
+            moved = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+            err = rel_err(got.float().cpu(), ref)
+            n = sum(p.numel() for p in cpu.parameters())
+            print(f"annotators: {name} ({n / 1e6:.2f} M parameters) on {tuple(xin.shape)}: card vs CPU max rel err "
+                  f"{err:.3e} (tolerance {NET_REL}), kernel launches {moved}")
+            check(err <= NET_REL and not moved, f"{name}: card vs CPU {err:.3e}, launches {moved}")
+            out["nets"][name] = {"parameters": n, "card_vs_cpu": err}
+            cards[name] = card
+            del cpu, ref, got
+        soft = TAnn.Annotator.make("softedge", {})
+        soft._hed = cards["hed"]
+        pidi = TAnn.Annotator.make("pidi", {})
+        pidi._net = cards["pidi"]
+        ms["softedge"] = host_ms(lambda: soft.annotate(image))
+        ms["pidi"] = host_ms(lambda: pidi.annotate(image))
+        if has_cv2:
+            mlsd = TAnn.Annotator.make("mlsd", {})
+            mlsd._net = cards["mlsd"]
+            pose = TAnn.Annotator.make("pose", {})
+            pose._net = cards["openpose_body"]
+            ms["mlsd"] = host_ms(lambda: mlsd.annotate(image))
+            ms["pose"] = host_ms(lambda: pose.annotate(image))
+            ms["hand_peaks"] = host_ms(lambda: TP.detect_hand_peaks(cards["openpose_hand"], image[:HAND_BOX, :HAND_BOX]))
+        print(f"annotators: host ms an image at {ANNOTATOR_SIDE}² [{card_line()}]: {json.dumps(ms)}"
+              + ("" if has_cv2 else "; mlsd, pose and the hand peaks: not measured (no cv2)"))
+        out["host_ms"] = ms
+        del cards, soft, pidi
+        torch.cuda.empty_cache()
+
+        # (c) get_hint_of("depth") -> sample_with_control, SD-1.5 with one full-width ControlNet
+        capi = cflearn_torch.ControlledDiffusionAPI.from_sd("v1", device="cuda", seed=0)
+        redraw_zero_init(capi.m, seed=1)
+        seen = watch(capi.m)
+        cn = cflearn_torch.build(cflearn_torch.ControlNet, device="cuda", dtype=torch.bfloat16, seed=2)
+        redraw_zero_init(cn, seed=3)
+        capi.prepare_control("depth", cn)
+        capi.prepare_annotator("depth", ckpt=ckpt)
+        del depth
+        torch.cuda.empty_cache()
+        want = serving(API_STEPS, controls=1)
+        want["flash_attention"] += DPT_FLASH
+        censuses = {}
+        controlled, rec = drive_path(
+            torch, A, Cv, Gn, "controlled", "depth",
+            lambda: capi.sample_with_control(1, {"depth": capi.get_hint_of("depth", image)}, cond=PROMPT,
+                                             num_steps=API_STEPS, seed=0), seen, want, censuses)
+        check(controlled.shape == (1, 512, 512, 3) and [s[0] for s in seen["unet"]] == [2] * API_STEPS,
+              f"controlled: image {controlled.shape}, UNet batches {[s[0] for s in seen['unet']]}")
+        out["controlled"] = rec
+        del capi, cn, seen, censuses
+        torch.cuda.empty_cache()
+
+    # (d) compile, bit for bit and launch for launch against the eager txt2img
+    out["compile"] = compile_configs(torch, np, cflearn_torch, A, Cv, Gn)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4013,6 +4306,8 @@ def main() -> int:
                     r["per"]["vit_train"] = VIT_LAYERS
             if r["case"] == "ldm_enc_mid" and name == "flash_attention":
                 r["per"]["ldm"] = ENCODER_FLASH
+            if r["case"] == "dpt_large_f32" and name == "flash_attention":
+                r["per"]["depth"] = DPT_FLASH
             if r["case"] == "tab785_f32":
                 if name == "flash_attention":
                     r["per"]["tab_predict"] = TAB_LAYERS
@@ -4033,6 +4328,10 @@ def main() -> int:
                 print(f"yardstick {name} {r['case']}: device ms {r['kernel']} {r['device_ms']:.4f}, mma.sync "
                       f"{r['mma_sync_device_ms']:.4f} ({r['mma_sync_device_ms'] / r['device_ms']:.2f}x), "
                       f"SDPA {r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            elif r["case"] == "dpt_large_f32":
+                print(f"yardstick {name} {r['case']} (B1 H16 L1025 d64 f32, {r['kernel']}): device ms {r['device_ms']:.4f} "
+                      f"(host {r['ms']:.4f}), bound {r['bound_ms']:.4f} ({r['bound_by']}), SDPA device "
+                      f"{r['library_device_ms']:.4f}, plain {r['plain_ms']:.4f} [{card_line()}]")
     for r in rows["conv3x3_fold"]:
         print(f"yardstick conv3x3_fold {r['case']}: plan {json.dumps(r['plan'])}, ms {r['ms']:.4f} (device "
               f"{r['device_ms']:.4f}), mma.sync {r['mma_sync_ms']:.4f} (device {r['mma_sync_device_ms']:.4f}, "
@@ -4745,7 +5044,11 @@ def main() -> int:
     cvf_out = phase_cv_framework(torch, np, cflearn_torch, A, Cv, Gn, fw_out["ae_kl"]["saved_model"])
     print(f"cv framework: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 23. summary
+    # 23. the ControlNet annotators, get_hint_of -> sample_with_control, DiffusionAPI.compile
+    ann_out = phase_annotators_compile(torch, np, F, cflearn_torch, A, Cv, Gn)
+    print(f"annotators and compile: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 24. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -4770,7 +5073,7 @@ def main() -> int:
                      "vit_classify": cv_out["clf_vit_384"]["classify_launches"],
                      "vit_train": cv_out["clf_vit_384"]["launches"],
                      "tab_predict": tab_out["transformer"]["predict_launches_all"],
-                     "tab_train": tab_out["transformer"]["launches_all"]}
+                     "tab_train": tab_out["transformer"]["launches_all"], "depth": ann_out["depth"]["launches"]}
     path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
                  "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
                  "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img",
@@ -4779,7 +5082,8 @@ def main() -> int:
                  "vit_classify": f"one ViT-S/16 classify of {CV_BATCH} images at 384 px (f32)",
                  "vit_train": f"one ViT-S/16 train step at 384 px, batch {VIT_TRAIN_BATCH} (f32)",
                  "tab_predict": f"one tabular transformer predict batch of {TAB_BATCH} rows at {TAB_TOKENS} tokens (f32)",
-                 "tab_train": f"one tabular transformer train step at batch {TAB_BATCH}, {TAB_TOKENS} tokens (f32)"}
+                 "tab_train": f"one tabular transformer train step at batch {TAB_BATCH}, {TAB_TOKENS} tokens (f32)",
+                 "depth": f"one DPT-Large depth forward on a {ANNOTATOR_SIDE}x{ANNOTATOR_SIDE} image (f32)"}
     path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps",
                     ldm=f"{TRAIN_STEPS} finetune steps on 512px images",
                     ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps",
@@ -4848,7 +5152,7 @@ def main() -> int:
                    "ldm": ldm_out, "ae_defaults": aed_out, "ae_vq": vq_out, "diffusion_api": api_out,
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
-                   "framework": fw_out, "tabular": tab_out, "cv_framework": cvf_out,
+                   "framework": fw_out, "tabular": tab_out, "cv_framework": cvf_out, "annotators_compile": ann_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -4871,6 +5175,7 @@ def main() -> int:
                                                                                    "predict_launches_all")}
                                   for k, v in tab_out.items()}}))
     print(json.dumps({"cv_framework": cvf_out}))
+    print(json.dumps({"annotators_compile": ann_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 plain PyTorch version on the card. They skip on a machine without a card; on
 one, run `python -m pytest tests/test_torch_cuda.py -m cuda`.
 Tolerances: 16-bit outputs, about two ulps of the output's largest value
-(2^-6 of max|ref| covers bf16 and fp16); f32 inputs go through TF32 products
-(2^-8 of max|ref|). `chip_smoke.py` runs the same checks at the main paths'
+(2^-6 of max|ref| covers bf16 and fp16); f32 inputs, 2^-8 of max|ref| (the
+limit from when the f32 products ran in TF32; they run 3xTF32 now, and
+`test_f32_flash_rows_compute_in_f32` holds them to f32 level). `chip_smoke.py` runs the same checks at the main paths'
 shapes."""
 
 import pytest
@@ -16,8 +17,21 @@ from cflearn_torch.ops import group_norm as G
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(scope="session")
+def built_kernels() -> None:
+    """Every kernel library built once, before the first test touches the card. A wrapper builds its library
+    at first use, from the calling process; in a test process that built libraries on the way,
+    `torch.profiler` sessions then lost their kernel records most of the time (`_kernel_names` counts kernels
+    through them): a fresh checkout's `-m cuda` run failed 13 profiled tests that way, and passed all 508 with
+    the libraries built here first."""
+    if torch.cuda.is_available():
+        from cflearn_torch.ops import _native
+
+        _native.build()
+
+
 @pytest.fixture
-def cuda():
+def cuda(built_kernels):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.Generator(device="cuda").manual_seed(0)
@@ -149,6 +163,68 @@ def _close(got, ref, rel) -> None:
     assert got.shape == ref.shape and got.dtype == ref.dtype
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= rel * ref.float().abs().max().item(), err
+
+
+def _tf32_defeating(gen, shape, positive=False):
+    """f32 values 1 + a 2^-12 + b 2^-20 (a in 1..7, b in 0..255), random signs unless `positive`: TF32 keeps 10
+    mantissa bits, so it rounds every one of them to 1 (or 1 + 2^-10), where f32 holds them exactly."""
+    a = torch.randint(1, 8, shape, generator=gen, device="cuda").float()
+    b = torch.randint(0, 256, shape, generator=gen, device="cuda").float()
+    x = 1.0 + a * 2.0**-12 + b * 2.0**-20
+    if positive:
+        return x
+    return x * (torch.randint(0, 2, shape, generator=gen, device="cuda").float() * 2 - 1)
+
+
+def _attention_f64(q, k, v, do):
+    """o, lse and (dq, dk, dv) in float64 by autograd."""
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    o = torch.softmax(s, dim=-1) @ v
+    o.backward(do.double())
+    return o.detach(), torch.logsumexp(s, dim=-1).detach(), (q.grad, k.grad, v.grad)
+
+
+def _tf32_round(t):
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# f32 level: 2^-16 of max|ref| (f32's own rounding through a 64-long product, the softmax and the exponent's
+# ex2.approx is ~1e-6); the TF32 products these kernels once ran are ~1e-3 off on these inputs
+F32_LEVEL = 2.0**-16
+
+
+def test_f32_flash_rows_compute_in_f32(cuda) -> None:
+    """Rows 1, 3, 4 and 5 in f32 at d = 64 (DPT-Large's heads) on operands that TF32 cannot hold: the 3xTF32
+    products keep the error at f32 level against a float64 reference, where TF32-rounded operands miss it."""
+    b, h, lq, lk, d = 1, 4, 300, 333, 64
+    q, k = _tf32_defeating(cuda, (b, h, lq, d)), _tf32_defeating(cuda, (b, h, lk, d))
+    v = _tf32_defeating(cuda, (b, h, lk, d), positive=True)
+    do = _tf32_defeating(cuda, (b, h, lq, d))
+    o64, lse64, grads64 = _attention_f64(q, k, v, do)
+    assert A.flash_plan(b, h, lq, lk, d, torch.float32, torch.cuda.get_device_properties(0).multi_processor_count
+                        ).kernel == "mma_sync_chunked"
+
+    def err(got, ref):
+        return (got.double() - ref).abs().max().item() / ref.abs().max().item()
+
+    o = A.flash_attention(q, k, v)
+    assert err(o, o64) <= F32_LEVEL, err(o, o64)
+    # the same inputs rounded to TF32, multiplied exactly: what a TF32 product computes is far off
+    o_tf32 = _attention_f64(_tf32_round(q), _tf32_round(k), _tf32_round(v), do)[0]
+    assert err(o_tf32, o64) > 4 * F32_LEVEL
+    o2, lse = A.flash_fwd_lse(q, k, v)
+    assert err(o2, o64) <= F32_LEVEL and (lse.double() - lse64).abs().max().item() <= 1e-5
+    # the backward on a v of random signs (an all-positive v makes dp - delta cancel to its 2^-12 parts, which no
+    # f32 computation keeps relative to the result)
+    v = _tf32_defeating(cuda, (b, h, lk, d))
+    o64, _, grads64 = _attention_f64(q, k, v, do)
+    o2, lse = A.flash_fwd_lse(q, k, v)
+    for name, grads in (("fused", A.flash_bwd_fused(q, k, v, o2, lse, do)),
+                        ("split", (A.flash_bwd_dq(q, k, v, o2, lse, do), *A.flash_bwd_dkv(q, k, v, o2, lse, do)))):
+        for g, g64, which in zip(grads, grads64, ("dq", "dk", "dv")):
+            assert g.dtype == torch.float32 and err(g, g64) <= F32_LEVEL, (name, which, err(g, g64))
 
 
 TRAIN_SHAPES = [(2, 8, 1024, 1024, 40), (1, 2, 300, 777, 80), (1, 2, 256, 256, 160), (1, 1, 200, 330, 640)]
@@ -462,14 +538,31 @@ def test_fold_kernel_matches_plain(cuda, shape, dtype) -> None:
     _close(out, C.conv3x3(x, wt, bias), 2.0**-6)
 
 
-def _kernel_names(fn) -> list:
-    """The names of the kernels that one call of `fn` launches on the card (torch.profiler), in order."""
+MARKER = "spin_kernel"  # `torch.cuda._sleep`'s kernel
+
+
+def _kernel_names(fn, sessions: int = 5) -> list:
+    """The names of the kernels that one call of `fn` launches on the card (torch.profiler), in order. The call
+    runs between two marker kernels, each followed by a synchronize, and the kernels between the markers are
+    its own. `torch.profiler` now and then loses the first kernel records of a session, or all of them (about
+    one session in 300, with or without a CUDA graph in the process and with CUPTI's teardown off alike:
+    `scripts/profiler_event_probe.py`); a session that lost a marker lost records, and the call is profiled
+    again in a new session."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        marks = [i for i, name in enumerate(names) if MARKER in name]
+        if len(marks) == 2:
+            return names[marks[0] + 1 : marks[1]]
+    raise AssertionError(f"torch.profiler lost the marker kernels in {sessions} sessions")
 
 
 def _kernels_launched(fn, key: str) -> int:
@@ -865,3 +958,42 @@ def test_aot_compile_replays_the_forward(cuda) -> None:
             assert torch.equal(compiled({"input": x})["predictions"], ref)
     torch.cuda.synchronize()
     assert _moved(before) == {} and compiled.replays == 4
+
+
+@pytest.mark.parametrize("sampler,deepcache", [("ddim", 2), ("plms", None)])
+def test_diffusion_compile_replays_bit_for_bit(cuda, sampler, deepcache) -> None:
+    """`DiffusionAPI.compile` on a small LDM on the card (`__graft_entry__.py`'s widths, 64 px images): the
+    compiled txt2img is the eager one bit for bit, a replay moves no counter, and the counters plus the graphs'
+    launches per replay x replays equal the eager run's launches (with DeepCache, a full and a shallow graph)."""
+    import numpy as np
+
+    import cflearn_torch
+    from cflearn_torch.modules.multimodal.diffusion.cond_models import CLIPTextConditionModel
+
+    m = cflearn_torch.build(
+        cflearn_torch.LDM, device="cuda", img_size=8, in_channels=4, out_channels=4, num_timesteps=50,
+        condition_model=CLIPTextConditionModel(latent_dim=32, num_layers=2, num_heads=2),
+        unet_config=dict(start_channels=32, num_res_blocks=1, channel_multipliers=(1, 2),
+                         attention_downsample_rates=(1,), num_heads=4, context_dim=32),
+        first_stage_config=dict(img_size=64, inner_channels=32, z_channels=4, embedding_channels=4,
+                                channel_multipliers=[1, 2, 2, 2], num_res_blocks=1),
+    )
+    api = cflearn_torch.DiffusionAPI(m, device="cuda")
+    api.switch_sampler(sampler)
+    api.set_deepcache(deepcache, cut=1)
+    kw = dict(size=(64, 64), num_steps=4, guidance_scale=5.0, seed=3)
+    api.txt2img("a red cube", **kw)
+    before = _launches()
+    eager = api.txt2img("a red cube", **kw)
+    torch.cuda.synchronize()
+    eager_launches = _moved(before)
+    api.compile(num_samples=1, size=(64, 64), num_steps=4)
+    assert len(api._graphs) == (2 if deepcache else 1)
+    graphs_before, before = api.graph_launches(), _launches()
+    compiled = api.txt2img("a red cube", **kw)
+    torch.cuda.synchronize()
+    counted = _moved(before)
+    replayed = {k: n - graphs_before.get(k, 0) for k, n in api.graph_launches().items()}
+    total = {k: counted.get(k, 0) + replayed.get(k, 0) for k in set(counted) | set(replayed)}
+    assert np.array_equal(compiled, eager)
+    assert {k: v for k, v in total.items() if v} == eager_launches and replayed

@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cflearn_tpu")
 # that drive it on the card
 PORT_FILES = sorted(
     p for p in (ROOT / "cflearn_torch").rglob("*.py") if "_build" not in p.relative_to(ROOT).parts
-) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_txt2img.py", ROOT / "scripts" / "ae_parity_runs.py"]
+) + [ROOT / "chip_smoke.py"] + [ROOT / "scripts" / f"{name}.py" for name in (
+    "profile_torch_txt2img", "ae_parity_runs", "f32_flash_3xtf32", "profiler_event_probe")]
 
 
 def _imported(path: Path):
