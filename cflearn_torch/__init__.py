@@ -74,9 +74,11 @@ from .pipeline import (  # noqa: E402
 from .trainer import Trainer  # noqa: E402
 from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs  # noqa: E402
 from . import zoo  # noqa: E402
+from .parameters import OPT  # noqa: E402
 from .zoo import (  # noqa: E402
-    ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, clip, clip_large, esr, esr_anime,
-    ldm_inpainting, ldm_semantic, ldm_vq, open_clip_ViT_H_14,
+    ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, build_predefined_module, clip, clip_large,
+    esr, esr_anime, ldm_inpainting, ldm_semantic, ldm_vq, load_predefined_config, load_pretrained_module,
+    load_pretrained_weights, open_clip_ViT_H_14,
 )
 
 __all__ = [
@@ -103,10 +105,11 @@ __all__ = [
     "rep_vgg", "rep_vgg_large", "rep_vgg_lite",
     "CommonDLModel", "DDPMModel", "DLConfig", "DLEnsembleModel", "IDLModel",
     "ILoss", "TrainStep", "CLIP", "CLIPExtractor", "CLIPTokenizer", "CONFIGS", "ControlNet", "ControlledDiffusionAPI",
-    "DDPM", "DiffusionAPI", "IAPI", "IPerceptor", "LDM", "QualityReport", "RRDBNet", "StableDiffusion",
+    "DDPM", "DiffusionAPI", "IAPI", "IPerceptor", "LDM", "OPT", "QualityReport", "RRDBNet", "StableDiffusion",
     "StableDiffusionInpainting", "TranslatorAPI", "Weights", "ae_kl_f4", "ae_kl_f8", "ae_kl_f16", "ae_vq_f4",
-    "ae_vq_f4_no_attn", "ae_vq_f8", "build", "build_ae", "build_sd", "clip", "clip_large", "clip_score",
+    "ae_vq_f4_no_attn", "ae_vq_f8", "build", "build_ae", "build_predefined_module", "build_sd", "clip", "clip_large", "clip_score",
     "clip_score_from_embeddings", "compare_outputs", "configure", "esr", "esr_anime", "finetune_unet",
-    "ldm_inpainting", "ldm_semantic", "ldm_vq", "open_clip_ViT_H_14", "resolve_device", "sd_unet_config",
+    "ldm_inpainting", "ldm_semantic", "ldm_vq", "load_predefined_config", "load_pretrained_module",
+    "load_pretrained_weights", "open_clip_ViT_H_14", "resolve_device", "sd_unet_config",
     "train_autoencoder", "txt2img", "zoo",
 ]

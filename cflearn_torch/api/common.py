@@ -11,12 +11,9 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..modules.common import cast_parameters
+from ..parameters import OPT
 
 T = TypeVar("T")
-
-# the JAX package's `OPT.sd_weights_pool_limit`: -1, no bound
-SD_WEIGHTS_POOL_LIMIT = -1
-
 
 class IAPI:
     """An inference module on `device` (the CUDA card unless the caller asks
@@ -94,7 +91,7 @@ class APIPool(Generic[T]):
     evicted `IAPI` is offloaded to the host."""
 
     def __init__(self, limit: Optional[int] = None) -> None:
-        self.limit = SD_WEIGHTS_POOL_LIMIT if limit is None else limit
+        self.limit = OPT.sd_weights_pool_limit if limit is None else limit
         self._pool: "collections.OrderedDict[str, T]" = collections.OrderedDict()
 
     def __contains__(self, key: str) -> bool:

@@ -9,7 +9,9 @@ CUDA card unless `device` is given) without a gradient, on inputs cast to
 their parameters' dtype; pre- and post-processing are the JAX package's, on
 the host. The sobel and blur fallbacks are what the reference does without
 a checkpoint. Checkpoints are local files: `pretrained=True` without a
-`ckpt` raises, naming the checkpoint, since nothing is downloaded.
+`ckpt` takes the index entry's file from the download cache
+(`download_checkpoint(tag, check_sha=True)`: a file that fails the entry's
+recorded sha is fetched again, which fails offline).
 """
 
 from typing import Any, Dict, Optional
@@ -23,10 +25,9 @@ from ...toolkit.registry import WithRegister
 
 def _resolve_annotator_ckpt(ckpt: Any, pretrained: bool, tag: str) -> Any:
     if ckpt is None and pretrained:
-        raise ValueError(
-            f"pretrained annotator weights ('{tag}') are not in the repository and are never downloaded: "
-            f"pass `ckpt` with a local copy of the checkpoint"
-        )
+        from ...toolkit.misc import download_checkpoint
+
+        ckpt = str(download_checkpoint(tag, check_sha=True))
     return ckpt
 
 

@@ -59,8 +59,8 @@ class TranslatorAPI(IAPI):
 
     @classmethod
     def from_esr(cls, *, pretrained: bool = False, device: Any = None, seed: int = 0, **kwargs: Any) -> "TranslatorAPI":
-        """ESRGAN (23 blocks) with seeded random weights; `pretrained=True`
-        raises: the weights are not in the repository."""
+        """ESRGAN (23 blocks) with seeded random weights, or (`pretrained`)
+        the `esr` checkpoint from the local cache."""
         from ...zoo import esr
 
         return cls(esr(pretrained=pretrained, device=device, seed=seed), device=device, **kwargs)

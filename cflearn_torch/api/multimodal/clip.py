@@ -39,9 +39,11 @@ class CLIPExtractor(IAPI):
         cls, *, version: str = "base", pretrained: bool = True, use_bf16: bool = False, device: Any = None,
         seed: int = 0,
     ) -> "CLIPExtractor":
-        """The zoo's ViT-B/32 ("base") or ViT-L/14 ("large"), with seeded
-        random weights: the published weights are not in the repository, so
-        `pretrained=True` raises."""
+        """The zoo's ViT-B/32 ("base") or ViT-L/14 ("large"): with
+        `pretrained`, the preset's checkpoint from the local cache, loaded
+        strictly (the index's HF CLIP files fill no parameter through the
+        `clip_text` mapping, which names an SD checkpoint's text tower: that
+        raises, naming them); else seeded random weights."""
         from ... import zoo
 
         make = {"base": zoo.clip, "large": zoo.clip_large}.get(version)

@@ -1013,12 +1013,12 @@ class DiffusionAPI:
         **kwargs: Any,
     ) -> "DiffusionAPI":
         """SD of `version` through the zoo's `load_sd`, with seeded random
-        weights, built in bf16 (`use_bf16`) or f32 on `device` (the CUDA
-        card unless the caller asks for another). Versions ending in
+        weights or (`pretrained`) the version's checkpoint from the local
+        cache, built in bf16 (`use_bf16`) or f32 on `device` (the CUDA card
+        unless the caller asks for another). Versions ending in
         `_inpainting` build `StableDiffusionInpainting`; the community tags
         ("v1.5", "anime*", "dreamlike*") are the v1 architecture; "v2_v" is
-        the v-prediction model. Pretrained weights are not in the repository
-        and are never downloaded."""
+        the v-prediction model."""
         from ...zoo.common import load_sd
 
         m = load_sd(
@@ -1049,7 +1049,8 @@ class DiffusionAPI:
     ) -> "DiffusionAPI":
         """The concat-conditioned LDM inpainting model (`zoo.ldm_inpainting`:
         7 latent channels, an attention-free VQ first stage, resblock
-        resampling), seeded random weights; `ldm_kwargs` go to the zoo's constructor."""
+        resampling), seeded random weights or (`pretrained`) its checkpoint
+        from the local cache; `ldm_kwargs` go to the zoo's constructor."""
         from ...zoo.common import ldm_inpainting
 
         return cls._from_zoo(ldm_inpainting, pretrained, use_bf16, ldm_kwargs, device, seed, kwargs)
@@ -1060,7 +1061,8 @@ class DiffusionAPI:
         device: Any = None, seed: int = 0, **kwargs: Any,
     ) -> "DiffusionAPI":
         """The semantic-map LDM (`zoo.ldm_semantic`: 182-channel one-hot maps
-        through a `Rescaler`, the concat condition), seeded random weights."""
+        through a `Rescaler`, the concat condition), seeded random weights
+        or (`pretrained`) its checkpoint from the local cache."""
         from ...zoo.common import ldm_semantic
 
         return cls._from_zoo(ldm_semantic, pretrained, use_bf16, ldm_kwargs, device, seed, kwargs)

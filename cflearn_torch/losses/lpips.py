@@ -11,12 +11,13 @@ buffers (`nnx.Variable`s there, which its compute cast leaves f32), so a bf16
 image minus `shift` is f32, and every conv computes in the promoted dtype of
 its input and its (possibly bf16) weight: the tower runs in f32.
 
-The pretrained weights are not in the repository and are never downloaded:
-`load_lpips` reads local torch files (torchvision's VGG16 `features.{i}` and
-the lpips lin heads, `mappings.{i}.net.1` or `lin{i}.model.1`), and
-`pretrained=True` without them raises. `LPIPSLoss(pretrained="auto")` falls
-back to random weights with a warning, as the JAX package does without its
-downloads.
+The pretrained weights are local torch files: torchvision's VGG16
+(`features.{i}`) and the lpips lin heads (`mappings.{i}.net.1` or
+`lin{i}.model.1`), given as paths or served from the download cache by the
+index entries `vgg16_torchvision` and `lpips` (`toolkit.misc.download`, the
+entries' shas checked). `LPIPSLoss(pretrained="auto")` loads them when both
+are in the cache, and otherwise warns and keeps random weights (the JAX
+package's fallback; the port does not try the network for "auto").
 """
 
 import warnings
@@ -94,31 +95,46 @@ class LPIPS(nn.Module):
         return total
 
 
-def _torch_state_dict(path: Any) -> Any:
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd.get("state_dict", sd) if isinstance(sd, dict) else sd
+def _index_file(entry: str) -> Any:
+    """The download cache's file of index entry `entry`, fetched where it is
+    missing (`download`, with the entry's sha)."""
+    from ..toolkit.misc import download
+    from ..zoo.common import get_available
+
+    info = get_available()["checkpoints"][entry]
+    return download(info["url"], sha=info.get("sha"))
+
+
+def _cached(entry: str) -> bool:
+    from ..toolkit.misc import get_download_cache_dir
+    from ..zoo.common import get_available
+
+    info = get_available()["checkpoints"][entry]
+    return (get_download_cache_dir() / (info.get("name") or info["url"].split("/")[-1])).is_file()
 
 
 def load_lpips(lpips_ckpt: Any = None, vgg_ckpt: Any = None, *, pretrained: bool = False) -> LPIPS:
     """LPIPS with random weights, or (`pretrained`, or a path given) with the
     VGG16 tower from torchvision's `vgg16-397923af.pth` at `vgg_ckpt` and the
-    lin heads from the lpips checkpoint at `lpips_ckpt`, both local torch
-    files (both needed: nothing is downloaded). Strict: every conv of the
-    tower and every head is loaded, with its shape checked."""
+    lin heads from the lpips checkpoint at `lpips_ckpt`; a file not given
+    comes from the download cache (the index entries `vgg16_torchvision`,
+    `lpips`). Strict: every conv of the tower and every head is loaded,
+    with its shape checked."""
+    from ..zoo.convert import load_torch_state_dict
+
     net = LPIPS()
     if not (pretrained or lpips_ckpt or vgg_ckpt):
         return net
-    if lpips_ckpt is None or vgg_ckpt is None:
-        raise FileNotFoundError(
-            "the pretrained LPIPS needs both local checkpoints (lpips_ckpt: the lin heads, vgg_ckpt: torchvision's "
-            "VGG16); they are not in the repository and are not downloaded"
-        )
-    vgg = _torch_state_dict(vgg_ckpt)
+    if vgg_ckpt is None:
+        vgg_ckpt = _index_file("vgg16_torchvision")
+    if lpips_ckpt is None:
+        lpips_ckpt = _index_file("lpips")
+    vgg = load_torch_state_dict(vgg_ckpt)
     sd = {}
     for i, ti in enumerate(VGG16_TORCH_CONV_IDS):
         sd[f"vgg.convs.{i}.weight"] = vgg[f"features.{ti}.weight"]
         sd[f"vgg.convs.{i}.bias"] = vgg[f"features.{ti}.bias"]
-    for key, value in _torch_state_dict(lpips_ckpt).items():
+    for key, value in load_torch_state_dict(lpips_ckpt).items():
         parts = key.split(".")
         if parts[-1] != "weight":
             continue
@@ -139,8 +155,9 @@ def load_lpips(lpips_ckpt: Any = None, vgg_ckpt: Any = None, *, pretrained: bool
 class LPIPSLoss(nn.Module):
     """The perceptual loss of predictions against targets, reduced over the
     batch (`reduction` "mean", "sum" or "none"). `pretrained`: "auto" loads
-    the local checkpoints and falls back to random weights with a warning
-    where they are missing; True requires them; False uses random weights."""
+    the checkpoints given or in the download cache and falls back to random
+    weights with a warning where they are not there or do not load; True
+    requires them; False uses random weights."""
 
     def __init__(
         self, reduction: str = "mean", pretrained: Any = "auto", *, lpips_ckpt: Any = None, vgg_ckpt: Any = None
@@ -149,15 +166,20 @@ class LPIPSLoss(nn.Module):
         self.reduction = reduction
         if pretrained in (False, None):
             self.net = LPIPS()
+        elif pretrained == "auto" and not ((lpips_ckpt or _cached("lpips")) and (vgg_ckpt or _cached("vgg16_torchvision"))):
+            self._random("the checkpoints are neither given nor in the download cache")
         else:
             try:
                 self.net = load_lpips(lpips_ckpt, vgg_ckpt, pretrained=True)
-            except FileNotFoundError as e:
+            except Exception as e:  # noqa: BLE001  (the "auto" policy falls back, as in the JAX package)
                 if pretrained is True:
                     raise
-                warnings.warn(f"LPIPS pretrained weights unavailable ({e}); using random weights: "
-                              "perceptual distances are NOT meaningful")
-                self.net = LPIPS()
+                self._random(str(e))
+
+    def _random(self, why: str) -> None:
+        warnings.warn(f"LPIPS pretrained weights unavailable ({why}); using random weights: "
+                      "perceptual distances are NOT meaningful")
+        self.net = LPIPS()
 
     def forward(self, predictions: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         losses = self.net(predictions, target)

@@ -38,8 +38,9 @@ def build_module(
     `kwargs`: constructed on "meta", materialised on `device` (CUDA unless
     the caller asks for another device), its parameters drawn by
     `init_parameters` from `generator` (one seeded with `seed` when not
-    given) and cast to `dtype`. A module with a noise schedule recomputes
-    its buffers there. On "meta" nothing is allocated or drawn."""
+    given) and cast to `dtype`. On "meta" nothing is allocated or drawn.
+    Each submodule with an `after_build(device)` method runs it then (an
+    `LDM` loads its pretrained first stage there)."""
     cls = name if isinstance(name, type) else module_registry.get(name)
     if cls is None:
         raise ValueError(f"module '{name}' is not registered (available: {sorted(module_registry)})")
@@ -49,9 +50,36 @@ def build_module(
     if device.type != "meta":
         module = module.to_empty(device=device)
         init_parameters(module, seed, generator=generator)
-        if hasattr(module, "_rebuild_schedule"):
-            module._rebuild_schedule()
+    for m in module.modules():
+        if hasattr(m, "after_build"):
+            m.after_build(device)
     return cast_parameters(module, dtype)
+
+
+def materialize(module: nn.Module, device: Any) -> nn.Module:
+    """A module built on "meta" allocated on `device` without drawing its
+    parameters (they are to be loaded), its buffers and constants set
+    (`set_buffers`)."""
+    module = module.to_empty(device=device)
+    set_buffers(module)
+    return module
+
+
+def set_buffers(module: nn.Module) -> nn.Module:
+    """What a module materialised from "meta" holds uninitialised and no
+    checkpoint fills: each submodule with a `reset_buffers` method
+    (BatchNorm's running statistics, fixed kernels and masks) sets its
+    buffers, each with an `init_constants` method (CLIP's logit scale) its
+    constants, and a noise schedule is recomputed."""
+    with torch.no_grad():
+        for m in module.modules():
+            if hasattr(m, "reset_buffers"):
+                m.reset_buffers()
+            if hasattr(m, "init_constants"):
+                m.init_constants()
+    if hasattr(module, "_rebuild_schedule"):
+        module._rebuild_schedule()
+    return module
 
 
 class PrefixModules:
@@ -107,11 +135,8 @@ def init_parameters(module: nn.Module, seed: int = 0, *, generator: Optional[tor
     weights of rank >= 2 ~ N(0, 1 / fan_in), 1-D norm scales = 1, other 1-D
     tensors (biases) = 0, embeddings (and a ViT's class embedding) ~ N(0,
     0.02^2) and the positional table ~ N(0, 0.01^2). Modules marked by
-    `zero_module` are zeroed; a module with a `reset_buffers` method
-    (BatchNorm's running statistics, fixed kernels and masks, which a module
-    materialised from "meta" holds uninitialised) sets its buffers; a module
-    with an `init_constants` method (CLIP's logit scale) sets its constants
-    last."""
+    `zero_module` are zeroed; then `set_buffers` sets the buffers and
+    constants."""
     params = list(module.named_parameters())
     device = params[0][1].device if params else torch.device("cpu")
     gen = generator if generator is not None else torch.Generator(device=device).manual_seed(seed)
@@ -130,14 +155,10 @@ def init_parameters(module: nn.Module, seed: int = 0, *, generator: Optional[tor
             else:
                 p.zero_()
         for m in module.modules():
-            if hasattr(m, "reset_buffers"):
-                m.reset_buffers()
             if getattr(m, "zero_init", False):
                 for p in m.parameters():
                     p.zero_()
-            if hasattr(m, "init_constants"):
-                m.init_constants()
-    return module
+    return set_buffers(module)
 
 
 def redraw_zero_init(module: nn.Module, seed: int, scale: float = 0.1) -> int:

@@ -213,10 +213,8 @@ class LoRAManager:
 
 
 def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A `.ckpt` / `.pt` (pickle, tensors only) or `.safetensors` checkpoint."""
-    if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
+    """A `.ckpt` / `.pt` (pickle, tensors only) or `.safetensors` checkpoint,
+    read by the zoo's reader (`zoo.convert.load_torch_state_dict`)."""
+    from ...zoo.convert import load_torch_state_dict
 
-        return load_file(path)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd.get("state_dict", sd)
+    return load_torch_state_dict(path)

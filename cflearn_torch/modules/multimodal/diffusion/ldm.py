@@ -22,7 +22,11 @@ class LDM(DDPM):
 
     `first_stage` is a module, a `generators` name ("ae_kl", "ae_vq") or
     else a zoo preset name ("ae/vq.f4", `cflearn_torch.zoo`), built from
-    `first_stage_config` (random weights: a `pretrained` entry raises);
+    `first_stage_config`; with a `pretrained` entry a preset's weights come
+    from the zoo's local cache, loaded strictly by `after_build` once
+    `build_module` has put the model on its device (so the LDM is built
+    through `build_module`), and a `generators` name, which has no
+    checkpoint, raises;
     without either, `first_stage_config` builds an `AutoEncoderKL`. With `use_first_stage_as_condition` the raw
     condition goes through the first-stage encoder, without a gradient (the
     semantic / super-resolution LDMs, which join it to the UNet's input:
@@ -45,20 +49,40 @@ class LDM(DDPM):
         super().__init__(**kwargs)
         self.latent_scale = latent_scale if first_stage_scale_factor is None else first_stage_scale_factor
         self.use_first_stage_as_condition = use_first_stage_as_condition
+        self.first_stage_pretrained: Optional[str] = None
         if isinstance(first_stage, str):
             cfg = dict(first_stage_config or {})
             cfg.pop("prefix_module", None)
-            if cfg.pop("pretrained", False):
-                raise ValueError(f"pretrained weights of the first stage '{first_stage}' are not in the repository")
+            pretrained = cfg.pop("pretrained", False)
             if generators.has(first_stage):
+                if pretrained:
+                    raise ValueError(f"the first stage '{first_stage}' names a generator, which has no checkpoint")
                 first_stage = generators.build(first_stage, **cfg)
             else:
                 from ....zoo.common import build_module
 
+                if pretrained:
+                    if torch.empty(0).device.type != "meta":
+                        raise ValueError(f"the pretrained first stage '{first_stage}' loads when `build_module` "
+                                         "builds the LDM")
+                    self.first_stage_pretrained = first_stage
                 first_stage = build_module(first_stage, **cfg)
         elif first_stage is None and first_stage_config is not None:
             first_stage = AutoEncoderKL(**first_stage_config)
         self.first_stage = first_stage
+
+    def after_build(self, device: torch.device) -> None:
+        """`build_module`'s hook: the first stage's pretrained weights, from
+        the preset named in `first_stage_pretrained`, loaded on a real
+        device."""
+        if self.first_stage_pretrained is None:
+            return
+        if device.type == "meta":
+            raise ValueError(f"pretrained weights of ['{self.first_stage_pretrained}'] load onto a real device, "
+                             "not 'meta'")
+        from ....zoo.common import load_pretrained_into
+
+        load_pretrained_into(self.first_stage, self.first_stage_pretrained)
 
     def encode_first_stage(
         self, images: torch.Tensor, *, generator: Optional[torch.Generator] = None, deterministic: bool = True

@@ -3,7 +3,7 @@ numpy only; `ChineseCLIPTokenizer` is not ported).
 
 The CLIP BPE is implemented here: byte-pair merges over the standard CLIP
 vocab. The merges load from a local file (`bpe_path`), then from
-`bpe_simple_vocab_16e6.txt.gz` in `CACHE_DIR`, then from an installed
+`bpe_simple_vocab_16e6.txt.gz` in `OPT.cache_dir`, then from an installed
 `transformers` cache, in that order; without any of them a deterministic
 byte-level fallback keeps the pipeline runnable offline (random weights,
 where exact token ids do not matter). `provenance` says which one is in use.
@@ -14,14 +14,12 @@ import html
 import os
 import re
 from functools import lru_cache
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-# where the merges file is looked for after `bpe_path` (the JAX package's
-# `OPT.cache_dir` counterpart)
-CACHE_DIR = os.path.join(str(Path.home()), ".cache", "cflearn_torch")
+from ...parameters import OPT
+
 MERGES_FILE = "bpe_simple_vocab_16e6.txt.gz"
 
 
@@ -104,7 +102,7 @@ class CLIPTokenizer:
 
     @staticmethod
     def _load_merges(bpe_path: Optional[str]) -> Optional[List[Tuple[str, str]]]:
-        candidates = [p for p in (bpe_path, os.path.join(CACHE_DIR, MERGES_FILE)) if p]
+        candidates = [p for p in (bpe_path, os.path.join(OPT.cache_dir, MERGES_FILE)) if p]
         for path in candidates:
             if os.path.isfile(path):
                 opener = gzip.open if path.endswith(".gz") else open

@@ -7,7 +7,10 @@ caches such as ToMe's indices), then captures one call in a
 `torch.cuda.CUDAGraph`, optionally from a memory pool that several captures
 share (`torch.cuda.graph_pool_handle()`). A call copies its inputs into the
 static input tensors (not where a caller hands the static tensor itself)
-and replays the graph; the outputs are the static output tensors, which the
+and replays the graph; an input of another shape or dtype than its static
+tensor raises `TypeError` before anything is copied or replayed
+(`check_inputs`), as a JAX `Compiled` refuses arguments of other shapes
+or dtypes (a plain `copy_` would broadcast a smaller batch or cast); the outputs are the static output tensors, which the
 next replay overwrites: a caller that keeps one copies it out.
 
 A replay launches the captured kernels without entering their wrappers, so
@@ -33,6 +36,30 @@ def _tensors(tree: Any) -> Iterator[torch.Tensor]:
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)
+
+
+def check_inputs(static: Dict[str, Any], inputs: Dict[str, Any], path: str = "") -> None:
+    """Raise `TypeError` unless each input matches its static tensor's shape
+    and dtype (the device may differ: the copy moves it), naming the key,
+    the captured shape and dtype and the given ones."""
+    for k, v in inputs.items():
+        key = f"{path}{k}"
+        if k not in static:
+            raise TypeError(f"input {key!r} was not captured (captured: {sorted(static)})")
+        dst = static[k]
+        if torch.is_tensor(dst):
+            if not torch.is_tensor(v):
+                raise TypeError(f"input {key!r}: captured a tensor {tuple(dst.shape)} {dst.dtype}, given {type(v).__name__}")
+            if v.shape != dst.shape or v.dtype != dst.dtype:
+                raise TypeError(
+                    f"input {key!r}: captured for shape {tuple(dst.shape)} and dtype {dst.dtype}, given shape "
+                    f"{tuple(v.shape)} and dtype {v.dtype}"
+                )
+        elif isinstance(dst, dict):
+            if not isinstance(v, dict) or set(v) != set(dst):
+                got = sorted(v) if isinstance(v, dict) else type(v).__name__
+                raise TypeError(f"input {key!r}: captured a dict of {sorted(dst)}, given {got}")
+            check_inputs(dst, v, f"{key}.")
 
 
 def _copy_into(dst: Any, src: Any) -> None:
@@ -80,7 +107,9 @@ class CapturedCall:
         self.replays += 1
 
     def __call__(self, **inputs: Any) -> Any:
-        """The inputs copied in, one replay; the static outputs."""
+        """The inputs checked (`check_inputs`) and copied in, one replay; the
+        static outputs."""
+        check_inputs(self.static_inputs, inputs)
         for k, v in inputs.items():
             _copy_into(self.static_inputs[k], v)
         self.replay()

@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from ..data.utils import convert
-from ..ops.graphs import CapturedCall
+from ..ops.graphs import CapturedCall, check_inputs
 from ..schema.model import IDLModel
 
 # the operations that carry a kernel, by the launch counter each one moves
@@ -186,6 +186,8 @@ class CapturedForward:
     """The inference forward at fixed shapes: on the card, one
     `ops.graphs.CapturedCall` of it, replayed on every call with the inputs
     copied into the graph's static tensors; on the CPU, the eager forward.
+    Either way a batch of another shape or dtype than the example's raises
+    `TypeError` (`ops.graphs.check_inputs`).
     `launches_per_replay` holds the kernels launched by the capture; the
     counters do not move on a replay."""
 
@@ -221,7 +223,10 @@ class CapturedForward:
 
     def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         inputs = _as_batch(batch, self.device)
+        # a batch of another shape or dtype is refused on either device, as a JAX `Compiled` refuses it: here on
+        # the CPU, by `CapturedCall` before its copy on the card
         if self.call is None:
+            check_inputs(self.static_inputs, inputs)
             with torch.no_grad():
                 return self.forward(inputs)
         return {k: v.clone() for k, v in self.call(batch=inputs).items()}

@@ -2,15 +2,22 @@
 `slerp`, the `jax.checkpoint_policies` names as selective-checkpoint
 policies (`resolve_checkpoint_policy`, `checkpoint_context_fn`), and the
 framework's `check_is_ci`, `timestamp`, `sort_dict_by_value` and
-`truncate_string_to_length`."""
+`truncate_string_to_length`; and the download cache (`download`,
+`download_json`, `download_checkpoint`, `compute_sha`, `check_sha_with`,
+`get_download_cache_dir`)."""
 
 import functools
+import hashlib
+import json
 import os
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..parameters import OPT
 
 np_dict_type = Dict[str, Union[np.ndarray, Any]]
 
@@ -201,3 +208,145 @@ def make_indices_visualization_map(indices: Any) -> np.ndarray:
         draw.text(((28 - tw) / 2 - bbox[0], (28 - th) / 2 - bbox[1]), text, fill=0)
         tiles.append(np.asarray(img, np.float32) / 127.5 - 1.0)
     return np.stack(tiles)[..., None]
+
+
+# ---- the download cache ----
+
+
+def compute_sha(path: str) -> str:
+    """The sha256 hex digest of a file, read in 1 MiB chunks."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def check_sha_with(path: str, tgt_sha: str) -> bool:
+    return compute_sha(path) == tgt_sha
+
+
+def get_download_cache_dir() -> Path:
+    """`OPT.cache_dir/download`, where `download` looks for a file first."""
+    folder = Path(OPT.cache_dir) / "download"
+    folder.mkdir(parents=True, exist_ok=True)
+    return folder
+
+
+# (path, sha, sha_prefix, min_size) of the files verified in this process: a multi-GB checkpoint is hashed once
+_verified_downloads: set = set()
+
+
+def _tofu_sha_file(dst_folder: Path) -> Path:
+    return dst_folder / ".sha256.json"
+
+
+def _tofu_get(dst_folder: Path, fname: str) -> Optional[str]:
+    f = _tofu_sha_file(dst_folder)
+    if not f.is_file():
+        return None
+    try:
+        return json.loads(f.read_text()).get(fname)
+    except (OSError, ValueError):  # an unreadable sidecar pins nothing
+        return None
+
+
+def _tofu_put(dst_folder: Path, fname: str, sha: str) -> None:
+    f = _tofu_sha_file(dst_folder)
+    try:
+        d = json.loads(f.read_text()) if f.is_file() else {}
+    except (OSError, ValueError):
+        d = {}
+    d[fname] = sha
+    f.write_text(json.dumps(d, indent=2, sort_keys=True))
+
+
+def download(
+    url: str,
+    *,
+    name: Optional[str] = None,
+    folder: Optional[str] = None,
+    sha: Optional[str] = None,
+    sha_prefix: Optional[str] = None,
+    min_size: Optional[int] = None,
+    retries: int = 2,
+) -> Path:
+    """The file `name` (the URL's last part by default) in `folder` (the
+    download cache by default), fetched from `url` when it is not there.
+
+    A file already in the cache is checked against `sha` where the index
+    records one, else against the sha256 pinned in the folder's
+    `.sha256.json` at its first use (trust on first use); a file with neither
+    is hashed and pinned. `min_size` (a byte floor: a truncated transfer, an
+    error page) and `sha_prefix` (the first hex digits of the sha256 that a
+    torch-hub file name carries) are checked too. A file is verified once a
+    process. A cached file that fails its sha is fetched again, and the fetch
+    must match the sha or the pin: offline, that fetch fails, and the error
+    names the path where the file goes. The same outcomes as the JAX
+    package's `download` on the same files.
+    """
+    import urllib.request
+
+    def weak_checks(p: Path, digest: Optional[str]) -> None:
+        if min_size is not None and p.stat().st_size < min_size:
+            raise IOError(
+                f"{p.name} is {p.stat().st_size} bytes — smaller than the "
+                f"recorded minimum {min_size} (truncated download?)"
+            )
+        if sha_prefix is not None and digest is not None and not digest.startswith(sha_prefix):
+            raise IOError(
+                f"sha mismatch for {p.name}: digest {digest[:16]}… does not "
+                f"start with the filename-recorded prefix {sha_prefix}"
+            )
+
+    dst_folder = Path(folder) if folder is not None else get_download_cache_dir()
+    dst_folder.mkdir(parents=True, exist_ok=True)
+    fname = name or url.split("/")[-1]
+    path = dst_folder / fname
+    if path.is_file():
+        verify_key = (str(path), sha, sha_prefix, min_size)
+        if verify_key in _verified_downloads:
+            return path
+        pinned = sha or _tofu_get(dst_folder, fname)
+        if pinned is None:
+            digest = compute_sha(str(path))
+            weak_checks(path, digest)
+            _tofu_put(dst_folder, fname, digest)
+            _verified_downloads.add(verify_key)
+            return path
+        if check_sha_with(str(path), pinned):
+            weak_checks(path, pinned)
+            _verified_downloads.add(verify_key)
+            return path
+        # a corrupted or replaced file: fetched again below
+    err: Optional[Exception] = None
+    pinned = sha or _tofu_get(dst_folder, fname)
+    attempts = max(1, retries)
+    for i in range(attempts):
+        try:
+            urllib.request.urlretrieve(url, str(path))
+            got = compute_sha(str(path))
+            if pinned is not None and got != pinned:
+                raise IOError(f"sha mismatch for {fname}")
+            weak_checks(path, got)
+            _tofu_put(dst_folder, fname, got)
+            return path
+        except Exception as e:  # noqa: BLE001
+            err = e
+            if i + 1 < attempts:
+                time.sleep(1)
+    raise IOError(f"failed to download {url}: {err}; without a network, put the file at {path}")
+
+
+def download_json(url: str, **kwargs: Any) -> Dict[str, Any]:
+    with open(download(url, **kwargs), "r") as f:
+        return json.load(f)
+
+
+def download_checkpoint(tag: str, *, check_sha: bool = False) -> Path:
+    """The checkpoint of the index entry `tag` from the cache (`download`),
+    held to the entry's recorded sha when `check_sha`."""
+    from ..zoo.common import resolve_download
+
+    info = resolve_download(tag)
+    return download(info["url"], name=info.get("name"), sha=info.get("sha") if check_sha else None)

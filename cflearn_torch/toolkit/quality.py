@@ -105,9 +105,11 @@ def clip_score(
     """CLIPScore of `images` (anything `CLIPExtractor.get_image_latent`
     takes) against their prompts `texts` (one string broadcasts over the
     batch). `extractor`: a `cflearn_torch.api.CLIPExtractor`; without one,
-    the zoo's pretrained ViT-B/32 is asked for, and its weights are not in
-    the repository, so that raises. Random weights give a deterministic but
-    arbitrary embedding space: scores compare runs, not models."""
+    the zoo's pretrained ViT-B/32 is loaded from the local cache onto the
+    card (`CLIPExtractor.from_zoo`), which raises: the index's HF CLIP file
+    fills no parameter through the `clip_text` mapping. Random weights give
+    a deterministic but arbitrary embedding space: scores compare runs, not
+    models."""
     if extractor is None:
         from ..api.multimodal.clip import CLIPExtractor
 

@@ -307,14 +307,31 @@ Phases, in order; any failure exits non-zero:
    compiled txt2img bit for bit the eager one, launches = the counters' plus
    the graphs' captures x replays = the eager run's, host ms an image eager
    and compiled, and each one's device idle share.
-24. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+24. pretrained weights from the cache — under a temporary `OPT.cache_dir`
+   (inside the checkout; the free space printed first, too little is a
+   failure), with every fetch refused: a seeded SD-1.5 written as a 4.3 GB
+   f32 `.safetensors` in the upstream layout under `sd_v1.5`'s file name,
+   `DiffusionAPI.from_sd("v1", pretrained=True)` (bf16; the first use pins
+   its sha) with every parameter bit for bit its source cast to bf16,
+   txt2img at 512², batch 1, 20 DDIM steps, CFG 7.5 with phase 12's launches
+   and the image bit for bit that of the same weights given by
+   `load_state_dict`, a second load from the converted cache; an f16
+   ControlNet under `control_v11f1p_sd15_depth.pth` refused by the entry's
+   `min_size`, the f32 one (1.45 GB) through `load_control_net("depth",
+   pretrained=True)` bit for bit and `sample_with_control` with phase 12's
+   launches; one changed byte refused against its pin. Prints whether
+   `import safetensors` works, and the host seconds and GB/s of the sha,
+   the read, the convert, the move to the card, the converted cache's write
+   and a load from it. The files are removed.
+25. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
    the style and tiling, the SD v2 and v2 finetune, the CV models', the
-   framework's, the tabular, the rest of the framework's and the
-   annotators and compile readings on lines of their own, the card's name and power limit, and last `{"ok":
+   framework's, the tabular, the rest of the framework's, the
+   annotators and compile and the pretrained loads' readings on lines of
+   their own, the card's name and power limit, and last `{"ok":
    true, "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
 
@@ -4223,6 +4240,268 @@ def phase_annotators_compile(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     return out
 
 
+
+# 24. pretrained weights from the cache: SD-1.5 and a depth ControlNet written as seeded upstream-layout files,
+# served by the zoo's download cache, converted, loaded strictly, and sampled from
+PRETRAINED_SEED = 24
+PRETRAINED_FREE_BYTES = 12e9  # SD-1.5 f32 and its converted cache (4.27 GB each), the ControlNet's two (1.45 GB)
+
+
+@contextlib.contextmanager
+def no_network():
+    """`urllib.request.urlretrieve` refused inside the block, the URLs asked for kept: a file that is not in the
+    cache, or fails its sha, raises where the loader would reach for the network."""
+    import urllib.request
+
+    saved = urllib.request.urlretrieve
+    tried = []
+
+    def refuse(url, *args, **kwargs):
+        tried.append(url)
+        raise OSError(f"no network here: {url} is not fetched")
+
+    urllib.request.urlretrieve = refuse
+    try:
+        yield tried
+    finally:
+        urllib.request.urlretrieve = saved
+
+
+@contextlib.contextmanager
+def timed_calls(torch, spans, targets):
+    """Wrap each (module, attribute, span) of `targets` so that its host seconds (after a synchronize) add up in
+    `spans[span]` = [seconds, calls]."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def wrap(fn, span):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans.setdefault(span, [0.0, 0])
+            spans[span][0] += time.perf_counter() - t0
+            spans[span][1] += 1
+            return result
+
+        return call
+
+    for (mod, attr, fn), (_, _, span) in zip(saved, targets):
+        setattr(mod, attr, wrap(fn, span))
+    try:
+        yield spans
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def phase_pretrained(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
+    """SD-1.5 from a 4.3 GB f32 `.safetensors` file in the upstream layout (seeded; the real file's dropped keys
+    beside it) under a temporary `OPT.cache_dir`: `DiffusionAPI.from_sd("v1", pretrained=True)` (first use pins
+    its sha) with every parameter bit for bit its source cast to bf16, txt2img at 512², 20 DDIM steps, CFG 7.5 with
+    phase 12's launches and the image bit for bit that of the same weights given by `load_state_dict`, a second
+    load from the converted cache; an f16 ControlNet under `control_v11f1p_sd15_depth.pth` refused by the entry's
+    `min_size`, the f32 one loaded by `load_control_net("depth", pretrained=True)` and sampled with exactly phase
+    12's controlled launches; one changed byte refused against its pin. No fetch is allowed: `no_network`. The host
+    seconds and GB/s of the sha, the read, the convert, the move to the card, the converted cache's write and a
+    load from it; the files go at the end."""
+    import shutil
+    import tempfile
+
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.parameters import OPT
+    from cflearn_torch.toolkit import misc as M
+    from cflearn_torch.zoo import common as Z
+    from cflearn_torch.zoo import convert as C
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"pretrained: {msg}")
+
+    out = {}
+    root = tempfile.mkdtemp(prefix=".chip_smoke_pretrained_", dir=HERE)
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"pretrained: {free / 1e9:.1f} GB free under {root} ({PRETRAINED_FREE_BYTES / 1e9:.0f} GB needed)")
+        check(free >= PRETRAINED_FREE_BYTES, f"{free / 1e9:.1f} GB free, {PRETRAINED_FREE_BYTES / 1e9:.0f} GB needed")
+        try:
+            import safetensors  # noqa: F401
+
+            out["safetensors_package"] = True
+        except ImportError:
+            out["safetensors_package"] = False
+        print(f"pretrained: `import safetensors` {'works' if out['safetensors_package'] else 'fails'} here")
+        with OPT.opt_context({"cache_dir": root}), no_network() as tried:
+            out.update(_pretrained_sd(torch, np, cflearn_torch, A, Cv, Gn, M, Z, C, redraw_zero_init, tried))
+        print(f"pretrained: done, {json.dumps(out)}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _pretrained_sd(torch, np, cflearn_torch, A, Cv, Gn, M, Z, C, redraw_zero_init, tried) -> dict:
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"pretrained: {msg}")
+
+    out = {}
+    index = Z.get_available()["checkpoints"]
+    download = M.get_download_cache_dir()
+    # the source: SD-1.5 with seeded weights (the zero-initialised convs redrawn), f32 on the card
+    src = cflearn_torch.zoo.load_sd("v1", device="cuda", dtype=torch.float32, seed=PRETRAINED_SEED)
+    redraw_zero_init(src, seed=PRETRAINED_SEED + 1)
+    source = {k: p.detach() for k, p in src.named_parameters()}
+    schedule = {k: b.detach() for k, b in src.named_buffers() if k in C.SD_SCHEDULE_KEYS}
+    del src
+    upstream = C.invert(C.build_sd_mapping("v1"), source)
+    # keys of the real file that no parameter takes: the noise schedule, the EMA's counters, CLIP's position ids
+    upstream.update(schedule)
+    upstream["model_ema.decay"] = torch.tensor(0.9999, device="cuda")
+    upstream["model_ema.num_updates"] = torch.tensor(1000, dtype=torch.int32, device="cuda")
+    upstream["cond_stage_model.transformer.text_model.embeddings.position_ids"] = torch.arange(
+        77, device="cuda")[None]
+    entry = index["sd_v1.5"]
+    sd_path = download / entry["url"].split("/")[-1]
+    t0 = time.perf_counter()
+    C.write_safetensors(sd_path, upstream)
+    write_s = time.perf_counter() - t0
+    size = sd_path.stat().st_size
+    print(f"pretrained: wrote {sd_path.name}, {len(upstream)} tensors, {size / 1e9:.3f} GB in {write_s:.1f} s "
+          f"(the entry's min_size {entry['min_size'] / 1e9:.1f} GB)")
+    check(size >= entry["min_size"], f"the seeded file is {size} bytes, under the entry's min_size")
+    del upstream
+    out["sd_file_bytes"] = size
+
+    spans = {}
+    targets = [(M, "compute_sha", "sha"), (C, "load_torch_state_dict", "read"), (Z, "convert_checkpoint", "convert"),
+               (Z, "materialize", "materialize"), (Z, "load_into", "move"), (C, "write_safetensors", "cache_write"),
+               (C, "read_safetensors", "safetensors_read")]
+    t0 = time.perf_counter()
+    with timed_calls(torch, spans, targets):
+        api = cflearn_torch.DiffusionAPI.from_sd("v1", pretrained=True, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(not tried, f"a fetch was asked for: {tried}")
+    check(M._tofu_get(download, sd_path.name) is not None, "the first use pinned no sha")
+    nbytes = sum(t.numel() * t.element_size() for t in source.values())
+    wrong = [k for k, p in api.m.named_parameters() if not torch.equal(p, source[k].to(torch.bfloat16))]
+    check(not wrong and len(source) == len(list(api.m.parameters())), f"parameters not bit for bit: {wrong[:5]}")
+    readings = {"first_load_s": first_s, "file_gb": size / 1e9, "converted_gb": nbytes / 1e9}
+    for span, (s, n) in spans.items():
+        gb = size if span in ("sha", "read") else nbytes
+        readings[span] = {"s": s, "calls": n, "gb_per_s": gb / 1e9 / s if s > 0 else None}
+    print(f"pretrained: from_sd('v1', pretrained=True) {first_s:.2f} s, every parameter bit for bit; host s "
+          f"(GB/s): " + ", ".join(f"{k} {v['s']:.3f} ({v['gb_per_s'] or 0:.2f})" for k, v in readings.items()
+                                   if isinstance(v, dict)) + " (the file read from a warm page cache)")
+
+    # txt2img: phase 12's default path, its launches exact, bit for bit the same weights given by load_state_dict
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    image = api.txt2img(PROMPT, num_steps=API_STEPS, seed=0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+    want = serving(API_STEPS)
+    check(api.sampler_name == "ddim", f"the default sampler is {api.sampler_name}")
+    check(got == want, f"txt2img launches {got} != phase 12's {want}")
+    check(image.shape == (1, 512, 512, 3) and image.dtype == np.uint8, f"image {image.shape} {image.dtype}")
+    ref = cflearn_torch.DiffusionAPI.from_sd("v1", device="cuda", seed=0)
+    result = ref.m.load_state_dict(source, strict=False)
+    buffers = {k for k, _ in ref.m.named_buffers()}
+    check(not result.unexpected_keys and set(result.missing_keys) <= buffers, "load_state_dict: keys differ")
+    ref_image = ref.txt2img(PROMPT, num_steps=API_STEPS, seed=0)
+    same = bool(np.array_equal(image, ref_image))
+    print(f"pretrained: txt2img {ms:.1f} ms (its first call), launches {json.dumps(got)} = phase 12's, image bit for "
+          f"bit the load_state_dict one: {same} (std {image.std():.2f})")
+    check(same, "the image differs from the one of the same weights given by load_state_dict")
+    del ref, ref_image
+    out["sd"] = dict(readings, txt2img_ms=ms, launches=got, image_bit_for_bit=same)
+
+    # a second load: from the converted cache, neither hashed nor converted again
+    spans.clear()
+    t0 = time.perf_counter()
+    with timed_calls(torch, spans, targets):
+        api2 = cflearn_torch.DiffusionAPI.from_sd("v1", pretrained=True, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    check("sha" not in spans and "convert" not in spans and "read" not in spans, f"the second load ran {sorted(spans)}")
+    check(all(torch.equal(a, b) for a, b in zip(api.m.parameters(), api2.m.parameters())), "second load differs")
+    cache_read = spans.get("safetensors_read", [0.0, 0])[0] + spans.get("move", [0.0, 0])[0]
+    print(f"pretrained: second load from the converted cache {second_s:.2f} s (its read and move {cache_read:.3f} s, "
+          f"{nbytes / 1e9 / max(cache_read, 1e-9):.2f} GB/s), bit for bit the first")
+    out["sd"]["converted_cache_load"] = {"s": second_s, "read_and_move_s": cache_read,
+                                         "gb_per_s": nbytes / 1e9 / max(cache_read, 1e-9)}
+    del api2, source
+    torch.cuda.empty_cache()
+
+    # the depth ControlNet: an f16 file falls under the entry's min_size; the f32 one loads and drives control
+    cn_entry = index["controlnet_v11_depth"]
+    cn_path = download / cn_entry["url"].split("/")[-1]
+    src = cflearn_torch.zoo.load_control_net("depth", device="cuda", dtype=torch.float32, seed=PRETRAINED_SEED + 2)
+    redraw_zero_init(src, seed=PRETRAINED_SEED + 3)
+    cn_source = {k: p.detach() for k, p in src.named_parameters()}
+    del src
+    upstream = {k: v.cpu() for k, v in C.invert(C.build_controlnet_mapping(), cn_source).items()}
+    torch.save({k: v.half() for k, v in upstream.items()}, cn_path)
+    half = cn_path.stat().st_size
+    try:
+        cflearn_torch.zoo.load_control_net("depth", pretrained=True, device="cuda", dtype=torch.bfloat16)
+        refused = False
+    except OSError as e:
+        refused = "smaller than the recorded minimum" in str(e)
+    print(f"pretrained: an f16 ControlNet ({half / 1e9:.3f} GB, min_size {cn_entry['min_size'] / 1e9:.1f} GB) "
+          f"refused: {refused}")
+    check(refused and not tried, "the f16 ControlNet was not refused by its min_size")
+    t0 = time.perf_counter()
+    torch.save(upstream, cn_path)
+    cn_write_s = time.perf_counter() - t0
+    del upstream
+    t0 = time.perf_counter()
+    cn = cflearn_torch.zoo.load_control_net("depth", pretrained=True, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    cn_s = time.perf_counter() - t0
+    wrong = [k for k, p in cn.named_parameters() if not torch.equal(p, cn_source[k].to(torch.bfloat16))]
+    check(not wrong and not tried, f"ControlNet parameters not bit for bit: {wrong[:5]}")
+    capi = cflearn_torch.ControlledDiffusionAPI(api.m, device="cuda")
+    capi.prepare_control("depth", cn)
+    gen = torch.Generator(device="cuda").manual_seed(PRETRAINED_SEED)
+    hint = torch.randint(0, 256, (512, 512, 3), generator=gen, device="cuda").to(torch.uint8).cpu().numpy()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    controlled = capi.sample_with_control(1, {"depth": hint}, cond=PROMPT, num_steps=API_STEPS, seed=0,
+                                          hint_starts={"depth": 0.1}, hint_ends={"depth": 0.9})
+    torch.cuda.synchronize()
+    cms = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+    want = serving(API_STEPS, controls=1)
+    check(got == want, f"controlled launches {got} != phase 12's {want}")
+    check(controlled.shape == (1, 512, 512, 3) and not np.array_equal(controlled, image), "controlled image")
+    print(f"pretrained: ControlNet written ({cn_path.stat().st_size / 1e9:.3f} GB, {cn_write_s:.1f} s), loaded in "
+          f"{cn_s:.2f} s bit for bit; sample_with_control {cms:.1f} ms (its first call), launches {json.dumps(got)} = "
+          f"phase 12's")
+    out["controlnet"] = {"file_gb": cn_path.stat().st_size / 1e9, "f16_refused": refused, "load_s": cn_s,
+                         "controlled_ms": cms, "launches": got}
+    del capi, cn, cn_source, api
+
+    # one changed byte against the pin: the load falls through to a fetch, which is refused here
+    (Z.converted_cache_path("controlnet_v11_depth")).unlink()
+    M._verified_downloads.clear()
+    with open(cn_path, "r+b") as f:
+        f.seek(cn_path.stat().st_size // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        cflearn_torch.zoo.load_control_net("depth", pretrained=True, device="cuda")
+        changed = False
+    except OSError as e:
+        changed = "put the file at" in str(e) and set(tried) == {cn_entry["url"]}
+    print(f"pretrained: one changed byte refused against its pin: {changed} (the fetch asked for: {tried})")
+    check(changed, "a changed byte was not refused")
+    tried.clear()
+    out["changed_byte_refused"] = changed
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5048,7 +5327,11 @@ def main() -> int:
     ann_out = phase_annotators_compile(torch, np, F, cflearn_torch, A, Cv, Gn)
     print(f"annotators and compile: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 24. summary
+    # 24. pretrained weights from the cache: SD-1.5 and a ControlNet from upstream-layout files
+    pre_out = phase_pretrained(torch, np, cflearn_torch, A, Cv, Gn)
+    print(f"pretrained: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 25. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -5153,6 +5436,7 @@ def main() -> int:
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
                    "framework": fw_out, "tabular": tab_out, "cv_framework": cvf_out, "annotators_compile": ann_out,
+                   "pretrained": pre_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -5176,6 +5460,7 @@ def main() -> int:
                                   for k, v in tab_out.items()}}))
     print(json.dumps({"cv_framework": cvf_out}))
     print(json.dumps({"annotators_compile": ann_out}))
+    print(json.dumps({"pretrained": pre_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

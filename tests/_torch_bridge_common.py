@@ -2,6 +2,8 @@
 its `cflearn_torch` counterpart and feed both the same numpy inputs."""
 
 import contextlib
+import urllib.request
+from pathlib import Path
 from typing import Dict
 
 import jax.numpy as jnp
@@ -17,6 +19,33 @@ from cflearn_torch.bridge import load_nnx_params
 # process. An xdist worker imports every test module when it collects, so this holds for every file it runs.
 DEFAULT_THREADS = torch.get_num_threads()
 torch.set_num_threads(1)
+
+# The tests run without a network and must never reach for one: both packages' `download` fetches a checkpoint
+# that is missing from its cache or fails its sha through `urllib.request.urlretrieve`. Every URL but a local
+# `file://` one is refused in every process that imports this module (an xdist worker imports them all).
+_urlretrieve = urllib.request.urlretrieve
+
+
+def _local_only(url, *args, **kwargs):
+    if not str(url).startswith("file://"):
+        raise OSError(f"the tests fetch nothing from the network: {url}")
+    return _urlretrieve(url, *args, **kwargs)
+
+
+urllib.request.urlretrieve = _local_only
+
+
+@contextlib.contextmanager
+def empty_cache(root, monkeypatch):
+    """The port's `OPT.cache_dir` at `root`, empty, inside the block, and the download retries not slept: a
+    pretrained load there finds no file, its fetch is refused, and the error names the path."""
+    import time
+
+    from cflearn_torch.parameters import OPT
+
+    monkeypatch.setattr(time, "sleep", lambda s: None)
+    with OPT.opt_context({"cache_dir": str(root)}):
+        yield Path(root) / "download"
 
 
 @contextlib.contextmanager

@@ -18,7 +18,7 @@ import torch
 from flax import nnx
 
 import cflearn_torch
-from _torch_bridge_common import flat_params, rel_err
+from _torch_bridge_common import empty_cache, flat_params, rel_err
 from cflearn_torch.bridge import load_nnx_batch_stats, load_nnx_buffers, load_nnx_params, tree_from_nnx
 from cflearn_torch.losses.lpips import LPIPS as TLPIPS
 from cflearn_torch.losses.lpips import LPIPSLoss, load_lpips
@@ -181,10 +181,11 @@ def test_lpips_runs_the_tower_in_f32_from_bf16(lpips_pair) -> None:
     torch.testing.assert_close(out, ref(x.float(), y), rtol=1e-5, atol=1e-7)
 
 
-def test_load_lpips_from_local_files_matches_jax(tmp_path) -> None:
+def test_load_lpips_from_local_files_matches_jax(tmp_path, monkeypatch) -> None:
     """torchvision's VGG16 keys and both lin-head key forms, read natively:
     the same distances as the JAX package's `load_lpips` on the same files.
-    Without the files `pretrained=True` raises; nothing is downloaded."""
+    Without the files, from an empty download cache, `pretrained=True`
+    raises, naming the path where a file goes, and "auto" warns."""
     rng = np.random.RandomState(10)
     vgg = {}
     ch = 3
@@ -208,12 +209,13 @@ def test_load_lpips_from_local_files_matches_jax(tmp_path) -> None:
         with torch.no_grad():
             got = tl(torch.from_numpy(x), torch.from_numpy(y))
         assert float(ref.min()) > 0 and rel_err(got.numpy(), ref) < 1e-5, form
-    with pytest.raises(FileNotFoundError, match="not downloaded"):
-        load_lpips(pretrained=True)
-    with pytest.raises(FileNotFoundError):
-        LPIPSLoss(pretrained=True)
-    with pytest.warns(UserWarning, match="random weights"):
-        auto = LPIPSLoss()
+    with empty_cache(tmp_path / "cache", monkeypatch) as folder:
+        with pytest.raises(OSError, match=f"put the file at {folder / 'vgg16-397923af.pth'}"):
+            load_lpips(pretrained=True)
+        with pytest.raises(OSError):
+            LPIPSLoss(pretrained=True)
+        with pytest.warns(UserWarning, match="random weights"):
+            auto = LPIPSLoss()
     assert isinstance(auto.net, TLPIPS)
     loss = LPIPSLoss(pretrained=True, lpips_ckpt=tmp_path / "lpips_lin.pt", vgg_ckpt=tmp_path / "vgg16.pth")
     with torch.no_grad():

@@ -21,12 +21,14 @@ import torch
 from flax import nnx
 
 from _torch_annotator_common import TOL, as_numpy, image, jitted, npd, port, rel, run, save, uint8_close
+from _torch_bridge_common import empty_cache
 from _torch_cv_common import fast_build
 from test_annotator_nets import _invert_midas_npd
 from cflearn_torch import bridge as B
 from cflearn_torch.api.cv import annotator as TA
 from cflearn_torch.api.cv.third_party import midas as TM
 from cflearn_torch.api.cv.third_party import wrappers as TW
+from cflearn_torch.zoo.common import get_available
 from cflearn_tpu.api.cv import annotator as JA
 from cflearn_tpu.api.cv.third_party import midas as JM
 from cflearn_tpu.api.cv.third_party import wrappers as JW
@@ -154,10 +156,13 @@ def test_midas_api(dpt_tiny, tmp_path) -> None:
 @pytest.mark.parametrize("name,kw,tag", [("depth", {}, "midas_dpt_large"), ("softedge", {}, "hed"),
                                          ("pose", {}, "body_pose"), ("mlsd", {}, "mlsd"),
                                          ("depth", {"model_type": "dpt_hybrid"}, "midas_dpt_hybrid")])
-def test_pretrained_without_ckpt_raises(name, kw, tag) -> None:
-    """The port takes local checkpoints only: `pretrained=True` alone names the checkpoint and raises."""
-    with pytest.raises(ValueError, match=tag):
-        TA.Annotator.make(name, dict(kw, pretrained=True))
+def test_pretrained_without_ckpt_raises(name, kw, tag, tmp_path, monkeypatch) -> None:
+    """`pretrained=True` alone takes the index entry's file from the download cache: from an empty one it
+    raises, naming the path where the file goes."""
+    file = get_available()["checkpoints"][tag]["url"].split("/")[-1]
+    with empty_cache(tmp_path, monkeypatch) as folder:
+        with pytest.raises(OSError, match=f"put the file at {folder / file}"):
+            TA.Annotator.make(name, dict(kw, pretrained=True))
 
 
 def test_registry_and_nets_needing_a_checkpoint() -> None:

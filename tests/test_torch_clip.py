@@ -275,6 +275,8 @@ def test_bridge_is_strict_both_ways(tiny_clip) -> None:
 
 
 def test_pretrained_raises() -> None:
+    """Pretrained weights load from the local cache onto a real device (`tests/test_torch_pretrained.py`):
+    on "meta" every constructor refuses before it reads anything."""
     for fn in (tzoo.clip, tzoo.clip_large, tzoo.open_clip_ViT_H_14, tzoo.esr, tzoo.esr_anime):
-        with pytest.raises(ValueError, match="not in the repository"):
+        with pytest.raises(ValueError, match="not 'meta'"):
             fn(pretrained=True, device="meta")

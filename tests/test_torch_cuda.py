@@ -960,6 +960,24 @@ def test_aot_compile_replays_the_forward(cuda) -> None:
     assert _moved(before) == {} and compiled.replays == 4
 
 
+def test_aot_compile_refuses_another_batch(cuda) -> None:
+    """A capture at batch 4 refuses a batch of 1, and f16 in place of f32, with a `TypeError` before anything is
+    copied: the graph does not replay and its static input keeps the captured batch (a plain `copy_` would
+    broadcast the one sample over four rows, or cast)."""
+    import cflearn_torch
+
+    m = _small_vit()
+    x = torch.rand((4, 64, 64, 3), generator=cuda, device="cuda")
+    compiled = cflearn_torch.aot_compile(m, {"input": x})
+    kept = compiled.static_inputs["input"].clone()
+    for bad in (x[:1], x.half()):
+        with pytest.raises(TypeError, match="captured for shape"):
+            compiled({"input": bad})
+    torch.cuda.synchronize()
+    assert compiled.replays == 0 and torch.equal(compiled.static_inputs["input"], kept)
+    assert compiled({"input": x})["predictions"].shape == (4, 5) and compiled.replays == 1
+
+
 @pytest.mark.parametrize("sampler,deepcache", [("ddim", 2), ("plms", None)])
 def test_diffusion_compile_replays_bit_for_bit(cuda, sampler, deepcache) -> None:
     """`DiffusionAPI.compile` on a small LDM on the card (`__graft_entry__.py`'s widths, 64 px images): the

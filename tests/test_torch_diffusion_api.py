@@ -169,7 +169,7 @@ def test_api_switches_and_constructors(plain, monkeypatch):
     assert torch.equal(dict(tm.named_parameters())[name], original)
     with pytest.raises(ValueError, match="not prepared"):
         api.switch_sd("missing")
-    with pytest.raises(ValueError, match="never downloaded"):
+    with pytest.raises(ValueError, match="not 'meta'"):
         cflearn_torch.DiffusionAPI.from_sd(pretrained=True, device="meta")
     inpainting = cflearn_torch.DiffusionAPI.from_sd_inpainting(device="meta")
     assert isinstance(inpainting.m, cflearn_torch.StableDiffusionInpainting) and inpainting.use_bf16

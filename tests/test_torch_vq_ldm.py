@@ -267,7 +267,7 @@ def test_ldm_first_stage_from_zoo_preset() -> None:
     x_t = tm.q_sample(z, torch.from_numpy(t), _t(noise))
     _check(x_t, jm.q_sample(z_ref, jnp.asarray(t), jnp.asarray(noise)))
     _check(tm.denoise(x_t, torch.from_numpy(t)), jm.denoise(jnp.asarray(x_t.detach().numpy()), jnp.asarray(t)))
-    with pytest.raises(ValueError, match="not in the repository"):
+    with pytest.raises(ValueError, match="not 'meta'"):
         cflearn_torch.build(cflearn_torch.LDM, device="meta", **dict(kw, first_stage_config=dict(fs_cfg, pretrained=True)))
 
 
@@ -393,6 +393,8 @@ def test_bridge_is_strict_both_ways(name) -> None:
 
 
 def test_pretrained_raises() -> None:
+    """Pretrained weights load from the local cache onto a real device (`tests/test_torch_pretrained.py`):
+    on "meta" every constructor refuses before it reads anything."""
     for fn in (tzoo.ldm_inpainting, tzoo.ldm_semantic, tzoo.ldm_vq, tzoo.ae_vq_f4, tzoo.ae_kl_f8):
-        with pytest.raises(ValueError, match="not in the repository"):
+        with pytest.raises(ValueError, match="not 'meta'"):
             fn(pretrained=True, device="meta")

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 
 from _torch_api_common import catch_latents, check, feed, image, mask, normal
-from _torch_bridge_common import dezero, flat_params
+from _torch_bridge_common import dezero, empty_cache, flat_params
 from cflearn_torch import zoo as tzoo
 from cflearn_torch.api.multimodal import diffusion as TA
 from cflearn_torch.bridge import load_nnx_params
@@ -152,11 +152,13 @@ def test_sr(super_resolution, caught, monkeypatch):
     check(got, ref, caught)
 
 
-def test_concat_only_entry_points_and_pretrained_raise(inpainting) -> None:
-    with pytest.raises(ValueError, match="not in the repository"):
-        TA.DiffusionAPI.from_inpainting(pretrained=True, device="cpu")
-    with pytest.raises(ValueError, match="not in the repository"):
-        TA.DiffusionAPI.from_semantic(pretrained=True, device="cpu")
+def test_concat_only_entry_points_and_pretrained_raise(inpainting, tmp_path, monkeypatch) -> None:
+    # pretrained weights come from the local cache: from an empty one the load raises, naming where the file goes
+    with empty_cache(tmp_path, monkeypatch) as folder:
+        with pytest.raises(OSError, match=f"put the file at {folder / 'ldm_inpainting.pt'}"):
+            TA.DiffusionAPI.from_inpainting(pretrained=True, device="cpu")
+        with pytest.raises(OSError, match=f"put the file at {folder / 'ldm_semantic.pt'}"):
+            TA.DiffusionAPI.from_semantic(pretrained=True, device="cpu")
     _, tapi = inpainting
     backup, tapi.m.condition_type = tapi.m.condition_type, "cross_attn"
     try:
