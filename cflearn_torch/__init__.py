@@ -63,7 +63,7 @@ from .modules.multimodal.diffusion.ldm import (  # noqa: E402
 )
 from .modules.multimodal.diffusion.unet import ControlNet  # noqa: E402
 from .modules.nlp.tokenizers import CLIPTokenizer  # noqa: E402
-from .schema import DLConfig, IDLModel, ILoss, MLConfig, TrainStep  # noqa: E402
+from .schema import DLConfig, IDLModel, ILoss, MeshConfig, MLConfig, TrainStep  # noqa: E402
 from .schema.data import DataConfig  # noqa: E402
 from .pipeline import (  # noqa: E402
     CONFIGS, DLEvaluationPipeline, DLInferencePipeline, DLPipelineSerializer, DLTrainingPipeline,
@@ -73,7 +73,7 @@ from .pipeline import (  # noqa: E402
 )
 from .trainer import Trainer  # noqa: E402
 from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs  # noqa: E402
-from . import zoo  # noqa: E402
+from . import dist, parallel, zoo  # noqa: E402
 from .parameters import OPT  # noqa: E402
 from .zoo import (  # noqa: E402
     ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, build_predefined_module, clip, clip_large,
@@ -90,7 +90,7 @@ __all__ = [
     "save_image_grid",
     "CommonMLModel", "DDR", "DDRLoss", "DDRModel", "DDRPredictor", "DDRVisualizer", "DNDF", "DataSplitter", "DropPath",
     "Encoder", "FCNN", "FNet", "FileParserBlock", "GatherBlock", "IntegratedGradients", "Interpreter", "LinearModule",
-    "MLBundledProcessorConfig", "MLConfig", "MLData", "MLDataProcessor", "MLEncodePack", "MLEvaluationPipeline",
+    "MLBundledProcessorConfig", "MLConfig", "MeshConfig", "MLData", "MLDataProcessor", "MLEncodePack", "MLEvaluationPipeline",
     "MLInferencePipeline", "MLTrainingPipeline", "MixedStackedModule", "Mixer", "NBM", "NDT", "NanHandlerBlock",
     "PoolFormer", "PreProcessorBlock", "Pruner", "RNN", "RecognizerBlock", "SplitterBlock", "TabTransformer",
     "TemporalMLModel", "Transformer", "WideAndDeep", "WideAndDeepModel", "fit_ml", "integrated_gradients",

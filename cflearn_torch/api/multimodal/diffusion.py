@@ -28,6 +28,17 @@ caller asks for another), through the kernels where the modules route them.
 Images come back as uint8 NHWC numpy arrays. Inputs are numpy arrays (uint8,
 or floats in [-1, 1]), paths or PIL images (through `utils.read_image`).
 
+`use_mesh(mesh)` serves on a `parallel.mesh.Mesh` (every rank calls the
+same methods): the parameters are placed by the tensor-parallel rules on
+`model` (`parallel.tp.place_params`), a call's batch (its prompts and
+starting latents, drawn whole) is cut over `data` x `fsdp`, each rank
+samples and decodes its rows and the images are gathered, so every rank
+returns them all; a `context` axis routes self-attention through
+`ops.ring_attention` (`sdp_attn`). img2img and the inpainting paths cut
+their batches the same way; the other paths run the whole batch on every
+rank over the placed parameters. `use_mesh(None)` gathers the parameters
+back.
+
 Every random draw of the API (the starting latents, the variations,
 inpainting's noise) goes through `DiffusionAPI._randn`, the samplers'
 through `ISampler._randn` and style reference's through
@@ -54,6 +65,8 @@ from ...modules.multimodal.diffusion.unet import style_reference_write_gates
 from ...modules.multimodal.diffusion.utils import CONCAT_TYPE, CROSS_ATTN_TYPE, HYBRID_TYPE
 from ...modules.nlp.tokenizers import CLIPTokenizer
 from ...ops.graphs import CapturedCall
+from ...parallel.comm import all_gather_along
+from ...parallel.mesh import batch_shard_context
 from ...pipeline import default_tokenizer
 from ...toolkit.misc import slerp
 from ..common import Weights
@@ -352,8 +365,35 @@ class DiffusionAPI:
         self._compiled: set = set()
         self._graphs: Dict[Any, CapturedCall] = {}
         self._graph_pool: Any = None
+        self._mesh: Optional[Any] = None
 
     # ------------------------------------------------------------- switches
+
+    def use_mesh(self, mesh: Optional[Any], *, tp_rules: Optional[Any] = None, use_fsdp: bool = False) -> None:
+        """Serve on `mesh` (see the module's docstring); None serves on this
+        process's device alone again. The captured graphs are dropped and
+        the compiled buckets forgotten, as the JAX package clears its
+        compiled programs."""
+        from ...parallel.mesh import set_mesh
+        from ...parallel.tp import place_params, unplace_params
+
+        unplace_params(self.m)
+        self._mesh = mesh
+        set_mesh(mesh)
+        if mesh is not None:
+            place_params(self.m, mesh, use_fsdp=use_fsdp, tp_rules=tp_rules)
+        self._drop_graphs()
+        self._compiled.clear()
+
+    def _batch_rows(self, n: int) -> slice:
+        """This rank's rows of a call's batch of `n` (all of them off a mesh)."""
+        from ...parallel.mesh import batch_slice
+
+        return slice(0, n) if self._mesh is None else batch_slice(n, self._mesh)
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a call's result, in order (`t` off a mesh)."""
+        return t if self._mesh is None else all_gather_along(t.contiguous(), 0, self._mesh.group("data", "fsdp"))
 
     def _drop_graphs(self) -> None:
         """Forget the captured UNet calls (where the JAX package clears its
@@ -653,19 +693,27 @@ class DiffusionAPI:
                 if variation_seed is not None and variation_strength:
                     z = slerp(self._randn(tuple(z.shape), self._generator(variation_seed)), z, variation_strength)
             generator = self._generator(seed or 0)
-            chunk = batch_size or num_samples
+            # on a mesh: this rank's rows (the draws above were made for the whole batch)
+            rows = self._batch_rows(num_samples)
+            tokens, uncond, z = tokens[rows], uncond[rows], z[rows]
+            local = z.shape[0]
+            chunk = batch_size or local
             ref_image = None if self._style_ref is None else torch.as_tensor(self._style_ref["image"], device=self.device)
             outs = []
-            for lo in range(0, num_samples, chunk):
-                hi = min(num_samples, lo + chunk)
-                c, u = self._conds(tokens[lo:hi], uncond[lo:hi], guidance_scale)
-                kw = {} if ref_image is None else {"hooks": self._style_hooks(ref_image, hi - lo, u is not None, generator)}
-                latents = self._sampler(self._in_compiled_bucket(hi - lo, size)).sample(
-                    z[lo:hi], cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps, generator=generator,
-                    **kw,
-                )
-                outs.append(self.m.decode(latents))
-            images = torch.cat(outs, dim=0)
+            with batch_shard_context(self._mesh):
+                for lo in range(0, local, chunk):
+                    hi = min(local, lo + chunk)
+                    c, u = self._conds(tokens[lo:hi], uncond[lo:hi], guidance_scale)
+                    kw = (
+                        {} if ref_image is None
+                        else {"hooks": self._style_hooks(ref_image, hi - lo, u is not None, generator)}
+                    )
+                    latents = self._sampler(self._in_compiled_bucket(hi - lo, size)).sample(
+                        z[lo:hi], cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps,
+                        generator=generator, **kw,
+                    )
+                    outs.append(self.m.decode(latents))
+            images = self._gather_rows(torch.cat(outs, dim=0))
         finally:
             if clip_skip_backup is not None:
                 cm.clip_skip = clip_skip_backup
@@ -719,14 +767,19 @@ class DiffusionAPI:
         if (image.shape[1], image.shape[2]) != rounded_hw:
             x = resize_bilinear(x, *rounded_hw)
         prompts = self._prompts(cond, b)
-        c, u = self._conds(self._tokens(prompts), self._tokens([negative_prompt] * b), guidance_scale)
-        # the latents in f32, as the JAX encoder leaves them for an f32 image
-        z0 = self.m.encode_first_stage(x).float()
-        latents = self._sampler().sample_from(
-            z0, cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps,
-            start_step=fidelity_start_step(fidelity, num_steps), generator=self._generator(seed or 0),
-        )
-        out = _to_uint8(self.m.decode(latents))
+        # on a mesh: this rank's rows
+        rows = self._batch_rows(b)
+        x, prompts = x[rows], prompts[rows]
+        with batch_shard_context(self._mesh):
+            c, u = self._conds(self._tokens(prompts), self._tokens([negative_prompt] * len(prompts)), guidance_scale)
+            # the latents in f32, as the JAX encoder leaves them for an f32 image
+            z0 = self.m.encode_first_stage(x).float()
+            latents = self._sampler().sample_from(
+                z0, cond=c, uncond=u, guidance_scale=guidance_scale, num_steps=num_steps,
+                start_step=fidelity_start_step(fidelity, num_steps), generator=self._generator(seed or 0),
+            )
+            decoded = self.m.decode(latents)
+        out = _to_uint8(self._gather_rows(decoded))
         if rounded_hw != original_hw:
             back = resize_bilinear(torch.from_numpy(out).float(), *original_hw)
             out = back.round().clamp(0, 255).to(torch.uint8).numpy()
@@ -752,17 +805,40 @@ class DiffusionAPI:
         (the hybrid condition; a concat-only LDM takes them as its
         condition); a plain UNet samples freely and keeps the original
         latents outside the mask (repaint). `ref_fidelity` starts from the
-        q-sampled original latents at that fidelity."""
+        q-sampled original latents at that fidelity. On a mesh each rank
+        samples its rows (the noise drawn for the whole batch) and the
+        result holds every rank's."""
+        with batch_shard_context(self._mesh):
+            return self._gather_rows(self._inpaint_rows(
+                image, mask, tokens, uncond_tokens, num_steps=num_steps, guidance_scale=guidance_scale,
+                force_repaint=force_repaint, ref_fidelity=ref_fidelity, seed=seed,
+            ))
+
+    def _inpaint_rows(
+        self,
+        image: np.ndarray,
+        mask: np.ndarray,
+        tokens: torch.Tensor,
+        uncond_tokens: torch.Tensor,
+        *,
+        num_steps: int,
+        guidance_scale: float,
+        force_repaint: bool,
+        ref_fidelity: Optional[float],
+        seed: int,
+    ) -> torch.Tensor:
         m = self.m
-        x = torch.as_tensor(image, device=self.device)
-        mask_t = torch.as_tensor(mask, device=self.device)
-        text, text_u = self._conds(tokens, uncond_tokens, guidance_scale)
+        n = image.shape[0]
+        rows = self._batch_rows(n)
+        x = torch.as_tensor(image[rows], device=self.device)
+        mask_t = torch.as_tensor(mask[rows] if mask.shape[0] == n else mask, device=self.device)
+        text, text_u = self._conds(tokens[rows], uncond_tokens[rows], guidance_scale)
         z0 = m.encode_first_stage(x).float()
         b, lh, lw, _ = z0.shape
         latent_mask = resize(mask_t, (lh, lw), "nearest")
         sampler = self._sampler()
         generator = self._generator(seed)
-        z = self._randn(tuple(z0.shape), generator)
+        z = self._randn((n,) + tuple(z0.shape[1:]), generator)[rows]
         start_step = None if ref_fidelity is None else fidelity_start_step(ref_fidelity, num_steps)
 
         def run_sampler(cond: Any, uncond: Any) -> torch.Tensor:

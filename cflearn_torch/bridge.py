@@ -57,7 +57,9 @@ buffers of the same paths. The noise schedule's leaves are left out: the
 port recomputes them; so are the `nnx.Rngs` streams (a key and a count
 under each `rngs.<stream>`): the port's draws come from `torch.Generator`s;
 and so is an `aux_loss` leaf (the MoE mixer's last recorded objective,
-which each forward writes anew).
+which each forward writes anew) and a pipelined encoder's `pp_aux`. A
+stacked pipeline block's leaves (`pp_block`, the block axis first) keep
+that axis first and transpose the rest.
 
 The tabular modules need no rule of their own: the categorical `Encoder`'s
 `nnx.Embed` tables (`embeds.<column>.embedding`) map like any embedding, a
@@ -81,12 +83,16 @@ _PERM = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def port_name(path: str, ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
-    """One JAX parameter path -> (port name, transpose or None)."""
+    """One JAX parameter path -> (port name, transpose or None). A leaf of
+    a stacked pipeline block (`pp_block`, leading axis L) keeps L first."""
     prefix, _, leaf = path.rpartition(".")
     weight = f"{prefix}.weight" if prefix else "weight"
     if leaf == "kernel":
-        if ndim not in _PERM:
+        stacked = "pp_block" in path.split(".")
+        if ndim - stacked not in _PERM:
             raise ValueError(f"{path}: kernel of rank {ndim} has no port layout")
+        if stacked:
+            return weight, (0,) + tuple(1 + i for i in _PERM[ndim - 1])
         return weight, _PERM[ndim]
     if leaf in ("scale", "embedding"):
         return weight, None
@@ -254,7 +260,7 @@ def state_dict_from_jax(npd: Mapping[str, np.ndarray], module: nn.Module) -> Dic
     leaves = {}
     for key, value in npd.items():
         path = key[: -len("/value")] if key.endswith("/value") else key
-        if "/rngs/" in f"/{path}" or path.rpartition("/")[2] == "aux_loss":
+        if "/rngs/" in f"/{path}" or path.rpartition("/")[2] in ("aux_loss", "pp_aux"):
             continue
         leaves[path.replace("/", ".")] = np.asarray(value)
     params = set(name for name, _ in module.named_parameters())
@@ -299,7 +305,8 @@ def jax_param_names(module: nn.Module) -> Dict[str, str]:
             if isinstance(owners.get(prefix), nn.Embedding):
                 leaf = "embedding"
             else:
-                leaf = "kernel" if p.ndim >= 2 else "scale"
+                # a stacked pipeline block's leaf leads with its block axis
+                leaf = "kernel" if p.ndim - ("pp_block" in name.split(".")) >= 2 else "scale"
         path = f"{prefix}.{leaf}" if prefix else leaf
         out[name] = path.replace(".", "/") + "/value"
     return out

@@ -31,6 +31,7 @@ from ...constants import INPUT_KEY, LOSS_KEY, PREDICTIONS_KEY
 from ...modules.common import EMA, build_module
 from ...modules.multimodal.diffusion.ddpm import DDPM
 from ...modules.multimodal.diffusion.ldm import LDM
+from ...parallel.mesh import global_randint, global_randn
 from ...schema.config import DLConfig
 from ...schema.model import IDLModel, TrainStep
 
@@ -69,10 +70,11 @@ class DDPMStep(TrainStep):
         b = x0.shape[0]
         if generator is None:
             generator = getattr(m, "rngs", {}).get("default")
+        # drawn for the global batch and sliced where a mesh shards it (`parallel.mesh`), as the JAX step draws
         if t is None:
-            t = torch.randint(0, ddpm.num_timesteps, (b,), generator=generator, device=x0.device)
+            t = global_randint(0, ddpm.num_timesteps, (b,), generator=generator, device=x0.device)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+            noise = global_randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
         x_t = ddpm.q_sample(x0, t, noise)
         cond = batch.get("cond")
         if cond is not None:

@@ -140,20 +140,28 @@ def init_parameters(module: nn.Module, seed: int = 0, *, generator: Optional[tor
     params = list(module.named_parameters())
     device = params[0][1].device if params else torch.device("cpu")
     gen = generator if generator is not None else torch.Generator(device=device).manual_seed(seed)
+
+    def init_one(name: str, p: torch.Tensor) -> None:
+        leaf = name.rsplit(".", 1)[-1]
+        if p.ndim >= 2:
+            std = 0.01 if leaf == "positional_embedding" else (
+                0.02 if "embedding" in name else p[0].numel() ** -0.5
+            )
+            p.copy_(torch.randn(p.shape, generator=gen, device=device) * std)
+        elif leaf == "class_embedding":
+            p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+        elif leaf == "weight":
+            p.fill_(1.0)
+        else:
+            p.zero_()
+
     with torch.no_grad():
         for name, p in params:
-            leaf = name.rsplit(".", 1)[-1]
-            if p.ndim >= 2:
-                std = 0.01 if leaf == "positional_embedding" else (
-                    0.02 if "embedding" in name else p[0].numel() ** -0.5
-                )
-                p.copy_(torch.randn(p.shape, generator=gen, device=device) * std)
-            elif leaf == "class_embedding":
-                p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
-            elif leaf == "weight":
-                p.fill_(1.0)
+            if "pp_block" in name.split("."):  # a pipeline stack: each block's slice as its own parameter
+                for i in range(p.shape[0]):
+                    init_one(name, p[i])
             else:
-                p.zero_()
+                init_one(name, p)
         for m in module.modules():
             if getattr(m, "zero_init", False):
                 for p in m.parameters():

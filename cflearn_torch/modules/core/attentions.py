@@ -197,7 +197,7 @@ class MultiHeadSpatialAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         qkv = self.to_qkv(self.norm(x).reshape(b, h * w, c))
-        qkv = qkv.reshape(b, h * w, self.num_heads, 3 * (c // self.num_heads)).transpose(1, 2)
+        qkv = qkv.reshape(b, h * w, self.num_heads, -1).transpose(1, 2)
         q, k, v = qkv.chunk(3, dim=-1)  # each (b, heads, n, dh)
         out = _merge_heads(sdp_attn(q, k, v))
         return x + self.to_out(out).reshape(b, h, w, c)

@@ -11,8 +11,14 @@ capacity-bounded dense dispatch on one device, its load-balancing loss
 recorded as an `AuxLossVariable`); `PositionalEncoding`, `MixingBlock` and
 `MixedStackedEncoder`, the stack behind the ViT encoder and the tabular
 mixed-stack nets (an optional head token, a learned positional table, a
-mean pooler); `BertPooler` and `SequencePooler`. The pipeline-parallel
-stack and the MoE's expert-parallel sharding wait for the parallel slice.
+mean pooler); `BertPooler` and `SequencePooler`.
+`MixedStackedEncoder(pipeline_parallel=True)` holds its blocks as one
+stacked template (`pp_block`, each parameter leading with the block axis,
+the JAX layout) and runs them through `parallel.pp.pipeline_apply`, GPipe
+over the ambient mesh's `pipe` axis (one block after another without
+one). The MoE mixer's experts split over the mesh's `model` axis
+(`parallel.tp.place_params`), and on a batch sharded over `data` x `fsdp`
+its router takes its capacity and statistic over the global batch.
 
 The SD UNet's transformer stack: the plain branch, ToMe, and the hooks of
 LoRA-style q / k / v transforms and style reference. `dropout` acts in
@@ -218,8 +224,18 @@ class MoEChannelMixer(nn.Module):
     combine are one-hot products, computed in f32. Each forward records the
     Switch load-balancing loss E x sum_e f_e P_e (f: the top-1 dispatch
     fraction, P: the mean router probability) times `aux_loss_weight` in
-    `aux_loss`. The experts' tensors lead with the expert axis; they live on
-    one device here."""
+    `aux_loss`. The experts' tensors lead with the expert axis.
+
+    On a mesh: with the experts split over `model` (`tp_group`, this rank's
+    first expert `expert_offset`), each rank runs its experts on every
+    token and the combine is summed over the group; on a batch sharded over
+    `data` x `fsdp` (`parallel.mesh.batch_shard_context`) the router's
+    probabilities are gathered over the batch's group, so that the capacity,
+    the overflow order and the statistic are those of the global batch, as
+    the JAX program computes them, and each rank combines its own tokens."""
+
+    tp_group: Any = None
+    expert_offset: int = 0
 
     def __init__(
         self,
@@ -251,17 +267,24 @@ class MoEChannelMixer(nn.Module):
         """The experts' kernels ~ N(0, 1 / fan_in) over their input axis, the
         biases 0 (`init_parameters` drew over the whole expert slice)."""
         with torch.no_grad():
-            self.experts_w1.mul_(self.experts_w1.shape[2] ** 0.5)
-            self.experts_w2.mul_(self.experts_w2.shape[2] ** 0.5)
+            self.experts_w1.mul_(self.experts_w1.shape[-1] ** 0.5)
+            self.experts_w2.mul_(self.experts_w2.shape[-1] ** 0.5)
             self.experts_b1.zero_()
             self.experts_b2.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ...parallel import comm
+        from ...parallel.mesh import batch_group
+
         b, t, c = x.shape
-        n, e = b * t, self.num_experts
-        xf = x.reshape(n, c)
-        cap = min(n, max(1, int(math.ceil(n * self.capacity_factor * self.top_k / e))))
+        e = self.num_experts
+        xf = x.reshape(b * t, c)
         probs = torch.softmax(self.router(xf).float(), dim=-1)
+        shard = batch_group()
+        if shard is not None:
+            probs = comm.gather_batch(probs, shard.group)
+        n = probs.shape[0]
+        cap = min(n, max(1, int(math.ceil(n * self.capacity_factor * self.top_k / e))))
         top1 = F.one_hot(probs.argmax(dim=-1), e).float()
         lb = e * torch.sum(top1.mean(dim=0) * probs.mean(dim=0))
         self.aux_loss = AuxLossVariable(self.aux_loss_weight * lb)
@@ -284,12 +307,18 @@ class MoEChannelMixer(nn.Module):
             used = used + torch.sum(onehot * keep[:, None].to(torch.int64), dim=0)
             remaining = remaining * (1 - onehot.float())
         combine = combine / torch.clamp_min(gate_total, 1e-9)[:, None, None]
-
-        ex_in = torch.einsum("nec,nd->ecd", dispatch, xf.float())
+        if shard is not None:  # this rank's tokens
+            rows = slice(shard.index * b * t, (shard.index + 1) * b * t)
+            dispatch, combine = dispatch[rows], combine[rows]
+        # this rank's experts (all of them off a mesh): their inputs' gradients sum over `model`
+        e0, e1 = self.expert_offset, self.expert_offset + self.experts_w1.shape[0]
+        x_in = comm.copy_to(xf.float(), self.tp_group)
+        combine = comm.copy_to(combine, self.tp_group)[:, e0:e1]
+        ex_in = torch.einsum("nec,nd->ecd", dispatch[:, e0:e1], x_in)
         h = gelu(torch.einsum("ecd,edh->ech", ex_in, self.experts_w1) + self.experts_b1[:, None])
         h = F.dropout(h, self.dropout, self.training)
         out_e = torch.einsum("ech,ehd->ecd", h, self.experts_w2) + self.experts_b2[:, None]
-        y = torch.einsum("nec,ecd->nd", combine, out_e)
+        y = comm.reduce_from(torch.einsum("nec,ecd->nd", combine, out_e), self.tp_group)
         return y.to(x.dtype).reshape(b, t, c)
 
 
@@ -384,10 +413,6 @@ class MixedStackedEncoder(nn.Module):
         pp_microbatches: Optional[int] = None,
     ) -> None:
         super().__init__()
-        if pipeline_parallel:
-            raise NotImplementedError(
-                "pipeline_parallel waits for the port's parallel slice (ROADMAP Queue 1 item 5)"
-            )
         from .norms import NormFactory
 
         latent_dim = int(round(in_dim * latent_ratio))
@@ -398,7 +423,7 @@ class MixedStackedEncoder(nn.Module):
             if use_positional_encoding
             else None
         )
-        self.blocks = nn.ModuleList(
+        blocks = [
             MixingBlock(
                 in_dim, num_tokens + int(use_head_token), latent_dim,
                 token_mixing_type=token_mixing_type, token_mixing_config=token_mixing_config,
@@ -406,7 +431,20 @@ class MixedStackedEncoder(nn.Module):
                 dropout=dropout, norm_type=norm_type,
             )
             for _ in range(num_layers)
-        )
+        ]
+        self.pipeline_parallel = pipeline_parallel
+        self.pp_microbatches = pp_microbatches
+        if pipeline_parallel:
+            from ...parallel.pp import stack_module_states
+
+            # the blocks as one template whose parameters lead with the block axis (the JAX `pp_block`)
+            self.pp_block, _ = stack_module_states(blocks)
+            self.blocks = None
+            # the pipeline's objectives (MoE balance), which the template's own variables do not keep
+            self.pp_aux = AuxLossVariable(torch.zeros(()))
+        else:
+            self.pp_block = None
+            self.blocks = nn.ModuleList(blocks)
         self.head_norm = NormFactory(norm_type).make(in_dim)
         self.head_pooler = head_pooler
 
@@ -415,14 +453,53 @@ class MixedStackedEncoder(nn.Module):
             with torch.no_grad():
                 self.head_token.mul_(0.02 * self.head_token[0].numel() ** 0.5)
 
+    def _pipelined(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        """The stacked blocks through `pipeline_apply` on the ambient mesh's
+        `pipe` axis (one block after another without one); their objectives
+        land in `pp_aux`, the template's own stay zero."""
+        from torch.func import functional_call
+
+        from ...parallel.mesh import get_active_pipe_mesh
+        from ...parallel.pp import pipeline_apply
+        from ...schema.model import aux_losses
+
+        template = self.pp_block
+        stacked = dict(template.named_parameters())
+        mesh = get_active_pipe_mesh()
+        if mesh is not None and not all(getattr(p, "_pipe_shard", False) for p in stacked.values()):
+            raise ValueError(
+                "a pipelined stack on a mesh with pipe > 1 runs its stage's blocks only: place it first "
+                "(`parallel.tp.place_params`, which the Trainer and `DiffusionAPI.use_mesh` call)"
+            )
+
+        def block_fn(params: Dict[str, torch.Tensor], h: torch.Tensor) -> Any:
+            h = functional_call(template, params, (h,), kwargs)
+            aux = h.new_zeros((), dtype=torch.float32)
+            for value in aux_losses(template):
+                aux = aux + value.sum().float()
+            return h, aux
+
+        x, aux = pipeline_apply(
+            block_fn, stacked, x, mesh=mesh, num_microbatches=self.pp_microbatches, with_aux=True
+        )
+        for sub in template.modules():
+            for key, value in list(vars(sub).items()):
+                if isinstance(value, AuxLossVariable):
+                    setattr(sub, key, AuxLossVariable(torch.zeros((), device=x.device)))
+        self.pp_aux = AuxLossVariable(aux)
+        return x
+
     def forward(self, x: torch.Tensor, *, return_tokens: bool = False, **kwargs: Any) -> torch.Tensor:
         if self.head_token is not None:
             head = self.head_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
             x = torch.cat([head, x], dim=1)
         if self.pos_encoding is not None:
             x = self.pos_encoding(x)
-        for block in self.blocks:
-            x = block(x, **kwargs)
+        if self.pipeline_parallel:
+            x = self._pipelined(x, **kwargs)
+        else:
+            for block in self.blocks:
+                x = block(x, **kwargs)
         x = self.head_norm(x)
         if return_tokens:
             return x

@@ -199,7 +199,9 @@ class BatchNorm(nn.Module):
     the promoted dtype of the input, the running statistics and the
     parameters: with f32 running statistics a bf16 input leaves as f32.
     `mean` and `var` are buffers (flax `BatchStat`), updated in place in
-    training mode."""
+    training mode. Inside a train step on a mesh the batch statistics are
+    those of the global batch (`parallel.mesh.global_mean`), as the JAX
+    step computes them."""
 
     def __init__(self, num_features: int, *, momentum: float = 0.99, eps: float = 1e-5) -> None:
         super().__init__()
@@ -218,10 +220,13 @@ class BatchNorm(nn.Module):
         dtype = _promote(x, self.mean, self.var, self.weight, self.bias)
         x = x.to(dtype)
         if self.training:
+            from ..parallel.mesh import global_mean
+
             xs = x.to(torch.promote_types(dtype, torch.float32))
             axes = tuple(range(x.ndim - 1))
-            mean = xs.mean(dim=axes)
-            var = (xs.square().mean(dim=axes) - mean.square()).clamp_min(0.0)
+            # over the global batch where it is sharded over a mesh's data x fsdp (one rank: the plain mean)
+            mean = global_mean(xs, axes)
+            var = (global_mean(xs.square(), axes) - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(mean.to(self.mean.dtype), alpha=1.0 - self.momentum)
                 self.var.mul_(self.momentum).add_(var.to(self.var.dtype), alpha=1.0 - self.momentum)

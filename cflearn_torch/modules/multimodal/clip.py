@@ -35,10 +35,11 @@ class CLIPAttention(nn.Module):
         h = self.num_heads
 
         def split(t: torch.Tensor) -> torch.Tensor:
-            return t.reshape(b, l, h, d // h).transpose(1, 2)
+            # -1: under tensor parallelism the projections hold this rank's heads only
+            return t.reshape(b, l, h, -1).transpose(1, 2)
 
         out = sdp_attn(split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x)), causal=causal)
-        return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
+        return self.out_proj(out.transpose(1, 2).reshape(b, l, -1))
 
 
 class CLIPMLP(nn.Module):

@@ -166,8 +166,11 @@ class ISampler:
 
     def _randn(self, shape: Tuple[int, ...], like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         """N(0, 1) of `shape` in `like`'s dtype and device: every draw a
-        sampler makes."""
-        return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+        sampler makes (for the global batch and sliced where a mesh shards it,
+        `parallel.mesh.global_randn`)."""
+        from ....parallel.mesh import global_randn
+
+        return global_randn(shape, generator=generator, device=like.device, dtype=like.dtype)
 
     def _denoise(
         self,

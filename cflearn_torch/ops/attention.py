@@ -34,8 +34,12 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
 * `xla_attention` — what the JAX package leaves to XLA (masks, biases, short
   kv such as SD cross-attention at kv = 77); here
   `F.scaled_dot_product_attention`.
-* `sdp_attn` — the dispatcher, with the JAX package's `_use_pallas` shape
-  predicate.
+* `sdp_attn` — the dispatcher: on a mesh with a `context` axis (the
+  ambient `parallel.mesh.get_active_context_mesh()`), a self-attention-shaped
+  call (q_len == kv_len, divisible by the axis, no mask or bias) goes to
+  `ops.ring_attention.context_parallel_attention`, as the JAX package
+  routes it; otherwise `local_sdp_attn`, with the JAX package's
+  `_use_pallas` shape predicate.
 
 Every kernel wrapper runs its plain PyTorch version (`*_plain`, the same
 arithmetic) on a CPU tensor; on a CUDA tensor it launches the kernel or
@@ -43,8 +47,7 @@ raises, and counts the launch in its `launches` attribute. The kernels take
 bf16, fp16 and f32 (f32 products run as three TF32 products on split
 operands, 3xTF32, to f32 accuracy; sums are f32), D % 8 == 0 and D <= 1024.
 
-Layout is (B, H, L, D) throughout. The ring-attention branch belongs to a
-later slice.
+Layout is (B, H, L, D) throughout.
 """
 
 import functools
@@ -848,6 +851,29 @@ def sdp_attn(
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Scaled-dot-product attention dispatcher. (B, H, L, D) in and out."""
+    if mask is None and bias is None:
+        from ..parallel.mesh import get_active_context_mesh
+
+        mesh = get_active_context_mesh()
+        if mesh is not None and q.shape[2] == k.shape[2] and q.shape[2] % mesh.shape["context"] == 0:
+            from .ring_attention import context_parallel_attention
+
+            return context_parallel_attention(q, k, v, mesh, causal=causal, sm_scale=sm_scale)
+    return local_sdp_attn(q, k, v, causal=causal, sm_scale=sm_scale, mask=mask, bias=bias)
+
+
+def local_sdp_attn(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`sdp_attn` on this rank's tensors: the flash kernels where
+    `use_kernel` says so, else `xla_attention`."""
     if mask is None and bias is None and use_kernel(q, k):
         # always the differentiable entry: without a gradient to carry it is
         # the inference kernel

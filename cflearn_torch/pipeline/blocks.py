@@ -17,12 +17,12 @@ import numpy as np
 
 from .. import callbacks, metrics, monitors  # noqa: F401  (register the callbacks, metrics and monitors)
 from ..inference import DLInference
+from ..parallel.mesh import run_timestamp
 from ..schema.config import DLConfig, MLConfig
 from ..schema.data import IData
 from ..schema.metrics_schema import IMetric
 from ..schema.model import IDLModel
 from ..schema.train_schema import TrainerCallback, TrainerMonitor
-from ..toolkit.misc import timestamp
 from ..toolkit.serialization import Serializer
 from ..trainer import Trainer, get_sorted_checkpoints, read_states
 from .common import Block
@@ -96,7 +96,8 @@ class PrepareWorkplaceBlock(Block):
 
     def build(self, config: DLConfig) -> None:
         if config.create_sub_workspace:
-            workspace = os.path.join(config.workspace, timestamp(ensure_different=True))
+            # every rank derives the same sub-workspace (the launcher pins it, or rank 0's is broadcast)
+            workspace = os.path.join(config.workspace, run_timestamp())
             config.workspace = workspace
             config.create_sub_workspace = False
             self._defaults["workspace"] = workspace

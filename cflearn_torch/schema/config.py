@@ -1,5 +1,6 @@
 """The configs (counterpart of `cflearn_tpu/schema/config.py`):
-`TrainerConfig`, `Config` and `DLConfig`, dataclasses with the JAX
+`MeshConfig` (the five named axes of a device mesh), `TrainerConfig`,
+`Config` and `DLConfig`, dataclasses with the JAX
 package's fields and defaults, so that a config's `to_info()` goes across
 either way; the port's `Trainer` reads them (the JAX placement options
 among them are documented there). `MLConfig` adds the tabular fields (the
@@ -10,6 +11,48 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Union
 
 from ..toolkit.serialization import DataClassBase
+
+
+@dataclasses.dataclass(eq=False)
+class MeshConfig(DataClassBase):
+    """The sizes of the mesh's named axes, one process per device: `data`
+    (batch), `fsdp` (batch, and the optimizer's states and updates),
+    `model` (tensor and expert parallelism), `context` (the sequence, in
+    self-attention) and `pipe` (pipeline stages). A size of -1 takes the
+    devices the others leave; with none at -1, `data` takes the rest."""
+
+    data: int = -1
+    fsdp: int = 1
+    model: int = 1
+    context: int = 1
+    pipe: int = 1
+
+    @property
+    def axis_names(self) -> List[str]:
+        return ["data", "fsdp", "model", "context", "pipe"]
+
+    def axis_sizes(self, num_devices: int) -> List[int]:
+        sizes = [self.data, self.fsdp, self.model, self.context, self.pipe]
+        fixed = 1
+        for s in sizes:
+            if s > 0:
+                fixed *= s
+        if num_devices % fixed != 0:
+            raise ValueError(f"mesh sizes {sizes} do not divide {num_devices} devices")
+        remaining = num_devices // fixed
+        out = []
+        used_free = False
+        for s in sizes:
+            if s > 0:
+                out.append(s)
+            elif used_free:
+                out.append(1)
+            else:
+                out.append(remaining)
+                used_free = True
+        if not used_free and remaining != 1:
+            out[0] *= remaining
+        return out
 
 
 @dataclasses.dataclass(eq=False)
@@ -49,6 +92,7 @@ class TrainerConfig(DataClassBase):
     callback_configs: Optional[Dict[str, Any]] = None
     lr: Optional[float] = None
     optimizer_packs: Optional[List[Dict[str, Any]]] = None
+    # either one shards the optimizer's states and updates over the mesh's `fsdp` axis
     use_zero: bool = False
     shard_optimizer_states: bool = False
     finetune_config: Optional[Dict[str, Any]] = None
@@ -58,10 +102,12 @@ class TrainerConfig(DataClassBase):
     num_snapshot_per_epoch: float = 2.0
     max_step_per_snapshot: int = 1000
     min_snapshot_epoch_gap: int = 0
+    # {axis: size} of a `MeshConfig`, over the processes of `torch.distributed`
     mesh: Optional[Dict[str, int]] = None
     donate_buffers: bool = True
     steps_per_dispatch: int = 1
-    # activation checkpointing: False, True (every block) or a checkpoint policy name
+    # activation checkpointing around the loss: False, True (only the step's inputs are kept) or a
+    # checkpoint policy name (`toolkit.misc.CHECKPOINT_POLICY_NAMES`)
     remat: Union[bool, str] = False
     profile_steps: Optional[List[int]] = None
     tqdm_settings: Optional[Dict[str, Any]] = None
@@ -78,6 +124,12 @@ class TrainerConfig(DataClassBase):
     @property
     def compute_dtype(self) -> str:
         return "bfloat16" if self.mixed_precision in ("fp16", "bf16") else "float32"
+
+    def get_mesh_config(self) -> MeshConfig:
+        mc = MeshConfig()
+        if self.mesh:
+            mc.from_info(dict(self.mesh))
+        return mc
 
 
 @dataclasses.dataclass(eq=False)

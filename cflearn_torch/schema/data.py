@@ -546,3 +546,10 @@ def _num_samples(x: data_type) -> int:
                 return v.shape[0]
         return 0
     return len(x)
+
+
+def norm_sw(sample_weights: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """Sample weights scaled to sum to 1 (None stays None)."""
+    if sample_weights is None:
+        return None
+    return sample_weights / np.sum(sample_weights)

@@ -23,8 +23,13 @@ of them under `AUX_LOSS_KEY`, which `CommonTrainStep` adds to the loss.
 `state_dict` is PyTorch's; `load_state_dict` also takes numpy arrays, and
 the JAX model's `state_dict()` ("/"-joined paths of its `nnx.state`), which
 goes through the bridge (`bridge.state_dict_from_jax`). `save` / `load`
-keep the config and the states in one npz file. `save_sharded` /
-`load_sharded` wait for the parallel slice.
+keep the config and the states in one npz file. `save_sharded(directory)`
+writes, from every rank of a mesh, only the tensors this rank owns (its
+shards of the split parameters: over `model`, `pipe` and, under ZeRO,
+`fsdp`; a whole tensor from rank 0), one `rank<r>.npz` each, beside a
+`meta.json` (the config, the mesh and each split tensor's spec): no gather.
+`load_sharded(directory)` puts the pieces together into a whole model on
+one device, in any process, on any world size.
 """
 
 import json
@@ -40,11 +45,12 @@ from ..constants import AUX_LOSS_KEY, INPUT_KEY, PREDICTIONS_KEY
 from ..device import resolve_device
 from ..modules.common import EMA, cast_parameters
 from ..toolkit.registry import WithRegister
-from ..toolkit.tree import npd_to_tree, tree_num_params, tree_to_npd
+from ..toolkit.tree import convert_pp_layout, npd_to_tree, tree_num_params, tree_to_npd
 from .config import DLConfig, config_registry
 from .losses_schema import loss_dict_type
 
 TDLModel = TypeVar("TDLModel", bound="IDLModel")
+forward_results_type = Dict[str, Any]
 
 
 class AuxLossVariable:
@@ -202,6 +208,8 @@ class IDLModel(nn.Module, WithRegister):
         state_dict = dict(state_dict)
         if any("/" in k for k in state_dict):
             state_dict = state_dict_from_jax(state_dict, self)
+        # a pipelined encoder's stacked blocks <-> the block list
+        state_dict = convert_pp_layout(state_dict, self.state_dict().keys())
         arrays = npd_to_tree({k: v for k, v in state_dict.items() if isinstance(v, np.ndarray)})
         return super().load_state_dict(dict(state_dict, **arrays), strict=strict, assign=assign)
 
@@ -213,18 +221,89 @@ class IDLModel(nn.Module, WithRegister):
         either kind, so both packages read it."""
         folder = os.path.dirname(os.path.abspath(path))
         os.makedirs(folder, exist_ok=True)
+        dtypes = {p.dtype for p in self.parameters() if p.is_floating_point()}
+        meta = json.dumps(dict(
+            self._meta(), dtype=str(dtypes.pop()).split(".")[-1] if len(dtypes) == 1 else "float32"
+        ))
+        npd = tree_to_npd(self.state_dict() if states is None else states)
+        np.savez(path, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8), **npd)
+
+    def _meta(self) -> Dict[str, Any]:
         config_type = "dl"
         for name, cls in config_registry.items():
             if type(self.config) is cls:
                 config_type = name
-        dtypes = {p.dtype for p in self.parameters() if p.is_floating_point()}
-        meta = json.dumps({
-            "config": self.config.to_info(), "config_type": config_type,
-            "type": getattr(self, "__identifier__", "common"),
-            "dtype": str(dtypes.pop()).split(".")[-1] if len(dtypes) == 1 else "float32",
-        })
-        npd = tree_to_npd(self.state_dict() if states is None else states)
-        np.savez(path, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8), **npd)
+        return {"config": self.config.to_info(), "config_type": config_type,
+                "type": getattr(self, "__identifier__", "common")}
+
+    def save_sharded(self, directory: str) -> None:
+        """Every rank writes the tensors it owns (see the module's
+        docstring); a model off a mesh, or not placed, writes from rank 0."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import AXES
+
+        directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+        placement = getattr(self, "_placement", None) or {}
+        mesh = getattr(self, "_mesh", None)
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        coord = mesh.coord if mesh is not None else dict.fromkeys(AXES, 0)
+        own: Dict[str, torch.Tensor] = {}
+        specs: Dict[str, Any] = {}
+        for name, t in self.state_dict().items():
+            pl = placement.get(name)
+            spec = list(pl.spec) if pl is not None else [None] * t.ndim
+            if any(a is not None for a in spec):
+                specs[name] = {"spec": spec, "parts": pl.parts, "shape": list(t.shape)}
+            # the owner: coordinate 0 along every axis the tensor is not split over
+            if all(coord[a] == 0 for a in AXES if a not in spec):
+                if "fsdp" in spec:  # ZeRO keeps the parameter whole: write this rank's part
+                    dim = spec.index("fsdp")
+                    step = t.shape[dim] // mesh.shape["fsdp"]
+                    t = t.narrow(dim, coord["fsdp"] * step, step)
+                own[name] = t.detach()
+        np.savez(os.path.join(directory, f"rank{rank}.npz"), **tree_to_npd(own))
+        if rank == 0:
+            meta = self._meta()
+            meta.update(
+                world=(mesh.size if mesh is not None else 1),
+                mesh=(mesh.shape if mesh is not None else dict.fromkeys(AXES, 1)),
+                specs=specs,
+            )
+            with open(os.path.join(directory, "meta.json"), "w") as f:
+                json.dump(meta, f)
+        if dist.is_available() and dist.is_initialized() and mesh is not None and mesh.size > 1:
+            dist.barrier()
+
+    @classmethod
+    def load_sharded(cls, directory: str, *, device: Any = None) -> "IDLModel":
+        """A whole model on `device` from `save_sharded`'s files."""
+        from ..parallel.mesh import AXES
+
+        directory = os.path.abspath(directory)
+        with open(os.path.join(directory, "meta.json")) as f:
+            meta = json.load(f)
+        config_cls = config_registry.get(meta.get("config_type", "dl"), DLConfig)
+        config = config_cls()
+        config.from_info(meta["config"])
+        shape = meta["mesh"]
+        layout = np.arange(int(meta["world"])).reshape([shape[a] for a in AXES])
+        full: Dict[str, np.ndarray] = {}
+        for rank in range(int(meta["world"])):
+            coord = dict(zip(AXES, (int(i) for i in np.argwhere(layout == rank)[0])))
+            with np.load(os.path.join(directory, f"rank{rank}.npz"), allow_pickle=False) as z:
+                for name in z.files:
+                    piece = z[name]
+                    info = meta["specs"].get(name)
+                    if info is None:
+                        full[name] = piece
+                        continue
+                    out = full.setdefault(name, np.zeros(_whole_shape(info, shape), piece.dtype))
+                    _put(out, piece, info, shape, coord)
+        model = IDLModel.get(meta["type"]).from_config(config, device=device)
+        model.load_state_dict(full)
+        return model
 
     @classmethod
     def load(cls, path: str, *, device: Any = None) -> "IDLModel":
@@ -263,3 +342,35 @@ class TrainStepLoss(NamedTuple):
 
     loss: Any
     losses: Dict[str, Any]
+
+
+def _whole_shape(info: Dict[str, Any], mesh_shape: Dict[str, int]) -> List[int]:
+    """The whole shape of a tensor `save_sharded` split by `info["spec"]`
+    (`info["shape"]` is its shape on a rank: whole along `fsdp`, which
+    ZeRO keeps whole there)."""
+    return [n * (mesh_shape[a] if a in ("model", "pipe") else 1) for n, a in zip(info["shape"], info["spec"])]
+
+
+def _put(out: np.ndarray, piece: np.ndarray, info: Dict[str, Any], mesh_shape: Dict[str, int], coord: Dict[str, int]) -> None:
+    """Write a rank's piece into the whole tensor: each split dimension at
+    its rank's offset (a `model` split of a fused projection in each of its
+    parts)."""
+    index: List[Any] = []
+    for dim, axis in enumerate(info["spec"]):
+        if axis is None:
+            index.append([slice(None)])
+            continue
+        size = out.shape[dim]
+        parts = int(info["parts"]) if axis == "model" else 1
+        part, step = size // parts, size // parts // mesh_shape[axis]
+        index.append([slice(p * part + coord[axis] * step, p * part + (coord[axis] + 1) * step) for p in range(parts)])
+    # the piece is the concatenation of its parts along the split dims
+    import itertools
+
+    for combo in itertools.product(*[range(len(ix)) for ix in index]):
+        src = []
+        for dim, k in enumerate(combo):
+            n = len(index[dim])
+            step = piece.shape[dim] // n
+            src.append(slice(k * step, (k + 1) * step))
+        out[tuple(ix[k] for ix, k in zip(index, combo))] = piece[tuple(src)]

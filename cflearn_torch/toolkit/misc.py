@@ -1,5 +1,5 @@
 """Small helpers (counterpart of part of `cflearn_tpu/toolkit/misc.py`):
-`slerp`, the `jax.checkpoint_policies` names as selective-checkpoint
+`seed_everything`, `slerp`, the `jax.checkpoint_policies` names as selective-checkpoint
 policies (`resolve_checkpoint_policy`, `checkpoint_context_fn`), and the
 framework's `check_is_ci`, `timestamp`, `sort_dict_by_value` and
 `truncate_string_to_length`; and the download cache (`download`,
@@ -20,6 +20,22 @@ import torch
 from ..parameters import OPT
 
 np_dict_type = Dict[str, Union[np.ndarray, Any]]
+
+
+_seed: Optional[int] = None
+
+
+def seed_everything(seed: int) -> int:
+    """Seed Python's, numpy's and PyTorch's global generators with `seed`,
+    and remember it (`maybe_initialize_distributed` then keeps it)."""
+    import random
+
+    global _seed
+    _seed = int(seed)
+    random.seed(_seed)
+    np.random.seed(_seed)
+    torch.manual_seed(_seed)
+    return _seed
 
 
 def check_is_ci() -> bool:

@@ -57,16 +57,42 @@ the final evaluation; callbacks at every hook. Its options:
   `FloatingPointError` where not;
 - `mixed_precision` "bf16" / "fp16": bf16 compute on f32 masters.
 
-The JAX package's placement options mean nothing here and are accepted as
-they are: `steps_per_dispatch` (the JAX trainer fuses up to k steps into
-one `lax.scan` dispatch; the port launches each step's kernels as they come,
-so k steps run as k steps at k = 1 would, until the steps are captured in a
-CUDA graph), `donate_buffers` (PyTorch updates the parameters in place, so no
-buffer is copied to donate), `transfer_guard` (no implicit transfer happens:
-batches move once, by the batcher) and a `mesh` of one device. A mesh of
-more than one device raises: the parallel slice (`torch.distributed`) is
-not ported yet. `remat` raises too: the modules' `use_checkpoint` flags
-recompute blocks in the backward.
+- `mesh` ({axis: size} of a `MeshConfig`) over the processes of
+  `torch.distributed` (`parallel.mesh`; `maybe_initialize_distributed`
+  forms the group from the launcher's environment): the parameters placed
+  by `parallel.tp.place_params` (tensor, expert and pipeline parallelism);
+  each rank trains on its slice of every global batch (`shard_batch`, the
+  same shuffle on every rank from one seed), inside
+  `parallel.mesh.batch_shard_context`, so that the step's global-batch
+  quantities are those of the whole batch (DDPM's draws, BatchNorm's
+  statistics, the MoE router's capacity); the gradients are averaged over
+  `data` x `fsdp`, the losses too; the evaluation runs the whole validation
+  set on every rank; checkpoints hold whole tensors (gathered from every
+  rank) and rank 0 writes them; after the fit the parameters are whole on
+  every rank again (`unplace_params`);
+- `shard_optimizer_states` / `use_zero`: the optimizer's states and update
+  of a parameter split over `fsdp` (its largest divisible axis) live on
+  that rank's part only, and the updated parts are gathered (ZeRO's first
+  stage: the gradients are averaged whole, the parameters stay whole for
+  compute);
+- `remat` True or a policy name (`toolkit.misc.CHECKPOINT_POLICY_NAMES`):
+  `torch.utils.checkpoint.checkpoint(..., use_reentrant=False)` around the
+  forward and the loss, as the JAX trainer's `jax.checkpoint` around its
+  loss: the forward keeps only the step's inputs (a name: also the
+  operations `checkpoint_context_fn` keeps), and the backward first runs
+  the whole forward again, keeping every activation, so the step's peak
+  memory does not fall (one segment around the whole loss saves nothing)
+  and the step pays a second forward. A saving comes from the modules'
+  own per-block `use_checkpoint`. The model's generators are rewound
+  before the recomputation, so that it draws what the forward drew.
+
+The JAX package's other placement options mean nothing here and are
+accepted as they are: `steps_per_dispatch` (the JAX trainer fuses up to k
+steps into one `lax.scan` dispatch; the port launches each step's kernels
+as they come, so k steps run as k steps at k = 1 would, until the steps are
+captured in a CUDA graph), `donate_buffers` (PyTorch updates the parameters
+in place, so no buffer is copied to donate) and `transfer_guard` (no
+implicit transfer happens: batches move once, by the batcher).
 """
 
 import copy
@@ -84,14 +110,26 @@ from torch.func import functional_call
 from .constants import CHECKPOINTS_FOLDER, CKPT_PREFIX, INPUT_KEY, LOSS_KEY, SCORES_FILE
 from .data.utils import DeviceBatcher, to_numpy
 from .inference import DLInference
-from .optimizers import GradAccumulation, Optimizer, build_optimizer, clip_by_global_norm, global_norm
+from .optimizers import AdamP, GradAccumulation, Optimizer, build_optimizer, clip_by_global_norm, global_norm
 from .schedulers import PlateauState, build_scheduler, scheduler_requires_metric
 from .schema.config import TrainerConfig
 from .schema.data import IData
 from .schema.metrics_schema import IMetric, MetricsOutputs, weighted_loss_score
 from .schema.model import IDLModel, StepOutputs
 from .schema.train_schema import ITrainer, MonitorResults, TrainerCallback, TrainerMonitor, TrainerState
-from .toolkit.misc import is_local_rank_0, sort_dict_by_value, timestamp
+from .parallel import comm
+from .parallel.mesh import (
+    Mesh,
+    batch_shard_context,
+    get_ambient_mesh,
+    make_mesh,
+    maybe_initialize_distributed,
+    run_timestamp,
+    set_mesh,
+    shard_batch,
+)
+from .parallel.tp import ParamPlacement, gather_state_dict, is_placed, local_state_dict, place_params, unplace_params
+from .toolkit.misc import checkpoint_context_fn, is_local_rank_0, sort_dict_by_value
 
 
 class TrainStepFn:
@@ -128,6 +166,9 @@ class TrainStepFn:
         self.trained = [i for i, n in enumerate(self.names) if n not in frozen]
         self.grads: Dict[str, torch.Tensor] = {}
         self.grad_norm: Optional[torch.Tensor] = None
+        # set by the Trainer: the step's collectives on a mesh, and `remat` (False, True or a policy name)
+        self.mesh_step: Optional["MeshStep"] = None
+        self.remat: Any = False
 
     def _forward(self, batch: Dict[str, Any], forward_kwargs: Mapping[str, Any]) -> Any:
         """`model.run(batch, training=True)` with the input in the compute
@@ -150,11 +191,11 @@ class TrainStepFn:
 
         def run(b: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             with torch.enable_grad():
-                fwd = self._forward(b, forward_kwargs or {})
-                # the loss sees the original (f32) batch, as in the JAX trainer
-                losses = self.train_step.loss_fn(self.model, b, fwd, **loss_kwargs)
+                losses = self._losses(b, forward_kwargs or {}, loss_kwargs)
                 grads = torch.autograd.grad(losses[LOSS_KEY].float(), self.params, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+            if self.mesh_step is not None:
+                self.mesh_step.reduce_grads(grads)
             self.grads = dict(zip(self.names, grads))
             return {k: v.detach().float() for k, v in losses.items()}
 
@@ -172,17 +213,55 @@ class TrainStepFn:
         }
         return functional_call(_Call(self.model, run), cast, (batch,))
 
+    def _losses(self, b: Dict[str, Any], forward_kwargs: Mapping[str, Any], loss_kwargs: Dict[str, Any]) -> Any:
+        """The forward and the loss; under `remat`, checkpointed as one
+        segment: only the inputs are kept, and the backward computes the
+        whole forward again (so the peak does not fall), from the model's
+        generators rewound to where the forward found them."""
+
+        def forward_loss(b: Dict[str, Any]) -> Any:
+            fwd = self._forward(b, forward_kwargs)
+            # the loss sees the original (f32) batch, as in the JAX trainer
+            return self.train_step.loss_fn(self.model, b, fwd, **loss_kwargs)
+
+        if not self.remat:
+            return forward_loss(b)
+        from torch.utils.checkpoint import checkpoint
+
+        gens = [g for g in getattr(self.model, "rngs", {}).values() if isinstance(g, torch.Generator)]
+        device = next(self.model.parameters()).device
+        if device.type == "cuda":
+            gens.append(torch.cuda.default_generators[device.index or 0])
+        states = [g.get_state() for g in gens]
+
+        def replayed(b: Dict[str, Any]) -> Any:
+            for g, state in zip(gens, states):
+                g.set_state(state)
+            return forward_loss(b)
+
+        kwargs = {} if self.remat is True else {"context_fn": checkpoint_context_fn(self.remat)}
+        return checkpoint(replayed, b, use_reentrant=False, **kwargs)
+
     def update(self) -> None:
         """Clip `grads` where asked and run the optimizer on the masters (the
         ones not frozen: a frozen parameter's gradient counts as zero in the
-        norm, and its update is none, as the JAX trainer's masks make them)."""
+        norm, and its update is none, as the JAX trainer's masks make them).
+        On a mesh the norm is that of the whole gradient, and under ZeRO
+        the optimizer updates this rank's part of each split parameter."""
         grads: List[torch.Tensor] = list(self.grads.values())
+        names, params = self.names, self.params
         if len(self.trained) < len(grads):
             grads = [grads[i] for i in self.trained]
-        self.grad_norm = global_norm(grads)
+            names = [names[i] for i in self.trained]
+        params = [self.params[i] for i in self.trained]
+        ms = self.mesh_step
+        self.grad_norm = global_norm(grads) if ms is None else ms.global_norm(names, grads)
         if self.clip_norm > 0.0:
             grads = clip_by_global_norm(grads, self.clip_norm, self.grad_norm)
-        self.optimizer.step([self.params[i] for i in self.trained], grads)
+        if ms is not None and ms.zero:
+            ms.zero_step(self.optimizer, names, params, grads)
+        else:
+            self.optimizer.step(params, grads)
 
     def step(
         self, batch: Dict[str, Any], *, forward_kwargs: Optional[Mapping[str, Any]] = None, **loss_kwargs: Any
@@ -282,6 +361,83 @@ def make_train_step(
 ) -> TrainStepFn:
     opt = build_optimizer(optimizer, lr)
     return TrainStepFn(model, opt, compute_dtype=compute_dtype, clip_norm=clip_norm)
+
+
+class MeshStep:
+    """What a train step does on a mesh besides its forward and backward:
+    the batch cut to this rank's slice, the gradients and the losses
+    averaged over `data` x `fsdp`, the global norm of the whole gradient
+    (the squares of a parameter split over `model` or `pipe` summed over
+    that group), and ZeRO's update (`zero_step`): each parameter that the
+    placement splits over `fsdp` is updated on this rank's part only (so
+    that the optimizer's states are that part's), then the parts are
+    gathered back into the whole parameter."""
+
+    def __init__(self, mesh: Mesh, placement: Optional[Dict[str, ParamPlacement]], *, zero: bool) -> None:
+        self.mesh = mesh
+        self.placement = placement or {}
+        self.zero = zero
+        self.batch_group = mesh.group("data", "fsdp")
+
+    def shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        return shard_batch(batch, self.mesh)
+
+    def reduce_grads(self, grads: List[torch.Tensor]) -> None:
+        comm.all_reduce_(grads, self.batch_group, average=True)
+
+    def reduce_losses(self, items: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        keys = sorted(items)
+        values = [items[k].detach().float().reshape(()).clone() for k in keys]
+        comm.all_reduce_(values, self.batch_group, average=True)
+        return dict(zip(keys, values))
+
+    def _axes(self, name: str) -> Tuple[str, ...]:
+        pl = self.placement.get(name)
+        return () if pl is None else tuple(a for a in ("model", "pipe") if a in pl.spec)
+
+    @torch.no_grad()
+    def global_norm(self, names: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
+        by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for name, g in zip(names, grads):
+            axes = self._axes(name)
+            sq = g.float().square().sum()
+            by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device if grads else None)
+        for axes, sq in by_axes.items():
+            for axis in axes:
+                sq = sq.clone()
+                comm.all_reduce_([sq], self.mesh.group(axis))
+            total = total + sq
+        return total.sqrt()
+
+    def _fsdp_dim(self, name: str) -> Optional[int]:
+        pl = self.placement.get(name)
+        return pl.spec.index("fsdp") if pl is not None and "fsdp" in pl.spec else None
+
+    @torch.no_grad()
+    def zero_step(self, optimizer: Any, names: List[str], params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
+        parts, index = self.mesh.shape["fsdp"], self.mesh.coord["fsdp"]
+        views, gviews, split = [], [], []
+        for name, p, g in zip(names, params, grads):
+            dim = self._fsdp_dim(name)
+            if dim is None:
+                views.append(p)
+                gviews.append(g)
+            else:
+                step = p.shape[dim] // parts
+                views.append(p.data.narrow(dim, index * step, step))
+                gviews.append(g.narrow(dim, index * step, step))
+                split.append((p, dim, views[-1]))
+        if split:
+            # what needs a whole parameter or the whole gradient cannot run on this rank's parts
+            if isinstance(getattr(optimizer, "inner", optimizer), AdamP):
+                raise NotImplementedError("AdamP projects each whole parameter: it cannot update fsdp parts")
+            if getattr(optimizer, "clip_norm", 0.0) > 0.0:
+                raise NotImplementedError("a clip inside gradient accumulation would see one rank's parts")
+        optimizer.step(views, gviews)
+        group = self.mesh.group("fsdp")
+        for p, dim, view in split:
+            p.data.copy_(comm.all_gather_along(view.contiguous(), dim, group))
 
 
 DEFAULT_LR = 1.0e-3
@@ -452,6 +608,8 @@ class Trainer(ITrainer):
         self._ckpt_executor: Optional[Any] = None
         self._preempted = False
         self._preemption_dumped = False
+        self.mesh: Optional[Mesh] = None
+        self.mesh_step: Optional[MeshStep] = None
 
     # setup
 
@@ -480,7 +638,8 @@ class Trainer(ITrainer):
     def _prepare_workspace(self) -> None:
         workspace = self.config.workspace
         if self.config.create_sub_workspace:
-            workspace = os.path.join(workspace, timestamp(ensure_different=True))
+            # one sub-workspace for every rank
+            workspace = os.path.join(workspace, run_timestamp())
         self._workspace = workspace
         if is_local_rank_0():
             os.makedirs(self.checkpoint_folder, exist_ok=True)
@@ -488,16 +647,24 @@ class Trainer(ITrainer):
                 json.dump(self.config.to_info(), f, indent=2)
 
     def _check_options(self) -> None:
-        mesh = self.config.mesh or {}
-        if any(int(size) > 1 for size in mesh.values()):
-            raise NotImplementedError(
-                f"mesh {mesh} spans more than one device: the port trains on one device "
-                "(the parallel slice, on torch.distributed, is not ported yet)"
-            )
-        if self.config.remat:
-            raise NotImplementedError(
-                "`remat` is not ported: set the modules' `use_checkpoint` to recompute blocks in the backward"
-            )
+        remat = self.config.remat
+        if isinstance(remat, str):
+            checkpoint_context_fn(remat)  # an unknown policy name raises here, not at the first backward
+        elif remat not in (True, False):
+            raise ValueError(f"`remat` should be a bool or a checkpoint policy name, not {remat!r}")
+
+    def _setup_mesh(self, model: IDLModel) -> None:
+        """The mesh of the config over the process group (formed from the
+        launcher's environment where none is), the placement of the model's
+        parameters, and the step's collectives."""
+        c = self.config
+        use_fsdp = bool(c.shard_optimizer_states or c.use_zero)
+        mesh = self.mesh
+        assert mesh is not None
+        placement = None
+        if mesh.shape["model"] > 1 or mesh.shape["pipe"] > 1 or (use_fsdp and mesh.shape["fsdp"] > 1):
+            placement = place_params(model, mesh, use_fsdp=use_fsdp)
+        self.mesh_step = MeshStep(mesh, placement, zero=use_fsdp) if mesh.device_mesh is not None else None
 
     def _build_optimizers(self, model: IDLModel) -> None:
         """One optimizer per scope from the config (the JAX `Trainer`'s
@@ -532,6 +699,8 @@ class Trainer(ITrainer):
         )
         for scope in accumulating:
             self.step_fn.steps[scope].clip_norm = 0.0
+        for fn in self.step_fn.steps.values():
+            fn.mesh_step, fn.remat = self.mesh_step, c.remat
         if self._preloaded_opt_npd:
             # a resume: the optimizers' states as the dump (or the pipeline folder) holds them; a structure
             # that does not match starts them afresh, as in the JAX package
@@ -563,10 +732,13 @@ class Trainer(ITrainer):
         cuda: Any = None,
     ) -> "Trainer":
         """Train `model` (on its device) on `data`. The checkpoint writer's
-        thread is shut down before this returns or raises."""
+        thread is shut down before this returns or raises, and the ambient
+        mesh (which the fit sets to its own) is restored."""
+        ambient = get_ambient_mesh()
         try:
             return self._fit_impl(data, model, skip_final_evaluation=skip_final_evaluation)
         finally:
+            set_mesh(ambient)
             executor, self._ckpt_executor = self._ckpt_executor, None
             if executor is not None:
                 executor.shutdown(wait=True)
@@ -574,6 +746,9 @@ class Trainer(ITrainer):
     def _fit_impl(self, data: IData, model: IDLModel, *, skip_final_evaluation: bool = False) -> "Trainer":
         self._check_options()
         self.model = model
+        maybe_initialize_distributed(force_cpu=self.device.type == "cpu")
+        self.mesh = make_mesh(self.config.get_mesh_config())
+        set_mesh(self.mesh)
         self._prepare_workspace()
 
         # a resume from a preemption dump: meta.json is written last, so a dump without it is incomplete
@@ -610,6 +785,7 @@ class Trainer(ITrainer):
         self.frozen = set()
         if self.config.finetune_config:
             self._init_finetune(model)
+        self._setup_mesh(model)
         self._build_optimizers(model)
         self.inference.bind(self)
 
@@ -670,10 +846,12 @@ class Trainer(ITrainer):
                 self.final_results = self._get_metrics(portion=self.config.valid_portion)
         if self.final_results is not None:
             self._log_metrics_msg(self.final_results)
-        if not has_ckpt and not self._preempted and is_local_rank_0():
+        if not has_ckpt and not self._preempted:
             score = self.final_results.final_score if self.final_results is not None else 0.0
             self.save_checkpoint(score)
         self._drain_checkpoints()
+        if is_placed(model):
+            unplace_params(model)
         if not self._preempted and is_local_rank_0():
             # a fit that ended normally invalidates a preemption dump
             shutil.rmtree(self.preemption_folder, ignore_errors=True)
@@ -691,10 +869,16 @@ class Trainer(ITrainer):
         for callback in self.callbacks:
             callback.mutate_train_forward_kwargs(forward_kwargs, self)
             callback.mutate_train_loss_kwargs(loss_kwargs, self)
-        loss_items = self.step_fn.step(
-            batch, forward_kwargs=dict.fromkeys(self.step_fn.steps, forward_kwargs), loss_kwargs=loss_kwargs,
-            state=state,
-        )
+        ms = self.mesh_step
+        if ms is not None:
+            batch = ms.shard(batch)
+        with batch_shard_context(self.mesh):
+            loss_items = self.step_fn.step(
+                batch, forward_kwargs=dict.fromkeys(self.step_fn.steps, forward_kwargs), loss_kwargs=loss_kwargs,
+                state=state,
+            )
+        if ms is not None:
+            loss_items = ms.reduce_losses(loss_items)
         if self.config.debug_nans:
             bad = [k for k, v in loss_items.items() if not bool(torch.isfinite(v).all())]
             for scope, fn in self.step_fn.steps.items():
@@ -732,7 +916,7 @@ class Trainer(ITrainer):
                 # monitor before the log drains the window: a train-loss score peeks it
                 if state.should_monitor:
                     monitor_results = self._monitor_step(state)
-                    if monitor_results.save_checkpoint and is_local_rank_0():
+                    if monitor_results.save_checkpoint:
                         assert monitor_results.metric_outputs is not None
                         self.save_checkpoint(monitor_results.metric_outputs.final_score)
                         has_ckpt = self._has_ckpt = True
@@ -860,9 +1044,14 @@ class Trainer(ITrainer):
     def save_checkpoint(self, score: float, folder: Optional[str] = None, *, no_history: bool = False) -> None:
         """`model_<step>.npz` and its score in `scores.json`, keeping the best
         `max_snapshot_file`. Under `async_checkpointing` the file is written
-        on a background thread from a copy of the states taken now."""
+        on a background thread from a copy of the states taken now. On a
+        mesh every rank calls it: a placed model's whole tensors are gathered
+        from every rank, and rank 0 writes."""
         if folder is None:
             folder = self.checkpoint_folder
+        gathered = gather_state_dict(self.model) if is_placed(self.model) else None
+        if not is_local_rank_0():
+            return
         os.makedirs(folder, exist_ok=True)
         step = self.state.step if self.state is not None else 0
         file = f"{CKPT_PREFIX}{step}.npz"
@@ -872,10 +1061,10 @@ class Trainer(ITrainer):
 
             if self._ckpt_executor is None:
                 self._ckpt_executor = ThreadPoolExecutor(max_workers=1)
-            states = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            states = gathered or {k: v.detach().clone() for k, v in self.model.state_dict().items()}
             self._ckpt_futures.append(self._ckpt_executor.submit(self.model.save, path, states=states))
         else:
-            self.model.save(path)
+            self.model.save(path, states=gathered)
         scores = {} if no_history else get_scores(folder)
         scores[file] = score
         for stale in list(sort_dict_by_value(scores, reverse=True))[self.config.max_snapshot_file:]:
@@ -894,9 +1083,10 @@ class Trainer(ITrainer):
         rename, so that its presence marks a complete dump."""
         folder = self.preemption_folder
         self._drain_checkpoints()
+        gathered = gather_state_dict(self.model) if is_placed(self.model) else None
         if is_local_rank_0():
             os.makedirs(folder, exist_ok=True)
-            self.model.save(os.path.join(folder, "model.npz"))
+            self.model.save(os.path.join(folder, "model.npz"), states=gathered)
             np.savez(os.path.join(folder, "optimizers.npz"), **self.optimizer_states())
             meta_path = os.path.join(folder, "meta.json")
             with open(meta_path + ".tmp", "w") as f:
@@ -912,11 +1102,19 @@ class Trainer(ITrainer):
             fut.result()
 
     def restore_checkpoint(self, folder: Optional[str] = None) -> bool:
-        """Roll the model back to the best checkpoint of `scores.json`."""
+        """Roll the model back to the best checkpoint of `scores.json` (on a
+        mesh every rank reads rank 0's file, once written, and keeps its shards)."""
         self._drain_checkpoints()
+        if self.mesh is not None and self.mesh.size > 1:
+            torch.distributed.barrier()
         folder = folder or self.checkpoint_folder
         best = get_sorted_checkpoints(folder)
         if not best or not os.path.isfile(os.path.join(folder, best[0])):
             return False
-        self.model.load_state_dict(read_states(os.path.join(folder, best[0])))
+        states: Dict[str, Any] = read_states(os.path.join(folder, best[0]))
+        if is_placed(self.model):
+            states = local_state_dict(
+                {k: torch.from_numpy(v) for k, v in states.items()}, self.model._placement, self.model._mesh
+            )
+        self.model.load_state_dict(states)
         return True

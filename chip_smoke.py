@@ -323,15 +323,34 @@ Phases, in order; any failure exits non-zero:
    `import safetensors` works, and the host seconds and GB/s of the sha,
    the read, the convert, the move to the card, the converted cache's write
    and a load from it. The files are removed.
-25. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+25. the mesh on one card — a one-rank NCCL group (`torch.distributed`,
+   `parallel.mesh.maybe_initialize_distributed`) and its mesh: the SD-1.5
+   UNet finetune step (phase 15's batch 8) through `Trainer.fit` with
+   `shard_optimizer_states=True` under `remat` False, True and
+   "dots_saveable", its first step's loss and gradients (fed the reference
+   step's t and noise) against the unchecked step within phase 15's gates,
+   then three steps through the Trainer's step with exact launches (15 flash
+   forwards with lse a step, 30 with `remat`), ms per step, the step's peak
+   memory and the peak of its forward + backward alone;
+   `DiffusionAPI.use_mesh` txt2img bit for bit the unmeshed image with phase
+   12's launches; the ring of `ops.ring_attention`, its ranks run in turn
+   in one process through the library's `ring_forward` / `ring_backward`
+   (`OneProcessRing` hands each rank its blocks and sums dk / dv for their
+   owners), at SD-1.5's 64² self-attention (B 8, H 8, L 4096, d 40,
+   bf16), cp 2 and 4, causal and not, forward and backward, against rows 3
+   and 4 over the whole sequence and the plain ring, each sequence position
+   held to its own gate (a dropped block must fail it), with exact launches
+   (cp² blocks of each row, cp(cp + 1)/2 with causal masking) and device ms
+   beside the whole-sequence kernels'.
+26. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
    the style and tiling, the SD v2 and v2 finetune, the CV models', the
    framework's, the tabular, the rest of the framework's, the
-   annotators and compile and the pretrained loads' readings on lines of
-   their own, the card's name and power limit, and last `{"ok":
+   annotators and compile, the pretrained loads' and the mesh's readings on
+   lines of their own, the card's name and power limit, and last `{"ok":
    true, "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
 
@@ -4502,6 +4521,349 @@ def _pretrained_sd(torch, np, cflearn_torch, A, Cv, Gn, M, Z, C, redraw_zero_ini
     return out
 
 
+# 25. the mesh on one card: a one-rank NCCL group (`torch.distributed`, `parallel.mesh`) under the `Trainer` and
+# `DiffusionAPI.use_mesh`, and the ring of context-parallel attention at SD-1.5's 64^2 self-attention shape, its
+# ranks run one after another in one process (no second card: a multi-rank NCCL ring cannot run here)
+MESH_REMATS = (False, True, "dots_saveable")
+RING_SHAPE = (8, 8, 4096, 40)  # B, H, L, d: SD-1.5's 64^2 self-attention at the finetune batch
+RING_CPS = (2, 4)
+# The ring's gate holds each sequence position to `flash_rel` of its own largest magnitude (over B, H and d), plus
+# this share of the whole tensor's: under causal masking the magnitudes fall along the sequence (key 0 is attended
+# by every query), so a gate by the whole tensor's largest value is as large as most values past the first few
+# hundred positions; the share keeps positions whose exact values are 0 (dq of query 0) from a gate of 0.
+RING_FLOOR = 2.0**-4
+
+
+class OneProcessRing:
+    """One rank's ring as `ops.ring_attention.ring_forward` / `ring_backward` take it (`index`, `size`, `start`,
+    `wait`), for cp ranks run one after another in this process (no second card): the shards of every rank are
+    known, so `wait` hands over the kv block the previous rank would have sent. Gradients cannot wait for the
+    previous rank's sums here, so in the backward (`phase="bwd"`) each rank receives zeros with a block and every
+    dk / dv it sends on is added to that block's owner in `sums` (f32, what the owner's would hold)."""
+
+    def __init__(self, index: int, ks, vs, phase: str, sums=None):
+        self.index, self.size = index, len(ks)
+        self.ks, self.vs, self.phase, self.sums = ks, vs, phase, sums
+        self.step = 0
+
+    def start(self, tensors):
+        if self.phase == "bwd":
+            owner = (self.index - self.step) % self.size  # the block this rank held at this step
+            for acc, g in zip(self.sums[owner], tensors[-2:]):
+                acc += g
+        return self.step
+
+    def wait(self, step):
+        self.step += 1
+        if self.phase == "fwd":
+            owner = (self.index - step - 1) % self.size
+            return [self.ks[owner], self.vs[owner]]
+        zeros = [t.new_zeros(t.shape) for t in self.sums[0]]
+        if step == self.size - 1:  # the gradients come home: in `sums`
+            return zeros
+        owner = (self.index - step - 1) % self.size
+        return [self.ks[owner], self.vs[owner], *zeros]
+
+
+def ring_in_one_process(q, k, v, do, cp: int, *, causal: bool, plain: bool = False):
+    """The ring of cp ranks over whole (B, H, L, D) tensors, each rank running the library's own loops
+    (`ring_forward`, then `ring_backward` for `do`) on its L/cp shard over a `OneProcessRing`:
+    (o, [each rank's lse], (dq, dk, dv))."""
+    import torch
+
+    from cflearn_torch.ops.ring_attention import ring_backward, ring_forward
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs, ks, vs, dos = (t.chunk(cp, dim=2) for t in (q, k, v, do))
+    outs = [ring_forward(qs[r], ks[r], vs[r], OneProcessRing(r, ks, vs, "fwd"), causal=causal, sm_scale=scale,
+                         plain=plain) for r in range(cp)]
+    sums = [[t.new_zeros(t.shape, dtype=torch.float32) for t in (ks[r], vs[r])] for r in range(cp)]
+    dq = [ring_backward(qs[r], ks[r], vs[r], *outs[r], dos[r], OneProcessRing(r, ks, vs, "bwd", sums),
+                        causal=causal, sm_scale=scale, plain=plain)[0] for r in range(cp)]
+    o = torch.cat([out[0] for out in outs], dim=2)
+    grads = (torch.cat(dq, dim=2), *(torch.cat([s[i] for s in sums], dim=2).to(k.dtype) for i in range(2)))
+    return o, [out[1] for out in outs], grads
+
+
+def ring_gate(got, want, rel: float):
+    """(largest |got - want|, largest ratio of an error to its position's tolerance; at most 1 passes) of
+    (B, H, L, D) tensors, each position held to `rel` of its own largest magnitude plus RING_FLOOR of the
+    whole tensor's."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    mag = w.abs()
+    tol = rel * (mag.amax(dim=(0, 1, 3), keepdim=True) + RING_FLOOR * mag.max())
+    return err.max().item(), (err / tol).max().item()
+
+
+def mesh_step_launches(remat, steps: int) -> dict:
+    """The launches of `steps` finetune steps through the Trainer: with `remat` the whole forward runs again in the
+    backward (every flash forward with lse and every GroupNorm twice; dots_saveable keeps neither output)."""
+    again = 2 if remat else 1
+    return {"flash_fwd_lse": FLASH_PER_UNET * again * steps, "flash_bwd_fused": FLASH_PER_UNET * steps,
+            "group_norm": GN_PER_UNET * again * steps}
+
+
+def ring_visits(cp: int, causal: bool) -> int:
+    """Blocks attended by the cp ranks of a ring: every (q, kv) pair of blocks, only kv <= q with causal masking."""
+    return cp * (cp + 1) // 2 if causal else cp * cp
+
+
+def phase_mesh(torch, np, cflearn_torch, A, Cv, Gn, build_unet) -> dict:
+    """(a) A one-rank NCCL group and its 1 x 1 x 1 x 1 x 1 mesh: the SD-1.5 UNet finetune step (phase 15's batch 8,
+    inputs and reference) through `Trainer.fit` with `shard_optimizer_states=True`, under `remat` False, True and
+    "dots_saveable": the first step's loss and gradients (the Trainer fed the reference's t and noise) against
+    the unchecked `make_train_step` step within phase 15's gates, then TRAIN_STEPS steps through the Trainer's
+    step with exact launches, ms per step and peak memory. (b) `DiffusionAPI.use_mesh` on that mesh: txt2img bit
+    for bit the unmeshed image, with phase 12's launches. (c) The ring of `ops.ring_attention`, its cp ranks run in
+    turn in this process through the library's loops (`ring_in_one_process`), at RING_SHAPE, bf16, cp 2 and 4, causal and
+    not, forward and backward: the kernels' ring against rows 3 and 4 over the whole sequence and against the
+    plain ring, each position within its own gate (`ring_gate`), a dropped block failing it, exact launches (cp^2
+    blocks of each row, cp(cp + 1)/2 with causal masking), device ms beside the whole-sequence kernels'."""
+    import gc
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    import cflearn_torch.models.cv.diffusion as D
+    from cflearn_torch.data import ArrayData
+    from cflearn_torch.monitors import LazyMonitor
+    from cflearn_torch.parallel.mesh import make_mesh, maybe_initialize_distributed, set_mesh
+    from cflearn_torch.schema import DLConfig
+    from cflearn_torch.schema.data import DataConfig
+    from cflearn_torch.trainer import Trainer, make_train_step
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"mesh: {msg}")
+
+    out = {"trainer": {}, "use_mesh": {}, "ring": {}}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    workspace = tempfile.mkdtemp(prefix="mesh_phase_")
+    try:
+        check(maybe_initialize_distributed(force_cpu=False), "no process group formed")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, f"backend {dist.get_backend()}")
+        print(f"mesh: one-rank {dist.get_backend()} group on {torch.cuda.get_device_name(0)}")
+
+        # (a) the reference step: phase 15's inputs and its unchecked step's drift gates
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        x0 = torch.randn((TRAIN_BATCH, 64, 64, 4), generator=gen, device="cuda")
+        ctx = torch.randn((TRAIN_BATCH, 77, 768), generator=gen, device="cuda")
+        t_fix = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device="cuda")
+        noise = torch.randn(x0.shape, generator=gen, device="cuda")
+        x0_b = x0.to(torch.bfloat16).float()
+        tmodel = build_unet()
+        init = {k: v.detach().clone() for k, v in tmodel.state_dict().items()}
+        step = make_train_step(tmodel, lr=1e-5, compute_dtype=torch.bfloat16)
+
+        def ref_step(x):
+            loss = step.loss_and_grads({D.INPUT_KEY: x, "cond": ctx}, t=t_fix, noise=noise)[D.LOSS_KEY].item()
+            grads, step.grads = step.grads, {}
+            return loss, grads
+
+        loss_0, grads_0 = ref_step(x0_b)
+        # the bare step (`make_train_step`, no Trainer, no mesh) in this run, for the Trainer's cost on the mesh
+        bare = make_train_step(tmodel, lr=1e-5, compute_dtype=torch.bfloat16)
+        bare_batch = {D.INPUT_KEY: x0_b, "cond": ctx}
+        bare.step(bare_batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            bare.step(bare_batch)
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        bare_peak = torch.cuda.max_memory_allocated() / 2**30
+        del bare
+        with torch.no_grad():
+            for k, v in tmodel.state_dict().items():
+                v.copy_(init[k])
+        out["bare_step"] = {"step_ms": bare_ms, "peak_memory_gib": bare_peak}
+        print(f"mesh: the bare step (make_train_step, off the mesh) {bare_ms:.1f} ms, peak memory {bare_peak:.2f} GiB")
+        up = bump_ulp(torch, x0_b)
+        drift_loss = drift_global = 0.0
+        for x in (up, x0_b - (up - x0_b)):
+            loss_u, grads_u = ref_step(x)
+            drift_loss = max(drift_loss, abs(loss_u - loss_0))
+            drift_global = max(drift_global, grad_errors(grads_u, grads_0)["global_rel"])
+            del grads_u
+        del step
+        tol_loss = max(AE_PARITY_FACTOR * drift_loss, 2.0**-10 * abs(loss_0))
+        tol_global = AE_PARITY_FACTOR * drift_global
+        out["drift"] = {"loss": drift_loss, "global_rel": drift_global, "loss_tolerance": tol_loss}
+        print(f"mesh: reference step loss {loss_0:.6f}; gates: loss {tol_loss:.3e}, global {tol_global:.3e}")
+        data = ArrayData.init(DataConfig(batch_size=TRAIN_BATCH, shuffle_train=False)).fit(
+            x0_b.cpu().numpy(), train_others={"cond": ctx.cpu().numpy()}
+        )
+        batch = {D.INPUT_KEY: x0_b, "cond": ctx}
+        draws = D.global_randint, D.global_randn
+        for remat in MESH_REMATS:
+            with torch.no_grad():
+                for k, v in tmodel.state_dict().items():
+                    v.copy_(init[k])
+            config = DLConfig(
+                model="ddpm", workspace=workspace, fixed_steps=1, callback_names=[], mesh={"data": 1},
+                shard_optimizer_states=True, remat=remat, mixed_precision="bf16", optimizer_name="adamw", lr=1e-5,
+                scheduler_name="none", async_checkpointing=False, save_on_preemption=False,
+            )
+            trainer = Trainer(config, monitors=[LazyMonitor()])
+            trainer.save_checkpoint = lambda score, *a, **k: None  # the step is under test, not a 3.4 GB write
+            # the reference's draws (a recomputation under remat draws them again, and gets the same)
+            D.global_randint, D.global_randn = (lambda *a, **k: t_fix), (lambda *a, **k: noise)
+            first = []
+            train_step = trainer._train_step
+            trainer._train_step = lambda b, s: first.append(train_step(b, s)) or first[-1]
+            try:
+                trainer.fit(data, tmodel, skip_final_evaluation=True)
+            finally:
+                D.global_randint, D.global_randn = draws
+                trainer._train_step = train_step
+            fn = trainer.step_fn.steps["all"]
+            check(fn.mesh_step is not None and fn.mesh_step.zero and fn.remat == remat, f"{remat}: not on the mesh")
+            loss = float(first[0][D.LOSS_KEY])
+            err = grad_errors(fn.grads, grads_0)
+            print(f"mesh trainer[remat={remat}]: first step loss {loss:.6f} (off {abs(loss - loss_0):.3e}), gradients "
+                  f"against the unchecked step {json.dumps(err)}")
+            check(abs(loss - loss_0) <= tol_loss, f"remat={remat}: the loss moved from the reference step's")
+            check(err["global_rel"] <= tol_global, f"remat={remat}: the gradients moved (global norm)")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(A, Cv, Gn)
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                trainer.state.step += 1
+                trainer._train_step(batch, trainer.state)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+            want = mesh_step_launches(remat, TRAIN_STEPS)
+            print(f"mesh trainer[remat={remat}]: {step_ms:.1f} ms per step through the Trainer on the mesh, peak memory "
+                  f"{peak:.2f} GiB, launches {json.dumps(launches)}")
+            check(launches == want, f"remat={remat}: launches {launches} != {want}")
+            # the forward + backward alone (no optimizer update), from what stays between steps: under `remat` one
+            # checkpoint holds the whole forward and the loss, so the backward builds every activation again first
+            fn.grads = {}
+            gc.collect()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            fn.loss_and_grads(batch)
+            torch.cuda.synchronize()
+            fb_peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"mesh trainer[remat={remat}]: forward + backward alone: peak memory {fb_peak:.2f} GiB over "
+                  f"{resident:.2f} GiB resident ({fb_peak - resident:.2f} GiB of activations and gradients)")
+            out["trainer"][str(remat)] = {"loss_err": abs(loss - loss_0), "global_rel": err["global_rel"],
+                                          "leaf_max_rel": err["leaf_max_rel"], "step_ms": step_ms,
+                                          "peak_memory_gib": peak, "fwd_bwd_peak_gib": fb_peak,
+                                          "resident_gib": resident, "launches_per_step": mesh_step_launches(remat, 1)}
+            # a Trainer and its inference refer to each other: collect the cycle, so that the next run's peak
+            # holds no state of this one
+            del trainer, fn, train_step, first
+            gc.collect()
+            torch.cuda.empty_cache()
+        del tmodel, init, grads_0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) use_mesh on the one-rank mesh: txt2img bit for bit, phase 12's launches
+        api = cflearn_torch.DiffusionAPI.from_sd("v1", device="cuda", seed=0)
+        from cflearn_torch.modules.common import redraw_zero_init
+
+        redraw_zero_init(api.m, seed=1)
+        base = api.txt2img("a photo of a cat", seed=0)  # the warm-up, unmeshed
+        same = True
+        # in turns (off, on, on, off): the host clock of one call spreads widely from call to call
+        for i, meshed in enumerate((False, True, True, False)):
+            api.use_mesh(make_mesh() if meshed else None)
+            reset_launches(A, Cv, Gn)
+            t0 = time.perf_counter()
+            image = api.txt2img("a photo of a cat", seed=0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+            print(f"mesh use_mesh[{meshed}]: txt2img {ms:.1f} ms, launches {json.dumps(launches)}")
+            check(launches == serving(STEPS), f"use_mesh={meshed}: launches {launches} != {serving(STEPS)}")
+            out["use_mesh"].setdefault(str(meshed), {"ms": [], "launches": launches})["ms"].append(ms)
+            same = same and bool(np.array_equal(image, base))
+        api.use_mesh(None)
+        print(f"mesh use_mesh: the meshed image equals the unmeshed one bit for bit: {same}")
+        check(same, "the meshed txt2img differs from the unmeshed one")
+        out["use_mesh"]["bit_for_bit"] = same
+        del api
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        set_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(workspace, ignore_errors=True)
+
+    # (c) the ring at SD-1.5's 64^2 self-attention, its ranks run in turn in this process
+    b, h, seq, d = RING_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    do = torch.randn((b, seq, h, d), generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    rel = flash_rel(2)
+    for causal in (False, True):
+        whole_o, whole_lse = A.flash_fwd_lse(q, k, v, causal=causal)
+        whole_g = A.flash_bwd_fused(q, k, v, whole_o, whole_lse, do, causal=causal)
+        whole_ms = device_ms(torch, lambda: A.flash_bwd_fused(q, k, v, *A.flash_fwd_lse(q, k, v, causal=causal), do,
+                                                               causal=causal), calls=2, replays=3)
+        for cp in RING_CPS:
+            key = f"cp{cp}_{'causal' if causal else 'full'}"
+            reset_launches(A, Cv, Gn)
+            o, lses, grads = ring_in_one_process(q, k, v, do, cp, causal=causal)
+            torch.cuda.synchronize()
+            launches = {kk: vv for kk, vv in read_launches(A, Cv, Gn).items() if vv}
+            want = {"flash_fwd_lse": ring_visits(cp, causal), "flash_bwd_fused": ring_visits(cp, causal)}
+            check(launches == want, f"ring {key}: launches {launches} != {want}")
+            o_p, _, grads_p = ring_in_one_process(q, k, v, do, cp, causal=causal, plain=True)
+            errs = {"o_vs_whole": ring_gate(o, whole_o, rel), "o_vs_plain": ring_gate(o, o_p, rel)}
+            for name, got, w, p in zip(("dq", "dk", "dv"), grads, whole_g, grads_p):
+                errs[f"{name}_vs_whole"] = ring_gate(got, w, rel)
+                errs[f"{name}_vs_plain"] = ring_gate(got, p, rel)
+            bad = {n: e for n, e in errs.items() if not e[1] <= 1.0}
+            planted = {}
+            if cp == RING_CPS[-1]:
+                # the gate's power: the last rank's whole block against the first rank's keys (attended under
+                # causal masking too) dropped from dk and dv must fail it
+                n = seq // cp
+                last = slice((cp - 1) * n, seq)
+                _, dk_b, dv_b = A.flash_bwd_fused(q[:, :, last], k[:, :, :n], v[:, :, :n], o[:, :, last], lses[-1],
+                                                  do[:, :, last].contiguous(), causal=False)
+                for name, got, w, blk in (("dk", grads[1], whole_g[1], dk_b), ("dv", grads[2], whole_g[2], dv_b)):
+                    dropped = got.clone()
+                    dropped[:, :, :n] -= blk
+                    planted[name] = ring_gate(dropped, w, rel)
+                check(all(e[1] > 1.0 for e in planted.values()), f"ring {key}: a dropped block passes: {planted}")
+            ring_ms = device_ms(torch, lambda: ring_in_one_process(q, k, v, do, cp, causal=causal), calls=2, replays=3)
+            plain_ms = time_ms(torch, lambda: ring_in_one_process(q, k, v, do, cp, causal=causal, plain=True), 20.0)
+            print(f"mesh ring[{key}]: launches {json.dumps(launches)}; errors (largest, largest share of its "
+                  f"position's gate) {json.dumps(errs)}; a dropped block (dk, dv) {json.dumps(planted)}; ms forward + "
+                  f"backward {ring_ms:.3f} device (whole-sequence rows 3 + 4 {whole_ms:.3f}); plain ring {plain_ms:.3f} ms")
+            check(not bad, f"ring {key}: {bad}")
+            out["ring"][key] = {"launches": launches, "max_abs_err": max(e[0] for e in errs.values()),
+                                "max_gate_share": max(e[1] for e in errs.values()), "dropped_block": planted,
+                                "ms": ring_ms, "whole_ms": whole_ms, "plain_ms": plain_ms}
+            del o, lses, grads, o_p, grads_p
+        del whole_o, whole_lse, whole_g
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5331,7 +5693,11 @@ def main() -> int:
     pre_out = phase_pretrained(torch, np, cflearn_torch, A, Cv, Gn)
     print(f"pretrained: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 25. summary
+    # 25. the mesh on one card: the Trainer and use_mesh on a one-rank NCCL group, the ring in one process
+    mesh_out = phase_mesh(torch, np, cflearn_torch, A, Cv, Gn, build_unet)
+    print(f"mesh: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 26. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -5436,7 +5802,7 @@ def main() -> int:
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
                    "framework": fw_out, "tabular": tab_out, "cv_framework": cvf_out, "annotators_compile": ann_out,
-                   "pretrained": pre_out,
+                   "pretrained": pre_out, "mesh": mesh_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -5461,6 +5827,7 @@ def main() -> int:
     print(json.dumps({"cv_framework": cvf_out}))
     print(json.dumps({"annotators_compile": ann_out}))
     print(json.dumps({"pretrained": pre_out}))
+    print(json.dumps({"mesh": mesh_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -225,8 +225,14 @@ def test_mixed_stacked_encoder_matches_jax(pooling) -> None:
     if pooling == "head_token":
         tokens, ref_tokens = both(jm, tm, rand(10, 2, 9, 12), return_tokens=True)
         assert tokens.shape == (2, 10, 12) and rel_err(tokens.numpy(), ref_tokens) < F32
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TMS.MixedStackedEncoder(12, 9, pipeline_parallel=True, **kw)
+    # the pipelined layout (`pp_block`: the blocks stacked on a leading axis) bridges and computes the same
+    jm_pp = fast_build(
+        lambda: JMS.MixedStackedEncoder(12, 9, rngs=nnx.Rngs(4), pipeline_parallel=True, **kw),
+        constants=lambda path: np.zeros((), np.float32),  # the pipeline's objective, `pp_aux`
+    )
+    tm_pp = pair(jm_pp, TMS.MixedStackedEncoder(12, 9, pipeline_parallel=True, **kw))
+    got, ref = both(jm_pp, tm_pp, rand(10, 2, 9, 12))
+    assert got.shape == ref.shape and rel_err(got.numpy(), ref) < F32
 
 
 def test_channel_mixers_match_jax() -> None:

@@ -304,8 +304,9 @@ def test_steps_per_dispatch_equals_one_step_at_a_time(tmp_path, ckpts) -> None:
 
 def test_options_without_meaning_and_the_ones_that_raise(tmp_path, ckpts) -> None:
     """`donate_buffers`, `transfer_guard` and a one-device mesh change
-    nothing; a mesh of two devices and `remat` raise; `debug_nans` raises at
-    the first non-finite loss; no checkpoint thread outlives `fit`."""
+    nothing; `remat` recomputes the same fit; a mesh of two devices in one
+    process raises; `debug_nans` raises at the first non-finite loss; no
+    checkpoint thread outlives `fit`."""
     data = _data("clf", n=16)
     before = set(threading.enumerate())
     base = _fit("torch", "clf", str(tmp_path / "a"), ckpts["clf"], data=data, fixed_steps=2, **SGD)
@@ -313,9 +314,10 @@ def test_options_without_meaning_and_the_ones_that_raise(tmp_path, ckpts) -> Non
                 transfer_guard="disallow", mesh={"data": 1}, async_checkpointing=False, **SGD)
     assert _logs(base) == _logs(same)
     assert base.trainer._ckpt_executor is None and not _new_pool_threads(before)
-    for bad in (dict(mesh={"data": 2}), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            _fit("torch", "clf", str(tmp_path / "c"), ckpts["clf"], data=data, fixed_steps=1, **bad)
+    remat = _fit("torch", "clf", str(tmp_path / "r"), ckpts["clf"], data=data, fixed_steps=2, remat=True, **SGD)
+    assert _logs(base) == _logs(remat)
+    with pytest.raises(ValueError, match="do not divide 1 devices"):
+        _fit("torch", "clf", str(tmp_path / "c"), ckpts["clf"], data=data, fixed_steps=1, mesh={"data": 2})
     (x, y), valid = data
     x = x.copy()
     x[:] = np.nan
