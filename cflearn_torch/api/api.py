@@ -9,9 +9,10 @@ then `MLTrainingPipeline.init(config).fit(data)`; `fit_array(x, y,
 config=DLConfig(...))` is `ArrayData` then `DLTrainingPipeline`. Both run
 on the CUDA card unless `device` names another ("cpu" runs the plain
 PyTorch path); without a card and without a device they raise. `repeat_ml`
-and `run_multiple` (which need the experiment runner of `dist/`) wait for
-their slice. `fuse_inference` / `fuse_evaluation` load an ensemble of
-pipeline folders (`pipeline/api.py`).
+and `run_multiple` train copies of one config as tasks of
+`dist.ml.Experiment`, each in a process of its own, on the cards unless the
+caller passes `force_cpu=True`. `fuse_inference` / `fuse_evaluation` load
+an ensemble of pipeline folders (`pipeline/api.py`).
 """
 
 from typing import Any, Dict, List, Optional, Union
@@ -47,6 +48,20 @@ def _make_ml_data(
     return data
 
 
+def _ml_config(config: Optional[MLConfig], debug: bool = False) -> MLConfig:
+    """A copy of `config` (default `MLConfig(module_name="fcnn")`) as `fit_ml`
+    trains it: a "common" model becomes "ml.<module>" where one is
+    registered, else "ml.common"; `debug` (or the `CI` flag) makes it a
+    one-step run."""
+    config = MLConfig(module_name="fcnn") if config is None else config.copy()
+    if config.model == "common":
+        specialized = f"ml.{config.module_name}"
+        config.model = specialized if IDLModel.has(specialized) else "ml.common"
+    if debug or check_is_ci():
+        config.to_debug()
+    return config
+
+
 def fit_ml(
     x_train: Any,
     y_train: Any = None,
@@ -67,17 +82,70 @@ def fit_ml(
     default) is copied, never changed; a "common" model becomes
     "ml.<module>" where one is registered, else "ml.common". `debug` (or the
     `CI` flag) turns the copy into a one-step run."""
-    config = MLConfig(module_name="fcnn") if config is None else config.copy()
-    if config.model == "common":
-        specialized = f"ml.{config.module_name}"
-        config.model = specialized if IDLModel.has(specialized) else "ml.common"
-    if debug or check_is_ci():
-        config.to_debug()
+    config = _ml_config(config, debug)
     data = _make_ml_data(
         x_train, y_train, x_valid, y_valid, data_config=data_config, processor_config=processor_config,
         sample_weights=sample_weights,
     )
     return MLTrainingPipeline.init(config, device=device).fit(data, **kwargs)
+
+
+def repeat_ml(
+    x_train: Any,
+    y_train: Any = None,
+    *,
+    config: Optional[MLConfig] = None,
+    workspace: str = "_repeat",
+    num_repeat: int = 2,
+    num_jobs: int = 1,
+    force_cpu: bool = False,
+    **kwargs: Any,
+) -> Any:
+    """`num_repeat` copies of one tabular fit, each a task of
+    `dist.ml.Experiment` in a process of its own: the data is fitted here
+    (`kwargs`: `x_valid`, `y_valid`, `data_config`, `processor_config`,
+    `sample_weights`) and dumped once into `workspace`, and every task
+    trains `config` as `fit_ml` would on it, into
+    `workspace/<module>/<index>`. The tasks run `num_jobs` at a time on the
+    cards this process sees unless `force_cpu`; a failed task raises after
+    every task has ended. Returns the `ExperimentResults`."""
+    from ..dist.ml.experiment import Experiment
+
+    config = _ml_config(config)
+    data = _make_ml_data(x_train, y_train, **kwargs)
+    experiment = Experiment(num_jobs=num_jobs, force_cpu=force_cpu)
+    data_folder = Experiment.dump_data(data, workspace)
+    for _ in range(num_repeat):
+        experiment.add_task(model=config.module_name, config=config.to_info(), data_folder=data_folder)
+    return experiment.run_tasks(workspace)
+
+
+def run_multiple(
+    config: MLConfig,
+    data: MLData,
+    *,
+    workspace: str = "_multiple",
+    num_multiple: int = 2,
+    num_jobs: int = 1,
+    is_fix: bool = False,
+    force_cpu: bool = False,
+) -> Any:
+    """`num_multiple` runs of one config on fitted `data`, as `repeat_ml`'s
+    tasks. With `is_fix` only the task folders of `workspace` that lack
+    their saved pipeline (`Experiment.is_buggy`) run again, each into its own
+    folder; the results then hold those tasks alone."""
+    import os
+
+    from ..dist.ml.experiment import Experiment
+
+    config = _ml_config(config)
+    experiment = Experiment(num_jobs=num_jobs, force_cpu=force_cpu)
+    data_folder = Experiment.dump_data(data, workspace)
+    for i in range(num_multiple):
+        if is_fix and not Experiment.is_buggy(os.path.join(workspace, config.module_name, str(i))):
+            continue
+        experiment.add_task(model=config.module_name, config=config.to_info(), data_folder=data_folder, index=i)
+    return experiment.run_tasks(workspace)
 
 
 def fit_array(

@@ -6,5 +6,6 @@ ControlNet hint annotators (`Annotator`, `ControlNetHints`; their nets in
 from .annotator import Annotator, ControlNetHints
 from .translator import TranslatorAPI
 from .vq_vae import VQVAEInference, register_callback
+from . import third_party
 
-__all__ = ["Annotator", "ControlNetHints", "TranslatorAPI", "VQVAEInference", "register_callback"]
+__all__ = ["Annotator", "ControlNetHints", "TranslatorAPI", "VQVAEInference", "register_callback", "third_party"]

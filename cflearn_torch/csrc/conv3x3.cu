@@ -180,9 +180,8 @@ cudaError_t run(const void* x, const void* w, const void* bias, void* y, int B, 
   auto kernel = conv3x3_fwd_kernel<T, BN>;
   err = set_smem<conv3x3_fwd_kernel<T, BN>>(Cfg<BN>::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<ctas, THREADS, Cfg<BN>::SMEM, stream>>>(xmap, wmap, static_cast<T*>(y), static_cast<const T*>(bias), B,
-                                                   H, W, C, Co, th, tw);
-  return cudaGetLastError();
+  return launch_kernel(kernel, ctas, THREADS, Cfg<BN>::SMEM, stream, xmap, wmap, static_cast<T*>(y),
+                       static_cast<const T*>(bias), B, H, W, C, Co, th, tw);
 }
 
 template <typename T>
@@ -201,6 +200,8 @@ cudaError_t dispatch(const void* x, const void* w, const void* bias, void* y, in
 // ctas: the persistent grid. Returns a cudaError_t.
 extern "C" int cflearn_conv3x3_fwd(int dtype, const void* x, const void* w, const void* bias, void* y, int B, int H,
                                    int W, int C, int Co, int th, int tw, int bn, int ctas, void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   using cflearn::sm90::aligned16;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 != 0 || Co % 8 != 0 || th <= 0 || tw <= 0 ||
       th * tw != cflearn::BM || tw > 256 || th > 256 || ctas <= 0 || !aligned16(x) || !aligned16(w) ||

@@ -234,9 +234,8 @@ cudaError_t run(const void* x, const void* w, const void* bias, void* y, int B, 
   auto kernel = conv3x3_fold_kernel<T, BN>;
   err = set_smem<conv3x3_fold_kernel<T, BN>>(Cfg<BN>::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<ctas, THREADS, Cfg<BN>::SMEM, stream>>>(xmap, wmap, static_cast<T*>(y), static_cast<const T*>(bias), B,
-                                                   H, W, C, Co, th, tw);
-  return cudaGetLastError();
+  return launch_kernel(kernel, ctas, THREADS, Cfg<BN>::SMEM, stream, xmap, wmap, static_cast<T*>(y),
+                       static_cast<const T*>(bias), B, H, W, C, Co, th, tw);
 }
 
 template <typename T>
@@ -263,6 +262,8 @@ cudaError_t run_mma_sync(const void* x, const void* w, const void* bias, void* y
 // tile (128 or 256); ctas: the persistent grid. Returns a cudaError_t.
 extern "C" int cflearn_conv3x3_fold_fwd(int dtype, const void* x, const void* w, const void* bias, void* y, int B,
                                         int H, int W, int C, int Co, int th, int tw, int bn, int ctas, void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   using cflearn::sm90::aligned16;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 != 0 || Co % 8 != 0 ||
       th * tw != cflearn::fold::BM || (tw != 128 && tw != 64) || ctas <= 0 || !aligned16(x) || !aligned16(w) ||
@@ -277,6 +278,8 @@ extern "C" int cflearn_conv3x3_fold_fwd(int dtype, const void* x, const void* w,
 // the previous design, the mma.sync implicit GEMM: the yardstick. Same arguments without the plan.
 extern "C" int cflearn_conv3x3_fold_mma_sync(int dtype, const void* x, const void* w, const void* bias, void* y,
                                              int B, int H, int W, int C, int Co, void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   if (B <= 0 || H <= 0 || W <= 0 || C % 8 != 0 || Co % 8 != 0 || C <= 0 || Co <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return cflearn::fold::run_mma_sync<__nv_bfloat16>(x, w, bias, y, B, H, W, C, Co, s);

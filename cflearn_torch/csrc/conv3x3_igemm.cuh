@@ -25,6 +25,7 @@
 // of the 16-byte chunk (8 16-bit or 16 int8 values), Co % 8 == 0.
 #pragma once
 
+#include "host.cuh"
 #include "mma_common.cuh"
 
 namespace cflearn {
@@ -201,8 +202,7 @@ cudaError_t launch(const In* x, const In* w, const Epi& epi, int B, int H, int W
   if (err != cudaSuccess) return err;
   const int M = B * H * W;
   const dim3 grid((M + BM - 1) / BM, (Co + BN - 1) / BN);
-  kernel<<<grid, THREADS, SMEM, stream>>>(x, w, epi, B, H, W, C, Co);
-  return cudaGetLastError();
+  return launch_kernel(kernel, grid, THREADS, SMEM, stream, x, w, epi, B, H, W, C, Co);
 }
 
 }  // namespace igemm

@@ -248,9 +248,8 @@ cudaError_t run(const void* x, const void* w, const void* scale, const void* bia
   auto kernel = conv3x3_w8a8_kernel<T>;
   err = set_smem<conv3x3_w8a8_kernel<T>>(SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<ctas, THREADS, SMEM, stream>>>(xmap, wmap, ymap, static_cast<const float*>(scale),
-                                          static_cast<const T*>(bias), B, H, W, C, Co, th, tw);
-  return cudaGetLastError();
+  return launch_kernel(kernel, ctas, THREADS, SMEM, stream, xmap, wmap, ymap, static_cast<const float*>(scale),
+                       static_cast<const T*>(bias), B, H, W, C, Co, th, tw);
 }
 
 // ---- the previous design, the mma.sync implicit GEMM: the yardstick ----------
@@ -292,6 +291,8 @@ cudaError_t run_mma_sync(const void* x, const void* w, const void* scale, const 
 extern "C" int cflearn_conv3x3_w8a8(int out_dtype, const void* x, const void* w, const void* scale, const void* bias,
                                     void* y, int B, int H, int W, int C, int Co, int th, int tw, int ctas,
                                     void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   using cflearn::sm90::aligned16;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 16 != 0 || Co % 8 != 0 || C > cflearn::w8a8::MAX_C ||
       th <= 0 || tw <= 0 || th * tw != cflearn::w8a8::BM || tw > 256 || th > 256 || ctas <= 0 || !aligned16(x) ||
@@ -307,6 +308,8 @@ extern "C" int cflearn_conv3x3_w8a8(int out_dtype, const void* x, const void* w,
 extern "C" int cflearn_conv3x3_w8a8_mma_sync(int out_dtype, const void* x, const void* w, const void* scale,
                                              const void* bias, void* y, int B, int H, int W, int C, int Co,
                                              void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 16 != 0 || Co % 8 != 0 || C > cflearn::w8a8::MAX_C)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

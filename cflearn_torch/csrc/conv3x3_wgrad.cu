@@ -202,14 +202,13 @@ cudaError_t launch(const void* x, const void* dy, void* ws, void* out, int B, in
   const int KT = B * H * ((W + KP - 1) / KP);
   const int per = (KT + splits - 1) / splits;
   const int units = 3 * ((Co + BM - 1) / BM) * ((C + BN - 1) / BN);
-  wgrad_kernel<T><<<dim3(units, splits), THREADS, SMEM, stream>>>(xmap, dymap, static_cast<float*>(ws), B, H, W, C, Co,
-                                                                  per);
-  err = cudaGetLastError();
+  err = launch_kernel(wgrad_kernel<T>, dim3(units, splits), THREADS, SMEM, stream, xmap, dymap,
+                      static_cast<float*>(ws), B, H, W, C, Co, per);
   if (err != cudaSuccess) return err;
   const size_t n = size_t(Co) * 9 * C;
   const unsigned blocks = static_cast<unsigned>((n / 2 + 255) / 256);
-  wgrad_reduce_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws), static_cast<T*>(out), n, splits);
-  return cudaGetLastError();
+  return launch_kernel(wgrad_reduce_kernel<T>, blocks, 256, 0, stream, static_cast<const float*>(ws),
+                       static_cast<T*>(out), n, splits);
 }
 
 }  // namespace
@@ -219,6 +218,8 @@ cudaError_t launch(const void* x, const void* dy, void* ws, void* out, int B, in
 // cudaError_t.
 extern "C" int cflearn_conv3x3_wgrad(int dtype, const void* x, const void* dy, void* ws, void* out, int B, int H,
                                      int W, int C, int Co, int splits, void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   using cflearn::sm90::aligned16;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 != 0 || Co % 8 != 0 || splits <= 0 ||
       splits > 65535 || !aligned16(x) || !aligned16(dy) ||

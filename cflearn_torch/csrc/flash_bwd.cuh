@@ -54,6 +54,7 @@
 
 #pragma once
 
+#include "host.cuh"
 #include "mma_common.cuh"
 
 #define CFLEARN_MODE_FUSED 0
@@ -326,8 +327,7 @@ cudaError_t launch(const BwdArgs& a, int batch, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const int outer_len = MODE == CFLEARN_MODE_DQ ? a.q_len : a.kv_len;
   const dim3 grid((outer_len + Cfg::BT - 1) / Cfg::BT, (a.d + DC - 1) / DC, batch * a.heads);
-  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(a);
-  return cudaGetLastError();
+  return launch_kernel(kernel, grid, Cfg::THREADS, Cfg::SMEM, stream, a);
 }
 
 template <typename T, int MODE>

@@ -803,7 +803,7 @@ cudaError_t launch_bwd_sm90(const BwdArgs& ba, int batch, int outer, int inner, 
     err = sm90::set_smem<flash_bwd_q_outer_kernel<T, KS, NC>>(kBwdSmemMax);
     if (err != cudaSuccess) return err;
     const dim3 grid((ba.q_len + outer - 1) / outer, ba.heads, batch);
-    kernel<<<grid, 128 * (NC + 1), smem, stream>>>(qmap, kmap, vmap, omap, args);
+    return launch_kernel(kernel, grid, 128 * (NC + 1), smem, stream, qmap, kmap, vmap, omap, args);
   } else {
     CUtensorMap lmap, dmap;
     const long long rows = (long long)batch * ba.heads * ba.q_len;
@@ -814,9 +814,8 @@ cudaError_t launch_bwd_sm90(const BwdArgs& ba, int batch, int outer, int inner, 
     err = sm90::set_smem<flash_bwd_kv_outer_kernel<T, KS, NC, MODE>>(kBwdSmemMax);
     if (err != cudaSuccess) return err;
     const dim3 grid((ba.kv_len + outer - 1) / outer, ba.heads, batch);
-    kernel<<<grid, 128 * (NC + 1), smem, stream>>>(qmap, kmap, vmap, omap, lmap, dmap, args);
+    return launch_kernel(kernel, grid, 128 * (NC + 1), smem, stream, qmap, kmap, vmap, omap, lmap, dmap, args);
   }
-  return cudaGetLastError();
 }
 
 // the instantiated (K steps, consumer warpgroups): K steps 2..6 and 8 (d <= 128) with one or two
@@ -863,6 +862,8 @@ extern "C" int CFLEARN_BWD_ENTRY(int dtype, const void* q, const void* k, const 
                                  long long o_sl, int batch, int heads, int q_len, int kv_len, int d, int causal,
                                  float scale, int kernel, int outer, int inner, int stages, int ksteps,
                                  void* stream) {
+  const cflearn::DeviceOf device(q);  // the device of `q`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   cflearn::BwdArgs a{q,    k,    v,    dO,   static_cast<const float*>(lse), static_cast<const float*>(delta),
                      dq,   dk,   dv,   q_sb, q_sh,
                      q_sl, k_sb, k_sh, k_sl, v_sb,

@@ -482,8 +482,7 @@ cudaError_t launch(const FlashArgs& a, int batch, int bq, int bk, cudaStream_t s
   cudaError_t err = sm90::set_smem<flash_fwd_kernel<T, DP, WQ, WD, BK, STAGES, LSE>>(static_cast<int>(Cfg::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.q_len + Cfg::BQ - 1) / Cfg::BQ, a.heads, batch);
-  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(a);
-  return cudaGetLastError();
+  return launch_kernel(kernel, grid, Cfg::THREADS, Cfg::SMEM, stream, a);
 }
 
 template <typename T, int DC, bool LSE>
@@ -494,8 +493,7 @@ cudaError_t launch_chunked(const FlashArgs& a, int batch, int bq, int bk, cudaSt
   cudaError_t err = sm90::set_smem<flash_fwd_chunked_kernel<T, DC, LSE>>(static_cast<int>(Cfg::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.q_len + Cfg::BQ - 1) / Cfg::BQ, (a.d + DC - 1) / DC, batch * a.heads);
-  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(a);
-  return cudaGetLastError();
+  return launch_kernel(kernel, grid, Cfg::THREADS, Cfg::SMEM, stream, a);
 }
 
 // the mma.sync kernel for head dim d and dtype T; (bq, bk) must be its tiles

@@ -410,8 +410,8 @@ cudaError_t launch_sm90(const FlashArgs& fa, int batch, int bq, int bk, int stag
   const Sm90Args args{fa.o,     fa.lse,    fa.o_sb,   fa.o_sh, fa.o_sl, fa.heads,
                       fa.q_len, fa.kv_len, fa.d,      fa.causal, stages, fa.scale * kLog2e};
   const dim3 grid((fa.q_len + bq - 1) / bq, fa.heads, batch);
-  flash_fwd_sm90_kernel<T, KS, NC, LSE><<<grid, 128 * (NC + 1), smem, stream>>>(qmap, kmap, vmap, args);
-  return cudaGetLastError();
+  return launch_kernel(flash_fwd_sm90_kernel<T, KS, NC, LSE>, grid, 128 * (NC + 1), smem, stream, qmap, kmap, vmap,
+                       args);
 }
 
 // the instantiated (K steps, consumer warpgroups): K steps 2..6, 8, 10, 12 with one or two consumers (64
@@ -462,6 +462,8 @@ extern "C" int CFLEARN_FLASH_ENTRY(int dtype, const void* q, const void* k, cons
                                    long long o_sl, int batch, int heads, int q_len, int kv_len,
                                    int d, int causal, float scale, int kernel, int bq, int bk, int stages,
                                    int ksteps, int splits, void* work, void* stream) {
+  const cflearn::DeviceOf device(q);  // the device of `q`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   cflearn::FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
                        q_sb, q_sh, q_sl, k_sb, k_sh,
                        k_sl, v_sb, v_sh, v_sl, o_sb,

@@ -419,12 +419,10 @@ cudaError_t launch_wide(const FlashArgs& fa, int batch, int splits, float* work,
                       fa.q_len, fa.kv_len, fa.d,     fa.causal,
                       splits,   head_pad,  fa.scale * kLog2e};
   const dim3 grid((fa.q_len + Tile::BQ - 1) / Tile::BQ, fa.heads, batch * splits);
-  flash_fwd_wide_kernel<T, KH, LSE><<<grid, 384, smem, stream>>>(qmap, kmap, vmap, args);
-  err = cudaGetLastError();
+  err = launch_kernel(flash_fwd_wide_kernel<T, KH, LSE>, grid, 384, smem, stream, qmap, kmap, vmap, args);
   if (err != cudaSuccess || splits == 1) return err;
   const long long out_rows = (long long)batch * fa.heads * fa.q_len;
-  flash_fwd_wide_combine<T, LSE><<<unsigned((out_rows + 3) / 4), 256, 0, stream>>>(args, batch);
-  return cudaGetLastError();
+  return launch_kernel(flash_fwd_wide_combine<T, LSE>, unsigned((out_rows + 3) / 4), 256, 0, stream, args, batch);
 }
 
 // the instantiated K steps of each half: `flash_plan` takes ksteps = 2 KH, the fewest that cover d

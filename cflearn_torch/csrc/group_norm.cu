@@ -227,17 +227,14 @@ cudaError_t launch_slabs(const void* x, const void* w, const void* bias, int pdt
   const Tiling t = tiling(C, V);
   const size_t smem = size_t(t.ty_n) * t.tx_n * V * 2 * sizeof(float);  // at most 16 KB
   const unsigned grid = unsigned(B) * unsigned(slabs);
-  gn_stats_kernel<T, V><<<grid, THREADS, smem, stream>>>(static_cast<const T*>(x), partial, S, C, G,
-                                                         slabs, rows_per);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_kernel(gn_stats_kernel<T, V>, grid, THREADS, smem, stream, static_cast<const T*>(x),
+                                  partial, S, C, G, slabs, rows_per);
   if (err != cudaSuccess) return err;
   const float count = static_cast<float>(static_cast<double>(S) * (C / G));
-  gn_finalize_kernel<<<B, THREADS, 0, stream>>>(partial, stats, slabs, G, count, eps);
-  err = cudaGetLastError();
+  err = launch_kernel(gn_finalize_kernel, B, THREADS, 0, stream, partial, stats, slabs, G, count, eps);
   if (err != cudaSuccess) return err;
-  gn_apply_kernel<T, V><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(x), w, bias, pdtype, stats,
-                                                      static_cast<T*>(y), S, C, G, slabs, rows_per, silu);
-  return cudaGetLastError();
+  return launch_kernel(gn_apply_kernel<T, V>, grid, THREADS, 0, stream, static_cast<const T*>(x), w, bias, pdtype,
+                       stats, static_cast<T*>(y), S, C, G, slabs, rows_per, silu);
 }
 
 
@@ -566,20 +563,6 @@ __global__ void __launch_bounds__(GT, 1)
   }
 }
 
-// raise the kernel's shared-memory limit, once per device
-template <auto Kernel>
-cudaError_t prepare() {
-  constexpr int MAX_DEVICES = 64;
-  static bool done[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
-}
-
 template <typename T, int V>
 cudaError_t launch_grid(const void* x, const void* w, const void* bias, int pdtype, void* y, void* partial, int B,
                         long long S, int C, int G, float eps, int silu, int per_sample, int rows, int keep, int spw,
@@ -587,7 +570,7 @@ cudaError_t launch_grid(const void* x, const void* w, const void* bias, int pdty
   const Layout lay = layout(C, G, V, sizeof(T), keep, group_threads(G));
   if (lay.total > size_t(SMEM_MAX)) return cudaErrorInvalidValue;
   auto kernel = gn_grid_kernel<T, V>;
-  cudaError_t err = prepare<gn_grid_kernel<T, V>>();
+  cudaError_t err = set_smem<gn_grid_kernel<T, V>>(SMEM_MAX);
   if (err != cudaSuccess) return err;
   // every CTA must be resident at once (the grid barrier): the launch refuses a grid larger than the card holds
   cudaLaunchConfig_t cfg = {};
@@ -602,8 +585,7 @@ cudaError_t launch_grid(const void* x, const void* w, const void* bias, int pdty
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), w, bias, pdtype, static_cast<T*>(y),
                            static_cast<float2*>(partial), B, S, C, G, eps, silu, per_sample, rows, keep, spw);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return err;
 }
 
 }  // namespace
@@ -619,6 +601,8 @@ cudaError_t launch_grid(const void* x, const void* w, const void* bias, int pdty
 extern "C" int cflearn_group_norm(int xdtype, int pdtype, const void* x, const void* w, const void* bias, void* y,
                                   void* partial, int B, long long S, int C, int G, float eps, int silu,
                                   int per_sample, long long rows, long long keep, int spw, int ctas, void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   if (B <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || per_sample <= 0 || rows <= 0 ||
       rows > 0x7fffffffLL || static_cast<long long>(per_sample) * rows < S || keep < 0 || keep > rows ||
       spw <= 0 || ctas <= 0 || ctas > (spw < B ? spw : B) * per_sample || pdtype < 0 || pdtype > 2 ||
@@ -651,6 +635,8 @@ extern "C" int cflearn_group_norm(int xdtype, int pdtype, const void* x, const v
 extern "C" int cflearn_group_norm_slabs(int xdtype, int pdtype, const void* x, const void* w, const void* bias,
                                         void* y, void* partial, void* stats, int B, long long S, int C, int G,
                                         float eps, int silu, int slabs, long long rows_per, void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   if (B <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || slabs <= 0 || rows_per <= 0 ||
       static_cast<long long>(slabs) * rows_per < S || pdtype < 0 || pdtype > 2 ||
       static_cast<long long>(B) * slabs > 0x7fffffffLL)

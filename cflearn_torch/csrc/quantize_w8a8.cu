@@ -45,6 +45,8 @@
 
 #include <cstdint>
 
+#include "host.cuh"
+
 namespace cflearn {
 namespace {
 
@@ -187,8 +189,7 @@ cudaError_t launch(const void* x, const void* w, void* x8, void* w8, void* scale
                                        static_cast<const uint4*>(w), static_cast<uint2*>(x8), static_cast<uint2*>(w8),
                                        static_cast<float*>(scale), static_cast<uint32_t*>(partial), chunks, Co,
                                        row_chunks);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return err;
 }
 
 }  // namespace
@@ -199,6 +200,8 @@ cudaError_t launch(const void* x, const void* w, void* x8, void* w8, void* scale
 extern "C" int cflearn_quantize_w8a8(int dtype, const void* x, const void* w, void* x8, void* w8, void* scale,
                                      void* partial, long long chunks, int Co, int row_chunks, int ctas,
                                      void* stream) {
+  const cflearn::DeviceOf device(x);  // the device of `x`, its context bound to this thread
+  if (device.error() != cudaSuccess) return device.error();
   const auto misaligned = [](const void* p, uintptr_t a) { return (reinterpret_cast<uintptr_t>(p) & (a - 1)) != 0; };
   if (chunks <= 0 || Co <= 0 || row_chunks <= 0 || ctas <= 0 || misaligned(x, 16) || misaligned(w, 16) ||
       misaligned(x8, 8) || misaligned(w8, 8) || misaligned(scale, 4) || misaligned(partial, 4))

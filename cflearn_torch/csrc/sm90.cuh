@@ -37,6 +37,7 @@
 
 #include <type_traits>
 
+#include "host.cuh"
 #include "mma_common.cuh"
 
 namespace cflearn {
@@ -547,24 +548,19 @@ constexpr CUtensorMapDataType tma_dtype() {
 // A tensor map of `rank` dimensions (innermost first): `dims` elements,
 // `strides` bytes for dimensions 1.., `box` elements, the 128-byte swizzle
 // unless another is named, zeros out of bounds. `cuTensorMapEncodeTiled` is looked
-// up through the runtime, so the library needs no link against libcuda.
+// up through the runtime, so the library needs no link against libcuda. A failure
+// returns kDriverError, with the driver's CUresult in `cflearn_error_text`.
 inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const void* base,
                               const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
                               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode =
+      driver_entry<PFN_cuTensorMapEncodeTiled_v12000>("cuTensorMapEncodeTiled");
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
   const uint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, dtype, rank, const_cast<void*>(base), dims, strides, box, elem,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return driver_result(encode(map, dtype, rank, const_cast<void*>(base), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE),
+                       "cuTensorMapEncodeTiled");
 }
 
 // (B, H, W, C) channels-last tensor as a 4-D map (C, W, H, B), box (one 128-byte row of channels: 64 16-bit or
@@ -596,19 +592,7 @@ inline cudaError_t encode_rows_f32(CUtensorMap* map, const float* base, long lon
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// raise kernel `Kernel`'s dynamic shared memory limit once per device, not on every launch
-template <auto Kernel>
-cudaError_t set_smem(int bytes) {
-  constexpr int MAX_DEVICES = 64;
-  static bool done[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
-}
+using cflearn::set_smem;
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 

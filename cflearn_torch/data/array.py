@@ -47,3 +47,8 @@ class ArrayDictData(IArrayDataMixin, IData):
             arrays[LABEL_KEY] = np.asarray(y)
         return arrays
 
+
+# the reference's dataset names: dict batches are served by the same fancy-indexing array dataset
+from .utils import ArrayDataset as ArrayDictDataset  # noqa: E402
+
+IArrayDictDataset = ArrayDictDataset

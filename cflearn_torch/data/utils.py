@@ -23,9 +23,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..constants import BATCH_INDICES_KEY, INPUT_KEY, LABEL_KEY, PREDICTIONS_KEY
 from ..schema.data import DataConfig, IDataLoader, IDataset
-from ..toolkit.misc import np_dict_type
+from ..toolkit.misc import np_dict_type, to_device_dtype
 
 
 def get_weighted_indices(n: int, weights: Optional[np.ndarray], ensure_all_occur: bool = False) -> np.ndarray:
@@ -167,11 +168,6 @@ class IArrayDataMixin:
         )
 
 
-def to_device_dtype(x: np.ndarray) -> np.ndarray:
-    """f64 -> f32, as the JAX package moves arrays to its device."""
-    return x.astype(np.float32) if x.dtype == np.float64 else x
-
-
 def convert(np_batch: np_dict_type, device: torch.device) -> Dict[str, Any]:
     """One numpy batch as tensors on `device`; object arrays and other
     values are kept as they are."""
@@ -191,11 +187,13 @@ def convert(np_batch: np_dict_type, device: torch.device) -> Dict[str, Any]:
 
 
 class DeviceBatcher:
-    """The loader's numpy batches as tensors on `device`, `prefetch` ahead."""
+    """The loader's numpy batches as tensors on `device`, `prefetch` ahead.
+    `device=None` is the CUDA card, and raises without one
+    (`resolve_device`): a caller that wants the CPU passes it."""
 
-    def __init__(self, loader: IDataLoader, *, device: Any = "cpu", prefetch: int = 2) -> None:
+    def __init__(self, loader: IDataLoader, *, device: Any = None, prefetch: int = 2) -> None:
         self.loader = loader
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.prefetch = max(1, prefetch)
 
     def __len__(self) -> int:
@@ -249,3 +247,6 @@ def to_numpy(v: Any) -> np.ndarray:
         return v.cpu().numpy()
     return np.asarray(v)
 
+
+# the reference's interface name
+IArrayDataset = ArrayDataset

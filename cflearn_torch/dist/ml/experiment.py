@@ -12,7 +12,9 @@ workspaces; a task is given one card of `available_cards` (round robin,
 CPU only where the caller asks (`force_cpu=True`: `CFLEARN_TORCH_FORCE_CPU=1`).
 A task whose command exits with an error fails the run: `run_tasks` raises
 after every task has ended, naming each failed task and its exit code.
-`ExperimentResults.load_pipelines` loads each task's saved pipeline for
+`is_buggy` finds a task folder without its saved pipeline, and
+`add_task(index=)` puts a task back into that folder (`run_multiple(is_fix=
+True)`). `ExperimentResults.load_pipelines` loads each task's saved pipeline for
 inference."""
 
 import json
@@ -111,10 +113,14 @@ class Experiment:
         config: Optional[Dict[str, Any]] = None,
         data_folder: Optional[str] = None,
         run_command: Optional[str] = None,
+        index: Optional[int] = None,
     ) -> Tuple[str, int]:
-        """Add a task as the next index of `model`; its key (model, index)."""
-        indices = [idx for (m, idx) in self.tasks if m == model]
-        index = max(indices) + 1 if indices else 0
+        """Add a task as the next index of `model`, or at `index` (a repair
+        run retrains into the buggy task's folder, not into a new one); its
+        key (model, index)."""
+        if index is None:
+            indices = [idx for (m, idx) in self.tasks if m == model]
+            index = max(indices) + 1 if indices else 0
         task = Task(config=config or {}, run_command=run_command, data_folder=data_folder, model=model)
         self.tasks[(model, index)] = task
         return model, index
@@ -158,6 +164,24 @@ class Experiment:
         self.results.update(folders)
         return ExperimentResults(workspace, dict(self.tasks), folders)
 
+    # repair ------------------------------------------------------------------
+
+    @staticmethod
+    def is_buggy(task_folder: str) -> bool:
+        """Whether a task's folder lacks its saved pipeline: a task that did
+        not run to its end."""
+        return pipeline_folder(task_folder) is None
+
+
+def pipeline_folder(task_folder: str) -> Optional[str]:
+    """A task's saved pipeline: `pipeline` in its folder, or in a
+    (timestamped) sub-folder of it; None when there is none."""
+    subs = sorted(os.listdir(task_folder)) if os.path.isdir(task_folder) else []
+    for folder in [task_folder] + [os.path.join(task_folder, sub) for sub in subs]:
+        if os.path.isdir(os.path.join(folder, "pipeline")):
+            return os.path.join(folder, "pipeline")
+    return None
+
 
 class ExperimentResults:
     def __init__(
@@ -176,15 +200,7 @@ class ExperimentResults:
 
         out: Dict[Tuple[str, int], Any] = {}
         for key, folder in self.checkpoint_folders.items():
-            pipeline_folder = os.path.join(folder, "pipeline")
-            if not os.path.isdir(pipeline_folder):
-                # task workspaces may have a timestamped sub-folder
-                subs = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
-                for sub in subs:
-                    cand = os.path.join(folder, sub, "pipeline")
-                    if os.path.isdir(cand):
-                        pipeline_folder = cand
-                        break
-            if os.path.isdir(pipeline_folder):
-                out[key] = DLPipelineSerializer.load_inference(pipeline_folder, device=device)
+            found = pipeline_folder(folder)
+            if found is not None:
+                out[key] = DLPipelineSerializer.load_inference(found, device=device)
         return out

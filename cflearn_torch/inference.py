@@ -155,3 +155,6 @@ def _batch_len(np_batch: np_dict_type) -> int:
             return v.shape[0]
     return 1
 
+
+# the reference's interface name
+IInference = DLInference

@@ -9,6 +9,8 @@ from .cv import (
     DiscriminatorStep, GANModel, GeneratorStep, VAEModel, VQVAEModel,
 )
 from .ml import CommonMLModel, DDRModel, TemporalMLModel, WideAndDeepModel
+from . import common, cv
+from .ml import common as ml_common
 
 __all__ = [
     "AEDiscriminatorStep", "AEGeneratorStep", "AEModel", "AEVQModel", "AutoRegressorModel", "CommonDLModel",

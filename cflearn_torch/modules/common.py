@@ -1,13 +1,15 @@
 """Registry and shared helpers (counterpart of `cflearn_tpu/modules/common.py`).
 
-A minimal copy: a name -> class registry with prefixed views,
-`build_module`, `zero_module`, the seeded initialisers and `EMA`.
+A name -> class registry with prefixed views (`module_dict` is its
+reference name), `build_module`, `zero_module`, the seeded initialisers,
+`EMA`, and the primitives `Lambda`, `Residual` and `avg_pool_nd`.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..device import resolve_device
 
@@ -80,6 +82,42 @@ def set_buffers(module: nn.Module) -> nn.Module:
     if hasattr(module, "_rebuild_schedule"):
         module._rebuild_schedule()
     return module
+
+
+# the registry's reference name
+module_dict = module_registry
+
+
+class Lambda(nn.Module):
+    """A function as a module: `Lambda(fn)(*args)` is `fn(*args)`."""
+
+    def __init__(self, fn: Callable, name: str = "lambda") -> None:
+        super().__init__()
+        self.fn = fn
+        self.fn_name = name
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        return self.fn(*args, **kwargs)
+
+
+class Residual(nn.Module):
+    """y = x + module(x)."""
+
+    def __init__(self, module: nn.Module) -> None:
+        super().__init__()
+        self.module = module
+
+    def forward(self, x: torch.Tensor, **kwargs: Any) -> torch.Tensor:
+        return x + self.module(x, **kwargs)
+
+
+def avg_pool_nd(dims: int, x: torch.Tensor, *, kernel: int, stride: Optional[int] = None) -> torch.Tensor:
+    """Average pooling over the `dims` spatial axes of a channel-last tensor
+    (B, *spatial, C), a `kernel` window at `stride` (default `kernel`), no
+    padding."""
+    pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[dims - 1]
+    y = pool(x.movedim(-1, 1), kernel, stride or kernel)
+    return y.movedim(1, -1)
 
 
 class PrefixModules:

@@ -702,6 +702,10 @@ class SpatialTransformer(nn.Module):
         return x + net
 
 
+# the reference's name of the spatial transformer's inner block
+SpatialTransformerBlock = BasicTransformerBlock
+
+
 class ITokenMixer(nn.Module):
     """The token-mixer interface: `forward(net, **kwargs) -> net`."""
 

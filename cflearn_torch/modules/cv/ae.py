@@ -249,3 +249,15 @@ class AutoEncoderVQ(nn.Module):
             "commitment_loss": out.commitment_loss,
             "indices": out.indices,
         }
+
+
+# the reference's class names
+AttentionEncoder = AttnEncoder
+AttentionDecoder = AttnDecoder
+AttentionAutoEncoderKL = AutoEncoderKL
+AttentionAutoEncoderVQ = AutoEncoderVQ
+
+
+class IAttentionAutoEncoder(nn.Module):
+    """Interface of the SD first-stage autoencoders: `encode` / `decode`
+    with an attention mid-block."""

@@ -1,0 +1,2 @@
+from . import clip, diffusion
+from .clip import CLIP, TeTEncoder

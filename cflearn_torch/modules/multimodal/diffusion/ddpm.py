@@ -291,3 +291,33 @@ class DDPM(nn.Module):
         out = self.unet(net, timesteps, context, labels, **kw)
         hooks.begin(None)
         return out
+
+    def sample(
+        self,
+        num_samples: int,
+        *,
+        sampler: Optional[Any] = None,
+        cond: Optional[Any] = None,
+        size: Optional[Any] = None,
+        num_steps: int = 20,
+        generator: Optional[torch.Generator] = None,
+        **kwargs: Any,
+    ) -> torch.Tensor:
+        """`num_samples` samples from noise: z ~ N(0, 1) of (num_samples, *size
+        (default img_size^2), out_channels) in f32 on the parameters' device,
+        drawn from `generator` (default: one seeded with
+        `toolkit.misc.get_seed()`), then `sampler` (default DDIM) for
+        `num_steps` steps. NHWC, in the output latent space (a concat
+        condition widens the UNet's input, not z)."""
+        from ....toolkit.misc import new_generator
+        from .samplers import ISampler
+
+        if sampler is None:
+            sampler = ISampler.make("ddim", {"model": self})
+        if size is None:
+            size = (self.img_size, self.img_size)
+        device = next(self.parameters()).device
+        if generator is None:
+            generator = new_generator(device=device)
+        z = torch.randn((num_samples, size[0], size[1], self.out_channels), generator=generator, device=device)
+        return sampler.sample(z, cond=cond, num_steps=num_steps, generator=generator, **kwargs)

@@ -1119,3 +1119,14 @@ class DDPMQSampler(IQSampler):
             generator = _generator(generator, net.device)
             noise = torch.randn(net.shape, generator=generator, device=net.device, dtype=net.dtype)
         return self.model.q_sample(net, timesteps, noise)
+
+
+def is_misc_key(key: str) -> bool:
+    """Condition-dict keys that are not cross-attention context."""
+    from .utils import CONCAT_KEY, CONTROL_HINT_END_KEY, CONTROL_HINT_KEY, CONTROL_HINT_START_KEY
+
+    return key in (CONCAT_KEY, CONTROL_HINT_KEY, CONTROL_HINT_START_KEY, CONTROL_HINT_END_KEY)
+
+
+# the reference's name of DDIM's step
+DDIMMixin = DDIMSampler

@@ -1,0 +1,2 @@
+from . import tokenizers
+from .tokenizers import CLIPTokenizer, ITokenizer

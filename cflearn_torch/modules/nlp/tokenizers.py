@@ -1,5 +1,5 @@
 """The CLIP tokenizer (counterpart of `cflearn_tpu/modules/nlp/tokenizers.py`,
-numpy only; `ChineseCLIPTokenizer` is not ported).
+numpy only; `ChineseCLIPTokenizer` is not ported), with the `ITokenizer` registry.
 
 The CLIP BPE is implemented here: byte-pair merges over the standard CLIP
 vocab. The merges load from a local file (`bpe_path`), then from
@@ -19,8 +19,22 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ...parameters import OPT
+from ...toolkit.registry import WithRegister
 
 MERGES_FILE = "bpe_simple_vocab_16e6.txt.gz"
+
+
+class ITokenizer(WithRegister):
+    """The tokenizers' registry: `ITokenizer.make("clip")`."""
+
+    d: Dict[str, type] = {}
+
+    def tokenize(self, texts: Any, **kwargs: Any) -> np.ndarray:
+        raise NotImplementedError
+
+
+# the reference's name of the CLIP tokenizers' base
+ICLIPTokenizer = ITokenizer
 
 
 @lru_cache()
@@ -57,7 +71,8 @@ def _whitespace_clean(text: str) -> str:
     return re.sub(r"\s+", " ", text).strip()
 
 
-class CLIPTokenizer:
+@ITokenizer.register("clip")
+class CLIPTokenizer(ITokenizer):
     """CLIP byte-pair encoding (context length 77, SOT/EOT tokens)."""
 
     context_length = 77

@@ -1,8 +1,12 @@
 """Ops layer of the port: attention and 3x3-conv dispatchers with their
 hand-written CUDA kernels, and GroupNorm. `launch_counts()` reads every
-kernel wrapper's launch counter."""
+kernel wrapper's launch counter. `flash_attention`, `sdp_attn` and
+`xla_attention` are the JAX package's names here; its `group_norm` function
+is `group_norm.group_norm_silu`: the name `group_norm` stays the module's."""
 
 from typing import Dict
+
+from .attention import flash_attention, sdp_attn, xla_attention
 
 
 def launch_counts() -> Dict[str, int]:

@@ -38,7 +38,7 @@ SOURCES = {
 }
 _HEADERS = (
     "mma_common.cuh", "flash_fwd.cuh", "flash_bwd.cuh", "conv3x3_igemm.cuh", "sm90.cuh", "flash_fwd_sm90.cuh",
-    "flash_fwd_sm90_wide.cuh", "flash_bwd_sm90.cuh",
+    "flash_fwd_sm90_wide.cuh", "flash_bwd_sm90.cuh", "host.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -176,6 +176,29 @@ def library(name: str):
     return fn
 
 
-def check(err: int, what: str) -> None:
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on `wrapper.launches`, under a lock: threads that
+    launch at once lose no count."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def error_text(name: str, err: int) -> str:
+    """What error `err`, returned on this thread by entry point `name`, was:
+    the driver's CUresult for a failed driver call, else the runtime's name
+    and description (`csrc/host.cuh` `cflearn_error_text`)."""
+    fn = _loaded[_LIBRARY_OF.get(name, name)].cflearn_error_text
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode(errors="replace")
+
+
+def check(err: int, name: str, detail: Optional[str] = None) -> None:
+    """Raise if entry point `name` returned error `err`, with its text;
+    `detail` (the kernel the plan chose) goes beside the name."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+        what = name if detail is None else f"{name} ({detail})"
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}: {error_text(name, err)}")

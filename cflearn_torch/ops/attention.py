@@ -32,7 +32,8 @@ Counterpart of `cflearn_tpu/ops/attention.py`:
 * `flash_attention_trainable` — the `torch.autograd.Function` over them
   (the JAX package's custom VJP of the same name).
 * `xla_attention` — what the JAX package leaves to XLA (masks, biases, short
-  kv such as SD cross-attention at kv = 77); here
+  kv such as SD cross-attention at kv = 77); here PyTorch's FlashAttention-2
+  forward by name where it takes the inputs on the card, else
   `F.scaled_dot_product_attention`.
 * `sdp_attn` — the dispatcher: on a mesh with a `context` axis (the
   ambient `parallel.mesh.get_active_context_mesh()`), a self-attention-shaped
@@ -471,7 +472,7 @@ def _count_launch(name: str) -> None:
     """One more launch of kernel `name`, on its wrapper's `launches`. The
     wrapper is looked up in `_WRAPPERS`, not by its global name, which a
     caller may have pointed elsewhere."""
-    _WRAPPERS[name].launches += 1
+    _native.count_launch(_WRAPPERS[name])
 
 
 def _launch_fwd(
@@ -499,7 +500,7 @@ def _launch_fwd(
         _KERNEL_CODES[plan.kernel], plan.bq, plan.bk, plan.stages, plan.ksteps, plan.splits,
         None if work is None else work.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _native.check(err, f"{name} ({plan.kernel})")
+    _native.check(err, name, plan.kernel)
     _count_launch(name)
     return out, lse
 
@@ -669,7 +670,7 @@ def _launch_bwd(
         _KERNEL_CODES[plan.kernel], plan.outer, plan.inner, plan.stages, plan.ksteps,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _native.check(err, f"{name} ({plan.kernel})")
+    _native.check(err, name, plan.kernel)
     _count_launch(name)
     if name == "flash_bwd_fused":
         dq = dq.to(q.dtype)
@@ -802,6 +803,22 @@ def flash_attention_trainable(
     return FlashAttentionTrainable.apply(q, k, v, causal, sm_scale)
 
 
+def library_flash_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> bool:
+    """Whether FlashAttention-2's forward, called by name, computes what
+    `F.scaled_dot_product_attention` does on these (B, H, L, D) inputs: bf16
+    or fp16, one batch and head count, 8 | d <= 256, unit-stride head dims,
+    no empty sequence, and causal only when Lq == Lk (FlashAttention-2
+    aligns the causal mask to the bottom-right corner, SDPA and the JAX
+    function to the top-left). The dispatcher's checks are skipped by the
+    call by name, so they are made here."""
+    d = q.shape[-1]
+    return (q.dim() == k.dim() == v.dim() == 4 and q.dtype in (torch.bfloat16, torch.float16)
+            and q.dtype == k.dtype == v.dtype and d % 8 == 0 and d <= 256 and k.shape[-1] == v.shape[-1] == d
+            and q.shape[:2] == k.shape[:2] == v.shape[:2] and k.shape[2] == v.shape[2]
+            and q.stride(-1) == k.stride(-1) == v.stride(-1) == 1 and min(q.shape[2], k.shape[2]) > 0
+            and (not causal or q.shape[2] == k.shape[2]))
+
+
 def xla_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -814,7 +831,14 @@ def xla_attention(
 ) -> torch.Tensor:
     """Fused library attention for the shapes the JAX package leaves to XLA.
     `mask` is boolean (True = keep), `bias` an additive logits bias, both
-    broadcastable to (B, H, Lq, Lk)."""
+    broadcastable to (B, H, Lq, Lk). On the card, inputs without a mask or a
+    bias that `library_flash_takes` accepts run FlashAttention-2's forward by
+    name: the backend is fixed by the inputs, not left to the dispatcher,
+    which may pick cuDNN's attention, whose bits differed in a worker thread
+    from the main thread's at SD's cross-attention shapes
+    (`scripts/sdpa_thread_probe.py`)."""
+    if q.is_cuda and mask is None and bias is None and library_flash_takes(q, k, v, causal):
+        return torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal, False, scale=sm_scale)[0]
     attn_mask = None
     if mask is not None or bias is not None:
         if causal:

@@ -369,7 +369,7 @@ def _launch_forward(
         bsz, h, w, c, co, *plan(bsz, h, w, c, co, x.device), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _native.check(err, name)
-    counter.launches += 1
+    _native.count_launch(counter)
     return y
 
 
@@ -599,7 +599,7 @@ def quantize_w8a8(x: torch.Tensor, w_ohwi: torch.Tensor) -> Tuple[torch.Tensor, 
         scratch.data_ptr() + 4 * co, x.numel() // 8, co, 9 * c // 8, ctas, stream_ptr(x.device),
     )
     _native.check(err, name)
-    _QUANT_WRAPPER.launches += 1
+    _native.count_launch(_QUANT_WRAPPER)
     return x8, w8, scale
 
 
@@ -646,7 +646,7 @@ def conv3x3_int8(
         bsz, h, w, c, co, *plan, stream_ptr(x8.device),
     )
     _native.check(err, name)
-    _W8A8_WRAPPER.launches += 1
+    _native.count_launch(_W8A8_WRAPPER)
     return y
 
 
@@ -711,7 +711,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         bsz, h, w, c, co, plan.splits, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _native.check(err, "conv3x3_wgrad")
-    _WGRAD_WRAPPER.launches += 1
+    _native.count_launch(_WGRAD_WRAPPER)
     return out
 
 

@@ -291,8 +291,8 @@ def group_norm_silu(
             *head, partial.data_ptr(), bsz, spatial, c, num_groups, float(eps), int(apply_silu), plan.per_sample,
             plan.rows, plan.keep, plan.spw, plan.ctas, stream,
         )
-    _native.check(err, f"group_norm_silu ({plan.kernel})")
-    _WRAPPER.launches += 1
+    _native.check(err, "group_norm", plan.kernel)
+    _native.count_launch(_WRAPPER)
     return y
 
 

@@ -17,9 +17,11 @@ members' raw predictions (each member through its own data processor) and
 derive classes, probabilities and metrics from the average.
 """
 
+import abc
 import json
 import os
 import shutil
+from enum import Enum
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -449,3 +451,27 @@ class FusedInference:
         if metrics is not None:
             metric_outputs = metrics.evaluate({LABEL_KEY: first.labels}, fused)
         return InferenceOutputs(fused, first.labels, metric_outputs, first.loss_items)
+
+
+class PipelineTypes(str, Enum):
+    DL_TRAINING = "dl.training"
+    ML_TRAINING = "ml.training"
+    DL_INFERENCE = "dl.inference"
+    DL_EVALUATION = "dl.evaluation"
+
+
+class PackType(str, Enum):
+    TRAINING = "training"
+    INFERENCE = "inference"
+    EVALUATION = "evaluation"
+
+
+class IEvaluationPipeline(abc.ABC):
+    """`evaluate(loader) -> MetricsOutputs`."""
+
+    @abc.abstractmethod
+    def evaluate(self, loader: Any, **kwargs: Any) -> Any:
+        ...
+
+
+IEvaluationPipeline.register(DLEvaluationPipeline)

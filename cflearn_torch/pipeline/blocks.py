@@ -351,3 +351,36 @@ class SerializeOptimizerBlock(Block):
         if os.path.isfile(path):
             with np.load(path, allow_pickle=False) as z:
                 self.opt_npd = {k: z[k] for k in z.files}
+
+
+class TryLoadBlock(Block):
+    """A block that loads its state from `serialize_folder` / its name when
+    that holds it (`try_load` returns True), and builds it from scratch
+    otherwise; `save_extra` dumps it. Subclasses implement `try_load`,
+    `from_scratch` and `dump_to`."""
+
+    serialize_folder: Optional[str] = None
+
+    def try_load(self, folder: str) -> bool:
+        raise NotImplementedError
+
+    def from_scratch(self, config: DLConfig) -> None:
+        raise NotImplementedError
+
+    def dump_to(self, folder: str) -> None:
+        raise NotImplementedError
+
+    def build(self, config: DLConfig) -> None:
+        if self.serialize_folder is not None:
+            if self.try_load(os.path.join(self.serialize_folder, self.name)):
+                return
+        self.from_scratch(config)
+
+    def save_extra(self, folder: str) -> None:
+        os.makedirs(folder, exist_ok=True)
+        self.dump_to(folder)
+
+
+# the reference's names of the blocks that set the trainer's defaults: here the defaults blocks do
+SetTrainerDefaultsBlock = SetDefaultsBlock
+SetMLTrainerDefaultsBlock = SetMLDefaultsBlock

@@ -116,3 +116,17 @@ class Pipeline(IPipeline):
         self._config = config_registry.get(info.get("config_type", "dl"), DLConfig)()
         self._config.from_info(info["config"])
         self.prepare()
+
+
+class InjectDefaultsMixin:
+    """Records the defaults a block injected, for the report (the reference's
+    standalone name: `Block` carries `_defaults` itself)."""
+
+    _defaults: Dict[str, Any]
+
+    def __init__(self) -> None:
+        self._defaults = {}
+
+    def process_defaults(self, _defaults: Dict[str, Any]) -> None:
+        for k, v in self._defaults.items():
+            _defaults[k] = v

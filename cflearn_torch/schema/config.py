@@ -227,3 +227,15 @@ class MLEncoderSettings(DataClassBase):
 class MLGlobalEncoderSettings(DataClassBase):
     embedding_dim: Optional[int] = None
     embedding_dropout: Optional[float] = None
+
+
+@dataclasses.dataclass
+class TqdmSettings(DataClassBase):
+    """Progress-bar settings."""
+
+    use_tqdm: bool = False
+    use_step_tqdm: bool = False
+    use_tqdm_in_validation: bool = False
+    in_distributed: bool = False
+    position: int = 0
+    desc: str = "epoch"

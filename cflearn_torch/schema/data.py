@@ -6,7 +6,7 @@ keys of `constants.py`); the host-to-card boundary is the trainer's
 """
 
 import dataclasses
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Type, TypeVar, Union
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple, Type, TypeVar, Union
 
 import numpy as np
 
@@ -553,3 +553,38 @@ def norm_sw(sample_weights: Optional[np.ndarray]) -> Optional[np.ndarray]:
     if sample_weights is None:
         return None
     return sample_weights / np.sum(sample_weights)
+
+
+# sample weights: the training set's, or (training, validation)
+sample_weights_type = Optional[Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]]
+
+
+def split_sw(sample_weights: sample_weights_type) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """(training, validation) sample weights, each scaled to sum to 1; one
+    array is the training set's."""
+    if sample_weights is None:
+        train_weights = valid_weights = None
+    elif not isinstance(sample_weights, np.ndarray):
+        train_weights, valid_weights = sample_weights
+    else:
+        train_weights, valid_weights = sample_weights, None
+    return norm_sw(train_weights), norm_sw(valid_weights)
+
+
+class DataArgs(NamedTuple):
+    """A slice of a data bundle: (x, y, others)."""
+
+    x: Any
+    y: Any
+    others: Optional[np_dict_type]
+
+    @property
+    def xy(self) -> Tuple[Any, Any]:
+        return self.x, self.y
+
+
+# the reference's type aliases
+texts_type = Union[str, List[str]]
+configs_type = Optional[Union[List[Dict[str, Any]], Dict[str, Any]]]
+general_config_type = Optional[Union[str, Dict[str, Any]]]
+states_callback_type = Optional[Any]

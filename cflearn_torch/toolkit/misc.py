@@ -4,7 +4,10 @@ policies (`resolve_checkpoint_policy`, `checkpoint_context_fn`), and the
 framework's `check_is_ci`, `timestamp`, `sort_dict_by_value` and
 `truncate_string_to_length`; and the download cache (`download`,
 `download_json`, `download_checkpoint`, `compute_sha`, `check_sha_with`,
-`get_download_cache_dir`)."""
+`get_download_cache_dir`); the JAX toolkit's helpers on tensors (`get_seed`,
+`new_generator` for `new_rng_key`, `np_batch_to_tensor` / `tensor_batch_to_np`
+for the JAX batch converters, AdaIN, `WeightsStrategy`, `ScalarEMA`, parameter
+counts, copies and diffs by name, file info)."""
 
 import functools
 import hashlib
@@ -12,7 +15,7 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -366,3 +369,290 @@ def download_checkpoint(tag: str, *, check_sha: bool = False) -> Path:
 
     info = resolve_download(tag)
     return download(info["url"], name=info.get("name"), sha=info.get("sha") if check_sha else None)
+
+
+# ---- seeds, batches, the JAX toolkit's helpers ----
+
+tensor_dict_type = Dict[str, Union[torch.Tensor, Any]]
+# the reference's type aliases: a parameter, and a loss (one tensor or a dict of them)
+param_type = torch.Tensor
+losses_type = Union[torch.Tensor, tensor_dict_type]
+
+
+def get_seed() -> int:
+    """The seed `seed_everything` last set, 0 before any."""
+    return _seed if _seed is not None else 0
+
+
+def new_generator(seed: Optional[int] = None, device: Any = None) -> torch.Generator:
+    """A `torch.Generator` on `device` (default: the CPU) seeded with `seed`,
+    by default `get_seed()`: the port's `new_rng_key`, a seeded stream a
+    module draws from."""
+    return torch.Generator(device=device or "cpu").manual_seed(get_seed() if seed is None else int(seed))
+
+
+def np_batch_to_tensor(batch: np_dict_type, device: Any = "cpu") -> tensor_dict_type:
+    """A numpy dict batch as tensors on `device`; object arrays and other
+    values are kept (the port's `np_batch_to_jax`, carefree-learn's name).
+    Dtypes are kept: `to_device_dtype` is the narrowing a device move does."""
+    return {
+        k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray) and v.dtype != object else v
+        for k, v in batch.items()
+    }
+
+
+def tensor_batch_to_np(batch: tensor_dict_type) -> np_dict_type:
+    """A tensor dict batch as numpy arrays on the host (the port's
+    `jax_batch_to_np`, carefree-learn's name)."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+
+
+def to_device_dtype(x: np.ndarray) -> np.ndarray:
+    """The dtype an array takes on the device (the port's `to_jax_dtype`):
+    f64 becomes f32; integers keep theirs (PyTorch indexes with i64, where
+    the JAX package narrows i64 to i32)."""
+    return x.astype(np.float32) if x.dtype == np.float64 else x
+
+
+def mean_std(x: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spatial mean and std (population variance + eps) of each (sample,
+    channel) of NHWC features."""
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    var = x.var(dim=(1, 2), keepdim=True, unbiased=False)
+    return mean, torch.sqrt(var + eps)
+
+
+def adain_with_params(src: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """`src` normalised per (sample, channel), then given `mean` and `std`."""
+    src_mean, src_std = mean_std(src)
+    return std * (src - src_mean) / src_std + mean
+
+
+def adain_with_tgt(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """`src` given the spatial statistics of `tgt` (AdaIN)."""
+    return adain_with_params(src, *mean_std(tgt))
+
+
+class WeightsStrategy:
+    """Sample-weight schedules over `num` samples by name: `linear_decay`,
+    `radius_decay`, `log_decay`, `sigmoid_decay`; None gives None."""
+
+    def __init__(self, strategy: Optional[str]) -> None:
+        self.strategy = strategy
+
+    def __call__(self, num: int) -> Optional[np.ndarray]:
+        if self.strategy is None:
+            return None
+        return getattr(self, self.strategy)(num)
+
+    def linear_decay(self, num: int) -> np.ndarray:
+        return np.linspace(0, 1, num + 1)[1:]
+
+    def radius_decay(self, num: int) -> np.ndarray:
+        return np.sin(np.arccos(1.0 - np.linspace(0, 1, num + 1)[1:]))
+
+    def log_decay(self, num: int) -> np.ndarray:
+        return np.log(np.arange(num) + np.e)
+
+    def sigmoid_decay(self, num: int) -> np.ndarray:
+        return 1.0 / (1.0 + np.exp(-np.linspace(-5.0, 5.0, num)))
+
+
+class ScalarEMA:
+    """A host-side exponential moving average of scalars: the first value as
+    it is, then decay * average + (1 - decay) * value."""
+
+    def __init__(self, decay: float = 0.9) -> None:
+        self.decay = decay
+        self._value: Optional[float] = None
+
+    def update(self, value: float) -> float:
+        if self._value is None:
+            self._value = value
+        else:
+            self._value = self.decay * self._value + (1.0 - self.decay) * value
+        return self._value
+
+    @property
+    def value(self) -> Optional[float]:
+        return self._value
+
+
+def fix_denormal_states(states: Dict[str, Any], *, eps: float = 1e-32) -> Dict[str, Any]:
+    """A state dict with the floating values below `eps` in magnitude set to
+    0 (numpy arrays or tensors, dtypes kept)."""
+    out = {}
+    for k, v in states.items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            v = torch.where(v.abs() < eps, torch.zeros_like(v), v)
+        elif isinstance(v, np.ndarray) and np.issubdtype(v.dtype, np.floating):
+            v = np.where(np.abs(v) < eps, 0.0, v).astype(v.dtype)
+        out[k] = v
+    return out
+
+
+def prod(iterable: Any) -> int:
+    out = 1
+    for v in iterable:
+        out *= int(v)
+    return out
+
+
+def get_num_params(params: Any) -> int:
+    """The number of values in a module's parameters, or in the tensors of a
+    dict or sequence."""
+    if isinstance(params, torch.nn.Module):
+        params = list(params.parameters())
+    elif isinstance(params, dict):
+        params = list(params.values())
+    return sum(int(np.prod(p.shape)) for p in params if hasattr(p, "shape"))
+
+
+def get_latest_workspace(root: Union[str, Path]) -> Optional[Path]:
+    """The most recently modified run folder under a workspace root, None
+    when it has none."""
+    root = Path(root)
+    if not root.is_dir():
+        return None
+    candidates = [p for p in root.iterdir() if p.is_dir()]
+    return max(candidates, key=lambda p: p.stat().st_mtime) if candidates else None
+
+
+def hash_code(code: str) -> str:
+    """The first 8 hex digits of `code`'s md5."""
+    return hashlib.md5(code.encode()).hexdigest()[:8]
+
+
+class FileInfo(tuple):
+    """(sha256, st_size) of a file."""
+
+    def __new__(cls, sha: str, st_size: int) -> "FileInfo":
+        return super().__new__(cls, (sha, st_size))
+
+    @property
+    def sha(self) -> str:
+        return self[0]
+
+    @property
+    def st_size(self) -> int:
+        return self[1]
+
+
+def get_file_info(path: Union[str, Path]) -> FileInfo:
+    """The sha256 and the size of a file."""
+    return FileInfo(compute_sha(str(path)), os.path.getsize(path))
+
+
+def show_or_return(return_canvas: bool) -> Optional[np.ndarray]:
+    """Show matplotlib's current figure, or return it as an RGBA array
+    (needs matplotlib, and PIL for the array)."""
+    import matplotlib.pyplot as plt
+
+    if not return_canvas:
+        plt.show()
+        return None
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    plt.savefig(buf, format="png")
+    plt.close()
+    buf.seek(0)
+    return np.array(Image.open(buf))
+
+
+def to_2d(arr: Any) -> Any:
+    """Array-likes as 2-D columns: a flat list becomes a list of one-item
+    lists, a 1-D array (numpy or tensor) a column; None and strings give None;
+    anything else is returned as it is."""
+    if arr is None or isinstance(arr, str):
+        return None
+    if isinstance(arr, (list, tuple)) and arr and not isinstance(arr[0], (list, tuple)):
+        return [[x] for x in arr]
+    a = arr if isinstance(arr, (np.ndarray, torch.Tensor)) else np.asarray(arr)
+    if a.ndim == 1:
+        return a.reshape(-1, 1)
+    return arr if isinstance(arr, (list, tuple)) else a
+
+
+def inject_parameters(
+    src: torch.nn.Module,
+    tgt: torch.nn.Module,
+    *,
+    strict: bool = True,
+    src_filter_fn: Optional[Callable[[str], bool]] = None,
+    tgt_filter_fn: Optional[Callable[[str], bool]] = None,
+    custom_mappings: Optional[Dict[str, str]] = None,
+    states_callback: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
+) -> None:
+    """Copy `src`'s parameters into `tgt` by name (`named_parameters`),
+    filtered by name on either side, renamed by `custom_mappings` and then
+    passed through `states_callback`. With `strict` (and no target filter)
+    every parameter of `tgt` must be filled and every given one used."""
+    states = {k: v.detach() for k, v in src.named_parameters()}
+    if src_filter_fn is not None:
+        states = {k: v for k, v in states.items() if src_filter_fn(k)}
+    if custom_mappings:
+        states = {custom_mappings.get(k, k): v for k, v in states.items()}
+    if states_callback is not None:
+        states = states_callback(states)
+    targets = dict(tgt.named_parameters())
+    if tgt_filter_fn is not None:
+        targets = {k: v for k, v in targets.items() if tgt_filter_fn(k)}
+        states = {k: v for k, v in states.items() if k in targets}
+    if strict and tgt_filter_fn is None:
+        missing, unused = sorted(set(targets) - set(states)), sorted(set(states) - set(targets))
+        if missing or unused:
+            raise KeyError(f"inject_parameters: target parameters not filled {missing[:8]}, given ones unused "
+                           f"{unused[:8]}")
+    with torch.no_grad():
+        for k, v in states.items():
+            if k in targets:
+                targets[k].copy_(v)
+
+
+def has_batch_norms(module: torch.nn.Module) -> bool:
+    """Whether any submodule is a batch norm."""
+    return any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in module.modules())
+
+
+def get_tensors(inp: Any) -> Dict[str, np.ndarray]:
+    """A checkpoint as a flat {name: ndarray}: a path (`.safetensors`, `.pt`,
+    `.ckpt`, `.pth`), a state dict, or a dict holding one under
+    "state_dict"."""
+    if isinstance(inp, (str, Path)):
+        from ..zoo.convert import load_torch_state_dict
+
+        return {k: v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy()
+                for k, v in load_torch_state_dict(str(inp)).items()}
+    if isinstance(inp, dict):
+        d = inp.get("state_dict", inp)
+        return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in d.items()}
+    raise ValueError(f"cannot extract tensors from `{type(inp)}`")
+
+
+class Diffs(tuple):
+    """(names, diffs) of `sorted_param_diffs`."""
+
+    def __new__(cls, names: List[str], diffs: List[float]) -> "Diffs":
+        return super().__new__(cls, (names, diffs))
+
+    @property
+    def names(self) -> List[str]:
+        return self[0]
+
+    @property
+    def diffs(self) -> List[float]:
+        return self[1]
+
+
+def sorted_param_diffs(m1: torch.nn.Module, m2: torch.nn.Module) -> Diffs:
+    """The largest absolute difference of each parameter between two modules
+    of the same structure, largest first."""
+    d1, d2 = dict(m1.named_parameters()), dict(m2.named_parameters())
+    if d1.keys() != d2.keys():
+        raise ValueError("parameter structures differ")
+    pairs = sorted(((k, (d1[k].detach().float() - d2[k].detach().float()).abs().max().item()) for k in d1),
+                   key=lambda kv: -kv[1])
+    return Diffs([k for k, _ in pairs], [v for _, v in pairs])

@@ -1118,3 +1118,22 @@ class Trainer(ITrainer):
             )
         self.model.load_state_dict(states)
         return True
+
+
+def get_input_sample(loader: Any) -> Dict[str, Any]:
+    """The loader's first batch cut to one sample: each array or tensor (and
+    each one inside a list) keeps its first row."""
+    sample = dict(next(iter(loader)))
+    for k, v in sample.items():
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            sample[k] = v[:1]
+        elif isinstance(v, list):
+            sample[k] = [vv[:1] if isinstance(vv, (np.ndarray, torch.Tensor)) else vv for vv in v]
+    return sample
+
+
+def get_update_fn(trainer: Trainer) -> Any:
+    """The callable that `trainer` runs for one step: `fn(batch, state)` ->
+    the step's loss items (forward, loss, backward and the optimizers'
+    update of every scope, on the mesh when there is one)."""
+    return trainer._train_step

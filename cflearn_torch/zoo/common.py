@@ -79,6 +79,25 @@ def parse_config(config: str) -> Dict[str, Any]:
     return base
 
 
+def parse_json(json_path: Any) -> Dict[str, Any]:
+    """A zoo preset's JSON file as it is."""
+    with open(json_path, "r") as f:
+        return json.load(f)
+
+
+def parse_config_info(config: str) -> Dict[str, Any]:
+    """`parse_config(config)` with its metadata: the preset name, the module,
+    the converter, the checkpoint entry and the parsed config."""
+    parsed = parse_config(config)
+    return {
+        "config": config,
+        "module": parsed.get("__module__"),
+        "converter": parsed.get("__converter__"),
+        "download": parsed.get("__download__"),
+        "parsed": parsed,
+    }
+
+
 def _module_and_config(config: str, kwargs: Dict[str, Any]) -> Any:
     parsed = parse_config(config)
     name = parsed.pop("__module__")

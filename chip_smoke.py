@@ -319,7 +319,10 @@ Phases, in order; any failure exits non-zero:
    ControlNet under `control_v11f1p_sd15_depth.pth` refused by the entry's
    `min_size`, the f32 one (1.45 GB) through `load_control_net("depth",
    pretrained=True)` bit for bit and `sample_with_control` with phase 12's
-   launches; one changed byte refused against its pin. Prints whether
+   launches; one changed byte refused against its pin; the same SD-1.5 file
+   through the converter script (`scripts.sd.convert` -> `inject` into an API
+   built from other weights -> txt2img): phase 12's launches and the image bit
+   for bit the pretrained load's. Prints whether
    `import safetensors` works, and the host seconds and GB/s of the sha,
    the read, the convert, the move to the card, the converted cache's write
    and a load from it. The files are removed.
@@ -342,15 +345,31 @@ Phases, in order; any failure exits non-zero:
    held to its own gate (a dropped block must fail it), with exact launches
    (cp² blocks of each row, cp(cp + 1)/2 with causal masking) and device ms
    beside the whole-sequence kernels'.
-26. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+26. the public surface — (a) each kernel of the `kernels` line launched from
+   the main thread, from a new `threading.Thread` after it and from two
+   threads at once (`thread_launches`), each result against its plain version
+   with phase 2's tolerance, the launches counted exactly; (b) phase 12's
+   txt2img as two requests on a two-worker `ThreadPoolExecutor`, each image
+   bit for bit the same request served from the main thread; (c) the zoo's
+   `diffusion/ddpm` preset at its published width (64 px, 128 channels, bf16,
+   seeded): one UNet call's launches exact (5 flash calls, B16 H4 L256 d64,
+   and 51 GroupNorms) and within 1.5x the plain path's one-ulp drift, each
+   distinct kernel call against its plain version and timed beside the
+   library call, `sample(16, num_steps=20)`'s launches, ms and peak memory; (d) `repeat_ml` of the tabular
+   "transformer" on phase 21's MNIST-shaped table (8,192 rows), two tasks as
+   processes on the card, each task's pipeline against the same config
+   fitted in this process, then `run_multiple(is_fix=True)` after one task's
+   pipeline is removed: that task alone, on the card.
+27. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
    the style and tiling, the SD v2 and v2 finetune, the CV models', the
    framework's, the tabular, the rest of the framework's, the
-   annotators and compile, the pretrained loads' and the mesh's readings on
-   lines of their own, the card's name and power limit, and last `{"ok":
+   annotators and compile, the pretrained loads', the mesh's and the public
+   surface's readings on lines of their own (each kernel's threaded checks on
+   the `kernels` line), the card's name and power limit, and last `{"ok":
    true, "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
 
@@ -1778,10 +1797,11 @@ def vq_launches(**calls) -> dict:
     return out
 
 
-def check_call(torch, F, A, Cv, Gn, key, gen) -> dict:
+def check_call(torch, F, A, Cv, Gn, key, gen, host_ms: bool = False) -> dict:
     """One distinct serving-kernel call of the census, on random inputs of its shapes: the kernel against its plain
     version (phase 2's tolerances), its device ms (CUDA-graph replay), its plain version's ms, the library call's
-    device ms and the bound."""
+    device ms and the bound; with `host_ms` also the kernel's and the library call's ms on the host clock (`ms`,
+    `library_ms`), as phase 2's rows have them."""
     name, args, kw = key
     kw = dict(kw)
     dt = getattr(torch, args[0][2].split(".")[1])
@@ -1834,6 +1854,8 @@ def check_call(torch, F, A, Cv, Gn, key, gen) -> dict:
                device_ms=device_ms(torch, run, 5, 3),
                plain_ms=time_ms(torch, plain, 5.0), library_device_ms=device_ms(torch, lib, 5, 3), bound_ms=bms,
                bound_by=by)
+    if host_ms:
+        row.update(ms=time_ms(torch, run), library_ms=time_ms(torch, lib))
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{name} {shape} {str(dt)} {kw}: max_abs_err {err} > {tol}")
     return row
@@ -4431,9 +4453,29 @@ def _pretrained_sd(torch, np, cflearn_torch, A, Cv, Gn, M, Z, C, redraw_zero_ini
     same = bool(np.array_equal(image, ref_image))
     print(f"pretrained: txt2img {ms:.1f} ms (its first call), launches {json.dumps(got)} = phase 12's, image bit for "
           f"bit the load_state_dict one: {same} (std {image.std():.2f})")
+    txt2img_launches = got
     check(same, "the image differs from the one of the same weights given by load_state_dict")
     del ref, ref_image
-    out["sd"] = dict(readings, txt2img_ms=ms, launches=got, image_bit_for_bit=same)
+    # the converter script on the same file: `scripts.sd.convert` -> `inject` into an API of other weights -> txt2img
+    from cflearn_torch.scripts import sd as S
+
+    t0 = time.perf_counter()
+    states = S.convert(str(sd_path))
+    convert_s = time.perf_counter() - t0
+    script_api = cflearn_torch.DiffusionAPI.from_sd("v1", device="cuda", seed=1)
+    S.inject(script_api, states)
+    del states
+    reset_launches(A, Cv, Gn)
+    script_image = script_api.txt2img(PROMPT, num_steps=API_STEPS, seed=0)
+    got = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+    script_same = bool(np.array_equal(script_image, image))
+    print(f"pretrained: scripts.sd convert {convert_s:.2f} s -> inject -> txt2img, launches {json.dumps(got)}, the "
+          f"image bit for bit the pretrained load's: {script_same}")
+    check(got == want and script_same, "the converter script's image differs from the pretrained load's")
+    del script_api, script_image
+    torch.cuda.empty_cache()
+    out["sd"] = dict(readings, txt2img_ms=ms, launches=txt2img_launches, image_bit_for_bit=same,
+                     script_convert_s=convert_s, script_image_bit_for_bit=script_same)
 
     # a second load: from the converted cache, neither hashed nor converted again
     spans.clear()
@@ -4861,6 +4903,356 @@ def phase_mesh(torch, np, cflearn_torch, A, Cv, Gn, build_unet) -> dict:
             del o, lses, grads, o_p, grads_p
         del whole_o, whole_lse, whole_g
     torch.cuda.empty_cache()
+    return out
+
+
+# 26 (a): every kernel of the `kernels` line launched from the main thread, from a new thread after it, and from two
+# threads at once. A launch from a thread that has made no CUDA call needing a context must not fail: every entry
+# point binds its pointer's device and context first (`csrc/host.cuh` `DeviceOf`).
+THREAD_SEED = 26
+# a call from each way: the main thread, one new thread, two threads at once
+THREAD_CALLS = {"main": 1, "thread": 1, "two_at_once": 2}
+# the launches one call of each case makes (the W8A8 conv quantises first: two kernels)
+THREAD_PER_CALL = {"conv3x3_w8a8": {"conv3x3_w8a8": 1, "quantize_w8a8": 1}}
+
+
+def thread_cases(torch, A, Cv, Gn) -> list:
+    """(kernel, call, plain, check) for each kernel of the `kernels` line at a shape of its path; check(out, ref)
+    -> (error, tolerance), the tolerance phase 2 holds the row to (0.0: bit for bit). The flash rows at SD-1.5's
+    64^2 self-attention at the finetune batch (B8 H8 d40 bf16), q a 2048-row chunk of an L 4096 tensor and k, v the
+    other tensor's halves (the ring's blocks, where a second thread's launch first failed); the convs at the VAE
+    decoder's 64^2 x 512 level; the weight gradient at the autoencoder step's 128^2 x 128; GroupNorm + SiLU at the
+    UNet's 64^2 x 320 (CFG batch 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(THREAD_SEED)
+
+    def randn(*shape, scale: float = 1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    q_all, kv_all = randn(8, 8, 4096, 40), randn(2, 8, 8, 4096, 40)
+    q, k, v = q_all[:, :, :2048], kv_all[0][:, :, 2048:], kv_all[1][:, :, :2048]
+    o, lse = A.flash_fwd_with_lse_plain(q, k, v)
+    do = randn(*o.shape)
+    grads = A.flash_bwd_plain(q, k, v, o, lse, do)
+    x, w = randn(1, 64, 64, 512), randn(512, 3, 3, 512, scale=(9 * 512) ** -0.5)
+    xa, dya = randn(8, 128, 128, 128), randn(8, 128, 128, 128)
+    xg, gw, gb = randn(2, 64, 64, 320), randn(320), randn(320)
+
+    def gate(rel):
+        return lambda ref: rel * ref.float().abs().max().item()
+
+    def each(*gates):
+        def check(outs, refs):
+            errs = [(max_err(out, ref), g(ref)) for out, ref, g in zip(outs, refs, gates)]
+            return max(errs, key=lambda e: e[0] / e[1])
+
+        return check
+
+    def exact(outs, refs):
+        same = all(torch.equal(out, ref) for out, ref in zip(outs, refs))
+        return (0.0 if same else max(max_err(out, ref) for out, ref in zip(outs, refs))), 0.0
+
+    flash = gate(FLASH_REL)
+    return [
+        ("flash_attention", lambda: (A.flash_attention(q, k, v),), lambda: (A.flash_attention_plain(q, k, v),),
+         each(flash)),
+        ("flash_fwd_lse", lambda: A.flash_fwd_lse(q, k, v), lambda: (o, lse), each(flash, lambda ref: LSE_TOL[2])),
+        ("flash_bwd_fused", lambda: A.flash_bwd_fused(q, k, v, o, lse, do), lambda: grads, each(flash, flash, flash)),
+        ("flash_bwd_dq", lambda: (A.flash_bwd_dq(q, k, v, o, lse, do),), lambda: grads[:1], each(flash)),
+        ("flash_bwd_dkv", lambda: A.flash_bwd_dkv(q, k, v, o, lse, do), lambda: grads[1:], each(flash, flash)),
+        ("conv3x3", lambda: (Cv.conv3x3(x, w),), lambda: (Cv.conv3x3_plain(x, w),), each(gate(CONV_REL))),
+        ("conv3x3_fold", lambda: (Cv.conv3x3_fold(x, w),), lambda: (Cv.conv3x3_fold_plain(x, w),),
+         each(gate(CONV_REL))),
+        ("conv3x3_wgrad", lambda: (Cv.conv3x3_wgrad(xa, dya),), lambda: (Cv.conv3x3_wgrad_plain(xa, dya),),
+         each(gate(WGRAD_REL))),
+        ("group_norm", lambda: (Gn.group_norm_silu(xg, gw, gb, apply_silu=True),),
+         lambda: (Gn.group_norm_silu_plain(xg, gw, gb, apply_silu=True),), each(gate(GN_REL))),
+        ("quantize_w8a8", lambda: Cv.quantize_w8a8(x, w), lambda: Cv.w8a8_operands(x, w), exact),
+        ("conv3x3_w8a8", lambda: (Cv.conv3x3_w8a8(x, w),), lambda: (Cv.conv3x3_w8a8_plain(x, w),), exact),
+    ]
+
+
+def thread_launches(torch, A, Cv, Gn) -> list:
+    """Each case of `thread_cases` called from the main thread, then from a new `threading.Thread`, then from two
+    threads at once (started together behind a barrier): a row each with every call's error against the plain
+    version, the tolerance, whether each thread's output is the main thread's bit for bit, and the launches counted
+    against THREAD_CALLS x the case's launches a call. A call that raises in a thread is raised here."""
+    import threading
+
+    rows = []
+    for name, call, plain, check in thread_cases(torch, A, Cv, Gn):
+        ref = plain()
+
+        def attempt(slot, out, barrier=None):
+            try:
+                if barrier is not None:
+                    barrier.wait()
+                out[slot] = call()
+                torch.cuda.current_stream().synchronize()
+            except Exception as e:  # noqa: BLE001 (raised below, on the main thread)
+                out[slot] = e
+
+        def in_threads(n):
+            out, barrier = {}, threading.Barrier(n) if n > 1 else None
+            threads = [threading.Thread(target=attempt, args=(f"t{i}", out, barrier)) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return [out[f"t{i}"] for i in range(n)]
+
+        reset_launches(A, Cv, Gn)
+        got = {"main": [call()]}
+        torch.cuda.synchronize()
+        got["thread"] = in_threads(1)
+        got["two_at_once"] = in_threads(2)
+        launches = read_launches(A, Cv, Gn)
+        per_call = THREAD_PER_CALL.get(name, {name: 1})
+        calls = sum(THREAD_CALLS.values())
+        want = {k: calls * per_call.get(k, 0) for k in launches}
+        row = dict(kernel=name, launches=launches[name], want=want[name], launches_exact=launches == want)
+        ok = launches == want
+        for way, outs in got.items():
+            errs = []
+            for i, out in enumerate(outs):
+                if isinstance(out, Exception):
+                    raise AssertionError(f"{name} from {way} (call {i}): {out!r}")
+                err, tol = check(out, ref)
+                errs.append(err)
+                row["tol"] = tol
+                ok = ok and err <= tol
+                if way != "main":
+                    row.setdefault("same_as_main", []).append(
+                        all(torch.equal(a, b) for a, b in zip(out, got["main"][0])))
+            row[way] = errs
+        row["ok"] = ok
+        rows.append(row)
+        del got, ref
+    return rows
+
+
+# 26 (b)-(d): txt2img requests served from worker threads, the zoo's `diffusion/ddpm` preset, repeat_ml / run_multiple
+THREAD_REQUESTS = ((PROMPT, 0), ("a watercolor painting of a lighthouse on a cliff at dawn", 1))
+DDPM_SAMPLES = 16
+DDPM_STEPS = 20
+# the preset's launches a UNet call: its 16^2 self-attentions (2 input-level, 3 output-level; B16 H4 L256 d64) take
+# row 1 and its 51 GroupNorms row 8; the 8^2 mid-block's L 64 is below the flash predicate's q >= 128 (SDPA), and
+# every 3x3 conv is below the conv predicate's 128^2 (cuDNN)
+DDPM_PER_UNET = {"flash_attention": 5, "group_norm": 51}
+REPEAT_ROWS = 8192  # phase 21's MNIST-shaped table, cut to these rows
+REPEAT_STEPS = 4
+REPEAT_PREDICT = 1024
+# a task's predictions against the same fit in this process: the f32 fused backward sums dq by atomics, in an order
+# that varies from run to run, so 4 Adam steps may move the weights by a few f32 ulps
+REPEAT_REL = 1e-3
+
+
+@contextlib.contextmanager
+def captured_output(path: str):
+    """This process's and its children's standard output and error sent to `path` inside the block; if the block
+    raises, the file's last lines are printed after the streams are back."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = os.dup(1), os.dup(2)
+    failed = False
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+        try:
+            yield
+        except BaseException:
+            failed = True
+            raise
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.dup2(saved[0], 1)
+            os.dup2(saved[1], 2)
+            os.close(saved[0])
+            os.close(saved[1])
+            if failed:
+                print("".join(open(path).readlines()[-40:]), flush=True)
+
+
+def tasks_on(log: str) -> list:
+    """The devices the tasks of a captured `dist.ml` run fitted on (`runs/basic.py` prints one line a task)."""
+    return re.findall(r"^task .*: fitting on (\S+)$", log, flags=re.M)
+
+
+def phase_surface(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """(a) Each kernel of the `kernels` line from the main thread, a new thread and two threads at once
+    (`thread_launches`). (b) Phase 12's txt2img (SD-1.5, 512², 20 DDIM steps, CFG 7.5) as two requests on a
+    two-worker `ThreadPoolExecutor`: each image bit for bit the same request served from the main thread, launches
+    exact. (c) `zoo.load_module("diffusion/ddpm")` at its published width in bf16 (seed 0, zero-initialised convs
+    redrawn): one UNet call's launches exact and within PARITY_FACTOR x the plain path's one-ulp drift (phase 4's
+    rule), each of its distinct kernel calls (flash and GroupNorm) against its plain version (phase 2's tolerances)
+    and timed beside the library call with its bound, `sample(16, num_steps=20)`'s launches, ms and peak memory.
+    (d) `repeat_ml` (2 tasks) of the tabular "transformer" on phase 21's MNIST-shaped table (cut to REPEAT_ROWS
+    rows) with the tasks on the card, each task's loaded pipeline against the same config fitted here; then
+    `run_multiple(is_fix=True)` after one task's pipeline folder is removed: that task alone, on the card."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cflearn_torch.api import repeat_ml, run_multiple
+    from cflearn_torch.api.api import _ml_config
+    from cflearn_torch.data import MLData
+    from cflearn_torch.dist.ml import Experiment
+    from cflearn_torch.modules.common import redraw_zero_init
+    from cflearn_torch.pipeline.api import MLTrainingPipeline
+    from cflearn_torch.toolkit.misc import seed_everything
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"surface: {msg}")
+
+    out = {}
+    # (a) kernels launched from threads
+    rows = thread_launches(torch, A, Cv, Gn)
+    for r in rows:
+        print(f"surface[threads] {json.dumps(r)}")
+    bad = [r["kernel"] for r in rows if not (r["ok"] and r["launches_exact"])]
+    check(not bad, f"kernels wrong or miscounted from threads: {bad}")
+    out["threads"] = rows
+
+    # (b) txt2img requests from worker threads, bit for bit the main thread's
+    api = cflearn_torch.DiffusionAPI.from_sd("v1", device="cuda", seed=0)
+    redraw_zero_init(api.m, seed=1)
+    api.txt2img(PROMPT, num_steps=API_STEPS, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    serial, serial_ms = [], []
+    for prompt, seed in THREAD_REQUESTS:
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        serial.append(api.txt2img(prompt, num_steps=API_STEPS, seed=seed))
+        torch.cuda.synchronize()
+        serial_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+        check(got == serving(API_STEPS), f"main-thread txt2img launches {got} != {serving(API_STEPS)}")
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(api.txt2img, prompt, num_steps=API_STEPS, seed=seed) for prompt, seed in THREAD_REQUESTS]
+        threaded = [f.result() for f in futures]
+    torch.cuda.synchronize()
+    threaded_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+    want = {k: 2 * v for k, v in serving(API_STEPS).items()}
+    same = [bool(np.array_equal(a, b)) for a, b in zip(serial, threaded)]
+    print(f"surface[serving]: two requests from the main thread {[round(m, 1) for m in serial_ms]} ms, on two "
+          f"worker threads {threaded_ms:.1f} ms together, launches {json.dumps(got)}, images bit for bit: {same}")
+    check(got == want, f"threaded txt2img launches {got} != {want}")
+    check(all(same) and not np.array_equal(serial[0], serial[1]), "a threaded image differs from the main thread's")
+    out["serving"] = {"serial_ms": serial_ms, "threaded_ms": threaded_ms, "launches": got, "bit_for_bit": same}
+    del api, serial, threaded
+    torch.cuda.empty_cache()
+
+    # (c) the diffusion/ddpm preset at its published width
+    m = cflearn_torch.zoo.load_module("diffusion/ddpm", device="cuda", dtype=torch.bfloat16, seed=0)
+    redraw_zero_init(m, seed=1)
+    n_params = sum(p.numel() for p in m.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn((DDPM_SAMPLES, m.img_size, m.img_size, m.out_channels), generator=gen, device="cuda")
+    x = x.to(torch.bfloat16)
+    t = torch.randint(0, 1000, (DDPM_SAMPLES,), generator=gen, device="cuda")
+    counts = {}
+    with torch.no_grad():
+        with census(A, Cv, Gn, counts):
+            m.denoise(x, t)
+        torch.cuda.synchronize()
+        reset_launches(A, Cv, Gn)
+        eps_k = m.denoise(x, t).float()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_launches(A, Cv, Gn).items() if v}
+        with plain_kernels(A, Cv, Gn):
+            eps_p = m.denoise(x, t).float()
+            eps_u = m.denoise(bump_ulp(torch, x), t).float()
+    drift, err = rel_err(eps_u, eps_p), rel_err(eps_k, eps_p)
+    keys = sorted(counts)
+    print(f"surface[ddpm]: {n_params} parameters (bf16), one UNet call at batch {DDPM_SAMPLES}: launches "
+          f"{json.dumps(got)}, distinct calls {[(k[0], [a[1] for a in k[1][:3]]) for k in keys]}; kernels vs plain "
+          f"max rel {err:.3e} (tolerance {PARITY_FACTOR * drift:.3e}: {PARITY_FACTOR} x the one-ulp drift {drift:.3e})")
+    check(got == DDPM_PER_UNET, f"ddpm UNet launches {got} != {DDPM_PER_UNET}")
+    by_kernel = {name: sum(n for key, n in counts.items() if key[0] == name) for name in got}
+    check(by_kernel == got, f"the census {by_kernel} disagrees with the counters {got}")
+    check(err <= PARITY_FACTOR * drift, "the ddpm UNet through the kernels disagrees with the plain path")
+    # every distinct kernel call of the UNet call against its plain version (phase 2's tolerances), timed
+    calls = []
+    for key in keys:
+        row = check_call(torch, F, A, Cv, Gn, key, gen, host_ms=True)
+        row.update(case=f"ddpm_{'x'.join(map(str, row['shape']))}", per={"ddpm": counts[key] * DDPM_STEPS})
+        calls.append(row)
+        print(f"surface[ddpm] call: {json.dumps(row)}")
+    with torch.no_grad():
+        m.sample(DDPM_SAMPLES, num_steps=DDPM_STEPS, generator=torch.Generator(device="cuda").manual_seed(0))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(A, Cv, Gn)
+        t0 = time.perf_counter()
+        samples = m.sample(DDPM_SAMPLES, num_steps=DDPM_STEPS, generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sample_launches = read_launches(A, Cv, Gn)
+    want = {k: DDPM_STEPS * v for k, v in DDPM_PER_UNET.items()}
+    sample_got = {k: v for k, v in sample_launches.items() if v}
+    print(f"surface[ddpm]: sample({DDPM_SAMPLES}, num_steps={DDPM_STEPS}) {sample_ms:.1f} ms, peak {peak:.2f} GiB, "
+          f"{tuple(samples.shape)} {samples.dtype}, launches {json.dumps(sample_got)}")
+    check(sample_got == want, f"sample launches {sample_got} != {want}")
+    check(tuple(samples.shape) == (DDPM_SAMPLES, 64, 64, 3) and bool(torch.isfinite(samples).all()), "samples")
+    out["ddpm"] = {"params": n_params, "unet_launches": got, "unet_rel_err": err, "unet_drift": drift,
+                   "sample_ms": sample_ms, "peak_gib": peak, "sample_launches": sample_launches, "calls": calls}
+    del m, x, eps_k, eps_p, eps_u, samples
+    torch.cuda.empty_cache()
+
+    # (d) repeat_ml / run_multiple: tasks as processes on the card
+    x, y = mnist_table(np, 52)
+    x, y = x[:REPEAT_ROWS], y[:REPEAT_ROWS]
+    config = cflearn_torch.MLConfig(module_name="transformer", fixed_steps=REPEAT_STEPS, callback_names=[], seed=0)
+    root = tempfile.mkdtemp(prefix=".chip_smoke_repeat_", dir=HERE)
+    try:
+        workspace, log = os.path.join(root, "repeat"), os.path.join(root, "tasks.log")
+        np.random.seed(1)  # the splitter's draws, made where repeat_ml fits the data
+        t0 = time.perf_counter()
+        with captured_output(log):
+            results = repeat_ml(x, y, config=config, workspace=workspace, num_repeat=2)
+        repeat_s = time.perf_counter() - t0
+        devices = tasks_on(open(log).read())
+        np.random.seed(1)
+        data = MLData.init().fit(x, y)
+        seed_everything(0)
+        local = _ml_config(config)
+        local.workspace = os.path.join(root, "here")
+        here = MLTrainingPipeline.init(local).fit(data).predict(x[:REPEAT_PREDICT])["predictions"]
+        pipelines = results.load_pipelines()
+        errs = [rel_err(torch.from_numpy(pipelines[key].predict(x[:REPEAT_PREDICT])["predictions"]),
+                        torch.from_numpy(here)) for key in sorted(pipelines)]
+        print(f"surface[repeat_ml]: 2 tasks in {repeat_s:.1f} s on {devices}, their predictions against the same fit "
+              f"here: max rel {[f'{e:.3e}' for e in errs]} (tolerance {REPEAT_REL})")
+        check(devices == ["cuda:0", "cuda:0"], f"the tasks fitted on {devices}")
+        check(sorted(pipelines) == [("transformer", 0), ("transformer", 1)], f"pipelines {sorted(pipelines)}")
+        check(all(e <= REPEAT_REL for e in errs), "a task's predictions disagree with the fit here")
+        kept = os.path.join(workspace, "transformer", "0", "pipeline")
+        stamp = os.stat(kept).st_mtime_ns
+        shutil.rmtree(os.path.join(workspace, "transformer", "1", "pipeline"))
+        t0 = time.perf_counter()
+        with captured_output(log):
+            fixed = run_multiple(config, data, workspace=workspace, num_multiple=2, is_fix=True)
+        fix_s = time.perf_counter() - t0
+        fixed_devices = tasks_on(open(log).read())
+        fix_err = rel_err(torch.from_numpy(fixed.load_pipelines()[("transformer", 1)].predict(
+            x[:REPEAT_PREDICT])["predictions"]), torch.from_numpy(here))
+        print(f"surface[run_multiple]: is_fix reran {sorted(fixed.checkpoint_folders)} in {fix_s:.1f} s on "
+              f"{fixed_devices}, max rel {fix_err:.3e}; task 0's pipeline untouched: "
+              f"{os.stat(kept).st_mtime_ns == stamp}")
+        check(sorted(fixed.checkpoint_folders) == [("transformer", 1)] and fixed_devices == ["cuda:0"],
+              "run_multiple(is_fix=True) did not rerun the one buggy task on the card")
+        check(os.stat(kept).st_mtime_ns == stamp and not Experiment.is_buggy(os.path.dirname(kept)), "task 0")
+        check(fix_err <= REPEAT_REL, "the rerun task's predictions disagree with the fit here")
+        out["repeat_ml"] = {"rows": REPEAT_ROWS, "steps": REPEAT_STEPS, "repeat_s": repeat_s, "devices": devices,
+                            "rel_errs": errs, "is_fix_s": fix_s, "is_fix_rel_err": fix_err}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"surface: done, {json.dumps({k: v for k, v in out.items() if k != 'threads'})}")
     return out
 
 
@@ -5697,7 +6089,13 @@ def main() -> int:
     mesh_out = phase_mesh(torch, np, cflearn_torch, A, Cv, Gn, build_unet)
     print(f"mesh: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 26. summary
+    # 26. the public surface: kernels from threads, threaded serving, the ddpm preset, repeat_ml / run_multiple
+    surface_out = phase_surface(torch, np, F, cflearn_torch, A, Cv, Gn)
+    for row in surface_out["ddpm"]["calls"]:
+        rows[row["kernel"]].append(row)
+    print(f"surface: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 27. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -5722,7 +6120,8 @@ def main() -> int:
                      "vit_classify": cv_out["clf_vit_384"]["classify_launches"],
                      "vit_train": cv_out["clf_vit_384"]["launches"],
                      "tab_predict": tab_out["transformer"]["predict_launches_all"],
-                     "tab_train": tab_out["transformer"]["launches_all"], "depth": ann_out["depth"]["launches"]}
+                     "tab_train": tab_out["transformer"]["launches_all"], "depth": ann_out["depth"]["launches"],
+                     "ddpm": surface_out["ddpm"]["sample_launches"]}
     path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
                  "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
                  "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img",
@@ -5732,7 +6131,8 @@ def main() -> int:
                  "vit_train": f"one ViT-S/16 train step at 384 px, batch {VIT_TRAIN_BATCH} (f32)",
                  "tab_predict": f"one tabular transformer predict batch of {TAB_BATCH} rows at {TAB_TOKENS} tokens (f32)",
                  "tab_train": f"one tabular transformer train step at batch {TAB_BATCH}, {TAB_TOKENS} tokens (f32)",
-                 "depth": f"one DPT-Large depth forward on a {ANNOTATOR_SIDE}x{ANNOTATOR_SIDE} image (f32)"}
+                 "depth": f"one DPT-Large depth forward on a {ANNOTATOR_SIDE}x{ANNOTATOR_SIDE} image (f32)",
+                 "ddpm": f"one diffusion/ddpm sample of {DDPM_SAMPLES} images at 64 px, {DDPM_STEPS} DDIM steps (bf16)"}
     path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps",
                     ldm=f"{TRAIN_STEPS} finetune steps on 512px images",
                     ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps",
@@ -5778,10 +6178,12 @@ def main() -> int:
 
         paths = sorted({p for r in cases for p, n in r["per"].items() if n > 0})
         main_path = MAIN_PATH[name]
+        threads = next(r for r in surface_out["threads"] if r["kernel"] == name)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, path=main_path,
             max_abs_err=max(r["max_abs_err"] for r in cases), **totals(main_path),
             other_paths={p: totals(p) for p in paths if p != main_path},
+            threads={k: threads[k] for k in ("ok", "launches", "tol", "main", "thread", "two_at_once")},
         ))
     serve = {"img_per_s": 1.0 / wall, "steps": steps, "batch": 1, "px": 512}
     train = {"finetune_steps_per_s": 1e3 / step_ms, "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
@@ -5802,7 +6204,7 @@ def main() -> int:
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
                    "framework": fw_out, "tabular": tab_out, "cv_framework": cvf_out, "annotators_compile": ann_out,
-                   "pretrained": pre_out, "mesh": mesh_out,
+                   "pretrained": pre_out, "mesh": mesh_out, "surface": surface_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -5828,6 +6230,7 @@ def main() -> int:
     print(json.dumps({"annotators_compile": ann_out}))
     print(json.dumps({"pretrained": pre_out}))
     print(json.dumps({"mesh": mesh_out}))
+    print(json.dumps({"surface": {k: v for k, v in surface_out.items() if k != "threads"}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,6 +2,7 @@
 the serving paths' ms an image, on one CUDA card.
 
     python scripts/dispatch_cost.py [--root DIR] [--label NAME] [--images 5] [--out FILE]
+                                    [--attention pinned|dispatcher]
 
 Imports `cflearn_torch` from `--root` (default: this checkout), so that two
 checkouts can be held against each other on one card, one process each;
@@ -27,6 +28,13 @@ kernels first (`_native.build()`), then:
   configurations, 512 px, 20 steps, full-width seeded random weights, one
   warm-up each, then `--images` rounds of the four paths in turn; the
   launches of one `api[ddim]` image.
+
+`--attention dispatcher` hands the library attention (`xla_attention`
+without a mask or a bias: SD's cross-attentions) to
+`F.scaled_dot_product_attention`'s dispatcher instead of the
+FlashAttention-2 forward that the checkout pins, to time the pin against
+the backend the dispatcher picks; `dispatcher_calls` counts the calls it
+took.
 
 Prints one JSON line prefixed `dispatch_cost:` and writes it to `--out`
 (default `chiprun_out/dispatch_cost_<label>.json`). Imports no JAX.
@@ -142,12 +150,28 @@ def per_image(torch, cflearn_torch, A, Cv, Gn, images: int) -> dict:
             "api_ddim_launches": ddim_launches}
 
 
+def unpin_library_attention(torch, A) -> dict:
+    """`A.xla_attention` without a mask or a bias sent to SDPA's dispatcher;
+    returns the count of calls taken that way."""
+    pinned, calls = A.xla_attention, {"dispatcher_calls": 0}
+
+    def xla_attention(q, k, v, *, causal=False, sm_scale=None, mask=None, bias=None):
+        if mask is None and bias is None:
+            calls["dispatcher_calls"] += 1
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=sm_scale)
+        return pinned(q, k, v, causal=causal, sm_scale=sm_scale, mask=mask, bias=bias)
+
+    A.xla_attention = xla_attention
+    return calls
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--label", default="change")
     parser.add_argument("--images", type=int, default=5)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--attention", choices=("pinned", "dispatcher"), default="pinned")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -170,7 +194,10 @@ def main() -> int:
     result = {"label": args.label, "root": root, "card": card_line(), "torch": torch.__version__,
               "build_s": round(time.perf_counter() - t0, 1), "built": sorted(k for k, s in built.items() if s)}
     result["host_us_per_call"] = per_call(torch, A, Cv, Gn)
+    result["attention"] = args.attention
+    unpinned = unpin_library_attention(torch, A) if args.attention == "dispatcher" else {}
     result.update(per_image(torch, cflearn_torch, A, Cv, Gn, args.images))
+    result.update(unpinned)
     line = json.dumps(result)
     print(f"dispatch_cost: {line}")
     out = args.out or os.path.join("chiprun_out", f"dispatch_cost_{args.label}.json")

@@ -1015,3 +1015,29 @@ def test_diffusion_compile_replays_bit_for_bit(cuda, sampler, deepcache) -> None
     total = {k: counted.get(k, 0) + replayed.get(k, 0) for k in set(counted) | set(replayed)}
     assert np.array_equal(compiled, eager)
     assert {k: v for k, v in total.items() if v} == eager_launches and replayed
+
+
+# (B, H, Lq, Lk, d, causal): SD-1.5's cross-attentions at 512 px with CFG (d 40 / 80 / 160, kv 77), its text
+# tower's square causal self-attention, and causal calls with Lq != Lk (top-left, which stay with SDPA)
+XLA_SHAPES = [
+    (2, 8, 4096, 77, 40, False), (2, 8, 1024, 77, 80, False), (2, 8, 256, 77, 160, False),
+    (1, 12, 77, 77, 64, True), (1, 2, 64, 128, 64, True), (1, 2, 128, 64, 64, True), (1, 2, 128, 64, 64, False),
+]
+
+
+@pytest.mark.parametrize("shape", XLA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_xla_attention_matches_sdpa_math(cuda, shape, dtype) -> None:
+    """`xla_attention` on the card (FlashAttention-2 by name where `library_flash_takes`, else SDPA) against
+    SDPA's math backend in f32 on the same inputs, whose causal mask is top-left as the JAX function's."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, h, lq, lk, d, causal = shape
+    q = torch.randn((b, h, lq, d), generator=cuda, device="cuda").to(dtype)
+    k, v = (torch.randn((b, h, lk, d), generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    assert A.library_flash_takes(q, k, v, causal) is (not causal or lq == lk)
+    got = A.xla_attention(q, k, v, causal=causal)
+    with sdpa_kernel([SDPBackend.MATH]):
+        ref = torch.nn.functional.scaled_dot_product_attention(q.float(), k.float(), v.float(), is_causal=causal)
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert (got.float() - ref).abs().max().item() <= 2**-6 * ref.abs().max().item()

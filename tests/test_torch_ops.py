@@ -62,6 +62,45 @@ def test_xla_attention_matches() -> None:
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("q_len,kv_len", [(64, 128), (128, 64)])
+def test_xla_attention_causal_is_top_left_when_lengths_differ(q_len, kv_len) -> None:
+    """Causal with Lq != Lk: query i sees keys 0..i, as `jax.nn.dot_product_attention` aligns the mask. With
+    Lq > Lk a bottom-right mask (FlashAttention-2's) would leave the first Lq - Lk rows no key at all."""
+    q, k, v = _qkv((1, 2, q_len, 16), kv_len=kv_len, seed=3)
+    ref = A.xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    got = TA.xla_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
+
+
+# (q shape, kv length, causal, dtype, whether FlashAttention-2 by name computes what SDPA does): SD's
+# cross-attentions and CLIP's square causal self-attention go to it; a causal call with Lq != Lk, f32, a head
+# dim it does not take, a head count that differs and a strided head dim stay with SDPA
+LIBRARY_FLASH_CASES = [
+    ((2, 8, 64, 40), 77, False, torch.bfloat16, True),
+    ((2, 8, 64, 80), 77, False, torch.float16, True),
+    ((2, 8, 64, 160), 77, False, torch.bfloat16, True),
+    ((1, 12, 77, 64), 77, True, torch.bfloat16, True),
+    ((1, 2, 64, 64), 128, True, torch.bfloat16, False),
+    ((1, 2, 128, 64), 64, True, torch.bfloat16, False),
+    ((1, 2, 128, 64), 64, False, torch.bfloat16, True),
+    ((2, 8, 64, 40), 77, False, torch.float32, False),
+    ((1, 2, 64, 12), 77, False, torch.bfloat16, False),
+    ((1, 2, 64, 264), 77, False, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("shape,kv_len,causal,dtype,takes", LIBRARY_FLASH_CASES)
+def test_library_flash_route_only_where_it_matches_sdpa(shape, kv_len, causal, dtype, takes) -> None:
+    b, h, lq, d = shape
+    q = torch.zeros((b, h, lq, d), dtype=dtype)
+    k, v = (torch.zeros((b, h, kv_len, d), dtype=dtype) for _ in range(2))
+    assert TA.library_flash_takes(q, k, v, causal) is takes
+    if takes:
+        assert not TA.library_flash_takes(q, k[:, :1], v[:, :1], causal)  # another head count
+        strided = torch.zeros((b, h, kv_len, 2 * d), dtype=dtype)[..., ::2]
+        assert not TA.library_flash_takes(q, strided, v, causal)
+
+
 ATTN_SHAPES = [
     # (q_len, kv_len, head dim): SD self-attn at 64/32/16/8 latents, cross-attn,
     # the VAE mid-block, and each edge of the predicate

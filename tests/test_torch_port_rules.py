@@ -313,3 +313,44 @@ def test_w8a8_checks_come_before_any_launch(monkeypatch) -> None:
         conv.conv3x3_w8a8(card((1, 8, 8, 64), bf16), card((64, 3, 3, 64), bf16).requires_grad_())
     with pytest.raises(ValueError, match="% 8"):
         conv.conv3x3_fold(card((1, 8, 8, 60), bf16), card((64, 3, 3, 60), bf16))
+
+
+def test_device_batcher_defaults_to_the_card(monkeypatch) -> None:
+    """`DeviceBatcher(loader)` and its reference alias `TensorBatcher` put
+    batches on the card, as the JAX batcher puts them on the default
+    device: without CUDA they raise; `device="cpu"` works."""
+    from cflearn_torch.data import ArrayData
+
+    _no_cuda(monkeypatch)
+    x = np.arange(12, dtype=np.float64).reshape(6, 2)
+    loader = ArrayData.init().fit(x, x[:, :1]).get_loaders()[0]
+    for batcher in (cflearn_torch.DeviceBatcher, cflearn_torch.TensorBatcher):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            batcher(loader)
+        batches = list(batcher(loader, device="cpu"))
+        assert batches and all(b["input"].device.type == "cpu" and b["input"].dtype == torch.float32 for b in batches)
+
+
+def test_launch_counts_lose_nothing_across_threads() -> None:
+    """`_native.count_launch` is what every wrapper bumps its counter
+    through: 16 threads, more than the cores, each adding 2,000 with the
+    interpreter switching threads every microsecond, lose no count."""
+    import sys
+    import threading
+    from types import SimpleNamespace
+
+    from cflearn_torch.ops import _native
+
+    counter = SimpleNamespace(launches=0)
+    threads = [threading.Thread(target=lambda: [_native.count_launch(counter) for _ in range(2000)])
+               for _ in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and counter.launches == 16 * 2000
