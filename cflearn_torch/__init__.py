@@ -3,8 +3,7 @@
 The port mirrors the JAX package's module layout and its public surface:
 `import cflearn_torch as cf` gives every name of `cflearn_tpu/__init__.py`
 (the reference aliases `TensorBatcher`, `TorchData*`, `*_dataset`,
-`BasicSampler`, `DPMSolver`, `GANLoss`, `GradientNormLoss` among them), but
-for the names of modules not ported yet (`ChineseCLIPTokenizer`, `nlp`), plus
+`BasicSampler`, `DPMSolver`, `GANLoss`, `GradientNormLoss` among them), plus
 the port's own entry points (`build_sd`, `txt2img`, `finetune_unet`, the zoo's
 builders, ...). Hand-written CUDA kernels (`csrc/`) replace the TPU's
 Pallas kernels; each has a plain PyTorch version beside it, which CPU
@@ -254,7 +253,7 @@ from .modules.multimodal.diffusion.samplers import (
     PLMSSampler,
 )
 from .modules.multimodal.diffusion.unet import ControlNet, UNetDiffuser
-from .modules.nlp.tokenizers import CLIPTokenizer, ITokenizer
+from .modules.nlp.tokenizers import CLIPTokenizer, ChineseCLIPTokenizer, ITokenizer
 
 # losses / metrics
 from .losses.basic import (
@@ -321,9 +320,9 @@ from .pipeline.common import Block, Pipeline
 from .pipeline.third_party import GeneralEvaluationPipeline, IPredictor, SKLearnClassifier
 from .zoo.common import load_module, parse_config
 
-# the API's sub-namespaces (`nlp` waits for its prompt API)
+# the API's sub-namespaces
 from . import inference, parallel, toolkit
-from .api import cv, ml, multimodal
+from .api import cv, ml, multimodal, nlp
 from . import scripts
 
 # second flattening wave: interface bases, enums, helpers
@@ -517,8 +516,8 @@ from .pipeline import (
 from .schema import MeshConfig
 from .toolkit.quality import QualityReport, clip_score, clip_score_from_embeddings, compare_outputs
 from .zoo import (
-    ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, clip, clip_large, esr, esr_anime,
-    ldm_inpainting, ldm_semantic, ldm_vq, open_clip_ViT_H_14,
+    ae_kl_f4, ae_kl_f8, ae_kl_f16, ae_vq_f4, ae_vq_f4_no_attn, ae_vq_f8, chinese_clip, clip, clip_large, esr,
+    esr_anime, ldm_inpainting, ldm_semantic, ldm_vq, open_clip_ViT_H_14,
 )
 
 __all__ = sorted(name for name in globals() if not name.startswith("_") and name != "torch")

@@ -9,8 +9,8 @@ from typing import Any, List, Optional, Union
 import numpy as np
 import torch
 
-from ...modules.multimodal.clip import CLIP
-from ...modules.nlp.tokenizers import CLIPTokenizer
+from ...modules.multimodal.clip import CLIP, ChineseCLIP
+from ...modules.nlp.tokenizers import ChineseCLIPTokenizer, CLIPTokenizer
 from ..common import IAPI
 
 # the per-channel statistics the published CLIP weights were trained with
@@ -24,12 +24,12 @@ class CLIPExtractor(IAPI):
         self, m: CLIP, *, use_bf16: bool = False, tokenizer: Optional[Any] = None, device: Any = None
     ) -> None:
         if tokenizer is None:
-            if getattr(m, "context_length", 77) == 512:
-                raise NotImplementedError(
-                    "ChineseCLIP (a 512-token BERT text tower and its tokenizer) is not ported yet "
-                    "(ROADMAP.md, Queue 1 item 6)"
-                )
-            tokenizer = CLIPTokenizer()
+            # ChineseCLIP's text tower is BERT: the English BPE ids would index
+            # it wrongly (a 512-token context marks a model built small, too)
+            if isinstance(m, ChineseCLIP) or getattr(m, "context_length", 77) == 512:
+                tokenizer = ChineseCLIPTokenizer()
+            else:
+                tokenizer = CLIPTokenizer()
         super().__init__(m, use_bf16=use_bf16, device=device)
         self.m: CLIP = self.m
         self.tokenizer = tokenizer

@@ -312,32 +312,42 @@ def jax_param_names(module: nn.Module) -> Dict[str, str]:
     return out
 
 
-# ---- the annotator nets: JAX npd -> the port's (upstream-named) state dict ----
+# ---- the third-party nets: JAX npd -> the port's (upstream-named) state dict ----
 #
 # Each function takes `tree_to_npd(nnx.state(net, nnx.Param))` of the JAX net
-# ("/"-joined paths ending in "/value"; M-LSD also its `nnx.BatchStat`s) and
-# gives the port net's state dict: the JAX package's `convert_*` run the
+# ("/"-joined paths ending in "/value"; M-LSD, LaMa, ISNet and iharm also
+# their `nnx.BatchStat`s, which land in torch BatchNorm's running statistics)
+# and gives the port net's state dict: the JAX package's `convert_*` run the
 # other way. Every leaf must be placed; `load_state_dict(strict=True)` then
 # holds the result to the port net.
+
+
+def conv_transpose_weight(kernel: np.ndarray) -> torch.Tensor:
+    """A JAX transposed convolution's kernel, stored flipped in (kh, kw,
+    in, out) for `lax.conv_transpose` or an input-dilated convolution, as
+    torch's `ConvTranspose2d` weight (in, out, kh, kw): `np.transpose(w,
+    (2, 3, 0, 1))[::-1, ::-1]` of the JAX package's converters undone."""
+    w = np.asarray(kernel, dtype=np.float32)[::-1, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))))
 
 
 def _annotator_leaves(npd: Mapping[str, np.ndarray], prefixes: Mapping[str, str]) -> Dict[str, torch.Tensor]:
     """Leaves under each JAX prefix ("blocks/0/qkv") to the port's module
     path ("pretrained.model.blocks.0.attn.qkv"): kernels to `weight` in the
     port's layout (conv HWIO -> OIHW, linear (in, out) -> (out, in)),
-    `scale` to `weight`, BatchNorm's `mean` / `var` to the running
+    `scale` and `embedding` to `weight`, BatchNorm's `mean` / `var` to the running
     statistics (with `num_batches_tracked` at 0), `bias` as it is."""
     out: Dict[str, torch.Tensor] = {}
     used = set()
     for jp, pp in prefixes.items():
-        for leaf in ("kernel", "bias", "scale", "mean", "var"):
+        for leaf in ("kernel", "bias", "scale", "embedding", "mean", "var"):
             key = f"{jp}/{leaf}/value"
             if key not in npd:
                 continue
             arr = np.asarray(npd[key], dtype=np.float32)
             if leaf == "kernel":
                 arr = np.transpose(arr, _PERM[arr.ndim])
-            name = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+            name = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf if leaf == "bias" else "weight")
             out[f"{pp}.{name}"] = torch.from_numpy(np.ascontiguousarray(arr))
             used.add(key)
             if leaf == "mean":
@@ -346,6 +356,11 @@ def _annotator_leaves(npd: Mapping[str, np.ndarray], prefixes: Mapping[str, str]
     if left:
         raise ValueError(f"JAX leaves the annotator bridge places nowhere: {left[:10]}")
     return out
+
+
+# a JAX `_ViTBlock`'s layers -> timm's names in the port's (`midas._ViTBlock`, which BLIP's ViT reuses)
+_VIT_BLOCK = (("norm1", "norm1"), ("norm2", "norm2"), ("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"),
+              ("fc2", "mlp.fc2"))
 
 
 def dpt_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -357,16 +372,14 @@ def dpt_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     for leaf in ("cls_token", "pos_embed"):
         out[f"{p}.{leaf}"] = torch.from_numpy(np.asarray(npd.pop(f"{leaf}/value"), dtype=np.float32))
     for name in ("resample1", "resample2"):
-        w = np.asarray(npd.pop(f"{name}/kernel/value"), dtype=np.float32)[::-1, ::-1]
         i = name[-1]
-        out[f"pretrained.act_postprocess{i}.4.weight"] = torch.from_numpy(np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))))
+        out[f"pretrained.act_postprocess{i}.4.weight"] = conv_transpose_weight(npd.pop(f"{name}/kernel/value"))
         out[f"pretrained.act_postprocess{i}.4.bias"] = torch.from_numpy(np.asarray(npd.pop(f"{name}/bias/value"), dtype=np.float32))
     prefixes = {"patch_embed": f"{p}.patch_embed.proj", "resample4": "pretrained.act_postprocess4.4",
                 "head_conv1": "scratch.output_conv.0", "head_conv2": "scratch.output_conv.2",
                 "head_conv3": "scratch.output_conv.4"}
     for i in sorted({int(k.split("/")[1]) for k in npd if k.startswith("blocks/")}):
-        for ours, theirs in (("norm1", "norm1"), ("norm2", "norm2"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
-                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+        for ours, theirs in _VIT_BLOCK:
             prefixes[f"blocks/{i}/{ours}"] = f"{p}.blocks.{i}.{theirs}"
     for i in range(4):
         prefixes[f"readouts/{i}/project"] = f"pretrained.act_postprocess{i + 1}.0.project.0"
@@ -468,3 +481,58 @@ def hand_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         stages[f"stages/{s - 2}"] = (f"model{s}", [f"Mconv{j}_stage{s}" for j in range(1, 8)])
     stem = [item[0] for item in _HAND_STEM if item != "pool"]
     return _annotator_leaves(npd, _openpose_prefixes("model1_0", stem, stages))
+
+
+def _same_paths(npd: Mapping[str, np.ndarray]) -> Dict[str, str]:
+    """Each JAX module path of `npd` ("blocks/0/conv1/ffc/convl2l") to the
+    same path dotted: for the nets whose port keeps the JAX tree's names."""
+    return {k.rsplit("/", 2)[0]: k.rsplit("/", 2)[0].replace("/", ".") for k in npd}
+
+
+def _with_conv_transposes(npd: Mapping[str, np.ndarray], is_transposed: Any) -> Dict[str, torch.Tensor]:
+    """`_annotator_leaves` over the same paths, but the kernels whose path
+    `is_transposed` names, which go across by `conv_transpose_weight`."""
+    npd = dict(npd)
+    out: Dict[str, torch.Tensor] = {}
+    for key in [k for k in npd if k.endswith("/kernel/value") and is_transposed(k)]:
+        out[key[: -len("/kernel/value")].replace("/", ".") + ".weight"] = conv_transpose_weight(npd.pop(key))
+    return {**out, **_annotator_leaves(npd, _same_paths(npd))}
+
+
+def lama_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `LaMaGenerator` (parameters and batch statistics) -> the port's,
+    whose names are the JAX tree's; the upsamples' `nnx.ConvTranspose`
+    kernels go back to torch's layout."""
+    return _with_conv_transposes(npd, lambda k: k.startswith("ups/"))
+
+
+def isnet_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `ISNetDIS` (parameters and batch statistics) -> the port's
+    (`convert_isnet` inverted: both keep upstream's names)."""
+    return _annotator_leaves(npd, _same_paths(npd))
+
+
+def iharm_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `HRNetIHModel` (parameters and batch statistics) -> the port's
+    (`convert_iharm` inverted): the decoder's `TorchConvTranspose` kernels
+    back to torch's layout, the `ScaleLayer`'s `scale` kept as `scale`."""
+    npd = dict(npd)
+    scale = {k[: -len("/value")].replace("/", "."): torch.from_numpy(np.asarray(npd.pop(k), dtype=np.float32))
+             for k in [k for k in npd if k.startswith("mask_conv/1/scale/")]}
+    return {**scale, **_with_conv_transposes(npd, lambda k: "/deconv_blocks/" in k)}
+
+
+def blip_state_dict(npd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX `BLIPCaptioner` -> the port's: the visual encoder in timm's
+    names (`patch_embed.proj`, `attn.qkv`, `mlp.fc1`, ...), the text
+    decoder under the JAX tree's."""
+    npd = dict(npd)
+    v = "visual_encoder"
+    out = {f"{v}.{leaf}": torch.from_numpy(np.asarray(npd.pop(f"{v}/{leaf}/value"), dtype=np.float32))
+           for leaf in ("cls_token", "pos_embed")}
+    prefixes = {f"{v}/patch_embed": f"{v}.patch_embed.proj", f"{v}/norm": f"{v}.norm"}
+    for i in sorted({int(k.split("/")[2]) for k in npd if k.startswith(f"{v}/blocks/")}):
+        for ours, theirs in _VIT_BLOCK:
+            prefixes[f"{v}/blocks/{i}/{ours}"] = f"{v}.blocks.{i}.{theirs}"
+    prefixes.update(_same_paths({k: a for k, a in npd.items() if k.startswith("text_decoder/")}))
+    return {**out, **_annotator_leaves(npd, prefixes)}

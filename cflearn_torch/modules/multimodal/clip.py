@@ -1,12 +1,15 @@
 """CLIP (counterpart of `cflearn_tpu/modules/multimodal/clip.py`): the
 text tower (`TeTEncoder`, registered "tet"), the ViT vision tower
 (`CLIPVisionTower`) and the joint embedding model (`CLIP`, registered
-"clip"). The CLIP LayerNorms use epsilon 1e-5. `ChineseCLIP` and its BERT
-text tower are not ported yet.
+"clip"). The CLIP LayerNorms use epsilon 1e-5. `ChineseCLIP` (registered
+"clip.chinese") is a ViT-L/14 vision tower with a BERT text tower
+(`BertTextEncoder`).
 
 The vision tower's self-attention runs at L = (img_size / patch)^2 + 1: at
 224px that is 50 tokens for ViT-B/32 (the library path) and 257 for the
-/14 towers, which `sdp_attn` routes to the flash kernel."""
+/14 towers, which `sdp_attn` routes to the flash kernel. The BERT tower's
+bidirectional attention at ChineseCLIP's 52 tokens stays on the library
+path."""
 
 import math
 from typing import Any, Dict, List
@@ -196,6 +199,7 @@ class CLIP(IPerceptor):
         text_num_layers: int = 12,
         text_num_heads: int = 8,
         activation: str = "quick_gelu",
+        build_text_tower: bool = True,
     ) -> None:
         super().__init__()
         self.img_size = img_size
@@ -209,15 +213,16 @@ class CLIP(IPerceptor):
             activation=activation,
         )
         self.visual_projection = Linear(vision_latent_dim, latent_dim, bias=False)
-        self.token_encoder = TeTEncoder(
-            vocab_size=vocab_size,
-            context_length=context_length,
-            latent_dim=text_latent_dim,
-            num_layers=text_num_layers,
-            num_heads=text_num_heads,
-            activation=activation,
-        )
-        self.text_projection = Linear(text_latent_dim, latent_dim, bias=False)
+        if build_text_tower:  # off where a subclass brings its own text tower
+            self.token_encoder = TeTEncoder(
+                vocab_size=vocab_size,
+                context_length=context_length,
+                latent_dim=text_latent_dim,
+                num_layers=text_num_layers,
+                num_heads=text_num_heads,
+                activation=activation,
+            )
+            self.text_projection = Linear(text_latent_dim, latent_dim, bias=False)
         self.logit_scale = nn.Parameter(torch.empty(()))
 
     def init_constants(self) -> None:
@@ -246,3 +251,99 @@ class CLIP(IPerceptor):
             "logits_per_text": logits.T,
             PREDICTIONS_KEY: logits,
         }
+
+
+class _BertBlock(nn.Module):
+    """Post-norm transformer block (residual, then LayerNorm), tanh-GELU MLP."""
+
+    def __init__(self, dim: int, num_heads: int, *, norm_eps: float) -> None:
+        super().__init__()
+        self.attn = CLIPAttention(dim, num_heads)
+        self.ln_1 = LayerNorm(dim, eps=norm_eps)
+        self.mlp = CLIPMLP(dim, activation="gelu")
+        self.ln_2 = LayerNorm(dim, eps=norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ln_1(x + self.attn(x, causal=False))
+        return self.ln_2(x + self.mlp(x))
+
+
+class BertTextEncoder(nn.Module):
+    """ChineseCLIP's BERT text tower: token, token-type (always type 0) and
+    positional embeddings, an embedding LayerNorm, post-norm blocks with
+    bidirectional attention and no padding mask, and the [CLS] pooler with a
+    tanh head."""
+
+    def __init__(
+        self,
+        *,
+        vocab_size: int = 21128,
+        context_length: int = 512,
+        latent_dim: int = 1024,
+        num_layers: int = 24,
+        num_heads: int = 16,
+        token_type_size: int = 2,
+        norm_eps: float = 1e-12,
+    ) -> None:
+        super().__init__()
+        self.context_length = context_length
+        self.token_embedding = Embed(vocab_size, latent_dim)
+        self.token_type_embedding = Embed(token_type_size, latent_dim)
+        self.positional_embedding = nn.Parameter(torch.empty(context_length, latent_dim))
+        self.embedding_norm = LayerNorm(latent_dim, eps=norm_eps)
+        self.blocks = nn.ModuleList(_BertBlock(latent_dim, num_heads, norm_eps=norm_eps) for _ in range(num_layers))
+        self.pooler = Linear(latent_dim, latent_dim)
+
+    def forward(self, token_ids: torch.Tensor, *, return_pooled: bool = False) -> Any:
+        x = (
+            self.token_embedding(token_ids)
+            + self.token_type_embedding(torch.zeros_like(token_ids))
+            + self.positional_embedding[None, : token_ids.shape[1]]
+        )
+        x = self.embedding_norm(x)
+        for block in self.blocks:
+            x = block(x)
+        if return_pooled:
+            return x, torch.tanh(self.pooler(x[:, 0]))  # the [CLS] row
+        return x
+
+
+@register_module("clip.chinese")
+class ChineseCLIP(CLIP):
+    """ChineseCLIP: a ViT-L/14 vision tower and a Chinese BERT text tower
+    (`BertTextEncoder`), whose ids come from `ChineseCLIPTokenizer`."""
+
+    def __init__(
+        self,
+        *,
+        img_size: int = 224,
+        latent_dim: int = 768,
+        vocab_size: int = 21128,
+        context_length: int = 512,
+        text_latent_dim: int = 1024,
+        text_num_layers: int = 24,
+        text_num_heads: int = 16,
+        token_type_size: int = 2,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            img_size=img_size,
+            latent_dim=latent_dim,
+            vision_latent_dim=kwargs.pop("vision_latent_dim", 1024),
+            vision_patch_size=kwargs.pop("vision_patch_size", 14),
+            vision_num_layers=kwargs.pop("vision_num_layers", 24),
+            vision_num_heads=kwargs.pop("vision_num_heads", 16),
+            build_text_tower=False,
+        )
+        if kwargs:
+            raise TypeError(f"unrecognized ChineseCLIP kwargs: {sorted(kwargs)}")
+        self.token_encoder = BertTextEncoder(
+            vocab_size=vocab_size,
+            context_length=context_length,
+            latent_dim=text_latent_dim,
+            num_layers=text_num_layers,
+            num_heads=text_num_heads,
+            token_type_size=token_type_size,
+        )
+        self.text_projection = Linear(text_latent_dim, latent_dim, bias=False)
+        self.context_length = context_length

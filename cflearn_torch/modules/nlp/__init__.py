@@ -1,2 +1,2 @@
 from . import tokenizers
-from .tokenizers import CLIPTokenizer, ITokenizer
+from .tokenizers import ChineseCLIPTokenizer, CLIPTokenizer, ITokenizer

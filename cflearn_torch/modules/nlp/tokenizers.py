@@ -1,5 +1,6 @@
-"""The CLIP tokenizer (counterpart of `cflearn_tpu/modules/nlp/tokenizers.py`,
-numpy only; `ChineseCLIPTokenizer` is not ported), with the `ITokenizer` registry.
+"""The CLIP tokenizers (counterpart of `cflearn_tpu/modules/nlp/tokenizers.py`,
+numpy only), with the `ITokenizer` registry: `CLIPTokenizer` ("clip") and
+`ChineseCLIPTokenizer` ("chinese_clip").
 
 The CLIP BPE is implemented here: byte-pair merges over the standard CLIP
 vocab. The merges load from a local file (`bpe_path`), then from
@@ -201,3 +202,45 @@ class CLIPTokenizer(ITokenizer):
                 tokens[-1] = self.eot_token
             result[i, : len(tokens)] = tokens
         return result
+
+
+@ITokenizer.register("chinese_clip")
+class ChineseCLIPTokenizer(ITokenizer):
+    """ChineseCLIP's BERT word pieces (context length 52): `transformers`'
+    `AutoTokenizer` for `name` from its local cache only; where the package
+    or the vocabulary is missing, the deterministic character path
+    (`_char_tokenize`), which keeps random-weight pipelines running offline."""
+
+    context_length = 52
+
+    def __init__(self, name: str = "OFA-Sys/chinese-clip-vit-base-patch16") -> None:
+        self.name = name
+        self._tok: Any = None
+
+    def tokenize(self, texts: Any, **kwargs: Any) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        if self._tok is None:
+            try:
+                from transformers import AutoTokenizer  # type: ignore
+
+                self._tok = AutoTokenizer.from_pretrained(self.name, local_files_only=True)
+            except Exception:  # noqa: BLE001 — not installed, or the vocabulary is not cached
+                self._tok = "char"
+        if self._tok == "char":
+            return self._char_tokenize(texts)
+        out = self._tok(texts, padding="max_length", truncation=True, max_length=self.context_length,
+                        return_tensors="np")
+        return out["input_ids"].astype(np.int32)
+
+    def _char_tokenize(self, texts: List[str]) -> np.ndarray:
+        """(B, 52) int32: [CLS] = 101, one id a character (1000 + its code
+        point modulo 21128 - 1106, inside BERT's word-piece range), [SEP] =
+        102, zero padding; a text is cut to 50 characters. Not the ids of
+        the pretrained vocabulary."""
+        cls_id, sep_id, vocab = 101, 102, 21128
+        out = np.zeros((len(texts), self.context_length), np.int32)
+        for i, text in enumerate(texts):
+            ids = [cls_id] + [1000 + ord(ch) % (vocab - 1106) for ch in text[: self.context_length - 2]] + [sep_id]
+            out[i, : len(ids)] = ids
+        return out

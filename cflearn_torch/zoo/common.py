@@ -7,7 +7,7 @@ latent-diffusion family (`ldm_vq`, `ldm_inpainting`, `ldm_semantic`), of
 CLIP (`clip`: ViT-B/32, `clip_large`: ViT-L/14, `open_clip_ViT_H_14`) and of
 ESRGAN (`esr`, `esr_anime`), and of Stable Diffusion (`load_sd`, `ldm_sd`,
 `ldm_sd_v2`, `ldm_sd_inpainting`, `load_control_net`, with `SDVersions` and
-`get_sd_tag`). `chinese_clip` waits for the BERT text tower.
+`get_sd_tag`) and ChineseCLIP (`chinese_clip`, random weights only).
 
 Without `pretrained` a module gets seeded random weights. With it, the
 checkpoint of its entry in the index (`available.json`, the port's copy of
@@ -136,19 +136,22 @@ def converted_cache_path(tag: str) -> Path:
     return folder / f"{tag}.safetensors"
 
 
-# converters whose modules the port does not have yet (their APIs come with them)
-NOT_PORTED = ("lama", "isnet", "iharm")
-
-
 def convert_checkpoint(converter: Optional[str], sd: Mapping[str, Any], **kwargs: Any) -> Any:
     """(converted tensors by port name, the checkpoint keys that nothing
     takes and no list drops) of upstream state dict `sd` under `converter`.
     The annotators', VGG16's and LPIPS's nets take the upstream names, and a
-    preset without a converter takes the file as it is."""
+    preset without a converter takes the file as it is. LaMa's, ISNet's and
+    iharm's converters rename (`convert_lama`) or keep (`convert_isnet`,
+    `convert_iharm`) every key, with BatchNorm's running statistics: a key
+    their nets do not hold comes out under a name no parameter or buffer
+    has, which `check_states` refuses."""
     from . import convert as C
 
-    if converter in NOT_PORTED:
-        raise NotImplementedError(f"the '{converter}' converter comes with its API, which the port does not have yet")
+    if converter in ("lama", "isnet", "iharm"):
+        from ..api.cv import third_party as TP
+
+        convert = {"lama": TP.convert_lama, "isnet": TP.convert_isnet, "iharm": TP.convert_iharm}[converter]
+        return convert(sd), []
     if converter == "sd_cflearn":
         sd, converter = C.cflearn_sd_to_original(sd), "sd"
     mappings = {
@@ -165,11 +168,28 @@ def convert_checkpoint(converter: Optional[str], sd: Mapping[str, Any], **kwargs
     return C.apply_mapping(mapping, sd, strict=False), C.unused_keys(mapping, sd, drop)
 
 
+def checkpoint_targets(module: nn.Module) -> Any:
+    """({name: shape} that a checkpoint must fill, {name: shape} that it
+    may): every parameter and the running statistics of `torch.nn`'s
+    BatchNorm layers, and their `num_batches_tracked`, which eval mode never
+    reads."""
+    required = {k: tuple(p.shape) for k, p in module.named_parameters()}
+    optional = {}
+    for prefix, sub in module.named_modules():
+        if isinstance(sub, nn.modules.batchnorm._BatchNorm) and sub.track_running_stats:
+            for leaf in ("running_mean", "running_var"):
+                required[f"{prefix}.{leaf}"] = tuple(getattr(sub, leaf).shape)
+            optional[f"{prefix}.num_batches_tracked"] = ()
+    return required, optional
+
+
 def check_states(module: nn.Module, states: Mapping[str, torch.Tensor], what: str, unused: List[str] = ()) -> None:
-    """Raise unless `states` fills every parameter of `module` with its
-    shape and names nothing else, and no checkpoint key is left over."""
-    params = {k: tuple(p.shape) for k, p in module.named_parameters()}
-    unfilled = sorted(set(params) - set(states))
+    """Raise unless `states` fills every parameter of `module` (and the
+    running statistics of its BatchNorm layers, `checkpoint_targets`) with
+    its shape and names nothing else, and no checkpoint key is left over."""
+    required, optional = checkpoint_targets(module)
+    params = {**required, **{k: v for k, v in optional.items() if k in states}}
+    unfilled = sorted(set(required) - set(states))
     extra = sorted(set(states) - set(params))
     shapes = [f"{k} {tuple(states[k].shape)} != {params[k]}" for k in sorted(set(states) & set(params))
               if tuple(states[k].shape) != params[k]]
@@ -238,11 +258,15 @@ def _real_device(device: Any, what: str) -> torch.device:
 
 
 def load_into(module: nn.Module, states: Mapping[str, torch.Tensor], what: str) -> nn.Module:
-    """Copy `states` into `module`'s parameters in place (strict:
-    `check_states`), each cast to the parameter's dtype."""
+    """Copy `states` into `module`'s parameters (and BatchNorm statistics)
+    in place (strict: `check_states`), each cast to the target's dtype; a
+    BatchNorm's `num_batches_tracked` that `states` leaves out is set to 0."""
     check_states(module, states, what)
-    params = dict(module.named_parameters())
+    params = {**dict(module.named_buffers()), **dict(module.named_parameters())}
     with torch.no_grad():
+        for name in checkpoint_targets(module)[1]:
+            if name not in states:
+                params[name].zero_()
         for name, t in states.items():
             params[name].copy_(t)
     return module
@@ -382,6 +406,21 @@ def clip(pretrained: bool = False, **kwargs: Any) -> nn.Module:
 def clip_large(pretrained: bool = False, **kwargs: Any) -> nn.Module:
     """CLIP ViT-L/14 at 224px (257 image tokens, 16 heads of 64; 768-wide embeddings)."""
     return load_module("multimodal/clip.large", pretrained=pretrained, **kwargs)
+
+
+def chinese_clip(pretrained: bool = False, **kwargs: Any) -> nn.Module:
+    """ChineseCLIP ("clip.chinese"): a ViT-L/14 vision tower and a 24-layer
+    Chinese BERT text tower, 768-wide embeddings; its tokenizer is
+    `ChineseCLIPTokenizer`. Seeded random weights (`device`, `dtype`,
+    `seed` as `load_module` takes them); no checkpoint in the upstream
+    layout is indexed, so `pretrained` raises."""
+    if pretrained:
+        raise ValueError(
+            "chinese_clip pretrained weights are only re-hosted in the "
+            "reference's cflearn layout; convert an upstream checkpoint and "
+            "load it explicitly"
+        )
+    return build(module_registry["clip.chinese"], **kwargs)
 
 
 def open_clip_ViT_H_14(pretrained: bool = False, **kwargs: Any) -> nn.Module:

@@ -360,15 +360,36 @@ Phases, in order; any failure exits non-zero:
    processes on the card, each task's pipeline against the same config
    fitted in this process, then `run_multiple(is_fix=True)` after one task's
    pipeline is removed: that task alone, on the card.
-27. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
+27. the last modules — at the JAX package's defaults, seeded random
+   weights: `zoo.chinese_clip()` (ViT-L/14 at 224 px, a 24-layer BERT)
+   through `CLIPExtractor`, which picks `ChineseCLIPTokenizer`: 8 images in
+   f32, under `use_bf16` and as bf16 images, exactly 24 flash launches a
+   batch (B8 H16 L257 d64), 8 Chinese texts with none, the image
+   embeddings within PARITY_FACTOR x the plain path's drift (phase 23's
+   rule in f32, a one-bf16-ulp move in bf16); `BLIPCaptioner` (ViT-B/16 at
+   384 px, 12 + 12 layers) through `generate_caption_tokens` to 30 ids from
+   [DEC] "a picture of", exactly 12 flash launches (B1 H12 L577 d64), the
+   vision features against the plain path, the decoder's logits over the
+   plain path's ids against the CPU's (NET_REL), the greedy ids agreeing
+   with the CPU's (printed), `caption` raising without a tokenizer; the
+   GPT-2 sampler at distilgpt2's width and the `PromptConfig` defaults, 4
+   sequences, `top_k=1`, ids equal to the CPU's; LaMa (`inpaint` at 512²),
+   ISNet (`segment` at 1024 on a 768 x 1024 image) and iharm (`run` on 300 x
+   200) from seeded upstream-layout checkpoints through the zoo's strict
+   converters, each against the same API on the CPU (NET_REL; iharm's uint8
+   within one level) and its net in f64 against the CPU's f64 (NET_REL; the
+   f32 outputs' errors against f64 printed), no kernel launched; where `transformers` has the vocabularies cached, `caption` and
+   `enhance` run whole; host ms a batch, caption, sequence and image, each
+   distinct flash call against its plain version and timed.
+28. summary — a `{"kernels": [...]}` line (eleven kernels: the ten that
    replace a TPU kernel and the W8A8 quantiser), the paths' img/s
    and samples/s, the serving configurations' img/s on a line of their own,
    the new training paths' readings on a line of their own, the DiffusionAPI
    path's, the VQ family's, the CLIP and ESRGAN, the checkpoint policies',
    the style and tiling, the SD v2 and v2 finetune, the CV models', the
    framework's, the tabular, the rest of the framework's, the
-   annotators and compile, the pretrained loads', the mesh's and the public
-   surface's readings on lines of their own (each kernel's threaded checks on
+   annotators and compile, the pretrained loads', the mesh's, the public
+   surface's and the last modules' readings on lines of their own (each kernel's threaded checks on
    the `kernels` line), the card's name and power limit, and last `{"ok":
    true, "device": {...}}`. The per-shape rows also go to
    `chiprun_out/chip_smoke.json`.
@@ -5256,6 +5277,416 @@ def phase_surface(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     return out
 
 
+# 27. the last modules at the JAX package's defaults, seeded random weights: ChineseCLIP through `CLIPExtractor`,
+# BLIP captioning, the GPT-2 prompt sampler, and LaMa, ISNet and iharm from seeded upstream-layout checkpoints
+LAST_SEED = 27
+CCLIP_BATCH = 8
+CCLIP_FLASH = 24  # ViT-L/14 at 224 px: one routed self-attention a layer (B8 H16 L257 d64); the BERT tower (52) none
+CCLIP_TEXTS = ["一只猫的照片", "一辆红色的跑车", "桌子上的一碗水果", "在月球上骑马的宇航员", "悬崖上的灯塔, 黎明",
+               "雪山下的湖泊", "在草地上奔跑的狗", "城市夜景, 霓虹灯"]
+BLIP_FLASH = 12  # ViT-B/16 at 384 px: one routed self-attention a layer (B1 H12 L577 d64); the decoder none
+BLIP_PROMPT = (30522, 1037, 3861, 1997)  # [DEC] "a picture of" in bert-base-uncased's ids
+BLIP_MAX_LENGTH = 30
+GPT2_PROMPT = (64, 4286, 286, 257)  # four ids of GPT-2's vocabulary
+GPT2_SEQUENCES = 4
+LAMA_SIDE = 512
+ISNET_HW = (768, 1024)
+ISNET_SIZE = 1024
+IHARM_HW = (300, 200)  # padded to 384 x 256
+
+
+def upstream_values(np, shapes: dict, seed: int) -> dict:
+    """Seeded numpy values for a state dict of `shapes` in an upstream layout: weights of rank >= 2 ~ N(0, 1 /
+    their other axes' size), norm weights and running variances in [0.5, 1.5), a `ScaleLayer`'s scale 0.1, the
+    rest (biases, running means) ~ N(0, 0.1^2)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, shape in shapes.items():
+        if len(shape) >= 2:
+            v = rng.randn(*shape) / math.sqrt(max(1, int(np.prod(shape[1:]))))
+        elif k.endswith("running_var") or (k.endswith("weight") and len(shape) == 1):
+            v = rng.rand(*shape) + 0.5
+        elif k.endswith(".scale"):
+            v = np.full(shape, 0.1)
+        else:
+            v = rng.randn(*shape) * 0.1
+        out[k] = v.astype(np.float32)
+    return out
+
+
+def lama_upstream_names(names, n_blocks: int) -> dict:
+    """{big-lama's `generator.model.{i}` key: the port's name} for the port's `LaMaGenerator` names: `convert_lama`
+    run backwards (the layout the zoo's "lama" converter reads)."""
+    base = 5 + n_blocks + 1
+
+    def ffc(rest: str) -> str:
+        return (rest.replace("ffc.convg2g.conv1.", "ffc.convg2g.conv1.0.").replace("ffc.convg2g.bn1.", "ffc.convg2g.conv1.1.")
+                .replace("ffc.convg2g.fu.conv.", "ffc.convg2g.fu.conv_layer."))
+
+    out = {}
+    for k in names:
+        top, rest = k.split(".", 1)
+        if top == "stem":
+            u = f"1.{ffc(rest)}"
+        elif top in ("downs", "blocks"):
+            i, rest = rest.split(".", 1)
+            u = f"{(2 if top == 'downs' else 5) + int(i)}.{ffc(rest)}"
+        elif top == "ups":
+            i, part, leaf = rest.split(".", 2)
+            u = f"{base + 3 * int(i) + (part == 'bn')}.{leaf}"
+        else:
+            u = f"{base + 10}.{rest}"
+        out[f"generator.model.{u}"] = k
+    return out
+
+
+def phase_last_modules(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
+    """The last modules of the JAX package, at its defaults, seeded random weights.
+
+    (a) `zoo.chinese_clip()` (ViT-L/14 at 224 px and a 24-layer BERT) through `CLIPExtractor`, which picks
+    `ChineseCLIPTokenizer`: the image embeddings of 8 images in f32 and under `use_bf16` (f32 images, and bf16
+    images straight into `encode_image`), exactly 24 flash launches a batch; the text embeddings of 8 Chinese
+    strings, no launch; the image embeddings through the kernels against the plain versions within PARITY_FACTOR
+    x the plain path's drift (f32: the larger of a one-f32-ulp move of the images and the same forward with the
+    library's f32 attention, phase 23's rule; bf16: a one-bf16-ulp move); host ms a batch.
+    (b) `BLIPCaptioner` (ViT-B/16 at 384 px, 12 + 12 layers, 30,524 ids) in `BLIPAPI`: `generate_caption_tokens`
+    on one image (resized by `BLIPAPI.preprocess`) with the prompt [DEC] "a picture of" to 30 ids, exactly 12
+    flash launches; the vision features against the plain path (phase 23's rule); the decoder's logits over the
+    plain path's tokens against the same call on the CPU (NET_REL); how many greedy ids agree with the CPU's
+    (printed); `caption` raising RuntimeError without a tokenizer; host ms a caption.
+    (c) `GPT2LMHead` at distilgpt2's width (6 x 768, 50,257 ids): `sample_tokens` at the `PromptConfig` defaults,
+    4 sequences, `top_k=1`: the ids equal to the CPU's, no launch; at the defaults (top-k 8) from a seeded
+    generator; host ms a sequence.
+    (d) LaMa (big-lama: ngf 64, 9 blocks), ISNet and iharm (`hrnet32_idih256`), each from a seeded state dict in
+    its upstream layout through the zoo's converter (strict), no launch: `LaMaAPI.inpaint` at 512²,
+    `ISNetAPI.segment` at `infer_size` 1024 on a 768 x 1024 image, `ImageHarmonizationAPI.run` on 300 x 200
+    (padded to 384 x 256), each on the card against the same API on the CPU (NET_REL; iharm's uint8 image within
+    one level on 0.1% of the values); the net on its inputs in f64 on the card against the same on the CPU
+    (NET_REL), and each side's f32 output against the CPU's f64 one, printed (the seeded iharm's f32 forward is
+    1.7e-4 to 3.5e-4 from its f64 one on the CPU itself, 4.1e-4 on the card: HRNet's residual sums grow its
+    features to ~1e5, so no f32 comparison of it can be held to NET_REL); host ms an image.
+    The tokenizers' vocabularies: where `transformers` loads them, `caption` and `enhance` also run whole, and the
+    tokenizer's class and module are printed."""
+    from cflearn_torch.api import CLIPExtractor
+    from cflearn_torch.api.cv import third_party as TP
+    from cflearn_torch.api.multimodal.clip import CLIP_MEAN, CLIP_STD
+    from cflearn_torch.api.multimodal.third_party import blip as TB
+    from cflearn_torch.api.nlp.third_party import prompt as TPR
+    from cflearn_torch.modules.layers import resize
+    from cflearn_torch.modules.nlp.tokenizers import ChineseCLIPTokenizer
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"last modules: {msg}")
+
+    def launches_of(fn, want, counts):
+        """fn under the census (into `counts`), then with the counters at 0: exact launches, and the census's
+        launches equal to them. Returns fn's result and the counters."""
+        with census(A, Cv, Gn, counts):
+            fn()
+        torch.cuda.synchronize()
+        reset_launches(A, Cv, Gn)
+        result = fn()
+        torch.cuda.synchronize()
+        got = read_launches(A, Cv, Gn)
+        moved = {k: v for k, v in got.items() if v}
+        check(moved == want, f"launches {moved} != {want}")
+        by_kernel = {k: sum(n for key, n in counts.items() if key[0] == k) for k in want}
+        check(by_kernel == want, f"the census {by_kernel} disagrees with the counters {want}")
+        return result, got
+
+    def host_ms(fn, runs=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / runs * 1e3
+
+    def parity(label, fn, x):
+        """fn through the kernels against the plain versions within PARITY_FACTOR x the plain path's drift: under a
+        one-bf16-ulp move of bf16 x; for f32 x the larger of a one-f32-ulp move and the distance from the same
+        forward with the library's f32 attention (phase 23's rule)."""
+        with torch.no_grad():
+            y_k = fn(x).float()
+            with plain_kernels(A, Cv, Gn):
+                y_p = fn(x).float()
+                if x.dtype == torch.bfloat16:
+                    drifts = {"input_one_bf16_ulp": rel_err(fn(bump_ulp(torch, x)).float(), y_p)}
+                else:
+                    drifts = {"input_one_f32_ulp": rel_err(fn(bump_ulp_f32(torch, x)).float(), y_p)}
+                    A.flash_attention = lambda q, k, v, causal=False, sm_scale=None: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, scale=sm_scale)
+                    drifts["library_f32_attention"] = rel_err(fn(x).float(), y_p)
+        drift = max(drifts.values())
+        rel = rel_err(y_k, y_p)
+        print(f"last modules parity: {label}, kernels vs plain max rel err {rel:.3e} (tolerance "
+              f"{PARITY_FACTOR * drift:.3e}: {PARITY_FACTOR} x the drift, the larger of {json.dumps(drifts)})")
+        check(bool(torch.isfinite(y_k).all()) and rel <= PARITY_FACTOR * drift,
+              f"{label} through the kernels disagrees with the plain path")
+        return {"kernels_vs_plain": rel, "drifts": drifts}
+
+    def smooth_image(seed, h, w):
+        rng = np.random.RandomState(seed)
+        low = rng.uniform(0, 255, (h // 32 + 1, w // 32 + 1, 3))
+        big = np.kron(low, np.ones((32, 32, 1)))[:h, :w]
+        return np.clip(big + rng.uniform(-20, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+
+    out = {"launches": {}}
+    censuses = {}
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(LAST_SEED)
+
+    # (a) ChineseCLIP through CLIPExtractor
+    t0 = time.perf_counter()
+    m = cflearn_torch.chinese_clip(device="cuda", seed=LAST_SEED)
+    api = CLIPExtractor(m, device="cuda")
+    n_params = sum(p.numel() for p in m.parameters())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(isinstance(api.tokenizer, ChineseCLIPTokenizer), f"the extractor's tokenizer is {type(api.tokenizer)}")
+    pixels = torch.randint(0, 256, (CCLIP_BATCH, 224, 224, 3), generator=gen, device="cuda").to(torch.uint8)
+    images = pixels.cpu().numpy()
+    mean, std = (torch.as_tensor(v, device="cuda") for v in (CLIP_MEAN, CLIP_STD))
+    normed = (pixels.float() / 255.0 - mean) / std
+    want = {"flash_attention": CCLIP_FLASH}
+    rec = {"parameters": n_params, "build_s": build_s}
+    img, out["launches"]["chinese_clip"] = launches_of(lambda: api.get_image_latent(images), want,
+                                                       censuses.setdefault("chinese_clip", {}))
+    txt, _ = launches_of(lambda: api.get_text_latent(CCLIP_TEXTS), {}, {})
+    ids = api.tokenizer.tokenize(CCLIP_TEXTS)
+    norms = [float(np.abs(np.linalg.norm(e.astype(np.float64), axis=-1) - 1.0).max()) for e in (img, txt)]
+    check(img.shape == (CCLIP_BATCH, 768) and txt.shape == (len(CCLIP_TEXTS), 768), f"{img.shape} {txt.shape}")
+    check(np.isfinite(img).all() and np.isfinite(txt).all() and max(norms) <= 1e-5, f"norms off one by {norms}")
+    rec.update(tokenizer="transformers" if api.tokenizer._tok != "char" else "characters", ids_shape=list(ids.shape),
+               image_norm_err=norms[0], text_norm_err=norms[1],
+               f32_image_batch_ms=host_ms(lambda: api.get_image_latent(images)),
+               f32_text_batch_ms=host_ms(lambda: api.get_text_latent(CCLIP_TEXTS)),
+               parity_f32=parity("chinese_clip image embeddings, f32", api.m.encode_image, normed))
+    api.to_bf16()  # use_bf16: f32 images meet bf16 weights in f32 (the kernel's f32 route)
+    img16, _ = launches_of(lambda: api.get_image_latent(images), want, {})  # the f32 route's calls again
+    txt16, _ = launches_of(lambda: api.get_text_latent(CCLIP_TEXTS), {}, {})
+    xb = normed.to(torch.bfloat16)  # bf16 images straight into the bf16 module: the wgmma route
+    with torch.no_grad():
+        emb, out["launches"]["chinese_clip_bf16"] = launches_of(lambda: api.m.encode_image(xb), want,
+                                                                censuses.setdefault("chinese_clip_bf16", {}))
+    norms16 = [float(np.abs(np.linalg.norm(e.astype(np.float64), axis=-1) - 1.0).max()) for e in (img16, txt16)]
+    check(emb.dtype == torch.bfloat16 and bool(torch.isfinite(emb).all()), "bf16 embeddings")
+    check(norms16[0] <= 1e-5 and norms16[1] <= TEXT_NORM_TOL, f"use_bf16 norms off one by {norms16}")
+    rec.update(bf16_image_norm_err=norms16[0], bf16_text_norm_err=norms16[1],
+               bf16_weights_image_batch_ms=host_ms(lambda: api.get_image_latent(images)),
+               bf16_image_batch_ms=host_ms(lambda: api.m.encode_image(xb)),
+               parity_bf16=parity("chinese_clip image embeddings, bf16", api.m.encode_image, xb))
+    print(f"last[chinese_clip]: {n_params:,} parameters built in {build_s:.1f} s; tokenizer {rec['tokenizer']} "
+          f"{tuple(ids.shape)}; {CCLIP_FLASH} flash launches an image batch of {CCLIP_BATCH} (f32, use_bf16, bf16), "
+          f"none for the text; host ms [{card}]: f32 images {rec['f32_image_batch_ms']:.1f}, under use_bf16 "
+          f"{rec['bf16_weights_image_batch_ms']:.1f}, bf16 images {rec['bf16_image_batch_ms']:.1f}, texts "
+          f"{rec['f32_text_batch_ms']:.1f}; norms off one by {norms} (f32), {norms16} (use_bf16)")
+    out["chinese_clip"] = rec
+    del api, m, img, txt, img16, txt16, emb, normed, xb, pixels
+    torch.cuda.empty_cache()
+
+    # (b) BLIP captioning
+    t0 = time.perf_counter()
+    bapi = TB.BLIPAPI(device="cuda")
+    seeded_(torch, bapi.m, LAST_SEED + 1)
+    n_params = sum(p.numel() for p in bapi.m.parameters())
+    build_s = time.perf_counter() - t0
+    image = smooth_image(LAST_SEED, 480, 640)
+    x = bapi.preprocess(image)
+    prompt = np.asarray(BLIP_PROMPT)
+
+    def caption_ids(model, xin):
+        return TB.generate_caption_tokens(model, xin, prompt, max_length=BLIP_MAX_LENGTH)
+
+    torch.cuda.reset_peak_memory_stats()
+    ids_k, out["launches"]["blip"] = launches_of(lambda: caption_ids(bapi.m, x), {"flash_attention": BLIP_FLASH},
+                                                 censuses.setdefault("blip", {}))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(ids_k.shape == (1, BLIP_MAX_LENGTH) and list(ids_k[0, :4]) == list(BLIP_PROMPT)
+          and 0 <= ids_k.min() and ids_k.max() < 30524, f"caption ids {ids_k}")
+    rec = {"parameters": n_params, "build_s": build_s, "peak_gib": peak,
+           "caption_ms": host_ms(lambda: caption_ids(bapi.m, bapi.preprocess(image))),
+           "parity_vision": parity("blip vision features, f32", bapi.m.visual_encoder, x)}
+    with torch.no_grad(), plain_kernels(A, Cv, Gn):
+        ids_p = caption_ids(bapi.m, x)
+        enc_p = bapi.m.visual_encoder(x)
+    cpu = copy.deepcopy(bapi.m).cpu()
+    tokens_p = torch.as_tensor(ids_p, dtype=torch.long)
+    with torch.no_grad():
+        logits = bapi.m.text_decoder(tokens_p.cuda(), enc_p).float().cpu()
+        logits_cpu = cpu.text_decoder(tokens_p, enc_p.cpu())
+    rec["decoder_card_vs_cpu"] = rel_err(logits, logits_cpu)
+    t0 = time.perf_counter()
+    ids_cpu = caption_ids(cpu, x.cpu())
+    rec["cpu_caption_s"] = time.perf_counter() - t0
+    new = slice(len(BLIP_PROMPT), BLIP_MAX_LENGTH)
+    rec["greedy_ids_agreeing_with_cpu"] = int((ids_k[0, new] == ids_cpu[0, new]).sum())
+    rec["plain_ids_agreeing"] = int((ids_k[0, new] == ids_p[0, new]).sum())
+    check(rec["decoder_card_vs_cpu"] <= NET_REL, f"blip decoder card vs CPU {rec['decoder_card_vs_cpu']:.3e}")
+    tok, bapi.tokenizer = bapi.tokenizer, None
+    try:
+        bapi.caption(image)
+        raised = False
+    except RuntimeError:
+        raised = True
+    bapi.tokenizer = tok
+    check(raised, "caption did not raise without a tokenizer")
+    rec["tokenizer_loaded"] = tok is not None
+    rec["tokenizer"] = f"{type(tok).__module__}.{type(tok).__qualname__}"
+    if tok is not None:  # a cached bert-base-uncased: the whole API, ids decoded
+        rec["caption"] = bapi.caption(image)
+        rec["api_caption_ms"] = host_ms(lambda: bapi.caption(image))
+    print(f"last[blip]: {n_params:,} parameters; {BLIP_FLASH} flash launches a caption of {BLIP_MAX_LENGTH} ids; ids "
+          f"{ids_k[0].tolist()}; the decoder's logits over the plain path's ids card vs CPU max rel "
+          f"{rec['decoder_card_vs_cpu']:.3e} (tolerance {NET_REL}); greedy ids agreeing with the CPU's "
+          f"{rec['greedy_ids_agreeing_with_cpu']} / {BLIP_MAX_LENGTH - len(BLIP_PROMPT)}, with the plain path's "
+          f"{rec['plain_ids_agreeing']}; host ms a caption [{card}] {rec['caption_ms']:.1f} (CPU "
+          f"{rec['cpu_caption_s']:.1f} s), peak {peak:.2f} GiB; a bert-base-uncased tokenizer loaded: "
+          f"{rec['tokenizer_loaded']} ({rec['tokenizer']})"
+          + (f" (caption {rec['caption']!r}, {rec['api_caption_ms']:.1f} ms)" if tok else "")
+          + f"; caption without one raises: {raised}")
+    out["blip"] = rec
+    del bapi, cpu, x, enc_p, logits, logits_cpu
+    torch.cuda.empty_cache()
+
+    # (c) the GPT-2 prompt sampler at distilgpt2's width
+    gpt = seeded_(torch, TPR.load_gpt2(device="cuda"), LAST_SEED + 2)
+    config = TPR.PromptConfig(num_return_sequences=GPT2_SEQUENCES)
+    kw = dict(max_length=config.max_length, temperature=config.temperature, repetition_penalty=config.repitition_penalty,
+              num_return_sequences=config.num_return_sequences)
+    prompt = np.asarray(GPT2_PROMPT)
+    (greedy, _) = launches_of(lambda: TPR.sample_tokens(gpt, prompt, top_k=1, **kw), {}, {})
+    cpu = copy.deepcopy(gpt).cpu()
+    t0 = time.perf_counter()
+    greedy_cpu = TPR.sample_tokens(cpu, prompt, top_k=1, **kw)
+    cpu_s = time.perf_counter() - t0
+    sampled = TPR.sample_tokens(gpt, prompt, top_k=config.top_k, generator=torch.Generator(device="cuda").manual_seed(0),
+                                **kw)
+    rec = {"parameters": sum(p.numel() for p in gpt.parameters()), "top_k_1_equal_to_cpu": bool(
+        np.array_equal(greedy, greedy_cpu)), "cpu_s": cpu_s,
+        "distinct_sampled_rows": len({tuple(r) for r in sampled}),
+        "ms_a_sequence_top_k_1": host_ms(lambda: TPR.sample_tokens(gpt, prompt, top_k=1, **kw), 2) / GPT2_SEQUENCES,
+        "ms_a_sequence": host_ms(lambda: TPR.sample_tokens(gpt, prompt, top_k=config.top_k, **kw), 2) / GPT2_SEQUENCES}
+    check(greedy.shape == sampled.shape == (GPT2_SEQUENCES, config.max_length), f"{greedy.shape} {sampled.shape}")
+    check(rec["top_k_1_equal_to_cpu"], f"top_k=1 ids differ from the CPU's: {greedy[0].tolist()} / {greedy_cpu[0].tolist()}")
+    print(f"last[gpt2]: {rec['parameters']:,} parameters; sample_tokens at the PromptConfig defaults, "
+          f"{GPT2_SEQUENCES} sequences of {config.max_length}: top_k=1 ids equal to the CPU's: "
+          f"{rec['top_k_1_equal_to_cpu']} (CPU {cpu_s:.1f} s), no launch; top-k {config.top_k}: "
+          f"{rec['distinct_sampled_rows']} distinct rows; host ms a sequence [{card}] top_k=1 "
+          f"{rec['ms_a_sequence_top_k_1']:.1f}, top-k {config.top_k} {rec['ms_a_sequence']:.1f}")
+    papi = TPR.PromptEnhanceAPI(device="cuda")
+    seeded_(torch, papi.m, LAST_SEED + 2)
+    rec["tokenizer_loaded"] = papi.tokenizer is not None
+    rec["tokenizer"] = f"{type(papi.tokenizer).__module__}.{type(papi.tokenizer).__qualname__}"
+    if papi.tokenizer is not None:  # a cached distilgpt2: the whole API
+        rec["enhanced"] = papi.enhance("a cat sitting on a chair", config)
+        rec["enhance_ms"] = host_ms(lambda: papi.enhance("a cat sitting on a chair", config), 2)
+        check(len(rec["enhanced"]) == GPT2_SEQUENCES, f"enhance gave {rec['enhanced']}")
+    else:
+        try:
+            papi.enhance("a cat")
+            rec["enhance_raises"] = False
+        except RuntimeError:
+            rec["enhance_raises"] = True
+        check(rec["enhance_raises"], "enhance did not raise without a tokenizer")
+    print(f"last[gpt2]: a distilgpt2 tokenizer loaded: {rec['tokenizer_loaded']} ({rec['tokenizer']})"
+          + (f"; enhance {rec['enhance_ms']:.1f} ms for {GPT2_SEQUENCES}: {rec['enhanced']!r}" if papi.tokenizer
+             else "; enhance raises"))
+    out["gpt2"] = rec
+    del gpt, cpu, papi
+    torch.cuda.empty_cache()
+
+    # (d) LaMa, ISNet and iharm from seeded upstream-layout checkpoints through the zoo's converters
+    def shapes_of(ctor):
+        with torch.device("meta"):
+            net = ctor()
+        return {k: tuple(v.shape) for k, v in net.state_dict().items() if not k.endswith("num_batches_tracked")}
+
+    lama_shapes = shapes_of(TP.LaMaGenerator)
+    names = lama_upstream_names(lama_shapes, 9)
+    lama_image = smooth_image(LAST_SEED + 6, LAMA_SIDE, LAMA_SIDE)
+    lama_mask = np.zeros((LAMA_SIDE, LAMA_SIDE), np.uint8)
+    lama_mask[160:352, 128:384] = 255
+    isnet_image = smooth_image(LAST_SEED + 7, *ISNET_HW)
+    iharm_image = smooth_image(LAST_SEED + 8, *IHARM_HW)
+    iharm_mask = np.zeros(IHARM_HW, np.float32)
+    iharm_mask[80:220, 50:150] = 1.0
+    pads = [((-n) % 128 // 2, (-n) % 128 - (-n) % 128 // 2) for n in IHARM_HW]
+    # each API's call, and its net's inputs as the API hands them over
+    nets = {
+        "lama": (TP.LaMaAPI, upstream_values(np, {u: lama_shapes[k] for u, k in names.items()}, LAST_SEED + 3),
+                 lambda a: a.inpaint(lama_image, lama_mask),
+                 (lama_image[None] / np.float32(255.0), (lama_mask[None, ..., None] > 0).astype(np.float32))),
+        "isnet": (TP.ISNetAPI, upstream_values(np, shapes_of(TP.ISNetDIS), LAST_SEED + 4),
+                  lambda a: a.segment(isnet_image, infer_size=ISNET_SIZE),
+                  (resize(torch.as_tensor(isnet_image[None], dtype=torch.float32), (ISNET_SIZE, ISNET_SIZE),
+                          "bilinear").numpy() / 255.0 - 0.5,)),
+        "iharm": (TP.ImageHarmonizationAPI, upstream_values(np, shapes_of(TP.HRNetIHModel), LAST_SEED + 5),
+                  lambda a: a.run(iharm_image, iharm_mask),
+                  (((np.pad(iharm_image, pads + [(0, 0)]).astype(np.float32) / 255.0 - TP.iharm.IMAGENET_MEAN)
+                    / TP.iharm.IMAGENET_STD)[None], np.pad(iharm_mask, pads)[None, ..., None])),
+    }
+    out["nets"] = {}
+    for name, (cls, sd, call, inputs) in nets.items():
+        t0 = time.perf_counter()
+        capi = cls(state_dict=sd, device="cuda")
+        load_s = time.perf_counter() - t0
+        hapi = cls(state_dict=sd, device="cpu")
+        (got, _) = launches_of(lambda: call(capi), {}, {})
+        t0 = time.perf_counter()
+        ref = call(hapi)
+        cpu_s = time.perf_counter() - t0
+        if name == "iharm":  # uint8: within one level on 0.1% of the values
+            diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+            api_err = float((diff > 0).mean())
+            check(got.shape == ref.shape == IHARM_HW + (3,) and got.dtype == np.uint8 and diff.max() <= 1
+                  and api_err <= 1e-3, f"iharm uint8: max {diff.max()}, share {api_err}")
+        else:
+            api_err = rel_err(torch.from_numpy(np.asarray(got, np.float32)), torch.from_numpy(np.asarray(ref, np.float32)))
+            check(np.isfinite(got).all() and got.shape == ref.shape and api_err <= NET_REL,
+                  f"{name}: {got.shape}, card vs CPU {api_err:.3e}")
+        # the net on its inputs in f64 on both sides: the same computation, whatever f32 rounding makes of it; and
+        # each side's f32 output against the CPU's f64 one
+        xs = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)) for a in inputs]
+        with torch.no_grad():
+            first = (lambda y: y[0]) if name == "isnet" else (lambda y: y)
+            y_card = first(capi.m(*(t.cuda() for t in xs))).cpu().double()
+            y_cpu = first(hapi.m(*xs)).double()
+            y64 = first(copy.deepcopy(hapi.m).double()(*(t.double() for t in xs)))
+            card64 = copy.deepcopy(capi.m).double()
+            y64_card = first(card64(*(t.cuda().double() for t in xs))).cpu()
+            del card64
+        err64, err_card, err_cpu = rel_err(y64_card, y64), rel_err(y_card, y64), rel_err(y_cpu, y64)
+        ms = host_ms(lambda: call(capi))
+        n = sum(p.numel() for p in capi.m.parameters())
+        print(f"last[{name}]: {n:,} parameters from {len(sd)} upstream-layout tensors loaded strictly in {load_s:.2f} s; "
+              f"output {np.asarray(got).shape} {np.asarray(got).dtype}, card vs CPU "
+              + (f"differing on {api_err:.2e} of the values" if name == "iharm" else f"max rel {api_err:.3e}")
+              + f"; the net in f64, card vs CPU max rel {err64:.3e} (tolerance {NET_REL}); f32 against the CPU's f64: "
+              f"card {err_card:.3e}, CPU {err_cpu:.3e}; no kernel launched; host ms an image [{card}] {ms:.1f} (CPU "
+              f"{cpu_s:.1f} s)")
+        check(err64 <= NET_REL, f"{name}: the net in f64, card vs CPU {err64:.3e}")
+        out["nets"][name] = {"parameters": n, "api_card_vs_cpu": api_err, "f64_card_vs_cpu": err64,
+                             "f32_card_vs_f64": err_card, "f32_cpu_vs_f64": err_cpu, "host_ms": ms, "cpu_s": cpu_s,
+                             "load_s": load_s}
+        del capi, hapi, y_card, y_cpu, y64, y64_card
+        torch.cuda.empty_cache()
+
+    # every distinct kernel call of (a) and (b) against its plain version (phase 2's tolerances), timed
+    calls_out = []
+    keys = sorted({key for counts in censuses.values() for key in counts}, key=str)
+    for key in keys:
+        row = check_call(torch, F, A, Cv, Gn, key, gen, host_ms=True)
+        row.update(case=f"{'_'.join(p for p, c in censuses.items() if key in c)}_{'x'.join(map(str, row['shape']))}",
+                   per={p: c[key] for p, c in censuses.items() if key in c})
+        calls_out.append(row)
+        print(f"last call: {json.dumps(row)}")
+    out["calls"] = calls_out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6095,7 +6526,13 @@ def main() -> int:
         rows[row["kernel"]].append(row)
     print(f"surface: done at {time.perf_counter() - t_start:.0f} s")
 
-    # 27. summary
+    # 27. the last modules: ChineseCLIP, BLIP captioning, the GPT-2 prompt sampler, LaMa, ISNet, iharm
+    last_out = phase_last_modules(torch, np, F, cflearn_torch, A, Cv, Gn)
+    for row in last_out["calls"]:
+        rows[row["kernel"]].append(row)
+    print(f"last modules: done at {time.perf_counter() - t_start:.0f} s")
+
+    # 28. summary
     src = "cflearn_torch/csrc/"
     tpu = "cflearn_tpu/ops/"
     # name: (source, TPU kernel); launches come from the run of the kernel's main path
@@ -6121,7 +6558,7 @@ def main() -> int:
                      "vit_train": cv_out["clf_vit_384"]["launches"],
                      "tab_predict": tab_out["transformer"]["predict_launches_all"],
                      "tab_train": tab_out["transformer"]["launches_all"], "depth": ann_out["depth"]["launches"],
-                     "ddpm": surface_out["ddpm"]["sample_launches"]}
+                     "ddpm": surface_out["ddpm"]["sample_launches"], **last_out["launches"]}
     path_unit = {"txt2img": "one txt2img", "finetune": "one finetune step", "ae": "one autoencoder train step",
                  "w8a8": "one W8A8 VAE decode", "fold": "one dj-folded VAE decode",
                  "faithful": "one faithful txt2img", "accelerated": "one accelerated txt2img",
@@ -6132,7 +6569,10 @@ def main() -> int:
                  "tab_predict": f"one tabular transformer predict batch of {TAB_BATCH} rows at {TAB_TOKENS} tokens (f32)",
                  "tab_train": f"one tabular transformer train step at batch {TAB_BATCH}, {TAB_TOKENS} tokens (f32)",
                  "depth": f"one DPT-Large depth forward on a {ANNOTATOR_SIDE}x{ANNOTATOR_SIDE} image (f32)",
-                 "ddpm": f"one diffusion/ddpm sample of {DDPM_SAMPLES} images at 64 px, {DDPM_STEPS} DDIM steps (bf16)"}
+                 "ddpm": f"one diffusion/ddpm sample of {DDPM_SAMPLES} images at 64 px, {DDPM_STEPS} DDIM steps (bf16)",
+                 "chinese_clip": f"one ChineseCLIP image batch of {CCLIP_BATCH} at 224 px through CLIPExtractor (f32)",
+                 "chinese_clip_bf16": f"one ChineseCLIP encode_image of {CCLIP_BATCH} bf16 images at 224 px (bf16)",
+                 "blip": f"one BLIP caption of {BLIP_MAX_LENGTH} ids at 384 px (f32)"}
     path_run = dict(path_unit, finetune=f"{TRAIN_STEPS} finetune steps", ae=f"{AE_STEPS} autoencoder train steps",
                     ldm=f"{TRAIN_STEPS} finetune steps on 512px images",
                     ae_defaults=f"{AE_STEPS} autoencoder train steps at the defaults", ae_vq=f"{AE_STEPS} ae_vq train steps",
@@ -6204,7 +6644,7 @@ def main() -> int:
                    "vq_api": vq_api_out, "clip_esrgan": clip_out, "checkpoint_policies": policies_out,
                    "style_tiling": style_out, "sd_v2": v2_out, "v2_finetune": v2_train_out, "cv_models": cv_out,
                    "framework": fw_out, "tabular": tab_out, "cv_framework": cvf_out, "annotators_compile": ann_out,
-                   "pretrained": pre_out, "mesh": mesh_out, "surface": surface_out,
+                   "pretrained": pre_out, "mesh": mesh_out, "surface": surface_out, "last_modules": last_out,
                    "train_parity": {"drift": drift, "kernels_vs_plain": err_k, "fused_vs_split": err_s},
                    "ae_parity": {"drift": ae_drift, "kernels_vs_plain": ae_err, "modules": ae_modules,
                                  "module_drift_and_error": ae_mod_table}}, f, indent=1)
@@ -6231,6 +6671,7 @@ def main() -> int:
     print(json.dumps({"pretrained": pre_out}))
     print(json.dumps({"mesh": mesh_out}))
     print(json.dumps({"surface": {k: v for k, v in surface_out.items() if k != "threads"}}))
+    print(json.dumps({"last_modules": {k: v for k, v in last_out.items() if k != "calls"}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1041,3 +1041,28 @@ def test_xla_attention_matches_sdpa_math(cuda, shape, dtype) -> None:
         ref = torch.nn.functional.scaled_dot_product_attention(q.float(), k.float(), v.float(), is_causal=causal)
     assert got.dtype == dtype and got.shape == ref.shape
     assert (got.float() - ref).abs().max().item() <= 2**-6 * ref.abs().max().item()
+
+
+# (B, H, L, d, dtype) of the last modules' attention: BLIP's ViT-B/16 at 384 px (577 tokens, one caption's image),
+# ChineseCLIP's ViT-L/14 at 224 px (257 tokens, a batch of 8) in f32 and under `use_bf16`; neither length is a
+# multiple of the kernel's tiles
+LAST_MODULE_SHAPES = [(1, 12, 577, 64, torch.float32), (8, 16, 257, 64, torch.float32), (8, 16, 257, 64, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape", LAST_MODULE_SHAPES)
+def test_last_modules_vit_attention_routes_to_the_kernel(cuda, shape) -> None:
+    """`sdp_attn` at these shapes launches row 1's kernel once and matches its plain version; ChineseCLIP's BERT
+    tower at 52 tokens stays on the library path, as the JAX package's `_use_pallas` says."""
+    b, h, l, d, dtype = shape
+    q, k, v = (torch.randn((b, h, l, d), generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    assert A.use_kernel(q, k)
+    before = A.flash_attention.launches
+    with torch.no_grad():  # inference, as the extractor and the captioner run it
+        out = A.sdp_attn(q, k, v)
+        assert A.flash_attention.launches == before + 1
+        _close(out, A.flash_attention_plain(q, k, v), _rel(dtype))
+        text = torch.randn((b, h, 52, d), generator=cuda, device="cuda").to(dtype)
+        assert not A.use_kernel(text, text)
+        before = A.flash_attention.launches
+        A.sdp_attn(text, text, text)
+        assert A.flash_attention.launches == before

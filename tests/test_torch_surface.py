@@ -6,11 +6,12 @@ port's counterpart module, as an attribute or an importable submodule.
 Two explicit lists say where a name may be absent:
 - `RENAMES`: JAX-only names, present in the port under a PyTorch name and
   absent under the JAX one;
-- `WAITING`: the names of modules not ported yet (ROADMAP Queue 1 item 2:
-  the LaMa, ISNet and iharm APIs and converters, BLIP, the prompt API, the
-  Chinese CLIP tokenizer and builder). A waiting name that the port has
-  fails, so the list only shrinks; `WAITING_PACKAGES` are whole packages
-  the port does not have yet.
+- `WAITING`: the names of modules not ported yet. A waiting name that the
+  port has fails, so the list only shrinks; `WAITING_PACKAGES` are whole
+  packages the port does not have yet. Both are empty now: the port has
+  every module of the JAX package (the last ones were LaMa, ISNet, iharm,
+  BLIP, the GPT-2 prompt API and ChineseCLIP), so only `RENAMES` may be
+  absent.
 
 No JAX is imported: the JAX package is read as source."""
 
@@ -33,20 +34,10 @@ RENAMES = {
         "new_rng_key": "new_generator",
     },
 }
-# package -> the names waiting for their modules (ROADMAP Queue 1 item 2)
-WAITING = {
-    ".": {"ChineseCLIPTokenizer", "nlp"},
-    "api.cv.third_party": {
-        "LaMaAPI", "LaMaGenerator", "convert_lama", "load_lama", "ISNetAPI", "ISNetDIS", "convert_isnet",
-        "ImageHarmonizationAPI", "HRNetIHModel", "convert_iharm",
-    },
-    "api.multimodal.third_party": {"BLIPAPI", "BLIPCaptioner"},
-    "api.nlp": {"PromptConfig", "PromptEnhanceAPI"},
-    "api.nlp.third_party": {"PromptConfig", "PromptEnhanceAPI"},
-    "zoo": {"chinese_clip"},
-}
+# package -> the names waiting for their modules (none: every module is ported)
+WAITING: dict = {}
 # packages of the waiting list that the port does not have at all
-WAITING_PACKAGES = {"api.multimodal.third_party", "api.nlp", "api.nlp.third_party"}
+WAITING_PACKAGES: set = set()
 
 
 def public_names(init: Path) -> set:

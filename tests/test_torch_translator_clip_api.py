@@ -27,6 +27,7 @@ from cflearn_torch.api.multimodal import diffusion as TD
 from cflearn_torch.api.multimodal import utils as TU
 from cflearn_torch.modules.cv.classifier import RRDBNet as TRRDBNet
 from cflearn_torch.modules.multimodal.clip import CLIP as TCLIP
+from cflearn_torch.modules.nlp.tokenizers import ChineseCLIPTokenizer
 from cflearn_torch.modules.multimodal.diffusion.cond_models import CLIPTextConditionModel as TCLIPText
 from cflearn_torch.toolkit import quality as TQ
 from cflearn_tpu.api.cv.translator import TranslatorAPI as JTranslatorAPI
@@ -193,8 +194,9 @@ def test_without_weights_or_a_known_model_it_raises(extractors) -> None:
         CLIPExtractor.from_zoo(version="huge", pretrained=False, device="meta")
     with pytest.raises(ValueError, match="not 'meta'"):
         TranslatorAPI.from_esr(pretrained=True, device="meta")
-    with pytest.raises(NotImplementedError, match="ChineseCLIP"):
-        CLIPExtractor(cflearn_torch.build(TCLIP, device="meta", **dict(TINY_CLIP, context_length=512)), device="cpu")
+    # a 512-token model (ChineseCLIP's BERT context) gets the Chinese tokenizer, as in the JAX package
+    chinese = CLIPExtractor(cflearn_torch.build(TCLIP, device="cpu", **dict(TINY_CLIP, context_length=512)), device="cpu")
+    assert isinstance(chinese.tokenizer, ChineseCLIPTokenizer)
 
 
 # ---- read_image and the path inputs of DiffusionAPI ----
