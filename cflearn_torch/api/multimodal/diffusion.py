@@ -17,7 +17,13 @@ distinct UNet call of the sampler loop (the full pass, and DeepCache's
 shallow pass) is captured once (`ops.graphs.CapturedCall`, the graphs of an
 API sharing one memory pool) and replayed on every later call; DeepCache's
 feature stays in the full graph's static output, which the shallow graph
-reads in place. Every switch that would make the JAX package drop its
+reads in place. With a style reference a UNet call is its WRITE pass, the
+bank and its READ pass in one graph (the reference's latent and the CFG
+mask its static inputs, the bank in the graph's own memory); its noise is
+drawn inside the graph from the API's generator of compiled calls, which
+the graph registers (`CUDAGraph.register_generator_state`), so that each
+replay advances it as the eager call would: the images are the eager
+ones bit for bit. Every switch that would make the JAX package drop its
 compiled programs drops the graphs, and the next call in the bucket
 captures them again. On the CPU `compile` captures nothing and the calls
 run eagerly.
@@ -291,8 +297,13 @@ class _GraphedModel:
     graph's static tensor, since the next replay overwrites it and the
     multistep samplers keep past outputs; DeepCache's feature is handed on
     as the full graph's static output, which the shallow graph reads in
-    place. A call with more than the UNet (controls, hooks) raises: a
-    compiled bucket never runs part of its loop eagerly."""
+    place. Style reference's `hooks` (from `DiffusionAPI._style_hooks`) are
+    captured with the call: a fresh `SpatialTransformerHooks` inside the
+    graph over the static reference latent and CFG mask, drawing from the
+    hooks' generator, which must be the API's `_graph_generator` (the one
+    the graph registers). A call with more than the UNet and its hooks
+    (controls) raises: a compiled bucket never runs part of its loop
+    eagerly."""
 
     def __init__(self, api: "DiffusionAPI") -> None:
         self._api = api
@@ -312,6 +323,7 @@ class _GraphedModel:
         *,
         deep_cache: Optional[torch.Tensor] = None,
         return_cache: bool = False,
+        hooks: Optional[SpatialTransformerHooks] = None,
         **kwargs: Any,
     ) -> Any:
         if kwargs:
@@ -320,14 +332,36 @@ class _GraphedModel:
         inputs: Dict[str, Any] = {"net": net, "timesteps": timesteps, "cond": cond}
         if deep_cache is not None:
             inputs["deep_cache"] = deep_cache
-        key = tuple((k, _signature(v)) for k, v in inputs.items()) + (return_cache,)
+        style: Tuple[Any, ...] = ()
+        if hooks is not None:
+            if hooks.qkv_fn is not None or hooks.style is None or hooks.generator is not api._graph_generator:
+                raise NotImplementedError("a compiled bucket captures the hooks of `DiffusionAPI._style_hooks` alone")
+            inputs["ref_latent"] = hooks.ref_latent
+            if hooks.uncond_mask is not None:
+                inputs["uncond_mask"] = hooks.uncond_mask
+            style = (("hooks", api._style_sig()),)
+        key = style + tuple((k, _signature(v)) for k, v in inputs.items()) + (return_cache,)
         call = api._graphs.get(key)
         if call is None:
             static = {k: (v if k == "deep_cache" and self._static_cache(v) else _clone(v)) for k, v in inputs.items()}
             if api._graph_pool is None:
                 api._graph_pool = torch.cuda.graph_pool_handle()
             m = self._m
-            call = CapturedCall(lambda **kw: m.denoise(**kw, return_cache=return_cache), static, pool=api._graph_pool)
+            if hooks is None:
+                call = CapturedCall(lambda **kw: m.denoise(**kw, return_cache=return_cache), static, pool=api._graph_pool)
+            else:
+                states, gates, gen = hooks.style, list(hooks.write_gates), hooks.generator
+
+                def styled(ref_latent: torch.Tensor, uncond_mask: Optional[torch.Tensor] = None, **kw: Any) -> Any:
+                    h = SpatialTransformerHooks(style=states, write_gates=gates, uncond_mask=uncond_mask,
+                                                ref_latent=ref_latent, generator=gen)
+                    return m.denoise(**kw, hooks=h, return_cache=return_cache)
+
+                # the warm-up calls draw eagerly (the capture itself does not move the generator): undone, so that
+                # this call's replay draws what the eager call would
+                state = gen.get_state()
+                call = CapturedCall(styled, static, pool=api._graph_pool, generators=(gen,))
+                gen.set_state(state)
             api._graphs[key] = call
         out = call(**inputs)
         if deep_cache is not None or return_cache:
@@ -365,6 +399,8 @@ class DiffusionAPI:
         self._compiled: set = set()
         self._graphs: Dict[Any, CapturedCall] = {}
         self._graph_pool: Any = None
+        # the draws of a compiled style-reference call, seeded anew each call: its graphs register this generator
+        self._graph_generator: Optional[torch.Generator] = None
         self._mesh: Optional[Any] = None
 
     # ------------------------------------------------------------- switches
@@ -452,9 +488,9 @@ class DiffusionAPI:
         [-1, 1] NHWC / HWC, a path or a PIL image; sides rounded up to
         multiples of 64) and lets self-attention READ the banked
         activations. `style_reference_states` holds `StyleReferenceStates`'
-        settings. Without an image the style reference is cleared. A style
-        reference cannot be compiled (`compile`): setting one also forgets
-        the compiled buckets."""
+        settings. Without an image the style reference is cleared. Setting
+        one drops the captured graphs and forgets the compiled buckets:
+        `compile` them again with the reference set."""
         if tome_info is not None:
             self.set_tome_ratio(float(tome_info.get("ratio", 0.5)), merge_mlp=bool(tome_info.get("merge_mlp", False)))
         self._drop_graphs()
@@ -574,7 +610,18 @@ class DiffusionAPI:
         return ISampler.make(self.sampler_name, dict(self.sampler_config, model=model))
 
     def _in_compiled_bucket(self, rows: int, size: Tuple[int, int]) -> bool:
-        return self.device.type == "cuda" and self._style_ref is None and (rows, size) in self._compiled
+        return self.device.type == "cuda" and (rows, size) in self._compiled
+
+    def _call_generator(self, seed: int, graphed: bool) -> torch.Generator:
+        """The generator of one `sample` call's own draws (the sampler's and
+        the style reference's noise), seeded with `seed`: where the call
+        replays a compiled style-reference bucket (`graphed`), the API's
+        `_graph_generator`, which its graphs register; else a new one."""
+        if not graphed:
+            return self._generator(seed)
+        if self._graph_generator is None:
+            self._graph_generator = torch.Generator(device=self.device)
+        return self._graph_generator.manual_seed(int(seed))
 
     def compile(
         self,
@@ -590,16 +637,9 @@ class DiffusionAPI:
         call of its loop in a CUDA graph (with CFG, 2 x `num_samples` rows;
         with DeepCache, the full and the shallow pass); later `sample` /
         `txt2img` calls in the bucket replay them, other shapes run eagerly.
-        On the CPU nothing is captured. A style reference cannot be
-        captured: its WRITE pass draws the reference's noise inside each
-        UNet call and hands the banked activations between two passes
-        through host-side hooks, so `compile` raises with one set."""
-        if self._style_ref is not None:
-            raise NotImplementedError(
-                "compile with a style reference: its WRITE pass draws noise and banks activations through "
-                "host-side hooks inside each UNet call, which a CUDA graph does not capture; clear it with "
-                "`setup_hooks()` first"
-            )
+        With a style reference set, each UNet call's graph holds its WRITE
+        pass, the bank and its READ pass (see the module's docstring). On
+        the CPU nothing is captured."""
         size = (_round64(size[0]), _round64(size[1]))
         self._compiled.add((num_samples, size))
         if self.device.type == "cuda":
@@ -692,13 +732,15 @@ class DiffusionAPI:
                 z = self._make_noise(num_samples, size, seed, variations)
                 if variation_seed is not None and variation_strength:
                     z = slerp(self._randn(tuple(z.shape), self._generator(variation_seed)), z, variation_strength)
-            generator = self._generator(seed or 0)
             # on a mesh: this rank's rows (the draws above were made for the whole batch)
             rows = self._batch_rows(num_samples)
             tokens, uncond, z = tokens[rows], uncond[rows], z[rows]
             local = z.shape[0]
             chunk = batch_size or local
             ref_image = None if self._style_ref is None else torch.as_tensor(self._style_ref["image"], device=self.device)
+            graphed = ref_image is not None and any(
+                self._in_compiled_bucket(min(local, lo + chunk) - lo, size) for lo in range(0, local, chunk))
+            generator = self._call_generator(seed or 0, graphed)
             outs = []
             with batch_shard_context(self._mesh):
                 for lo in range(0, local, chunk):

@@ -312,6 +312,20 @@ def jax_param_names(module: nn.Module) -> Dict[str, str]:
     return out
 
 
+def jax_row_dims(module: nn.Module) -> Dict[str, int]:
+    """{port parameter name: the port dimension that holds the leading axis
+    of the JAX layout}, by the permutation the bridge transposes each leaf
+    with: a Linear `weight`'s input axis (1), a conv's kh (2), a stacked
+    pipeline leaf's block axis (0), and 0 for a leaf the bridge copies.
+    AdamP's rows are the leading axis of the JAX layout."""
+    ndims = {name: p.ndim for name, p in module.named_parameters()}
+    out: Dict[str, int] = {}
+    for name, key in jax_param_names(module).items():
+        perm = port_name(key[: -len("/value")].replace("/", "."), ndims[name])[1]
+        out[name] = perm.index(0) if perm else 0
+    return out
+
+
 # ---- the third-party nets: JAX npd -> the port's (upstream-named) state dict ----
 #
 # Each function takes `tree_to_npd(nnx.state(net, nnx.Param))` of the JAX net

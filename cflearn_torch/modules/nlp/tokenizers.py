@@ -25,6 +25,23 @@ from ...toolkit.registry import WithRegister
 MERGES_FILE = "bpe_simple_vocab_16e6.txt.gz"
 
 
+def cached_tokenizer(class_name: str, name: str) -> Optional[Any]:
+    """`transformers.<class_name>.from_pretrained(name)` from the local
+    cache only, or None where the package does not import, the load raises,
+    or the tokenizer knows no token besides its special ones: where the
+    vocabulary is not cached, `transformers` 5 builds such a tokenizer
+    without raising (`BertTokenizer`: its 5 special tokens;
+    `GPT2Tokenizer`: 1), which maps every word to `[UNK]` and decodes
+    every id to ''."""
+    try:
+        import transformers  # type: ignore
+
+        tok = getattr(transformers, class_name).from_pretrained(name, local_files_only=True)
+    except Exception:  # noqa: BLE001 — not installed, or the vocabulary is not cached
+        return None
+    return tok if len(tok) > len(set(tok.all_special_ids)) else None
+
+
 class ITokenizer(WithRegister):
     """The tokenizers' registry: `ITokenizer.make("clip")`."""
 
@@ -221,12 +238,7 @@ class ChineseCLIPTokenizer(ITokenizer):
         if isinstance(texts, str):
             texts = [texts]
         if self._tok is None:
-            try:
-                from transformers import AutoTokenizer  # type: ignore
-
-                self._tok = AutoTokenizer.from_pretrained(self.name, local_files_only=True)
-            except Exception:  # noqa: BLE001 — not installed, or the vocabulary is not cached
-                self._tok = "char"
+            self._tok = cached_tokenizer("AutoTokenizer", self.name) or "char"
         if self._tok == "char":
             return self._char_tokenize(texts)
         out = self._tok(texts, padding="max_length", truncation=True, max_length=self.context_length,

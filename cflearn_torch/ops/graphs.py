@@ -5,7 +5,14 @@
 a side stream (the warm-up: lazy initialisation, cuBLAS / cuDNN plans, host
 caches such as ToMe's indices), then captures one call in a
 `torch.cuda.CUDAGraph`, optionally from a memory pool that several captures
-share (`torch.cuda.graph_pool_handle()`). A call copies its inputs into the
+share (`torch.cuda.graph_pool_handle()`). A `torch.Generator` that `fn`
+draws from must be named in `generators`: the graph registers it
+(`CUDAGraph.register_generator_state`), so that each replay draws at the
+generator's offset of that moment and advances it by what the captured
+draws take, as eager calls would (a capture with an unregistered
+generator raises). The warm-up calls draw eagerly and move it: a caller
+that wants the first replay to draw what an eager call would restores its
+state after the construction. A call copies its inputs into the
 static input tensors (not where a caller hands the static tensor itself)
 and replays the graph; an input of another shape or dtype than its static
 tensor raises `TypeError` before anything is copied or replayed
@@ -22,7 +29,7 @@ output that one graph writes and another reads (DeepCache's feature)
 stays referenced, so the pool never hands its memory to another capture.
 """
 
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -81,6 +88,7 @@ class CapturedCall:
         *,
         warmup: int = 2,
         pool: Optional[Any] = None,
+        generators: Sequence[torch.Generator] = (),
     ) -> None:
         self.static_inputs = static_inputs
         device = next(_tensors(static_inputs)).device
@@ -95,6 +103,8 @@ class CapturedCall:
         torch.cuda.synchronize(device)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
         with torch.no_grad(), torch.cuda.graph(self.graph, pool=pool):
             self.static_outputs = fn(**static_inputs)
         after = launch_counts()

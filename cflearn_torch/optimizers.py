@@ -16,7 +16,8 @@ Moments are kept in the parameters' dtype (f32 masters -> f32 moments).
 its update count and slots as numpy arrays (a checkpoint's optimizer file).
 
 `adamp` is the JAX package's AdamP transform (Adam, then per row of the
-parameter's leading axis the radial component removed where the update is
+leading axis of the JAX layout, which the bridge transposes to another
+dimension here (`Rows`), the radial component removed where the update is
 nearly orthogonal to the weight) followed by a descent step of lr. The JAX
 registry chains the transform, which already negates its step, with
 `optax.scale_by_learning_rate`, which negates it again: the JAX `adamp`
@@ -24,7 +25,7 @@ climbs the loss. The port descends by the same distance.
 """
 
 import math
-from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -119,8 +120,9 @@ class GradAccumulation:
     averaged (acc += (g - acc) / (n + 1)), clipped by their global norm where
     `clip_norm` > 0 (the clip chained inside, as the JAX trainer chains it),
     and one step of `inner` on the k-th call; the other calls change nothing.
-    The learning rate, its scale and the update count are the inner
-    optimizer's."""
+    `norm` takes that norm (`global_norm`; on a mesh, the trainer's norm of
+    the whole gradient, of which this rank holds parts). The learning rate,
+    its scale and the update count are the inner optimizer's."""
 
     def __init__(self, inner: Optimizer, every_k: int, *, clip_norm: float = 0.0) -> None:
         self.inner = inner
@@ -128,6 +130,7 @@ class GradAccumulation:
         self.clip_norm = clip_norm
         self.mini_step = 0
         self.acc: List[torch.Tensor] = []
+        self.norm: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm
 
     def __getattr__(self, name: str) -> Any:
         # lr, count, last_lr, lr_at, state: the inner optimizer's
@@ -151,7 +154,7 @@ class GradAccumulation:
         torch._foreach_div_(delta, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, delta)
         if self.mini_step == self.every_k - 1:
-            acc = clip_by_global_norm(self.acc, self.clip_norm) if self.clip_norm > 0.0 else self.acc
+            acc = clip_by_global_norm(self.acc, self.clip_norm, self.norm(self.acc)) if self.clip_norm > 0.0 else self.acc
             self.inner.step(params, acc)
             torch._foreach_zero_(self.acc)
         self.mini_step = (self.mini_step + 1) % self.every_k
@@ -262,11 +265,30 @@ class RMSProp(Optimizer):
         return u
 
 
+class Rows(NamedTuple):
+    """Where AdamP finds a parameter's rows in the tensor `step` hands it:
+    `dim` holds them (the JAX layout's leading axis, `bridge.jax_row_dims`).
+    On a mesh the tensor may be this rank's part of the parameter: each row
+    is cut into `parts` parts that lie on the ranks of `width_axes` (its
+    sums are all-reduced over them), and the rows lie on the ranks of
+    `row_axes` (whether any row was projected is reduced over them)."""
+
+    dim: int = 0
+    width_axes: Tuple[str, ...] = ()
+    row_axes: Tuple[str, ...] = ()
+    parts: int = 1
+
+
 class AdamP(Optimizer):
     """The JAX package's AdamP: Adam's step, then for parameters of rank >= 2
-    the radial component of the step removed in the rows (the leading axis)
-    where |cos(p, step)| < delta / sqrt(row width), weight decay scaled by
-    `wd_ratio` where any row was projected."""
+    the radial component of the step removed in the rows where |cos(p,
+    step)| < delta / sqrt(row width), weight decay scaled by `wd_ratio`
+    where any row was projected. The rows are the leading axis of the JAX
+    layout: `rows` (one `Rows` a parameter, in the order of `step`'s) says
+    which dimension holds them here; without it, dimension 0. Where a
+    parameter is split over a mesh, `all_reduce(tensors, axes)` sums the
+    tensors in place over each of the mesh axes: one call for every set of
+    axes, for all the parameters split over it."""
 
     def __init__(
         self, lr: ScalarOrSchedule, *, betas: Any = (0.9, 0.999), eps: float = 1e-8, delta: float = 0.1,
@@ -275,18 +297,48 @@ class AdamP(Optimizer):
         super().__init__(lr)
         self.b1, self.b2 = betas
         self.eps, self.delta, self.wd_ratio, self.weight_decay = eps, delta, wd_ratio, weight_decay
+        self.rows: Optional[List[Rows]] = None
+        self.all_reduce: Optional[Callable[[List[torch.Tensor], Tuple[str, ...]], None]] = None
 
-    def _project(self, p: torch.Tensor, step: torch.Tensor) -> Any:
-        if p.ndim < 2:
-            return step, 1.0
-        view, u_view = p.reshape(p.shape[0], -1), step.reshape(p.shape[0], -1)
-        p_norm = torch.linalg.vector_norm(view, dim=1) + self.eps
-        cos = (view * u_view).sum(dim=1).abs() / (p_norm * (torch.linalg.vector_norm(u_view, dim=1) + self.eps))
-        unit = view / p_norm[:, None]
-        projected = (u_view - (u_view * unit).sum(dim=1, keepdim=True) * unit).reshape(step.shape)
-        cond = cos < self.delta / math.sqrt(view.shape[1])
-        step = torch.where(cond.reshape((-1,) + (1,) * (step.ndim - 1)), projected, step)
-        return step, torch.where(cond.any(), self.wd_ratio, 1.0)
+    def _reduce(self, tensors: List[torch.Tensor], axes: List[Tuple[str, ...]]) -> None:
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for t, a in zip(tensors, axes):
+            if a:
+                by_axes.setdefault(a, []).append(t)
+        for a, ts in by_axes.items():
+            if self.all_reduce is None:
+                raise RuntimeError(f"rows split over the mesh axes {a} need `all_reduce`")
+            self.all_reduce(ts, a)
+
+    def _project(self, params: List[torch.Tensor], steps: List[torch.Tensor]) -> List[Any]:
+        """(step, weight-decay factor) of each parameter."""
+        rows = self.rows or [Rows()] * len(params)
+        idx = [i for i, p in enumerate(params) if p.ndim >= 2]
+        views = {}
+        for i in idx:
+            dim = rows[i].dim
+            n = params[i].shape[dim]
+            views[i] = (params[i].movedim(dim, 0).reshape(n, -1), steps[i].movedim(dim, 0).reshape(n, -1))
+        # per row: <p, u>, |p|^2, |u|^2, summed over the row's parts
+        sums = {i: torch.stack([(pv * uv).sum(1), pv.square().sum(1), uv.square().sum(1)]) for i, (pv, uv) in views.items()}
+        self._reduce([sums[i] for i in idx], [rows[i].width_axes for i in idx])
+        norms, conds, anys = {}, {}, {}
+        for i in idx:
+            dot, p_sq, u_sq = sums[i]
+            norms[i] = p_sq.sqrt() + self.eps
+            cos = dot.abs() / (norms[i] * (u_sq.sqrt() + self.eps))
+            width = views[i][0].shape[1] * rows[i].parts
+            conds[i] = cos < self.delta / math.sqrt(width)
+            anys[i] = conds[i].any().to(p_sq.dtype).reshape(1)
+        self._reduce([anys[i] for i in idx], [rows[i].row_axes for i in idx])
+        out: List[Any] = [(step, 1.0) for step in steps]
+        for i in idx:
+            (pv, uv), dot, p_norm = views[i], sums[i][0], norms[i][:, None]
+            projected = uv - (dot[:, None] / p_norm) * (pv / p_norm)
+            step = torch.where(conds[i][:, None], projected, uv)
+            moved = params[i].movedim(rows[i].dim, 0).shape
+            out[i] = (step.reshape(moved).movedim(0, rows[i].dim), torch.where(anys[i][0] > 0, self.wd_ratio, 1.0))
+        return out
 
     def updates(self, params: List[torch.Tensor], grads: List[torch.Tensor], lr: float) -> List[torch.Tensor]:
         b1, b2, t = self.b1, self.b2, self.count
@@ -301,8 +353,7 @@ class AdamP(Optimizer):
         steps = torch._foreach_div(mu, 1 - b1**t)
         torch._foreach_div_(steps, denom)
         out = []
-        for p, step in zip(params, steps):
-            step, wd = self._project(p, step)
+        for p, (step, wd) in zip(params, self._project(params, steps)):
             if self.weight_decay > 0:
                 step = step + self.weight_decay * wd * p
             out.append(step * -lr)

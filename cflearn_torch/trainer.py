@@ -75,6 +75,13 @@ the final evaluation; callbacks at every hook. Its options:
   that rank's part only, and the updated parts are gathered (ZeRO's first
   stage: the gradients are averaged whole, the parameters stay whole for
   compute);
+- what an optimizer computes over a whole parameter or gradient spans the
+  splits: the clip's global norm (inside gradient accumulation too) sums
+  its squares over the `model`, `pipe` and ZeRO's `fsdp` parts, and AdamP
+  all-reduces each row's sums over the axes that cut the row and whether
+  any row was projected over those that hold other rows (`MeshStep.rows`;
+  a step makes one small all-reduce per axis of each such set of axes, for
+  every parameter split over it at once);
 - `remat` True or a policy name (`toolkit.misc.CHECKPOINT_POLICY_NAMES`):
   `torch.utils.checkpoint.checkpoint(..., use_reentrant=False)` around the
   forward and the loss, as the JAX trainer's `jax.checkpoint` around its
@@ -110,7 +117,7 @@ from torch.func import functional_call
 from .constants import CHECKPOINTS_FOLDER, CKPT_PREFIX, INPUT_KEY, LOSS_KEY, SCORES_FILE
 from .data.utils import DeviceBatcher, to_numpy
 from .inference import DLInference
-from .optimizers import AdamP, GradAccumulation, Optimizer, build_optimizer, clip_by_global_norm, global_norm
+from .optimizers import AdamP, GradAccumulation, Optimizer, Rows, build_optimizer, clip_by_global_norm, global_norm
 from .schedulers import PlateauState, build_scheduler, scheduler_requires_metric
 from .schema.config import TrainerConfig
 from .schema.data import IData
@@ -169,6 +176,7 @@ class TrainStepFn:
         # set by the Trainer: the step's collectives on a mesh, and `remat` (False, True or a policy name)
         self.mesh_step: Optional["MeshStep"] = None
         self.remat: Any = False
+        self._bound = False
 
     def _forward(self, batch: Dict[str, Any], forward_kwargs: Mapping[str, Any]) -> Any:
         """`model.run(batch, training=True)` with the input in the compute
@@ -255,6 +263,8 @@ class TrainStepFn:
             names = [names[i] for i in self.trained]
         params = [self.params[i] for i in self.trained]
         ms = self.mesh_step
+        if not self._bound:
+            self._bind(names)
         self.grad_norm = global_norm(grads) if ms is None else ms.global_norm(names, grads)
         if self.clip_norm > 0.0:
             grads = clip_by_global_norm(grads, self.clip_norm, self.grad_norm)
@@ -262,6 +272,25 @@ class TrainStepFn:
             ms.zero_step(self.optimizer, names, params, grads)
         else:
             self.optimizer.step(params, grads)
+
+    def _bind(self, names: List[str]) -> None:
+        """Hand the optimizer what it needs of the parameters besides their
+        values, once: AdamP the dimension of each one's rows (the JAX
+        layout's leading axis, `bridge.jax_row_dims`) and, on a mesh, the
+        axes its rows lie on and their all-reduce; an accumulated clip the
+        norm of the whole gradient (`MeshStep.global_norm` over what this
+        rank holds)."""
+        from .bridge import jax_row_dims
+
+        opt, ms = self.optimizer, self.mesh_step
+        inner = getattr(opt, "inner", opt)
+        if isinstance(inner, AdamP):
+            dims = jax_row_dims(self.model)
+            inner.rows = [Rows(dims[n]) for n in names] if ms is None else ms.rows(names, dims)
+            inner.all_reduce = None if ms is None else ms.all_reduce_over
+        if isinstance(opt, GradAccumulation) and ms is not None:
+            opt.norm = lambda acc: ms.global_norm(names, acc, parts=ms.zero)
+        self._bound = True
 
     def step(
         self, batch: Dict[str, Any], *, forward_kwargs: Optional[Mapping[str, Any]] = None, **loss_kwargs: Any
@@ -367,11 +396,12 @@ class MeshStep:
     """What a train step does on a mesh besides its forward and backward:
     the batch cut to this rank's slice, the gradients and the losses
     averaged over `data` x `fsdp`, the global norm of the whole gradient
-    (the squares of a parameter split over `model` or `pipe` summed over
-    that group), and ZeRO's update (`zero_step`): each parameter that the
-    placement splits over `fsdp` is updated on this rank's part only (so
-    that the optimizer's states are that part's), then the parts are
-    gathered back into the whole parameter."""
+    (the squares of a parameter split over `model` or `pipe`, and of a ZeRO
+    part over `fsdp`, summed over that group), AdamP's `rows` on this
+    rank's shards and parts, and ZeRO's update (`zero_step`): each
+    parameter that the placement splits over `fsdp` is updated on this
+    rank's part only (so that the optimizer's states are that part's), then
+    the parts are gathered back into the whole parameter."""
 
     def __init__(self, mesh: Mesh, placement: Optional[Dict[str, ParamPlacement]], *, zero: bool) -> None:
         self.mesh = mesh
@@ -391,24 +421,50 @@ class MeshStep:
         comm.all_reduce_(values, self.batch_group, average=True)
         return dict(zip(keys, values))
 
-    def _axes(self, name: str) -> Tuple[str, ...]:
+    def _axes(self, name: str, parts: bool = False) -> Tuple[str, ...]:
+        """The mesh axes whose ranks hold parts of `name`: `model` and
+        `pipe`, and with `parts` (what `zero_step` hands the optimizer)
+        `fsdp` too."""
         pl = self.placement.get(name)
-        return () if pl is None else tuple(a for a in ("model", "pipe") if a in pl.spec)
+        kept = ("model", "pipe", "fsdp") if parts else ("model", "pipe")
+        return () if pl is None else tuple(a for a in kept if a in pl.spec)
+
+    def all_reduce_over(self, tensors: List[torch.Tensor], axes: Tuple[str, ...]) -> None:
+        """Sum `tensors` in place over the ranks of each of `axes` (one
+        collective an axis for all of them)."""
+        for axis in axes:
+            comm.all_reduce_(tensors, self.mesh.group(axis))
 
     @torch.no_grad()
-    def global_norm(self, names: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
+    def global_norm(self, names: List[str], grads: List[torch.Tensor], *, parts: bool = False) -> torch.Tensor:
+        """The norm of the whole gradient, of which `grads` are this rank's
+        shards (with `parts`: its ZeRO parts)."""
         by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
         for name, g in zip(names, grads):
-            axes = self._axes(name)
+            axes = self._axes(name, parts)
             sq = g.float().square().sum()
             by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
         total = torch.zeros((), dtype=torch.float32, device=grads[0].device if grads else None)
         for axes, sq in by_axes.items():
-            for axis in axes:
-                sq = sq.clone()
-                comm.all_reduce_([sq], self.mesh.group(axis))
+            sq = sq.clone()
+            self.all_reduce_over([sq], axes)
             total = total + sq
         return total.sqrt()
+
+    def rows(self, names: List[str], dims: Mapping[str, int]) -> List[Rows]:
+        """AdamP's `Rows` of each parameter as this rank holds it (its ZeRO
+        part under ZeRO): the rows in `dims[name]`, the mesh axes that cut
+        each row into parts and those that hold other rows."""
+        out = []
+        for name in names:
+            pl = self.placement.get(name)
+            kept = self._axes(name, self.zero)
+            split = {} if pl is None else {d: a for d, a in enumerate(pl.spec) if a in kept}
+            dim = dims[name]
+            width = tuple(a for d, a in split.items() if d != dim)
+            out.append(Rows(dim, width_axes=width, row_axes=tuple(a for d, a in split.items() if d == dim),
+                            parts=self.mesh.axis_size(*width)))
+        return out
 
     def _fsdp_dim(self, name: str) -> Optional[int]:
         pl = self.placement.get(name)
@@ -428,12 +484,6 @@ class MeshStep:
                 views.append(p.data.narrow(dim, index * step, step))
                 gviews.append(g.narrow(dim, index * step, step))
                 split.append((p, dim, views[-1]))
-        if split:
-            # what needs a whole parameter or the whole gradient cannot run on this rank's parts
-            if isinstance(getattr(optimizer, "inner", optimizer), AdamP):
-                raise NotImplementedError("AdamP projects each whole parameter: it cannot update fsdp parts")
-            if getattr(optimizer, "clip_norm", 0.0) > 0.0:
-                raise NotImplementedError("a clip inside gradient accumulation would see one rank's parts")
         optimizer.step(views, gviews)
         group = self.mesh.group("fsdp")
         for p, dim, view in split:

@@ -306,7 +306,12 @@ Phases, in order; any failure exits non-zero:
    steps in the lossless, faithful and accelerated configurations: the
    compiled txt2img bit for bit the eager one, launches = the counters' plus
    the graphs' captures x replays = the eager run's, host ms an image eager
-   and compiled, and each one's device idle share.
+   and compiled, and each one's device idle share; and with phase 16's
+   style reference set: one graph a UNet call (its WRITE pass, the bank and
+   its READ pass, the reference's noise drawn inside from the registered
+   generator), the image bit for bit the eager one, its flash launches a
+   replay `style_flash_per_step` and its replays the steps, only the
+   reference's encode and the decode outside the graph.
 24. pretrained weights from the cache — under a temporary `OPT.cache_dir`
    (inside the checkout; the free space printed first, too little is a
    failure), with every fetch refused: a seeded SD-1.5 written as a 4.3 GB
@@ -4124,9 +4129,87 @@ def compile_configs(torch, np, cflearn_torch, A, Cv, Gn) -> dict:
         out[config] = {"graphs": graphs, "compile_s": compile_s, "eager_ms": eager_ms, "compiled_ms": compiled_ms,
                        "idle_share_eager": idle_eager, "idle_share_compiled": idle_compiled, "launches": total,
                        "bit_for_bit": same}
+    api.set_tome_ratio(0.0)
+    api.set_deepcache(None)
+    out["style"] = compile_style(torch, np, A, Cv, Gn, api, profiled)
     del api
     torch.cuda.empty_cache()
     return out
+
+
+def compile_style(torch, np, A, Cv, Gn, api, profiled) -> dict:
+    """`compile` with phase 16's style reference set (a seeded 512² reference, fidelity 0.5, every block banks):
+    one graph holds a UNet call's WRITE pass, the bank and its READ pass, the reference's noise drawn inside it
+    from the API's registered generator. The compiled txt2img bit for bit the eager one; the eager run's launches
+    exact (`style_flash_per_step` a step, the reference's encode each call), the graph's flash launches a replay
+    `style_flash_per_step` and its replays the steps (flash launches = captures x replays), and outside the graph
+    only the encode and the decode; host ms an image eager and compiled, and each one's device idle share."""
+    from cflearn_torch.modules.multimodal.diffusion.unet import style_reference_write_gates
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"compile[style]: {msg}")
+
+    kw = dict(num_steps=API_STEPS, guidance_scale=7.5, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    reference = torch.randint(0, 256, (512, 512, 3), generator=gen, device="cuda").to(torch.uint8).cpu().numpy()
+    api.setup_hooks(style_reference_image=reference, style_reference_states=STYLE_STATES)
+    gates = style_reference_write_gates(api.m.unet, STYLE_STATES["reference_weight"])
+    per_step = style_flash_per_step(gates, STYLE_STATES["style_fidelity"], True)
+    outside = {"flash_attention": 1 + ENCODER_FLASH, "conv3x3": DECODER_CONVS + ENCODER_CONVS,
+               "group_norm": GN_PER_DECODE + GN_PER_ENCODE}
+    api.txt2img(PROMPT, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(A, Cv, Gn)
+    t0 = time.perf_counter()
+    eager = api.txt2img(PROMPT, **kw)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    eager_launches = read_launches(A, Cv, Gn)
+    want = dict.fromkeys(eager_launches, 0)
+    want.update(outside, flash_attention=outside["flash_attention"] + per_step * API_STEPS,
+                group_norm=outside["group_norm"] + 2 * GN_PER_UNET * API_STEPS)
+    check(eager_launches == want, f"eager launches {eager_launches} != {want}")
+    t0 = time.perf_counter()
+    api.compile(num_samples=1, size=(512, 512), num_steps=API_STEPS)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    check(len(api._graphs) == 1, f"{len(api._graphs)} graphs captured, want 1 (the CFG batch's style call)")
+    (key, call), = api._graphs.items()
+    check(dict(key[:1]).get("hooks") == api._style_sig() and call.launches_per_replay.get("flash_attention") ==
+          per_step, f"the graph's key {key[:1]}, flash launches a replay {call.launches_per_replay}")
+    api.txt2img(PROMPT, **kw)  # the first replays
+    torch.cuda.synchronize()
+    reset_launches(A, Cv, Gn)
+    replays0, before = call.replays, api.graph_launches()
+    t0 = time.perf_counter()
+    compiled = api.txt2img(PROMPT, **kw)
+    torch.cuda.synchronize()
+    compiled_ms = (time.perf_counter() - t0) * 1e3
+    counted = read_launches(A, Cv, Gn)
+    replays = call.replays - replays0
+    replayed = {k: n - before.get(k, 0) for k, n in api.graph_launches().items()}
+    total = {k: counted[k] + replayed.get(k, 0) for k in counted}
+    same = bool(np.array_equal(compiled, eager))
+    idle_compiled = profiled(lambda: api.txt2img(PROMPT, **kw))
+    api._compiled.clear()  # the bucket forgotten: txt2img runs eagerly again
+    idle_eager = profiled(lambda: api.txt2img(PROMPT, **kw))
+    api.setup_hooks()
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f}"  # noqa: E731
+    print(f"compile[style]: 1 graph (WRITE + bank + READ) captured in {compile_s:.1f} s (with one txt2img), launches "
+          f"per replay {json.dumps(call.launches_per_replay)}, {replays} replays; eager {eager_ms:.1f} ms an image, "
+          f"compiled {compiled_ms:.1f} ms ({eager_ms / compiled_ms:.2f}x); idle share eager {fmt(idle_eager)}, "
+          f"compiled {fmt(idle_compiled)}; launches eager {json.dumps({k: v for k, v in eager_launches.items() if v})}"
+          f", compiled (counters + replays) {json.dumps({k: v for k, v in total.items() if v})}; image bit for bit: "
+          f"{same} [{card_line()}]")
+    check(same, "the compiled style-reference txt2img differs from the eager one")
+    check(replays == API_STEPS and replayed.get("flash_attention") == per_step * replays,
+          f"{replays} replays, their flash launches {replayed.get('flash_attention')} != {per_step} x {replays}")
+    check(total == eager_launches, f"compiled launches {total} != eager {eager_launches}")
+    check(counted == dict(want, **outside), f"outside the graph the run launched {counted}, want {outside}")
+    return {"graphs": 1, "compile_s": compile_s, "eager_ms": eager_ms, "compiled_ms": compiled_ms,
+            "idle_share_eager": idle_eager, "idle_share_compiled": idle_compiled, "launches": total,
+            "flash_per_replay": per_step, "replays": replays, "bit_for_bit": same}
 
 
 def phase_annotators_compile(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
@@ -4143,7 +4226,7 @@ def phase_annotators_compile(torch, np, F, cflearn_torch, A, Cv, Gn) -> dict:
     (d) `compile(num_samples=1, size=(512, 512), num_steps=20)` in the lossless, faithful and accelerated
     configurations: the compiled txt2img bit for bit the eager one, its launches (the counters' and the graphs'
     launches per replay x replays) the eager run's exactly; host ms an image eager and compiled, and each one's
-    device idle share from `torch.profiler`."""
+    device idle share from `torch.profiler`; then the same with a style reference set (`compile_style`)."""
     import tempfile
 
     from cflearn_torch.api.cv import annotator as TAnn

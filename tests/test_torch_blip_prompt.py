@@ -5,7 +5,8 @@ BLIP: the vision features, the decoder's logits under a causal and padding
 mask, `generate_caption_tokens` (greedy, rows padded after their [SEP]),
 `BLIPAPI.caption` with a stand-in tokenizer (the antialiased resize, the
 prompt's ids, the decode) and raising without one, whether `transformers`
-or its cached vocabulary is missing, and `convert_blip` from the official
+or its cached vocabulary is missing (or holds its special tokens alone,
+where the port departs from the JAX package), and `convert_blip` from the official
 checkpoint's layout. GPT-2: the logits, `sample_tokens` with `top_k=1`
 (exact without any hook) and at the `PromptConfig` defaults with the JAX
 package's own Gumbel draws fed in, the repetition penalty's mark on
@@ -146,6 +147,46 @@ def test_blip_caption_raises_without_a_tokenizer(missing, monkeypatch) -> None:
         assert api.tokenizer is None
         with pytest.raises(RuntimeError, match="bert-base-uncased"):
             api.caption(image)
+
+
+def _vocabulary_tokenizers(folder, words):
+    """A `BertTokenizer` and a `GPT2Tokenizer` built from files that hold their special tokens and `words`: with
+    no word, what `transformers` 5 hands back for a tokenizer whose vocabulary is not cached."""
+    import json
+
+    from transformers import BertTokenizer, GPT2Tokenizer
+
+    (folder / "vocab.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words]) + "\n")
+    (folder / "vocab.json").write_text(json.dumps({"<|endoftext|>": 0, **{w: i + 1 for i, w in enumerate(words)}}))
+    (folder / "merges.txt").write_text("#version: 0.2\n")
+    return {"BertTokenizer": BertTokenizer(str(folder / "vocab.txt")),
+            "GPT2Tokenizer": GPT2Tokenizer(str(folder / "vocab.json"), str(folder / "merges.txt"))}
+
+
+@pytest.mark.parametrize("words", [(), ("a", "picture", "of", "cat")], ids=["specials_alone", "words"])
+def test_a_cached_vocabulary_of_special_tokens_alone_is_missing(words, tmp_path, monkeypatch) -> None:
+    """Where the vocabulary is not cached, `transformers` 5 builds a tokenizer of its special tokens alone instead
+    of raising (5.5.0: a `BertTokenizer` of length 5, a `GPT2Tokenizer` of length 1; `scripts/tokenizer_probe.py`
+    prints what a machine's cache gives), which decodes every id to ''. The port counts it as missing: `caption`
+    and `enhance` raise, as without the package. A vocabulary that holds words loads."""
+    built = _vocabulary_tokenizers(tmp_path, list(words))
+    fake = types.SimpleNamespace(**{k: types.SimpleNamespace(from_pretrained=lambda *a, _t=t, **k: _t)
+                                    for k, t in built.items()})
+    monkeypatch.setitem(sys.modules, "transformers", fake)
+    blip = TB.BLIPAPI(device="cpu", **dict(BLIP, vision_depth=1, text_depth=1))
+    enhance = TPR.PromptEnhanceAPI(num_layers=1, device="cpu")
+    if words:
+        assert blip.tokenizer is built["BertTokenizer"] and enhance.tokenizer is built["GPT2Tokenizer"]
+        assert blip.tokenizer.decode(blip.tokenizer("a picture of cat").input_ids, skip_special_tokens=True) == (
+            "a picture of cat")
+        return
+    assert len(built["BertTokenizer"]) == 5 and len(built["GPT2Tokenizer"]) == 1
+    assert built["BertTokenizer"].decode(built["BertTokenizer"]("a cat").input_ids, skip_special_tokens=True) == ""
+    assert blip.tokenizer is None and enhance.tokenizer is None
+    with pytest.raises(RuntimeError, match="bert-base-uncased"):
+        blip.caption(np.zeros((32, 32, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="distilgpt2"):
+        enhance.enhance("a cat")
 
 
 def _official_blip(params, seed):

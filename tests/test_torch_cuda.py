@@ -1017,6 +1017,40 @@ def test_diffusion_compile_replays_bit_for_bit(cuda, sampler, deepcache) -> None
     assert {k: v for k, v in total.items() if v} == eager_launches and replayed
 
 
+@pytest.mark.parametrize("sampler", ["ddim", "k_euler_a"])
+def test_diffusion_compile_style_reference_replays_bit_for_bit(cuda, sampler) -> None:
+    """`compile` with a style reference on the small LDM: one graph holds a UNet call's WRITE pass, bank and READ
+    pass and draws the reference's noise from the API's registered generator; the compiled txt2img is the eager one
+    bit for bit (k_euler_a also draws from that generator between the replays), and so is a call that captures
+    anew after the graphs were dropped (the capture's warm-up draws put back)."""
+    import numpy as np
+
+    import cflearn_torch
+    from cflearn_torch.modules.multimodal.diffusion.cond_models import CLIPTextConditionModel
+
+    m = cflearn_torch.build(
+        cflearn_torch.LDM, device="cuda", img_size=8, in_channels=4, out_channels=4, num_timesteps=50,
+        condition_model=CLIPTextConditionModel(latent_dim=32, num_layers=2, num_heads=2),
+        unet_config=dict(start_channels=32, num_res_blocks=1, channel_multipliers=(1, 2),
+                         attention_downsample_rates=(1,), num_heads=4, context_dim=32),
+        first_stage_config=dict(img_size=64, inner_channels=32, z_channels=4, embedding_channels=4,
+                                channel_multipliers=[1, 2, 2, 2], num_res_blocks=1),
+    )
+    api = cflearn_torch.DiffusionAPI(m, device="cuda")
+    api.switch_sampler(sampler)
+    reference = torch.randint(0, 256, (64, 64, 3), generator=cuda, device="cuda").to(torch.uint8).cpu().numpy()
+    api.setup_hooks(style_reference_image=reference, style_reference_states={"style_fidelity": 0.5})
+    kw = dict(size=(64, 64), num_steps=4, guidance_scale=5.0, seed=3)
+    eager = api.txt2img("a red cube", **kw)
+    api.compile(num_samples=1, size=(64, 64), num_steps=4)
+    (key, call), = api._graphs.items()
+    assert dict(key[:1])["hooks"] == api._style_sig()
+    replays = call.replays
+    assert np.array_equal(api.txt2img("a red cube", **kw), eager) and call.replays == replays + 4
+    api.switch_sampler(sampler)  # the graphs dropped, the bucket kept
+    assert np.array_equal(api.txt2img("a red cube", **kw), eager) and len(api._graphs) == 1
+
+
 # (B, H, Lq, Lk, d, causal): SD-1.5's cross-attentions at 512 px with CFG (d 40 / 80 / 160, kv 77), its text
 # tower's square causal self-attention, and causal calls with Lq != Lk (top-left, which stay with SDPA)
 XLA_SHAPES = [

@@ -17,7 +17,17 @@ single-device run at JAX's `atol=1e-4, rtol=0` (`tests/test_parallel.py`):
 - `fcnn`'s BatchNorm on {"data": 4}: statistics (and running statistics)
   of the global batch;
 - ZeRO on {"fsdp": 2, "model": 2} with momentum (optimizer state kept per
-  part), and a clip by the global norm on {"model": 2, "pipe": 2}."""
+  part), and a clip by the global norm on {"model": 2, "pipe": 2};
+- AdamP on {"model": 2, "pipe": 2} and under ZeRO on {"fsdp": 2, "model":
+  2}: each row's sums span the ranks that hold its parts, whether any row
+  was projected those that hold other rows, and the threshold takes the
+  whole row's width. Its eps is 1e-3: the attention's k bias has a zero
+  gradient, whose f32 rounding noise Adam's g / (|g| + eps) would blow up
+  to a step of lr at eps 1e-8 under any other summation order;
+- gradient accumulation (2) with a clip of the accumulated gradient by its
+  global norm, SGD at lr 1.0, on {"model": 2, "pipe": 2} and under ZeRO:
+  the norm sums the squares of every rank's shards and parts, and the
+  one-device run is held to the JAX `run_workload` with the same settings."""
 
 import os
 import sys
@@ -32,7 +42,13 @@ import _torch_bridge_common  # noqa: F401,E402
 import _torch_mesh_common as C  # noqa: E402
 import _torch_mesh_jax as J  # noqa: E402
 from cflearn_torch.schema import IDLModel  # noqa: E402
+from cflearn_tpu.optimizers import OptimizerPack  # noqa: E402
 
+ADAMP_CONFIG = {"lr": 0.05, "delta": 0.5, "weight_decay": 1e-2, "eps": 1e-3}
+ADAMP = {"all": {"optimizer": "adamp", "optimizer_config": ADAMP_CONFIG}}
+ADAMP_NO_PROJECTION = {"all": {"optimizer": "adamp", "optimizer_config": dict(ADAMP_CONFIG, delta=0.0)}}
+SGD_1 = {"all": {"optimizer": "sgd", "optimizer_config": {"lr": 1.0}}}
+ACCUMULATE_CLIP = {"grad_accumulate": 2, "clip_norm": 0.05, "optimizer_settings": SGD_1}
 JOBS = [
     ("moe_model2_pipe2", "transformer_moe", {"model": 2, "pipe": 2}, {}),
     ("ff_model2_pipe2", "transformer_pp", {"model": 2, "pipe": 2}, {}),
@@ -44,7 +60,20 @@ JOBS = [
      {"shard_optimizer_states": True, "optimizer_settings": {"all": {"optimizer": "sgd", "optimizer_config": {
          "lr": 0.05, "momentum": 0.9}}}}),
     ("clip_model2_pipe2", "transformer_pp", {"model": 2, "pipe": 2}, {"clip_norm": 0.05}),
+    ("adamp_model2_pipe2", "transformer_pp", {"model": 2, "pipe": 2}, {"optimizer_settings": ADAMP}),
+    ("adamp_zero_fsdp2_model2", "transformer_pp", {"fsdp": 2, "model": 2},
+     {"shard_optimizer_states": True, "optimizer_settings": ADAMP}),
+    ("accumulate_clip_model2_pipe2", "transformer_pp", {"model": 2, "pipe": 2}, ACCUMULATE_CLIP),
+    ("accumulate_clip_zero_fsdp2_model2", "transformer_pp", {"fsdp": 2, "model": 2},
+     dict(ACCUMULATE_CLIP, shard_optimizer_states=True)),
 ]
+# each case's run on one device without what it tests: the projection (delta 0), the clip
+WITHOUT = {
+    "adamp_model2_pipe2": {"optimizer_settings": ADAMP_NO_PROJECTION},
+    "adamp_zero_fsdp2_model2": {"shard_optimizer_states": True, "optimizer_settings": ADAMP_NO_PROJECTION},
+    "accumulate_clip_model2_pipe2": {"grad_accumulate": 2, "optimizer_settings": SGD_1},
+    "accumulate_clip_zero_fsdp2_model2": {"grad_accumulate": 2, "optimizer_settings": SGD_1, "shard_optimizer_states": True},
+}
 WORKLOADS = {w for _, w, *_ in JOBS}
 
 
@@ -63,9 +92,16 @@ def runs(tmp_path_factory):
         key: C.run_port(w, None, str(tmp / f"single_{key}"), str(tmp / f"init_{w}.npz"), **extra)
         for key, w, _, extra in JOBS
     }
-    jflat = run_workload("transformer_pp", None, str(tmp / "jax"))
-    want = J.port_params(jflat, IDLModel.from_config(config, device="meta").m)
-    return {"mesh": mesh, "single": single, "jax": want, "tmp": tmp}
+    without = {
+        key: C.run_port("transformer_pp", None, str(tmp / f"without_{key}"), str(tmp / "init_transformer_pp.npz"), **extra)
+        for key, extra in WITHOUT.items()
+    }
+    module = IDLModel.from_config(config, device="meta").m
+    want = J.port_params(run_workload("transformer_pp", None, str(tmp / "jax")), module)
+    jax_settings = {"all": OptimizerPack("all", "sgd", optimizer_config={"lr": 1.0})}
+    jax_extra = dict(ACCUMULATE_CLIP, optimizer_settings=jax_settings)
+    want_clip = J.port_params(run_workload("transformer_pp", None, str(tmp / "jax_clip"), jax_extra), module)
+    return {"mesh": mesh, "single": single, "without": without, "jax": want, "jax_clip": want_clip, "tmp": tmp}
 
 
 def test_single_device_run_matches_jax(runs):
@@ -74,6 +110,17 @@ def test_single_device_run_matches_jax(runs):
     for key in ("momentum_zero_fsdp2_model2", "clip_model2_pipe2"):
         moved = max(np.abs(runs["single"][key][k] - v).max() for k, v in runs["single"]["ff_model2_pipe2"].items())
         assert moved > 1e-3, key
+    # AdamP projects rows and the accumulated gradient's clip binds: the run differs from the one without it
+    for key, base in runs["without"].items():
+        moved = max(np.abs(runs["single"][key][k] - v).max() for k, v in base.items())
+        assert moved > 1e-3, key
+
+
+def test_single_device_accumulated_clip_matches_jax(runs):
+    """Accumulation over 2 steps with the clip inside it, as the JAX trainer chains `clip_by_global_norm` inside
+    `optax.MultiSteps`."""
+    got = runs["single"]["accumulate_clip_model2_pipe2"]
+    C.assert_params_close(runs["jax_clip"], got, atol=1e-4, what="accumulated clip, port vs JAX")
 
 
 @pytest.mark.parametrize("key", [k for k, *_ in JOBS])

@@ -20,10 +20,13 @@ from flax import nnx
 from _torch_bridge_common import bridged, dezero, flat_params
 import cflearn_torch
 from cflearn_torch import optimizers as TO
-from cflearn_torch.bridge import tree_from_nnx
+from cflearn_torch.bridge import jax_row_dims, tree_from_nnx
 from cflearn_torch.models.cv.diffusion import DDPMModel as TDDPMModel
 from cflearn_torch.models.cv.diffusion import DDPMStep as TDDPMStep
 from cflearn_torch.modules.common import EMA as TEMA
+from cflearn_torch.modules.layers import Conv as TConv
+from cflearn_torch.modules.layers import LayerNorm as TLayerNorm
+from cflearn_torch.modules.layers import Linear as TLinear
 from cflearn_torch.modules.multimodal.diffusion.ddpm import DDPM as TDDPM
 from cflearn_torch.ops import attention as TA
 from cflearn_torch.trainer import make_train_step
@@ -200,6 +203,59 @@ def test_optimizers_match_optax(name, config, clip) -> None:
         opt.step(tp, tg)
     for a, b in zip(tp, jp):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-6, atol=1e-6)
+
+
+# one module a case: its JAX leaves' shapes, and the port dimension of each weight's rows
+ADAMP_BRIDGED = {
+    "linear": (lambda: TLinear(8, 3), {"kernel": (8, 3), "bias": (3,)}, 1),
+    "hwio_conv": (lambda: TConv(4, 5, (3, 3)), {"kernel": (3, 3, 4, 5), "bias": (5,)}, 2),
+    "1d": (lambda: TLayerNorm(5), {"scale": (5,), "bias": (5,)}, 0),
+}
+
+
+def _adamp_through_the_bridge(case, dims):
+    """Five AdamP steps (lr 1e-2, delta 0.5, weight decay 1e-2) on the case's JAX leaves against the port's on
+    the same values carried through the bridge, with `dims` of each port parameter as its rows; both results in
+    the port's layout."""
+    make, shapes, _ = ADAMP_BRIDGED[case]
+    net = torch.nn.Module()
+    net.mod = make()
+    rng = np.random.RandomState(3)
+    params = {f"mod.{k}": rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.randn(*v.shape) * 3).astype(np.float32) for k, v in params.items()} for _ in range(5)]
+    config = dict(weight_decay=1e-2, delta=0.5)
+    tx = _jax_tx("adamp", 1e-2, config)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    names = [n for n, _ in net.named_parameters()]
+    opt = TO.build_optimizer("adamp", 1e-2, **config)
+    opt.rows = [TO.Rows(dims[n]) for n in names]
+    tp = tree_from_nnx(params, net)
+    for g in grads:
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        tg = tree_from_nnx(g, net)
+        opt.step([tp[n] for n in names], [tg[n] for n in names])
+    return tp, tree_from_nnx({k: np.asarray(v) for k, v in jp.items()}, net)
+
+
+@pytest.mark.parametrize("case", sorted(ADAMP_BRIDGED))
+def test_adamp_rows_are_the_jax_layouts(case) -> None:
+    """AdamP projects the rows of the JAX layout's leading axis: a Linear's input axis and a conv's kh, which the
+    bridge moves to port dimensions 1 and 2 (`jax_row_dims`). Held against `_adamp_transform` on the JAX leaves at
+    `test_optimizers_match_optax`'s tolerance; a weight projected on the port's leading axis instead (its output
+    axis) misses it."""
+    make, _, weight_dim = ADAMP_BRIDGED[case]
+    net = torch.nn.Module()
+    net.mod = make()
+    dims = jax_row_dims(net)
+    assert dims == {"mod.weight": weight_dim, "mod.bias": 0}
+    got, want = _adamp_through_the_bridge(case, dims)
+    for n in got:
+        np.testing.assert_allclose(got[n].numpy(), want[n].numpy(), rtol=5e-6, atol=1e-6, err_msg=n)
+    if weight_dim:
+        leading, _ = _adamp_through_the_bridge(case, dict.fromkeys(dims, 0))
+        assert np.abs(leading["mod.weight"].numpy() - want["mod.weight"].numpy()).max() > 1e-4
 
 
 def test_jax_adamp_climbs() -> None:
